@@ -41,12 +41,14 @@
 
 #include <math.h>
 
-#include "linalg.cuh"
+#include "newton_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
+using amb::block_sum2;
+using amb::kThreads;
+using amb::kWarps;
+using amb::row_eval;
 
 struct Dims {
   int nv, nefc, nd, ndiag, ncon, nd_eq, nd_ft, nfd, iterations, ls_iterations, use_ws;
@@ -88,56 +90,12 @@ struct Layout {
   __host__ __device__ size_t bytes() const { return sizeof(float) * (size_t)nfloat + sizeof(int) * (size_t)nint; }
 };
 
-__device__ inline float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(amb::kFullMask, v, o);
-  return v;
-}
-
-// Two block-wide sums at once. Every thread returns the same values (the
-// per-warp partials are combined in one fixed order).
-__device__ inline void block_sum2(float& a, float& b, float* red) {
-  a = warp_sum(a);
-  b = warp_sum(b);
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();  // earlier readers of red are done
-  if (lane == 0) {
-    red[w] = a;
-    red[kWarps + w] = b;
-  }
-  __syncthreads();
-  a = 0.f;
-  b = 0.f;
-  for (int k = 0; k < kWarps; ++k) {
-    a += red[k];
-    b += red[kWarps + k];
-  }
-}
-
-// 0 = equality (two-sided quadratic), 1 = friction (Huber), 2 = one-sided.
+// Row kind in kernel row order (amb::row_kind's codes): 0 = equality,
+// 1 = friction (Huber), 2 = one-sided.
 __device__ inline int row_kind(int r, const Dims& d) {
   const bool diag_fric = r >= d.nd && r < d.nd + d.nfd;
   if ((r >= d.nd_eq && r < d.nd_eq + d.nd_ft) || diag_fric) return 1;
   return r >= d.nd_eq + d.nd_ft ? 2 : 0;
-}
-
-// _row_costs_pure for one row: force, Hessian weight (D on quadratic rows,
-// else 0) and cost.
-__device__ inline void row_eval(float jar, float D, float fl, float act, int kind, float& force, float& h,
-                                float& cost) {
-  const bool on = act > 0.5f;
-  const float Dj = D * jar;
-  const bool lin = fabsf(Dj) > fl;
-  if (kind == 1) {
-    const float sgn = (jar > 0.f) - (jar < 0.f);
-    force = on ? (lin ? -sgn * fl : -Dj) : 0.f;
-    h = (on && !lin) ? D : 0.f;
-    cost = on ? (lin ? fl * fabsf(jar) - 0.5f * fl * fl / fmaxf(D, 1e-12f) : 0.5f * Dj * jar) : 0.f;
-  } else {
-    const bool gated = on && (kind == 0 || jar < 0.f);
-    force = gated ? -Dj : 0.f;
-    h = gated ? D : 0.f;
-    cost = gated ? 0.5f * Dj * jar : 0.f;
-  }
 }
 
 struct Env {

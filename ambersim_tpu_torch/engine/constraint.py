@@ -1,16 +1,20 @@
 """Constraint assembly for the ported slice: dof friction, scalar joint
-limits and condim-3 pyramidal contacts -> batch-first efc rows (J, D, aref,
-pos, active) plus the factored operands efc_bJ/efc_dsc of the structured
-Newton kernel. Port of ambersim_tpu/engine/constraint.py (`_impedance`,
-`_kbi`, `PyramidStructure`, and the matching branches of `make_constraint`);
-`io.bridge.check_slice` refuses models with other row families.
+limits, frictionless condim-1 contacts and condim-3 contacts (pyramidal or
+elliptic cones) -> batch-first efc rows (J, D, aref, pos, active) plus the
+factored operands efc_bJ/efc_dsc of the structured Newton kernel. Port of
+ambersim_tpu/engine/constraint.py (`_impedance`, `_kbi`, `PyramidStructure`,
+and the matching branches of `make_constraint`); `io.bridge.check_slice`
+refuses models with other row families.
 
 Conventions (MuJoCo, parity-tested by the JAX package):
   * impedance: solimp=(d0,dmax,width,mid,power) sigmoid on |pos|/width
   * aref = -b*(J qvel) - k*imp*pos, b = 2/(dmax*tc), k = 1/(dmax^2 tc^2 dr^2)
     for standard solref (tc, dr); direct for <= 0
   * D = imp / ((1-imp) * diagApprox)
+  * condim-1 rows J = Jn, diagApprox = invweight
   * pyramid rows J = Jn +- mu_i Jt_i, diagApprox = 2 mu0^2 (1+mu0^2) invweight / impratio
+  * elliptic rows J = [Jn, Jt1, Jt2], D_n on diagApprox = invweight,
+    D_f = D_n impratio (mu_f/mu0)^2, friction rows without a position term
   * limits: one row per limited joint, J = +1 near the lower bound, -1 near the upper
 Every row exists every step; efc_active gates it.
 """
@@ -22,7 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ambersim_tpu_torch.core.types import Data, DisableBit, EqType, JointType, Model
+from ambersim_tpu_torch.core.types import ConeType, Data, DisableBit, EqType, JointType, Model
 from ambersim_tpu_torch.engine.schedule import device_index
 
 _MINVAL = 1e-10
@@ -308,42 +312,79 @@ def make_constraint(m: Model, d: Data) -> Data:
         efc_active[:, rows] = (not (m.opt.disableflags & DisableBit.LIMIT)) & (dist < margin)
         row += nlj
 
-    # -------- contacts: condim-3 pyramids --------
+    # -------- contacts: one group per condim --------
     if s.ncon and not (m.opt.disableflags & DisableBit.CONTACT):
         c = d.contact
         gsup = _geom_support(s)
         signed_sup = ix(gsup[s.con_geom2] - gsup[s.con_geom1])  # (ncon, nv)
         b1, b2 = ix(s.geom_bodyid[s.con_geom1]), ix(s.geom_bodyid[s.con_geom2])
         invweight = m.body_invweight0[b1, 0] + m.body_invweight0[b2, 0]
-        jn, jt1, jt2 = _frame_rows(c.frame, _point_jac_rows(m, d, c.pos, signed_sup))  # (B, ncon, nv)
+        jframe = _frame_rows(c.frame, _point_jac_rows(m, d, c.pos, signed_sup))  # 3 x (B, ncon, nv)
         pos_c = c.dist - c.includemargin
         k, b, imp = _kbi(m, c.solref, c.solimp, pos_c)
-        mu0 = c.friction[..., 0]
-        diag = 2.0 * mu0 * mu0 * (1.0 + mu0 * mu0) * invweight / m.opt.impratio
-        D_c = imp / torch.clamp((1 - imp) * diag, min=_MINVAL)
         active_c = c.dist < c.includemargin
-
+        elliptic = m.opt.cone == int(ConeType.ELLIPTIC)
         qv = d.qvel[:, None, :]
-        jnq = (jn * qv).sum(-1)  # (B, ncon)
-        row_Js, jq_rows, mbs = [], [], []
-        for f, base in ((1, jt1), (2, jt2)):
-            mu_f = c.friction[..., f - 1]
-            mb = mu_f[..., None] * base
-            mbs.append(mb)
-            bq = mu_f * (base * qv).sum(-1)
-            row_Js += [jn + mb, jn - mb]
-            jq_rows += [jnq + bq, jnq - bq]
-        if efc_bJ.shape[1] == 3 * s.ncon:
-            # factored basis [N | mu1*T1 | mu2*T2] (PyramidStructure.adr3 order)
-            efc_bJ = torch.cat([jn, mbs[0], mbs[1]], dim=1)
-        kip = k * imp * pos_c
-        row_idx = ix((s.con_efcadr[:, None] + np.arange(4)[None, :]).reshape(-1))
-        efc_J[:, row_idx] = torch.stack(row_Js, dim=2).reshape(B, -1, nv)
-        efc_pos[:, row_idx] = c.dist.repeat_interleave(4, dim=1)
-        efc_margin[:, row_idx] = c.includemargin.repeat_interleave(4, dim=1)
-        efc_aref[:, row_idx] = torch.stack([-b * jq - kip for jq in jq_rows], dim=2).reshape(B, -1)
-        efc_D[:, row_idx] = D_c.repeat_interleave(4, dim=1)
-        efc_active[:, row_idx] = active_c.repeat_interleave(4, dim=1)
+        con_dim = np.asarray(s.con_dim)
+
+        for cdim in sorted(set(con_dim.tolist())):
+            slots = np.nonzero(con_dim == cdim)[0]
+            sl = None if len(slots) == s.ncon else ix(slots)  # one condim: no gathers
+
+            def g(x, sl=sl):
+                return x if sl is None else x[:, sl]
+
+            iw = invweight if sl is None else invweight[sl]
+            jn, fr, k_g, b_g, imp_g, pos_g = g(jframe[0]), g(c.friction), g(k), g(b), g(imp), g(pos_c)
+            dist_g, margin_g, act_g = g(c.dist), g(c.includemargin), g(active_c)
+            jnq = (jn * qv).sum(-1)  # (B, S)
+            if elliptic and cdim > 1:
+                # elliptic rows [normal, t1, t2]: raw frame rows, aref_f without
+                # a position term, D_n on plain invweight and
+                # D_f = D_n * impratio * (mu_f / mu0)^2 (JAX constraint.py:588-625)
+                nrow = 3
+                row_Js = [jn, g(jframe[1]), g(jframe[2])]
+                D_n = imp_g / torch.clamp((1 - imp_g) * iw, min=_MINVAL)
+                mu0 = torch.clamp(fr[..., 0], min=1e-12)
+                rows_aref = [-b_g * jnq - k_g * imp_g * pos_g]
+                rows_D = [D_n]
+                for f in (1, 2):
+                    rows_aref.append(-b_g * (row_Js[f] * qv).sum(-1))
+                    rows_D.append(D_n * m.opt.impratio * (fr[..., f - 1] / mu0) ** 2)
+                zero = torch.zeros_like(dist_g)
+                rows_pos, rows_margin = [dist_g, zero, zero], [margin_g, zero, zero]
+            else:
+                nrow = 1 if cdim == 1 else 4
+                if cdim == 1:
+                    # frictionless: one normal row, diagApprox = plain invweight
+                    diag = iw
+                    row_Js, jq_rows = [jn], [jnq]
+                else:
+                    # pyramid rows N +- mu_f T_f, diagApprox 2 mu0^2 (1+mu0^2) invweight / impratio
+                    mu0 = fr[..., 0]
+                    diag = 2.0 * mu0 * mu0 * (1.0 + mu0 * mu0) * iw / m.opt.impratio
+                    row_Js, jq_rows, mbs = [], [], []
+                    for f in (1, 2):
+                        base, mu_f = g(jframe[f]), fr[..., f - 1]
+                        mb = mu_f[..., None] * base
+                        mbs.append(mb)
+                        bq = mu_f * (base * qv).sum(-1)
+                        row_Js += [jn + mb, jn - mb]
+                        jq_rows += [jnq + bq, jnq - bq]
+                    if efc_bJ.shape[1] == 3 * len(slots):
+                        # factored basis [N | mu1*T1 | mu2*T2] (PyramidStructure.adr3 order)
+                        efc_bJ = torch.cat([jn, mbs[0], mbs[1]], dim=1)
+                kip = k_g * imp_g * pos_g
+                rows_aref = [-b_g * jq - kip for jq in jq_rows]
+                rows_D = [imp_g / torch.clamp((1 - imp_g) * diag, min=_MINVAL)] * nrow
+                rows_pos, rows_margin = [dist_g] * nrow, [margin_g] * nrow
+            row_idx = ix((s.con_efcadr[slots][:, None] + np.arange(nrow)[None, :]).reshape(-1))
+            efc_J[:, row_idx] = torch.stack(row_Js, dim=2).reshape(B, -1, nv)
+            efc_pos[:, row_idx] = torch.stack(rows_pos, dim=2).reshape(B, -1)
+            efc_margin[:, row_idx] = torch.stack(rows_margin, dim=2).reshape(B, -1)
+            efc_aref[:, row_idx] = torch.stack(rows_aref, dim=2).reshape(B, -1)
+            efc_D[:, row_idx] = torch.stack(rows_D, dim=2).reshape(B, -1)
+            efc_active[:, row_idx] = act_g.repeat_interleave(nrow, dim=1)
 
     return d.replace(
         efc_J=efc_J,

@@ -137,7 +137,7 @@ _CHECKED: set = set()
 def check_slice(m: Model) -> None:
     """Raise NotImplementedError naming every feature of `m` that the port
     does not implement. Nothing outside the slice is silently skipped."""
-    from ambersim_tpu_torch.engine.constraint import _pyramid_structure
+    from ambersim_tpu_torch.engine.solver import _elliptic_meta, elliptic_tail
 
     s, o = m.skel, m.opt
     key = (s, o.integrator, o.solver, o.cone, o.noslip_iterations, o.enableflags,
@@ -177,10 +177,15 @@ def check_slice(m: Model) -> None:
         missing.append("joint actuatorfrcrange clamps")
     if o.disableactuator:
         missing.append("actuator group disabling")
-    if o.cone != int(ConeType.PYRAMIDAL):
-        missing.append("elliptic cones")
-    if len(s.con_dim) and not np.all(np.asarray(s.con_dim) == 3):
-        missing.append("contact condim other than 3")
+    con_dim = np.asarray(s.con_dim)
+    if np.isin(con_dim, (4, 6)).any():
+        missing.append("contact condim 4/6 (torsional and rolling friction)")
+    # _elliptic_meta raises ValueError when the rows were compiled for pyramidal cones
+    if o.cone == int(ConeType.ELLIPTIC) and _elliptic_meta(s):
+        try:
+            elliptic_tail(s)
+        except NotImplementedError as err:
+            missing.append(str(err))
     for t1, t2 in set(zip(np.asarray(s.pair_ctype1).tolist(), np.asarray(s.pair_ctype2).tolist())):
         if (t1, t2) not in _PLANE_PAIRS:
             missing.append(f"{GeomType(t1).name.lower()}-{GeomType(t2).name.lower()} contact pairs")
@@ -201,8 +206,6 @@ def check_slice(m: Model) -> None:
             missing.append(f"the {bit.name} flag")
     if o.hessian_bf16:
         missing.append("Option.hessian_bf16 (bf16 Newton Hessian)")
-    if s.nefc and _pyramid_structure(s) is None:
-        missing.append("constraint rows without condim-3 contacts (dense Newton kernel)")
     if missing:
         raise NotImplementedError(
             "model uses features outside the ported slice: " + ", ".join(dict.fromkeys(missing))

@@ -23,14 +23,16 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-SOURCES = ("linalg.cu", "newton_structured.cu")
-HEADERS = ("linalg.cuh",)
+SOURCES = ("linalg.cu", "newton_structured.cu", "newton_dense.cu", "newton_elliptic.cu")
+HEADERS = ("linalg.cuh", "newton_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-LAUNCHES = {"cholesky": 0, "cho_solve": 0, "solve_pd": 0, "newton_structured": 0}
+LAUNCHES = {
+    "cholesky": 0, "cho_solve": 0, "solve_pd": 0, "newton_structured": 0, "newton_dense": 0, "newton_elliptic": 0,
+}
 
 _lib = None
 
@@ -52,9 +54,10 @@ def _nvcc() -> str:
 
 
 def build() -> tuple[Path, float]:
-    """Compile the kernels if this source version is not built yet.
-    Returns (library path, seconds spent compiling; 0.0 when cached). The
-    compiler's register/shared-memory report goes to a .log beside it."""
+    """Compile the kernels if this source version is not built yet: one nvcc
+    per source, all started together, then one link. Returns (library path,
+    seconds spent compiling; 0.0 when cached). The compiler's
+    register/shared-memory report goes to a .log beside it."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
@@ -62,14 +65,27 @@ def build() -> tuple[Path, float]:
     if lib_path.is_file():
         return lib_path, 0.0
     BUILD.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{h.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD / f"{Path(s).stem}.{tag}.o" for s in SOURCES]
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *[str(CSRC / s) for s in SOURCES]]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(o), str(CSRC / s)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for s, o in zip(SOURCES, objs)
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [(s, p.returncode, log) for s, p, log in zip(SOURCES, procs, logs) if p.returncode != 0]
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)], capture_output=True, text=True)
+        if link.returncode != 0:
+            failed.append(("link", link.returncode, link.stdout + link.stderr))
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    lib_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(f"{s} ({rc}):\n{log}" for s, rc, log in failed))
+    lib_path.with_suffix(".log").write_text("".join(logs))
     os.replace(tmp, lib_path)
     return lib_path, seconds
 
@@ -85,10 +101,16 @@ def library() -> ctypes.CDLL:
         lib.amb_cho_solve.argtypes = [P, P, P, I, I, P]
         lib.amb_solve_pd.argtypes = [P, P, P, I, I, P]
         lib.amb_newton_structured.argtypes = [P] * 16 + [I] * 12 + [P]
-        for fn in (lib.amb_cholesky, lib.amb_cho_solve, lib.amb_solve_pd, lib.amb_newton_structured):
+        lib.amb_newton_dense.argtypes = [P] * 12 + [I] * 8 + [P]
+        lib.amb_newton_elliptic.argtypes = [P] * 15 + [I] * 11 + [P]
+        lib.amb_elliptic_ls_step.argtypes = [P, P, I, P]
+        for fn in (lib.amb_cholesky, lib.amb_cho_solve, lib.amb_solve_pd, lib.amb_newton_structured,
+                   lib.amb_newton_dense, lib.amb_newton_elliptic, lib.amb_elliptic_ls_step):
             fn.restype = I
-        lib.amb_newton_smem_bytes.argtypes = [I] * 5
-        lib.amb_newton_smem_bytes.restype = ctypes.c_size_t
+        for fn, nargs in ((lib.amb_newton_smem_bytes, 5), (lib.amb_newton_dense_smem_bytes, 2),
+                          (lib.amb_newton_elliptic_smem_bytes, 4)):
+            fn.argtypes = [I] * nargs
+            fn.restype = ctypes.c_size_t
         _lib = lib
     return _lib
 

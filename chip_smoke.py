@@ -1,19 +1,27 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's paths once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Run from a checkout of the repository on a machine with a CUDA card (it
 refuses to run without one). It builds the port's CUDA kernels from
 ambersim_tpu_torch/csrc/, holds each against its plain PyTorch version on
-the card, steps the 4096-env quadruped PD rollout (the workload of
-bench.py:62-127) through the port's entry points, checks that every step
-went through the kernels, and compares 8 envs of the rollout on the card
-with the same rollout on the CPU (plain versions). It imports nothing of
-JAX. Output: progress lines, a JSON line of per-kernel results, the card's
-name and power limit, and as the last line
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-Any failed check exits non-zero without that line.
+the card, and steps every ported path through the port's entry points:
+
+  * the main path, the 4096-env quadruped PD rollout (bench.py:62-127);
+  * cartpole and arm3 at 1024 envs x 200 steps (benchmarks/ladder.py:98-102),
+    whose rows go to the dense Newton kernel;
+  * the quadruped compiled with elliptic cones at 4096 envs x 100 steps
+    (benchmarks/elliptic_gap.py:30-35), through the elliptic Newton kernel;
+  * the humanoid at 1024 envs x 20 steps, through the structured kernel at
+    nv = 25.
+
+For each path it checks that every step went through the path's kernels
+and compares 8 envs of the rollout on the card with the same rollout on the
+CPU (plain versions). It imports nothing of JAX. Output: progress lines, a
+JSON line of per-kernel results, the card's name and power limit, and as
+the last line {"ok": true, "device": {"platform": "gpu", "kind": ...,
+"count": ...}}. Any failed check exits non-zero without that line.
 """
 
 from __future__ import annotations
@@ -30,20 +38,58 @@ NUM_ENVS = 4096
 NUM_STEPS = 100
 KP, KD = 60.0, 2.0
 LINALG_TOL = 1e-5  # tests/test_linalg_pallas.py:31
-# Kernel 4 against its plain version: the bar of tests/test_newton_pallas.py
-# (rtol/atol 1e-4 elementwise) must hold on at least 99% of the envs, and
-# every env must agree within 5% of its largest |component|. The tail is
-# float32 rounding, not the kernel: the 3-iteration solve's take/keep and
-# row-activity decisions flip on it, so on 4096 quadruped envs the plain
-# version in float32 misses its own float64 run in as many envs as the
-# kernel misses the plain version (check_newton prints both), while a
-# layout or row-family fault breaks nearly every env.
+# Kernels 4 and 5 against their plain version: the bar of
+# tests/test_newton_pallas.py (rtol/atol 1e-4 elementwise) must hold on at
+# least 99% of the envs, and every env must agree within 5% of its largest
+# |component|. The tail is float32 rounding, not the kernel: the
+# 3-iteration solve's take/keep and row-activity decisions flip on it, so
+# on 4096 quadruped envs the plain version in float32 misses its own
+# float64 run in as many envs as the kernel misses the plain version
+# (check_newton prints both), while a layout or row-family fault breaks
+# nearly every env.
 NEWTON_TOL = 1e-4
 NEWTON_MIN_SHARE = 0.99
 NEWTON_ENV_RTOL = 0.05
+# Kernel 6 against its plain version. The guarded bracketed line search
+# turns float32 rounding into different bracket states within a few steps
+# (a Newton step that rounds onto the bracket's end is replaced by the
+# midpoint), so at the model's 3 x 6 iterations the plain solve in float32
+# meets its own float64 run on under half of the envs at 1e-4. It
+# is held where the solve is not chaotic. With one line-search step per
+# iteration, the NEWTON_* share and per-env bars hold at ELLIPTIC_ENV_TOL of
+# each env's largest |component|. Converged (15 x 15, as
+# tests/test_newton_pallas.py:255 converges both paths), they hold at
+# ELLIPTIC_CONVERGED_TOL (that test's rtol 1e-2: converged iterates stop at
+# different points of a flat valley), and the kernel's total cost exceeds
+# the plain version's by at most ELLIPTIC_COST_RTOL of max(|cost|, 1) on
+# every env (an env whose constraints are all off costs ~0). At the
+# model's settings the batch's mean cost must stay within
+# ELLIPTIC_MEAN_COST_RTOL of the plain version's. The kernel's max_abs_err
+# is taken where the bars are elementwise.
+ELLIPTIC_ENV_TOL = 1e-4
+ELLIPTIC_CONVERGED_TOL = 1e-2
+ELLIPTIC_COST_RTOL = 1e-5
+ELLIPTIC_MEAN_COST_RTOL = 1e-2
 # card (kernels) vs CPU (plain versions) after 20 steps: f32 reduction order
 # plus discrete take/keep decisions inside the Newton solve
 QPOS_TOL, QVEL_TOL = 1e-3, 1e-2
+# The elliptic quadruped at its own 3 x 6 solver iterations is chaotic in
+# those decisions: the JAX package's rollout moves by 1.2e-2 in qpos and
+# 0.23 in qvel after 20 steps when its start moves by 1e-6. Its card-vs-CPU
+# bars at those settings are therefore loose; the strict bars above hold
+# with the solver converged (15 x 15).
+ELLIPTIC_QPOS_TOL, ELLIPTIC_QVEL_TOL = 5e-2, 1.0
+CONVERGED = dict(iterations=15, ls_iterations=15)
+
+# kernel name -> (CUDA source, the TPU kernel it replaces)
+KERNELS = {
+    "cholesky": ("linalg.cu", "ambersim_tpu/ops/linalg_pallas.py:319"),
+    "cho_solve": ("linalg.cu", "ambersim_tpu/ops/linalg_pallas.py:324"),
+    "solve_pd": ("linalg.cu", "ambersim_tpu/ops/linalg_pallas.py:314"),
+    "newton_structured": ("newton_structured.cu", "ambersim_tpu/ops/newton_pallas.py:582"),
+    "newton_dense": ("newton_dense.cu", "ambersim_tpu/ops/newton_pallas.py:247"),
+    "newton_elliptic": ("newton_elliptic.cu", "ambersim_tpu/ops/newton_pallas.py:1083"),
+}
 
 
 def fail(msg: str) -> None:
@@ -113,6 +159,22 @@ def newton_err(got: tuple, want: tuple, what: str) -> float:
     if share < NEWTON_MIN_SHARE:
         fail(f"{what}: only {share:.4f} of envs within rtol/atol {NEWTON_TOL}")
     return err_max
+
+
+def env_rel_err(got: tuple, want: tuple, what: str):
+    """Per-env max |got - want| / (max |want| + 1) over (qacc, efc_force,
+    qfrc_constraint), as a (B,) float64 tensor, and the max |difference|."""
+    import torch
+
+    rel = torch.zeros(got[0].shape[0], dtype=torch.float64, device=got[0].device)
+    err_max = 0.0
+    for g, w, name in zip(got, want, ("qacc", "efc_force", "qfrc_constraint")):
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            fail(f"{what} {name}: shape {tuple(g.shape)} vs {tuple(w.shape)} or non-finite output")
+        err = (g.double() - w.double()).abs()
+        rel = torch.maximum(rel, err.amax(dim=1) / (w.double().abs().amax(dim=1) + 1.0))
+        err_max = max(err_max, err.max().item())
+    return rel, err_max
 
 
 def random_spd(rng, B: int, n: int, device):
@@ -186,6 +248,76 @@ def synthetic_structured_problem(B: int, seed: int, device):
     return st, plain_args, t(bJ), t(dsc)
 
 
+def synthetic_dense_problem(B: int, nv: int, seed: int, device) -> dict:
+    """A numpy-seeded pyramidal Newton problem on dense rows: 2 equality
+    rows, 3 Huber friction rows and 2 nv + 3 one-sided rows. Returns the
+    arguments of engine.solver._newton_arrays (and, bar `J`'s name, of
+    ops.newton.newton_solve_dense)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    ne, nf = 2, 3
+    nefc = ne + nf + 2 * nv + 3
+    g = rng.standard_normal((B, nv, nv)).astype(f32)
+    fl = np.zeros((B, nefc), f32)
+    fl[:, ne : ne + nf] = rng.uniform(0.1, 1.0, (B, nf))
+    a_s = rng.standard_normal((B, nv)).astype(f32)
+    arrays = dict(
+        J=rng.standard_normal((B, nefc, nv)).astype(f32),
+        qM=g @ np.swapaxes(g, -1, -2) / nv + np.eye(nv, dtype=f32),
+        aref=rng.standard_normal((B, nefc)).astype(f32),
+        D=rng.uniform(1.0, 10.0, (B, nefc)).astype(f32),
+        fl=fl,
+        act=(rng.uniform(size=(B, nefc)) < 0.8).astype(f32),
+        a_s=a_s,
+        ws=a_s + 0.3 * rng.standard_normal((B, nv)).astype(f32),
+    )
+    out = {k: torch.as_tensor(v, device=device) for k, v in arrays.items()}
+    return dict(out, tol=torch.full((1,), 1e-8, device=device), ne=ne, nf=nf)
+
+
+def synthetic_elliptic_problem(B: int, nv: int, nh: int, S: int, cdim: int, seed: int, device) -> dict:
+    """A numpy-seeded elliptic Newton problem: nh head rows (one equality,
+    two Huber friction rows, the rest one-sided; none when nh = 0) and S
+    cone blocks of cdim rows in MuJoCo order, impratio 2, contacts spread
+    over all three zones. Returns the arguments of
+    engine.solver._newton_arrays_elliptic (and of
+    ops.newton.newton_solve_elliptic)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    ne, nf = (1, 2) if nh else (0, 0)
+    nefc = nh + S * cdim
+    impratio = 2.0
+    fr = np.zeros((B, S, 5), f32)
+    fr[..., : cdim - 1] = rng.uniform(0.3, 1.2, (B, S, cdim - 1))
+    D = rng.uniform(1.0, 10.0, (B, nefc)).astype(f32)
+    D_c = D[:, nh:].reshape(B, S, cdim)
+    D_c[..., 1:] = D_c[..., :1] * impratio * (fr[..., : cdim - 1] / fr[..., :1]) ** 2
+    D[:, nh:] = D_c.reshape(B, -1)
+    fl = np.zeros((B, nefc), f32)
+    fl[:, ne : ne + nf] = rng.uniform(0.1, 1.0, (B, nf))
+    act = (rng.uniform(size=(B, nefc)) < 0.8).astype(f32)
+    act[:, nh:] = np.repeat((rng.uniform(size=(B, S)) < 0.8).astype(f32), cdim, axis=1)
+    g = rng.standard_normal((B, nv, nv)).astype(f32)
+    a_s = rng.standard_normal((B, nv)).astype(f32)
+    arrays = dict(
+        J=rng.standard_normal((B, nefc, nv)).astype(f32),
+        qM=g @ np.swapaxes(g, -1, -2) / nv + np.eye(nv, dtype=f32),
+        aref=2.0 * rng.standard_normal((B, nefc)).astype(f32),
+        D=D, fl=fl, act=act, a_s=a_s,
+        ws=a_s + 0.3 * rng.standard_normal((B, nv)).astype(f32),
+        fr=fr,
+    )
+    out = {k: torch.as_tensor(v, device=device) for k, v in arrays.items()}
+    return dict(out, tol=torch.full((1,), 1e-8, device=device), impratio=torch.tensor(impratio, device=device),
+                ne=ne, nf=nf, base=nh, ncon=S, cdim=cdim)
+
+
 def check_linalg(device, results):
     import numpy as np
     import torch
@@ -213,58 +345,69 @@ def check_linalg(device, results):
         # the kernels read only the lower triangle (the contract kernel 4 relies on)
         a_low = torch.tril(a) + torch.triu(torch.full_like(a, 1e6), diagonal=1)
         max_err(kernels.cholesky_batched(a_low), kernels.cholesky_batched(a), 0.0, 0.0, f"upper triangle n={n}")
-    replaces = {
-        "cholesky": "ambersim_tpu/ops/linalg_pallas.py:319",
-        "cho_solve": "ambersim_tpu/ops/linalg_pallas.py:324",
-        "solve_pd": "ambersim_tpu/ops/linalg_pallas.py:314",
-    }
     for name in ("cholesky", "cho_solve", "solve_pd"):
         ms, plain_ms = times[name]
         print(f"kernel {name}: B={NUM_ENVS} n=18 {ms:.4f} ms, plain {plain_ms:.4f} ms, max |err| {errs[name]:.2e}")
-        results[name] = dict(
-            name=name, route="cuda", source="ambersim_tpu_torch/csrc/linalg.cu", replaces=replaces[name],
-            max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
-        )
+        results[name].update(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms)
 
 
-def check_newton(m, device, results):
+def pre_solve(m, d):
+    """The step up to the constraint solve (forward.forward without `solve`)."""
+    from ambersim_tpu_torch.engine import collision, constraint, smooth
+
+    d = smooth.fwd_position_smooth(m, d)
+    d = collision.collision(m, d)
+    d = constraint.make_constraint(m, d)
+    return smooth.fwd_acceleration(m, smooth.fwd_actuation(m, smooth.fwd_velocity(m, d)))
+
+
+def solver_operands(m, d, seed: int) -> dict:
+    """Pre-solve operands of engine.solver's plain versions, with a warmstart
+    of qacc_smooth + 0.1 N(0, 1) drawn by numpy.random.default_rng(seed)."""
     import numpy as np
     import torch
 
-    from ambersim_tpu_torch.engine import collision, constraint, make_data, smooth
+    s = m.skel
+    ws = d.qacc_smooth + 0.1 * torch.as_tensor(
+        np.random.default_rng(seed).standard_normal(d.qacc_smooth.shape).astype(np.float32), device=d.qpos.device
+    )
+    return dict(
+        J=d.efc_J, qM=d.qM, aref=d.efc_aref, D=d.efc_D, fl=d.efc_frictionloss, act=d.efc_active.float(),
+        a_s=d.qacc_smooth, ws=ws, tol=(m.opt.tolerance * s.nv * torch.clamp(m.body_mass.sum(), min=1.0)).reshape(1),
+    )
+
+
+def as_dtype(args: dict, dtype) -> dict:
+    import torch
+
+    return {k: v.to(dtype) if isinstance(v, torch.Tensor) and v.is_floating_point() else v for k, v in args.items()}
+
+
+def check_newton(m, device, results):
+    import torch
+
     from ambersim_tpu_torch.engine.constraint import _pyramid_structure
     from ambersim_tpu_torch.engine.solver import _newton_arrays
     from ambersim_tpu_torch.ops.newton import newton_solve_structured
 
     # real operands: a 4096-env quadruped pre-solve on the card
     d = initial_batch(m, NUM_ENVS, device)
-    d = d.replace(ctrl=pd_ctrl(d))
-    d = smooth.fwd_position_smooth(m, d)
-    d = collision.collision(m, d)
-    d = constraint.make_constraint(m, d)
-    d = smooth.fwd_acceleration(m, smooth.fwd_actuation(m, smooth.fwd_velocity(m, d)))
+    d = pre_solve(m, d.replace(ctrl=pd_ctrl(d)))
     s = m.skel
     st = _pyramid_structure(s)
-    tol = (m.opt.tolerance * s.nv * torch.clamp(m.body_mass.sum(), min=1.0)).reshape(1)
-    act = d.efc_active.float()
+    pa = solver_operands(m, d, seed=2)
     it, ls = int(m.opt.iterations), int(m.opt.ls_iterations)
-    ws = d.qacc_smooth + 0.1 * torch.as_tensor(
-        np.random.default_rng(2).standard_normal((NUM_ENVS, s.nv)).astype(np.float32), device=device
-    )
-    print(f"quadruped pre-solve: active efc rows per env {act.sum(1).mean().item():.1f} of {s.nefc}")
+    print(f"quadruped pre-solve: active efc rows per env {pa['act'].sum(1).mean().item():.1f} of {s.nefc}")
 
     def kern():
         return newton_solve_structured(
-            d.efc_J, d.efc_bJ, d.efc_dsc, d.qM, d.efc_aref, d.efc_D, d.efc_frictionloss, act, d.qacc_smooth, ws,
-            tol, st=st, iterations=it, ls_iterations=ls, use_ws=True,
+            pa["J"], d.efc_bJ, d.efc_dsc, pa["qM"], pa["aref"], pa["D"], pa["fl"], pa["act"], pa["a_s"], pa["ws"],
+            pa["tol"], st=st, iterations=it, ls_iterations=ls, use_ws=True,
         )
 
     def ref(dtype=torch.float32):
-        args = (d.efc_J, d.qM, d.efc_aref, d.efc_D, d.efc_frictionloss, act, d.qacc_smooth, ws, tol)
-        return _newton_arrays(
-            *(x.to(dtype) for x in args),
-            ne=int(s.ne), nf=int(s.nf), iterations=it, ls_iterations=ls, use_ws=True,
-        )
+        return _newton_arrays(**as_dtype(pa, dtype), ne=int(s.ne), nf=int(s.nf), iterations=it, ls_iterations=ls,
+                              use_ws=True)
 
     got = kern()
     err = newton_err(got, ref(), "newton quadruped")
@@ -276,18 +419,173 @@ def check_newton(m, device, results):
     ms, plain_ms = cuda_ms(kern), cuda_ms(ref)
 
     # synthetic problem with dense, equality, tendon-friction and one-hot rows
-    st2, pa, bJ, dsc = synthetic_structured_problem(257, seed=3, device=device)
+    st2, pa2, bJ, dsc = synthetic_structured_problem(257, seed=3, device=device)
     got = newton_solve_structured(
-        pa["J"], bJ, dsc, pa["qM"], pa["aref"], pa["D"], pa["fl"], pa["act"], pa["a_s"], pa["ws"], pa["tol"],
-        st=st2, iterations=5, ls_iterations=8, use_ws=True,
+        pa2["J"], bJ, dsc, pa2["qM"], pa2["aref"], pa2["D"], pa2["fl"], pa2["act"], pa2["a_s"], pa2["ws"],
+        pa2["tol"], st=st2, iterations=5, ls_iterations=8, use_ws=True,
     )
-    want = _newton_arrays(**pa, iterations=5, ls_iterations=8, use_ws=True)
+    want = _newton_arrays(**pa2, iterations=5, ls_iterations=8, use_ws=True)
     err = max(err, newton_err(got, want, "newton synthetic"))
     print(f"kernel newton_structured: B={NUM_ENVS} {ms:.4f} ms, plain {plain_ms:.4f} ms, max |err| {err:.2e}")
-    results["newton_structured"] = dict(
-        name="newton_structured", route="cuda", source="ambersim_tpu_torch/csrc/newton_structured.cu",
-        replaces="ambersim_tpu/ops/newton_pallas.py:582", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-    )
+    results["newton_structured"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def check_newton_dense(device, results):
+    """Kernel 5 against its plain version on the humanoid's, arm3's and
+    cartpole's operands at B=1024 and on synthetic problems; on the
+    humanoid also against kernel 4 on the same operands."""
+    import torch
+
+    from ambersim_tpu_torch import load_model
+    from ambersim_tpu_torch.engine import rollout
+    from ambersim_tpu_torch.engine.constraint import _pyramid_structure
+    from ambersim_tpu_torch.engine.solver import _newton_arrays
+    from ambersim_tpu_torch.ops.newton import newton_solve_dense, newton_solve_structured
+
+    def dense(pa, **kw):
+        pa = dict(pa)
+        return newton_solve_dense(pa.pop("J"), pa.pop("qM"), pa.pop("aref"), pa.pop("D"), pa.pop("fl"),
+                                  pa.pop("act"), pa.pop("a_s"), pa.pop("ws"), pa.pop("tol"), **pa, **kw)
+
+    err, timed = 0.0, None
+    # the humanoid stands in contact at its start; arm3 and cartpole reach
+    # their contacts and limits within their paths' first 100 steps
+    for name, steps in (("humanoid", 0), ("arm3", 100), ("cartpole", 100)):
+        m = load_model(name, device=device)
+        s = m.skel
+        d = pre_solve(m, rollout(m, PATHS[name]["start"](m, 1024, device), steps))
+        pa = dict(solver_operands(m, d, seed=4), ne=int(s.ne), nf=int(s.nf))
+        kw = dict(iterations=int(m.opt.iterations), ls_iterations=int(m.opt.ls_iterations), use_ws=True)
+        print(f"{name} pre-solve: active efc rows per env {pa['act'].sum(1).mean().item():.2f} of {s.nefc}")
+        got = dense(pa, **kw)
+        err = max(err, newton_err(got, _newton_arrays(**pa, **kw), f"newton_dense {name}"))
+        exact = _newton_arrays(**as_dtype(pa, torch.float64), **kw)
+        newton_err(_newton_arrays(**pa, **kw), exact, f"newton_dense {name}, plain float32 vs float64")
+        newton_err(got, exact, f"newton_dense {name}, kernel vs plain float64")
+        if name == "humanoid":
+            # the problem the JAX package sends to the dense kernel on the TPU
+            # goes to kernel 4 here: the two kernels agree on it
+            st = _pyramid_structure(s)
+            k4 = newton_solve_structured(
+                pa["J"], d.efc_bJ, d.efc_dsc, pa["qM"], pa["aref"], pa["D"], pa["fl"], pa["act"], pa["a_s"],
+                pa["ws"], pa["tol"], st=st, **kw,
+            )
+            newton_err(got, k4, "newton_dense vs newton_structured humanoid")
+            timed = (cuda_ms(lambda: dense(pa, **kw)), cuda_ms(lambda: _newton_arrays(**pa, **kw)),
+                     cuda_ms(lambda: newton_solve_structured(
+                         pa["J"], d.efc_bJ, d.efc_dsc, pa["qM"], pa["aref"], pa["D"], pa["fl"], pa["act"], pa["a_s"],
+                         pa["ws"], pa["tol"], st=st, **kw)))
+        elif name == "cartpole":
+            print(f"kernel newton_dense: cartpole B=1024 {cuda_ms(lambda: dense(pa, **kw)):.4f} ms, "
+                  f"plain {cuda_ms(lambda: _newton_arrays(**pa, **kw)):.4f} ms")
+    for nv in (1, 7, 25, 32):
+        pa = synthetic_dense_problem(257, nv, seed=5 + nv, device=device)
+        err = max(err, newton_err(dense(pa, iterations=5, ls_iterations=8, use_ws=True),
+                                  _newton_arrays(**pa, iterations=5, ls_iterations=8, use_ws=True),
+                                  f"newton_dense synthetic nv={nv}"))
+    ms, plain_ms, k4_ms = timed
+    print(f"kernel newton_dense: humanoid B=1024 {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"newton_structured on the same {k4_ms:.4f} ms, max |err| {err:.2e}")
+    results["newton_dense"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def check_newton_elliptic(device, results):
+    """Kernel 6 against its plain version on the elliptic quadruped's
+    operands at B=4096 and on synthetic problems (nh = 0 and > 0, cdim 3 and
+    6), with a total-cost check, and its line-search step on non-finite
+    Newton steps."""
+    import torch
+
+    from ambersim_tpu_torch import load_model
+    from ambersim_tpu_torch.engine.solver import _newton_arrays_elliptic, cone_params, elliptic_tail
+    from ambersim_tpu_torch.engine.solver import elliptic_total_cost
+    from ambersim_tpu_torch.ops.newton import elliptic_ls_step, newton_solve_elliptic
+
+    def kern(pa, **kw):
+        pa = dict(pa)
+        return newton_solve_elliptic(
+            pa.pop("J"), pa.pop("qM"), pa.pop("aref"), pa.pop("D"), pa.pop("fl"), pa.pop("act"), pa.pop("a_s"),
+            pa.pop("ws"), pa.pop("tol"), pa.pop("fr"), pa.pop("impratio"), **pa, **kw,
+        )
+
+    def cost(pa, qacc):
+        """Total cost per env at qacc, in float64."""
+        p = as_dtype(pa, torch.float64)
+        q = qacc.double()
+        mu, scale = cone_params(p["fr"], p["impratio"], p["cdim"])
+        jar = (p["J"] * q[:, None, :]).sum(-1) - p["aref"]
+        return elliptic_total_cost(q, jar, p["qM"], p["a_s"], p["D"], p["fl"], p["act"], mu, scale, ne=p["ne"],
+                                   nf=p["nf"], nh=p["base"], S=p["ncon"], cdim=p["cdim"])
+
+    def compare(pa, what, iterations, ls_iterations):
+        """Kernel vs plain float32 (and plain float32 vs float64) at the given
+        iteration counts; returns (per-env relative error, max |err|, cost
+        excess of the kernel over the plain version per env)."""
+        kw = dict(iterations=iterations, ls_iterations=ls_iterations, use_ws=True)
+        got, want = kern(pa, **kw), _newton_arrays_elliptic(**pa, **kw)
+        exact = _newton_arrays_elliptic(**as_dtype(pa, torch.float64), **kw)
+        rel, err = env_rel_err(got, want, what)
+        rel_pe, _ = env_rel_err(want, exact, what)
+        rel_ke, _ = env_rel_err(got, exact, what)
+        c_got, c_want = cost(pa, got[0]), cost(pa, want[0])
+        excess = (c_got - c_want) / c_want.abs().clamp(min=1.0)  # relative, absolute below a cost of 1
+        print(f"{what} ({iterations} x {ls_iterations}): env-relative |kernel - plain| max {rel.max().item():.3e}, "
+              f"share <= {ELLIPTIC_ENV_TOL}: kernel-plain {(rel <= ELLIPTIC_ENV_TOL).double().mean().item():.4f} "
+              f"plain-f64 {(rel_pe <= ELLIPTIC_ENV_TOL).double().mean().item():.4f} "
+              f"kernel-f64 {(rel_ke <= ELLIPTIC_ENV_TOL).double().mean().item():.4f}; "
+              f"cost excess max {excess.max().item():.3e} min {excess.min().item():.3e}, "
+              f"mean cost kernel/plain - 1 = {(c_got.mean() / c_want.mean() - 1).item():.3e}; max |err| {err:.3e}")
+        return rel, err, excess, (c_got.mean() / c_want.mean() - 1).item()
+
+    def strict(pa, what):
+        rel1, err1, _, _ = compare(pa, what, 3, 1)
+        share = (rel1 <= ELLIPTIC_ENV_TOL).double().mean().item()
+        if share < NEWTON_MIN_SHARE or rel1.max().item() > NEWTON_ENV_RTOL:
+            fail(f"{what}, one line-search step: {share:.4f} of envs within {ELLIPTIC_ENV_TOL}, "
+                 f"worst {rel1.max().item():.3e}")
+        relc, errc, excess, _ = compare(pa, what, CONVERGED["iterations"], CONVERGED["ls_iterations"])
+        share = (relc <= ELLIPTIC_CONVERGED_TOL).double().mean().item()
+        if share < NEWTON_MIN_SHARE or relc.max().item() > NEWTON_ENV_RTOL:
+            fail(f"{what}, converged: {share:.4f} of envs within {ELLIPTIC_CONVERGED_TOL}, "
+                 f"worst {relc.max().item():.3e}")
+        if excess.max().item() > ELLIPTIC_COST_RTOL:
+            fail(f"{what}, converged: the kernel's cost exceeds the plain version's by {excess.max().item():.3e}")
+        return max(err1, errc)
+
+    m = load_model("quadruped_elliptic", device=device)
+    s = m.skel
+    cdim, slots, base, full = elliptic_tail(s)
+    d = initial_batch(m, NUM_ENVS, device)
+    d = pre_solve(m, d.replace(ctrl=pd_ctrl(d)))
+    pa = dict(solver_operands(m, d, seed=6), fr=d.contact.friction, impratio=m.opt.impratio, ne=int(s.ne),
+              nf=int(s.nf), base=base, ncon=len(slots), cdim=cdim)
+    it, ls = int(m.opt.iterations), int(m.opt.ls_iterations)
+    print(f"elliptic quadruped pre-solve: active efc rows per env {pa['act'].sum(1).mean().item():.1f} of {s.nefc}")
+    err = strict(pa, "newton_elliptic quadruped")  # max |err| where the bars are elementwise
+    _, _, _, mean_excess = compare(pa, "newton_elliptic quadruped", it, ls)
+    if abs(mean_excess) > ELLIPTIC_MEAN_COST_RTOL:
+        fail(f"newton_elliptic quadruped: mean cost differs from the plain version's by {mean_excess:.3e}")
+    kw = dict(iterations=it, ls_iterations=ls, use_ws=True)
+    ms, plain_ms = cuda_ms(lambda: kern(pa, **kw)), cuda_ms(lambda: _newton_arrays_elliptic(**pa, **kw))
+
+    for nh, cd in ((0, 3), (9, 3), (0, 6), (9, 6)):
+        sp = synthetic_elliptic_problem(257, nv=12, nh=nh, S=6, cdim=cd, seed=7 + nh + cd, device=device)
+        err = max(err, strict(sp, f"newton_elliptic synthetic nh={nh} cdim={cd}"))
+
+    # the line-search step selects, never blends, on a non-finite Newton step:
+    # t - g/max(h, 1e-12) overflows to -inf / inf or is NaN, and the step
+    # must return the bracket's midpoint
+    state = torch.tensor([[0.5, 0.0, 4.0, 1e30, 0.0], [0.5, 0.0, 4.0, -1e30, 0.0],
+                          [0.5, 0.0, 4.0, float("nan"), 1.0], [0.5, 0.0, 4.0, 1.0, float("inf")],
+                          [0.5, 0.0, 4.0, -1.0, 1.0]], device=device)
+    out = elliptic_ls_step(state).cpu().tolist()
+    want = [[0.25, 0.0, 0.5], [2.25, 0.5, 4.0], [0.25, 0.0, 0.5], [0.25, 0.0, 0.5], [1.5, 0.5, 4.0]]
+    print(f"newton_elliptic line-search step on non-finite Newton steps: {out}")
+    if out != want:
+        fail(f"newton_elliptic line-search step: got {out}, want {want}")
+
+    print(f"kernel newton_elliptic: B={NUM_ENVS} {ms:.4f} ms, plain {plain_ms:.4f} ms, max |err| {err:.2e}")
+    results["newton_elliptic"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
 
 
 def initial_batch(m, batch: int, device):
@@ -304,8 +602,130 @@ def initial_batch(m, batch: int, device):
     return d.replace(qpos=qpos)
 
 
+def cartpole_start(m, batch: int, device):
+    """qpos0 with qvel[:, 0] = 2 N(0, 1) from numpy.random.default_rng(0), so
+    the slider's limit row becomes active."""
+    import numpy as np
+    import torch
+
+    from ambersim_tpu_torch.engine import make_data
+
+    d = make_data(m, batch)
+    qvel = d.qvel.clone()
+    qvel[:, 0] = torch.as_tensor(2.0 * np.random.default_rng(0).standard_normal(batch).astype(np.float32), device=device)
+    return d.replace(qvel=qvel)
+
+
+def arm3_start(m, batch: int, device):
+    """qpos0 + 0.1 N(0, 1) from numpy.random.default_rng(0)."""
+    import numpy as np
+    import torch
+
+    from ambersim_tpu_torch.engine import make_data
+
+    d = make_data(m, batch)
+    noise = np.random.default_rng(0).standard_normal((batch, m.nq)).astype(np.float32)
+    return d.replace(qpos=d.qpos + torch.as_tensor(0.1 * noise, device=device))
+
+
+def rest_start(m, batch: int, device):
+    from ambersim_tpu_torch.engine import make_data
+
+    return make_data(m, batch)
+
+
 def pd_ctrl(d):
     return KP * (0.0 - d.qpos[:, 7:]) - KD * d.qvel[:, 6:]
+
+
+_LINALG = ("cholesky", "cho_solve", "solve_pd")
+# path -> its model, batch, steps, start, controller and the kernels every step launches
+PATHS = {
+    "quadruped": dict(model="quadruped", envs=NUM_ENVS, steps=NUM_STEPS, start=initial_batch, ctrl=pd_ctrl,
+                      kernels=_LINALG + ("newton_structured",), z=(0.20, 0.32)),
+    "cartpole": dict(model="cartpole", envs=1024, steps=200, start=cartpole_start, ctrl=None,
+                     kernels=_LINALG + ("newton_dense",)),
+    "arm3": dict(model="arm3", envs=1024, steps=200, start=arm3_start, ctrl=None,
+                 kernels=_LINALG + ("newton_dense",)),
+    "quadruped_elliptic": dict(model="quadruped_elliptic", envs=NUM_ENVS, steps=NUM_STEPS, start=initial_batch,
+                               ctrl=pd_ctrl, kernels=_LINALG + ("newton_elliptic",), z=(0.20, 0.32)),
+    "humanoid": dict(model="humanoid", envs=1024, steps=20, start=rest_start, ctrl=None,
+                     kernels=_LINALG + ("newton_structured",)),
+}
+
+
+def drive_path(name: str, device, card: str) -> dict:
+    """Step one path through the port's entry points with the launch counts
+    set to 0 just before and read just after; check its state. Returns the
+    path's launch counts."""
+    import torch
+
+    from ambersim_tpu_torch import load_model
+    from ambersim_tpu_torch.engine import rollout
+    from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    p = PATHS[name]
+    m = load_model(p["model"], device=device)
+    d0 = p["start"](m, p["envs"], device)
+    rollout(m, d0, 3, ctrl_fn=p["ctrl"])  # warm-up
+    active = torch.zeros((), device=device)
+
+    def ctrl(d):
+        # the rows of the step before (none before the first): summed on the card
+        active.add_(d.efc_active.sum())
+        return p["ctrl"](d) if p["ctrl"] else d.ctrl
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    d = rollout(m, d0, p["steps"], ctrl_fn=ctrl)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    active = (active + d.efc_active.sum()).item() / (p["envs"] * p["steps"])
+    for field in ("qpos", "qvel", "qacc", "efc_force"):
+        if not torch.isfinite(getattr(d, field)).all():
+            fail(f"{name} path: non-finite {field}")
+    if "z" in p:
+        z, (lo, hi) = d.qpos[:, 2], p["z"]
+        if not bool(((z >= lo) & (z <= hi)).all()):
+            fail(f"{name} path: trunk z outside [{lo}, {hi}]: min {z.min().item():.4f} max {z.max().item():.4f}")
+        print(f"{name} path: trunk z in [{z.min().item():.4f}, {z.max().item():.4f}]")
+    for k in p["kernels"]:
+        if launches[k] < p["steps"]:
+            fail(f"{name} path: kernel {k} launched {launches[k]} times in {p['steps']} steps")
+    for k, n in launches.items():
+        if n and k not in p["kernels"]:
+            fail(f"{name} path: kernel {k} launched {n} times, not one of the path's")
+    rate = p["envs"] * p["steps"] / seconds
+    print(
+        f"{name} path: {p['envs']} envs x {p['steps']} steps in {seconds:.3f} s = {rate:.1f} env-steps/s [{card}]; "
+        f"active efc rows per env, mean over the steps {active:.3f} of {m.skel.nefc}; launches {launches}",
+        flush=True,
+    )
+    return launches
+
+
+def card_vs_cpu(name: str, device, qpos_tol: float, qvel_tol: float, opt=None) -> None:
+    """8 envs x 20 steps of a path on the card (kernels) and on the CPU
+    (plain versions); `opt` overrides solver options on both."""
+    from ambersim_tpu_torch import load_model
+    from ambersim_tpu_torch.engine import rollout
+
+    p = PATHS[name]
+    runs = []
+    for dev in (device, "cpu"):
+        m = load_model(p["model"], device=dev)
+        if opt:
+            m = m.replace(opt=m.opt.replace(**opt))
+        runs.append(rollout(m, p["start"](m, 8, dev), 20, ctrl_fn=p["ctrl"]))
+    dq = (runs[0].qpos.cpu() - runs[1].qpos).abs().max().item()
+    dv = (runs[0].qvel.cpu() - runs[1].qvel).abs().max().item()
+    what = f"{name}{' ' + str(opt) if opt else ''}"
+    print(f"{what} card vs cpu after 20 steps: max |dqpos| {dq:.3e} (<= {qpos_tol}), "
+          f"max |dqvel| {dv:.3e} (<= {qvel_tol})")
+    if not (dq <= qpos_tol and dv <= qvel_tol):
+        fail(f"{what}: card rollout disagrees with the CPU rollout")
 
 
 def main() -> int:
@@ -328,7 +748,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     # ---- 2. build ----
-    from ambersim_tpu_torch.ops import LAUNCHES, _build, reset_launch_counts
+    from ambersim_tpu_torch.ops import _build
 
     lib_path, build_s = _build.build()
     print(f"build: {build_s:.1f} s ({lib_path.name})", flush=True)
@@ -341,53 +761,31 @@ def main() -> int:
 
     # ---- 3. kernels against their plain versions ----
     from ambersim_tpu_torch import load_model
-    from ambersim_tpu_torch.engine import rollout
 
-    m = load_model("quadruped", device=device)
-    results: dict = {}
+    results = {
+        k: dict(name=k, route="cuda", source=f"ambersim_tpu_torch/csrc/{src}", replaces=rep, launches=0)
+        for k, (src, rep) in KERNELS.items()
+    }
     check_linalg(device, results)
-    check_newton(m, device, results)
+    check_newton(load_model("quadruped", device=device), device, results)
+    check_newton_dense(device, results)
+    check_newton_elliptic(device, results)
     torch.cuda.synchronize()
 
-    # ---- 4. main path: 4096-env PD rollout through the port ----
-    d0 = initial_batch(m, NUM_ENVS, device)
-    rollout(m, d0, 3, ctrl_fn=pd_ctrl)  # warm-up
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    d = rollout(m, d0, NUM_STEPS, ctrl_fn=pd_ctrl)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = dict(LAUNCHES)
-    for field in ("qpos", "qvel", "qacc", "efc_force"):
-        if not torch.isfinite(getattr(d, field)).all():
-            fail(f"main path: non-finite {field}")
-    z = d.qpos[:, 2]
-    if not bool(((z >= 0.20) & (z <= 0.32)).all()):
-        fail(f"main path: trunk z outside [0.20, 0.32]: min {z.min().item():.4f} max {z.max().item():.4f}")
-    for name, n in launches.items():
-        if n < NUM_STEPS:
-            fail(f"main path: kernel {name} launched {n} times in {NUM_STEPS} steps")
-        results[name]["launches"] = n
-    rate = NUM_ENVS * NUM_STEPS / seconds
-    print(
-        f"main path: {NUM_ENVS} envs x {NUM_STEPS} steps in {seconds:.3f} s = {rate:.1f} env-steps/s "
-        f"[{card}]; trunk z in [{z.min().item():.4f}, {z.max().item():.4f}]; launches {launches}",
-        flush=True,
-    )
+    # ---- 4. every path through the port, each with its own launch counts ----
+    for name in PATHS:
+        for k, n in drive_path(name, device, card).items():
+            results[k]["launches"] += n
 
     # ---- 5. card (kernels) against CPU (plain versions), 8 envs x 20 steps ----
-    m_cpu = load_model("quadruped", device="cpu")
-    d_gpu = rollout(m, initial_batch(m, 8, device), 20, ctrl_fn=pd_ctrl)
-    d_cpu = rollout(m_cpu, initial_batch(m_cpu, 8, "cpu"), 20, ctrl_fn=pd_ctrl)
-    dq = (d_gpu.qpos.cpu() - d_cpu.qpos).abs().max().item()
-    dv = (d_gpu.qvel.cpu() - d_cpu.qvel).abs().max().item()
-    print(f"card vs cpu after 20 steps: max |dqpos| {dq:.3e} (<= {QPOS_TOL}), max |dqvel| {dv:.3e} (<= {QVEL_TOL})")
-    if not (dq <= QPOS_TOL and dv <= QVEL_TOL):
-        fail("card rollout disagrees with the CPU rollout")
+    for name in PATHS:
+        if name == "quadruped_elliptic":
+            card_vs_cpu(name, device, QPOS_TOL, QVEL_TOL, opt=CONVERGED)
+            card_vs_cpu(name, device, ELLIPTIC_QPOS_TOL, ELLIPTIC_QVEL_TOL)
+        else:
+            card_vs_cpu(name, device, QPOS_TOL, QVEL_TOL)
 
-    order = ("cholesky", "cho_solve", "solve_pd", "newton_structured")
-    print(json.dumps({"kernels": [results[k] for k in order]}))
+    print(json.dumps({"kernels": [results[k] for k in KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

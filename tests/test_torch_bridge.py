@@ -1,7 +1,9 @@
 """The bridge that carries the JAX package's models and state into the
 PyTorch port: the committed model file, Skeleton and Model equality,
 make_data parity, the host schedules, the no-JAX import rule, and the
-refusal of every feature outside the ported slice.
+refusal of every feature outside the ported slice. The committed model
+files (the quadruped, its elliptic-cone build, cartpole, arm3 and the
+humanoid) must equal a fresh export.
 """
 
 import dataclasses
@@ -15,7 +17,7 @@ import pytest
 import torch
 
 from tools import torch_parity as tp
-from tools.export_model_npz import QUADRUPED_NPZ, model_arrays, pack
+from tools.export_model_npz import ASSETS_DIR, QUADRUPED_NPZ, model_arrays, pack
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -28,6 +30,26 @@ TENDON_SENSOR_XML = """
 <tendon><fixed name="t"><joint joint="a" coef="1"/><joint joint="b" coef="-1"/></fixed></tendon>
 <sensor><jointpos joint="a"/></sensor>
 </mujoco>
+"""
+
+
+# contacts of condim 4 (torsional friction) and 6 (rolling friction)
+CONDIM46_XML = """
+<mujoco><worldbody>
+  <geom type="plane" size="0 0 1"/>
+  <body pos="0 0 0.1"><freejoint/><geom type="sphere" size="0.05" condim="4" conaffinity="0"/></body>
+  <body pos="0.3 0 0.1"><freejoint/><geom type="sphere" size="0.05" condim="6" conaffinity="0"/></body>
+</worldbody></mujoco>
+"""
+
+# elliptic cones over contacts of condim 1 and 3 (a pair takes the larger
+# condim of its geoms): no single contiguous condim tail
+ELLIPTIC_MIXED_XML = """
+<mujoco><option cone="elliptic"/><worldbody>
+  <geom type="plane" size="0 0 1" condim="1"/>
+  <body pos="0 0 0.1"><freejoint/><geom type="sphere" size="0.05" condim="1" conaffinity="0"/></body>
+  <body pos="0.3 0 0.1"><freejoint/><geom type="sphere" size="0.05" condim="3" conaffinity="0"/></body>
+</worldbody></mujoco>
 """
 
 
@@ -45,6 +67,43 @@ def test_asset_matches_fresh_export(quadruped):
         for k, v in fresh.items():
             assert committed[k].dtype == v.dtype and committed[k].shape == v.shape, k
             np.testing.assert_array_equal(committed[k], v, err_msg=k)
+
+
+@pytest.mark.parametrize("name", ["quadruped_elliptic", "cartpole", "arm3", "humanoid"])
+def test_new_asset_matches_fresh_export(name):
+    """assets/<name>.npz is what the JAX compiler produces today, with the
+    asset's cone override (tools/export_model_npz.ASSETS)."""
+    fresh = pack(*model_arrays(tp.jax_asset_model(name)))
+    with np.load(ASSETS_DIR / f"{name}.npz", allow_pickle=False) as committed:
+        assert set(committed.keys()) == set(fresh.keys())
+        for k, v in fresh.items():
+            assert committed[k].dtype == v.dtype and committed[k].shape == v.shape, k
+            np.testing.assert_array_equal(committed[k], v, err_msg=k)
+
+
+@pytest.mark.parametrize("name", ["quadruped_elliptic", "cartpole", "arm3", "humanoid"])
+def test_new_assets_load_and_step(name):
+    """check_slice accepts every new asset; one CPU step stays finite."""
+    from ambersim_tpu_torch import load_model
+    from ambersim_tpu_torch.core.types import ConeType
+    from ambersim_tpu_torch.engine import make_data, step
+
+    m = load_model(name)
+    assert (m.opt.cone == int(ConeType.ELLIPTIC)) == (name == "quadruped_elliptic")
+    d = step(m, make_data(m, 2))
+    assert torch.isfinite(d.qpos).all() and torch.isfinite(d.qacc).all()
+
+
+def test_elliptic_cone_on_a_pyramidal_layout_is_refused(quadruped):
+    """opt.cone flipped to elliptic on rows compiled for pyramids: the layout
+    guard of JAX solver.py:62-75 names the fix."""
+    from ambersim_tpu_torch.core.types import ConeType
+    from ambersim_tpu_torch.io.bridge import model_from_numpy
+
+    skel_fields, leaves = model_arrays(quadruped)
+    leaves = dict(leaves, **{"opt.cone": np.asarray(int(ConeType.ELLIPTIC))})
+    with pytest.raises(ValueError, match="cone='elliptic'"):
+        model_from_numpy(skel_fields, leaves)
 
 
 def test_loaded_model_matches_jax(quadruped):
@@ -157,8 +216,10 @@ def test_port_never_imports_jax():
     [
         ("models/hand/hand.xml", ["equality constraints"]),
         (TENDON_SENSOR_XML, ["tendons", "sensors"]),
+        (CONDIM46_XML, ["contact condim 4/6"]),
+        (ELLIPTIC_MIXED_XML, ["elliptic cones with mixed contact condims"]),
     ],
-    ids=["hand", "tendon_sensor"],
+    ids=["hand", "tendon_sensor", "condim46", "elliptic_mixed"],
 )
 def test_models_outside_the_slice_are_refused(source, features):
     from ambersim_tpu_torch.io.bridge import model_from_numpy

@@ -91,4 +91,93 @@ def test_main_path_launch_counts(cuda):
     reset_launch_counts()
     rollout(m, d, 7)
     torch.cuda.synchronize()
-    assert dict(LAUNCHES) == {"cholesky": 7, "cho_solve": 7, "solve_pd": 7, "newton_structured": 7}
+    assert dict(LAUNCHES) == {
+        "cholesky": 7, "cho_solve": 7, "solve_pd": 7, "newton_structured": 7, "newton_dense": 0, "newton_elliptic": 0,
+    }
+
+
+@pytest.mark.parametrize("nv", (1, 7, 25, 32))
+def test_dense_newton_kernel_matches_plain(cuda, nv):
+    """Kernel 5 on equality, Huber friction and one-sided rows."""
+    from chip_smoke import synthetic_dense_problem
+
+    from ambersim_tpu_torch.engine.solver import _newton_arrays
+    from ambersim_tpu_torch.ops.newton import newton_solve_dense
+
+    pa = synthetic_dense_problem(257, nv, seed=50 + nv, device=cuda)
+    kw = dict(iterations=5, ls_iterations=8, use_ws=True)
+    want = _newton_arrays(**pa, **kw)
+    got = newton_solve_dense(pa["J"], pa["qM"], pa["aref"], pa["D"], pa["fl"], pa["act"], pa["a_s"], pa["ws"],
+                             pa["tol"], ne=pa["ne"], nf=pa["nf"], **kw)
+    # bar of chip_smoke.py: rtol/atol 1e-4 on >= 99% of envs, 5% of each env's largest component on all
+    within = torch.ones(257, dtype=torch.bool, device=cuda)
+    for g, w in zip(got, want):
+        err = (g - w).abs()
+        within &= (err <= NEWTON_TOL + NEWTON_TOL * w.abs()).all(1)
+        assert (err.amax(1) <= 0.05 * (w.abs().amax(1) + NEWTON_TOL)).all()
+    assert within.float().mean().item() >= 0.99
+
+
+@pytest.mark.parametrize("nh, cdim", [(0, 3), (9, 3), (0, 6), (9, 6)])
+def test_elliptic_newton_kernel_matches_plain(cuda, nh, cdim):
+    """Kernel 6 converged (15 x 15): at least 99% of envs within 1e-2 of
+    their largest component and all within 5%, and its total cost not above
+    the plain version's by more than 1e-5 of max(|cost|, 1) on any env
+    (chip_smoke.py's ELLIPTIC_* bars)."""
+    from chip_smoke import synthetic_elliptic_problem
+
+    from ambersim_tpu_torch.engine.solver import _newton_arrays_elliptic, cone_params, elliptic_total_cost
+    from ambersim_tpu_torch.ops.newton import newton_solve_elliptic
+
+    sp = synthetic_elliptic_problem(257, nv=12, nh=nh, S=6, cdim=cdim, seed=60 + nh + cdim, device=cuda)
+    statics = {k: sp[k] for k in ("ne", "nf", "base", "ncon", "cdim")}
+    kw = dict(statics, iterations=15, ls_iterations=15, use_ws=True)
+    want = _newton_arrays_elliptic(*(sp[k] for k in ("J", "qM", "aref", "D", "fl", "act", "a_s", "ws", "tol", "fr",
+                                                    "impratio")), **kw)
+    got = newton_solve_elliptic(*(sp[k] for k in ("J", "qM", "aref", "D", "fl", "act", "a_s", "ws", "tol", "fr",
+                                                 "impratio")), **kw)
+    rel = torch.zeros(257, dtype=torch.float32, device=cuda)
+    for g, w in zip(got, want):
+        rel = torch.maximum(rel, (g - w).abs().amax(1) / (w.abs().amax(1) + 1.0))
+    assert (rel <= 1e-2).float().mean().item() >= 0.99 and rel.max().item() <= 0.05, rel.max().item()
+    mu, scale = cone_params(sp["fr"].double(), sp["impratio"], cdim)
+
+    def cost(q):
+        q = q.double()
+        jar = (sp["J"].double() * q[:, None, :]).sum(-1) - sp["aref"].double()
+        return elliptic_total_cost(q, jar, sp["qM"].double(), sp["a_s"].double(), sp["D"].double(),
+                                   sp["fl"].double(), sp["act"].double(), mu, scale, ne=statics["ne"],
+                                   nf=statics["nf"], nh=nh, S=statics["ncon"], cdim=cdim)
+
+    c_got, c_want = cost(got[0]), cost(want[0])
+    excess = (c_got - c_want) / c_want.abs().clamp(min=1.0)
+    assert (excess <= 1e-5).all(), (excess.max().item(), c_want[excess.argmax()].item())
+
+
+def test_elliptic_line_search_step_selects_on_the_card(cuda):
+    """Kernel 6's line-search step returns the bracket's midpoint for a
+    Newton step that overflows or is NaN (a blend would return NaN)."""
+    from ambersim_tpu_torch.ops.newton import elliptic_ls_step
+
+    state = torch.tensor([[0.5, 0.0, 4.0, 1e30, 0.0], [0.5, 0.0, 4.0, -1e30, 0.0],
+                          [0.5, 0.0, 4.0, float("nan"), 1.0], [0.5, 0.0, 4.0, -1.0, 1.0]], device=cuda)
+    want = [[0.25, 0.0, 0.5], [2.25, 0.5, 4.0], [0.25, 0.0, 0.5], [1.5, 0.5, 4.0]]
+    assert elliptic_ls_step(state).cpu().tolist() == want
+
+
+@pytest.mark.parametrize("name, kernel", [("cartpole", "newton_dense"), ("arm3", "newton_dense"),
+                                          ("quadruped_elliptic", "newton_elliptic"), ("humanoid", "newton_structured")])
+def test_path_launch_counts(cuda, name, kernel):
+    """Every step of these models launches kernels 1-3 and its solver kernel once."""
+    from ambersim_tpu_torch import load_model
+    from ambersim_tpu_torch.engine import make_data, rollout
+    from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    m = load_model(name, device=cuda)
+    d = make_data(m, 32)
+    reset_launch_counts()
+    rollout(m, d, 5)
+    torch.cuda.synchronize()
+    want = {k: 0 for k in LAUNCHES}
+    want.update(cholesky=5, cho_solve=5, solve_pd=5, **{kernel: 5})
+    assert dict(LAUNCHES) == want

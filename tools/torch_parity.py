@@ -38,10 +38,22 @@ CONTACT_SCENE = """
 KP, KD = 60.0, 2.0
 
 
-def jax_model(path: str = QUADRUPED_XML):
-    from ambersim_tpu.utils.io_utils import load_model_from_file
+def jax_model(path: str = QUADRUPED_XML, cone: str | None = None):
+    from tools.export_model_npz import load_jax_model
 
-    return load_model_from_file(path)
+    return load_jax_model(path, cone)
+
+
+def jax_asset_model(name: str):
+    """The JAX package's Model behind the port's asset `name`."""
+    from tools.export_model_npz import ASSETS
+
+    return jax_model(*ASSETS[name])
+
+
+def with_solver(jm, **opt):
+    """A JAX-package Model with solver options overridden (e.g. iterations)."""
+    return jm.replace(opt=jm.opt.replace(**opt))
 
 
 def jax_model_from_xml(xml: str):
@@ -117,6 +129,29 @@ def pd_ctrl_jax(d):
 
 def pd_ctrl_torch(d):
     return KP * (0.0 - d.qpos[:, 7:]) - KD * d.qvel[:, 6:]
+
+
+def arm3_contact_qpos(jm, batch: int, seed: int) -> np.ndarray:
+    """arm3 starts whose rows are active: the shoulder turned 1.22 rad down so
+    the fingertip presses into the table, the wrist past its 2.8 rad limit
+    in the first half of the batch, plus 0.1 N(0, 1)."""
+    qpos = np.tile(np.asarray(jm.qpos0, np.float32), (batch, 1))
+    qpos += 0.1 * np.random.default_rng(seed).standard_normal(qpos.shape).astype(np.float32)
+    qpos[:, 0] += 1.22
+    qpos[: batch // 2, 2] = 2.9
+    return qpos
+
+
+def cartpole_limit_state(jm, batch: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """cartpole starts near the slider's +-1 limit, moving toward it at
+    1-3 m/s, so its limit row turns on within a few steps."""
+    rng = np.random.default_rng(seed)
+    qpos = np.tile(np.asarray(jm.qpos0, np.float32), (batch, 1))
+    side = rng.choice([-1.0, 1.0], batch)
+    qpos[:, 0] = side * rng.uniform(0.8, 0.95, batch)
+    qvel = np.zeros((batch, jm.skel.nv), np.float32)
+    qvel[:, 0] = side * rng.uniform(1.0, 3.0, batch)
+    return qpos, qvel
 
 
 def assert_close(name: str, got, want, rtol: float, atol: float) -> None:
