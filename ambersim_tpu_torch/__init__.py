@@ -1,5 +1,6 @@
-"""PyTorch/CUDA port of ambersim_tpu: the batched quadruped physics step,
-with its TPU kernels rewritten as CUDA kernels for Hopper (sm_90a).
+"""PyTorch/CUDA port of ambersim_tpu: the batched physics engine, with its
+TPU kernels rewritten as CUDA kernels for Hopper (sm_90a), the env layer
+and the PPO trainer.
 
 Imports torch and numpy only; never jax or ambersim_tpu."""
 

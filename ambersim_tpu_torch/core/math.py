@@ -1,6 +1,6 @@
 """Spatial math: quaternions, rotations, 6-D motion/force algebra.
 
-Port of ambersim_tpu/core/math.py (the helpers the main-path slice uses).
+Port of ambersim_tpu/core/math.py (the helpers the engine and the envs use).
 Conventions follow MuJoCo: quaternions are (w, x, y, z); spatial vectors are
 (angular[3], linear[3]) at a per-tree com origin. Every function broadcasts
 over leading dims, so model tensors (unbatched) mix freely with batch-first
@@ -54,6 +54,11 @@ def rotate(vec: torch.Tensor, quat: torch.Tensor) -> torch.Tensor:
     u = quat[..., 1:]
     c = cross(u, vec)
     return vec + 2.0 * (w * c + cross(u, c))
+
+
+def rotate_inv(vec: torch.Tensor, quat: torch.Tensor) -> torch.Tensor:
+    """Rotate vec by the inverse of quat: R(q)^T @ vec."""
+    return rotate(vec, neg_quat(quat))
 
 
 def quat_to_mat(q: torch.Tensor) -> torch.Tensor:

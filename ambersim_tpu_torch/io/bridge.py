@@ -11,6 +11,8 @@ File layout (all plain numpy, no pickles):
   * ``skel_json``: the Skeleton's ints, bools, strings and tuples as JSON.
 
 `check_slice` refuses, by name, every feature the port does not cover yet.
+`ppo_params_from_jax` carries the JAX package's PPO params (flax MLPs and
+running statistics) into the port's trainer and networks.
 """
 
 from __future__ import annotations
@@ -211,3 +213,70 @@ def check_slice(m: Model) -> None:
             "model uses features outside the ported slice: " + ", ".join(dict.fromkeys(missing))
         )
     _CHECKED.add(key)
+
+
+_NORMALIZER_FIELDS = ("count", "mean", "summed_variance", "std")
+
+
+def _is_flax_mlp(tree) -> bool:
+    return isinstance(tree, Mapping) and set(tree) == {"params"} and all(
+        k.startswith("hidden_") for k in tree["params"]
+    )
+
+
+def ppo_params_from_jax(tree, device="cpu"):
+    """The JAX package's PPO params (as numpy) in the port's form, on `device`.
+
+    Converts, anywhere in a tree of dicts, lists and tuples:
+      * a flax MLP's ``{"params": {"hidden_i": {"kernel", "bias"}}}`` into the
+        port's ``{"hidden.i.weight", "hidden.i.bias"}`` (a flax kernel is
+        (in, out), an ``nn.Linear`` weight (out, in));
+      * a RunningStatisticsState (count, mean, summed_variance, std; an
+        object with those attributes or a dict with those keys) into the
+        port's RunningStatisticsState.
+    """
+    from ambersim_tpu_torch.rl.ppo.running_statistics import RunningStatisticsState
+
+    if _is_flax_mlp(tree):
+        out = {}
+        for name, layer in tree["params"].items():
+            i = int(name[len("hidden_"):])
+            out[f"hidden.{i}.weight"] = _f32(np.asarray(layer["kernel"]).T, device)
+            if "bias" in layer:
+                out[f"hidden.{i}.bias"] = _f32(layer["bias"], device)
+        return out
+    if isinstance(tree, Mapping) and set(tree) == set(_NORMALIZER_FIELDS):
+        return RunningStatisticsState(**{k: _f32(tree[k], device) for k in _NORMALIZER_FIELDS})
+    if all(hasattr(tree, k) for k in _NORMALIZER_FIELDS):
+        return RunningStatisticsState(**{k: _f32(getattr(tree, k), device) for k in _NORMALIZER_FIELDS})
+    if isinstance(tree, Mapping):
+        return {k: ppo_params_from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(ppo_params_from_jax(v, device) for v in tree)
+    raise TypeError(f"not a PPO params tree of the JAX package: {type(tree).__name__}")
+
+
+def ppo_params_to_numpy(tree):
+    """The inverse of `ppo_params_from_jax`: the port's PPO params as the JAX
+    package's numpy trees (a RunningStatisticsState becomes a dict of its
+    four fields)."""
+    from ambersim_tpu_torch.rl.ppo.running_statistics import RunningStatisticsState
+
+    def host(x):
+        return x.detach().cpu().numpy()
+
+    if isinstance(tree, RunningStatisticsState):
+        return {k: host(getattr(tree, k)) for k in _NORMALIZER_FIELDS}
+    if isinstance(tree, Mapping) and tree and all(k.startswith("hidden.") for k in tree):
+        layers: dict = {}
+        for k, v in tree.items():
+            _, i, kind = k.split(".")
+            layers.setdefault(f"hidden_{i}", {})["kernel" if kind == "weight" else "bias"] = (
+                host(v).T if kind == "weight" else host(v)
+            )
+        return {"params": layers}
+    if isinstance(tree, Mapping):
+        return {k: ppo_params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(ppo_params_to_numpy(v) for v in tree)
+    raise TypeError(f"not a PPO params tree of the port: {type(tree).__name__}")

@@ -1,0 +1,40 @@
+"""RL environment layer and the PPO trainer of the PyTorch port (port of
+ambersim_tpu/rl: env base, wrappers, registry, the pendulum and quadruped
+tasks, PPO). The trainers share the (make_policy, params, metrics) /
+progress_fn contract of the JAX package.
+"""
+
+from ambersim_tpu_torch.rl.base import MjxEnv, State  # noqa: F401
+from ambersim_tpu_torch.rl.registry import get_environment, register_environment  # noqa: F401
+
+
+def _register_packaged() -> None:
+    def _pendulum(**kwargs):
+        from ambersim_tpu_torch.rl.pendulum import PendulumSwingupEnv
+
+        return PendulumSwingupEnv(**kwargs)
+
+    def _quadruped(**kwargs):
+        from ambersim_tpu_torch.rl.quadruped import QuadrupedLocomotionEnv
+
+        return QuadrupedLocomotionEnv(**kwargs)
+
+    def _quadruped_terrain(**kwargs):
+        raise NotImplementedError(
+            "quadruped_terrain is not ported: it needs height-field collision and the MJCF compiler "
+            "(its terrain grid is generated from the config seed when the model is compiled)"
+        )
+
+    def _humanoid_balance(**kwargs):
+        raise NotImplementedError(
+            "humanoid_balance is not ported: ambersim_tpu/rl/humanoid/balance.py has no counterpart "
+            "in the port yet (the humanoid model itself already steps in the port)"
+        )
+
+    register_environment("pendulum_swingup", _pendulum)
+    register_environment("quadruped_locomotion", _quadruped)
+    register_environment("quadruped_terrain", _quadruped_terrain)
+    register_environment("humanoid_balance", _humanoid_balance)
+
+
+_register_packaged()

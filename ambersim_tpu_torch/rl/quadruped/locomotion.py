@@ -1,0 +1,122 @@
+"""Quadruped velocity-tracking locomotion task (port of
+ambersim_tpu/rl/quadruped/locomotion.py): track a forward velocity command
+on flat ground, stay upright, penalize energy and vertical/angular motion;
+terminate on falls.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ambersim_tpu_torch.core import math as am
+from ambersim_tpu_torch.io.bridge import load_model
+from ambersim_tpu_torch.rl.base import MjxEnv, State, draw_normal
+
+# PD mapping of the action (an offset from the standing pose) to motor torques
+KP, KD = 24.0, 0.8
+
+
+@dataclasses.dataclass(frozen=True)
+class QuadrupedLocomotionConfig:
+    """`model` names an exported asset (ambersim_tpu_torch/assets/<model>.npz)."""
+
+    model: str = "quadruped"
+    # commanded forward velocity (m/s)
+    target_vel: float = 0.5
+    # reward weights
+    vel_weight: float = 2.0
+    upright_weight: float = 0.5
+    height_weight: float = 1.0
+    energy_weight: float = 2e-4
+    lateral_weight: float = 0.5
+    angvel_weight: float = 0.05
+    action_scale: float = 0.4
+    # termination
+    min_height: float = 0.12
+    max_tilt: float = 0.6  # max |1 - quat_w-ish| tilt proxy
+    # init noise
+    joint_noise: float = 0.08
+    physics_steps_per_control_step: int = 4
+
+
+class QuadrupedLocomotionEnv(MjxEnv):
+    """Track a forward velocity command on flat ground."""
+
+    def __init__(self, config: QuadrupedLocomotionConfig | None = None, device="cpu"):
+        self.config = config or QuadrupedLocomotionConfig()
+        super().__init__(load_model(self.config.model, device=device), self.config.physics_steps_per_control_step)
+
+    @property
+    def default_pose(self) -> torch.Tensor:
+        return self.model.qpos0[7:]
+
+    def _up(self, qpos: torch.Tensor) -> torch.Tensor:
+        """The trunk's z axis in the world frame, (B, 3)."""
+        return am.rotate(qpos.new_tensor([0.0, 0.0, 1.0]), qpos[:, 3:7])
+
+    def compute_obs(self, data, info):
+        # base orientation (gravity direction in body frame), base velocities,
+        # joint positions (offset from stand), joint velocities, last action
+        quat = data.qpos[:, 3:7]
+        gravity_body = am.rotate_inv(quat.new_tensor([0.0, 0.0, -1.0]), quat)
+        lin_vel = am.rotate_inv(data.qvel[:, :3], quat)  # translation dofs: world frame
+        ang_vel = data.qvel[:, 3:6]  # free-joint rotation dofs are already body-frame
+        return torch.cat(
+            [
+                gravity_body,
+                lin_vel,
+                ang_vel,
+                data.qpos[:, 7:] - self.default_pose,
+                data.qvel[:, 6:] * 0.1,
+                info["last_action"],
+            ],
+            dim=-1,
+        )
+
+    def compute_reward(self, data, info):
+        c = self.config
+        vx = data.qvel[:, 0]
+        vel_r = c.vel_weight * torch.exp(-4.0 * (vx - c.target_vel) ** 2)
+        upright_r = c.upright_weight * self._up(data.qpos)[:, 2]
+        height_pen = -c.height_weight * (data.qpos[:, 2] - 0.27) ** 2
+        energy_pen = -c.energy_weight * (data.actuator_force**2).sum(-1)
+        lateral_pen = -c.lateral_weight * (data.qvel[:, 1] ** 2 + 0.3 * data.qvel[:, 2] ** 2)
+        angvel_pen = -c.angvel_weight * (data.qvel[:, 3:6] ** 2).sum(-1)
+        return vel_r + upright_r + height_pen + energy_pen + lateral_pen + angvel_pen
+
+    def _done(self, data):
+        c = self.config
+        fallen = (data.qpos[:, 2] < c.min_height) | (self._up(data.qpos)[:, 2] < 1.0 - c.max_tilt)
+        return fallen.float()
+
+    def draw_start(self, generator, batch_size):
+        c, s, dev = self.config, self.model.skel, self.device
+        qpos = self.model.qpos0.expand(batch_size, s.nq).clone()
+        qpos[:, 7:] += c.joint_noise * draw_normal(generator, (batch_size, s.nu), dev)
+        qvel = torch.zeros(batch_size, s.nv, device=dev)
+        qvel[:, :6] += 0.05 * draw_normal(generator, (batch_size, 6), dev)
+        return qpos, qvel
+
+    def reset_to(self, qpos, qvel, generator: Optional[torch.Generator] = None) -> State:
+        data = self.pipeline_init(qpos, qvel)
+        zeros = torch.zeros(qpos.shape[0], device=qpos.device)
+        info = {"last_action": torch.zeros(qpos.shape[0], self.model.skel.nu, device=qpos.device)}
+        obs = self.compute_obs(data, info)
+        return State(data, obs, zeros, zeros, {"reward": zeros}, info)
+
+    def step(self, state: State, action: torch.Tensor) -> State:
+        c = self.config
+        data = state.pipeline_state
+        target = self.default_pose + c.action_scale * action
+        ctrl = KP * (target - data.qpos[:, 7:]) - KD * data.qvel[:, 6:]
+        data = self.pipeline_step(data, ctrl)
+        info = {**state.info, "last_action": action}
+        obs = self.compute_obs(data, info)
+        reward = self.compute_reward(data, info)
+        return state.replace(
+            pipeline_state=data, obs=obs, reward=reward, done=self._done(data),
+            metrics={**state.metrics, "reward": reward}, info=info,
+        )

@@ -14,11 +14,16 @@ the card, and steps every ported path through the port's entry points:
   * the quadruped compiled with elliptic cones at 4096 envs x 100 steps
     (benchmarks/elliptic_gap.py:30-35), through the elliptic Newton kernel;
   * the humanoid at 1024 envs x 20 steps, through the structured kernel at
-    nv = 25.
+    nv = 25;
+  * PPO training of the 4096-env quadruped locomotion policy, one training
+    step at bench.py:142-177's settings, through kernels 1-4;
+  * PPO on the pendulum swingup at examples/rl/pendulum/ex_agents.py's
+    settings, which must learn.
 
 For each path it checks that every step went through the path's kernels
 and compares 8 envs of the rollout on the card with the same rollout on the
-CPU (plain versions). It imports nothing of JAX. Output: progress lines, a
+CPU (plain versions), and the quadruped env's obs and reward likewise. It
+imports nothing of JAX. Output: progress lines, a
 JSON line of per-kernel results, the card's name and power limit, and as
 the last line {"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}. Any failed check exits non-zero without that line.
@@ -80,6 +85,27 @@ QPOS_TOL, QVEL_TOL = 1e-3, 1e-2
 # with the solver converged (15 x 15).
 ELLIPTIC_QPOS_TOL, ELLIPTIC_QVEL_TOL = 5e-2, 1.0
 CONVERGED = dict(iterations=15, ls_iterations=15)
+
+# PPO on the 4096-env quadruped (bench.py:142-177's settings): one training
+# step, 8 unrolls x 20 control steps x 4 physics steps = 640 physics steps.
+# Cut: episode_length 100 instead of 500, so that the two evals stay short
+# and the 160-step unroll crosses a truncation.
+PPO_QUADRUPED = dict(
+    num_timesteps=655_360, num_evals=2, episode_length=100, normalize_observations=True, unroll_length=20,
+    num_minibatches=32, num_updates_per_batch=4, discounting=0.97, learning_rate=3e-4, entropy_cost=1e-2,
+    num_envs=4096, num_eval_envs=64, batch_size=1024, seed=0,
+)
+# PPO on the pendulum swingup (examples/rl/pendulum/ex_agents.py:30-45 and
+# its env, 2 physics steps per control step): 12 training steps, 5 evals.
+PPO_PENDULUM = dict(
+    num_timesteps=500_000, num_evals=5, episode_length=200, normalize_observations=True, unroll_length=10,
+    num_minibatches=8, num_updates_per_batch=4, discounting=0.97, learning_rate=3e-4, entropy_cost=1e-3,
+    num_envs=512, batch_size=640, reward_scaling=0.1, seed=0,
+)
+# What the JAX package's trainer gains at PPO_PENDULUM (final minus untrained
+# eval reward), run on a CPU with seeds 0, 1 and 2: the port must gain at
+# least half their mean.
+JAX_PENDULUM_GAINS = (482.879, 217.651, 227.194)
 
 # kernel name -> (CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -728,6 +754,173 @@ def card_vs_cpu(name: str, device, qpos_tol: float, qvel_tol: float, opt=None) -
         fail(f"{what}: card rollout disagrees with the CPU rollout")
 
 
+def _check_launches(what: str, launches: dict, kernels: tuple, at_least: int) -> None:
+    """Each of `kernels` launched at least `at_least` times, no other kernel at all."""
+    for k, n in launches.items():
+        if k in kernels and n < at_least:
+            fail(f"{what}: kernel {k} launched {n} times for {at_least} physics steps")
+        if k not in kernels and n:
+            fail(f"{what}: kernel {k} launched {n} times, not one of the path's")
+
+
+def _recording_networks(initial: dict):
+    """make_ppo_networks whose init also keeps a copy of the initial params in
+    `initial` (under "policy" and "value")."""
+    from ambersim_tpu_torch.rl.ppo import networks
+
+    def factory(obs_size, action_size, preprocess_observations_fn):
+        nets = networks.make_ppo_networks(obs_size, action_size, preprocess_observations_fn=preprocess_observations_fn)
+
+        def recording(name, net):
+            def init(generator):
+                params = net.init(generator)
+                initial[name] = {k: v.clone() for k, v in params.items()}
+                return params
+
+            return networks.FeedForwardNetwork(init=init, apply=net.apply)
+
+        return networks.PPONetworks(recording("policy", nets.policy_network), recording("value", nets.value_network),
+                                    nets.parametric_action_distribution)
+
+    return factory
+
+
+def ppo_quadruped(device, card: str) -> dict:
+    """One PPO training step of the 4096-env quadruped locomotion policy, with
+    the launch counts set to 0 just before and read just after. Returns them."""
+    import math
+    import tempfile
+
+    import torch
+
+    from ambersim_tpu_torch.io.checkpoint import load_params
+    from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from ambersim_tpu_torch.rl import get_environment
+    from ambersim_tpu_torch.rl.ppo import train
+
+    c = PPO_QUADRUPED
+    physics = get_environment("quadruped_locomotion").config.physics_steps_per_control_step
+    num_unrolls = c["batch_size"] * c["num_minibatches"] // c["num_envs"]
+    train_steps = num_unrolls * c["unroll_length"] * physics
+    eval_steps = c["num_evals"] * c["episode_length"] * physics
+    initial, marks = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = Path(tmp) / "state.pkl"
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        _, (normalizer, _), metrics = train(
+            get_environment("quadruped_locomotion"), device=device, network_factory=_recording_networks(initial),
+            progress_fn=lambda step, m: marks.append((time.perf_counter(), step, m)), checkpoint_path=str(ckpt), **c,
+        )
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        final = load_params(ckpt, device=device)["params"]
+    _check_launches("ppo_quadruped", launches, _LINALG + ("newton_structured",), train_steps + eval_steps)
+    for k, v in metrics.items():
+        if not math.isfinite(v):
+            fail(f"ppo_quadruped: {k} = {v}")
+    rewards = [m["eval/episode_reward"] for _, _, m in marks]
+    if len(marks) != 2 or not all(math.isfinite(r) for r in rewards):
+        fail(f"ppo_quadruped: eval rewards {rewards}")
+    for net in ("policy", "value"):
+        moved = max((final[net][k] - v).abs().max().item() for k, v in initial[net].items())
+        if not moved > 0:
+            fail(f"ppo_quadruped: the {net} params did not change")
+        print(f"ppo_quadruped: {net} params moved by up to {moved:.3e}")
+    count = float(normalizer.count)
+    if count != c["num_envs"] * num_unrolls * c["unroll_length"]:
+        fail(f"ppo_quadruped: normalizer count {count}")
+    rollout_s, sgd_s, eval_s = metrics["timing/rollout_s"], metrics["timing/sgd_s"], metrics["timing/eval_s"]
+    env_steps = marks[-1][1]
+    first_update = marks[0][0] - t0 + rollout_s + sgd_s
+    print(
+        f"ppo_quadruped: {c['num_envs']} envs, {env_steps} env steps ({train_steps} physics steps) + 2 evals of "
+        f"{c['num_eval_envs']} envs ({eval_steps} physics steps) in {seconds:.3f} s; launches {launches}\n"
+        f"ppo_quadruped: training {env_steps / (rollout_s + sgd_s):.1f} env-steps/s; rollout {rollout_s:.3f} s, "
+        f"SGD {sgd_s:.3f} s, eval {eval_s:.3f} s; set-up + initial eval {marks[0][0] - t0:.3f} s; "
+        f"first update after {first_update:.3f} s [{card}]\n"
+        f"ppo_quadruped: eval reward {rewards[0]:.3f} -> {rewards[1]:.3f}; losses "
+        + ", ".join(f"{k[len('training/'):]} {v:.4f}" for k, v in metrics.items() if k.startswith("training/")),
+        flush=True,
+    )
+    return launches
+
+
+def ppo_pendulum_learns(device, card: str) -> dict:
+    """PPO on the pendulum swingup must gain at least half the JAX package's
+    mean gain; returns the launch counts of the run."""
+    import torch
+
+    from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from ambersim_tpu_torch.rl.pendulum import PendulumSwingupConfig, PendulumSwingupEnv
+    from ambersim_tpu_torch.rl.ppo import train
+
+    c = PPO_PENDULUM
+    config = PendulumSwingupConfig(physics_steps_per_control_step=2)
+    num_unrolls = c["batch_size"] * c["num_minibatches"] // c["num_envs"]
+    per_step = c["num_envs"] * num_unrolls * c["unroll_length"]
+    training_steps = (c["num_evals"] - 1) * -(-c["num_timesteps"] // (per_step * (c["num_evals"] - 1)))
+    physics = (training_steps * num_unrolls * c["unroll_length"] + c["num_evals"] * c["episode_length"]) * 2
+    marks = []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    train(PendulumSwingupEnv(config), device=device, progress_fn=lambda step, m: marks.append((step, m)), **c)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    # nefc = 0 and no joint damping: only the factor of qM and qacc_smooth's solve
+    _check_launches("ppo_pendulum_learns", launches, ("cholesky", "cho_solve"), physics)
+    rewards = [m["eval/episode_reward"] for _, m in marks]
+    gain, bar = rewards[-1] - rewards[0], 0.5 * sum(JAX_PENDULUM_GAINS) / len(JAX_PENDULUM_GAINS)
+    print(f"ppo_pendulum_learns: {marks[-1][0]} env steps in {seconds:.3f} s [{card}]; eval rewards "
+          f"{', '.join(f'{r:.1f}' for r in rewards)}; gain {gain:.1f} (bar {bar:.1f}, half the JAX package's mean "
+          f"gain {2 * bar:.1f}); launches {launches}", flush=True)
+    if not gain >= bar:
+        fail(f"ppo_pendulum_learns: the policy gained {gain:.1f} eval reward, under the bar {bar:.1f}")
+    return launches
+
+
+def env_card_vs_cpu(device) -> None:
+    """The quadruped env, 8 envs x 10 control steps with the same actions on
+    the card (kernels) and on the CPU (plain versions): obs and reward within
+    the card-vs-CPU bars, qpos-derived columns at QPOS_TOL and qvel-derived
+    ones at QVEL_TOL."""
+    import numpy as np
+    import torch
+
+    from ambersim_tpu_torch.rl.quadruped import QuadrupedLocomotionEnv
+
+    actions = np.random.default_rng(0).uniform(-1.0, 1.0, (10, 8, 12)).astype(np.float32)
+    runs = []
+    for dev in (device, "cpu"):
+        env = QuadrupedLocomotionEnv(device=dev)
+        s = env.reset(torch.Generator().manual_seed(0), 8)  # a CPU generator: the same starts on both
+        out = []
+        for a in actions:
+            s = env.step(s, torch.as_tensor(a, device=dev))
+            out.append((s.obs.cpu(), s.reward.cpu()))
+        runs.append(out)
+    # obs columns: gravity, lin_vel, ang_vel, joint pos, 0.1 joint vel, last action
+    bars = ((slice(0, 3), QPOS_TOL), (slice(3, 9), QVEL_TOL), (slice(9, 21), QPOS_TOL),
+            (slice(21, 33), 0.1 * QVEL_TOL), (slice(33, 45), 0.0))
+    worst = {"obs": 0.0, "reward": 0.0}
+    for t, ((obs_g, rew_g), (obs_c, rew_c)) in enumerate(zip(*runs)):
+        for cols, tol in bars:
+            err = (obs_g[:, cols] - obs_c[:, cols]).abs().max().item()
+            worst["obs"] = max(worst["obs"], err)
+            if not err <= tol:
+                fail(f"env_card_vs_cpu: obs[{cols.start}:{cols.stop}] at control step {t} differs by {err:.3e} > {tol}")
+        err = (rew_g - rew_c).abs().max().item()
+        worst["reward"] = max(worst["reward"], err)
+        if not err <= QVEL_TOL:
+            fail(f"env_card_vs_cpu: reward at control step {t} differs by {err:.3e} > {QVEL_TOL}")
+    print(f"env_card_vs_cpu: quadruped env 8 envs x 10 control steps: max |dobs| {worst['obs']:.3e}, "
+          f"max |dreward| {worst['reward']:.3e}", flush=True)
+
+
 def main() -> int:
     if not (REPO / "ambersim_tpu_torch").is_dir():
         fail(f"run from a checkout of the repository: no ambersim_tpu_torch/ beside {Path(__file__).name}")
@@ -777,13 +970,19 @@ def main() -> int:
         for k, n in drive_path(name, device, card).items():
             results[k]["launches"] += n
 
-    # ---- 5. card (kernels) against CPU (plain versions), 8 envs x 20 steps ----
+    # ---- 5. PPO training through the env layer, each with its own launch counts ----
+    for phase in (ppo_quadruped, ppo_pendulum_learns):
+        for k, n in phase(device, card).items():
+            results[k]["launches"] += n
+
+    # ---- 6. card (kernels) against CPU (plain versions), 8 envs x 20 steps ----
     for name in PATHS:
         if name == "quadruped_elliptic":
             card_vs_cpu(name, device, QPOS_TOL, QVEL_TOL, opt=CONVERGED)
             card_vs_cpu(name, device, ELLIPTIC_QPOS_TOL, ELLIPTIC_QVEL_TOL)
         else:
             card_vs_cpu(name, device, QPOS_TOL, QVEL_TOL)
+    env_card_vs_cpu(device)
 
     print(json.dumps({"kernels": [results[k] for k in KERNELS]}))
     print(card)

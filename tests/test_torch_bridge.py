@@ -2,8 +2,8 @@
 PyTorch port: the committed model file, Skeleton and Model equality,
 make_data parity, the host schedules, the no-JAX import rule, and the
 refusal of every feature outside the ported slice. The committed model
-files (the quadruped, its elliptic-cone build, cartpole, arm3 and the
-humanoid) must equal a fresh export.
+files (the quadruped, its elliptic-cone build, cartpole, arm3, the
+humanoid and the pendulum) must equal a fresh export.
 """
 
 import dataclasses
@@ -69,7 +69,7 @@ def test_asset_matches_fresh_export(quadruped):
             np.testing.assert_array_equal(committed[k], v, err_msg=k)
 
 
-@pytest.mark.parametrize("name", ["quadruped_elliptic", "cartpole", "arm3", "humanoid"])
+@pytest.mark.parametrize("name", ["quadruped_elliptic", "cartpole", "arm3", "humanoid", "pendulum"])
 def test_new_asset_matches_fresh_export(name):
     """assets/<name>.npz is what the JAX compiler produces today, with the
     asset's cone override (tools/export_model_npz.ASSETS)."""
@@ -81,7 +81,7 @@ def test_new_asset_matches_fresh_export(name):
             np.testing.assert_array_equal(committed[k], v, err_msg=k)
 
 
-@pytest.mark.parametrize("name", ["quadruped_elliptic", "cartpole", "arm3", "humanoid"])
+@pytest.mark.parametrize("name", ["quadruped_elliptic", "cartpole", "arm3", "humanoid", "pendulum"])
 def test_new_assets_load_and_step(name):
     """check_slice accepts every new asset; one CPU step stays finite."""
     from ambersim_tpu_torch import load_model
@@ -199,6 +199,8 @@ def test_port_never_imports_jax():
         "import sys\n"
         "import ambersim_tpu_torch, ambersim_tpu_torch.engine, ambersim_tpu_torch.ops.linalg\n"
         "import ambersim_tpu_torch.ops.newton, chip_smoke\n"
+        "import ambersim_tpu_torch.rl, ambersim_tpu_torch.rl.ppo, ambersim_tpu_torch.rl.helpers\n"
+        "import ambersim_tpu_torch.rl.pendulum, ambersim_tpu_torch.rl.quadruped, ambersim_tpu_torch.io.checkpoint\n"
         "from ambersim_tpu_torch import load_model\n"
         "from ambersim_tpu_torch.engine import make_data, step\n"
         "m = load_model('quadruped'); step(m, make_data(m, 2))\n"

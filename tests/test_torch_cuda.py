@@ -181,3 +181,42 @@ def test_path_launch_counts(cuda, name, kernel):
     want = {k: 0 for k in LAUNCHES}
     want.update(cholesky=5, cho_solve=5, solve_pd=5, **{kernel: 5})
     assert dict(LAUNCHES) == want
+
+
+def test_quadruped_env_launch_counts(cuda):
+    """The env's reset runs one forward (kernels 1, 2 and 4) and each control
+    step 4 physics steps (kernels 1-4 once each)."""
+    from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from ambersim_tpu_torch.rl.quadruped import QuadrupedLocomotionEnv
+
+    env = QuadrupedLocomotionEnv(device=cuda)
+    reset_launch_counts()
+    s = env.reset(torch.Generator(device=cuda).manual_seed(0), 32)
+    for _ in range(2):
+        s = env.step(s, torch.zeros(32, 12, device=cuda))
+    torch.cuda.synchronize()
+    assert torch.isfinite(s.obs).all() and s.obs.shape == (32, 45)
+    want = {k: 0 for k in LAUNCHES}
+    want.update(cholesky=9, cho_solve=9, solve_pd=8, newton_structured=9)
+    assert dict(LAUNCHES) == want
+
+
+def test_pendulum_training_step_on_the_card(cuda):
+    """One PPO training step and one eval of the pendulum on the card."""
+    from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from ambersim_tpu_torch.rl.pendulum import PendulumSwingupEnv
+    from ambersim_tpu_torch.rl.ppo import train
+
+    reset_launch_counts()
+    make_policy, (normalizer, policy_params), metrics = train(
+        PendulumSwingupEnv(), device=cuda, num_timesteps=512, num_evals=1, episode_length=50,
+        normalize_observations=True, unroll_length=8, num_minibatches=4, num_updates_per_batch=2, num_envs=16,
+        num_eval_envs=8, batch_size=16, seed=0,
+    )
+    torch.cuda.synchronize()
+    assert all(np.isfinite(v) for v in metrics.values())
+    assert float(normalizer.count) == 512.0 and all(v.is_cuda for v in policy_params.values())
+    # 4 unrolls x 8 steps + a 50-step eval, plus the resets' forwards
+    assert LAUNCHES["cholesky"] >= 82 and LAUNCHES["cho_solve"] >= 82
+    action, _ = make_policy((normalizer, policy_params), deterministic=True)(torch.zeros(4, 3, device=cuda))
+    assert action.is_cuda and action.shape == (4, 1)

@@ -34,6 +34,7 @@ ASSETS = {
     "cartpole": ("models/cartpole/cartpole.xml", None),
     "arm3": ("models/arm3/arm3.xml", None),
     "humanoid": ("models/humanoid/humanoid.xml", None),
+    "pendulum": ("models/pendulum/pendulum.xml", None),
 }
 
 

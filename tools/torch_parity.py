@@ -159,3 +159,98 @@ def assert_close(name: str, got, want, rtol: float, atol: float) -> None:
     want = np.asarray(want)
     assert got.shape == want.shape, f"{name}: shape {got.shape} != {want.shape}"
     np.testing.assert_allclose(got, want, rtol=rtol, atol=atol, err_msg=name)
+
+
+# ---- env layer: the JAX package's envs on numpy inputs ----
+
+
+def _env_fields(state) -> dict:
+    out = {k: getattr(state, k) for k in ("obs", "reward", "done")}
+    out.update(qpos=state.pipeline_state.qpos, qvel=state.pipeline_state.qvel)
+    out.update({k: state.info[k] for k in ("steps", "truncation") if k in state.info})
+    return out
+
+
+def uniform_actions(seed: int, T: int, B: int, nu: int) -> np.ndarray:
+    """(T, B, nu) float32 actions uniform in [-1, 1]."""
+    return np.random.default_rng(seed).uniform(-1.0, 1.0, (T, B, nu)).astype(np.float32)
+
+
+def jax_env_reset(env, batch: int, seed: int):
+    """The JAX env's State of `batch` envs reset from PRNGKey(seed) split
+    `batch` ways (a wrapped env batches itself; a bare env is vmapped)."""
+    import jax
+
+    from ambersim_tpu.rl.wrappers import Wrapper
+
+    reset = env.reset if isinstance(env, Wrapper) else jax.vmap(env.reset)
+    return jax.jit(reset)(jax.random.split(jax.random.PRNGKey(seed), batch))
+
+
+def jax_quadruped_state(env, qpos: np.ndarray, qvel: np.ndarray, qacc_warmstart: np.ndarray):
+    """A batched State of the JAX quadruped env at the given numpy carry,
+    built without a forward pass: a step reads only qpos, qvel, act,
+    qacc_warmstart and time of its Data and recomputes the rest."""
+    import jax
+    import jax.numpy as jnp
+
+    from ambersim_tpu.rl.base import State
+
+    B = qpos.shape[0]
+    data = jax_batch(env.model, qpos=qpos, qvel=qvel, qacc_warmstart=qacc_warmstart)
+    info = {"rng": jax.random.split(jax.random.PRNGKey(0), B), "last_action": jnp.zeros((B, env.model.nu))}
+    obs = jax.vmap(env.compute_obs)(data, info)
+    zeros = jnp.zeros(B)
+    return State(data, obs, zeros, zeros, {"reward": zeros}, info)
+
+
+def jax_env_run(env, state, actions: np.ndarray) -> list:
+    """Step the JAX env's batched `state` through `actions` (T, B, nu) in one
+    jit; returns the state after each step as env_state_to_numpy does."""
+    import jax
+    import jax.numpy as jnp
+
+    from ambersim_tpu.rl.wrappers import Wrapper
+
+    step = env.step if isinstance(env, Wrapper) else jax.vmap(env.step)
+
+    def body(s, a):
+        s = step(s, a)
+        return s, _env_fields(s)
+
+    steps = jax.jit(lambda s, acts: jax.lax.scan(body, s, acts)[1])(state, jnp.asarray(actions))
+    return [{k: np.asarray(v[t]) for k, v in steps.items()} for t in range(len(actions))]
+
+
+def env_state_to_numpy(state) -> dict:
+    """obs, reward, done, qpos, qvel and the wrappers' steps/truncation of an
+    env State of either package, as numpy."""
+
+    def host(x):
+        return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.array(x)
+
+    return {k: host(v) for k, v in _env_fields(state).items()}
+
+
+# ---- PPO: a rollout buffer drawn from the JAX policy ----
+
+
+def ppo_rollout_buffer(seed: int, jax_networks, jparams, jnorm, T: int, N: int, obs_size: int) -> dict:
+    """A numpy Transition batch (T, N, ...) whose actions and log-probs come
+    from the JAX policy (log-probs moved by 0.1 N(0, 1), so the importance
+    ratios spread around 1), with terminations and truncations."""
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(seed)
+    obs = (2 * rng.standard_normal((T + 1, N, obs_size))).astype(np.float32)
+    logits = jax_networks.policy_network.apply(jnorm, jparams["policy"], jnp.asarray(obs[:-1]))
+    dist = jax_networks.parametric_action_distribution
+    raw = np.asarray(dist.sample_no_postprocessing(logits, jax.random.PRNGKey(seed)))
+    log_prob = np.asarray(dist.log_prob(logits, jnp.asarray(raw)))
+    log_prob = log_prob + 0.1 * rng.standard_normal(log_prob.shape).astype(np.float32)
+    truncation = (rng.uniform(size=(T, N)) < 0.1).astype(np.float32)
+    done = np.maximum((rng.uniform(size=(T, N)) < 0.1).astype(np.float32), truncation)
+    return dict(observation=obs[:-1], action=np.tanh(raw), raw_action=raw, log_prob=log_prob,
+                reward=rng.standard_normal((T, N)).astype(np.float32), discount=1 - done, truncation=truncation,
+                next_observation=obs[1:])
