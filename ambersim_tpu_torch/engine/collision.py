@@ -1,12 +1,18 @@
-"""Batched collision over the model's static candidate pairs: the plane
-against sphere, capsule and box (every quadruped geom pair). Port of
-ambersim_tpu/engine/collision.py (_make_frame, the plane narrowphases,
-_mix_params and the static-pair branch of `collision`).
+"""Batched collision: the plane against sphere, capsule and box, and
+sphere-sphere, sphere-box and box-box (SAT, engine/convex.py). Port of
+ambersim_tpu/engine/collision.py (_make_frame, these narrowphases,
+_mix_params and `collision` with its broadphase-capped groups and global
+row cap).
 
 Each geom-type pair group runs one batched narrowphase and writes fixed
 contact slots; "no contact" is dist > includemargin, masked downstream.
-Contact frame rows are (normal, tangent1, tangent2), normal from geom1 to
-geom2, as in MuJoCo.
+A group with more candidate pairs than the model's broadphase cap has only
+`bpg_nsel` pairs' worth of slots, filled every step with the most-overlapping
+pairs by bounding-sphere distance, so its contact geom ids differ per env.
+With a max_contact_points row cap the ncand candidate slots are compacted
+to the ncon deepest. Both selections are index gathers after a stable sort
+(`_top_k`): exact, with no matrix product. Contact frame rows are (normal,
+tangent1, tangent2), normal from geom1 to geom2, as in MuJoCo.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ import torch
 
 from ambersim_tpu_torch.core import math as am
 from ambersim_tpu_torch.core.types import Contact, Data, GeomType, Model
+from ambersim_tpu_torch.engine import convex
 from ambersim_tpu_torch.engine.schedule import device_index
 
 _BIG = 1e10
@@ -88,11 +95,80 @@ def plane_box(xp1, xm1, s1, xp2, xm2, s2):
     return torch.stack(dists, dim=-1), pos, frame
 
 
+def _sphere_sphere_raw(c1, r1, c2, r2):
+    delta = c2 - c1
+    dd = torch.linalg.vector_norm(delta, dim=-1)
+    n = delta / torch.clamp(dd, min=1e-12)[..., None]
+    # concentric spheres: the z axis
+    n = torch.where(dd[..., None] > 1e-9, n, device_index(np.array([0.0, 0.0, 1.0]), c1.device))
+    dist = dd - (r1 + r2)
+    return dist, c1 + n * (r1 + 0.5 * dist)[..., None], n
+
+
+def sphere_sphere(xp1, xm1, s1, xp2, xm2, s2):
+    dist, pos, n = _sphere_sphere_raw(xp1, s1[..., 0], xp2, s2[..., 0])
+    return dist[..., None], pos[..., None, :], _make_frame(n)[..., None, :, :]
+
+
+def _sphere_box_raw(center, r, xp2, xm2, s2):
+    local = (xm2 * (center - xp2)[..., :, None]).sum(-2)  # sphere center in the box frame
+    inside = (local.abs() < s2).all(-1)
+    # a center inside the box is pushed out through the nearest face
+    onehot = torch.nn.functional.one_hot((s2 - local.abs()).argmin(-1), 3).to(local.dtype)
+    face_pt = torch.where(
+        inside[..., None], local * (1 - onehot) + onehot * torch.sign(local) * s2, torch.clamp(local, -s2, s2)
+    )
+    delta = xp2 + (xm2 * face_pt[..., None, :]).sum(-1) - center
+    dd = torch.linalg.vector_norm(delta, dim=-1)
+    n_out = delta / torch.clamp(dd, min=1e-12)[..., None]
+    n = torch.where(inside[..., None], -n_out, n_out)  # inside: from the sphere into the box face
+    dist = torch.where(inside, -(dd + r), dd - r)
+    return dist, center + n * (r + 0.5 * dist)[..., None], n
+
+
+def sphere_box(xp1, xm1, s1, xp2, xm2, s2):
+    dist, pos, n = _sphere_box_raw(xp1, s1[..., 0], xp2, xm2, s2)
+    return dist[..., None], pos[..., None, :], _make_frame(n)[..., None, :, :]
+
+
+def box_box(xp1, xm1, s1, xp2, xm2, s2):
+    """Exact SAT box-box with a clipped 8-point manifold (engine/convex.py)."""
+    dist, pos, n = convex.hull_hull(convex.box_hull(xp1, xm1, s1), convex.box_hull(xp2, xm2, s2), 8)
+    return dist, pos, _make_frame(n)[..., None, :, :].expand(pos.shape[:-1] + (3, 3))
+
+
+# keyed by (type1, type2) with type1 <= type2, as the compiler orders pairs
 _NARROWPHASE = {
     (int(GeomType.PLANE), int(GeomType.SPHERE)): (plane_sphere, 1),
     (int(GeomType.PLANE), int(GeomType.CAPSULE)): (plane_capsule, 2),
     (int(GeomType.PLANE), int(GeomType.BOX)): (plane_box, 4),
+    (int(GeomType.SPHERE), int(GeomType.SPHERE)): (sphere_sphere, 1),
+    (int(GeomType.SPHERE), int(GeomType.BOX)): (sphere_box, 1),
+    (int(GeomType.BOX), int(GeomType.BOX)): (box_box, 8),
 }
+
+
+def _top_k(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest entries along the last dim, largest first and
+    equal values lowest index first, as lax.top_k orders them. torch.topk
+    promises no order among equal values (empty slots all sit at -_BIG), so
+    this is a stable descending sort cut to k."""
+    return torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
+
+
+def _broadphase(m: Model, d: Data, tkey, g1s: np.ndarray, g2s: np.ndarray, k: int):
+    """(B, k) geom ids of the k most-overlapping pairs of a capped group, by
+    bounding-sphere (or plane half-space) distance minus the larger margin."""
+    dev = d.qpos.device
+    g1, g2 = device_index(g1s, dev), device_index(g2s, dev)
+    delta = d.geom_xpos[:, g2] - d.geom_xpos[:, g1]  # (B, P, 3)
+    margin_ub = torch.maximum(m.geom_margin[g1], m.geom_margin[g2])
+    if tkey[0] == int(GeomType.PLANE):
+        bound = (delta * d.geom_xmat[:, g1, :, 2]).sum(-1) - m.geom_rbound[g2]
+    else:
+        bound = torch.linalg.vector_norm(delta, dim=-1) - m.geom_rbound[g1] - m.geom_rbound[g2]
+    sel = _top_k(-(bound - margin_ub), k)
+    return g1[sel], g2[sel]
 
 
 def _mix_params(m: Model, g1: torch.Tensor, g2: torch.Tensor):
@@ -122,7 +198,8 @@ def _mix_params(m: Model, g1: torch.Tensor, g2: torch.Tensor):
 
 
 def collision(m: Model, d: Data) -> Data:
-    """Narrowphase for every static candidate pair into its contact slots."""
+    """Narrowphase for every candidate pair group into its contact slots, then
+    the row cap when the model has one."""
     s = m.skel
     if s.ncon == 0:
         return d
@@ -141,6 +218,12 @@ def collision(m: Model, d: Data) -> Data:
     solimp_all = d.qpos.new_zeros((B, ncand, 5))
     margin_all = d.qpos.new_zeros((B, ncand))
     gap_all = d.qpos.new_zeros((B, ncand))
+    geom1_all = device_index(s.con_geom1, dev, torch.int32).expand(B, -1).clone()
+    geom2_all = device_index(s.con_geom2, dev, torch.int32).expand(B, -1).clone()
+    capped = {
+        (int(t1), int(t2)): (int(adr), int(nsel))
+        for t1, t2, adr, nsel in zip(s.bpg_type1, s.bpg_type2, s.bpg_adr, s.bpg_nsel)
+    }
 
     groups: dict = {}
     for i in range(len(s.pair_geom1)):
@@ -148,32 +231,38 @@ def collision(m: Model, d: Data) -> Data:
     for tkey, idx_list in groups.items():
         fn, ncon_per = _NARROWPHASE[tkey]
         idx = np.array(idx_list, dtype=np.int32)
-        g1, g2 = ix(s.pair_geom1[idx]), ix(s.pair_geom2[idx])
-        slots = ix(np.concatenate([np.arange(ncon_per) + int(s.con_adr[i]) for i in idx]))
-        dist, pos, frame = fn(
-            d.geom_xpos[:, g1], d.geom_xmat[:, g1], m.geom_size[g1],
-            d.geom_xpos[:, g2], d.geom_xmat[:, g2], m.geom_size[g2],
+        if tkey in capped:
+            adr, k = capped[tkey]
+            g1, g2 = _broadphase(m, d, tkey, s.pair_geom1[idx], s.pair_geom2[idx], k)  # (B, k)
+            slots = ix(adr + np.arange(k * ncon_per))
+            geom1_all[:, slots] = g1.repeat_interleave(ncon_per, dim=1).to(torch.int32)
+            geom2_all[:, slots] = g2.repeat_interleave(ncon_per, dim=1).to(torch.int32)
+            poses = [torch.take_along_dim(x, g[(...,) + (None,) * (x.dim() - 2)], dim=1)
+                     for g in (g1, g2) for x in (d.geom_xpos, d.geom_xmat)]
+        else:
+            g1, g2 = ix(s.pair_geom1[idx]), ix(s.pair_geom2[idx])  # (P,)
+            slots = ix(np.concatenate([np.arange(ncon_per) + int(s.con_adr[i]) for i in idx]))
+            poses = [x[:, g] for g in (g1, g2) for x in (d.geom_xpos, d.geom_xmat)]
+        dist, pos, frame = fn(poses[0], poses[1], m.geom_size[g1], poses[2], poses[3], m.geom_size[g2])
+        pair_dim = g1.dim() - 1  # the pairs' dim of _mix_params: (P, ...) static, (B, k, ...) capped
+        friction, solref, solimp, margin, gap = (
+            x.repeat_interleave(ncon_per, dim=pair_dim) for x in _mix_params(m, g1, g2)
         )
-        friction, solref, solimp, margin, gap = _mix_params(m, g1, g2)
         dist_all[:, slots] = dist.reshape(B, -1)
         pos_all[:, slots] = pos.reshape(B, -1, 3)
         frame_all[:, slots] = frame.reshape(B, -1, 3, 3)
-        fric_all[:, slots] = friction.repeat_interleave(ncon_per, dim=0)
-        solref_all[:, slots] = solref.repeat_interleave(ncon_per, dim=0)
-        solimp_all[:, slots] = solimp.repeat_interleave(ncon_per, dim=0)
-        margin_all[:, slots] = margin.repeat_interleave(ncon_per, dim=0)  # includemargin
-        gap_all[:, slots] = gap.repeat_interleave(ncon_per, dim=0)
+        fric_all[:, slots] = friction
+        solref_all[:, slots] = solref
+        solimp_all[:, slots] = solimp
+        margin_all[:, slots] = margin  # includemargin
+        gap_all[:, slots] = gap
 
-    contact = Contact(
-        dist=dist_all,
-        pos=pos_all,
-        frame=frame_all,
-        friction=fric_all,
-        solref=solref_all,
-        solimp=solimp_all,
-        includemargin=margin_all,
-        gap=gap_all,
-        geom1=d.contact.geom1,
-        geom2=d.contact.geom2,
-    )
-    return d.replace(contact=contact)
+    fields = [dist_all, pos_all, frame_all, fric_all, solref_all, solimp_all, margin_all, gap_all, geom1_all,
+              geom2_all]
+    if s.ncon < ncand:
+        # global row cap (max_contact_points): keep the ncon candidates deepest
+        # past their margin; empty slots sit at -_BIG and tie, lowest slot first
+        sel = _top_k(margin_all - dist_all, s.ncon)  # (B, ncon)
+        fields = [torch.take_along_dim(x, sel[(...,) + (None,) * (x.dim() - 2)], dim=1) for x in fields]
+    names = ("dist", "pos", "frame", "friction", "solref", "solimp", "includemargin", "gap", "geom1", "geom2")
+    return d.replace(contact=Contact(**dict(zip(names, fields))))

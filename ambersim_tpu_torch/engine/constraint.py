@@ -226,8 +226,9 @@ def _geom_support(s) -> np.ndarray:
 def _point_jac_rows(m: Model, d: Data, pos: torch.Tensor, signed_support: torch.Tensor):
     """Translational jacobian of the relative velocity at world points.
 
-    pos (B, n, 3); signed_support (n, nv). Returns three (B, n, nv) tensors,
-    one per world axis."""
+    pos (B, n, 3); signed_support (n, nv), or (B, n, nv) when the contact
+    geoms differ per env. Returns three (B, n, nv) tensors, one per world
+    axis."""
     s = m.skel
     origin = d.subtree_com[:, device_index(s.body_rootid[s.dof_bodyid], d.qpos.device)]  # (B, nv, 3)
     cd = d.cdof[:, None]  # (B, 1, nv, 6)
@@ -316,9 +317,20 @@ def make_constraint(m: Model, d: Data) -> Data:
     if s.ncon and not (m.opt.disableflags & DisableBit.CONTACT):
         c = d.contact
         gsup = _geom_support(s)
-        signed_sup = ix(gsup[s.con_geom2] - gsup[s.con_geom1])  # (ncon, nv)
-        b1, b2 = ix(s.geom_bodyid[s.con_geom1]), ix(s.geom_bodyid[s.con_geom2])
-        invweight = m.body_invweight0[b1, 0] + m.body_invweight0[b2, 0]
+        if len(s.bpg_adr) == 0 and s.ncon == s.ncand:
+            # every contact slot has a compile-time geom pair
+            signed_sup = ix(gsup[s.con_geom2] - gsup[s.con_geom1])  # (ncon, nv)
+            b1, b2 = ix(s.geom_bodyid[s.con_geom1]), ix(s.geom_bodyid[s.con_geom2])
+            invweight = m.body_invweight0[b1, 0] + m.body_invweight0[b2, 0]
+        else:
+            # capped groups and the row cap choose pairs at run time: select by
+            # each env's contact geom ids (the reference's one-hot products at
+            # precision=HIGHEST, constraint.py:548-562, as exact gathers)
+            g1, g2 = c.geom1.long(), c.geom2.long()
+            gsup_t = ix(gsup)
+            signed_sup = gsup_t[g2] - gsup_t[g1]  # (B, ncon, nv)
+            biw = m.body_invweight0[ix(s.geom_bodyid), 0]  # (ngeom,)
+            invweight = biw[g1] + biw[g2]  # (B, ncon)
         jframe = _frame_rows(c.frame, _point_jac_rows(m, d, c.pos, signed_sup))  # 3 x (B, ncon, nv)
         pos_c = c.dist - c.includemargin
         k, b, imp = _kbi(m, c.solref, c.solimp, pos_c)
@@ -334,7 +346,7 @@ def make_constraint(m: Model, d: Data) -> Data:
             def g(x, sl=sl):
                 return x if sl is None else x[:, sl]
 
-            iw = invweight if sl is None else invweight[sl]
+            iw = invweight if sl is None else invweight[..., sl]
             jn, fr, k_g, b_g, imp_g, pos_g = g(jframe[0]), g(c.friction), g(k), g(b), g(imp), g(pos_c)
             dist_g, margin_g, act_g = g(c.dist), g(c.includemargin), g(active_c)
             jnq = (jn * qv).sum(-1)  # (B, S)

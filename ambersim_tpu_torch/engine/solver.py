@@ -8,15 +8,25 @@ quadratic on limit/contact rows; inactive rows contribute nothing. With
 elliptic cones each condim-3 contact's rows [N, T1, T2] cost the squared
 distance to the friction cone instead (bottom / middle / top zones).
 
-`solve` routes by row layout. A CPU tensor takes the route's plain version;
-a CUDA tensor launches the route's kernel (ops/newton.py) and never falls
-back to a plain version:
+`solve` routes by row layout and by nv, decided from shapes before any
+launch. A CPU tensor takes the route's plain version; a CUDA tensor launches
+the route's kernel (ops/newton.py) and never falls back to a plain version:
   * pyramidal rows that factor (PyramidStructure) -> kernel 4, plain
     `_newton_arrays` (batched _newton_arrays_jnp, solver.py:424);
   * other pyramidal rows -> kernel 5 on dense rows, the same plain version;
   * elliptic cones with one contiguous condim tail -> kernel 6, plain
-    `_newton_arrays_elliptic` (batched _newton_arrays_elliptic_jnp, :624).
+    `_newton_arrays_elliptic` (batched _newton_arrays_elliptic_jnp, :624);
+  * nv > ops.newton.MAX_NV (kernels 4-6 factor their Hessian with one warp)
+    -> `_newton_arrays` / `_newton_arrays_elliptic` themselves on the card,
+    their Hessian solve through engine.linalg.solve_pd, i.e. kernel 3. This
+    is the JAX package's own ladder on the TPU (solver.py:586-612, :855-873:
+    structured -> dense -> jnp when the Newton kernels do not fit VMEM, as
+    at the 32-body clutter scene's nv = 192), whose jnp Newton calls
+    linalg.solve_pd under the env vmap (:481).
 Any other elliptic layout raises NotImplementedError (io.bridge.check_slice).
+Outside the kernels J^T diag(h) J is a batched matrix product (engine.forward
+turns TF32 off for it); the matrix-vector products stay elementwise sums,
+the order the CPU parity bars were set in.
 """
 
 from __future__ import annotations
@@ -25,9 +35,11 @@ import numpy as np
 import torch
 
 from ambersim_tpu_torch.core.types import ConeType, Data, DisableBit, Model
+from ambersim_tpu_torch.engine import linalg
 from ambersim_tpu_torch.engine.constraint import _pyramid_structure
 from ambersim_tpu_torch.engine.linalg import solve_pd_unrolled
 from ambersim_tpu_torch.engine.schedule import device_index
+from ambersim_tpu_torch.ops.newton import MAX_NV
 
 _META_CACHE: dict = {}
 
@@ -101,9 +113,12 @@ def _mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return (A * x[:, None, :]).sum(-1)
 
 
-def _newton_arrays(J, qM, aref, D, fl, act, a_s, ws, tol, *, ne, nf, iterations, ls_iterations, use_ws):
+def _newton_arrays(J, qM, aref, D, fl, act, a_s, ws, tol, *, ne, nf, iterations, ls_iterations, use_ws,
+                   solve=solve_pd_unrolled):
     """Batched pyramidal Newton on dense rows in MuJoCo order. Returns
-    (qacc, efc_force, J^T efc_force). Plain version of kernels 4 and 5."""
+    (qacc, efc_force, J^T efc_force). Plain version of kernels 4 and 5 with
+    the default `solve`; `solve` = engine.linalg.solve_pd makes it the
+    large-nv route, whose Hessian solve is kernel 3 on the card."""
     nv = a_s.shape[-1]
 
     def total_cost(qacc, jar):
@@ -130,7 +145,7 @@ def _newton_arrays(J, qM, aref, D, fl, act, a_s, ws, tol, *, ne, nf, iterations,
         grad = Mdacc - (J * force[..., None]).sum(-2)
         h = torch.where(quad, D, 0.0)
         H = qM + (J * h[..., None]).transpose(-1, -2) @ J + 1e-8 * eye
-        p = -solve_pd_unrolled(H, grad)
+        p = -solve(H, grad)
         jp = _mv(J, p)
         pmp = (p * _mv(qM, p)).sum(-1)
         pma = (p * Mdacc).sum(-1)
@@ -214,14 +229,15 @@ def elliptic_total_cost(qacc, jar, qM, a_s, D, fl, act, mu, scale, *, ne, nf, nh
 
 def _newton_arrays_elliptic(
     J, qM, aref, D, fl, act, a_s, ws, tol, fr, impratio,
-    *, ne, nf, base, ncon, cdim, iterations, ls_iterations, use_ws,
+    *, ne, nf, base, ncon, cdim, iterations, ls_iterations, use_ws, solve=solve_pd_unrolled,
 ):
     """Batched elliptic Newton for one contiguous condim tail of `ncon`
     cone blocks starting at row `base`, rows in MuJoCo order; fr (B, ncon, 5)
     is the blocks' contact friction. Returns (qacc, efc_force, J^T
-    efc_force). Plain version of kernel 6: a batch-first port of
-    _newton_arrays_elliptic_jnp (JAX solver.py:624-811), including its
-    isfinite select in the line search."""
+    efc_force). Plain version of kernel 6 (with the default `solve`, as in
+    `_newton_arrays`): a batch-first port of _newton_arrays_elliptic_jnp
+    (JAX solver.py:624-811), including its isfinite select in the line
+    search."""
     B, _, nv = J.shape
     dtype = a_s.dtype
     S, nfr, nh = ncon, cdim - 1, base
@@ -285,7 +301,7 @@ def _newton_arrays_elliptic(
         W = W + bot_a[..., None, None] * torch.diag_embed(D_c)
         H = qM + (J_h * h_h[..., None]).transpose(-1, -2) @ J_h
         H = H + torch.einsum("bscv,bscd,bsdw->bvw", Rc, W, Rc) + 1e-8 * eye
-        p = -solve_pd_unrolled(H, grad)
+        p = -solve(H, grad)
         jp = _mv(J, p)
         pmp = (p * _mv(qM, p)).sum(-1)
         pma = (p * Mdacc).sum(-1)
@@ -357,15 +373,18 @@ def solve(m: Model, d: Data) -> Data:
     use_ws = not (m.opt.disableflags & DisableBit.WARMSTART)
     tol = m.opt.tolerance * s.nv * torch.clamp(m.body_mass.sum(), min=1.0)
     act = d.efc_active.to(d.qpos.dtype)
-    plain = d.qpos.device.type == "cpu"
+    # the plain versions on a CPU tensor; on the card the batched arrays
+    # themselves when nv is past the Newton kernels (their Hessian solve is
+    # kernel 3 through linalg.solve_pd)
+    arrays = d.qpos.device.type == "cpu" or s.nv > MAX_NV
     rows = (d.efc_J, d.qM, d.efc_aref, d.efc_D, d.efc_frictionloss, act, d.qacc_smooth, d.qacc_warmstart)
     statics = dict(iterations=iterations, ls_iterations=ls_iterations, use_ws=use_ws)
     if _is_elliptic(m):
         cdim, slots, base, full = elliptic_tail(s)
         fr = d.contact.friction if full else d.contact.friction[:, device_index(slots, d.qpos.device)]
         cone = dict(ne=int(s.ne), nf=int(s.nf), base=base, ncon=len(slots), cdim=cdim, **statics)
-        if plain:
-            qacc, force, qfrc = _newton_arrays_elliptic(*rows, tol, fr, m.opt.impratio, **cone)
+        if arrays:
+            qacc, force, qfrc = _newton_arrays_elliptic(*rows, tol, fr, m.opt.impratio, **cone, solve=linalg.solve_pd)
         else:
             from ambersim_tpu_torch.ops.newton import newton_solve_elliptic
 
@@ -373,8 +392,8 @@ def solve(m: Model, d: Data) -> Data:
         return d.replace(qacc=qacc, qfrc_constraint=qfrc, efc_force=force, qacc_warmstart=qacc)
 
     st = _pyramid_structure(s)
-    if plain:
-        qacc, force, qfrc = _newton_arrays(*rows, tol, ne=int(s.ne), nf=int(s.nf), **statics)
+    if arrays:
+        qacc, force, qfrc = _newton_arrays(*rows, tol, ne=int(s.ne), nf=int(s.nf), **statics, solve=linalg.solve_pd)
     elif st is not None:
         from ambersim_tpu_torch.ops.newton import newton_solve_structured
 

@@ -46,10 +46,14 @@ from ambersim_tpu_torch.core.types import (
 
 ASSETS = Path(__file__).resolve().parent.parent / "assets"
 
-_PLANE_PAIRS = {
+# the geom-type pairs of engine/collision.py's narrowphase table
+_PAIRS = {
     (int(GeomType.PLANE), int(GeomType.SPHERE)),
     (int(GeomType.PLANE), int(GeomType.CAPSULE)),
     (int(GeomType.PLANE), int(GeomType.BOX)),
+    (int(GeomType.SPHERE), int(GeomType.SPHERE)),
+    (int(GeomType.SPHERE), int(GeomType.BOX)),
+    (int(GeomType.BOX), int(GeomType.BOX)),
 }
 
 
@@ -189,10 +193,8 @@ def check_slice(m: Model) -> None:
         except NotImplementedError as err:
             missing.append(str(err))
     for t1, t2 in set(zip(np.asarray(s.pair_ctype1).tolist(), np.asarray(s.pair_ctype2).tolist())):
-        if (t1, t2) not in _PLANE_PAIRS:
+        if (t1, t2) not in _PAIRS:
             missing.append(f"{GeomType(t1).name.lower()}-{GeomType(t2).name.lower()} contact pairs")
-    if len(s.bpg_adr) or s.ncon < s.ncand:
-        missing.append("broadphase and contact caps")
     if (np.asarray(s.pair_explicit) >= 0).any():
         missing.append("explicit <pair> contact overrides")
     if any(int(s.jnt_type[j]) == int(JointType.BALL) for j in s.limit_jntid):

@@ -23,7 +23,7 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-SOURCES = ("linalg.cu", "newton_structured.cu", "newton_dense.cu", "newton_elliptic.cu")
+SOURCES = ("linalg.cu", "linalg_block.cu", "newton_structured.cu", "newton_dense.cu", "newton_elliptic.cu")
 HEADERS = ("linalg.cuh", "newton_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -31,7 +31,8 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES = {
-    "cholesky": 0, "cho_solve": 0, "solve_pd": 0, "newton_structured": 0, "newton_dense": 0, "newton_elliptic": 0,
+    "cholesky": 0, "cho_solve": 0, "solve_pd": 0, "cholesky_block": 0, "cho_solve_block": 0, "solve_pd_block": 0,
+    "newton_structured": 0, "newton_dense": 0, "newton_elliptic": 0,
 }
 
 _lib = None
@@ -100,11 +101,15 @@ def library() -> ctypes.CDLL:
         lib.amb_cholesky.argtypes = [P, P, I, I, P]
         lib.amb_cho_solve.argtypes = [P, P, P, I, I, P]
         lib.amb_solve_pd.argtypes = [P, P, P, I, I, P]
+        lib.amb_cholesky_block.argtypes = [P, P, I, I, P]
+        lib.amb_cho_solve_block.argtypes = [P, P, P, I, I, P]
+        lib.amb_solve_pd_block.argtypes = [P, P, P, I, I, P]
         lib.amb_newton_structured.argtypes = [P] * 16 + [I] * 12 + [P]
         lib.amb_newton_dense.argtypes = [P] * 12 + [I] * 8 + [P]
         lib.amb_newton_elliptic.argtypes = [P] * 15 + [I] * 11 + [P]
         lib.amb_elliptic_ls_step.argtypes = [P, P, I, P]
-        for fn in (lib.amb_cholesky, lib.amb_cho_solve, lib.amb_solve_pd, lib.amb_newton_structured,
+        for fn in (lib.amb_cholesky, lib.amb_cho_solve, lib.amb_solve_pd, lib.amb_cholesky_block,
+                   lib.amb_cho_solve_block, lib.amb_solve_pd_block, lib.amb_newton_structured,
                    lib.amb_newton_dense, lib.amb_newton_elliptic, lib.amb_elliptic_ls_step):
             fn.restype = I
         for fn, nargs in ((lib.amb_newton_smem_bytes, 5), (lib.amb_newton_dense_smem_bytes, 2),

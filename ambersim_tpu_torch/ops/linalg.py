@@ -1,15 +1,23 @@
-"""Launchers of kernels 1-3 (csrc/linalg.cu): batched Cholesky factor,
-Cholesky solve and fused SPD solve on CUDA tensors.
+"""Launchers of kernels 1-3: batched Cholesky factor, Cholesky solve and
+fused SPD solve on CUDA tensors, in two designs chosen by n:
+
+  * 1 <= n <= 32: one warp per system (csrc/linalg.cu), counted as
+    `cholesky`, `cho_solve` and `solve_pd`;
+  * 32 < n <= 192: one thread block per system with the matrix in dynamic
+    shared memory (csrc/linalg_block.cu), counted as `cholesky_block`,
+    `cho_solve_block` and `solve_pd_block`.
 
 They replace cholesky_batched, cho_solve_batched and solve_pd_batched of
-ambersim_tpu/ops/linalg_pallas.py. Their plain PyTorch versions, which the
-CPU path runs and the kernels are held against, are
+ambersim_tpu/ops/linalg_pallas.py, which the JAX package runs up to n = 192
+(engine/linalg.py:30) and past that sends to XLA's native path; that range is
+still to port here (ROADMAP.md). Their plain PyTorch versions, which the CPU
+path runs and the kernels are held against, are
 `cholesky_unrolled`/`cho_solve_unrolled`/`solve_pd_unrolled` in
 engine/linalg.py; `engine.linalg.cholesky` etc. choose by device.
 
-Each launcher takes only what its kernel takes and raises on anything else
+Each launcher takes only what its kernels take and raises on anything else
 (no fallback): float32, contiguous, on a CUDA device, (B, n, n) with
-1 <= n <= 32 and (B, n) right-hand sides, no autograd.
+1 <= n <= 192 and (B, n) right-hand sides, no autograd.
 """
 
 from __future__ import annotations
@@ -18,7 +26,8 @@ import torch
 
 from ambersim_tpu_torch.ops._build import LAUNCHES, check_launch, library, stream_handle
 
-MAX_N = 32
+MAX_N_WARP = 32  # one warp per system: lane i owns row i
+MAX_N = 192  # one block per system: 192 x 193 floats of shared memory
 
 
 def _check(name: str, mats: torch.Tensor, vecs: torch.Tensor | None = None) -> tuple[int, int]:
@@ -35,7 +44,7 @@ def _check(name: str, mats: torch.Tensor, vecs: torch.Tensor | None = None) -> t
         raise ValueError(f"{name}: matrices must be (B, n, n), got {tuple(mats.shape)}")
     B, n = mats.shape[0], mats.shape[1]
     if not 1 <= n <= MAX_N:
-        raise ValueError(f"{name}: the kernel takes 1 <= n <= {MAX_N}, got n={n}")
+        raise ValueError(f"{name}: the kernels take 1 <= n <= {MAX_N}, got n={n}")
     if vecs is not None:
         if tuple(vecs.shape) != (B, n):
             raise ValueError(f"{name}: right-hand side must be {(B, n)}, got {tuple(vecs.shape)}")
@@ -44,15 +53,20 @@ def _check(name: str, mats: torch.Tensor, vecs: torch.Tensor | None = None) -> t
     return B, n
 
 
+def _launch(kernel: str, n: int, *args) -> None:
+    """Launch `kernel` (warp design) or `kernel`_block (block design) by n."""
+    name = kernel if n <= MAX_N_WARP else f"{kernel}_block"
+    check_launch(getattr(library(), f"amb_{name}")(*args), name)
+    LAUNCHES[name] += 1
+
+
 def cholesky_batched(a: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factors of (B, n, n) SPD matrices (kernel 1). Reads
     only the lower triangle; the result is zero above the diagonal."""
     B, n = _check("cholesky_batched", a)
     out = torch.empty_like(a)
     if B:
-        err = library().amb_cholesky(a.data_ptr(), out.data_ptr(), B, n, stream_handle(a.device))
-        check_launch(err, "cholesky")
-        LAUNCHES["cholesky"] += 1
+        _launch("cholesky", n, a.data_ptr(), out.data_ptr(), B, n, stream_handle(a.device))
     return out
 
 
@@ -61,9 +75,7 @@ def cho_solve_batched(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     B, n = _check("cho_solve_batched", l, b)
     out = torch.empty_like(b)
     if B:
-        err = library().amb_cho_solve(l.data_ptr(), b.data_ptr(), out.data_ptr(), B, n, stream_handle(l.device))
-        check_launch(err, "cho_solve")
-        LAUNCHES["cho_solve"] += 1
+        _launch("cho_solve", n, l.data_ptr(), b.data_ptr(), out.data_ptr(), B, n, stream_handle(l.device))
     return out
 
 
@@ -72,7 +84,5 @@ def solve_pd_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     B, n = _check("solve_pd_batched", a, b)
     out = torch.empty_like(b)
     if B:
-        err = library().amb_solve_pd(a.data_ptr(), b.data_ptr(), out.data_ptr(), B, n, stream_handle(a.device))
-        check_launch(err, "solve_pd")
-        LAUNCHES["solve_pd"] += 1
+        _launch("solve_pd", n, a.data_ptr(), b.data_ptr(), out.data_ptr(), B, n, stream_handle(a.device))
     return out

@@ -15,6 +15,10 @@ the card, and steps every ported path through the port's entry points:
     (benchmarks/elliptic_gap.py:30-35), through the elliptic Newton kernel;
   * the humanoid at 1024 envs x 20 steps, through the structured kernel at
     nv = 25;
+  * the 32-body clutter scene (nv = 192) at 256 envs, broadphase-capped
+    with and without the max_contact_points row cap (benchmarks/ladder.py
+    rungs 3b and 3c), through kernels 1-3 past n = 32 (one thread block per
+    system) and the large-nv Newton route;
   * PPO training of the 4096-env quadruped locomotion policy, one training
     step at bench.py:142-177's settings, through kernels 1-4;
   * PPO on the pendulum swingup at examples/rl/pendulum/ex_agents.py's
@@ -23,9 +27,14 @@ the card, and steps every ported path through the port's entry points:
 For each path it checks that every step went through the path's kernels
 and compares 8 envs of the rollout on the card with the same rollout on the
 CPU (plain versions), and the quadruped env's obs and reward likewise. It
-imports nothing of JAX. Output: progress lines, a
-JSON line of per-kernel results, the card's name and power limit, and as
-the last line {"ok": true, "device": {"platform": "gpu", "kind": ...,
+also checks that the clutter scene's broadphase and row-cap selections move
+geom ids above 256 and contact distances bit for bit with TF32 on. It
+imports nothing of JAX. Output: progress lines, a JSON line of per-kernel
+results (launches on the paths, error against the plain version, ms beside
+the plain version's, the library call's where PyTorch has one, and the
+bound: bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s, the
+H100 SXM's published peaks), the card's name and power limit, and as the
+last line {"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}. Any failed check exits non-zero without that line.
 """
 
@@ -43,6 +52,26 @@ NUM_ENVS = 4096
 NUM_STEPS = 100
 KP, KD = 60.0, 2.0
 LINALG_TOL = 1e-5  # tests/test_linalg_pallas.py:31
+# Kernels 1-3 past n = 32 against their plain versions: the bars of the JAX
+# package's n = 192 tests (tests/test_linalg_pallas.py:76-98); an n-column
+# float32 sweep rounds n times as often as an 18-column one.
+LARGE_LINALG_TOL = 2e-4
+LARGE_NS = (33, 64, 65, 128, 192)
+# H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s and float32
+# operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# The clutter scene at benchmarks/ladder.py's width (rungs 3b and 3c):
+# 256 envs, CLUTTER_SETTLE steps of settling, CLUTTER_STEPS timed steps.
+CLUTTER_ENVS = 256
+CLUTTER_SETTLE = 400
+CLUTTER_STEPS = 100
+FLOOR_TOL = 0.005  # no geom below the floor by more than 5 mm after the settle
+CLUTTER_CARD_VS_CPU_STEPS = 5
+# absolute floors under the clutter card-vs-CPU bars (10 x the card's own
+# spread): far below the 4.9e-4 m a body with no contact force falls in
+# 5 steps, and the 1e-2 m/s that a 10% contact-force error makes
+CLUTTER_QPOS_EPS, CLUTTER_QVEL_EPS = 1e-6, 1e-5
 # Kernels 4 and 5 against their plain version: the bar of
 # tests/test_newton_pallas.py (rtol/atol 1e-4 elementwise) must hold on at
 # least 99% of the envs, and every env must agree within 5% of its largest
@@ -112,6 +141,9 @@ KERNELS = {
     "cholesky": ("linalg.cu", "ambersim_tpu/ops/linalg_pallas.py:319"),
     "cho_solve": ("linalg.cu", "ambersim_tpu/ops/linalg_pallas.py:324"),
     "solve_pd": ("linalg.cu", "ambersim_tpu/ops/linalg_pallas.py:314"),
+    "cholesky_block": ("linalg_block.cu", "ambersim_tpu/ops/linalg_pallas.py:319"),
+    "cho_solve_block": ("linalg_block.cu", "ambersim_tpu/ops/linalg_pallas.py:324"),
+    "solve_pd_block": ("linalg_block.cu", "ambersim_tpu/ops/linalg_pallas.py:314"),
     "newton_structured": ("newton_structured.cu", "ambersim_tpu/ops/newton_pallas.py:582"),
     "newton_dense": ("newton_dense.cu", "ambersim_tpu/ops/newton_pallas.py:247"),
     "newton_elliptic": ("newton_elliptic.cu", "ambersim_tpu/ops/newton_pallas.py:1083"),
@@ -147,6 +179,39 @@ def cuda_ms(fn, reps: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the float32 rate, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def linalg_bound(name: str, B: int, n: int) -> dict:
+    """Kernels 1-3 on B systems of size n, float32: each reads only the lower
+    triangle of its (B, n, n) input, n(n+1)/2 floats a system; a factor
+    writes the whole L, a solve reads and writes one (B, n) vector. n^3/3
+    operations for a factor and 2 n^2 for the two sweeps."""
+    tri, mat, vec = 4.0 * B * n * (n + 1) / 2, 4.0 * B * n * n, 4.0 * B * n
+    if name == "cholesky":
+        return bound(tri + mat, B * n**3 / 3)
+    if name == "cho_solve":
+        return bound(tri + 2 * vec, B * 2.0 * n * n)
+    return bound(tri + 2 * vec, B * (n**3 / 3 + 2.0 * n * n))
+
+
+def newton_bound(tensors, nefc: int, nv: int, act, iterations: int, ls_iterations: int) -> dict:
+    """A Newton solve of B envs: its operand tensors read once, qacc,
+    efc_force and qfrc_constraint written once; per iteration the Hessian
+    over this run's mean active rows (2 n_active nv^2), its factor and solve
+    (nv^3/3 + 2 nv^2), two row products (4 nefc nv) and ~10 operations per
+    row and line-search step. act is the (B, nefc) row activity."""
+    B = act.shape[0]
+    n_active = act.float().sum(1).mean().item()
+    nbytes = sum(t.numel() * t.element_size() for t in tensors) + 4.0 * B * (2 * nv + nefc)
+    per_iter = 2.0 * n_active * nv * nv + nv**3 / 3 + 2.0 * nv * nv + 4.0 * nefc * nv + 10.0 * nefc * ls_iterations
+    return bound(nbytes, B * iterations * per_iter)
 
 
 def max_err(got, want, rtol: float, atol: float, what: str) -> float:
@@ -344,7 +409,118 @@ def synthetic_elliptic_problem(B: int, nv: int, nh: int, S: int, cdim: int, seed
                 ne=ne, nf=nf, base=nh, ncon=S, cdim=cdim)
 
 
+def selection_case(device, row_cap: bool, B: int = 4, nspheres: int = 300, k: int = 8, ncon: int = 10):
+    """A synthetic scene past 256 geoms for the selection checks: the floor
+    and `nspheres` spheres of radius 0.01 (geom ids 1..nspheres), two capped
+    groups of k slots (plane-sphere and every sphere-sphere pair) and, with
+    `row_cap`, a row cap of ncon. Sphere 261-270 stand 2-20 mm deep in the
+    floor and spheres 281-300 overlap in pairs by 1-10 mm, in an order drawn
+    per env; the others sit on a jittered 0.1 m grid far from everything.
+    Built from the clutter asset's geom parameters and numpy-seeded geom
+    poses, without JAX. Returns (model, Data after the poses, the model
+    without the row cap, the expected (B, k) geom ids of both groups)."""
+    import numpy as np
+    import torch
+
+    from ambersim_tpu_torch import load_model
+    from ambersim_tpu_torch.engine import make_data
+
+    base = load_model("clutter32_cap48", device=device)
+    G = nspheres + 1
+    rng = np.random.default_rng(21)
+    ss1, ss2 = np.triu_indices(nspheres, 1)
+    pair_g1 = np.concatenate([np.zeros(nspheres, np.int32), ss1 + 1]).astype(np.int32)
+    pair_g2 = np.concatenate([np.arange(1, G), ss2 + 1]).astype(np.int32)
+
+    def floor_and_spheres(x):  # the floor's entry, then sphere geom 1's for every sphere
+        return torch.cat([x[:1], x[1:2].expand((nspheres,) + tuple(x.shape[1:]))])
+
+    leaves = {f: floor_and_spheres(getattr(base, f)) for f in (
+        "geom_priority", "geom_solmix", "geom_solref", "geom_solimp", "geom_friction", "geom_margin", "geom_gap")}
+    leaves["geom_size"] = torch.tensor([[0.0, 0.0, 1.0]] + [[0.01, 0.0, 0.0]] * nspheres, device=device)
+    leaves["geom_rbound"] = torch.tensor([0.0] + [0.01] * nspheres, device=device)
+    ncand = 2 * k
+    skel = base.skel.replace(
+        ngeom=G, geom_type=np.array([0] + [2] * nspheres, np.int32), pair_geom1=pair_g1, pair_geom2=pair_g2,
+        pair_ctype1=np.where(pair_g1 == 0, 0, 2).astype(np.int32), pair_ctype2=np.full(len(pair_g1), 2, np.int32),
+        pair_explicit=np.full(len(pair_g1), -1, np.int32), con_adr=np.full(len(pair_g1), -1, np.int32),
+        con_geom1=np.zeros(ncand, np.int32), con_geom2=np.zeros(ncand, np.int32),
+        bpg_type1=np.array([0, 2], np.int32), bpg_type2=np.array([2, 2], np.int32),
+        bpg_adr=np.array([0, k], np.int32), bpg_nsel=np.array([k, k], np.int32), ncand=ncand, ncon=ncand,
+    )
+    m_all = base.replace(skel=skel, **leaves)
+    m = m_all.replace(skel=skel.replace(ncon=ncon)) if row_cap else m_all
+
+    grid = np.stack(np.meshgrid(*[np.arange(7)] * 3, indexing="ij"), -1).reshape(-1, 3)[:nspheres]
+    pos = np.zeros((B, G, 3))
+    pos[:, 1:] = 0.1 * grid + np.array([0.0, 0.0, 0.3]) + rng.uniform(-0.02, 0.02, (B, nspheres, 3))
+    floor_ids, pair_ids = np.arange(261, 271), np.arange(281, 301).reshape(10, 2)
+    want = np.zeros((B, 2, k, 2), np.int64)
+    for b in range(B):
+        depth = rng.permutation(10)
+        pos[b, floor_ids] = np.stack([0.05 * np.arange(10), np.full(10, -1.0), 0.008 - 0.002 * depth], -1)
+        want[b, 0, :, 1] = floor_ids[np.argsort(0.008 - 0.002 * depth, kind="stable")[:k]]
+        overlap = 0.001 * (1 + rng.permutation(10))
+        for q, (i, j) in enumerate(pair_ids):
+            pos[b, i] = np.array([0.05 * q, 1.0, 0.5])
+            pos[b, j] = pos[b, i] + np.array([0.02 - overlap[q], 0.0, 0.0])
+        want[b, 1] = pair_ids[np.argsort(-overlap, kind="stable")[:k]]
+    d = make_data(m, B)
+    d = d.replace(geom_xpos=torch.as_tensor(pos.astype(np.float32), device=device),
+                  geom_xmat=torch.eye(3, device=device).expand(B, G, 3, 3).contiguous())
+    return m, d, m_all, torch.as_tensor(want, device=device)
+
+
+def check_selection_exact(device, row_cap: bool) -> None:
+    """The broadphase top-k and the row cap move geom ids above 256 and
+    contact distances bit for bit (selection_case): the capped slots hold the
+    expected pairs and exactly the distances their narrowphase gives, and
+    the row cap's rows are exactly the uncapped slots of the ncon largest
+    includemargin - dist, ties lowest slot first. On the card it runs with
+    TF32 matmuls allowed, so a selection spelled as a product would fail.
+    Raises AssertionError."""
+    import numpy as np
+    import torch
+
+    from ambersim_tpu_torch.engine import collision
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = device.type == "cuda"
+    try:
+        m, d, m_all, want = selection_case(device, row_cap)
+        got = collision.collision(m_all, d).contact
+        k = want.shape[2]
+        for grp, fn in ((0, collision.plane_sphere), (1, collision.sphere_sphere)):
+            sl = slice(grp * k, (grp + 1) * k)
+            g1, g2 = want[:, grp, :, 0], want[:, grp, :, 1]
+            if not (torch.equal(got.geom1[:, sl].long(), g1) and torch.equal(got.geom2[:, sl].long(), g2)):
+                raise AssertionError(f"group {grp}: selected geom ids {got.geom2[:, sl].tolist()}, want {g2.tolist()}")
+            poses = [torch.take_along_dim(x, g[(...,) + (None,) * (x.dim() - 2)], dim=1)
+                     for g in (g1, g2) for x in (d.geom_xpos, d.geom_xmat)]
+            dist = fn(poses[0], poses[1], m.geom_size[g1], poses[2], poses[3], m.geom_size[g2])[0][..., 0]
+            if not torch.equal(got.dist[:, sl], dist):
+                raise AssertionError(f"group {grp}: contact distances changed by the selection")
+        if int(want.max()) <= 256:
+            raise AssertionError("no geom id above 256 selected")
+        if row_cap:
+            capped = collision.collision(m, d).contact
+            key = (got.includemargin - got.dist).cpu().numpy()
+            order = torch.as_tensor(np.argsort(-key, axis=1, kind="stable")[:, : m.skel.ncon], device=device)
+            for f in ("dist", "pos", "frame", "friction", "includemargin", "geom1", "geom2"):
+                x = getattr(got, f)
+                if not torch.equal(getattr(capped, f), torch.take_along_dim(
+                        x, order[(...,) + (None,) * (x.dim() - 2)], dim=1)):
+                    raise AssertionError(f"row cap: contact.{f} is not the uncapped slots' at the deepest rows")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
 def check_linalg(device, results):
+    """Kernels 1-3 against their plain versions: the warp kernels at n <= 32,
+    the block kernels at LARGE_NS on the clutter width; each leaves the upper
+    triangle unread and L zero above the diagonal. Times (and the library
+    calls': torch.linalg.cholesky, torch.cholesky_solve) at the main path's
+    (4096, 18) and the clutter path's (256, 192)."""
     import numpy as np
     import torch
 
@@ -352,29 +528,49 @@ def check_linalg(device, results):
     from ambersim_tpu_torch.ops import linalg as kernels
 
     rng = np.random.default_rng(1)
-    errs = {"cholesky": 0.0, "cho_solve": 0.0, "solve_pd": 0.0}
-    times = {}
-    for B, n in ((NUM_ENVS, 18), (257, 1), (257, 7), (257, 25), (257, 32)):
+    errs = {k: 0.0 for k in _LINALG + _LINALG_BLOCK}
+    timed = {(NUM_ENVS, 18), (CLUTTER_ENVS, 192)}
+    sizes = ((NUM_ENVS, 18), (257, 1), (257, 7), (257, 25), (257, 32)) + tuple((CLUTTER_ENVS, n) for n in LARGE_NS)
+    for B, n in sizes:
+        tol = LINALG_TOL if n <= kernels.MAX_N_WARP else LARGE_LINALG_TOL
         a, b = random_spd(rng, B, n, device)
         l_ref = plain.cholesky_unrolled(a)
         cases = {
-            "cholesky": (lambda: kernels.cholesky_batched(a), lambda: plain.cholesky_unrolled(a)),
-            "cho_solve": (lambda: kernels.cho_solve_batched(l_ref, b), lambda: plain.cho_solve_unrolled(l_ref, b)),
-            "solve_pd": (lambda: kernels.solve_pd_batched(a, b), lambda: plain.solve_pd_unrolled(a, b)),
+            "cholesky": (lambda: kernels.cholesky_batched(a), lambda: plain.cholesky_unrolled(a),
+                         lambda: torch.linalg.cholesky(a)),
+            "cho_solve": (lambda: kernels.cho_solve_batched(l_ref, b), lambda: plain.cho_solve_unrolled(l_ref, b),
+                          lambda: torch.cholesky_solve(b[..., None], l_ref)[..., 0]),
+            "solve_pd": (lambda: kernels.solve_pd_batched(a, b), lambda: plain.solve_pd_unrolled(a, b),
+                         lambda: torch.cholesky_solve(b[..., None], torch.linalg.cholesky(a))[..., 0]),
         }
-        for name, (kern, ref) in cases.items():
+        for name, (kern, ref, lib) in cases.items():
+            key = name if n <= kernels.MAX_N_WARP else f"{name}_block"
             got, want = kern(), ref()
             torch.cuda.synchronize()
-            errs[name] = max(errs[name], max_err(got, want, LINALG_TOL, LINALG_TOL, f"{name} B={B} n={n}"))
-            if (B, n) == (NUM_ENVS, 18):
-                times[name] = (cuda_ms(kern), cuda_ms(ref))
+            errs[key] = max(errs[key], max_err(got, want, tol, tol, f"{key} B={B} n={n}"))
+            if (B, n) in timed:
+                ms, plain_ms, library_ms = cuda_ms(kern), cuda_ms(ref), cuda_ms(lib)
+                results[key].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **linalg_bound(name, B, n))
+                print(f"kernel {key}: B={B} n={n} {ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
+                      f"bound {results[key]['bound_ms']:.4f} ms ({results[key]['bound_by']})")
         # the kernels read only the lower triangle (the contract kernel 4 relies on)
         a_low = torch.tril(a) + torch.triu(torch.full_like(a, 1e6), diagonal=1)
-        max_err(kernels.cholesky_batched(a_low), kernels.cholesky_batched(a), 0.0, 0.0, f"upper triangle n={n}")
-    for name in ("cholesky", "cho_solve", "solve_pd"):
-        ms, plain_ms = times[name]
-        print(f"kernel {name}: B={NUM_ENVS} n=18 {ms:.4f} ms, plain {plain_ms:.4f} ms, max |err| {errs[name]:.2e}")
-        results[name].update(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms)
+        l_got = kernels.cholesky_batched(a)
+        max_err(kernels.cholesky_batched(a_low), l_got, 0.0, 0.0, f"upper triangle n={n}")
+        max_err(kernels.solve_pd_batched(a_low, b), kernels.solve_pd_batched(a, b), 0.0, 0.0, f"upper triangle solve n={n}")
+        if torch.triu(l_got, diagonal=1).abs().max().item() != 0.0:
+            fail(f"cholesky n={n}: nonzero above the diagonal")
+    for k in _LINALG + _LINALG_BLOCK:
+        print(f"kernel {k}: max |kernel - plain| {errs[k]:.2e}")
+        results[k]["max_abs_err"] = errs[k]
+    # past the block kernels' n the launchers refuse, on the card too
+    a, b = random_spd(rng, 2, kernels.MAX_N + 1, device)
+    try:
+        kernels.solve_pd_batched(a, b)
+    except ValueError:
+        pass
+    else:
+        fail(f"solve_pd_batched took n = {kernels.MAX_N + 1}")
 
 
 def pre_solve(m, d):
@@ -453,7 +649,9 @@ def check_newton(m, device, results):
     want = _newton_arrays(**pa2, iterations=5, ls_iterations=8, use_ws=True)
     err = max(err, newton_err(got, want, "newton synthetic"))
     print(f"kernel newton_structured: B={NUM_ENVS} {ms:.4f} ms, plain {plain_ms:.4f} ms, max |err| {err:.2e}")
-    results["newton_structured"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    operands = [d.efc_bJ, d.efc_dsc] + [pa[k] for k in ("qM", "aref", "D", "fl", "act", "a_s", "ws")]
+    results["newton_structured"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                                        **newton_bound(operands, s.nefc, s.nv, pa["act"], it, ls))
 
 
 def check_newton_dense(device, results):
@@ -473,7 +671,7 @@ def check_newton_dense(device, results):
         return newton_solve_dense(pa.pop("J"), pa.pop("qM"), pa.pop("aref"), pa.pop("D"), pa.pop("fl"),
                                   pa.pop("act"), pa.pop("a_s"), pa.pop("ws"), pa.pop("tol"), **pa, **kw)
 
-    err, timed = 0.0, None
+    err, timed, humanoid_bound = 0.0, None, None
     # the humanoid stands in contact at its start; arm3 and cartpole reach
     # their contacts and limits within their paths' first 100 steps
     for name, steps in (("humanoid", 0), ("arm3", 100), ("cartpole", 100)):
@@ -501,6 +699,8 @@ def check_newton_dense(device, results):
                      cuda_ms(lambda: newton_solve_structured(
                          pa["J"], d.efc_bJ, d.efc_dsc, pa["qM"], pa["aref"], pa["D"], pa["fl"], pa["act"], pa["a_s"],
                          pa["ws"], pa["tol"], st=st, **kw)))
+            humanoid_bound = newton_bound([pa[k] for k in ("J", "qM", "aref", "D", "fl", "act", "a_s", "ws")],
+                                          s.nefc, s.nv, pa["act"], kw["iterations"], kw["ls_iterations"])
         elif name == "cartpole":
             print(f"kernel newton_dense: cartpole B=1024 {cuda_ms(lambda: dense(pa, **kw)):.4f} ms, "
                   f"plain {cuda_ms(lambda: _newton_arrays(**pa, **kw)):.4f} ms")
@@ -512,7 +712,7 @@ def check_newton_dense(device, results):
     ms, plain_ms, k4_ms = timed
     print(f"kernel newton_dense: humanoid B=1024 {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"newton_structured on the same {k4_ms:.4f} ms, max |err| {err:.2e}")
-    results["newton_dense"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    results["newton_dense"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **humanoid_bound)
 
 
 def check_newton_elliptic(device, results):
@@ -611,7 +811,9 @@ def check_newton_elliptic(device, results):
         fail(f"newton_elliptic line-search step: got {out}, want {want}")
 
     print(f"kernel newton_elliptic: B={NUM_ENVS} {ms:.4f} ms, plain {plain_ms:.4f} ms, max |err| {err:.2e}")
-    results["newton_elliptic"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    operands = [pa[k] for k in ("J", "qM", "aref", "D", "fl", "act", "a_s", "ws", "fr")]
+    results["newton_elliptic"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                                      **newton_bound(operands, s.nefc, s.nv, pa["act"], it, ls))
 
 
 def initial_batch(m, batch: int, device):
@@ -665,7 +867,12 @@ def pd_ctrl(d):
 
 
 _LINALG = ("cholesky", "cho_solve", "solve_pd")
-# path -> its model, batch, steps, start, controller and the kernels every step launches
+_LINALG_BLOCK = ("cholesky_block", "cho_solve_block", "solve_pd_block")
+# the clutter scene's launches per step: qM's factor, qacc_smooth's solve and
+# one Hessian solve per Newton iteration (opt.iterations = 6), no Newton kernel
+CLUTTER_PER_STEP = {"cholesky_block": 1, "cho_solve_block": 1, "solve_pd_block": 6}
+# path -> its model, batch, steps, start, controller and the kernels every
+# step launches (at least once each; exactly per_step where given)
 PATHS = {
     "quadruped": dict(model="quadruped", envs=NUM_ENVS, steps=NUM_STEPS, start=initial_batch, ctrl=pd_ctrl,
                       kernels=_LINALG + ("newton_structured",), z=(0.20, 0.32)),
@@ -677,12 +884,39 @@ PATHS = {
                                ctrl=pd_ctrl, kernels=_LINALG + ("newton_elliptic",), z=(0.20, 0.32)),
     "humanoid": dict(model="humanoid", envs=1024, steps=20, start=rest_start, ctrl=None,
                      kernels=_LINALG + ("newton_structured",)),
+    "clutter32_rowcap192": dict(model="clutter32_rowcap192", envs=CLUTTER_ENVS, steps=CLUTTER_STEPS,
+                                settle=CLUTTER_SETTLE, start=rest_start, ctrl=None, kernels=_LINALG_BLOCK,
+                                per_step=CLUTTER_PER_STEP),
+    "clutter32_cap48": dict(model="clutter32_cap48", envs=CLUTTER_ENVS, steps=CLUTTER_STEPS, settle=CLUTTER_SETTLE,
+                            start=rest_start, ctrl=None, kernels=_LINALG_BLOCK, per_step=CLUTTER_PER_STEP),
 }
+# the clutter paths' final states, for the card-vs-CPU check
+SETTLED: dict = {}
+
+
+def lowest_geom_point(m, d):
+    """(B,) lowest z of the sphere and box geoms at d's geom poses."""
+    import numpy as np
+    import torch
+
+    from ambersim_tpu_torch.core.types import GeomType
+
+    types = np.asarray(m.skel.geom_type)
+    low = []
+    for t in (GeomType.SPHERE, GeomType.BOX):
+        ids = torch.as_tensor(np.nonzero(types == int(t))[0], device=d.qpos.device)
+        if len(ids):
+            size = m.geom_size[ids]
+            # a box's half-height is sum_j |R[2, j]| size_j, a sphere's its radius
+            half = size[:, 0] if t == GeomType.SPHERE else (d.geom_xmat[:, ids, 2, :].abs() * size).sum(-1)
+            low.append((d.geom_xpos[:, ids, 2] - half).amin(1))
+    return torch.stack(low, 1).amin(1)
 
 
 def drive_path(name: str, device, card: str) -> dict:
     """Step one path through the port's entry points with the launch counts
-    set to 0 just before and read just after; check its state. Returns the
+    set to 0 just before and read just after; check its state. A path with
+    `settle` steps settles first (uncounted, also its warm-up). Returns the
     path's launch counts."""
     import torch
 
@@ -693,7 +927,14 @@ def drive_path(name: str, device, card: str) -> dict:
     p = PATHS[name]
     m = load_model(p["model"], device=device)
     d0 = p["start"](m, p["envs"], device)
-    rollout(m, d0, 3, ctrl_fn=p["ctrl"])  # warm-up
+    if p.get("settle"):
+        t0 = time.perf_counter()
+        d0 = rollout(m, d0, p["settle"], ctrl_fn=p["ctrl"])
+        torch.cuda.synchronize()
+        print(f"{name} path: settled {p['envs']} envs x {p['settle']} steps in {time.perf_counter() - t0:.3f} s",
+              flush=True)
+    else:
+        rollout(m, d0, 3, ctrl_fn=p["ctrl"])  # warm-up
     active = torch.zeros((), device=device)
 
     def ctrl(d):
@@ -702,12 +943,14 @@ def drive_path(name: str, device, card: str) -> dict:
         return p["ctrl"](d) if p["ctrl"] else d.ctrl
 
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
     d = rollout(m, d0, p["steps"], ctrl_fn=ctrl)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     active = (active + d.efc_active.sum()).item() / (p["envs"] * p["steps"])
     for field in ("qpos", "qvel", "qacc", "efc_force"):
         if not torch.isfinite(getattr(d, field)).all():
@@ -717,16 +960,22 @@ def drive_path(name: str, device, card: str) -> dict:
         if not bool(((z >= lo) & (z <= hi)).all()):
             fail(f"{name} path: trunk z outside [{lo}, {hi}]: min {z.min().item():.4f} max {z.max().item():.4f}")
         print(f"{name} path: trunk z in [{z.min().item():.4f}, {z.max().item():.4f}]")
-    for k in p["kernels"]:
-        if launches[k] < p["steps"]:
-            fail(f"{name} path: kernel {k} launched {launches[k]} times in {p['steps']} steps")
-    for k, n in launches.items():
-        if n and k not in p["kernels"]:
-            fail(f"{name} path: kernel {k} launched {n} times, not one of the path's")
+    exactly = {k: n * p["steps"] for k, n in p["per_step"].items()} if "per_step" in p else None
+    _check_launches(f"{name} path", launches, p["kernels"], p["steps"], exactly)
+    if "per_step" in p:
+        low = lowest_geom_point(m, d)
+        force = d.efc_force.sum(1)
+        if not (bool((low >= -FLOOR_TOL).all()) and bool(torch.isfinite(force).all())):
+            fail(f"{name} path: a geom {-low.min().item():.4f} m below the floor or a non-finite contact force")
+        print(f"{name} path: lowest geom point {low.min().item():.5f} m (>= -{FLOOR_TOL}); total contact force per "
+              f"env mean {force.mean().item():.3f}; active contacts per env {d.efc_active.sum(1).float().mean().item() / 4:.1f}; "
+              f"peak device memory over the timed steps {peak_gib:.2f} GiB")
+        SETTLED[name] = d
     rate = p["envs"] * p["steps"] / seconds
     print(
-        f"{name} path: {p['envs']} envs x {p['steps']} steps in {seconds:.3f} s = {rate:.1f} env-steps/s [{card}]; "
-        f"active efc rows per env, mean over the steps {active:.3f} of {m.skel.nefc}; launches {launches}",
+        f"{name} path: {p['envs']} envs x {p['steps']} steps in {seconds:.3f} s = {rate:.1f} env-steps/s, "
+        f"{1e3 * seconds / p['steps']:.3f} ms per step [{card}]; active efc rows per env, mean over the steps "
+        f"{active:.3f} of {m.skel.nefc}; launches {launches}",
         flush=True,
     )
     return launches
@@ -754,9 +1003,102 @@ def card_vs_cpu(name: str, device, qpos_tol: float, qvel_tol: float, opt=None) -
         fail(f"{what}: card rollout disagrees with the CPU rollout")
 
 
-def _check_launches(what: str, launches: dict, kernels: tuple, at_least: int) -> None:
-    """Each of `kernels` launched at least `at_least` times, no other kernel at all."""
+def stage_split(name: str, device, card: str, steps: int = 10) -> None:
+    """Wall time of each stage of a step of a settled path (host clock around
+    a synchronize after each stage), median over `steps` steps."""
+    import numpy as np
+    import torch
+
+    from ambersim_tpu_torch import load_model
+    from ambersim_tpu_torch.engine import collision, constraint, integrate, smooth, solver
+
+    m = load_model(PATHS[name]["model"], device=device)
+    stages = (("fwd_position_smooth", smooth.fwd_position_smooth), ("collision", collision.collision),
+              ("make_constraint", constraint.make_constraint), ("fwd_velocity", smooth.fwd_velocity),
+              ("fwd_actuation", smooth.fwd_actuation), ("fwd_acceleration", smooth.fwd_acceleration),
+              ("solve", solver.solve), ("euler", integrate.euler))
+    times = {k: [] for k, _ in stages}
+    d = SETTLED[name]
+    for _ in range(steps):
+        for k, fn in stages:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d = fn(m, d)
+            torch.cuda.synchronize()
+            times[k].append(1e3 * (time.perf_counter() - t0))
+    split = ", ".join(f"{k} {np.median(v):.3f}" for k, v in times.items())
+    print(f"{name} stages, median ms of {steps} settled steps [{card}]: {split}", flush=True)
+
+
+def clutter_newton_spread(name: str, device) -> None:
+    """The clutter path's Newton solve (the large-nv route, kernel 3 inside)
+    against the same batched solve in float32 and float64 with the plain
+    factor, on the settled state's operands on the card. The float32 solve's
+    own distance from float64 is the spread that rounding alone causes in a
+    6-iteration solve over hundreds of active rows; the route must stay
+    within ten times it (per-env max |difference| / (max |float64| + 1)):
+    rounding moves either by chance, a fault in the route by far more."""
+    import torch
+
+    from ambersim_tpu_torch import load_model
+    from ambersim_tpu_torch.engine import linalg
+    from ambersim_tpu_torch.engine.solver import _newton_arrays
+
+    m = load_model(PATHS[name]["model"], device=device)
+    s = m.skel
+    pa = dict(solver_operands(m, pre_solve(m, SETTLED[name]), seed=8), ne=int(s.ne), nf=int(s.nf),
+              iterations=int(m.opt.iterations), ls_iterations=int(m.opt.ls_iterations), use_ws=True)
+    route = _newton_arrays(**pa, solve=linalg.solve_pd)
+    exact = _newton_arrays(**as_dtype(pa, torch.float64))
+    rel_route, _ = env_rel_err(route, exact, f"{name} newton route vs float64")
+    rel_plain, _ = env_rel_err(_newton_arrays(**pa), exact, f"{name} newton plain float32 vs float64")
+    worst, spread = rel_route.max().item(), rel_plain.max().item()
+    print(f"{name} newton solve on {pa['act'].shape[0]} settled envs: route (kernel 3) vs float64 {worst:.3e}, "
+          f"plain float32 vs float64 {spread:.3e} (env-relative)", flush=True)
+    if not worst <= 10 * spread + 1e-6:
+        fail(f"{name}: the large-nv Newton route is {worst:.3e} from float64, plain float32 {spread:.3e}")
+
+
+def clutter_card_vs_cpu(device, name: str = "clutter32_rowcap192") -> None:
+    """8 envs of the clutter path from its state settled on the card, a few
+    steps on the card (kernels) and on the CPU (plain versions). Stacked
+    contact-rich float32 scenes amplify rounding, so the bars come from the
+    card's own spread: the same steps from a start moved by 1e-6 in qpos. The
+    card must meet the CPU within 10 x spread + CLUTTER_QPOS_EPS in qpos and
+    10 x spread + CLUTTER_QVEL_EPS in qvel."""
+    import torch
+
+    from ambersim_tpu_torch import load_model
+    from ambersim_tpu_torch.engine import make_data, rollout
+
+    settled = SETTLED[name]
+    start = {k: getattr(settled, k)[:8].cpu() for k in ("qpos", "qvel", "qacc_warmstart")}
+    k = CLUTTER_CARD_VS_CPU_STEPS
+
+    def run(dev, nudge=0.0):
+        m = load_model(PATHS[name]["model"], device=dev)
+        fields = {f: v.to(dev) for f, v in start.items()}
+        fields["qpos"] = fields["qpos"] + nudge
+        return rollout(m, make_data(m, 8).replace(**fields), k)
+
+    card, nudged, cpu = run(device), run(device, 1e-6), run("cpu")
+    spread_q = (card.qpos - nudged.qpos).abs().max().item()
+    spread_v = (card.qvel - nudged.qvel).abs().max().item()
+    dq = (card.qpos.cpu() - cpu.qpos).abs().max().item()
+    dv = (card.qvel.cpu() - cpu.qvel).abs().max().item()
+    bar_q, bar_v = 10 * spread_q + CLUTTER_QPOS_EPS, 10 * spread_v + CLUTTER_QVEL_EPS
+    print(f"{name} card vs cpu, 8 settled envs x {k} steps: max |dqpos| {dq:.3e} (<= {bar_q:.3e}), max |dqvel| "
+          f"{dv:.3e} (<= {bar_v:.3e}); the card's spread under a 1e-6 nudge: {spread_q:.3e} / {spread_v:.3e}")
+    if not (dq <= bar_q and dv <= bar_v and torch.isfinite(card.qpos).all()):
+        fail(f"{name}: card rollout disagrees with the CPU rollout")
+
+
+def _check_launches(what: str, launches: dict, kernels: tuple, at_least: int, exactly: dict | None = None) -> None:
+    """Each of `kernels` launched at least `at_least` times, or as many times
+    as `exactly` says when it is given; no other kernel at all."""
     for k, n in launches.items():
+        if exactly is not None and n != exactly.get(k, 0):
+            fail(f"{what}: kernel {k} launched {n} times, want exactly {exactly.get(k, 0)}")
         if k in kernels and n < at_least:
             fail(f"{what}: kernel {k} launched {n} times for {at_least} physics steps")
         if k not in kernels and n:
@@ -956,7 +1298,8 @@ def main() -> int:
     from ambersim_tpu_torch import load_model
 
     results = {
-        k: dict(name=k, route="cuda", source=f"ambersim_tpu_torch/csrc/{src}", replaces=rep, launches=0)
+        k: dict(name=k, route="cuda", source=f"ambersim_tpu_torch/csrc/{src}", replaces=rep, launches=0,
+                max_abs_err=None, ms=None, plain_ms=None, bound_ms=None, bound_by=None, library_ms=None)
         for k, (src, rep) in KERNELS.items()
     }
     check_linalg(device, results)
@@ -964,11 +1307,22 @@ def main() -> int:
     check_newton_dense(device, results)
     check_newton_elliptic(device, results)
     torch.cuda.synchronize()
+    for row_cap in (False, True):
+        try:
+            check_selection_exact(device, row_cap)
+        except AssertionError as err:
+            fail(f"selection with TF32 on (row cap {row_cap}): {err}")
+    print("clutter selections with TF32 on: geom ids above 256 and distances exact through the broadphase and "
+          "the row cap", flush=True)
 
     # ---- 4. every path through the port, each with its own launch counts ----
     for name in PATHS:
         for k, n in drive_path(name, device, card).items():
             results[k]["launches"] += n
+
+    for name in ("clutter32_rowcap192", "clutter32_cap48"):
+        stage_split(name, device, card)
+        clutter_newton_spread(name, device)
 
     # ---- 5. PPO training through the env layer, each with its own launch counts ----
     for phase in (ppo_quadruped, ppo_pendulum_learns):
@@ -980,10 +1334,15 @@ def main() -> int:
         if name == "quadruped_elliptic":
             card_vs_cpu(name, device, QPOS_TOL, QVEL_TOL, opt=CONVERGED)
             card_vs_cpu(name, device, ELLIPTIC_QPOS_TOL, ELLIPTIC_QVEL_TOL)
-        else:
+        elif "per_step" not in PATHS[name]:
             card_vs_cpu(name, device, QPOS_TOL, QVEL_TOL)
+    clutter_card_vs_cpu(device)
     env_card_vs_cpu(device)
 
+    for k, r in results.items():
+        missing = [f for f, v in r.items() if v is None and f != "library_ms"]
+        if missing or not r["launches"]:
+            fail(f"kernel {k}: not measured ({', '.join(missing) or 'no launches on the paths'})")
     print(json.dumps({"kernels": [results[k] for k in KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@ PyTorch port: the committed model file, Skeleton and Model equality,
 make_data parity, the host schedules, the no-JAX import rule, and the
 refusal of every feature outside the ported slice. The committed model
 files (the quadruped, its elliptic-cone build, cartpole, arm3, the
-humanoid and the pendulum) must equal a fresh export.
+humanoid, the pendulum and the two clutter32 builds) must equal a fresh
+export.
 """
 
 import dataclasses
@@ -53,6 +54,27 @@ ELLIPTIC_MIXED_XML = """
 """
 
 
+# a capsule on a box: a pair type without a narrowphase in the port
+CAPSULE_BOX_XML = """
+<mujoco><worldbody>
+  <geom type="plane" size="0 0 1"/>
+  <body pos="0 0 0.1"><freejoint/><geom type="box" size="0.1 0.1 0.05"/></body>
+  <body pos="0 0 0.3"><freejoint/><geom type="capsule" size="0.03 0.1"/></body>
+</worldbody></mujoco>
+"""
+
+# an explicit <pair> between two spheres (its friction overrides the mixed one)
+EXPLICIT_PAIR_XML = """
+<mujoco><worldbody>
+  <geom type="plane" size="0 0 1"/>
+  <body pos="0 0 0.1"><freejoint/><geom name="a" type="sphere" size="0.05"/></body>
+  <body pos="0.08 0 0.1"><freejoint/><geom name="b" type="sphere" size="0.05"/></body>
+</worldbody>
+<contact><pair geom1="a" geom2="b" friction="0.3 0.3 0.005 0.0001 0.0001"/></contact>
+</mujoco>
+"""
+
+
 @pytest.fixture(scope="module")
 def quadruped():
     torch.set_num_threads(1)
@@ -69,7 +91,11 @@ def test_asset_matches_fresh_export(quadruped):
             np.testing.assert_array_equal(committed[k], v, err_msg=k)
 
 
-@pytest.mark.parametrize("name", ["quadruped_elliptic", "cartpole", "arm3", "humanoid", "pendulum"])
+NEW_ASSETS = ["quadruped_elliptic", "cartpole", "arm3", "humanoid", "pendulum", "clutter32_cap48",
+              "clutter32_rowcap192"]
+
+
+@pytest.mark.parametrize("name", NEW_ASSETS)
 def test_new_asset_matches_fresh_export(name):
     """assets/<name>.npz is what the JAX compiler produces today, with the
     asset's cone override (tools/export_model_npz.ASSETS)."""
@@ -81,7 +107,7 @@ def test_new_asset_matches_fresh_export(name):
             np.testing.assert_array_equal(committed[k], v, err_msg=k)
 
 
-@pytest.mark.parametrize("name", ["quadruped_elliptic", "cartpole", "arm3", "humanoid", "pendulum"])
+@pytest.mark.parametrize("name", NEW_ASSETS)
 def test_new_assets_load_and_step(name):
     """check_slice accepts every new asset; one CPU step stays finite."""
     from ambersim_tpu_torch import load_model
@@ -196,14 +222,16 @@ def test_pyramid_structure_matches_jax(scene, quadruped):
 
 def test_port_never_imports_jax():
     code = (
-        "import sys\n"
+        "import sys, torch\n"
+        "torch.set_num_threads(1)\n"
         "import ambersim_tpu_torch, ambersim_tpu_torch.engine, ambersim_tpu_torch.ops.linalg\n"
-        "import ambersim_tpu_torch.ops.newton, chip_smoke\n"
+        "import ambersim_tpu_torch.ops.newton, ambersim_tpu_torch.engine.convex, chip_smoke\n"
         "import ambersim_tpu_torch.rl, ambersim_tpu_torch.rl.ppo, ambersim_tpu_torch.rl.helpers\n"
         "import ambersim_tpu_torch.rl.pendulum, ambersim_tpu_torch.rl.quadruped, ambersim_tpu_torch.io.checkpoint\n"
         "from ambersim_tpu_torch import load_model\n"
         "from ambersim_tpu_torch.engine import make_data, step\n"
         "m = load_model('quadruped'); step(m, make_data(m, 2))\n"
+        "m = load_model('clutter32_rowcap192'); step(m, make_data(m, 2))\n"
         "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'flax', 'ambersim_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -220,8 +248,11 @@ def test_port_never_imports_jax():
         (TENDON_SENSOR_XML, ["tendons", "sensors"]),
         (CONDIM46_XML, ["contact condim 4/6"]),
         (ELLIPTIC_MIXED_XML, ["elliptic cones with mixed contact condims"]),
+        (CAPSULE_BOX_XML, ["capsule-box contact pairs"]),
+        (EXPLICIT_PAIR_XML, ["explicit <pair> contact overrides"]),
+        ("models/rock/rock_scene.xml", ["contact pairs"]),
     ],
-    ids=["hand", "tendon_sensor", "condim46", "elliptic_mixed"],
+    ids=["hand", "tendon_sensor", "condim46", "elliptic_mixed", "capsule_box", "explicit_pair", "mesh"],
 )
 def test_models_outside_the_slice_are_refused(source, features):
     from ambersim_tpu_torch.io.bridge import model_from_numpy

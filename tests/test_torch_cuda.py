@@ -14,6 +14,7 @@ import torch
 pytestmark = pytest.mark.cuda
 
 LINALG_TOL = 1e-5  # tests/test_linalg_pallas.py:31
+LARGE_LINALG_TOL = 2e-4  # tests/test_linalg_pallas.py:76-98 (n = 192)
 NEWTON_TOL = 1e-4  # tests/test_newton_pallas.py:210-215
 
 
@@ -41,6 +42,82 @@ def test_linalg_kernels_match_plain(cuda, n):
     torch.testing.assert_close(kernels.cholesky_batched(a), l, **tol)
     torch.testing.assert_close(kernels.cho_solve_batched(l, b), linalg.cho_solve_unrolled(l, b), **tol)
     torch.testing.assert_close(kernels.solve_pd_batched(a, b), linalg.solve_pd_unrolled(a, b), **tol)
+
+
+@pytest.mark.parametrize("n", (33, 64, 65, 128, 192))
+def test_block_linalg_kernels_match_plain(cuda, n):
+    """Kernels 1-3 past n = 32 (one block per system): against the plain
+    versions, the upper triangle unread, zeros above the diagonal."""
+    from ambersim_tpu_torch.engine import linalg
+    from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from ambersim_tpu_torch.ops import linalg as kernels
+
+    rng = np.random.default_rng(30 + n)
+    g = rng.standard_normal((37, n, n)).astype(np.float32)
+    a = torch.as_tensor(g @ np.swapaxes(g, -1, -2) + n * np.eye(n, dtype=np.float32), device=cuda)
+    b = torch.as_tensor(rng.standard_normal((37, n)).astype(np.float32), device=cuda)
+    l = linalg.cholesky_unrolled(a)
+    tol = dict(rtol=LARGE_LINALG_TOL, atol=LARGE_LINALG_TOL)
+    reset_launch_counts()
+    got = kernels.cholesky_batched(a)
+    torch.testing.assert_close(got, l, **tol)
+    assert torch.all(torch.triu(got, diagonal=1) == 0)
+    torch.testing.assert_close(kernels.cho_solve_batched(l, b), linalg.cho_solve_unrolled(l, b), **tol)
+    torch.testing.assert_close(kernels.solve_pd_batched(a, b), linalg.solve_pd_unrolled(a, b), **tol)
+    a_low = torch.tril(a) + torch.triu(torch.full_like(a, 1e6), diagonal=1)
+    assert torch.equal(kernels.cholesky_batched(a_low), got)
+    assert torch.equal(kernels.solve_pd_batched(a_low, b), kernels.solve_pd_batched(a, b))
+    torch.cuda.synchronize()
+    assert (LAUNCHES["cholesky_block"], LAUNCHES["cho_solve_block"], LAUNCHES["solve_pd_block"]) == (2, 1, 3)
+    assert LAUNCHES["cholesky"] == LAUNCHES["cho_solve"] == LAUNCHES["solve_pd"] == 0
+
+
+def test_linalg_kernels_refuse_n_past_192(cuda):
+    from ambersim_tpu_torch.ops import linalg as kernels
+
+    a = torch.eye(193, device=cuda).expand(2, 193, 193).contiguous()
+    with pytest.raises(ValueError, match="n=193"):
+        kernels.cholesky_batched(a)
+
+
+@pytest.mark.parametrize("row_cap", [False, True])
+def test_selection_is_exact_with_tf32_on(cuda, row_cap):
+    """The broadphase top-k and the row cap are gathers: geom ids above 256
+    and contact distances survive them bit for bit with TF32 matmuls on."""
+    from chip_smoke import check_selection_exact
+
+    check_selection_exact(cuda, row_cap)
+
+
+def test_top_k_ties_on_the_card(cuda):
+    """Equal keys (empty slots at -1e10) come out lowest index first."""
+    from ambersim_tpu_torch.engine.collision import _top_k
+
+    x = torch.full((3, 600), -1e10, device=cuda)
+    x[:, 5] = 1.0
+    x[1, 400] = 2.0
+    got = _top_k(x, 200).cpu()
+    assert got[0].tolist() == [5] + list(range(5)) + list(range(6, 200))
+    assert got[1].tolist() == [400, 5] + list(range(5)) + list(range(6, 199))
+
+
+def test_clutter_launch_counts(cuda):
+    """Each clutter step launches the block kernels 1 / 1 / 6 times (qM's
+    factor, qacc_smooth's solve, one Hessian solve per Newton iteration) and
+    no Newton kernel (nv = 192 takes the large-nv route)."""
+    from ambersim_tpu_torch import load_model
+    from ambersim_tpu_torch.engine import make_data, rollout
+    from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    for name in ("clutter32_rowcap192", "clutter32_cap48"):
+        m = load_model(name, device=cuda)
+        reset_launch_counts()
+        d = rollout(m, make_data(m, 8), 3)
+        torch.cuda.synchronize()
+        assert torch.isfinite(d.qpos).all()
+        want = {k: 0 for k in LAUNCHES}
+        want.update(cholesky_block=3, cho_solve_block=3, solve_pd_block=3 * m.opt.iterations)
+        assert dict(LAUNCHES) == want, name
 
 
 def test_newton_kernel_matches_plain_on_every_row_family(cuda):
@@ -91,9 +168,9 @@ def test_main_path_launch_counts(cuda):
     reset_launch_counts()
     rollout(m, d, 7)
     torch.cuda.synchronize()
-    assert dict(LAUNCHES) == {
-        "cholesky": 7, "cho_solve": 7, "solve_pd": 7, "newton_structured": 7, "newton_dense": 0, "newton_elliptic": 0,
-    }
+    want = {k: 0 for k in LAUNCHES}
+    want.update(cholesky=7, cho_solve=7, solve_pd=7, newton_structured=7)
+    assert dict(LAUNCHES) == want
 
 
 @pytest.mark.parametrize("nv", (1, 7, 25, 32))

@@ -2,8 +2,19 @@
 against the JAX package's unrolled jnp path (engine/linalg.py) and its
 Pallas kernel bodies (_chol_columns/_solve_from_l, batch-last), for
 n in {1, 7, 18, 25} and B=5 at rtol/atol 1e-5; and the dispatch by device.
-The kernels themselves are held against these plain versions on the card
-(tests/test_torch_cuda.py, chip_smoke.py).
+
+Past n = 32 (the block-per-system kernels): n in {33, 65, 128, 192} against
+the JAX package's own CPU path at those sizes (the unrolled sweep at
+n <= 64, XLA's native factor and triangular solves past it,
+engine/linalg.py:146-197) and float64 numpy, at the 2e-4 bars of
+tests/test_linalg_pallas.py:76-98; and against the Pallas bodies at n = 33:
+_chol_columns/_solve_from_l and the panel-blocked
+_chol_columns_panel/_solve_from_l_panel with 16-wide panels (three panels,
+the last one ragged). The panel bodies run past n = 64 on the TPU, but
+eager jnp takes 36-97 s per call there and jit 27-108 s to compile
+(n = 65-192, a CPU), so they are held at n = 33 where their logic is the
+same. The kernels themselves are held against these plain versions on the
+card (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
 import jax.numpy as jnp
@@ -12,7 +23,7 @@ import pytest
 import torch
 
 from ambersim_tpu.engine import linalg as jax_linalg
-from ambersim_tpu.ops.linalg_pallas import _chol_columns, _solve_from_l
+from ambersim_tpu.ops.linalg_pallas import _chol_columns, _chol_columns_panel, _solve_from_l, _solve_from_l_panel
 from ambersim_tpu_torch.engine import linalg
 from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
 from ambersim_tpu_torch.ops import linalg as kernels
@@ -20,6 +31,8 @@ from ambersim_tpu_torch.ops import linalg as kernels
 RTOL = ATOL = 1e-5
 SIZES = (1, 7, 18, 25)
 B = 5
+LARGE = (33, 65, 128, 192)
+LARGE_TOL = 2e-4  # tests/test_linalg_pallas.py:76-98
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -93,3 +106,69 @@ def test_cuda_launchers_refuse_cpu_tensors(launcher):
     args = (torch.as_tensor(a),) if launcher == "cholesky_batched" else (torch.as_tensor(a), torch.as_tensor(b))
     with pytest.raises(ValueError, match="CUDA"):
         getattr(kernels, launcher)(*args)
+
+
+def _batch_last(x):
+    return jnp.moveaxis(jnp.asarray(x), 0, -1)
+
+
+def _batch_first(x):
+    return np.moveaxis(np.asarray(x), -1, 0)
+
+
+@pytest.mark.parametrize("n", LARGE)
+def test_large_n_matches_jax(n):
+    """Factor, solve from the factor and fused solve past the warp kernels'
+    n = 32, against the JAX package's CPU path and float64."""
+    a, b = _spd(n, seed=40 + n, batch=3)
+    at, bt = torch.as_tensor(a), torch.as_tensor(b)
+    l = linalg.cholesky(at)
+    tol = dict(rtol=LARGE_TOL, atol=LARGE_TOL)
+    l_jax = np.array(jax_linalg.cholesky_unrolled(jnp.asarray(a)))
+    np.testing.assert_allclose(l.numpy(), l_jax, **tol)
+    np.testing.assert_allclose(l.numpy(), np.linalg.cholesky(a.astype(np.float64)), **tol)
+    assert torch.all(torch.triu(l, diagonal=1) == 0)
+    want = np.asarray(jax_linalg.cho_solve_unrolled(jnp.asarray(l_jax), jnp.asarray(b)))
+    np.testing.assert_allclose(linalg.cho_solve(torch.as_tensor(l_jax), bt).numpy(), want, **tol)
+    x64 = np.linalg.solve(a.astype(np.float64), b[..., None].astype(np.float64))[..., 0]
+    np.testing.assert_allclose(linalg.solve_pd(at, bt).numpy(), x64, **tol)
+
+
+@pytest.mark.parametrize("panel", [None, 16], ids=["columns", "panels16"])
+def test_n33_matches_pallas_bodies(panel):
+    """n = 33 against the Pallas kernel bodies: the plain column sweep
+    (n <= 64 on the TPU) and the panel-blocked factor and substitutions
+    (n > 64) cut into 16-wide panels."""
+    n = 33
+    a, b = _spd(n, seed=73, batch=3)
+    if panel is None:
+        l_k = _chol_columns(_batch_last(a), n)
+        x_k = _solve_from_l(l_k, _batch_last(b), n)
+    else:
+        l_k = _chol_columns_panel(_batch_last(a), n, panel)
+        x_k = _solve_from_l_panel(l_k, _batch_last(b), n, panel)
+    tol = dict(rtol=LARGE_TOL, atol=LARGE_TOL)
+    np.testing.assert_allclose(linalg.cholesky(torch.as_tensor(a)).numpy(), _batch_first(l_k), **tol)
+    got = linalg.cho_solve(torch.as_tensor(_batch_first(l_k).copy()), torch.as_tensor(b)).numpy()
+    np.testing.assert_allclose(got, _batch_first(x_k), **tol)
+    np.testing.assert_allclose(linalg.solve_pd(torch.as_tensor(a), torch.as_tensor(b)).numpy(), _batch_first(x_k), **tol)
+
+
+@pytest.mark.parametrize("n", (65, 192))
+def test_large_n_cholesky_ignores_upper_triangle(n):
+    a, _ = _spd(n, seed=80 + n, batch=2)
+    tril = np.tril(np.ones((n, n), np.float32))
+    garbage = 1e6 * np.random.default_rng(n).standard_normal(a.shape).astype(np.float32)
+    full = linalg.cholesky(torch.as_tensor(a))
+    low = linalg.cholesky(torch.as_tensor(a * tril + garbage * (1 - tril)))
+    np.testing.assert_allclose(low.numpy(), full.numpy(), rtol=1e-6, atol=1e-6)
+
+
+def test_launcher_names_by_n():
+    """n <= 32 is counted under the warp kernels' names, 32 < n <= 192 under
+    the block kernels'; the CUDA launchers refuse CPU tensors at any n."""
+    assert {k for k in LAUNCHES if k.endswith("_block")} == {"cholesky_block", "cho_solve_block", "solve_pd_block"}
+    assert (kernels.MAX_N_WARP, kernels.MAX_N) == (32, 192)
+    a, b = _spd(65, seed=7, batch=2)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.solve_pd_batched(torch.as_tensor(a), torch.as_tensor(b))

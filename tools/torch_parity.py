@@ -38,10 +38,11 @@ CONTACT_SCENE = """
 KP, KD = 60.0, 2.0
 
 
-def jax_model(path: str = QUADRUPED_XML, cone: str | None = None):
+def jax_model(path: str = QUADRUPED_XML, cone: str | None = None, broadphase_cap: int = 0,
+              max_contact_points: int = 0):
     from tools.export_model_npz import load_jax_model
 
-    return load_jax_model(path, cone)
+    return load_jax_model(path, cone, broadphase_cap, max_contact_points)
 
 
 def jax_asset_model(name: str):
@@ -254,3 +255,87 @@ def ppo_rollout_buffer(seed: int, jax_networks, jparams, jnorm, T: int, N: int, 
     return dict(observation=obs[:-1], action=np.tanh(raw), raw_action=raw, log_prob=log_prob,
                 reward=rng.standard_normal((T, N)).astype(np.float32), discount=1 - done, truncation=truncation,
                 next_observation=obs[1:])
+
+
+# ---- the clutter scene, cut to a small size ----
+
+CLUTTER_XML = "models/objects/clutter32.xml"
+
+
+def _euler_xyz(a: float, b: float, c: float) -> np.ndarray:
+    """Rotation matrix of MuJoCo's default intrinsic xyz Euler angles."""
+    ca, sa, cb, sb, cc, sc = np.cos(a), np.sin(a), np.cos(b), np.sin(b), np.cos(c), np.sin(c)
+    rx = np.array([[1, 0, 0], [0, ca, -sa], [0, sa, ca]])
+    ry = np.array([[cb, 0, sb], [0, 1, 0], [-sb, 0, cb]])
+    rz = np.array([[cc, -sc, 0], [sc, cc, 0], [0, 0, 1]])
+    return rx @ ry @ rz
+
+
+def clutter_small_xml(nbodies: int = 12, squeeze: float = 0.5, depth: float = 0.003) -> str:
+    """The first `nbodies` bodies of clutter32.xml (columns of a sphere and a
+    box) with their geoms and orientations, lowered into contact: the columns
+    pulled toward their centroid by `squeeze` in x and y; in even columns the
+    sphere stands `depth` deep in the floor and the box `depth` deep on it,
+    in odd columns the box on the floor and the sphere on the box."""
+    import re
+
+    from tools.export_model_npz import REPO
+
+    text = (REPO / "ambersim_tpu" / CLUTTER_XML).read_text()
+    bodies = re.findall(r'(<body name="b\d+" pos="([^"]+)" euler="([^"]+)">.*?</body>)', text, re.S)[:nbodies]
+    xy = np.array([[float(v) for v in pos.split()[:2]] for _, pos, _ in bodies])
+    xy = xy.mean(0) + squeeze * (xy - xy.mean(0))
+
+    def extents(body, euler):
+        """(lowest point below the center, surface right above or below it)"""
+        size = np.array([float(v) for v in re.search(r'size="([^"]+)"', body).group(1).split()])
+        if 'type="sphere"' in body:
+            return size[0], size[0]
+        tilt = np.abs(_euler_xyz(*map(float, euler.split()))[2])  # |z components| of the box axes
+        return tilt @ size, np.min(size / np.maximum(tilt, 1e-9))
+
+    z, out = np.zeros(len(bodies)), []
+    for col in range(0, len(bodies) - 1, 2):
+        below, above = (col, col + 1) if col % 4 == 0 else (col + 1, col)
+        corner, face_below = extents(*bodies[below][::2])
+        z[below] = corner - depth
+        z[above] = z[below] + face_below + extents(*bodies[above][::2])[1] - depth
+    for (body, pos, _), (x, y), zk in zip(bodies, xy, z):
+        out.append(body.replace(f'pos="{pos}"', f'pos="{x:.4f} {y:.4f} {zk:.4f}"'))
+    head = text[: text.index("<body ")]
+    return head + "\n    ".join(out) + "\n  </worldbody>\n</mujoco>\n"
+
+
+def export_small_clutter(tmp_path, broadphase_cap: int, max_contact_points: int = 0):
+    """(JAX model, the port's model) of clutter_small_xml(), the port's
+    loaded from what tools/export_model_npz.py's command line writes."""
+    from tools.export_model_npz import load_jax_model, main
+
+    xml, npz = tmp_path / "clutter_small.xml", tmp_path / "clutter_small.npz"
+    xml.write_text(clutter_small_xml())
+    cli = [str(xml), str(npz), "--broadphase-cap", str(broadphase_cap)]
+    if max_contact_points:
+        cli += ["--max-contact-points", str(max_contact_points)]
+    main(cli)
+    return load_jax_model(str(xml), None, broadphase_cap, max_contact_points), torch_model_file(npz)
+
+
+def torch_model_file(path):
+    """The port's Model from an exported .npz file, on the CPU."""
+    from ambersim_tpu_torch.io.bridge import model_from_numpy, unpack_npz
+
+    with np.load(path, allow_pickle=False) as npz:
+        return model_from_numpy(*unpack_npz(npz))
+
+
+def free_body_state(jm, batch: int, seed: int, pos_scale=1e-3, rot_scale=2e-2, qvel_scale=0.05):
+    """(qpos, qvel) numpy batches around qpos0 of a model of free bodies:
+    positions moved by pos_scale N(0, 1), orientations turned by about
+    rot_scale, velocities qvel_scale N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    q = np.tile(np.asarray(jm.qpos0, np.float32), (batch, 1)).reshape(batch, -1, 7)
+    q[..., :3] += pos_scale * rng.standard_normal(q[..., :3].shape)
+    q[..., 3:] += 0.5 * rot_scale * rng.standard_normal(q[..., 3:].shape)
+    q[..., 3:] /= np.linalg.norm(q[..., 3:], axis=-1, keepdims=True)
+    qvel = qvel_scale * rng.standard_normal((batch, jm.skel.nv))
+    return q.reshape(batch, -1).astype(np.float32), qvel.astype(np.float32)
