@@ -80,7 +80,7 @@ def _f32(x: np.ndarray, device) -> torch.Tensor:
     return torch.as_tensor(np.array(x, dtype=np.float32), device=device)
 
 
-def model_from_numpy(skel_fields: dict, leaves: dict, device="cpu") -> Model:
+def model_from_numpy(skel_fields: dict, leaves: dict, device="cuda") -> Model:
     """Build a Model on `device` from Skeleton fields and numpy leaves (see the
     module docstring for the leaf names). Raises NotImplementedError for a
     model outside the ported slice."""
@@ -101,8 +101,10 @@ def model_from_numpy(skel_fields: dict, leaves: dict, device="cpu") -> Model:
     return m
 
 
-def load_model(name: str, device="cpu") -> Model:
-    """Load the exported model ``assets/<name>.npz`` onto `device`."""
+def load_model(name: str, device="cuda") -> Model:
+    """Load the exported model ``assets/<name>.npz`` onto `device`: the card
+    by default (the kernels), "cpu" for the plain versions. Without a card
+    the default raises; nothing falls back to the CPU."""
     path = ASSETS / f"{name}.npz"
     if not path.is_file():
         raise FileNotFoundError(f"no exported model '{name}' at {path}")
@@ -226,7 +228,7 @@ def _is_flax_mlp(tree) -> bool:
     )
 
 
-def ppo_params_from_jax(tree, device="cpu"):
+def ppo_params_from_jax(tree, device="cuda"):
     """The JAX package's PPO params (as numpy) in the port's form, on `device`.
 
     Converts, anywhere in a tree of dicts, lists and tuples:

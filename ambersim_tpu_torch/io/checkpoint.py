@@ -52,7 +52,7 @@ def save_params(path: Union[str, Path], params: Any) -> None:
         pickle.dump(tree_map(_to_numpy, params), f)
 
 
-def load_params(path: Union[str, Path], device="cpu") -> Any:
+def load_params(path: Union[str, Path], device="cuda") -> Any:
     """Load a tree saved by save_params, its arrays as tensors on `device`.
 
     SECURITY: this is pickle (the JAX package's and brax's format):
@@ -72,7 +72,7 @@ def save_arrays(path: Union[str, Path], tree: Any) -> None:
     np.savez(path, **{f"leaf_{i}": x for i, x in enumerate(leaves)})
 
 
-def load_arrays(path: Union[str, Path], like: Any, device="cpu") -> Any:
+def load_arrays(path: Union[str, Path], like: Any, device="cuda") -> Any:
     """Restore a tree saved by save_arrays into the structure of `like`."""
     with np.load(path, allow_pickle=False) as z:
         leaves = iter([torch.as_tensor(z[f"leaf_{i}"], device=device) for i in range(len(z.files))])

@@ -3,9 +3,11 @@ fused SPD solve on CUDA tensors, in two designs chosen by n:
 
   * 1 <= n <= 32: one warp per system (csrc/linalg.cu), counted as
     `cholesky`, `cho_solve` and `solve_pd`;
-  * 32 < n <= 192: one thread block per system with the matrix in dynamic
-    shared memory (csrc/linalg_block.cu), counted as `cholesky_block`,
-    `cho_solve_block` and `solve_pd_block`.
+  * 32 < n <= 192: one thread block per system (csrc/linalg_block.cu),
+    counted as `cholesky_block`, `cho_solve_block` and `solve_pd_block`.
+    The factor and the fused solve keep the lower triangle as 16 x 16 tiles
+    in shared memory (two blocks an SM at n = 192) and factor it by panels;
+    the Cholesky solve keeps the whole factor and walks it with one warp.
 
 They replace cholesky_batched, cho_solve_batched and solve_pd_batched of
 ambersim_tpu/ops/linalg_pallas.py, which the JAX package runs up to n = 192
@@ -22,12 +24,15 @@ Each launcher takes only what its kernels take and raises on anything else
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ambersim_tpu_torch.ops._build import LAUNCHES, check_launch, library, stream_handle
 
 MAX_N_WARP = 32  # one warp per system: lane i owns row i
-MAX_N = 192  # one block per system: 192 x 193 floats of shared memory
+MAX_N = 192  # one block per system: the factor's tiles or the solve's 192 x 193 floats in shared memory
+_TILED_KERNELS = ("cholesky_block", "solve_pd_block")
 
 
 def _check(name: str, mats: torch.Tensor, vecs: torch.Tensor | None = None) -> tuple[int, int]:
@@ -86,3 +91,11 @@ def solve_pd_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if B:
         _launch("solve_pd", n, a.data_ptr(), b.data_ptr(), out.data_ptr(), B, n, stream_handle(a.device))
     return out
+
+
+def block_occupancy(name: str, n: int) -> int:
+    """Resident blocks per SM of the tiled kernel `name` (`cholesky_block` or
+    `solve_pd_block`) at size n, on the current card."""
+    blocks = ctypes.c_int(0)
+    check_launch(library().amb_linalg_block_occupancy(_TILED_KERNELS.index(name), n, ctypes.byref(blocks)), name)
+    return blocks.value

@@ -40,7 +40,7 @@ class PendulumSwingupConfig:
 class PendulumSwingupEnv(MjxEnv):
     """Swing the torque-limited pendulum upright."""
 
-    def __init__(self, config: PendulumSwingupConfig | None = None, device="cpu"):
+    def __init__(self, config: PendulumSwingupConfig | None = None, device="cuda"):
         self.config = config or PendulumSwingupConfig()
         super().__init__(load_model(self.config.model, device=device), self.config.physics_steps_per_control_step)
 

@@ -178,9 +178,9 @@ def train(
     checkpoint_path: Optional[str] = None,
     restore_checkpoint_path: Optional[str] = None,
     randomization_fn: Optional[Callable] = None,
-    device="cpu",
+    device="cuda",
 ) -> Tuple[Callable, Tuple[Any, Any], Dict[str, Any]]:
-    """Train a PPO agent on `device`; returns (make_policy, (normalizer_params,
+    """Train a PPO agent on `device` (the card unless "cpu" is asked for); returns (make_policy, (normalizer_params,
     policy_params), metrics). Besides the JAX package's keys, metrics carry
     `timing/rollout_s`, `timing/sgd_s` and `timing/eval_s`: host seconds of
     the epoch's phases, each ended by a device synchronize."""

@@ -45,7 +45,7 @@ class QuadrupedLocomotionConfig:
 class QuadrupedLocomotionEnv(MjxEnv):
     """Track a forward velocity command on flat ground."""
 
-    def __init__(self, config: QuadrupedLocomotionConfig | None = None, device="cpu"):
+    def __init__(self, config: QuadrupedLocomotionConfig | None = None, device="cuda"):
         self.config = config or QuadrupedLocomotionConfig()
         super().__init__(load_model(self.config.model, device=device), self.config.physics_steps_per_control_step)
 

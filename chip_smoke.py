@@ -56,7 +56,13 @@ LINALG_TOL = 1e-5  # tests/test_linalg_pallas.py:31
 # package's n = 192 tests (tests/test_linalg_pallas.py:76-98); an n-column
 # float32 sweep rounds n times as often as an 18-column one.
 LARGE_LINALG_TOL = 2e-4
-LARGE_NS = (33, 64, 65, 128, 192)
+# n = 100 and 191 are not multiples of the block kernels' 16-wide tiles
+LARGE_NS = (33, 64, 65, 100, 128, 191, 192)
+# more systems than the 264 that fit on 132 SMs at two blocks an SM
+LARGE_BATCH = 1000
+# systems at the clutter width whose row and column j are zero: the 1e-12
+# pivot clamp makes L_jj = 0 there, on the card as in the plain version
+ZERO_PIVOT_ROWS = (0, 17, 100, 191)
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s and float32
 # operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -517,9 +523,12 @@ def check_selection_exact(device, row_cap: bool) -> None:
 
 def check_linalg(device, results):
     """Kernels 1-3 against their plain versions: the warp kernels at n <= 32,
-    the block kernels at LARGE_NS on the clutter width; each leaves the upper
-    triangle unread and L zero above the diagonal. Times (and the library
-    calls': torch.linalg.cholesky, torch.cholesky_solve) at the main path's
+    the block kernels at LARGE_NS on the clutter width and at LARGE_BATCH
+    systems of n = 192; each leaves the upper triangle unread and L zero
+    above the diagonal. A zero pivot (ZERO_PIVOT_ROWS) as the plain version
+    treats it, and at least two resident blocks per SM for the tiled factor
+    and fused solve at n = 192. Times (and the library calls':
+    torch.linalg.cholesky, torch.cholesky_solve) at the main path's
     (4096, 18) and the clutter path's (256, 192)."""
     import numpy as np
     import torch
@@ -531,6 +540,7 @@ def check_linalg(device, results):
     errs = {k: 0.0 for k in _LINALG + _LINALG_BLOCK}
     timed = {(NUM_ENVS, 18), (CLUTTER_ENVS, 192)}
     sizes = ((NUM_ENVS, 18), (257, 1), (257, 7), (257, 25), (257, 32)) + tuple((CLUTTER_ENVS, n) for n in LARGE_NS)
+    sizes += ((LARGE_BATCH, kernels.MAX_N),)
     for B, n in sizes:
         tol = LINALG_TOL if n <= kernels.MAX_N_WARP else LARGE_LINALG_TOL
         a, b = random_spd(rng, B, n, device)
@@ -560,9 +570,33 @@ def check_linalg(device, results):
         max_err(kernels.solve_pd_batched(a_low, b), kernels.solve_pd_batched(a, b), 0.0, 0.0, f"upper triangle solve n={n}")
         if torch.triu(l_got, diagonal=1).abs().max().item() != 0.0:
             fail(f"cholesky n={n}: nonzero above the diagonal")
+    # a zero pivot: the factor matches the plain version (L_jj = 0 exactly),
+    # and the solve is non-finite exactly where the plain version's is
+    for n in (100, kernels.MAX_N):
+        a, b = random_spd(rng, len(ZERO_PIVOT_ROWS), n, device)
+        rows = [min(j, n - 1) for j in ZERO_PIVOT_ROWS]
+        for s, j in enumerate(rows):
+            a[s, j, :] = 0.0
+            a[s, :, j] = 0.0
+        l_got = kernels.cholesky_batched(a)
+        err = max_err(l_got, plain.cholesky_unrolled(a), LARGE_LINALG_TOL, LARGE_LINALG_TOL, f"zero pivot n={n}")
+        errs["cholesky_block"] = max(errs["cholesky_block"], err)
+        if any(l_got[s, j, j].item() != 0.0 for s, j in enumerate(rows)):
+            fail(f"zero pivot n={n}: L_jj is not 0")
+        x_got, x_want = kernels.solve_pd_batched(a, b), plain.solve_pd_unrolled(a, b)
+        if not torch.equal(torch.isfinite(x_got), torch.isfinite(x_want)):
+            fail(f"zero pivot solve n={n}: non-finite entries differ from the plain version's")
+        print(f"zero pivot n={n} (row/column {rows} zero): factor within {err:.2e} of plain, L_jj = 0; solve "
+              f"non-finite in {int((~torch.isfinite(x_got)).sum())} entries, as the plain version")
     for k in _LINALG + _LINALG_BLOCK:
         print(f"kernel {k}: max |kernel - plain| {errs[k]:.2e}")
         results[k]["max_abs_err"] = errs[k]
+    # the tiled factor must keep two systems resident on every SM at n = 192
+    occupancy = {k: kernels.block_occupancy(k, kernels.MAX_N) for k in ("cholesky_block", "solve_pd_block")}
+    print(f"block kernels at n={kernels.MAX_N}: resident blocks per SM {occupancy}")
+    for k in occupancy:
+        if occupancy[k] < 2:
+            fail(f"{k}: {occupancy[k]} resident blocks per SM at n = {kernels.MAX_N}, want >= 2")
     # past the block kernels' n the launchers refuse, on the card too
     a, b = random_spd(rng, 2, kernels.MAX_N + 1, device)
     try:
@@ -1290,7 +1324,7 @@ def main() -> int:
     log = lib_path.with_suffix(".log")
     if log.is_file():
         for line in log.read_text().splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print("  ptxas:", line.strip())
     _build.library()
 

@@ -114,7 +114,7 @@ def test_new_assets_load_and_step(name):
     from ambersim_tpu_torch.core.types import ConeType
     from ambersim_tpu_torch.engine import make_data, step
 
-    m = load_model(name)
+    m = load_model(name, device="cpu")
     assert (m.opt.cone == int(ConeType.ELLIPTIC)) == (name == "quadruped_elliptic")
     d = step(m, make_data(m, 2))
     assert torch.isfinite(d.qpos).all() and torch.isfinite(d.qacc).all()
@@ -129,14 +129,14 @@ def test_elliptic_cone_on_a_pyramidal_layout_is_refused(quadruped):
     skel_fields, leaves = model_arrays(quadruped)
     leaves = dict(leaves, **{"opt.cone": np.asarray(int(ConeType.ELLIPTIC))})
     with pytest.raises(ValueError, match="cone='elliptic'"):
-        model_from_numpy(skel_fields, leaves)
+        model_from_numpy(skel_fields, leaves, device="cpu")
 
 
 def test_loaded_model_matches_jax(quadruped):
     from ambersim_tpu_torch import load_model
     from ambersim_tpu_torch.core import types as tt
 
-    m = load_model("quadruped").to("cpu")
+    m = load_model("quadruped", device="cpu")
     # the port's Skeleton class is a copy: compare contents and content hash
     assert m.skel == tt.Skeleton(**dict(quadruped.skel._fields))
     assert hash(m.skel) == hash(quadruped.skel)
@@ -191,7 +191,7 @@ def test_tree_schedule_matches_jax(quadruped):
     from ambersim_tpu_torch import load_model
     from ambersim_tpu_torch.engine.schedule import tree_schedule
 
-    got, want = tree_schedule(load_model("quadruped").skel), jax_schedule(quadruped.skel)
+    got, want = tree_schedule(load_model("quadruped", device="cpu").skel), jax_schedule(quadruped.skel)
     assert len(got.levels) == len(want.levels) == 4
     for lg, lw in zip(got.levels, want.levels):
         for (sg, ig, pg, jg), (sw, iw, pw, jw) in zip(lg, lw):
@@ -230,8 +230,8 @@ def test_port_never_imports_jax():
         "import ambersim_tpu_torch.rl.pendulum, ambersim_tpu_torch.rl.quadruped, ambersim_tpu_torch.io.checkpoint\n"
         "from ambersim_tpu_torch import load_model\n"
         "from ambersim_tpu_torch.engine import make_data, step\n"
-        "m = load_model('quadruped'); step(m, make_data(m, 2))\n"
-        "m = load_model('clutter32_rowcap192'); step(m, make_data(m, 2))\n"
+        "m = load_model('quadruped', device='cpu'); step(m, make_data(m, 2))\n"
+        "m = load_model('clutter32_rowcap192', device='cpu'); step(m, make_data(m, 2))\n"
         "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'flax', 'ambersim_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -259,7 +259,7 @@ def test_models_outside_the_slice_are_refused(source, features):
 
     jm = tp.jax_model(source) if source.endswith(".xml") else tp.jax_model_from_xml(source)
     with pytest.raises(NotImplementedError) as err:
-        model_from_numpy(*model_arrays(jm))
+        model_from_numpy(*model_arrays(jm), device="cpu")
     for feature in features:
         assert feature in str(err.value)
 
@@ -273,8 +273,8 @@ def test_hessian_bf16_is_refused(quadruped):
 
     skel_fields, leaves = model_arrays(quadruped)
     with pytest.raises(NotImplementedError, match="hessian_bf16"):
-        model_from_numpy(skel_fields, dict(leaves, **{"opt.hessian_bf16": np.asarray(True)}))
-    m = load_model("quadruped")
+        model_from_numpy(skel_fields, dict(leaves, **{"opt.hessian_bf16": np.asarray(True)}), device="cpu")
+    m = load_model("quadruped", device="cpu")
     m = m.replace(opt=m.opt.replace(hessian_bf16=True))
     with pytest.raises(NotImplementedError, match="hessian_bf16"):
         step(m, make_data(m, 1))

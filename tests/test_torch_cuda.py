@@ -44,8 +44,11 @@ def test_linalg_kernels_match_plain(cuda, n):
     torch.testing.assert_close(kernels.solve_pd_batched(a, b), linalg.solve_pd_unrolled(a, b), **tol)
 
 
-@pytest.mark.parametrize("n", (33, 64, 65, 128, 192))
-def test_block_linalg_kernels_match_plain(cuda, n):
+# n = 100 and 191 are not multiples of the 16-wide tiles; 1000 systems are
+# more than fit on the card at once (two blocks an SM)
+@pytest.mark.parametrize("B, n", [(37, 33), (37, 64), (37, 65), (37, 100), (37, 128), (37, 191), (37, 192),
+                                  (1000, 192)])
+def test_block_linalg_kernels_match_plain(cuda, B, n):
     """Kernels 1-3 past n = 32 (one block per system): against the plain
     versions, the upper triangle unread, zeros above the diagonal."""
     from ambersim_tpu_torch.engine import linalg
@@ -53,9 +56,9 @@ def test_block_linalg_kernels_match_plain(cuda, n):
     from ambersim_tpu_torch.ops import linalg as kernels
 
     rng = np.random.default_rng(30 + n)
-    g = rng.standard_normal((37, n, n)).astype(np.float32)
+    g = rng.standard_normal((B, n, n)).astype(np.float32)
     a = torch.as_tensor(g @ np.swapaxes(g, -1, -2) + n * np.eye(n, dtype=np.float32), device=cuda)
-    b = torch.as_tensor(rng.standard_normal((37, n)).astype(np.float32), device=cuda)
+    b = torch.as_tensor(rng.standard_normal((B, n)).astype(np.float32), device=cuda)
     l = linalg.cholesky_unrolled(a)
     tol = dict(rtol=LARGE_LINALG_TOL, atol=LARGE_LINALG_TOL)
     reset_launch_counts()
@@ -70,6 +73,36 @@ def test_block_linalg_kernels_match_plain(cuda, n):
     torch.cuda.synchronize()
     assert (LAUNCHES["cholesky_block"], LAUNCHES["cho_solve_block"], LAUNCHES["solve_pd_block"]) == (2, 1, 3)
     assert LAUNCHES["cholesky"] == LAUNCHES["cho_solve"] == LAUNCHES["solve_pd"] == 0
+
+
+@pytest.mark.parametrize("n", (100, 192))
+def test_block_kernels_zero_pivot(cuda, n):
+    """Row and column j zero: the 1e-12 clamp gives L_jj = 0 as in the plain
+    version, and the solve is non-finite where the plain version's is."""
+    from ambersim_tpu_torch.engine import linalg
+    from ambersim_tpu_torch.ops import linalg as kernels
+
+    rng = np.random.default_rng(40 + n)
+    rows = (0, 17, n // 2, n - 1)
+    g = rng.standard_normal((len(rows), n, n)).astype(np.float32)
+    a = g @ np.swapaxes(g, -1, -2) + n * np.eye(n, dtype=np.float32)
+    for s, j in enumerate(rows):
+        a[s, j, :] = a[s, :, j] = 0.0
+    a = torch.as_tensor(a, device=cuda)
+    b = torch.as_tensor(rng.standard_normal((len(rows), n)).astype(np.float32), device=cuda)
+    got = kernels.cholesky_batched(a)
+    torch.testing.assert_close(got, linalg.cholesky_unrolled(a), rtol=LARGE_LINALG_TOL, atol=LARGE_LINALG_TOL)
+    assert all(got[s, j, j].item() == 0.0 for s, j in enumerate(rows))
+    x = kernels.solve_pd_batched(a, b)
+    assert torch.equal(torch.isfinite(x), torch.isfinite(linalg.solve_pd_unrolled(a, b)))
+
+
+def test_block_kernels_two_blocks_per_sm(cuda):
+    """The tiled factor and fused solve keep two systems on every SM at n = 192."""
+    from ambersim_tpu_torch.ops import linalg as kernels
+
+    assert kernels.block_occupancy("cholesky_block", 192) >= 2
+    assert kernels.block_occupancy("solve_pd_block", 192) >= 2
 
 
 def test_linalg_kernels_refuse_n_past_192(cuda):

@@ -21,7 +21,7 @@ def pendulum_case():
     from ambersim_tpu_torch.rl.pendulum import PendulumSwingupEnv
 
     torch.set_num_threads(1)
-    jenv, env = JaxPendulum(), PendulumSwingupEnv()
+    jenv, env = JaxPendulum(), PendulumSwingupEnv(device="cpu")
     acts = tp.uniform_actions(4, 20, 16, 1)
     jstate = tp.jax_env_reset(jenv, 16, seed=3)
     js, want = tp.env_state_to_numpy(jstate), tp.jax_env_run(jenv, jstate, acts)
@@ -57,7 +57,7 @@ def test_wrappers_match_jax():
 
     torch.set_num_threads(1)
     jenv = jax_wrap(JaxPendulum(), episode_length=5)
-    env = wrap_for_training(PendulumSwingupEnv(), episode_length=5)
+    env = wrap_for_training(PendulumSwingupEnv(device="cpu"), episode_length=5)
     acts = tp.uniform_actions(8, 12, 4, 1)
     jstate = tp.jax_env_reset(jenv, 4, seed=7)
     want = tp.jax_env_run(jenv, jstate, acts)
@@ -88,7 +88,7 @@ def test_autoreset_selects_every_data_field():
     from ambersim_tpu_torch.engine import make_data
     from ambersim_tpu_torch.rl.wrappers import select_where
 
-    first = make_data(load_model("quadruped"), 3).replace(energy=None)
+    first = make_data(load_model("quadruped", device="cpu"), 3).replace(energy=None)
 
     def bump(x):
         if isinstance(x, _Tensors):
@@ -118,7 +118,7 @@ def test_physics_runs_without_autograd():
     from ambersim_tpu_torch.rl.quadruped import QuadrupedLocomotionEnv
 
     torch.set_num_threads(1)
-    env = QuadrupedLocomotionEnv()
+    env = QuadrupedLocomotionEnv(device="cpu")
     s = env.reset(torch.Generator().manual_seed(0), 2)
     s = env.step(s, torch.zeros(2, 12, requires_grad=True))
     d = s.pipeline_state
@@ -133,10 +133,11 @@ def test_registry():
 
     assert registered_environments() == ["humanoid_balance", "pendulum_swingup", "quadruped_locomotion",
                                          "quadruped_terrain"]
-    env = get_environment("pendulum_swingup", config=PendulumSwingupConfig(physics_steps_per_control_step=2))
+    env = get_environment("pendulum_swingup", config=PendulumSwingupConfig(physics_steps_per_control_step=2),
+                          device="cpu")
     assert isinstance(env, PendulumSwingupEnv) and (env.observation_size, env.action_size) == (3, 1)
     assert float(env.dt) == pytest.approx(0.04)
-    quad = get_environment("quadruped_locomotion")
+    quad = get_environment("quadruped_locomotion", device="cpu")
     assert isinstance(quad, QuadrupedLocomotionEnv) and (quad.observation_size, quad.action_size) == (45, 12)
     with pytest.raises(KeyError, match="unknown environment"):
         get_environment("nope")
@@ -153,6 +154,6 @@ def test_unported_parts_are_refused(what, match):
 
     with pytest.raises(NotImplementedError, match=match):
         if what in ("quadruped_terrain", "humanoid_balance"):
-            get_environment(what)
+            get_environment(what, device="cpu")
         else:
-            train(get_environment("pendulum_swingup"), num_timesteps=1, **{what: object()})
+            train(get_environment("pendulum_swingup", device="cpu"), num_timesteps=1, device="cpu", **{what: object()})

@@ -20,7 +20,7 @@ def quadruped_case():
     from ambersim_tpu_torch.rl.quadruped import QuadrupedLocomotionEnv
 
     torch.set_num_threads(1)
-    jenv, env = JaxQuadruped(), QuadrupedLocomotionEnv()
+    jenv, env = JaxQuadruped(), QuadrupedLocomotionEnv(device="cpu")
     # the JAX env's reset draws: qpos0 + 0.08 N(0, 1) on the joints, 0.05 N(0, 1) on the base velocity
     rng = np.random.default_rng(5)
     qpos = np.tile(np.asarray(jenv.model.qpos0, np.float32), (8, 1))

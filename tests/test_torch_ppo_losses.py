@@ -57,7 +57,7 @@ def case():
     jparams = {"policy": jn.policy_network.init(kp), "value": jn.value_network.init(kv)}
     data = tp.ppo_rollout_buffer(12, jn, jparams, jrs.init_state(jnp.zeros(OBS)), T, B, OBS)
     jnorm = jrs.update(jrs.init_state(jnp.zeros(OBS)), jnp.asarray(data["observation"]))
-    tnorm, tparams = ppo_params_from_jax(jax.tree.map(np.asarray, (jnorm, jparams)))
+    tnorm, tparams = ppo_params_from_jax(jax.tree.map(np.asarray, (jnorm, jparams)), device="cpu")
     return dict(jn=jn, tn=tn, jparams=jparams, jnorm=jnorm, tparams=tparams, tnorm=tnorm, data=data)
 
 
@@ -89,7 +89,7 @@ def test_ppo_loss_and_gradients_match_jax(case):
     for k in ("total_loss", "policy_loss", "v_loss", "entropy_loss"):
         np.testing.assert_allclose(tm[k].numpy(), np.asarray(jm[k]), rtol=1e-5, atol=1e-5, err_msg=k)
     # the JAX gradients in the port's layout (kernels transposed)
-    want = ppo_params_from_jax(jax.tree.map(np.asarray, jgrads))
+    want = ppo_params_from_jax(jax.tree.map(np.asarray, jgrads), device="cpu")
     for net in ("policy", "value"):
         for k, w in want[net].items():
             # atol: an element of ~1e-7 is float32 cancellation, and moves by
@@ -106,9 +106,9 @@ def test_adam_step_matches_optax(case):
     _, jgrads, _, _ = _losses(case)
     opt = optax.adam(learning_rate=3e-4)
     updates, _ = opt.update(jgrads, opt.init(case["jparams"]), case["jparams"])
-    want = ppo_params_from_jax(jax.tree.map(np.asarray, optax.apply_updates(case["jparams"], updates)))
+    want = ppo_params_from_jax(jax.tree.map(np.asarray, optax.apply_updates(case["jparams"], updates)), device="cpu")
     ts = make_training_state(case["tparams"], case["tnorm"], learning_rate=3e-4)
-    grads = ppo_params_from_jax(jax.tree.map(np.asarray, jgrads))
+    grads = ppo_params_from_jax(jax.tree.map(np.asarray, jgrads), device="cpu")
     for net, p in ts.params.items():
         for k, v in p.items():
             v.grad = grads[net][k].clone()

@@ -33,7 +33,7 @@ def nets():
     jparams = {"policy": jn.policy_network.init(kp), "value": jn.value_network.init(kv)}
     jnorm = jrs.update(jrs.init_state(jnp.zeros(OBS)), jnp.asarray(3 * rng.standard_normal((40, OBS)) + 1, jnp.float32))
     host = jax.tree.map(np.asarray, (jnorm, jparams))
-    tnorm, tparams = ppo_params_from_jax(host)
+    tnorm, tparams = ppo_params_from_jax(host, device="cpu")
     obs = (3 * rng.standard_normal((BATCH, OBS)) + 1).astype(np.float32)
     return dict(jn=jn, tn=tn, jparams=jparams, jnorm=jnorm, tparams=tparams, tnorm=tnorm, obs=obs, host=host)
 
@@ -57,7 +57,7 @@ def test_mlp_matches_jax():
     jm = JaxMLP(layer_sizes=[16, 8, 5], activate_final=True)
     jp = jm.init(jax.random.PRNGKey(3), jnp.zeros((1, OBS)))
     tm = MLP(OBS, [16, 8, 5], activate_final=True)
-    params = ppo_params_from_jax(jax.tree.map(np.asarray, jp))
+    params = ppo_params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
     got = torch.func.functional_call(tm, params, (torch.as_tensor(x),))
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(jm.apply(jp, jnp.asarray(x))), rtol=1e-5, atol=1e-6)
     fresh = MLP(OBS, [16, 8, 5])
@@ -130,12 +130,12 @@ def test_params_converter_round_trip(nets):
     for path, v in flat_want:
         np.testing.assert_array_equal(flat_got[path], v)
     assert nets["tparams"]["policy"]["hidden.0.weight"].shape == (32, OBS)
-    again = ppo_params_from_jax(back)
+    again = ppo_params_from_jax(back, device="cpu")
     for net in ("policy", "value"):
         for k, v in nets["tparams"][net].items():
             assert torch.equal(again[1][net][k], v), k
     with pytest.raises(TypeError, match="not a PPO params tree"):
-        ppo_params_from_jax(3.0)
+        ppo_params_from_jax(3.0, device="cpu")
 
 
 def test_deterministic_tanh_matches_jax():

@@ -93,13 +93,13 @@ def test_learner_matches_jax():
                                        jax.random.PRNGKey(23))
     assert perms.shape == (EPOCHS, TOTAL) and noises.shape == (EPOCHS, NUM_MINIBATCHES, T, BATCH, ACT)
 
-    tnorm, tparams = ppo_params_from_jax(jax.tree.map(np.asarray, (jnorm, jparams)))
+    tnorm, tparams = ppo_params_from_jax(jax.tree.map(np.asarray, (jnorm, jparams)), device="cpu")
     ts = make_training_state(tparams, tnorm, LR)
     metrics = sgd_update(ts, tl.Transition(**{k: torch.as_tensor(v) for k, v in buf.items()}),
                          torch.as_tensor(perms).long(), torch.as_tensor(noises), tn, NUM_MINIBATCHES, **LOSS_KW)
     assert set(metrics) == {"total_loss", "policy_loss", "v_loss", "entropy_loss"}
     assert all(torch.isfinite(v) for v in metrics.values())
-    want = ppo_params_from_jax(jax.tree.map(np.asarray, want))
+    want = ppo_params_from_jax(jax.tree.map(np.asarray, want), device="cpu")
     moved = 0.0
     for net in ("policy", "value"):
         for k, w in want[net].items():
@@ -125,8 +125,8 @@ def test_pendulum_train_end_to_end(tmp_path):
     calls = []
     ckpt = tmp_path / "state.pkl"
     make_policy, params, metrics = train(
-        PendulumSwingupEnv(), progress_fn=lambda step, m: calls.append((step, m)), checkpoint_path=str(ckpt),
-        **PENDULUM_KW,
+        PendulumSwingupEnv(device="cpu"), progress_fn=lambda step, m: calls.append((step, m)),
+        checkpoint_path=str(ckpt), device="cpu", **PENDULUM_KW,
     )
     # 16 envs x 8 steps x 4 unrolls = 512 env steps per training step; 4 steps before the second eval
     assert [step for step, _ in calls] == [0, 2048]
@@ -141,7 +141,7 @@ def test_pendulum_train_end_to_end(tmp_path):
 
     # the inference function on obs, after a save/load round trip
     save_params(tmp_path / "params.pkl", params)
-    params2 = load_params(tmp_path / "params.pkl")
+    params2 = load_params(tmp_path / "params.pkl", device="cpu")
     for k, v in policy_params.items():
         assert torch.equal(params2[1][k], v)
     obs = torch.zeros(4, 3)
@@ -152,14 +152,14 @@ def test_pendulum_train_end_to_end(tmp_path):
 
     # data-only round trip
     save_arrays(tmp_path / "params.npz", params)
-    params3 = load_arrays(tmp_path / "params.npz", params)
+    params3 = load_arrays(tmp_path / "params.npz", params, device="cpu")
     assert torch.equal(params3[0].mean, normalizer.mean)
 
     # the checkpoint after each eval restores the whole training state
-    saved = load_params(ckpt)
+    saved = load_params(ckpt, device="cpu")
     assert saved["train_iters"] == 4 and float(saved["normalizer_params"].count) == 2048.0
     resumed = []
-    train(PendulumSwingupEnv(), restore_checkpoint_path=str(ckpt),
+    train(PendulumSwingupEnv(device="cpu"), restore_checkpoint_path=str(ckpt), device="cpu",
           progress_fn=lambda step, m: resumed.append(step), **dict(PENDULUM_KW, num_timesteps=512))
     assert resumed == [0, 5 * 512]
 
@@ -171,4 +171,4 @@ def test_cuda_without_a_card_raises(monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA card"):
-        train(PendulumSwingupEnv(), device="cuda", **PENDULUM_KW)
+        train(PendulumSwingupEnv(device="cpu"), device="cuda", **PENDULUM_KW)

@@ -1,0 +1,105 @@
+#!/usr/bin/env python3
+"""Time the block kernels 1 and 3 (csrc/linalg_block.cu) at n = 192 on a card.
+
+    python3 tools/linalg_block_probe.py [--against OTHER/linalg_block.cu]
+
+Builds the tree's linalg_block.cu (and OTHER, e.g. a parent commit's copy
+unpacked with git archive) with the port's nvcc flags into
+ambersim_tpu_torch/_build/probe/, checks each against the plain versions at
+B = 256, then prints, CUDA events, median of 20 launches:
+
+  * tree and OTHER in turns (tree, other, other, tree) at the clutter
+    shape B = 256, beside torch.linalg.cholesky;
+  * each at B = 1, 132, 264, 528, 1056: B = 1 is one system's latency, and
+    the step from 264 to 528 shows when the systems no longer fit at once.
+
+Needs a CUDA card; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+
+N = 192
+
+
+def build(src: Path, name: str) -> ctypes.CDLL:
+    from ambersim_tpu_torch.ops import _build
+
+    out = _build.BUILD / "probe"
+    out.mkdir(parents=True, exist_ok=True)
+    so = out / f"{name}.so"
+    run = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(so), str(src)],
+                         capture_output=True, text=True)
+    if run.returncode:
+        raise RuntimeError(f"nvcc failed on {src}:\n{run.stdout}{run.stderr}")
+    print(name, "\n".join(line.strip() for line in (run.stdout + run.stderr).splitlines() if "registers" in line))
+    lib = ctypes.CDLL(str(so))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.amb_cholesky_block.argtypes = [P, P, I, I, P]
+    lib.amb_solve_pd_block.argtypes = [P, P, P, I, I, P]
+    return lib
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--against", type=Path, help="another linalg_block.cu to time beside the tree's")
+    args = ap.parse_args()
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from ambersim_tpu_torch.engine import linalg as plain
+    from ambersim_tpu_torch.engine.forward import full_f32_matmul
+    from ambersim_tpu_torch.ops._build import check_launch
+
+    if not torch.cuda.is_available():
+        cs.fail("no CUDA card")
+    full_f32_matmul()
+    print(f"card: {cs.card_line()}")
+    libs = {"tree": build(REPO / "ambersim_tpu_torch/csrc/linalg_block.cu", "tree")}
+    if args.against:
+        libs["other"] = build(args.against, "other")
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+
+    def chol(lib, a):
+        out = torch.empty_like(a)
+        check_launch(lib.amb_cholesky_block(a.data_ptr(), out.data_ptr(), a.shape[0], N, stream()), "cholesky_block")
+        return out
+
+    def solve(lib, a, b):
+        out = torch.empty_like(b)
+        check_launch(lib.amb_solve_pd_block(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0], N, stream()),
+                     "solve_pd_block")
+        return out
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(0)
+    a, b = cs.random_spd(rng, cs.CLUTTER_ENVS, N, dev)
+    for name, lib in libs.items():
+        cs.max_err(chol(lib, a), plain.cholesky_unrolled(a), cs.LARGE_LINALG_TOL, cs.LARGE_LINALG_TOL, f"{name} factor")
+        cs.max_err(solve(lib, a, b), plain.solve_pd_unrolled(a, b), cs.LARGE_LINALG_TOL, cs.LARGE_LINALG_TOL,
+                   f"{name} solve")
+    order = ("tree", "other", "other", "tree") if args.against else ("tree", "tree")
+    for name in order:
+        print(f"B={cs.CLUTTER_ENVS} n={N} {name}: cholesky_block {cs.cuda_ms(lambda: chol(libs[name], a), 20):.4f} ms, "
+              f"solve_pd_block {cs.cuda_ms(lambda: solve(libs[name], a, b), 20):.4f} ms")
+    print(f"B={cs.CLUTTER_ENVS} n={N} torch.linalg.cholesky {cs.cuda_ms(lambda: torch.linalg.cholesky(a), 20):.4f} ms")
+    for B in (1, 132, 264, 528, 1056):
+        a, b = cs.random_spd(rng, B, N, dev)
+        print(f"B={B} n={N} " + ", ".join(
+            f"{name}: cholesky_block {cs.cuda_ms(lambda: chol(lib, a), 20):.4f} ms solve_pd_block "
+            f"{cs.cuda_ms(lambda: solve(lib, a, b), 20):.4f} ms" for name, lib in libs.items()))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

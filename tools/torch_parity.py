@@ -325,7 +325,7 @@ def torch_model_file(path):
     from ambersim_tpu_torch.io.bridge import model_from_numpy, unpack_npz
 
     with np.load(path, allow_pickle=False) as npz:
-        return model_from_numpy(*unpack_npz(npz))
+        return model_from_numpy(*unpack_npz(npz), device="cpu")
 
 
 def free_body_state(jm, batch: int, seed: int, pos_scale=1e-3, rot_scale=2e-2, qvel_scale=0.05):
