@@ -1,6 +1,6 @@
-// Block-level pieces shared by the Newton kernels (newton_structured.cu,
-// newton_dense.cu, newton_elliptic.cu): one 128-thread block solves one
-// env, with its operands in shared memory.
+// Block-level pieces shared by the Newton kernels 5 and 6 (newton_dense.cu,
+// newton_elliptic.cu): one 128-thread block solves one env, with its
+// operands in shared memory.
 //
 // Sums are block reductions whose per-warp partials every thread reads in
 // one fixed order, so every thread of the block holds the same value and
@@ -119,12 +119,17 @@ __device__ inline void tri_index(int k, int& v, int& w) {
   w = k - v * (v + 1) / 2;
 }
 
-// Warp 0 factors H (lower triangle, leading dimension ld) and writes the
-// Newton direction p = -H^{-1} grad. Ends with a barrier.
+// Warp 0 factors H (lower triangle, leading dimension ld; L overwrites it)
+// with the forward sweep for grad riding along, then sweeps back and writes
+// the Newton direction p = -H^{-1} grad. Ends with a barrier.
 __device__ inline void newton_direction(float* H, int nv, int ld, const float* grad, float* p) {
   if (threadIdx.x < 32) {
-    warp_cholesky(H, nv, ld);
-    const float x = warp_cho_solve(H, threadIdx.x < nv ? grad[threadIdx.x] : 0.f, nv, ld);
+    float r[kMaxN];
+    load_rows(r, H, nv, ld);
+    float y = threadIdx.x < nv ? grad[threadIdx.x] : 0.f;
+    warp_factor<true>(r, nv, H, ld, y);
+    __syncwarp();
+    const float x = warp_back_solve(H, y, nv, ld);
     if (threadIdx.x < nv) p[threadIdx.x] = -x;
   }
   __syncthreads();

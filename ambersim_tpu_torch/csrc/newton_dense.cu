@@ -26,7 +26,10 @@
 // Design: 128 threads per env; J, M, H and the row vectors in dynamic
 // shared memory. Threads run over rows for J x and row costs, over columns
 // for J^T f, over lower-triangle (v, w) pairs for J^T diag(h) J; warp 0
-// factors and solves H (csrc/linalg.cuh).
+// factors and solves H (csrc/linalg.cuh). The factor holds its rows in 32
+// registers a lane, which took the kernel from 56 to 72 registers and seven
+// blocks an SM, two waves for 1024 envs; the launch bound caps it at 64 for
+// eight blocks an SM (one wave on 132 SMs) at the price of a few spills.
 
 #include <cuda_runtime.h>
 
@@ -86,7 +89,7 @@ __device__ float total_cost(const Dims& d, const Layout& L, float* f, const floa
   return 0.5f * smooth + rows;
 }
 
-__global__ void __launch_bounds__(kThreads) newton_dense_kernel(
+__global__ void __launch_bounds__(kThreads, 8) newton_dense_kernel(
     const float* __restrict__ J_g, const float* __restrict__ qM, const float* __restrict__ aref_g,
     const float* __restrict__ D_g, const float* __restrict__ fl_g, const float* __restrict__ act_g,
     const float* __restrict__ as_g, const float* __restrict__ ws_g, const float* __restrict__ tol_g,

@@ -1,16 +1,18 @@
 // Kernel 4: the whole pyramidal Newton constraint solve on the factored
-// (structured) row layout, one thread block per env.
+// (structured) row layout, one warp per env.
 //
 // Replaces ambersim_tpu/ops/newton_pallas.py: newton_solve_structured
-// (:582; kernel body _structured_kernel :374), which runs the batch on the
-// TPU's lanes with every operand of a 128-512 env tile in VMEM. Numerically
-// it mirrors the plain path the Pallas kernel is held to,
-// _newton_arrays_jnp (ambersim_tpu/engine/solver.py:424) with
-// _row_costs_pure (:207): start at the cheaper of qacc_smooth and the
-// warmstart, then per iteration Huber/one-sided/equality row forces, the
-// gradient M(qacc - a_s) - J^T f, the Hessian M + 1e-8 I + J^T diag(h) J, a
-// Cholesky solve for the direction, an exact scalar-Newton line search
-// clipped to [0, 4], and the masked improve/convergence update.
+// (:582; kernel body _structured_kernel :374, Hessian :492), which runs the
+// batch on the TPU's lanes with every operand of a 128-512 env tile in
+// VMEM. Numerically it mirrors the plain path the Pallas kernel is held to,
+// _newton_arrays (ambersim_tpu_torch/engine/solver.py; the JAX package's
+// _newton_arrays_jnp, solver.py:424, with _row_costs_pure, :207): start at
+// the cheaper of qacc_smooth and the warmstart, then per iteration
+// Huber/one-sided/equality row forces, the gradient M(qacc - a_s) - J^T f,
+// the Hessian M + 1e-8 I + J^T diag(h) J, a Cholesky solve for the
+// direction, an exact scalar-Newton line search clipped to [0, 4] (a
+// non-finite step selected to 0), and the masked improve/convergence
+// update; efc_force goes back through `perm` in MuJoCo row order.
 //
 // Row families, in kernel row order [dense | one-hot | N+U1 | N-U1 | N+U2 |
 // N-U2] (PyramidStructure in engine/constraint.py):
@@ -18,371 +20,603 @@
 //   * one-hot rows dsc * e_dof (dof friction, scalar joint limits);
 //   * condim-3 contacts through the basis [N, U1, U2] (efc_bJ), so the
 //     contact part of J^T diag(h) J is B^T S B with 5 coefficients each.
-// The per-row operands are read through `perm` (kernel row -> MuJoCo row)
-// and efc_force is written back through it, in MuJoCo row order.
 //
 // What bounds it here: at the quadruped's shapes (nv = 18, nefc = 136,
-// 28 contacts, 3 iterations x 6 line-search steps) an env reads ~9 KB once
-// and then works out of shared memory, so device-memory traffic is ~40 MB
-// for 4096 envs; the solve is a chain of dependent phases (row passes,
-// reductions, an 18-column factorization) separated by block barriers, so
-// it is bound by barrier and reduction latency, not by flops or bytes.
+// 28 contacts, 3 iterations x 6 line-search steps) an env reads ~9 KB once,
+// ~40 MB for 4096 envs (12 us at 3.35 TB/s); the rest is each env's chain
+// of dependent phases (row passes, reductions, an 18-pivot factor and two
+// sweeps), so it is bound by that chain's latency and by instruction
+// issue, not by flops or bytes.
 //
-// Design: 128 threads per env, all operands in dynamic shared memory
-// (~15 KB at quadruped shapes, so many blocks fit per SM and hide each
-// other's barriers). Threads run over rows for J x / J^T f / row costs,
-// over contacts for the basis products, over lower-triangle (v, w) pairs
-// for the Hessian; warp 0 factors and solves it (csrc/linalg.cuh, nv <= 32).
-// Sums are block reductions that every thread reads identically, so every
-// thread takes the same take/keep decision. A non-finite line-search step
-// is replaced by 0 through a select (no blend with NaN).
+// Design: one warp per env, lane v owning dof v (nv <= 32), four envs per
+// 128-thread block, no block barrier (only __syncwarp). Sums over lanes are
+// __shfl_xor_sync butterflies, which leave the same bits in every lane, so
+// every lane takes the same take/keep and line-search decisions.
+//   * Per env in shared memory (~13 KB at the quadruped's shapes: 16 envs
+//     an SM, so 4096 envs take two waves): qM, the basis rows and the dense
+//     rows at a pitch P (nv rounded up to 4 floats, P/4 odd: 16-byte
+//     aligned broadcast reads, and lane c reading its own contact's row
+//     with no bank conflict), one float4 record {jar, jp, D, kind} per row
+//     (ceil(nefc/32) rows a lane; an inactive row carries D = 0, and the
+//     kind, decided once, rides in the frictionloss slot: >= 0 Huber with
+//     that frictionloss, -1 equality, -3 one-sided), and a scratch buffer.
+//     The Hessian's row v lives in lane v's registers (compile-time
+//     indices).
+//   * J^T f and the Hessian walk only the contacts with a nonzero force or
+//     weight (a ballot), with f's and h's four pyramid rows folded first;
+//     the Hessian per contact is the rank-3 update H_vw += a_v N_w + b_v
+//     U1_w + c_v U2_w (a = c0 N + c3 U1 + c4 U2, b = c3 N + c1 U1,
+//     c = c4 N + c2 U2): 3 FMAs per entry, on float32 pipes (TF32 would
+//     give up the digits the 1e-4 bars need).
+//   * The factor is amb::warp_factor on the Hessian rows in registers,
+//     with the forward sweep for the gradient riding along; L goes to the
+//     scratch buffer for the backward sweep (amb::warp_back_solve).
+//   * Loads: the basis, dense rows and qM by cp.async, in flight while the
+//     row operands are gathered through perm.
 
 #include <cuda_runtime.h>
 
 #include <math.h>
 
-#include "newton_common.cuh"
+#include "linalg.cuh"
 
 namespace {
 
-using amb::block_sum2;
-using amb::kThreads;
-using amb::kWarps;
-using amb::row_eval;
+using amb::kFullMask;
+using amb::kMaxN;
+
+constexpr int kEnvs = 4;              // warps (envs) per block
+constexpr int kGroups = kMaxN / 4;    // float4 groups of a row of dofs
+constexpr float kKindEq = -1.f;       // kind codes in a record's w slot
+constexpr float kKindOneSided = -3.f;
+
+// Phase clocks, compiled in only with -DAMB_NEWTON_CLOCKS (tools/newton_probe.py
+// builds such a copy): env 0's lane 0 adds the clock64() cycles since its
+// last mark to slot k, so the slots split one env's time by phase.
+constexpr int kPhases = 10;
+#ifdef AMB_NEWTON_CLOCKS
+__device__ long long phase_clocks[kPhases];
+#define AMB_MARK(k)                                                 \
+  do {                                                              \
+    if (blockIdx.x == 0 && threadIdx.x == 0) {                      \
+      const long long now = clock64();                              \
+      phase_clocks[k] += now - mark;                                \
+      mark = now;                                                   \
+    }                                                               \
+  } while (0)
+#else
+#define AMB_MARK(k) \
+  do {              \
+  } while (0)
+#endif
 
 struct Dims {
-  int nv, nefc, nd, ndiag, ncon, nd_eq, nd_ft, nfd, iterations, ls_iterations, use_ws;
+  int B, nv, nefc, nd, ndiag, ncon, nd_eq, nd_ft, nfd, iterations, ls_iterations, use_ws;
 };
 
-// Shared-memory layout (floats, then ints); one definition for host and device.
+__host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
+
+// Shared-memory layout of one env, in 4-byte words (each region 16-byte
+// aligned; ddof holds ints). One definition for host and device.
 struct Layout {
-  int Bs, Jd, M, H, aref, D, fl, act, jar, jp, jtmp, frc, coef, dsc, as, qacc, qtmp, p, grad, mdacc, vtmp,
-      red, nfloat, perm, ddof, nint;
+  int P, ld, R, Bs, Jd, M, rec, buf, cf, dsc, xs, xw, ddof, floats;
   __host__ __device__ Layout(int nv, int nefc, int nd, int ndiag, int ncon) {
+    P = 4 * (((nv + 3) / 4) | 1);
+    ld = nv | 1;
+    R = (nefc + 31) / 32;
     int o = 0;
-    Bs = o;    o += 3 * ncon * nv;
-    Jd = o;    o += nd * nv;
-    M = o;     o += nv * nv;
-    H = o;     o += nv * (nv | 1);
-    aref = o;  o += nefc;
-    D = o;     o += nefc;
-    fl = o;    o += nefc;
-    act = o;   o += nefc;
-    jar = o;   o += nefc;
-    jp = o;    o += nefc;
-    jtmp = o;  o += nefc;
-    frc = o;   o += nefc;
-    coef = o;  o += 5 * ncon;
-    dsc = o;   o += ndiag;
-    as = o;    o += nv;
-    qacc = o;  o += nv;
-    qtmp = o;  o += nv;
-    p = o;     o += nv;
-    grad = o;  o += nv;
-    mdacc = o; o += nv;
-    vtmp = o;  o += nv;
-    red = o;   o += 2 * kWarps;
-    nfloat = o;
-    perm = 0;
-    ddof = nefc;
-    nint = nefc + ndiag;
+    Bs = o;   o += 3 * ncon * P;
+    Jd = o;   o += nd * P;
+    M = o;    o += nv * P;
+    rec = o;  o += 4 * 32 * R;                                           // row records, padded to 32 R
+    buf = o;  o += round4(nv * ld > 64 * R ? nv * ld : 64 * R);          // (force, h) per row, or L
+    cf = o;   o += 8 * ncon;                                             // per contact: 5 weights, 3 forces
+    dsc = o;  o += round4(ndiag);
+    xs = o;   o += P;
+    xw = o;   o += P;
+    ddof = o; o += round4(ndiag);
+    floats = o;
   }
-  __host__ __device__ size_t bytes() const { return sizeof(float) * (size_t)nfloat + sizeof(int) * (size_t)nint; }
+  __host__ __device__ size_t env_bytes() const { return sizeof(float) * (size_t)floats; }
 };
 
-// Row kind in kernel row order (amb::row_kind's codes): 0 = equality,
-// 1 = friction (Huber), 2 = one-sided.
+__device__ inline void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src));
+}
+
+__device__ inline void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// nrow rows of nv floats (contiguous at src) into rows of pitch P at dst by
+// cp.async, coalesced over the whole block, padding zeroed. One warp.
+__device__ inline void copy_rows(float* dst, const float* src, int nrow, int nv, int P) {
+  const int lane = threadIdx.x & 31, q = 32 / nv, rem = 32 % nv;
+  int row = lane / nv, col = lane % nv;
+  for (int k = lane; k < nrow * nv; k += 32) {
+    cp_async4(dst + row * P + col, src + k);
+    row += q;
+    col += rem;
+    if (col >= nv) {
+      col -= nv;
+      ++row;
+    }
+  }
+  for (int r = lane; r < nrow; r += 32)
+    for (int c = nv; c < P; ++c) dst[r * P + c] = 0.f;
+}
+
+__device__ inline void warp_sum2(float& a, float& b) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    a += __shfl_xor_sync(kFullMask, a, o);
+    b += __shfl_xor_sync(kFullMask, b, o);
+  }
+}
+
+__device__ inline float warp_sum(float a) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(kFullMask, a, o);
+  return a;
+}
+
+// Row kind in kernel row order: 0 = equality, 1 = friction (Huber),
+// 2 = one-sided.
 __device__ inline int row_kind(int r, const Dims& d) {
   const bool diag_fric = r >= d.nd && r < d.nd + d.nfd;
   if ((r >= d.nd_eq && r < d.nd_eq + d.nd_ft) || diag_fric) return 1;
   return r >= d.nd_eq + d.nd_ft ? 2 : 0;
 }
 
+// _row_costs_pure for one row of a record: force and Hessian weight (D on
+// quadratic rows, else 0), and the cost; selects, no branch.
+__device__ inline void row_eval(float jar, float D, float kind, float& force, float& h) {
+  const float Dj = D * jar;
+  const bool fric = kind >= 0.f;  // Huber, frictionloss = kind
+  const bool lin = fric && fabsf(Dj) > kind;
+  const bool quad = fric ? !lin : (kind > -2.f || jar < 0.f);
+  const float sgn = (jar > 0.f) - (jar < 0.f);
+  force = lin ? -sgn * kind : (quad ? -Dj : 0.f);
+  h = quad ? D : 0.f;
+}
+
+// Only a Huber row in its linear zone with a nonzero frictionloss divides
+// (the others would send the IEEE divide down its slow path for the warp).
+__device__ inline float row_cost(float jar, float D, float kind) {
+  const bool fric = kind >= 0.f;
+  const bool lin = fric && fabsf(D * jar) > kind;
+  const bool quad = fric ? !lin : (kind > -2.f || jar < 0.f);
+  const float h2 = 0.5f * kind * kind;
+  const bool divide = lin && h2 != 0.f;
+  const float quo = (divide ? h2 : 1.f) / fmaxf(D, 1e-12f);
+  const float shift = divide ? quo : 0.f;
+  return lin ? kind * fabsf(jar) - shift : (quad ? 0.5f * D * jar * jar : 0.f);
+}
+
+// jar + t jp, rounded as the plain version rounds it (product, then sum)
+__device__ inline float along(float jar, float t, float jp) { return __fadd_rn(jar, __fmul_rn(t, jp)); }
+
 struct Env {
   Dims d;
   Layout L;
-  float* f;
-  int* ip;
-  __device__ float* at(int off) const { return f + off; }
+  float* Bs;
+  float* Jd;
+  float* M;
+  float4* rec;
+  float* buf;
+  float* cf;
+  float* dsc;
+  float* xs;
+  float* xw;
+  int* ddof;
+  int lane;
 };
 
-// out[r] = (J x)_r - sub[r] in kernel row order (sub may be null).
-__device__ void jmul(const Env& e, const float* x, float* out, const float* sub) {
+// Lane v's dof value into a broadcast vector (lanes >= nv write nothing;
+// the padding stays zero).
+__device__ inline void put_vec(const Env& e, float* x, float v) {
+  __syncwarp();
+  if (e.lane < e.d.nv) x[e.lane] = v;
+  __syncwarp();
+}
+
+// (M x)_v for lane v's dof (lanes past nv read row 0), x a broadcast
+// vector; M's and x's padding are zero.
+__device__ inline float m_dot(const Env& e, const float* x) {
+  const float4* m = reinterpret_cast<const float4*>(e.M + (e.lane < e.d.nv ? e.lane : 0) * e.L.P);
+  float s = 0.f;
+#pragma unroll
+  for (int g = 0; g < kGroups; ++g) {
+    if (4 * g >= e.d.nv) break;
+    const float4 a = m[g], v = reinterpret_cast<const float4*>(x)[g];
+    s = fmaf(a.x, v.x, s);
+    s = fmaf(a.y, v.y, s);
+    s = fmaf(a.z, v.z, s);
+    s = fmaf(a.w, v.w, s);
+  }
+  return s;
+}
+
+// Row r's dot products a (with xs) and b (with xw), stored by mode:
+// 0: jp = a; 1: jar = a - aref; 2: jar = a - aref, jar_w = b - aref (aref
+// rides in the jp slot until then).
+template <int kMode>
+__device__ inline void store_row(const Env& e, int r, float a, float b) {
+  float* rec = reinterpret_cast<float*>(e.rec) + 4 * r;
+  if (kMode == 0) {
+    rec[1] = a;
+  } else {
+    const float aref = rec[1];
+    rec[0] = a - aref;
+    if (kMode == 2) rec[1] = b - aref;
+  }
+}
+
+// Products of J with xs (and xw in mode 2) for every row, by family; lane c
+// takes contact c's four rows. Ends with __syncwarp.
+template <int kMode>
+__device__ void jmul(const Env& e) {
   const Dims& d = e.d;
-  const float* Bs = e.at(e.L.Bs);
-  const float* Jd = e.at(e.L.Jd);
-  const float* dsc = e.at(e.L.dsc);
-  const int* ddof = e.ip + e.L.ddof;
-  const int base = d.nd + d.ndiag;
-  for (int it = threadIdx.x; it < base + d.ncon; it += kThreads) {
-    if (it < d.nd) {
-      float s = 0.f;
-      for (int v = 0; v < d.nv; ++v) s += Jd[it * d.nv + v] * x[v];
-      out[it] = s - (sub ? sub[it] : 0.f);
-    } else if (it < base) {
-      const int g = it - d.nd;
-      out[it] = dsc[g] * x[ddof[g]] - (sub ? sub[it] : 0.f);
-    } else {
-      const int c = it - base;
-      const float* N = Bs + c * d.nv;
-      const float* U1 = Bs + (d.ncon + c) * d.nv;
-      const float* U2 = Bs + (2 * d.ncon + c) * d.nv;
-      float jN = 0.f, j1 = 0.f, j2 = 0.f;
-      for (int v = 0; v < d.nv; ++v) {
-        jN += N[v] * x[v];
-        j1 += U1[v] * x[v];
-        j2 += U2[v] * x[v];
+  const int lane = e.lane, P = e.L.P, nc = d.ncon, base = d.nd + d.ndiag;
+  const float4* x4 = reinterpret_cast<const float4*>(e.xs);
+  const float4* w4 = reinterpret_cast<const float4*>(e.xw);
+  for (int c = lane; c < nc; c += 32) {
+    const float4* N = reinterpret_cast<const float4*>(e.Bs + c * P);
+    const float4* U1 = reinterpret_cast<const float4*>(e.Bs + (nc + c) * P);
+    const float4* U2 = reinterpret_cast<const float4*>(e.Bs + (2 * nc + c) * P);
+    float jN = 0.f, j1 = 0.f, j2 = 0.f, kN = 0.f, k1 = 0.f, k2 = 0.f;
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      if (4 * g >= d.nv) break;
+      const float4 n = N[g], u = U1[g], w = U2[g], x = x4[g];
+      jN += n.x * x.x + n.y * x.y + n.z * x.z + n.w * x.w;
+      j1 += u.x * x.x + u.y * x.y + u.z * x.z + u.w * x.w;
+      j2 += w.x * x.x + w.y * x.y + w.z * x.z + w.w * x.w;
+      if (kMode == 2) {
+        const float4 y = w4[g];
+        kN += n.x * y.x + n.y * y.y + n.z * y.z + n.w * y.w;
+        k1 += u.x * y.x + u.y * y.y + u.z * y.z + u.w * y.w;
+        k2 += w.x * y.x + w.y * y.y + w.z * y.z + w.w * y.w;
       }
-      const int r0 = base + c, nc = d.ncon;
-      out[r0] = jN + j1 - (sub ? sub[r0] : 0.f);
-      out[r0 + nc] = jN - j1 - (sub ? sub[r0 + nc] : 0.f);
-      out[r0 + 2 * nc] = jN + j2 - (sub ? sub[r0 + 2 * nc] : 0.f);
-      out[r0 + 3 * nc] = jN - j2 - (sub ? sub[r0 + 3 * nc] : 0.f);
+    }
+    const int r0 = base + c;
+    store_row<kMode>(e, r0, jN + j1, kN + k1);
+    store_row<kMode>(e, r0 + nc, jN - j1, kN - k1);
+    store_row<kMode>(e, r0 + 2 * nc, jN + j2, kN + k2);
+    store_row<kMode>(e, r0 + 3 * nc, jN - j2, kN - k2);
+  }
+  for (int g = lane; g < d.ndiag; g += 32) {
+    const int v = e.ddof[g];
+    store_row<kMode>(e, d.nd + g, e.dsc[g] * e.xs[v], kMode == 2 ? e.dsc[g] * e.xw[v] : 0.f);
+  }
+  for (int r = lane; r < d.nd; r += 32) {
+    const float4* J = reinterpret_cast<const float4*>(e.Jd + r * P);
+    float a = 0.f, b = 0.f;
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      if (4 * g >= d.nv) break;
+      const float4 j = J[g], x = x4[g];
+      a += j.x * x.x + j.y * x.y + j.z * x.z + j.w * x.w;
+      if (kMode == 2) {
+        const float4 y = w4[g];
+        b += j.x * y.x + j.y * y.y + j.z * y.z + j.w * y.w;
+      }
+    }
+    store_row<kMode>(e, r, a, b);
+  }
+  __syncwarp();
+}
+
+// 0.5 (q - a_s)^T M (q - a_s) + sum of row costs at jar + t jp (at jar_w,
+// the jp slot, when `alt`), the same in every lane.
+__device__ float total_cost(const Env& e, float q, float as, float t, bool alt) {
+  const float dacc = e.lane < e.d.nv ? q - as : 0.f;
+  put_vec(e, e.xs, dacc);
+  float s = 0.5f * dacc * m_dot(e, e.xs);
+#pragma unroll 4
+  for (int k = 0; k < e.L.R; ++k) {
+    const float4 r = e.rec[e.lane + 32 * k];
+    s += row_cost(alt ? r.y : along(r.x, t, r.y), r.z, r.w);
+  }
+  return warp_sum(s);
+}
+
+// Forces and Hessian weights at jar: (force, h) per row into buf, then the
+// contacts' folded weights and forces into cf. Ends with __syncwarp.
+__device__ void forces_at_jar(const Env& e) {
+  float2* fh = reinterpret_cast<float2*>(e.buf);
+#pragma unroll 4
+  for (int k = 0; k < e.L.R; ++k) {
+    const int r = e.lane + 32 * k;
+    const float4 v = e.rec[r];
+    float f, h;
+    row_eval(v.x, v.z, v.w, f, h);
+    fh[r] = make_float2(f, h);
+  }
+  __syncwarp();
+  const int nc = e.d.ncon, base = e.d.nd + e.d.ndiag;
+  for (int c = e.lane; c < nc; c += 32) {
+    const float2 a = fh[base + c], b = fh[base + nc + c], g = fh[base + 2 * nc + c], h = fh[base + 3 * nc + c];
+    float4* out = reinterpret_cast<float4*>(e.cf + 8 * c);
+    out[0] = make_float4(a.y + b.y + g.y + h.y, a.y + b.y, g.y + h.y, a.y - b.y);  // N N, U1 U1, U2 U2, N U1
+    out[1] = make_float4(g.y - h.y, a.x + b.x + g.x + h.x, a.x - b.x, g.x - h.x);  // N U2; forces on N, U1, U2
+  }
+  __syncwarp();
+}
+
+// J^T f at jar for lane v's dof and, with kHess, the Hessian's row v
+// (h holds M's row on entry). forces_at_jar has run.
+template <bool kHess>
+__device__ float jtf_hessian(const Env& e, float (&h)[kMaxN]) {
+  const Dims& d = e.d;
+  const int lane = e.lane, P = e.L.P, nc = d.ncon;
+  const bool dof = lane < d.nv;
+  const float2* fh = reinterpret_cast<const float2*>(e.buf);
+  const float4* cf4 = reinterpret_cast<const float4*>(e.cf);
+  float jtf = 0.f, hdiag = 0.f;
+  for (int c0 = 0; c0 < nc; c0 += 32) {
+    const int c = c0 + lane;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+    if (c < nc) {
+      a = cf4[2 * c];
+      b = cf4[2 * c + 1];
+    }
+    // a contact with all four weights zero has a == b.x == 0 (the weights are D >= 0 or 0)
+    const unsigned hmask = __ballot_sync(kFullMask, kHess && (a.y != 0.f || a.z != 0.f || a.w != 0.f || b.x != 0.f));
+    unsigned mask = hmask | __ballot_sync(kFullMask, b.y != 0.f || b.z != 0.f || b.w != 0.f);
+    while (mask) {
+      const int bit = __ffs(mask) - 1;
+      mask &= mask - 1;
+      const int cc = c0 + bit;
+      const float4 ca = cf4[2 * cc], cb = cf4[2 * cc + 1];
+      const float* N = e.Bs + cc * P;
+      const float* U1 = e.Bs + (nc + cc) * P;
+      const float* U2 = e.Bs + (2 * nc + cc) * P;
+      const float n = dof ? N[lane] : 0.f, u1 = dof ? U1[lane] : 0.f, u2 = dof ? U2[lane] : 0.f;
+      jtf += cb.y * n + cb.z * u1 + cb.w * u2;
+      if (kHess && ((hmask >> bit) & 1u)) {
+        const float av = ca.x * n + ca.w * u1 + cb.x * u2;
+        const float bv = ca.w * n + ca.y * u1;
+        const float cv = cb.x * n + ca.z * u2;
+        const float4* N4 = reinterpret_cast<const float4*>(N);
+        const float4* V4 = reinterpret_cast<const float4*>(U1);
+        const float4* W4 = reinterpret_cast<const float4*>(U2);
+#pragma unroll
+        for (int g = 0; g < kGroups; ++g) {
+          if (4 * g >= d.nv) break;
+          const float4 x = N4[g], y = V4[g], z = W4[g];
+          h[4 * g] += av * x.x + bv * y.x + cv * z.x;
+          h[4 * g + 1] += av * x.y + bv * y.y + cv * z.y;
+          h[4 * g + 2] += av * x.z + bv * y.z + cv * z.z;
+          h[4 * g + 3] += av * x.w + bv * y.w + cv * z.w;
+        }
+      }
     }
   }
-  __syncthreads();
-}
-
-// out = J^T f (nv).
-__device__ void jtmul(const Env& e, const float* f, float* out) {
-  const Dims& d = e.d;
-  const float* Bs = e.at(e.L.Bs);
-  const float* Jd = e.at(e.L.Jd);
-  const float* dsc = e.at(e.L.dsc);
-  const int* ddof = e.ip + e.L.ddof;
-  const int base = d.nd + d.ndiag, nc = d.ncon;
-  for (int v = threadIdx.x; v < d.nv; v += kThreads) {
-    float s = 0.f;
-    for (int c = 0; c < nc; ++c) {
-      const float f0 = f[base + c], f1 = f[base + nc + c], f2 = f[base + 2 * nc + c], f3 = f[base + 3 * nc + c];
-      s += (f0 + f1 + f2 + f3) * Bs[c * d.nv + v] + (f0 - f1) * Bs[(nc + c) * d.nv + v] +
-           (f2 - f3) * Bs[(2 * nc + c) * d.nv + v];
+#pragma unroll 4
+  for (int g = 0; g < d.ndiag; ++g) {
+    const float2 v = fh[d.nd + g];
+    const float s = e.dsc[g];
+    if (lane == e.ddof[g]) {
+      jtf += s * v.x;
+      hdiag += v.y * s * s;
     }
-    for (int g = 0; g < d.ndiag; ++g)
-      if (ddof[g] == v) s += dsc[g] * f[d.nd + g];
-    for (int r = 0; r < d.nd; ++r) s += Jd[r * d.nv + v] * f[r];
-    out[v] = s;
   }
-  __syncthreads();
+  for (int r = 0; r < d.nd; ++r) {
+    const float2 v = fh[r];
+    const float* J = e.Jd + r * P;
+    const float jv = dof ? J[lane] : 0.f;
+    jtf += jv * v.x;
+    if (kHess && v.y != 0.f) {
+      const float gv = v.y * jv;
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) {
+        if (4 * g >= d.nv) break;
+        const float4 x = reinterpret_cast<const float4*>(J)[g];
+        h[4 * g] += gv * x.x;
+        h[4 * g + 1] += gv * x.y;
+        h[4 * g + 2] += gv * x.z;
+        h[4 * g + 3] += gv * x.w;
+      }
+    }
+  }
+  if (kHess) {
+#pragma unroll
+    for (int w = 0; w < kMaxN; ++w)
+      if (w == lane) h[w] += hdiag;
+  }
+  return jtf;
 }
 
-// out = M x (nv).
-__device__ void mmul(const Env& e, const float* x, float* out) {
-  const int nv = e.d.nv;
-  const float* M = e.at(e.L.M);
-  for (int v = threadIdx.x; v < nv; v += kThreads) {
-    float s = 0.f;
-    for (int w = 0; w < nv; ++w) s += M[v * nv + w] * x[w];
-    out[v] = s;
-  }
-  __syncthreads();
-}
-
-// 0.5 (q - a_s)^T M (q - a_s) + sum of row costs at jar.
-__device__ float total_cost(const Env& e, const float* q, const float* jar) {
-  const Dims& d = e.d;
-  float* dacc = e.at(e.L.vtmp);
-  const float* as = e.at(e.L.as);
-  for (int v = threadIdx.x; v < d.nv; v += kThreads) dacc[v] = q[v] - as[v];
-  __syncthreads();
-  const float* M = e.at(e.L.M);
-  float smooth = 0.f, rows = 0.f;
-  for (int v = threadIdx.x; v < d.nv; v += kThreads) {
-    float s = 0.f;
-    for (int w = 0; w < d.nv; ++w) s += M[v * d.nv + w] * dacc[w];
-    smooth += dacc[v] * s;
-  }
-  const float* D = e.at(e.L.D);
-  const float* fl = e.at(e.L.fl);
-  const float* act = e.at(e.L.act);
-  for (int r = threadIdx.x; r < d.nefc; r += kThreads) {
-    float force, h, cost;
-    row_eval(jar[r], D[r], fl[r], act[r], row_kind(r, d), force, h, cost);
-    rows += cost;
-  }
-  block_sum2(smooth, rows, e.at(e.L.red));
-  return 0.5f * smooth + rows;
-}
-
-__global__ void __launch_bounds__(kThreads) newton_structured_kernel(
+__global__ void __launch_bounds__(kEnvs * 32, 4) newton_structured_kernel(
     const float* __restrict__ J, const float* __restrict__ bJ, const float* __restrict__ dsc_g,
     const float* __restrict__ qM, const float* __restrict__ aref_g, const float* __restrict__ D_g,
     const float* __restrict__ fl_g, const float* __restrict__ act_g, const float* __restrict__ as_g,
     const float* __restrict__ ws_g, const float* __restrict__ tol_g, const int* __restrict__ perm_g,
     const int* __restrict__ ddof_g, float* __restrict__ qacc_out, float* __restrict__ force_out,
     float* __restrict__ qfrc_out, Dims d) {
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem4[];
   const Layout L(d.nv, d.nefc, d.nd, d.ndiag, d.ncon);
-  Env e{d, L, smem, reinterpret_cast<int*>(smem + L.nfloat)};
-  const int tid = threadIdx.x;
-  const size_t env = blockIdx.x;
-  const int nv = d.nv, nefc = d.nefc;
-  int* perm = e.ip + L.perm;
-  int* ddof = e.ip + L.ddof;
-  float *Bs = e.at(L.Bs), *Jd = e.at(L.Jd), *M = e.at(L.M), *H = e.at(L.H);
-  float *aref = e.at(L.aref), *D = e.at(L.D), *fl = e.at(L.fl), *act = e.at(L.act);
-  float *jar = e.at(L.jar), *jp = e.at(L.jp), *jtmp = e.at(L.jtmp), *frc = e.at(L.frc);
-  float *coef = e.at(L.coef), *dsc = e.at(L.dsc), *as = e.at(L.as), *qacc = e.at(L.qacc);
-  float *qtmp = e.at(L.qtmp), *p = e.at(L.p), *grad = e.at(L.grad), *mdacc = e.at(L.mdacc);
-  float* vtmp = e.at(L.vtmp);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int env_id = blockIdx.x * kEnvs + warp;
+  if (env_id >= d.B) return;  // whole warps exit together; no block barrier follows
+#ifdef AMB_NEWTON_CLOCKS
+  long long mark = clock64();
+#endif
+  float* f = reinterpret_cast<float*>(smem4) + warp * L.floats;
+  const Env e{d, L, f + L.Bs, f + L.Jd, f + L.M, reinterpret_cast<float4*>(f + L.rec), f + L.buf, f + L.cf,
+              f + L.dsc, f + L.xs, f + L.xw, reinterpret_cast<int*>(f + L.ddof), lane};
+  const size_t env = env_id;
+  const int nv = d.nv, nefc = d.nefc, P = L.P;
 
-  // ---- load this env's operands ----
-  for (int r = tid; r < nefc; r += kThreads) perm[r] = perm_g[r];
-  for (int g = tid; g < d.ndiag; g += kThreads) {
-    ddof[g] = ddof_g[g];
-    dsc[g] = dsc_g[env * d.ndiag + g];
+  // ---- load: basis, dense rows and qM by cp.async; row records meanwhile ----
+  copy_rows(e.Bs, bJ + env * 3 * d.ncon * nv, 3 * d.ncon, nv, P);
+  copy_rows(e.M, qM + env * nv * nv, nv, nv, P);
+  for (int r = 0; r < d.nd; ++r) {
+    const float* jr = J + (env * nefc + perm_g[r]) * nv;
+    for (int c = lane; c < P; c += 32) {
+      if (c < nv) cp_async4(e.Jd + r * P + c, jr + c);
+      else e.Jd[r * P + c] = 0.f;
+    }
   }
-  for (int k = tid; k < 3 * d.ncon * nv; k += kThreads) Bs[k] = bJ[env * 3 * d.ncon * nv + k];
-  for (int k = tid; k < nv * nv; k += kThreads) M[k] = qM[env * nv * nv + k];
-  for (int k = tid; k < nv; k += kThreads) {
-    as[k] = as_g[env * nv + k];
-    qtmp[k] = ws_g[env * nv + k];
+  for (int g = lane; g < d.ndiag; g += 32) {
+    e.ddof[g] = ddof_g[g];
+    e.dsc[g] = dsc_g[env * d.ndiag + g];
   }
-  __syncthreads();
-  for (int k = tid; k < d.nd * nv; k += kThreads) {
-    const int r = k / nv, v = k % nv;
-    Jd[k] = J[(env * nefc + perm[r]) * nv + v];
+#pragma unroll 4
+  for (int k = 0; k < L.R; ++k) {
+    const int r = lane + 32 * k;
+    float4 v = make_float4(0.f, 0.f, 0.f, kKindOneSided);  // padding rows: inactive
+    if (r < nefc) {
+      const size_t src = env * nefc + perm_g[r];
+      const bool on = act_g[src] > 0.5f;
+      const int kind = row_kind(r, d);
+      v.y = aref_g[src];
+      v.z = on ? D_g[src] : 0.f;
+      v.w = kind == 1 ? (on ? fl_g[src] : 0.f) : (kind == 0 ? kKindEq : kKindOneSided);
+    }
+    e.rec[r] = v;
   }
-  for (int r = tid; r < nefc; r += kThreads) {
-    const size_t src = env * nefc + perm[r];
-    aref[r] = aref_g[src];
-    D[r] = D_g[src];
-    fl[r] = fl_g[src];
-    act[r] = act_g[src];
-  }
+  for (int c = nv + lane; c < P; c += 32) e.xs[c] = e.xw[c] = 0.f;
+  const float as = lane < nv ? as_g[env * nv + lane] : 0.f;
+  const float ws = lane < nv ? ws_g[env * nv + lane] : 0.f;
   const float tol = tol_g[0];
-  __syncthreads();
+  cp_async_wait_all();
+  __syncwarp();
+  AMB_MARK(0);
 
   // ---- starting point: the cheaper of qacc_smooth and the warmstart ----
-  jmul(e, as, jar, aref);
-  float cost = total_cost(e, as, jar);
-  for (int v = tid; v < nv; v += kThreads) qacc[v] = as[v];
+  put_vec(e, e.xs, as);
+  float cost, qacc = as;
   if (d.use_ws) {
-    jmul(e, qtmp, jtmp, aref);
-    const float cost_w = total_cost(e, qtmp, jtmp);
+    put_vec(e, e.xw, ws);
+    jmul<2>(e);
+    cost = total_cost(e, as, as, 0.f, false);
+    const float cost_w = total_cost(e, ws, as, 0.f, true);
     if (cost_w < cost) {
-      for (int v = tid; v < nv; v += kThreads) qacc[v] = qtmp[v];
-      for (int r = tid; r < nefc; r += kThreads) jar[r] = jtmp[r];
+      qacc = ws;
+      for (int k = 0; k < L.R; ++k) e.rec[lane + 32 * k].x = e.rec[lane + 32 * k].y;
       cost = cost_w;
     }
+  } else {
+    jmul<1>(e);
+    cost = total_cost(e, as, as, 0.f, false);
   }
-  __syncthreads();
+  AMB_MARK(1);
 
   float prev_cost = INFINITY;
-  const int base = d.nd + d.ndiag, nc = d.ncon, ld = nv | 1;
+  const int ls_iterations = d.ls_iterations > 1 ? d.ls_iterations : 1;
   for (int it = 0; it < d.iterations; ++it) {
-    // row forces and Hessian weights at jar (weights into jtmp)
-    for (int r = tid; r < nefc; r += kThreads) {
-      float cst;
-      row_eval(jar[r], D[r], fl[r], act[r], row_kind(r, d), frc[r], jtmp[r], cst);
+    forces_at_jar(e);
+    AMB_MARK(2);
+    put_vec(e, e.xs, lane < nv ? qacc - as : 0.f);
+    const float mdacc = m_dot(e, e.xs);
+    float h[kMaxN];  // row v of H = M + 1e-8 I + J^T diag(h) J
+    const float4* m4 = reinterpret_cast<const float4*>(e.M + (lane < nv ? lane : 0) * P);
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      const float4 a = m4[g];
+      h[4 * g] = a.x;
+      h[4 * g + 1] = a.y;
+      h[4 * g + 2] = a.z;
+      h[4 * g + 3] = a.w;
     }
-    for (int v = tid; v < nv; v += kThreads) vtmp[v] = qacc[v] - as[v];
-    __syncthreads();
-    mmul(e, vtmp, mdacc);
-    jtmul(e, frc, grad);
-    for (int v = tid; v < nv; v += kThreads) grad[v] = mdacc[v] - grad[v];
-    for (int c = tid; c < nc; c += kThreads) {
-      const float h0 = jtmp[base + c], h1 = jtmp[base + nc + c];
-      const float h2 = jtmp[base + 2 * nc + c], h3 = jtmp[base + 3 * nc + c];
-      coef[5 * c + 0] = h0 + h1 + h2 + h3;  // N N^T
-      coef[5 * c + 1] = h0 + h1;            // U1 U1^T
-      coef[5 * c + 2] = h2 + h3;            // U2 U2^T
-      coef[5 * c + 3] = h0 - h1;            // N U1^T + U1 N^T
-      coef[5 * c + 4] = h2 - h3;            // N U2^T + U2 N^T
-    }
-    __syncthreads();
-    // lower triangle of H = M + 1e-8 I + one-hot diagonal + B^T S B + Jd^T h Jd
-    for (int k = tid; k < nv * (nv + 1) / 2; k += kThreads) {
-      int v = 0;
-      while ((v + 1) * (v + 2) / 2 <= k) ++v;
-      const int w = k - v * (v + 1) / 2;
-      float s = M[v * nv + w];
-      if (v == w) {
-        s += 1e-8f;
-        for (int g = 0; g < d.ndiag; ++g)
-          if (ddof[g] == v) s += jtmp[d.nd + g] * dsc[g] * dsc[g];
-      }
-      for (int c = 0; c < nc; ++c) {
-        const float* N = Bs + c * nv;
-        const float* U1 = Bs + (nc + c) * nv;
-        const float* U2 = Bs + (2 * nc + c) * nv;
-        const float* cf = coef + 5 * c;
-        s += cf[0] * N[v] * N[w] + cf[1] * U1[v] * U1[w] + cf[2] * U2[v] * U2[w] +
-             cf[3] * (N[v] * U1[w] + U1[v] * N[w]) + cf[4] * (N[v] * U2[w] + U2[v] * N[w]);
-      }
-      for (int r = 0; r < d.nd; ++r) s += jtmp[r] * Jd[r * nv + v] * Jd[r * nv + w];
-      H[v * ld + w] = s;
-    }
-    __syncthreads();
-    if (tid < 32) {
-      amb::warp_cholesky(H, nv, ld);
-      const float x = amb::warp_cho_solve(H, tid < nv ? grad[tid] : 0.f, nv, ld);
-      if (tid < nv) p[tid] = -x;
-    }
-    __syncthreads();
-    jmul(e, p, jp, nullptr);
-    mmul(e, p, vtmp);
-    float pmp = 0.f, pma = 0.f;
-    for (int v = tid; v < nv; v += kThreads) {
-      pmp += p[v] * vtmp[v];
-      pma += p[v] * mdacc[v];
-    }
-    block_sum2(pmp, pma, e.at(L.red));
+#pragma unroll
+    for (int w = 0; w < kMaxN; ++w)
+      if (w == lane) h[w] += 1e-8f;
+    const float grad = mdacc - jtf_hessian<true>(e, h);
+    __syncwarp();  // every lane is done with the (force, h) rows in buf
+    AMB_MARK(3);
+    float y = grad;  // L y = grad rides along the factor
+    amb::warp_factor<true>(h, nv, e.buf, L.ld, y);
+    __syncwarp();
+    AMB_MARK(4);
+    const float x = amb::warp_back_solve(e.buf, y, nv, L.ld);  // every lane: the sweep shuffles
+    const float p = lane < nv ? -x : 0.f;
+    AMB_MARK(5);
+
+    put_vec(e, e.xs, p);
+    jmul<0>(e);
+    float pmp = p * m_dot(e, e.xs), pma = p * mdacc;
+    warp_sum2(pmp, pma);
+    AMB_MARK(6);
 
     // exact line search: scalar Newton on t, then clip to [0, 4]
     float t = 0.f;
-    for (int ls = 0; ls < d.ls_iterations; ++ls) {
+    for (int ls = 0; ls < ls_iterations; ++ls) {
       float g = 0.f, hh = 0.f;
-      for (int r = tid; r < nefc; r += kThreads) {
-        float force, h, cst;
-        row_eval(jar[r] + t * jp[r], D[r], fl[r], act[r], row_kind(r, d), force, h, cst);
-        g += force * jp[r];
-        hh += h * jp[r] * jp[r];
+#pragma unroll 4
+      for (int k = 0; k < L.R; ++k) {
+        const float4 r = e.rec[lane + 32 * k];
+        float fr, hr;
+        row_eval(along(r.x, t, r.y), r.z, r.w, fr, hr);
+        g += fr * r.y;
+        hh += hr * r.y * r.y;
       }
-      block_sum2(g, hh, e.at(L.red));
+      warp_sum2(g, hh);
       g = pma + t * pmp - g;
       hh = pmp + hh;
       t = t - g / fmaxf(hh, 1e-12f);
     }
     t = isfinite(t) ? fminf(fmaxf(t, 0.f), 4.f) : 0.f;
+    AMB_MARK(7);
 
-    for (int v = tid; v < nv; v += kThreads) qtmp[v] = qacc[v] + t * p[v];
-    for (int r = tid; r < nefc; r += kThreads) jtmp[r] = jar[r] + t * jp[r];
-    __syncthreads();
-    const float cost_n = total_cost(e, qtmp, jtmp);
+    const float qn = __fadd_rn(qacc, __fmul_rn(t, p));
+    const float cost_n = total_cost(e, qn, as, t, false);
     const bool active_it = prev_cost - cost > tol;
     const bool take = (cost_n < cost) && active_it;
     if (take) {
-      for (int v = tid; v < nv; v += kThreads) qacc[v] = qtmp[v];
-      for (int r = tid; r < nefc; r += kThreads) jar[r] = jtmp[r];
+      qacc = qn;
+      for (int k = 0; k < L.R; ++k) {
+        float4& r = e.rec[lane + 32 * k];
+        r.x = along(r.x, t, r.y);
+      }
     }
     if (active_it) prev_cost = cost;
     if (take) cost = cost_n;
-    __syncthreads();
+    AMB_MARK(8);
   }
 
   // ---- outputs: qacc, efc_force in MuJoCo row order, J^T f ----
-  for (int r = tid; r < nefc; r += kThreads) {
-    float h, cst;
-    row_eval(jar[r], D[r], fl[r], act[r], row_kind(r, d), frc[r], h, cst);
-    force_out[env * nefc + perm[r]] = frc[r];
+  forces_at_jar(e);
+  const float2* fh = reinterpret_cast<const float2*>(e.buf);
+  for (int k = 0; k < L.R; ++k) {
+    const int r = lane + 32 * k;
+    if (r < nefc) force_out[env * nefc + perm_g[r]] = fh[r].x;
   }
-  __syncthreads();
-  jtmul(e, frc, vtmp);
-  for (int v = tid; v < nv; v += kThreads) {
-    qacc_out[env * nv + v] = qacc[v];
-    qfrc_out[env * nv + v] = vtmp[v];
+  float unused[kMaxN];
+  const float qfrc = jtf_hessian<false>(e, unused);
+  if (lane < nv) {
+    qacc_out[env * nv + lane] = qacc;
+    qfrc_out[env * nv + lane] = qfrc;
   }
+  AMB_MARK(9);
 }
+
+inline size_t block_bytes(const Layout& L) { return kEnvs * L.env_bytes(); }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one env needs; the wrapper refuses shapes above the
-// card's per-block limit.
+// Dynamic shared memory of one block (kEnvs envs); the wrapper refuses
+// shapes above the card's per-block limit.
 size_t amb_newton_smem_bytes(int nv, int nefc, int nd, int ndiag, int ncon) {
-  return Layout(nv, nefc, nd, ndiag, ncon).bytes();
+  return block_bytes(Layout(nv, nefc, nd, ndiag, ncon));
+}
+
+static cudaError_t allow_smem(size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(newton_structured_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// Envs resident on one SM at these shapes (blocks per SM x envs per block).
+int amb_newton_occupancy(int nv, int nefc, int nd, int ndiag, int ncon, int* envs) {
+  const size_t smem = block_bytes(Layout(nv, nefc, nd, ndiag, ncon));
+  cudaError_t err = allow_smem(smem);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, newton_structured_kernel, kEnvs * 32, smem);
+  *envs = blocks * kEnvs;
+  return (int)err;
 }
 
 // The caller has checked shapes (1 <= nv <= 32, ncon >= 1, B >= 1), dtypes,
@@ -392,16 +626,23 @@ int amb_newton_structured(const float* J, const float* bJ, const float* dsc, con
                           const float* tol, const int* perm, const int* diag_dofs, float* qacc, float* force,
                           float* qfrc, int B, int nv, int nefc, int nd, int ndiag, int ncon, int nd_eq, int nd_ft,
                           int nfd, int iterations, int ls_iterations, int use_ws, void* stream) {
-  const Dims d{nv, nefc, nd, ndiag, ncon, nd_eq, nd_ft, nfd, iterations, ls_iterations, use_ws};
-  const size_t smem = Layout(nv, nefc, nd, ndiag, ncon).bytes();
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(newton_structured_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  newton_structured_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
+  const Dims d{B, nv, nefc, nd, ndiag, ncon, nd_eq, nd_ft, nfd, iterations, ls_iterations, use_ws};
+  const size_t smem = block_bytes(Layout(nv, nefc, nd, ndiag, ncon));
+  const cudaError_t err = allow_smem(smem);
+  if (err != cudaSuccess) return (int)err;
+  newton_structured_kernel<<<(B + kEnvs - 1) / kEnvs, kEnvs * 32, smem, (cudaStream_t)stream>>>(
       J, bJ, dsc, qM, aref, D, fl, act, a_s, ws, tol, perm, diag_dofs, qacc, force, qfrc, d);
   return (int)cudaGetLastError();
 }
+
+#ifdef AMB_NEWTON_CLOCKS
+// Copy the phase clocks to out (kPhases values) and zero them.
+int amb_newton_phase_clocks(long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, phase_clocks, sizeof(long long) * kPhases);
+  const long long zero[kPhases] = {};
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(phase_clocks, zero, sizeof(zero));
+  return (int)err;
+}
+#endif
 
 }  // extern "C"

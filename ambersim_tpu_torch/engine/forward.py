@@ -4,6 +4,8 @@ refuses)."""
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from ambersim_tpu_torch.core.types import Data, DisableBit, Model
@@ -11,12 +13,19 @@ from ambersim_tpu_torch.engine import collision, constraint, integrate, smooth, 
 from ambersim_tpu_torch.io.bridge import check_slice
 
 
-def full_f32_matmul() -> None:
-    """Keep float32 products in full float32 on the card: TF32 keeps about
-    three decimal digits (the port's counterpart of the JAX package's
-    precision=HIGHEST on its selection contractions)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+@contextlib.contextmanager
+def full_f32_matmul():
+    """Scope in which float32 products stay in full float32 on the card
+    (TF32 keeps about three decimal digits: the port's counterpart of the
+    JAX package's precision=HIGHEST on its selection contractions). Turns
+    both TF32 flags off and gives the caller's values back on exit; also a
+    decorator."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 def fwd_position(m: Model, d: Data) -> Data:
@@ -27,10 +36,10 @@ def fwd_position(m: Model, d: Data) -> Data:
     return d
 
 
+@full_f32_matmul()
 def forward(m: Model, d: Data) -> Data:
     """Full forward dynamics: populate qacc without integrating."""
     check_slice(m)
-    full_f32_matmul()
     d = fwd_position(m, d)
     d = smooth.fwd_velocity(m, d)
     d = smooth.fwd_actuation(m, d)

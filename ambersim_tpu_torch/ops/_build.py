@@ -109,10 +109,11 @@ def library() -> ctypes.CDLL:
         lib.amb_newton_elliptic.argtypes = [P] * 15 + [I] * 11 + [P]
         lib.amb_elliptic_ls_step.argtypes = [P, P, I, P]
         lib.amb_linalg_block_occupancy.argtypes = [I, I, P]
+        lib.amb_newton_occupancy.argtypes = [I] * 5 + [P]
         for fn in (lib.amb_cholesky, lib.amb_cho_solve, lib.amb_solve_pd, lib.amb_cholesky_block,
                    lib.amb_cho_solve_block, lib.amb_solve_pd_block, lib.amb_newton_structured,
                    lib.amb_newton_dense, lib.amb_newton_elliptic, lib.amb_elliptic_ls_step,
-                   lib.amb_linalg_block_occupancy):
+                   lib.amb_linalg_block_occupancy, lib.amb_newton_occupancy):
             fn.restype = I
         for fn, nargs in ((lib.amb_newton_smem_bytes, 5), (lib.amb_newton_dense_smem_bytes, 2),
                           (lib.amb_newton_elliptic_smem_bytes, 4)):

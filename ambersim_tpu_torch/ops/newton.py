@@ -1,22 +1,25 @@
-"""Launchers of the Newton constraint-solve kernels, one thread block per env:
+"""Launchers of the Newton constraint-solve kernels:
 
   * kernel 4 (csrc/newton_structured.cu): pyramidal rows on the factored
-    layout, replacing newton_solve_structured of
-    ambersim_tpu/ops/newton_pallas.py;
-  * kernel 5 (csrc/newton_dense.cu): pyramidal rows as a dense J, replacing
-    newton_solve_batched;
+    layout, one warp per env (four envs a block), replacing
+    newton_solve_structured of ambersim_tpu/ops/newton_pallas.py;
+  * kernel 5 (csrc/newton_dense.cu): pyramidal rows as a dense J, one
+    thread block per env, replacing newton_solve_batched;
   * kernel 6 (csrc/newton_elliptic.cu): elliptic cones on one contiguous
-    condim tail, replacing newton_solve_elliptic.
+    condim tail, one thread block per env, replacing newton_solve_elliptic.
 
 Their plain PyTorch versions, which the CPU path runs and the kernels are
 held against, are `_newton_arrays` (kernels 4 and 5) and
 `_newton_arrays_elliptic` (kernel 6) in engine/solver.py; `solve` there
 chooses the route. Each launcher takes only what its kernel takes and
 raises on anything else (no fallback): float32, contiguous, on one CUDA
-device, no autograd, 1 <= nv <= 32, one env within the card's shared memory.
+device, no autograd, 1 <= nv <= 32, one block's envs within the card's
+shared memory.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -48,7 +51,7 @@ def _check_limits(name: str, nv: int, smem: int) -> None:
     if not 1 <= nv <= MAX_NV:
         raise ValueError(f"{name}: the kernel takes 1 <= nv <= {MAX_NV}, got nv={nv}")
     if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"{name}: one env needs {smem} B of shared memory (> {MAX_SMEM_BYTES})")
+        raise ValueError(f"{name}: one block needs {smem} B of shared memory (> {MAX_SMEM_BYTES})")
 
 
 def _row_operands(J, qM, aref, D, fl, active, qacc_smooth, warmstart, tol) -> dict:
@@ -112,6 +115,15 @@ def newton_solve_structured(
         check_launch(err, "newton_structured")
         LAUNCHES["newton_structured"] += 1
     return qacc, force, qfrc
+
+
+def structured_occupancy(nv: int, nefc: int, st) -> int:
+    """Envs of kernel 4 resident on one SM of the current card at these
+    shapes (its blocks per SM times the envs a block holds)."""
+    envs = ctypes.c_int(0)
+    err = library().amb_newton_occupancy(nv, nefc, st.nd, st.ndiag, st.ncon3, ctypes.byref(envs))
+    check_launch(err, "newton_structured")
+    return envs.value
 
 
 def newton_solve_dense(

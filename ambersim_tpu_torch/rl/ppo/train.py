@@ -151,6 +151,7 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+@full_f32_matmul()
 def train(
     environment: MjxEnv,
     num_timesteps: int = 1_000_000,
@@ -193,7 +194,6 @@ def train(
         raise RuntimeError("device 'cuda' asked for, but torch sees no CUDA card")
     if (batch_size * num_minibatches) % num_envs != 0:
         raise ValueError("batch_size * num_minibatches must be divisible by num_envs")
-    full_f32_matmul()
 
     environment = environment.to(device)
     env = wrappers.wrap_for_training(environment, episode_length, action_repeat)

@@ -41,6 +41,7 @@ last line {"ok": true, "device": {"platform": "gpu", "kind": ...,
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -67,6 +68,9 @@ ZERO_PIVOT_ROWS = (0, 17, 100, 191)
 # operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# cuda_ms's sleep before each timed run: ~2 ms at the H100's clocks, longer
+# than the host takes to enqueue ten calls of a kernel's wrapper
+SLEEP_CYCLES = 4_000_000
 # The clutter scene at benchmarks/ladder.py's width (rungs 3b and 3c):
 # 256 envs, CLUTTER_SETTLE steps of settling, CLUTTER_STEPS timed steps.
 CLUTTER_ENVS = 256
@@ -74,6 +78,18 @@ CLUTTER_SETTLE = 400
 CLUTTER_STEPS = 100
 FLOOR_TOL = 0.005  # no geom below the floor by more than 5 mm after the settle
 CLUTTER_CARD_VS_CPU_STEPS = 5
+# Fixed operands of the clutter Newton spread check: one env of
+# clutter32_rowcap192 settled 600 steps on the CPU (tools/settle_clutter.py),
+# the start of both clutter models (one scene, one nq and nv). Their bars,
+# (max, median) over the 256 envs of the env-relative distance from float64
+# (clutter_newton_spread), set from the spread measured on these operands
+# on an NVIDIA H100 (700 W): rowcap192's route max 5.9e-3 and median
+# 1.4e-5, plain float32 the same (5.9e-3, 1.3e-5); cap48's route the same
+# (5.9e-3, 1.4e-5), plain float32 5.9e-3 and 1.8e-6. A route that rounds
+# like float32 stays within about three times the worst and seven times
+# the median; a fault in it (a wrong factor, a dropped row) moves every env.
+CLUTTER_SETTLED = REPO / "ambersim_tpu_torch" / "assets" / "clutter32_rowcap192_settled.npz"
+CLUTTER_SPREAD_BARS = {"clutter32_rowcap192": (2e-2, 1e-4), "clutter32_cap48": (2e-2, 1e-4)}
 # absolute floors under the clutter card-vs-CPU bars (10 x the card's own
 # spread): far below the 4.9e-4 m a body with no contact force falls in
 # 5 steps, and the 1e-2 m/s that a 10% contact-force error makes
@@ -120,6 +136,25 @@ QPOS_TOL, QVEL_TOL = 1e-3, 1e-2
 # with the solver converged (15 x 15).
 ELLIPTIC_QPOS_TOL, ELLIPTIC_QVEL_TOL = 5e-2, 1.0
 CONVERGED = dict(iterations=15, ls_iterations=15)
+# Kernel 4's synthetic problems at one lane per dof, from one to a full
+# warp. synthetic_structured_problem's own problem activates 80% of the rows
+# with D in [1, 10]: J^T f then sums ~30 terms of ~10 that cancel, and at
+# 4096 envs plain float32 misses its own float64 run at 1e-4 on more envs
+# than NEWTON_MIN_SHARE leaves, so no float32 summation order could meet
+# that bar against it. There the kernel is held against float64: its share
+# of envs within NEWTON_TOL of float64 may fall short of plain float32's by
+# at most NEWTON_F64_SLACK. Plain float32 with kernel 4's own algebra for
+# the contacts (products with the basis, the pyramid forces folded, the
+# rank-3 Hessian) falls short of plain's share by up to 0.93 points, and
+# reordering plain's own sums moves it by up to 0.87 points below
+# (tools/newton_share.py on the CPU: 4096 envs, NEWTON_NVS, seeds 3 + nv and
+# 80 + nv); the slack holds both. SYNTHETIC_EASED activates 15% (the
+# quadruped's pre-solve has 22 of 136 rows, 16%) with D in [0.1, 1], where
+# plain float32 meets float64 on 99.7-100% of envs, and the kernel is held
+# against plain float32 at the NEWTON_* bars.
+NEWTON_NVS = (1, 7, 18, 25, 32)
+NEWTON_F64_SLACK = 0.02
+SYNTHETIC_EASED = dict(active=0.15, d_range=(0.1, 1.0))
 
 # PPO on the 4096-env quadruped (bench.py:142-177's settings): one training
 # step, 8 unrolls x 20 control steps x 4 physics steps = 640 physics steps.
@@ -142,6 +177,11 @@ PPO_PENDULUM = dict(
 # least half their mean.
 JAX_PENDULUM_GAINS = (482.879, 217.651, 227.194)
 
+# kernels whose ptxas report must show no spill: kernel 1 at n <= 32 and
+# kernel 4, whose rows live in registers by design, and kernel 6, whose
+# factor (newton_common.cuh's newton_direction) holds them there too.
+# Kernel 5 trades a few spills for one wave (csrc/newton_dense.cu).
+SPILL_FREE = ("cholesky_kernel", "newton_structured_kernel", "newton_elliptic_kernel")
 # kernel name -> (CUDA source, the TPU kernel it replaces)
 KERNELS = {
     "cholesky": ("linalg.cu", "ambersim_tpu/ops/linalg_pallas.py:319"),
@@ -169,8 +209,13 @@ def card_line() -> str:
     return out.stdout.strip()
 
 
-def cuda_ms(fn, reps: int = 10) -> float:
-    """Median milliseconds of `fn` on the card over `reps` runs (CUDA events)."""
+def cuda_ms(fn, reps: int = 10, calls: int = 10) -> float:
+    """Milliseconds per call of `fn` on the card: CUDA events around `calls`
+    back-to-back calls, median over `reps`. The calls queue behind a sleep
+    kernel of SLEEP_CYCLES, so the host's time to enqueue them stays off the
+    card's clock as long as it is shorter than the sleep; a function whose
+    host time exceeds its device time (a plain version's many small ops)
+    still shows the host's pace."""
     import numpy as np
     import torch
 
@@ -179,11 +224,13 @@ def cuda_ms(fn, reps: int = 10) -> float:
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return float(np.median(times))
 
 
@@ -234,28 +281,56 @@ def max_err(got, want, rtol: float, atol: float, what: str) -> float:
     return float(err.max().item())
 
 
+def newton_within(got: tuple, want: tuple):
+    """(B,) bool: every component of (qacc, efc_force, qfrc_constraint)
+    within rtol/atol NEWTON_TOL of want."""
+    import torch
+
+    within = torch.ones(got[0].shape[0], dtype=torch.bool, device=got[0].device)
+    for g, w in zip(got, want):
+        g, w = g.double(), w.double()
+        within &= ((g - w).abs() <= NEWTON_TOL + NEWTON_TOL * w.abs()).all(dim=1)
+    return within
+
+
 def newton_err(got: tuple, want: tuple, what: str) -> float:
     """Max |got - want| over (qacc, efc_force, qfrc_constraint); fails on the
     NEWTON_* bars above."""
     import torch
 
-    within = torch.ones(got[0].shape[0], dtype=torch.bool, device=got[0].device)
     err_max = 0.0
     for g, w, name in zip(got, want, ("qacc", "efc_force", "qfrc_constraint")):
         if g.shape != w.shape or not torch.isfinite(g).all():
             fail(f"{what} {name}: shape {tuple(g.shape)} vs {tuple(w.shape)} or non-finite output")
         g, w = g.double(), w.double()
         err = (g - w).abs()
-        within &= (err <= NEWTON_TOL + NEWTON_TOL * w.abs()).all(dim=1)
         env_rel = err.amax(dim=1) / (w.abs().amax(dim=1) + NEWTON_TOL)
         if env_rel.max().item() > NEWTON_ENV_RTOL:
             fail(f"{what} {name}: an env differs by {env_rel.max().item():.3e} of its largest component")
         err_max = max(err_max, err.max().item())
-    share = within.float().mean().item()
+    share = newton_within(got, want).float().mean().item()
     print(f"{what}: {share:.4f} of envs within rtol/atol {NEWTON_TOL}; max |difference| {err_max:.3e}")
     if share < NEWTON_MIN_SHARE:
         fail(f"{what}: only {share:.4f} of envs within rtol/atol {NEWTON_TOL}")
     return err_max
+
+
+def newton_vs_float64(got: tuple, plain: tuple, exact: tuple, what: str) -> None:
+    """Where plain float32 itself misses float64 beyond NEWTON_MIN_SHARE's
+    slack: the kernel's outputs `got` must be finite, and its share of envs
+    within NEWTON_TOL of the float64 solve `exact` may fall short of the
+    plain float32 solve's (`plain`) by at most NEWTON_F64_SLACK."""
+    import torch
+
+    for g, name in zip(got, ("qacc", "efc_force", "qfrc_constraint")):
+        if not torch.isfinite(g).all():
+            fail(f"{what} {name}: non-finite kernel output")
+    k_plain, k_exact, p_exact = (newton_within(a, b).double().mean().item()
+                                 for a, b in ((got, plain), (got, exact), (plain, exact)))
+    print(f"{what}: share of envs within rtol/atol {NEWTON_TOL}: kernel-plain {k_plain:.4f}, "
+          f"plain-f64 {p_exact:.4f}, kernel-f64 {k_exact:.4f}")
+    if k_exact < p_exact - NEWTON_F64_SLACK:
+        fail(f"{what}: the kernel meets float64 on {k_exact:.4f} of envs, plain float32 on {p_exact:.4f}")
 
 
 def env_rel_err(got: tuple, want: tuple, what: str):
@@ -291,11 +366,14 @@ class _Skel:
         self.__dict__.update(fields)
 
 
-def synthetic_structured_problem(B: int, seed: int, device):
+def synthetic_structured_problem(B: int, seed: int, device, nv: int = 12, active: float = 0.8,
+                                 d_range: tuple = (1.0, 10.0)):
     """A numpy-seeded pyramidal Newton problem with every row family of the
-    structured layout: 2 equality rows, 3 dof-friction and 2 tendon-friction
-    rows, 2 scalar limits (one-hot) around 1 ball limit (dense), and 5
-    condim-3 contacts (nv = 12, nefc = 30). Returns (structure, args of
+    structured layout: 2 equality rows, dof-friction and 2 tendon-friction
+    rows, scalar limits (one-hot) and, from nv = 7, one ball limit (dense),
+    and condim-3 contacts (5; 36 at nv = 32, past one warp's 32 lanes). The
+    joints: hinge, ball, hinge at dofs 2, 5, 9 from nv = 12; at dofs 2, 3, 6
+    from nv = 7; one hinge at dof 0 below. Returns (structure, args of
     engine.solver._newton_arrays, kernel-only operands bJ and dsc)."""
     import numpy as np
     import torch
@@ -303,17 +381,23 @@ def synthetic_structured_problem(B: int, seed: int, device):
     from ambersim_tpu_torch.core.types import EqType, JointType
     from ambersim_tpu_torch.engine.constraint import _pyramid_structure
 
-    nv, ncon = 12, 5
-    jnt_type = np.array([JointType.HINGE, JointType.BALL, JointType.HINGE], np.int32)
+    # each row is active with chance `active`, and D is uniform on d_range
+    ncon = 36 if nv >= 32 else 5
+    if nv >= 7:
+        jnt_type = np.array([JointType.HINGE, JointType.BALL, JointType.HINGE], np.int32)
+        dofadr, fric_dofs = ([2, 5, 9], [0, 4, 7]) if nv >= 12 else ([2, 3, 6], [0, 4, 6])
+    else:
+        jnt_type, dofadr, fric_dofs = np.array([JointType.HINGE], np.int32), [0], [0]
+    nrows = 2 + len(fric_dofs) + 2 + len(jnt_type)  # equality, dof and tendon friction, limits
     s = _Skel(
-        nefc=30, ncon=ncon, neq=2, eq_type=np.array([EqType.JOINT, EqType.JOINT], np.int32),
-        friction_dofid=np.array([0, 4, 7], np.int32), friction_tenid=np.array([0, 1], np.int32),
-        limit_jntid=np.array([0, 1, 2], np.int32), jnt_type=jnt_type, jnt_dofadr=np.array([2, 5, 9], np.int32),
-        limit_tenid=np.array([], np.int32), con_dim=np.full(ncon, 3, np.int32),
-        con_efcadr=(10 + 4 * np.arange(ncon)).astype(np.int32),
+        nefc=nrows + 4 * ncon, ncon=ncon, neq=2, eq_type=np.array([EqType.JOINT, EqType.JOINT], np.int32),
+        friction_dofid=np.array(fric_dofs, np.int32), friction_tenid=np.array([0, 1], np.int32),
+        limit_jntid=np.arange(len(jnt_type), dtype=np.int32), jnt_type=jnt_type,
+        jnt_dofadr=np.array(dofadr, np.int32), limit_tenid=np.array([], np.int32),
+        con_dim=np.full(ncon, 3, np.int32), con_efcadr=(nrows + 4 * np.arange(ncon)).astype(np.int32),
     )
     st = _pyramid_structure(s)
-    assert st is not None and (st.nd, st.ndiag, st.ncon3, st.nd_eq, st.nd_ft, st.nfd) == (5, 5, 5, 2, 2, 3)
+    assert st is not None and (st.ncon3, st.nd_eq, st.nd_ft, st.nfd) == (ncon, 2, 2, len(fric_dofs))
 
     rng = np.random.default_rng(seed)
     f32 = np.float32
@@ -329,11 +413,11 @@ def synthetic_structured_problem(B: int, seed: int, device):
     g = rng.standard_normal((B, nv, nv)).astype(f32)
     qM = g @ np.swapaxes(g, -1, -2) / nv + np.eye(nv, dtype=f32)
     aref = rng.standard_normal((B, s.nefc)).astype(f32)
-    D = rng.uniform(1.0, 10.0, (B, s.nefc)).astype(f32)
+    D = rng.uniform(*d_range, (B, s.nefc)).astype(f32)
     fl = np.zeros((B, s.nefc), f32)
     fric_rows = np.concatenate([st.diag_rows[: st.nfd], st.dense_rows[st.nd_eq : st.nd_eq + st.nd_ft]])
     fl[:, fric_rows] = rng.uniform(0.1, 1.0, (B, len(fric_rows)))
-    act = (rng.uniform(size=(B, s.nefc)) < 0.8).astype(f32)
+    act = (rng.uniform(size=(B, s.nefc)) < active).astype(f32)
     a_s = rng.standard_normal((B, nv)).astype(f32)
     ws = a_s + 0.3 * rng.standard_normal((B, nv)).astype(f32)
 
@@ -343,6 +427,25 @@ def synthetic_structured_problem(B: int, seed: int, device):
         tol=torch.full((1,), 1e-8, device=device), ne=st.nd_eq, nf=st.nfd + st.nd_ft,
     )
     return st, plain_args, t(bJ), t(dsc)
+
+
+def nonfinite_line_search(st, pa: dict, bJ, env: int) -> None:
+    """Make env `env` of a synthetic_structured_problem (nv >= 12) one whose
+    line search goes non-finite in float32, in place: its last dof j moves
+    nothing but a tendon-friction row in its linear (Huber) zone with
+    J_rj = 1e31, so H_jj = 1e-8, the gradient's j is 1e31 and the Newton
+    direction's is 1e39, past float32: inf there, NaN in the other dofs
+    after the backward sweep, and so a NaN step that the select turns to 0.
+    Every iteration keeps the start (qacc_smooth or the warmstart)."""
+    j, r = pa["J"].shape[2] - 1, int(st.dense_rows[st.nd_eq])
+    assert j not in set(int(x) for x in st.diag_dofs)
+    for x in (pa["J"], bJ):
+        x[env, :, j] = 0.0
+    pa["J"][env, r, j] = 1e31
+    pa["qM"][env, j, :] = 0.0
+    pa["qM"][env, :, j] = 0.0
+    pa["a_s"][env, j] = pa["ws"][env, j] = 0.0
+    pa["fl"][env, r], pa["act"][env, r], pa["D"][env, r], pa["aref"][env, r] = 1.0, 1.0, 10.0, 20.0
 
 
 def synthetic_dense_problem(B: int, nv: int, seed: int, device) -> dict:
@@ -489,10 +592,10 @@ def check_selection_exact(device, row_cap: bool) -> None:
     import torch
 
     from ambersim_tpu_torch.engine import collision
+    from ambersim_tpu_torch.engine.forward import full_f32_matmul
 
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = device.type == "cuda"
-    try:
+    with full_f32_matmul():  # gives the caller's TF32 flags back on exit
+        torch.backends.cuda.matmul.allow_tf32 = device.type == "cuda"
         m, d, m_all, want = selection_case(device, row_cap)
         got = collision.collision(m_all, d).contact
         k = want.shape[2]
@@ -517,19 +620,18 @@ def check_selection_exact(device, row_cap: bool) -> None:
                 if not torch.equal(getattr(capped, f), torch.take_along_dim(
                         x, order[(...,) + (None,) * (x.dim() - 2)], dim=1)):
                     raise AssertionError(f"row cap: contact.{f} is not the uncapped slots' at the deepest rows")
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
 def check_linalg(device, results):
-    """Kernels 1-3 against their plain versions: the warp kernels at n <= 32,
-    the block kernels at LARGE_NS on the clutter width and at LARGE_BATCH
-    systems of n = 192; each leaves the upper triangle unread and L zero
-    above the diagonal. A zero pivot (ZERO_PIVOT_ROWS) as the plain version
-    treats it, and at least two resident blocks per SM for the tiled factor
-    and fused solve at n = 192. Times (and the library calls':
-    torch.linalg.cholesky, torch.cholesky_solve) at the main path's
-    (4096, 18) and the clutter path's (256, 192)."""
+    """Kernels 1-3 against their plain versions: the warp kernels at every
+    n <= 32, the block kernels at LARGE_NS on the clutter width and at
+    LARGE_BATCH systems of n = 192; each leaves the upper triangle unread
+    and L zero above the diagonal. A zero pivot (ZERO_PIVOT_ROWS) as the
+    plain version treats it, and at least two resident blocks per SM for the
+    tiled factor and fused solve at n = 192. Times (and the library calls':
+    torch.linalg.cholesky_ex, which checks nothing on the host,
+    torch.cholesky_solve) at the main path's (4096, 18) and the clutter
+    path's (256, 192)."""
     import numpy as np
     import torch
 
@@ -539,7 +641,8 @@ def check_linalg(device, results):
     rng = np.random.default_rng(1)
     errs = {k: 0.0 for k in _LINALG + _LINALG_BLOCK}
     timed = {(NUM_ENVS, 18), (CLUTTER_ENVS, 192)}
-    sizes = ((NUM_ENVS, 18), (257, 1), (257, 7), (257, 25), (257, 32)) + tuple((CLUTTER_ENVS, n) for n in LARGE_NS)
+    sizes = ((NUM_ENVS, 18),) + tuple((257, n) for n in range(1, kernels.MAX_N_WARP + 1))
+    sizes += tuple((CLUTTER_ENVS, n) for n in LARGE_NS)
     sizes += ((LARGE_BATCH, kernels.MAX_N),)
     for B, n in sizes:
         tol = LINALG_TOL if n <= kernels.MAX_N_WARP else LARGE_LINALG_TOL
@@ -547,11 +650,11 @@ def check_linalg(device, results):
         l_ref = plain.cholesky_unrolled(a)
         cases = {
             "cholesky": (lambda: kernels.cholesky_batched(a), lambda: plain.cholesky_unrolled(a),
-                         lambda: torch.linalg.cholesky(a)),
+                         lambda: torch.linalg.cholesky_ex(a).L),
             "cho_solve": (lambda: kernels.cho_solve_batched(l_ref, b), lambda: plain.cho_solve_unrolled(l_ref, b),
                           lambda: torch.cholesky_solve(b[..., None], l_ref)[..., 0]),
             "solve_pd": (lambda: kernels.solve_pd_batched(a, b), lambda: plain.solve_pd_unrolled(a, b),
-                         lambda: torch.cholesky_solve(b[..., None], torch.linalg.cholesky(a))[..., 0]),
+                         lambda: torch.cholesky_solve(b[..., None], torch.linalg.cholesky_ex(a).L)[..., 0]),
         }
         for name, (kern, ref, lib) in cases.items():
             key = name if n <= kernels.MAX_N_WARP else f"{name}_block"
@@ -572,15 +675,16 @@ def check_linalg(device, results):
             fail(f"cholesky n={n}: nonzero above the diagonal")
     # a zero pivot: the factor matches the plain version (L_jj = 0 exactly),
     # and the solve is non-finite exactly where the plain version's is
-    for n in (100, kernels.MAX_N):
+    for n in (18, kernels.MAX_N_WARP, 100, kernels.MAX_N):
         a, b = random_spd(rng, len(ZERO_PIVOT_ROWS), n, device)
         rows = [min(j, n - 1) for j in ZERO_PIVOT_ROWS]
         for s, j in enumerate(rows):
             a[s, j, :] = 0.0
             a[s, :, j] = 0.0
         l_got = kernels.cholesky_batched(a)
-        err = max_err(l_got, plain.cholesky_unrolled(a), LARGE_LINALG_TOL, LARGE_LINALG_TOL, f"zero pivot n={n}")
-        errs["cholesky_block"] = max(errs["cholesky_block"], err)
+        tol, key = (LINALG_TOL, "cholesky") if n <= kernels.MAX_N_WARP else (LARGE_LINALG_TOL, "cholesky_block")
+        err = max_err(l_got, plain.cholesky_unrolled(a), tol, tol, f"zero pivot n={n}")
+        errs[key] = max(errs[key], err)
         if any(l_got[s, j, j].item() != 0.0 for s, j in enumerate(rows)):
             fail(f"zero pivot n={n}: L_jj is not 0")
         x_got, x_want = kernels.solve_pd_batched(a, b), plain.solve_pd_unrolled(a, b)
@@ -639,53 +743,94 @@ def as_dtype(args: dict, dtype) -> dict:
     return {k: v.to(dtype) if isinstance(v, torch.Tensor) and v.is_floating_point() else v for k, v in args.items()}
 
 
-def check_newton(m, device, results):
+def check_newton(device, results):
+    """Kernel 4 against its plain version (and both against the plain version
+    in float64) on the quadruped's pre-solve operands at 4096 envs and the
+    humanoid's at 1024, then on synthetic problems with every row family:
+    at nv = 12 and 257 envs against plain float32, and at NEWTON_NVS and
+    4096 envs both against float64 (newton_vs_float64) and, eased
+    (SYNTHETIC_EASED), against plain float32 with the warmstart on and off
+    and one env whose line search goes non-finite (nonfinite_line_search);
+    the first 257 and the first 1 of the eased envs alone must give the same
+    bits as in the whole batch (B not a multiple of the envs a block holds).
+    Also the envs resident per SM at the quadruped's and humanoid's shapes:
+    all 4096 quadruped envs must fit in two waves."""
     import torch
 
+    from ambersim_tpu_torch import load_model
     from ambersim_tpu_torch.engine.constraint import _pyramid_structure
     from ambersim_tpu_torch.engine.solver import _newton_arrays
-    from ambersim_tpu_torch.ops.newton import newton_solve_structured
+    from ambersim_tpu_torch.ops.newton import newton_solve_structured, structured_occupancy
 
-    # real operands: a 4096-env quadruped pre-solve on the card
-    d = initial_batch(m, NUM_ENVS, device)
-    d = pre_solve(m, d.replace(ctrl=pd_ctrl(d)))
-    s = m.skel
-    st = _pyramid_structure(s)
-    pa = solver_operands(m, d, seed=2)
-    it, ls = int(m.opt.iterations), int(m.opt.ls_iterations)
-    print(f"quadruped pre-solve: active efc rows per env {pa['act'].sum(1).mean().item():.1f} of {s.nefc}")
+    def kern(pa, bJ, dsc, st, **kw):
+        return newton_solve_structured(pa["J"], bJ, dsc, pa["qM"], pa["aref"], pa["D"], pa["fl"], pa["act"],
+                                       pa["a_s"], pa["ws"], pa["tol"], st=st, **kw)
 
-    def kern():
-        return newton_solve_structured(
-            pa["J"], d.efc_bJ, d.efc_dsc, pa["qM"], pa["aref"], pa["D"], pa["fl"], pa["act"], pa["a_s"], pa["ws"],
-            pa["tol"], st=st, iterations=it, ls_iterations=ls, use_ws=True,
-        )
+    err, timed = 0.0, {}
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for name, B in (("quadruped", NUM_ENVS), ("humanoid", 1024)):
+        m = load_model(name, device=device)
+        s, p = m.skel, PATHS[name]
+        st = _pyramid_structure(s)
+        d = p["start"](m, B, device)
+        d = pre_solve(m, d.replace(ctrl=p["ctrl"](d)) if p["ctrl"] else d)
+        pa = solver_operands(m, d, seed=2)
+        kw = dict(iterations=int(m.opt.iterations), ls_iterations=int(m.opt.ls_iterations), use_ws=True)
+        envs = structured_occupancy(s.nv, s.nefc, st)
+        print(f"{name} pre-solve: active efc rows per env {pa['act'].sum(1).mean().item():.1f} of {s.nefc}; "
+              f"newton_structured holds {envs} envs per SM ({sms} SMs)")
+        if name == "quadruped" and 2 * sms * envs < B:
+            fail(f"newton_structured: {envs} envs per SM take more than two waves for {B} envs")
 
-    def ref(dtype=torch.float32):
-        return _newton_arrays(**as_dtype(pa, dtype), ne=int(s.ne), nf=int(s.nf), iterations=it, ls_iterations=ls,
-                              use_ws=True)
+        def ref(dtype=torch.float32, pa=pa, kw=kw, s=s):
+            return _newton_arrays(**as_dtype(pa, dtype), ne=int(s.ne), nf=int(s.nf), **kw)
 
-    got = kern()
-    err = newton_err(got, ref(), "newton quadruped")
-    # the same solve in float64 shows how far float32 rounding alone moves
-    # it: the kernel must stay as close to it as the NEWTON_* bars ask
-    exact = ref(torch.float64)
-    newton_err(ref(), exact, "newton quadruped, plain float32 vs float64")
-    newton_err(got, exact, "newton quadruped, kernel vs plain float64")
-    ms, plain_ms = cuda_ms(kern), cuda_ms(ref)
+        got = kern(pa, d.efc_bJ, d.efc_dsc, st, **kw)
+        err = max(err, newton_err(got, ref(), f"newton_structured {name}"))
+        # the same solve in float64 shows how far float32 rounding alone moves
+        # it: the kernel must stay as close to it as the NEWTON_* bars ask
+        exact = ref(torch.float64)
+        newton_err(ref(), exact, f"newton_structured {name}, plain float32 vs float64")
+        newton_err(got, exact, f"newton_structured {name}, kernel vs plain float64")
+        if name == "quadruped":
+            operands = [d.efc_bJ, d.efc_dsc] + [pa[k] for k in ("qM", "aref", "D", "fl", "act", "a_s", "ws")]
+            timed = dict(ms=cuda_ms(lambda: kern(pa, d.efc_bJ, d.efc_dsc, st, **kw)), plain_ms=cuda_ms(ref),
+                         **newton_bound(operands, s.nefc, s.nv, pa["act"], kw["iterations"], kw["ls_iterations"]))
 
-    # synthetic problem with dense, equality, tendon-friction and one-hot rows
-    st2, pa2, bJ, dsc = synthetic_structured_problem(257, seed=3, device=device)
-    got = newton_solve_structured(
-        pa2["J"], bJ, dsc, pa2["qM"], pa2["aref"], pa2["D"], pa2["fl"], pa2["act"], pa2["a_s"], pa2["ws"],
-        pa2["tol"], st=st2, iterations=5, ls_iterations=8, use_ws=True,
-    )
-    want = _newton_arrays(**pa2, iterations=5, ls_iterations=8, use_ws=True)
-    err = max(err, newton_err(got, want, "newton synthetic"))
-    print(f"kernel newton_structured: B={NUM_ENVS} {ms:.4f} ms, plain {plain_ms:.4f} ms, max |err| {err:.2e}")
-    operands = [d.efc_bJ, d.efc_dsc] + [pa[k] for k in ("qM", "aref", "D", "fl", "act", "a_s", "ws")]
-    results["newton_structured"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                                        **newton_bound(operands, s.nefc, s.nv, pa["act"], it, ls))
+    # dense, equality, tendon-friction and one-hot rows
+    syn = dict(iterations=5, ls_iterations=8, use_ws=True)
+    st, pa, bJ, dsc = synthetic_structured_problem(257, seed=3, device=device)
+    err = max(err, newton_err(kern(pa, bJ, dsc, st, **syn), _newton_arrays(**pa, **syn), "newton_structured synthetic"))
+    for nv in NEWTON_NVS:
+        st, pa, bJ, dsc = synthetic_structured_problem(NUM_ENVS, seed=3 + nv, device=device, nv=nv)
+        newton_vs_float64(kern(pa, bJ, dsc, st, **syn), _newton_arrays(**pa, **syn),
+                          _newton_arrays(**as_dtype(pa, torch.float64), **syn), f"newton_structured synthetic nv={nv}")
+
+        st, pa, bJ, dsc = synthetic_structured_problem(NUM_ENVS, seed=3 + nv, device=device, nv=nv,
+                                                       **SYNTHETIC_EASED)
+        bad = 5  # an env of the first 257, so every slice below holds it
+        if nv >= 12:
+            nonfinite_line_search(st, pa, bJ, bad)
+        for use_ws in (True, False):
+            kw = dict(iterations=5, ls_iterations=8, use_ws=use_ws)
+            what = f"newton_structured eased synthetic nv={nv} ws={use_ws}"
+            got = kern(pa, bJ, dsc, st, **kw)
+            want = _newton_arrays(**pa, **kw)
+            err = max(err, newton_err(got, want, what))
+            if nv >= 12:
+                starts = (pa["a_s"][bad], pa["ws"][bad]) if use_ws else (pa["a_s"][bad],)
+                if not (torch.equal(got[0][bad], want[0][bad]) and any(torch.equal(got[0][bad], x) for x in starts)):
+                    fail(f"{what}: the env whose line search goes non-finite left its start")
+            for b in (257, 1):
+                part = kern({k: v[:b].contiguous() if torch.is_tensor(v) and v.shape[0] == NUM_ENVS else v
+                             for k, v in pa.items()}, bJ[:b].contiguous(), dsc[:b].contiguous(), st, **kw)
+                if not all(torch.equal(x, y[:b]) for x, y in zip(part, got)):
+                    fail(f"{what}: the first {b} envs alone differ from the same envs in the whole batch")
+        print(f"newton_structured eased synthetic nv={nv}: warmstart on and off match plain; B = 257 and 1 match "
+              f"B = {NUM_ENVS} bit for bit" + ("; the non-finite line search keeps its start" if nv >= 12 else ""))
+    print(f"kernel newton_structured: quadruped B={NUM_ENVS} {timed['ms']:.4f} ms, plain {timed['plain_ms']:.4f} ms, "
+          f"max |err| {err:.2e}")
+    results["newton_structured"].update(max_abs_err=err, library_ms=None, **timed)
 
 
 def check_newton_dense(device, results):
@@ -1064,33 +1209,42 @@ def stage_split(name: str, device, card: str, steps: int = 10) -> None:
     print(f"{name} stages, median ms of {steps} settled steps [{card}]: {split}", flush=True)
 
 
-def clutter_newton_spread(name: str, device) -> None:
+def clutter_newton_spread(name: str, device) -> dict:
     """The clutter path's Newton solve (the large-nv route, kernel 3 inside)
-    against the same batched solve in float32 and float64 with the plain
-    factor, on the settled state's operands on the card. The float32 solve's
-    own distance from float64 is the spread that rounding alone causes in a
-    6-iteration solve over hundreds of active rows; the route must stay
-    within ten times it (per-env max |difference| / (max |float64| + 1)):
-    rounding moves either by chance, a fault in the route by far more."""
+    against the same batched solve in float64 with the plain factor, on
+    fixed operands: CLUTTER_SETTLED broadcast to the path's 256 envs (the
+    pre-solve on the card, a warmstart of qacc_smooth + 0.1 N(0, 1) per env
+    from seed 8). Per env, max |route - float64| / (max |float64| + 1) over
+    qacc, efc_force and qfrc_constraint must stay within the path's
+    CLUTTER_SPREAD_BARS: the first on every env, the second at the median.
+    Plain float32 is printed beside it. Returns the four spreads."""
+    import numpy as np
     import torch
 
     from ambersim_tpu_torch import load_model
-    from ambersim_tpu_torch.engine import linalg
+    from ambersim_tpu_torch.engine import linalg, make_data
     from ambersim_tpu_torch.engine.solver import _newton_arrays
 
     m = load_model(PATHS[name]["model"], device=device)
-    s = m.skel
-    pa = dict(solver_operands(m, pre_solve(m, SETTLED[name]), seed=8), ne=int(s.ne), nf=int(s.nf),
-              iterations=int(m.opt.iterations), ls_iterations=int(m.opt.ls_iterations), use_ws=True)
-    route = _newton_arrays(**pa, solve=linalg.solve_pd)
+    s, B = m.skel, CLUTTER_ENVS
+    z = np.load(CLUTTER_SETTLED)
+    state = {k: torch.as_tensor(z[k], device=device).expand(B, -1).contiguous() for k in ("qpos", "qvel")}
+    d = pre_solve(m, make_data(m, B).replace(**state))
+    pa = dict(solver_operands(m, d, seed=8), ne=int(s.ne), nf=int(s.nf), iterations=int(m.opt.iterations),
+              ls_iterations=int(m.opt.ls_iterations), use_ws=True)
     exact = _newton_arrays(**as_dtype(pa, torch.float64))
-    rel_route, _ = env_rel_err(route, exact, f"{name} newton route vs float64")
+    rel, _ = env_rel_err(_newton_arrays(**pa, solve=linalg.solve_pd), exact, f"{name} newton route vs float64")
     rel_plain, _ = env_rel_err(_newton_arrays(**pa), exact, f"{name} newton plain float32 vs float64")
-    worst, spread = rel_route.max().item(), rel_plain.max().item()
-    print(f"{name} newton solve on {pa['act'].shape[0]} settled envs: route (kernel 3) vs float64 {worst:.3e}, "
-          f"plain float32 vs float64 {spread:.3e} (env-relative)", flush=True)
-    if not worst <= 10 * spread + 1e-6:
-        fail(f"{name}: the large-nv Newton route is {worst:.3e} from float64, plain float32 {spread:.3e}")
+    out = dict(route_max=rel.max().item(), route_median=rel.median().item(), plain_max=rel_plain.max().item(),
+               plain_median=rel_plain.median().item())
+    bar_max, bar_median = CLUTTER_SPREAD_BARS[name]
+    print(f"{name} newton solve on {B} envs of {CLUTTER_SETTLED.name} (nefc {s.nefc}): route (kernel 3) vs float64 "
+          f"max {out['route_max']:.3e} median {out['route_median']:.3e} (bars {bar_max}, {bar_median}); plain "
+          f"float32 vs float64 max {out['plain_max']:.3e} median {out['plain_median']:.3e} (env-relative)", flush=True)
+    if not (out["route_max"] <= bar_max and out["route_median"] <= bar_median):
+        fail(f"{name}: the large-nv Newton route is {out['route_max']:.3e} (median {out['route_median']:.3e}) "
+             f"from float64")
+    return out
 
 
 def clutter_card_vs_cpu(device, name: str = "clutter32_rowcap192") -> None:
@@ -1297,47 +1451,29 @@ def env_card_vs_cpu(device) -> None:
           f"max |dreward| {worst['reward']:.3e}", flush=True)
 
 
-def main() -> int:
-    if not (REPO / "ambersim_tpu_torch").is_dir():
-        fail(f"run from a checkout of the repository: no ambersim_tpu_torch/ beside {Path(__file__).name}")
-    sys.path.insert(0, str(REPO))
+def check_ptxas(log: str) -> None:
+    """Print ptxas's registers and spills of every kernel; fail on a spill in
+    the kernels that hold their factor's rows in registers (SPILL_FREE)."""
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            name = m.group(1)
+        if "registers" in line or "spill" in line:
+            print(f"  ptxas: {name}: {line.strip()}")
+        if ("spill" in line and name and any(k in name for k in SPILL_FREE)
+                and "0 bytes spill stores, 0 bytes spill loads" not in line):
+            fail(f"{name} spills registers: {line.strip()}")
+
+
+def run_phases(device, card: str, results: dict) -> None:
+    """Phases 3-6: every kernel against its plain version, every path, PPO,
+    and the card against the CPU; adds each path's launches to results."""
     import torch
 
-    # ---- 1. device ----
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false: this check runs only on a CUDA card")
-    device = torch.device("cuda", 0)
-    card = card_line()
-    print(f"card: {card}", flush=True)
-    from ambersim_tpu_torch.engine.forward import full_f32_matmul
-
-    full_f32_matmul()
-    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
-        fail("TF32 is on")
-    print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
-
-    # ---- 2. build ----
-    from ambersim_tpu_torch.ops import _build
-
-    lib_path, build_s = _build.build()
-    print(f"build: {build_s:.1f} s ({lib_path.name})", flush=True)
-    log = lib_path.with_suffix(".log")
-    if log.is_file():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                print("  ptxas:", line.strip())
-    _build.library()
-
     # ---- 3. kernels against their plain versions ----
-    from ambersim_tpu_torch import load_model
-
-    results = {
-        k: dict(name=k, route="cuda", source=f"ambersim_tpu_torch/csrc/{src}", replaces=rep, launches=0,
-                max_abs_err=None, ms=None, plain_ms=None, bound_ms=None, bound_by=None, library_ms=None)
-        for k, (src, rep) in KERNELS.items()
-    }
     check_linalg(device, results)
-    check_newton(load_model("quadruped", device=device), device, results)
+    check_newton(device, results)
     check_newton_dense(device, results)
     check_newton_elliptic(device, results)
     torch.cuda.synchronize()
@@ -1372,6 +1508,38 @@ def main() -> int:
             card_vs_cpu(name, device, QPOS_TOL, QVEL_TOL)
     clutter_card_vs_cpu(device)
     env_card_vs_cpu(device)
+
+
+def main() -> int:
+    if not (REPO / "ambersim_tpu_torch").is_dir():
+        fail(f"run from a checkout of the repository: no ambersim_tpu_torch/ beside {Path(__file__).name}")
+    sys.path.insert(0, str(REPO))
+    import torch
+
+    # ---- 1. device ----
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this check runs only on a CUDA card")
+    device = torch.device("cuda", 0)
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+
+    # ---- 2. build ----
+    from ambersim_tpu_torch.engine.forward import full_f32_matmul
+    from ambersim_tpu_torch.ops import _build
+
+    lib_path, build_s = _build.build()
+    print(f"build: {build_s:.1f} s ({lib_path.name})", flush=True)
+    check_ptxas(lib_path.with_suffix(".log").read_text())
+    _build.library()
+
+    results = {
+        k: dict(name=k, route="cuda", source=f"ambersim_tpu_torch/csrc/{src}", replaces=rep, launches=0,
+                max_abs_err=None, ms=None, plain_ms=None, bound_ms=None, bound_by=None, library_ms=None)
+        for k, (src, rep) in KERNELS.items()
+    }
+    with full_f32_matmul():
+        run_phases(device, card, results)
 
     for k, r in results.items():
         missing = [f for f, v in r.items() if v is None and f != "library_ms"]

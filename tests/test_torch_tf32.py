@@ -1,0 +1,65 @@
+"""`engine.forward.full_f32_matmul` scopes the TF32 switch: inside
+`forward` (so `step`) and `rl.ppo.train` both flags read False, and the
+caller's values come back on exit (CPU; the flags are process-wide)."""
+
+import pytest
+import torch
+
+FLAGS = (torch.backends.cuda.matmul, torch.backends.cudnn)
+
+
+@pytest.fixture
+def tf32_on():
+    saved = [f.allow_tf32 for f in FLAGS]
+    for f in FLAGS:
+        f.allow_tf32 = True
+    yield
+    for f, v in zip(FLAGS, saved):
+        f.allow_tf32 = v
+
+
+def _flags():
+    return tuple(f.allow_tf32 for f in FLAGS)
+
+
+def test_scope_restores_the_callers_flags(tf32_on):
+    from ambersim_tpu_torch.engine.forward import full_f32_matmul
+
+    with full_f32_matmul():
+        assert _flags() == (False, False)
+    assert _flags() == (True, True)
+    with pytest.raises(RuntimeError):
+        with full_f32_matmul():
+            raise RuntimeError
+    assert _flags() == (True, True)
+
+
+def test_step_scopes_tf32(tf32_on, monkeypatch):
+    from ambersim_tpu_torch import load_model
+    from ambersim_tpu_torch.engine import make_data, solver, step
+
+    seen = []
+    solve = solver.solve
+
+    def recording(m, d):
+        seen.append(_flags())
+        return solve(m, d)
+
+    monkeypatch.setattr(solver, "solve", recording)
+    m = load_model("quadruped", device="cpu")
+    d = step(m, make_data(m, 2))
+    assert torch.isfinite(d.qpos).all()
+    assert seen == [(False, False)]
+    assert _flags() == (True, True)
+
+
+def test_train_scopes_tf32(tf32_on):
+    from ambersim_tpu_torch.rl.pendulum import PendulumSwingupEnv
+    from ambersim_tpu_torch.rl.ppo import train
+
+    seen = []
+    train(PendulumSwingupEnv(device="cpu"), device="cpu", num_timesteps=64, num_evals=2, episode_length=8,
+          unroll_length=4, num_minibatches=2, num_updates_per_batch=1, num_envs=8, num_eval_envs=4, batch_size=8,
+          seed=0, progress_fn=lambda step, metrics: seen.append(_flags()))
+    assert seen and all(f == (False, False) for f in seen)
+    assert _flags() == (True, True)

@@ -6,7 +6,8 @@
 Builds the tree's linalg_block.cu (and OTHER, e.g. a parent commit's copy
 unpacked with git archive) with the port's nvcc flags into
 ambersim_tpu_torch/_build/probe/, checks each against the plain versions at
-B = 256, then prints, CUDA events, median of 20 launches:
+B = 256, then prints, CUDA events (chip_smoke.cuda_ms: ten back-to-back
+calls, median of 20 runs):
 
   * tree and OTHER in turns (tree, other, other, tree) at the clutter
     shape B = 256, beside torch.linalg.cholesky;
@@ -26,6 +27,8 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
+
+from ambersim_tpu_torch.engine.forward import full_f32_matmul  # noqa: E402
 
 N = 192
 
@@ -48,6 +51,7 @@ def build(src: Path, name: str) -> ctypes.CDLL:
     return lib
 
 
+@full_f32_matmul()
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", type=Path, help="another linalg_block.cu to time beside the tree's")
@@ -58,12 +62,10 @@ def main() -> int:
 
     import chip_smoke as cs
     from ambersim_tpu_torch.engine import linalg as plain
-    from ambersim_tpu_torch.engine.forward import full_f32_matmul
     from ambersim_tpu_torch.ops._build import check_launch
 
     if not torch.cuda.is_available():
         cs.fail("no CUDA card")
-    full_f32_matmul()
     print(f"card: {cs.card_line()}")
     libs = {"tree": build(REPO / "ambersim_tpu_torch/csrc/linalg_block.cu", "tree")}
     if args.against:
