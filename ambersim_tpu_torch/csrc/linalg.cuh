@@ -19,7 +19,9 @@ constexpr int kMaxN = 32;
 
 // Lower Cholesky in registers: lane i passes row i of the lower triangle
 // in r[0..i] (any value above the diagonal and on lanes i >= n; r is
-// consumed) and gets row i of L in out[i * ld + 0..i]. Entries above the
+// consumed) and gets row i of L in out[i * ld + 0..i]. r's length kN >= n
+// is the row's register tier: kernels 1-4 pass 32 (kMaxN), kernels 5 and 6
+// the tier of their nv (newton_warp.cuh's row_tier). Entries above the
 // diagonal never reach L, and out's upper triangle is not written. With
 // kRhs, lane i also passes b_i in b and gets y_i of L y = b back: the
 // forward sweep rides along the factor, column by column, with the
@@ -40,8 +42,8 @@ constexpr int kMaxN = 32;
 // one lane there holds the whole warp on every pivot. a / d is a itself
 // for a = +-0, and the other lanes take c = 0. The forward sweep divides
 // by L_jj = piv / d on every lane (lane j's own c, bit for bit).
-template <bool kRhs>
-__device__ inline void warp_factor(float (&r)[kMaxN], int n, float* out, int ld, float& b) {
+template <bool kRhs, int kN>
+__device__ inline void warp_factor(float (&r)[kN], int n, float* out, int ld, float& b) {
   const int i = threadIdx.x & 31;
   float piv = __shfl_sync(kFullMask, r[0], 0);
 #pragma unroll 1
@@ -60,22 +62,23 @@ __device__ inline void warp_factor(float (&r)[kMaxN], int n, float* out, int ld,
     // lane j+1's diagonal after this pivot, from its own c
     piv = __shfl_sync(kFullMask, fmaf(-c, c, r[1]), j + 1);
 #pragma unroll
-    for (int k = 1; k < kMaxN; k += 4) {
+    for (int k = 1; k < kN; k += 4) {
       if (j + k >= n) break;
 #pragma unroll
-      for (int q = k; q < k + 4 && q < kMaxN; ++q) r[q - 1] = fmaf(-c, __shfl_sync(kFullMask, c, j + q), r[q]);
+      for (int q = k; q < k + 4 && q < kN; ++q) r[q - 1] = fmaf(-c, __shfl_sync(kFullMask, c, j + q), r[q]);
     }
   }
 }
 
 // Lane i's row of the lower triangle of a system in shared memory at
 // leading dimension ld into r (zero above the diagonal and on lanes
-// i >= n), for warp_factor. Ends with __syncwarp, so the caller may write
-// over the system afterwards.
-__device__ inline void load_rows(float (&r)[kMaxN], const float* a, int n, int ld) {
+// i >= n; n <= kN), for warp_factor. Ends with __syncwarp, so the caller
+// may write over the system afterwards.
+template <int kN>
+__device__ inline void load_rows(float (&r)[kN], const float* a, int n, int ld) {
   const int i = threadIdx.x & 31;
 #pragma unroll
-  for (int k = 0; k < kMaxN; ++k) r[k] = (k <= i && i < n) ? a[i * ld + k] : 0.f;
+  for (int k = 0; k < kN; ++k) r[k] = (k <= i && i < n) ? a[i * ld + k] : 0.f;
   __syncwarp();
 }
 

@@ -1,116 +1,240 @@
-// Kernel 6: the whole elliptic-cone Newton constraint solve, one thread
-// block per env, for a model whose contacts form one contiguous tail of a
-// single condim (cdim in 2..6) behind nh head rows (equality, friction,
-// limits).
+// Kernel 6: the whole elliptic-cone Newton constraint solve, one warp per
+// env, for a model whose contacts form one contiguous tail of a single
+// condim (cdim in 2..6) behind nh head rows (equality, friction, limits).
 //
 // Replaces ambersim_tpu/ops/newton_pallas.py: newton_solve_elliptic
 // (:1083; kernel body _elliptic_kernel :803), which runs the batch on the
 // TPU's lanes with J of a 128-512 env tile in VMEM. Numerically it mirrors
 // the plain version, engine/solver.py `_newton_arrays_elliptic` (a batched
 // _newton_arrays_elliptic_jnp, JAX solver.py:624-811):
-//   * rows are read in kernel order [head | N(S) | T_1(S) ... T_nfr(S)]
-//     through `perm` (kernel row -> MuJoCo row), and efc_force is written
-//     back through it;
+//   * rows stay in MuJoCo order, head rows then each contact's cdim rows
+//     (the TPU kernel regroups them [head | N(S) | T_1(S) ...] for its
+//     lanes; here a contact's lane reads its own rows where they sit);
 //   * per contact, the mu-scaled circular cone (mu = mu0/sqrt(impratio) and
 //     the row scale, folded by the launcher into (B, S) / (B, nfr*S)
 //     planes) decides the zone: bottom if mu*N <= -T, top if N >= mu*T,
 //     the projection onto the cone boundary otherwise;
-//   * H = M + 1e-8 I + J_h^T diag(h) J_h + sum_s R_s^T W_s R_s, assembled as
-//     J^T JW with JW = diag(h) J_h on head rows and W_s R_s on each block;
+//   * H = M + 1e-8 I + J_h^T diag(h) J_h + sum_s R_s^T W_s R_s, with R_s
+//     the contact's cdim rows and W_s its cdim x cdim weight (JAX
+//     _elliptic_W, solver.py:158);
 //   * the line search is the guarded bracketed Newton on t of the closed
 //     form per-contact scalars (N(t) linear, T(t)^2 quadratic), with a
 //     select plus isfinite on the Newton step. The Pallas kernel blends
 //     ok*tn + (1-ok)*mid (:1041-1042), which turns a non-finite tn into NaN.
 //
-// What bounds it here: as kernels 4 and 5, barrier and reduction latency
-// (an env reads its ~8 KB of rows once and works out of shared memory).
+// What bounds it here: at the elliptic quadruped's shapes (nv 18, nefc 108
+// = 24 head rows + 28 contacts x cdim 3, 3 iterations x 6 line-search
+// steps, B = 4096) an env reads ~9 KB once, ~40 MB for the batch (12 us at
+// 3.35 TB/s); the rest is each env's chain of dependent steps (row and
+// contact passes, warp sums, an 18-pivot factor and two sweeps, a square
+// root per contact and line-search step), so it is bound by that chain's
+// latency and by instruction issue, as kernel 4 is.
 //
-// Design: 128 threads per env. Threads run over rows (J x, head costs),
-// over contacts (zones, W blocks, line-search scalars), over (contact,
-// column) pairs for W R and over lower-triangle (v, w) pairs for J^T JW;
-// warp 0 factors and solves H. Every block sum is read in one fixed order,
-// so all threads hold the same t, bracket and take/keep decision.
+// Design: newton_warp.cuh's warp per env, four envs a block, no block
+// barrier. Per env in shared memory (~13.7 KB at the quadruped's shapes,
+// 16 envs an SM, two waves for 4096 envs): J and qM at pitch P (one
+// coalesced copy each), one record per row (a contact's rows carry D = 0 when it is
+// inactive, and its activity in the kind slot), the (mu, scale) planes,
+// and one scratch buffer for the W blocks, then L, then the line-search
+// scalars. Head rows go round-robin over lanes as in kernel 5; contact s
+// goes to lane s % 32, which evaluates its zone, forces and W_s in
+// registers and publishes W_s only when the contact carries weight (a
+// ballot picks those). Lane v's Hessian row takes, per weighted contact,
+// c_b(v) = sum_a R_a(v) W_ab and then H_vw += sum_b c_b(v) R_b(w): cdim
+// FMAs an entry, on float32 pipes. The factor and sweeps are kernel 4's
+// (amb::warp_factor sized to nv's tier, amb::warp_back_solve). In the line
+// search a contact's scalars (a, b, c, h_bot) stay with its lane; each
+// step sums the head rows' and the contacts' (phi', phi'') apart, one
+// butterfly each, and joins them as the plain version does, whose
+// expressions the contacts' terms follow operation for operation with no
+// fused multiply-add: the bracket's Newton step can land within an ulp or
+// two of the bracket's ends, where the plain version keeps stepping and a
+// step rounded otherwise falls back to the midpoint, and from there a
+// converged solve can end elsewhere. A divide whose dividend may be zero
+// (an inactive contact's D = 0) is taken only where it is not: the IEEE
+// divide's slow path on one lane holds the warp.
 
 #include <cuda_runtime.h>
 
 #include <math.h>
 
-#include "newton_common.cuh"
+#include "newton_warp.cuh"
+
+#ifdef AMB_ELLIPTIC_TRACE  // env AMB_ELLIPTIC_TRACE's line search printed (tools/elliptic_trace.py)
+#include <cstdio>
+#endif
 
 namespace {
 
-using amb::block_sum2;
-using amb::kThreads;
-using amb::kWarps;
+using amb::kEnvs;
+using amb::kFullMask;
+using amb::RowsLayout;
+using amb::WarpRows;
 
-constexpr int kMaxFr = 5;  // friction dims per cone: cdim <= 6
+constexpr int kMaxCd = 6;  // cdim <= 6
+constexpr int kMaxFr = kMaxCd - 1;
 
 struct Dims {
-  int nv, nefc, ne, nf, nh, S, cdim, iterations, ls_iterations, use_ws;
+  int B, nv, nefc, ne, nf, nh, S, cdim, iterations, ls_iterations, use_ws;
 };
 
-// Shared-memory layout (floats, then ints); one definition for host and device.
-struct Layout {
-  int J, JW, M, H, aref, D, fl, act, jar, jp, jtmp, frc, mu, scale, W, aq, bq, cq, hbot, as, qacc, qtmp, p, grad,
-      mdacc, vtmp, red, nfloat, perm, nint;
-  __host__ __device__ Layout(int nv, int nefc, int S, int cdim) {
-    int o = 0;
-    J = o;     o += nefc * nv;
-    JW = o;    o += nefc * nv;
-    M = o;     o += nv * nv;
-    H = o;     o += nv * (nv | 1);
-    aref = o;  o += nefc;
-    D = o;     o += nefc;
-    fl = o;    o += nefc;
-    act = o;   o += nefc;
-    jar = o;   o += nefc;
-    jp = o;    o += nefc;
-    jtmp = o;  o += nefc;
-    frc = o;   o += nefc;
-    mu = o;    o += S;
-    scale = o; o += (cdim - 1) * S;
-    W = o;     o += cdim * cdim * S;
-    aq = o;    o += S;
-    bq = o;    o += S;
-    cq = o;    o += S;
-    hbot = o;  o += S;
-    as = o;    o += nv;
-    qacc = o;  o += nv;
-    qtmp = o;  o += nv;
-    p = o;     o += nv;
-    grad = o;  o += nv;
-    mdacc = o; o += nv;
-    vtmp = o;  o += nv;
-    red = o;   o += 2 * kWarps;
-    nfloat = o;
-    perm = 0;
-    nint = nefc;
-  }
-  __host__ __device__ size_t bytes() const { return sizeof(float) * (size_t)nfloat + sizeof(int) * (size_t)nint; }
+// One env's layout: the extra region holds mu (S) and the nfr scale planes
+// (S each); buf fits L, the W blocks (cdim^2 each) and the line-search
+// scalars (4 each).
+__host__ __device__ inline RowsLayout layout(int nv, int nefc, int S, int cdim) {
+  return RowsLayout(nv, nefc, cdim * S, cdim * cdim * S);
+}
+
+// The contacts of one env.
+struct Cones {
+  int nh, S, cd;
+  const float* mu;     // (S)
+  const float* scale;  // (cd - 1) planes of S
+  __device__ int row(int a, int s) const { return nh + s * cd + a; }  // the row of dim a of contact s
 };
 
-// Zone state of contact s at jar (JAX _newton_arrays_elliptic_jnp's cone_state).
+// a / b where `on` and a != 0, else 0: a zero dividend sends the IEEE
+// divide down its slow path, and one lane there holds the warp.
+__device__ inline float quot_if(bool on, float a, float b) {
+  const bool divide = on && a != 0.f;
+  const float q = (divide ? a : 1.f) / b;
+  return divide ? q : 0.f;
+}
+
+// Zone state of a contact at jar (JAX _newton_arrays_elliptic_jnp's cone_state).
 struct Cone {
   float N, T2, T, cfac, y[kMaxFr];
   bool bottom, middle;
 };
 
-__device__ inline Cone cone_state(const Dims& d, const float* jar, const float* scale, float mu, int s) {
-  Cone c;
-  const int nfr = d.cdim - 1;
-  c.N = jar[d.nh + s];
-  c.T2 = 0.f;
+template <class Jar>
+__device__ inline Cone cone_state(const Cones& c, int s, float mu, Jar jar) {
+  Cone z;
+  z.N = jar(c.row(0, s));
+  z.T2 = 0.f;
 #pragma unroll
   for (int k = 0; k < kMaxFr; ++k) {
-    c.y[k] = k < nfr ? jar[d.nh + (k + 1) * d.S + s] * scale[k * d.S + s] : 0.f;
-    c.T2 += c.y[k] * c.y[k];
+    z.y[k] = k + 1 < c.cd ? jar(c.row(k + 1, s)) * c.scale[k * c.S + s] : 0.f;
+    z.T2 += z.y[k] * z.y[k];
   }
-  c.T = sqrtf(fmaxf(c.T2, 1e-24f));
-  c.bottom = mu * c.N <= -c.T;
-  const bool top = c.N >= mu * c.T;
-  c.middle = !(c.bottom || top);
-  c.cfac = (mu * c.T - c.N) / (1.f + mu * mu);
-  return c;
+  z.T = sqrtf(fmaxf(z.T2, 1e-24f));
+  z.bottom = mu * z.N <= -z.T;
+  const bool top = z.N >= mu * z.T;
+  z.middle = !(z.bottom || top);
+  z.cfac = (mu * z.T - z.N) / (1.f + mu * mu);
+  return z;
+}
+
+// This lane's share of the cone costs at the rows' jar(r).
+template <class Jar>
+__device__ inline float cones_cost(const WarpRows& e, const Cones& c, Jar jar) {
+  float sum = 0.f;
+  for (int s = e.lane; s < c.S; s += 32) {
+    const float m = c.mu[s], Dn = e.rec[c.row(0, s)].z;
+    const Cone z = cone_state(c, s, m, jar);
+    sum += (z.bottom ? 0.5f * Dn * (z.N * z.N + z.T2) : 0.f) +
+           (z.middle ? 0.5f * Dn * z.cfac * z.cfac * (1.f + m * m) : 0.f);
+  }
+  return sum;
+}
+
+// The forces of a contact's cdim rows (dims past cdim get 0).
+__device__ inline void cone_forces(const Cones& c, const Cone& z, int s, float mu, float Dn, float (&f)[kMaxCd]) {
+  f[0] = z.bottom ? -Dn * z.N : (z.middle ? Dn * z.cfac : 0.f);
+  const float cy = z.bottom ? -Dn : quot_if(z.middle, -Dn * z.cfac * mu, z.T);
+#pragma unroll
+  for (int k = 0; k < kMaxFr; ++k) f[k + 1] = k + 1 < c.cd ? cy * z.y[k] * c.scale[k * c.S + s] : 0.f;
+}
+
+// W_s into Ws (cdim x cdim, row-major): g_mid v v^T + curv (I - yh yh^T)
+// (scale scale^T) on the friction dims in the middle zone, diag(D) in the
+// bottom zone, with v = (-1, mu yh_k scale_k); index 0 is the normal row,
+// 1 + k the k-th friction row (loops unrolled to cdim <= 6 so the arrays
+// stay in registers).
+__device__ inline void cone_weight(const WarpRows& e, const Cones& c, const Cone& z, int s, float mu, float Dn,
+                                   float* Ws) {
+  const int cd = c.cd;
+  const float mid = z.middle ? 1.f : 0.f;
+  const float g_mid = Dn / (1.f + mu * mu) * mid;
+  const float curv = quot_if(z.middle, Dn * mu * z.cfac, z.T);
+  float yh[kMaxCd], sc[kMaxCd], v[kMaxCd], Dd[kMaxCd];
+  yh[0] = 0.f;
+  sc[0] = 0.f;
+  v[0] = -1.f;
+  Dd[0] = Dn;
+#pragma unroll
+  for (int k = 0; k < kMaxFr; ++k) {
+    const bool in = k + 1 < cd;
+    yh[k + 1] = in ? z.y[k] / z.T : 0.f;
+    sc[k + 1] = in ? c.scale[k * c.S + s] : 0.f;
+    v[k + 1] = mu * yh[k + 1] * sc[k + 1];
+    Dd[k + 1] = in ? e.rec[c.row(k + 1, s)].z : 0.f;
+  }
+#pragma unroll
+  for (int a = 0; a < kMaxCd; ++a) {
+#pragma unroll
+    for (int b = 0; b < kMaxCd; ++b) {
+      if (a >= cd || b >= cd) continue;
+      float w = g_mid * v[a] * v[b];
+      if (a && b) w += curv * ((a == b ? 1.f : 0.f) - yh[a] * yh[b]) * (sc[a] * sc[b]);
+      if (a == b && z.bottom) w += Dd[a];
+      Ws[a * cd + b] = w;
+    }
+  }
+}
+
+// J^T f over the contacts at jar for lane v's dof and, with kHess, the
+// rank-cdim updates R_s^T W_s R_s of lane v's Hessian row. Contact s's lane
+// evaluates it; a ballot picks the contacts that carry force and weight
+// (an active contact in the bottom or middle zone), whose forces come by
+// shuffle and W_s through buf.
+template <bool kHess, int kN>
+__device__ inline float cones_jtf_hessian(const WarpRows& e, const Cones& c, float (&h)[kN]) {
+  const int lane = e.lane, cd = c.cd;
+  const bool dof = lane < e.nv;
+  float jtf = 0.f;
+  for (int s0 = 0; s0 < c.S; s0 += 32) {
+    const int s = s0 + lane;
+    float f[kMaxCd] = {};
+    bool on = false;
+    if (s < c.S) {
+      const float m = c.mu[s];
+      const float4 n = e.rec[c.row(0, s)];
+      const Cone z = cone_state(c, s, m, [&](int r) { return e.rec[r].x; });
+      on = n.w > 0.5f && (z.bottom || z.middle);
+      cone_forces(c, z, s, m, n.z, f);
+      if (kHess && on) cone_weight(e, c, z, s, m, n.z, e.buf + s * cd * cd);
+    }
+    unsigned mask = __ballot_sync(kFullMask, on);
+    __syncwarp();
+    while (mask) {
+      const int bit = __ffs(mask) - 1;
+      mask &= mask - 1;
+      const int cc = s0 + bit;
+      float R[kMaxCd];  // R_a(v), a < cd
+#pragma unroll
+      for (int a = 0; a < kMaxCd; ++a) {
+        if (a >= cd) break;
+        R[a] = dof ? e.J[c.row(a, cc) * e.P + lane] : 0.f;
+        jtf += __shfl_sync(kFullMask, f[a], bit) * R[a];
+      }
+      if (kHess) {
+        const float* W = e.buf + cc * cd * cd;
+#pragma unroll
+        for (int b = 0; b < kMaxCd; ++b) {
+          if (b >= cd) break;
+          float cb = 0.f;
+#pragma unroll
+          for (int a = 0; a < kMaxCd; ++a) {
+            if (a >= cd) break;
+            cb += R[a] * W[a * cd + b];
+          }
+          amb::axpy_row<kN>(h, cb, e.J + c.row(b, cc) * e.P, e.nv);
+        }
+      }
+    }
+  }
+  return jtf;
 }
 
 // One guarded bracketed Newton step on the line-search parameter t, given
@@ -128,270 +252,219 @@ __device__ inline void ls_bracket_step(float& t, float& lo, float& hi, float g, 
   t = ok ? tn : 0.5f * (lo + hi);
 }
 
-struct Env {
-  Dims d;
-  Layout L;
-  float* f;
-  __device__ float* at(int off) const { return f + off; }
-};
-
-// 0.5 (q - a_s)^T M (q - a_s) + head row costs + cone costs at jar.
-__device__ float total_cost(const Env& e, const float* q, const float* jar) {
-  const Dims& d = e.d;
-  float smooth = amb::smooth_part(e.at(e.L.M), d.nv, q, e.at(e.L.as), e.at(e.L.vtmp));
-  const float *D = e.at(e.L.D), *fl = e.at(e.L.fl), *act = e.at(e.L.act);
-  const float *mu = e.at(e.L.mu), *scale = e.at(e.L.scale);
-  float rows = 0.f;
-  for (int it = threadIdx.x; it < d.nh + d.S; it += kThreads) {
-    if (it < d.nh) {
-      float force, h, cost;
-      amb::row_eval(jar[it], D[it], fl[it], act[it], amb::row_kind(it, d.ne, d.nf), force, h, cost);
-      rows += cost;
-    } else {
-      const int s = it - d.nh;
-      const float m = mu[s], Dn = D[d.nh + s];
-      const Cone c = cone_state(d, jar, scale, m, s);
-      const float cost = (c.bottom ? 0.5f * Dn * (c.N * c.N + c.T2) : 0.f) +
-                         (c.middle ? 0.5f * Dn * c.cfac * c.cfac * (1.f + m * m) : 0.f);
-      rows += cost * act[d.nh + s];
-    }
-  }
-  block_sum2(smooth, rows, e.at(e.L.red));
-  return 0.5f * smooth + rows;
-}
-
-// Row forces at jar into frc; with hw, also the head rows' Hessian weights
-// into hw and each contact's W block. Ends with a barrier.
-__device__ void forces(const Env& e, const float* jar, float* frc, float* hw) {
-  const Dims& d = e.d;
-  const int nfr = d.cdim - 1, cd = d.cdim;
-  const float *D = e.at(e.L.D), *fl = e.at(e.L.fl), *act = e.at(e.L.act);
-  const float *mu = e.at(e.L.mu), *scale = e.at(e.L.scale);
-  float* W = e.at(e.L.W);
-  for (int it = threadIdx.x; it < d.nh + d.S; it += kThreads) {
-    if (it < d.nh) {
-      float h, cst;
-      amb::row_eval(jar[it], D[it], fl[it], act[it], amb::row_kind(it, d.ne, d.nf), frc[it], h, cst);
-      if (hw) hw[it] = h;
-      continue;
-    }
-    const int s = it - d.nh;
-    const float m = mu[s], Dn = D[d.nh + s], actN = act[d.nh + s];
-    const Cone c = cone_state(d, jar, scale, m, s);
-    const float fN = c.bottom ? -Dn * c.N : (c.middle ? Dn * c.cfac : 0.f);
-    const float cy = c.bottom ? -Dn : (c.middle ? -Dn * c.cfac * m / c.T : 0.f);
-    frc[d.nh + s] = fN * actN;
-#pragma unroll
-    for (int k = 0; k < kMaxFr; ++k)
-      if (k < nfr) frc[d.nh + (k + 1) * d.S + s] = cy * c.y[k] * scale[k * d.S + s] * actN;
-    if (!hw) continue;
-    // W = g_mid v v^T + curv (I - yh yh^T) (scale scale^T) on the friction
-    // dims + bottom-zone diag(D), with v = (-1, mu yh_k scale_k); index 0 is
-    // the normal row, 1 + k the k-th friction row (loops unrolled to
-    // cdim <= 6 so the per-contact arrays stay in registers)
-    const float mid = c.middle ? actN : 0.f;
-    const float g_mid = Dn / (1.f + m * m) * mid;
-    const float curv = Dn * m * c.cfac / c.T * mid;
-    const float bot_a = c.bottom ? actN : 0.f;
-    float yh[kMaxFr + 1], sc[kMaxFr + 1], v[kMaxFr + 1];
-    yh[0] = 0.f;
-    sc[0] = 0.f;
-    v[0] = -1.f;
+// Each contact's closed-form line-search scalars into buf (float4 each):
+// a = |y|^2, b = y . dy, c = |dy|^2 on the scaled friction dims and
+// h_bot = sum D dx^2 over its rows, from jar and jp. Like cone_line, in the
+// plain version's operations and order, each product rounded before it is
+// added (no fused multiply-add). Ends with __syncwarp.
+__device__ inline void cones_line_prepare(const WarpRows& e, const Cones& c) {
+  float4* q = reinterpret_cast<float4*>(e.buf);
+  for (int s = e.lane; s < c.S; s += 32) {
+    const float4 n = e.rec[c.row(0, s)];
+    float a = 0.f, b = 0.f, cc = 0.f, hb = __fmul_rn(__fmul_rn(n.z, n.y), n.y);
 #pragma unroll
     for (int k = 0; k < kMaxFr; ++k) {
-      yh[k + 1] = c.y[k] / c.T;
-      sc[k + 1] = k < nfr ? scale[k * d.S + s] : 0.f;
-      v[k + 1] = m * yh[k + 1] * sc[k + 1];
+      if (k + 1 >= c.cd) break;
+      const float4 v = e.rec[c.row(k + 1, s)];
+      const float sk = c.scale[k * c.S + s];
+      const float y = __fmul_rn(v.x, sk), dy = __fmul_rn(v.y, sk);
+      a = __fadd_rn(a, __fmul_rn(y, y));
+      b = __fadd_rn(b, __fmul_rn(y, dy));
+      cc = __fadd_rn(cc, __fmul_rn(dy, dy));
+      hb = __fadd_rn(hb, __fmul_rn(__fmul_rn(v.z, v.y), v.y));
     }
-    float* Ws = W + s * cd * cd;
-#pragma unroll
-    for (int a = 0; a <= kMaxFr; ++a) {
-#pragma unroll
-      for (int b = 0; b <= kMaxFr; ++b) {
-        if (a >= cd || b >= cd) continue;
-        float w = g_mid * v[a] * v[b];
-        if (a && b) w += curv * ((a == b ? 1.f : 0.f) - yh[a] * yh[b]) * (sc[a] * sc[b]);
-        if (a == b) w += bot_a * D[d.nh + a * d.S + s];
-        Ws[a * cd + b] = w;
-      }
-    }
+    q[s] = make_float4(a, b, cc, hb);
   }
-  __syncthreads();
+  __syncwarp();
 }
 
-__global__ void __launch_bounds__(kThreads) newton_elliptic_kernel(
+// What a contact's line-search step reads: its normal row's record, its
+// scalars (cones_line_prepare) and mu.
+struct ConeLine {
+  float4 n, q;
+  float m;
+};
+
+__device__ inline ConeLine cone_line_data(const WarpRows& e, const Cones& c, int s) {
+  return ConeLine{e.rec[c.row(0, s)], reinterpret_cast<const float4*>(e.buf)[s], c.mu[s]};
+}
+
+// One contact's phi'(t) and phi''(t) into g and hh (an inactive contact adds
+// nothing: its D is 0). The plain version's expressions operation for
+// operation (engine/solver.py `_newton_arrays_elliptic`), each rounded as
+// it rounds them (no fused multiply-add): the bracket's decisions turn on
+// the last bits of phi', so the kernel rounds it no other way than the
+// sums' order forces.
+__device__ inline void cone_line(const ConeLine& k, float t, float& g, float& hh) {
+  const float4 n = k.n, q = k.q;
+  const float Dn = n.z;
+  if (Dn == 0.f) return;
+  const float m = k.m, one = __fadd_rn(1.f, __fmul_rn(m, m)), dN = n.y, b = q.y, cc = q.z;
+  const float ct = __fmul_rn(cc, t);
+  const float T2 = __fadd_rn(__fadd_rn(q.x, __fmul_rn(__fmul_rn(2.f, b), t)), __fmul_rn(ct, t));
+  const float Tt = __fsqrt_rn(fmaxf(T2, 1e-24f));
+  const float Tp = quot_if(true, __fadd_rn(b, ct), Tt);
+  const float Nt = __fadd_rn(n.x, __fmul_rn(t, dN));
+  const float mT = __fmul_rn(m, Tt);
+  const bool bot = __fmul_rn(m, Nt) <= -Tt;
+  const bool mid = !(bot || Nt >= mT);
+  const float cfac = __fdiv_rn(__fsub_rn(mT, Nt), one);
+  const float g_b = __fmul_rn(Dn, __fadd_rn(__fadd_rn(__fmul_rn(Nt, dN), b), ct));
+  const float mTp = __fmul_rn(m, Tp);
+  const float g_m = __fmul_rn(__fmul_rn(-Dn, cfac), __fsub_rn(dN, mTp));
+  const float dd = __fsub_rn(mTp, dN);
+  const float curv = quot_if(mid, __fmul_rn(__fmul_rn(Dn, m), cfac), Tt);
+  const float h_m = __fadd_rn(__fmul_rn(__fdiv_rn(Dn, one), __fmul_rn(dd, dd)),
+                              __fmul_rn(curv, fmaxf(__fsub_rn(cc, __fmul_rn(Tp, Tp)), 0.f)));
+  g = __fadd_rn(g, bot ? g_b : (mid ? g_m : 0.f));
+  hh = __fadd_rn(hh, bot ? q.w : (mid ? h_m : 0.f));
+}
+
+// This lane's share of the contacts' phi'(t) and phi''(t), its first
+// contact's data given (held in registers through a line search: at the
+// paths' shapes a lane owns one contact).
+__device__ inline void cones_line(const WarpRows& e, const Cones& c, const ConeLine& first, float t, float& g,
+                                  float& hh) {
+  if (e.lane < c.S) cone_line(first, t, g, hh);
+  for (int s = e.lane + 32; s < c.S; s += 32) cone_line(cone_line_data(e, c, s), t, g, hh);
+}
+
+template <int kN>
+__global__ void __launch_bounds__(kEnvs * 32, 4) newton_elliptic_kernel(
     const float* __restrict__ J_g, const float* __restrict__ qM, const float* __restrict__ aref_g,
     const float* __restrict__ D_g, const float* __restrict__ fl_g, const float* __restrict__ act_g,
     const float* __restrict__ as_g, const float* __restrict__ ws_g, const float* __restrict__ tol_g,
-    const float* __restrict__ mu_g, const float* __restrict__ scale_g, const int* __restrict__ perm_g,
-    float* __restrict__ qacc_out, float* __restrict__ force_out, float* __restrict__ qfrc_out, Dims d) {
-  extern __shared__ float smem[];
-  const Layout L(d.nv, d.nefc, d.S, d.cdim);
-  Env e{d, L, smem};
-  const int tid = threadIdx.x;
-  const size_t env = blockIdx.x;
-  const int nv = d.nv, nefc = d.nefc, nh = d.nh, S = d.S, cd = d.cdim, nfr = cd - 1, ld = nv | 1;
-  int* perm = reinterpret_cast<int*>(smem + L.nfloat);
-  float *J = e.at(L.J), *JW = e.at(L.JW), *M = e.at(L.M), *H = e.at(L.H);
-  float *aref = e.at(L.aref), *D = e.at(L.D), *fl = e.at(L.fl), *act = e.at(L.act);
-  float *jar = e.at(L.jar), *jp = e.at(L.jp), *jtmp = e.at(L.jtmp), *frc = e.at(L.frc);
-  float *mu = e.at(L.mu), *scale = e.at(L.scale), *W = e.at(L.W);
-  float *aq = e.at(L.aq), *bq = e.at(L.bq), *cq = e.at(L.cq), *hbot = e.at(L.hbot);
-  float *as = e.at(L.as), *qacc = e.at(L.qacc), *qtmp = e.at(L.qtmp), *p = e.at(L.p);
-  float *grad = e.at(L.grad), *mdacc = e.at(L.mdacc), *vtmp = e.at(L.vtmp);
+    const float* __restrict__ mu_g, const float* __restrict__ scale_g, float* __restrict__ qacc_out,
+    float* __restrict__ force_out, float* __restrict__ qfrc_out, Dims d) {
+  extern __shared__ float4 smem4[];
+  const RowsLayout L = layout(d.nv, d.nefc, d.S, d.cdim);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int env_id = blockIdx.x * kEnvs + warp;
+  if (env_id >= d.B) return;  // whole warps exit together; no block barrier follows
+#ifdef AMB_NEWTON_CLOCKS
+  long long mark = clock64();
+#endif
+  const WarpRows e(L, reinterpret_cast<float*>(smem4) + warp * L.floats, d.nv, d.nefc, d.nh);
+  const Cones c{d.nh, d.S, d.cdim, e.extra, e.extra + d.S};
+  const size_t env = env_id;
+  const int nv = d.nv, nefc = d.nefc, nh = d.nh, S = d.S, nfr = d.cdim - 1;
 
-  // ---- load this env's operands, rows in kernel order ----
-  for (int r = tid; r < nefc; r += kThreads) perm[r] = perm_g[r];
-  for (int k = tid; k < nv * nv; k += kThreads) M[k] = qM[env * nv * nv + k];
-  for (int k = tid; k < nv; k += kThreads) {
-    as[k] = as_g[env * nv + k];
-    qtmp[k] = ws_g[env * nv + k];
-  }
-  for (int k = tid; k < S; k += kThreads) mu[k] = mu_g[env * S + k];
-  for (int k = tid; k < nfr * S; k += kThreads) scale[k] = scale_g[env * nfr * S + k];
-  __syncthreads();
-  for (int k = tid; k < nefc * nv; k += kThreads) {
-    const int r = k / nv, v = k % nv;
-    J[k] = J_g[(env * nefc + perm[r]) * nv + v];
-  }
-  for (int r = tid; r < nefc; r += kThreads) {
-    const size_t src = env * nefc + perm[r];
-    aref[r] = aref_g[src];
-    D[r] = D_g[src];
-    fl[r] = fl_g[src];
-    act[r] = act_g[src];
-  }
-  const float tol = tol_g[0];
-  __syncthreads();
-
-  // ---- starting point: the cheaper of qacc_smooth and the warmstart ----
-  amb::dense_jmul(J, nefc, nv, as, jar, aref);
-  float cost = total_cost(e, as, jar);
-  for (int v = tid; v < nv; v += kThreads) qacc[v] = as[v];
-  if (d.use_ws) {
-    amb::dense_jmul(J, nefc, nv, qtmp, jtmp, aref);
-    const float cost_w = total_cost(e, qtmp, jtmp);
-    if (cost_w < cost) {
-      for (int v = tid; v < nv; v += kThreads) qacc[v] = qtmp[v];
-      for (int r = tid; r < nefc; r += kThreads) jar[r] = jtmp[r];
-      cost = cost_w;
+  // ---- load: J, qM and the cone planes by cp.async; row records meanwhile ----
+  amb::load_rows_async(e, J_g + env * nefc * nv, qM + env * nv * nv);
+  for (int k = lane; k < S; k += 32) amb::cp_async4(e.extra + k, mu_g + env * S + k);
+  for (int k = lane; k < nfr * S; k += 32) amb::cp_async4(e.extra + S + k, scale_g + env * nfr * S + k);
+  for (int r = lane; r < nefc; r += 32) {
+    const size_t src = env * nefc + r;
+    if (r < nh) {
+      e.rec[r] = amb::row_record(aref_g[src], D_g[src], fl_g[src], act_g[src], amb::row_kind(r, d.ne, d.nf));
+    } else {  // a contact's rows carry its normal row's activity
+      const bool on = act_g[env * nefc + c.row(0, (r - nh) / d.cdim)] > 0.5f;
+      e.rec[r] = make_float4(0.f, aref_g[src], on ? D_g[src] : 0.f, on ? 1.f : 0.f);
     }
   }
-  __syncthreads();
+  const float as = lane < nv ? as_g[env * nv + lane] : 0.f;
+  const float ws = lane < nv ? ws_g[env * nv + lane] : 0.f;
+  const float tol = tol_g[0];
+  amb::cp_async_wait_all();
+  __syncwarp();
+  AMB_MARK(0);
+
+  // total cost at (q, jar + t jp), or at the warmstart's jar when `alt`
+  auto cost_at = [&](float q, float t, bool alt) {
+    const float cones = cones_cost(e, c, [&](int r) {
+      const float4 v = e.rec[r];
+      return alt ? v.y : amb::along(v.x, t, v.y);
+    });
+    return amb::warp_sum(amb::smooth_cost<kN>(e, q, as) + amb::head_cost(e, t, alt) + cones);
+  };
+  float qacc;
+  float cost = amb::start_point<kN>(e, as, ws, d.use_ws, qacc, [&](float q, bool alt) { return cost_at(q, 0.f, alt); });
+  AMB_MARK(1);
 
   float prev_cost = INFINITY;
+  const int ls_iterations = d.ls_iterations > 1 ? d.ls_iterations : 1;
   for (int it = 0; it < d.iterations; ++it) {
-    // forces, head Hessian weights (into jtmp) and W blocks at jar
-    forces(e, jar, frc, jtmp);
-    for (int v = tid; v < nv; v += kThreads) vtmp[v] = qacc[v] - as[v];
-    __syncthreads();
-    amb::mmul(M, nv, vtmp, mdacc);
-    amb::dense_jtmul(J, nefc, nv, frc, grad);
-    for (int v = tid; v < nv; v += kThreads) grad[v] = mdacc[v] - grad[v];
-    // JW: diag(h) J on head rows, W_s R_s on each cone block
-    for (int k = tid; k < nh * nv; k += kThreads) JW[k] = jtmp[k / nv] * J[k];
-    for (int k = tid; k < S * nv; k += kThreads) {
-      const int s = k / nv, v = k % nv;
-      const float* Ws = W + s * cd * cd;
-      for (int a = 0; a < cd; ++a) {
-        float acc = 0.f;
-        for (int b = 0; b < cd; ++b) acc += Ws[a * cd + b] * J[(nh + b * S + s) * nv + v];
-        JW[(nh + a * S + s) * nv + v] = acc;
-      }
-    }
-    __syncthreads();
-    // lower triangle of H = M + 1e-8 I + J^T JW
-    for (int k = tid; k < nv * (nv + 1) / 2; k += kThreads) {
-      int v, w;
-      amb::tri_index(k, v, w);
-      float s = M[v * nv + w] + (v == w ? 1e-8f : 0.f);
-      for (int r = 0; r < nefc; ++r) s += J[r * nv + v] * JW[r * nv + w];
-      H[v * ld + w] = s;
-    }
-    __syncthreads();
-    amb::newton_direction(H, nv, ld, grad, p);
-    amb::dense_jmul(J, nefc, nv, p, jp, nullptr);
-    amb::mmul(M, nv, p, vtmp);
-    float pmp = 0.f, pma = 0.f;
-    for (int v = tid; v < nv; v += kThreads) {
-      pmp += p[v] * vtmp[v];
-      pma += p[v] * mdacc[v];
-    }
-    // closed-form line-search scalars per contact
-    for (int s = tid; s < S; s += kThreads) {
-      const float dN = jp[nh + s];
-      float a = 0.f, b = 0.f, c = 0.f, hb = D[nh + s] * dN * dN;
-      for (int k = 0; k < nfr; ++k) {
-        const int r = nh + (k + 1) * S + s;
-        const float sk = scale[k * S + s];
-        const float y = jar[r] * sk, dy = jp[r] * sk;
-        a += y * y;
-        b += y * dy;
-        c += dy * dy;
-        hb += D[r] * jp[r] * jp[r];
-      }
-      aq[s] = a;
-      bq[s] = b;
-      cq[s] = c;
-      hbot[s] = hb;
-    }
-    block_sum2(pmp, pma, e.at(L.red));  // its barriers also publish aq..hbot
+    amb::put_vec(e.xs, nv, lane < nv ? qacc - as : 0.f);
+    const float mdacc = amb::m_dot<kN>(e, e.xs);
+    float h[kN];  // row v of H = M + 1e-8 I + J_h^T diag(h) J_h + sum_s R_s^T W_s R_s
+    amb::hessian_start(e, h);
+    float jtf = amb::head_jtf_hessian<true>(e, h);
+    AMB_MARK(2);
+    jtf += cones_jtf_hessian<true>(e, c, h);
+    const float grad = mdacc - jtf;
+    __syncwarp();  // every lane is done with the W blocks in buf
+    AMB_MARK(3);
+    float y = grad;  // L y = grad rides along the factor
+    amb::warp_factor<true>(h, nv, e.buf, e.ld, y);
+    __syncwarp();
+    AMB_MARK(4);
+    const float x = amb::warp_back_solve(e.buf, y, nv, e.ld);  // every lane: the sweep shuffles
+    const float p = lane < nv ? -x : 0.f;
+    AMB_MARK(5);
 
+    amb::put_vec(e.xs, nv, p);
+    amb::jmul<0, kN>(e);
+    float pmp = p * amb::m_dot<kN>(e, e.xs), pma = p * mdacc;
+    amb::warp_sum2(pmp, pma);
+    cones_line_prepare(e, c);
+    AMB_MARK(6);
+
+    // guarded bracketed Newton on t in [0, 4]
+    const float4 first_row = amb::first_record(e);
+    const ConeLine first_cone = lane < S ? cone_line_data(e, c, lane) : ConeLine{};
     float t = 0.f, lo = 0.f, hi = 4.f;
-    for (int ls = 0; ls < d.ls_iterations; ++ls) {
-      float g = 0.f, hh = 0.f;
-      for (int i = tid; i < nh + S; i += kThreads) {
-        if (i < nh) {
-          float force, h, cst;
-          amb::row_eval(jar[i] + t * jp[i], D[i], fl[i], act[i], amb::row_kind(i, d.ne, d.nf), force, h, cst);
-          g -= force * jp[i];
-          hh += h * jp[i] * jp[i];
-          continue;
-        }
-        const int s = i - nh;
-        const float m = mu[s], one = 1.f + m * m, Dn = D[nh + s], actN = act[nh + s];
-        const float dN = jp[nh + s], b = bq[s], c = cq[s];
-        const float Tt = sqrtf(fmaxf(aq[s] + 2.f * b * t + c * t * t, 1e-24f));
-        const float Tp = (b + c * t) / Tt;
-        const float Nt = jar[nh + s] + t * dN;
-        const bool bot = m * Nt <= -Tt;
-        const bool mid = !(bot || Nt >= m * Tt);
-        const float cfac = (m * Tt - Nt) / one;
-        const float g_b = Dn * (Nt * dN + b + c * t);
-        const float g_m = -Dn * cfac * (dN - m * Tp);
-        const float dd = m * Tp - dN;
-        const float h_m = Dn / one * dd * dd + Dn * m * cfac / Tt * fmaxf(c - Tp * Tp, 0.f);
-        g += (bot ? g_b : (mid ? g_m : 0.f)) * actN;
-        hh += (bot ? hbot[s] : (mid ? h_m : 0.f)) * actN;
-      }
-      block_sum2(g, hh, e.at(L.red));
-      ls_bracket_step(t, lo, hi, pma + t * pmp + g, pmp + hh);
+    for (int ls = 0; ls < ls_iterations; ++ls) {
+      // phi' = (pma + t pmp - sum_head f jp) + sum_cones g, phi'' = (pmp +
+      // sum_head h jp^2) + sum_cones h, summed as the plain version sums them
+      float fj = 0.f, hj = 0.f, gc = 0.f, hc = 0.f;
+      amb::head_line(e, first_row, t, fj, hj);
+      cones_line(e, c, first_cone, t, gc, hc);
+      amb::warp_sum2(fj, hj);
+      amb::warp_sum2(gc, hc);
+      const float g = __fadd_rn(__fsub_rn(__fadd_rn(pma, __fmul_rn(t, pmp)), fj), gc);
+      const float hh = __fadd_rn(__fadd_rn(pmp, hj), hc);
+#ifdef AMB_ELLIPTIC_TRACE
+      if (env_id == AMB_ELLIPTIC_TRACE && lane == 0)
+        printf("kernel it %d ls %d: t %.9g lo %.9g hi %.9g phi' %.9g phi'' %.9g\n", it, ls, t, lo, hi, g, hh);
+#endif
+      ls_bracket_step(t, lo, hi, g, hh);
     }
     t = fminf(fmaxf(t, 0.f), 4.f);
+    AMB_MARK(7);
 
-    for (int v = tid; v < nv; v += kThreads) qtmp[v] = qacc[v] + t * p[v];
-    for (int r = tid; r < nefc; r += kThreads) jtmp[r] = jar[r] + t * jp[r];
-    __syncthreads();
-    const float cost_n = total_cost(e, qtmp, jtmp);
-    const bool active_it = prev_cost - cost > tol;
-    const bool take = (cost_n < cost) && active_it;
-    if (take) {
-      for (int v = tid; v < nv; v += kThreads) qacc[v] = qtmp[v];
-      for (int r = tid; r < nefc; r += kThreads) jar[r] = jtmp[r];
-    }
-    if (active_it) prev_cost = cost;
-    if (take) cost = cost_n;
-    __syncthreads();
+    const float qn = amb::along(qacc, t, p);
+    const float cost_n = cost_at(qn, t, false);
+#ifdef AMB_ELLIPTIC_TRACE
+    if (env_id == AMB_ELLIPTIC_TRACE && lane == 0)
+      printf("kernel it %d: t %.9g cost %.9g trial cost %.9g\n", it, t, cost, cost_n);
+#endif
+    amb::improve(e, t, qn, cost_n, tol, qacc, cost, prev_cost);
+    AMB_MARK(8);
   }
 
-  // ---- outputs: qacc, efc_force in MuJoCo row order, J^T f ----
-  forces(e, jar, frc, nullptr);
-  for (int r = tid; r < nefc; r += kThreads) force_out[env * nefc + perm[r]] = frc[r];
-  amb::dense_jtmul(J, nefc, nv, frc, vtmp);
-  for (int v = tid; v < nv; v += kThreads) {
-    qacc_out[env * nv + v] = qacc[v];
-    qfrc_out[env * nv + v] = vtmp[v];
+  // ---- outputs: qacc, efc_force, J^T f ----
+  for (int r = lane; r < nh; r += 32) {
+    const float4 v = e.rec[r];
+    float f, w;
+    amb::row_eval(v.x, v.z, v.w, f, w);
+    force_out[env * nefc + r] = f;
   }
+  for (int s = lane; s < S; s += 32) {
+    const float m = c.mu[s];
+    const Cone z = cone_state(c, s, m, [&](int r) { return e.rec[r].x; });
+    float f[kMaxCd];
+    cone_forces(c, z, s, m, e.rec[c.row(0, s)].z, f);
+#pragma unroll
+    for (int a = 0; a < kMaxCd; ++a)
+      if (a < d.cdim) force_out[env * nefc + c.row(a, s)] = f[a];
+  }
+  float unused[kN];
+  const float qfrc = amb::head_jtf_hessian<false>(e, unused) + cones_jtf_hessian<false>(e, c, unused);
+  if (lane < nv) {
+    qacc_out[env * nv + lane] = qacc;
+    qfrc_out[env * nv + lane] = qfrc;
+  }
+  AMB_MARK(9);
 }
 
 // Applies ls_bracket_step to n independent (t, lo, hi, g, h) states: a
@@ -407,31 +480,57 @@ __global__ void ls_step_probe_kernel(const float* __restrict__ in, float* __rest
   out[3 * i + 2] = hi;
 }
 
+using Kernel = decltype(&newton_elliptic_kernel<32>);
+
+// The instantiation whose register rows fit nv.
+Kernel kernel_for(int nv) {
+  const int tier = amb::row_tier(nv);
+  return tier == 8 ? newton_elliptic_kernel<8> : (tier == 16 ? newton_elliptic_kernel<16> : newton_elliptic_kernel<32>);
+}
+
+cudaError_t allow_smem(Kernel k, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(k, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                         cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess && smem > 48 * 1024)
+    err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  return err;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one env needs; the wrapper refuses shapes above the
-// card's per-block limit.
-size_t amb_newton_elliptic_smem_bytes(int nv, int nefc, int S, int cdim) { return Layout(nv, nefc, S, cdim).bytes(); }
+// Dynamic shared memory of one block (kEnvs envs); the wrapper refuses
+// shapes above the card's per-block limit.
+size_t amb_newton_elliptic_smem_bytes(int nv, int nefc, int S, int cdim) {
+  return layout(nv, nefc, S, cdim).block_bytes();
+}
+
+// Envs resident on one SM at these shapes (blocks per SM x envs per block).
+int amb_newton_elliptic_occupancy(int nv, int nefc, int S, int cdim, int* envs) {
+  const Kernel k = kernel_for(nv);
+  const size_t smem = layout(nv, nefc, S, cdim).block_bytes();
+  cudaError_t err = allow_smem(k, smem);
+  int blocks = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, kEnvs * 32, smem);
+  *envs = blocks * kEnvs;
+  return (int)err;
+}
 
 // The caller has checked shapes (1 <= nv <= 32, S >= 1, 2 <= cdim <= 6,
 // nefc = nh + S * cdim, B >= 1), dtypes, device and contiguity. Returns
 // cudaGetLastError() after the launch.
 int amb_newton_elliptic(const float* J, const float* qM, const float* aref, const float* D, const float* fl,
                         const float* act, const float* a_s, const float* ws, const float* tol, const float* mu,
-                        const float* scale, const int* perm, float* qacc, float* force, float* qfrc, int B, int nv,
-                        int nefc, int ne, int nf, int nh, int S, int cdim, int iterations, int ls_iterations,
-                        int use_ws, void* stream) {
-  const Dims d{nv, nefc, ne, nf, nh, S, cdim, iterations, ls_iterations, use_ws};
-  const size_t smem = Layout(nv, nefc, S, cdim).bytes();
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(newton_elliptic_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  newton_elliptic_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(J, qM, aref, D, fl, act, a_s, ws, tol, mu,
-                                                                      scale, perm, qacc, force, qfrc, d);
+                        const float* scale, float* qacc, float* force, float* qfrc, int B, int nv, int nefc, int ne,
+                        int nf, int nh, int S, int cdim, int iterations, int ls_iterations, int use_ws, void* stream) {
+  const Dims d{B, nv, nefc, ne, nf, nh, S, cdim, iterations, ls_iterations, use_ws};
+  const Kernel k = kernel_for(nv);
+  const size_t smem = layout(nv, nefc, S, cdim).block_bytes();
+  const cudaError_t err = allow_smem(k, smem);
+  if (err != cudaSuccess) return (int)err;
+  k<<<(B + kEnvs - 1) / kEnvs, kEnvs * 32, smem, (cudaStream_t)stream>>>(J, qM, aref, D, fl, act, a_s, ws, tol, mu,
+                                                                         scale, qacc, force, qfrc, d);
   return (int)cudaGetLastError();
 }
 
@@ -440,5 +539,10 @@ int amb_elliptic_ls_step(const float* in, float* out, int n, void* stream) {
   ls_step_probe_kernel<<<(n + 127) / 128, 128, 0, (cudaStream_t)stream>>>(in, out, n);
   return (int)cudaGetLastError();
 }
+
+#ifdef AMB_NEWTON_CLOCKS
+// Copy kernel 6's phase clocks to out (amb::kPhases values) and zero them.
+int amb_newton_elliptic_phase_clocks(long long* out) { return amb::read_phase_clocks(out); }
+#endif
 
 }  // extern "C"

@@ -58,50 +58,32 @@
 
 #include <math.h>
 
-#include "linalg.cuh"
+#include "newton_warp.cuh"
 
 namespace {
 
+using amb::kEnvs;
 using amb::kFullMask;
+using amb::kKindEq;
+using amb::kKindOneSided;
 using amb::kMaxN;
+using amb::round4;
+using amb::store_row;
+using amb::warp_sum;
+using amb::warp_sum2;
 
-constexpr int kEnvs = 4;              // warps (envs) per block
 constexpr int kGroups = kMaxN / 4;    // float4 groups of a row of dofs
-constexpr float kKindEq = -1.f;       // kind codes in a record's w slot
-constexpr float kKindOneSided = -3.f;
-
-// Phase clocks, compiled in only with -DAMB_NEWTON_CLOCKS (tools/newton_probe.py
-// builds such a copy): env 0's lane 0 adds the clock64() cycles since its
-// last mark to slot k, so the slots split one env's time by phase.
-constexpr int kPhases = 10;
-#ifdef AMB_NEWTON_CLOCKS
-__device__ long long phase_clocks[kPhases];
-#define AMB_MARK(k)                                                 \
-  do {                                                              \
-    if (blockIdx.x == 0 && threadIdx.x == 0) {                      \
-      const long long now = clock64();                              \
-      phase_clocks[k] += now - mark;                                \
-      mark = now;                                                   \
-    }                                                               \
-  } while (0)
-#else
-#define AMB_MARK(k) \
-  do {              \
-  } while (0)
-#endif
 
 struct Dims {
   int B, nv, nefc, nd, ndiag, ncon, nd_eq, nd_ft, nfd, iterations, ls_iterations, use_ws;
 };
-
-__host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
 
 // Shared-memory layout of one env, in 4-byte words (each region 16-byte
 // aligned; ddof holds ints). One definition for host and device.
 struct Layout {
   int P, ld, R, Bs, Jd, M, rec, buf, cf, dsc, xs, xw, ddof, floats;
   __host__ __device__ Layout(int nv, int nefc, int nd, int ndiag, int ncon) {
-    P = 4 * (((nv + 3) / 4) | 1);
+    P = amb::row_pitch(nv);
     ld = nv | 1;
     R = (nefc + 31) / 32;
     int o = 0;
@@ -120,44 +102,6 @@ struct Layout {
   __host__ __device__ size_t env_bytes() const { return sizeof(float) * (size_t)floats; }
 };
 
-__device__ inline void cp_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src));
-}
-
-__device__ inline void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
-
-// nrow rows of nv floats (contiguous at src) into rows of pitch P at dst by
-// cp.async, coalesced over the whole block, padding zeroed. One warp.
-__device__ inline void copy_rows(float* dst, const float* src, int nrow, int nv, int P) {
-  const int lane = threadIdx.x & 31, q = 32 / nv, rem = 32 % nv;
-  int row = lane / nv, col = lane % nv;
-  for (int k = lane; k < nrow * nv; k += 32) {
-    cp_async4(dst + row * P + col, src + k);
-    row += q;
-    col += rem;
-    if (col >= nv) {
-      col -= nv;
-      ++row;
-    }
-  }
-  for (int r = lane; r < nrow; r += 32)
-    for (int c = nv; c < P; ++c) dst[r * P + c] = 0.f;
-}
-
-__device__ inline void warp_sum2(float& a, float& b) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    a += __shfl_xor_sync(kFullMask, a, o);
-    b += __shfl_xor_sync(kFullMask, b, o);
-  }
-}
-
-__device__ inline float warp_sum(float a) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(kFullMask, a, o);
-  return a;
-}
-
 // Row kind in kernel row order: 0 = equality, 1 = friction (Huber),
 // 2 = one-sided.
 __device__ inline int row_kind(int r, const Dims& d) {
@@ -165,34 +109,6 @@ __device__ inline int row_kind(int r, const Dims& d) {
   if ((r >= d.nd_eq && r < d.nd_eq + d.nd_ft) || diag_fric) return 1;
   return r >= d.nd_eq + d.nd_ft ? 2 : 0;
 }
-
-// _row_costs_pure for one row of a record: force and Hessian weight (D on
-// quadratic rows, else 0), and the cost; selects, no branch.
-__device__ inline void row_eval(float jar, float D, float kind, float& force, float& h) {
-  const float Dj = D * jar;
-  const bool fric = kind >= 0.f;  // Huber, frictionloss = kind
-  const bool lin = fric && fabsf(Dj) > kind;
-  const bool quad = fric ? !lin : (kind > -2.f || jar < 0.f);
-  const float sgn = (jar > 0.f) - (jar < 0.f);
-  force = lin ? -sgn * kind : (quad ? -Dj : 0.f);
-  h = quad ? D : 0.f;
-}
-
-// Only a Huber row in its linear zone with a nonzero frictionloss divides
-// (the others would send the IEEE divide down its slow path for the warp).
-__device__ inline float row_cost(float jar, float D, float kind) {
-  const bool fric = kind >= 0.f;
-  const bool lin = fric && fabsf(D * jar) > kind;
-  const bool quad = fric ? !lin : (kind > -2.f || jar < 0.f);
-  const float h2 = 0.5f * kind * kind;
-  const bool divide = lin && h2 != 0.f;
-  const float quo = (divide ? h2 : 1.f) / fmaxf(D, 1e-12f);
-  const float shift = divide ? quo : 0.f;
-  return lin ? kind * fabsf(jar) - shift : (quad ? 0.5f * D * jar * jar : 0.f);
-}
-
-// jar + t jp, rounded as the plain version rounds it (product, then sum)
-__device__ inline float along(float jar, float t, float jp) { return __fadd_rn(jar, __fmul_rn(t, jp)); }
 
 struct Env {
   Dims d;
@@ -210,14 +126,6 @@ struct Env {
   int lane;
 };
 
-// Lane v's dof value into a broadcast vector (lanes >= nv write nothing;
-// the padding stays zero).
-__device__ inline void put_vec(const Env& e, float* x, float v) {
-  __syncwarp();
-  if (e.lane < e.d.nv) x[e.lane] = v;
-  __syncwarp();
-}
-
 // (M x)_v for lane v's dof (lanes past nv read row 0), x a broadcast
 // vector; M's and x's padding are zero.
 __device__ inline float m_dot(const Env& e, const float* x) {
@@ -233,21 +141,6 @@ __device__ inline float m_dot(const Env& e, const float* x) {
     s = fmaf(a.w, v.w, s);
   }
   return s;
-}
-
-// Row r's dot products a (with xs) and b (with xw), stored by mode:
-// 0: jp = a; 1: jar = a - aref; 2: jar = a - aref, jar_w = b - aref (aref
-// rides in the jp slot until then).
-template <int kMode>
-__device__ inline void store_row(const Env& e, int r, float a, float b) {
-  float* rec = reinterpret_cast<float*>(e.rec) + 4 * r;
-  if (kMode == 0) {
-    rec[1] = a;
-  } else {
-    const float aref = rec[1];
-    rec[0] = a - aref;
-    if (kMode == 2) rec[1] = b - aref;
-  }
 }
 
 // Products of J with xs (and xw in mode 2) for every row, by family; lane c
@@ -278,14 +171,14 @@ __device__ void jmul(const Env& e) {
       }
     }
     const int r0 = base + c;
-    store_row<kMode>(e, r0, jN + j1, kN + k1);
-    store_row<kMode>(e, r0 + nc, jN - j1, kN - k1);
-    store_row<kMode>(e, r0 + 2 * nc, jN + j2, kN + k2);
-    store_row<kMode>(e, r0 + 3 * nc, jN - j2, kN - k2);
+    store_row<kMode>(e.rec, r0, jN + j1, kN + k1);
+    store_row<kMode>(e.rec, r0 + nc, jN - j1, kN - k1);
+    store_row<kMode>(e.rec, r0 + 2 * nc, jN + j2, kN + k2);
+    store_row<kMode>(e.rec, r0 + 3 * nc, jN - j2, kN - k2);
   }
   for (int g = lane; g < d.ndiag; g += 32) {
     const int v = e.ddof[g];
-    store_row<kMode>(e, d.nd + g, e.dsc[g] * e.xs[v], kMode == 2 ? e.dsc[g] * e.xw[v] : 0.f);
+    store_row<kMode>(e.rec, d.nd + g, e.dsc[g] * e.xs[v], kMode == 2 ? e.dsc[g] * e.xw[v] : 0.f);
   }
   for (int r = lane; r < d.nd; r += 32) {
     const float4* J = reinterpret_cast<const float4*>(e.Jd + r * P);
@@ -300,7 +193,7 @@ __device__ void jmul(const Env& e) {
         b += j.x * y.x + j.y * y.y + j.z * y.z + j.w * y.w;
       }
     }
-    store_row<kMode>(e, r, a, b);
+    store_row<kMode>(e.rec, r, a, b);
   }
   __syncwarp();
 }
@@ -309,12 +202,12 @@ __device__ void jmul(const Env& e) {
 // the jp slot, when `alt`), the same in every lane.
 __device__ float total_cost(const Env& e, float q, float as, float t, bool alt) {
   const float dacc = e.lane < e.d.nv ? q - as : 0.f;
-  put_vec(e, e.xs, dacc);
+  amb::put_vec(e.xs, e.d.nv, dacc);
   float s = 0.5f * dacc * m_dot(e, e.xs);
 #pragma unroll 4
   for (int k = 0; k < e.L.R; ++k) {
     const float4 r = e.rec[e.lane + 32 * k];
-    s += row_cost(alt ? r.y : along(r.x, t, r.y), r.z, r.w);
+    s += amb::row_cost(alt ? r.y : amb::along(r.x, t, r.y), r.z, r.w);
   }
   return warp_sum(s);
 }
@@ -328,7 +221,7 @@ __device__ void forces_at_jar(const Env& e) {
     const int r = e.lane + 32 * k;
     const float4 v = e.rec[r];
     float f, h;
-    row_eval(v.x, v.z, v.w, f, h);
+    amb::row_eval(v.x, v.z, v.w, f, h);
     fh[r] = make_float2(f, h);
   }
   __syncwarp();
@@ -448,12 +341,12 @@ __global__ void __launch_bounds__(kEnvs * 32, 4) newton_structured_kernel(
   const int nv = d.nv, nefc = d.nefc, P = L.P;
 
   // ---- load: basis, dense rows and qM by cp.async; row records meanwhile ----
-  copy_rows(e.Bs, bJ + env * 3 * d.ncon * nv, 3 * d.ncon, nv, P);
-  copy_rows(e.M, qM + env * nv * nv, nv, nv, P);
+  amb::copy_rows(e.Bs, bJ + env * 3 * d.ncon * nv, 3 * d.ncon, nv, P);
+  amb::copy_rows(e.M, qM + env * nv * nv, nv, nv, P);
   for (int r = 0; r < d.nd; ++r) {
     const float* jr = J + (env * nefc + perm_g[r]) * nv;
     for (int c = lane; c < P; c += 32) {
-      if (c < nv) cp_async4(e.Jd + r * P + c, jr + c);
+      if (c < nv) amb::cp_async4(e.Jd + r * P + c, jr + c);
       else e.Jd[r * P + c] = 0.f;
     }
   }
@@ -479,15 +372,15 @@ __global__ void __launch_bounds__(kEnvs * 32, 4) newton_structured_kernel(
   const float as = lane < nv ? as_g[env * nv + lane] : 0.f;
   const float ws = lane < nv ? ws_g[env * nv + lane] : 0.f;
   const float tol = tol_g[0];
-  cp_async_wait_all();
+  amb::cp_async_wait_all();
   __syncwarp();
   AMB_MARK(0);
 
   // ---- starting point: the cheaper of qacc_smooth and the warmstart ----
-  put_vec(e, e.xs, as);
+  amb::put_vec(e.xs, e.d.nv, as);
   float cost, qacc = as;
   if (d.use_ws) {
-    put_vec(e, e.xw, ws);
+    amb::put_vec(e.xw, e.d.nv, ws);
     jmul<2>(e);
     cost = total_cost(e, as, as, 0.f, false);
     const float cost_w = total_cost(e, ws, as, 0.f, true);
@@ -507,7 +400,7 @@ __global__ void __launch_bounds__(kEnvs * 32, 4) newton_structured_kernel(
   for (int it = 0; it < d.iterations; ++it) {
     forces_at_jar(e);
     AMB_MARK(2);
-    put_vec(e, e.xs, lane < nv ? qacc - as : 0.f);
+    amb::put_vec(e.xs, e.d.nv, lane < nv ? qacc - as : 0.f);
     const float mdacc = m_dot(e, e.xs);
     float h[kMaxN];  // row v of H = M + 1e-8 I + J^T diag(h) J
     const float4* m4 = reinterpret_cast<const float4*>(e.M + (lane < nv ? lane : 0) * P);
@@ -533,7 +426,7 @@ __global__ void __launch_bounds__(kEnvs * 32, 4) newton_structured_kernel(
     const float p = lane < nv ? -x : 0.f;
     AMB_MARK(5);
 
-    put_vec(e, e.xs, p);
+    amb::put_vec(e.xs, e.d.nv, p);
     jmul<0>(e);
     float pmp = p * m_dot(e, e.xs), pma = p * mdacc;
     warp_sum2(pmp, pma);
@@ -547,7 +440,7 @@ __global__ void __launch_bounds__(kEnvs * 32, 4) newton_structured_kernel(
       for (int k = 0; k < L.R; ++k) {
         const float4 r = e.rec[lane + 32 * k];
         float fr, hr;
-        row_eval(along(r.x, t, r.y), r.z, r.w, fr, hr);
+        amb::row_eval(amb::along(r.x, t, r.y), r.z, r.w, fr, hr);
         g += fr * r.y;
         hh += hr * r.y * r.y;
       }
@@ -567,7 +460,7 @@ __global__ void __launch_bounds__(kEnvs * 32, 4) newton_structured_kernel(
       qacc = qn;
       for (int k = 0; k < L.R; ++k) {
         float4& r = e.rec[lane + 32 * k];
-        r.x = along(r.x, t, r.y);
+        r.x = amb::along(r.x, t, r.y);
       }
     }
     if (active_it) prev_cost = cost;
@@ -636,13 +529,8 @@ int amb_newton_structured(const float* J, const float* bJ, const float* dsc, con
 }
 
 #ifdef AMB_NEWTON_CLOCKS
-// Copy the phase clocks to out (kPhases values) and zero them.
-int amb_newton_phase_clocks(long long* out) {
-  cudaError_t err = cudaMemcpyFromSymbol(out, phase_clocks, sizeof(long long) * kPhases);
-  const long long zero[kPhases] = {};
-  if (err == cudaSuccess) err = cudaMemcpyToSymbol(phase_clocks, zero, sizeof(zero));
-  return (int)err;
-}
+// Copy kernel 4's phase clocks to out (amb::kPhases values) and zero them.
+int amb_newton_phase_clocks(long long* out) { return amb::read_phase_clocks(out); }
 #endif
 
 }  // extern "C"

@@ -24,7 +24,7 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 SOURCES = ("linalg.cu", "linalg_block.cu", "newton_structured.cu", "newton_dense.cu", "newton_elliptic.cu")
-HEADERS = ("linalg.cuh", "newton_common.cuh")
+HEADERS = ("linalg.cuh", "newton_warp.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -106,14 +106,17 @@ def library() -> ctypes.CDLL:
         lib.amb_solve_pd_block.argtypes = [P, P, P, I, I, P]
         lib.amb_newton_structured.argtypes = [P] * 16 + [I] * 12 + [P]
         lib.amb_newton_dense.argtypes = [P] * 12 + [I] * 8 + [P]
-        lib.amb_newton_elliptic.argtypes = [P] * 15 + [I] * 11 + [P]
+        lib.amb_newton_elliptic.argtypes = [P] * 14 + [I] * 11 + [P]
         lib.amb_elliptic_ls_step.argtypes = [P, P, I, P]
         lib.amb_linalg_block_occupancy.argtypes = [I, I, P]
         lib.amb_newton_occupancy.argtypes = [I] * 5 + [P]
+        lib.amb_newton_dense_occupancy.argtypes = [I] * 2 + [P]
+        lib.amb_newton_elliptic_occupancy.argtypes = [I] * 4 + [P]
         for fn in (lib.amb_cholesky, lib.amb_cho_solve, lib.amb_solve_pd, lib.amb_cholesky_block,
                    lib.amb_cho_solve_block, lib.amb_solve_pd_block, lib.amb_newton_structured,
                    lib.amb_newton_dense, lib.amb_newton_elliptic, lib.amb_elliptic_ls_step,
-                   lib.amb_linalg_block_occupancy, lib.amb_newton_occupancy):
+                   lib.amb_linalg_block_occupancy, lib.amb_newton_occupancy, lib.amb_newton_dense_occupancy,
+                   lib.amb_newton_elliptic_occupancy):
             fn.restype = I
         for fn, nargs in ((lib.amb_newton_smem_bytes, 5), (lib.amb_newton_dense_smem_bytes, 2),
                           (lib.amb_newton_elliptic_smem_bytes, 4)):

@@ -1,12 +1,14 @@
 """Launchers of the Newton constraint-solve kernels:
 
   * kernel 4 (csrc/newton_structured.cu): pyramidal rows on the factored
-    layout, one warp per env (four envs a block), replacing
-    newton_solve_structured of ambersim_tpu/ops/newton_pallas.py;
-  * kernel 5 (csrc/newton_dense.cu): pyramidal rows as a dense J, one
-    thread block per env, replacing newton_solve_batched;
+    layout, replacing newton_solve_structured of
+    ambersim_tpu/ops/newton_pallas.py;
+  * kernel 5 (csrc/newton_dense.cu): pyramidal rows as a dense J,
+    replacing newton_solve_batched;
   * kernel 6 (csrc/newton_elliptic.cu): elliptic cones on one contiguous
-    condim tail, one thread block per env, replacing newton_solve_elliptic.
+    condim tail, replacing newton_solve_elliptic.
+
+All three run one warp per env, four envs a block (csrc/newton_warp.cuh).
 
 Their plain PyTorch versions, which the CPU path runs and the kernels are
 held against, are `_newton_arrays` (kernels 4 and 5) and
@@ -21,7 +23,6 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from ambersim_tpu_torch.engine.schedule import device_index
@@ -117,13 +118,26 @@ def newton_solve_structured(
     return qacc, force, qfrc
 
 
+def _occupancy(fn, kernel: str, *shape: int) -> int:
+    envs = ctypes.c_int(0)
+    check_launch(fn(*shape, ctypes.byref(envs)), kernel)
+    return envs.value
+
+
 def structured_occupancy(nv: int, nefc: int, st) -> int:
     """Envs of kernel 4 resident on one SM of the current card at these
     shapes (its blocks per SM times the envs a block holds)."""
-    envs = ctypes.c_int(0)
-    err = library().amb_newton_occupancy(nv, nefc, st.nd, st.ndiag, st.ncon3, ctypes.byref(envs))
-    check_launch(err, "newton_structured")
-    return envs.value
+    return _occupancy(library().amb_newton_occupancy, "newton_structured", nv, nefc, st.nd, st.ndiag, st.ncon3)
+
+
+def dense_occupancy(nv: int, nefc: int) -> int:
+    """Envs of kernel 5 resident on one SM of the current card at these shapes."""
+    return _occupancy(library().amb_newton_dense_occupancy, "newton_dense", nv, nefc)
+
+
+def elliptic_occupancy(nv: int, nefc: int, ncon: int, cdim: int) -> int:
+    """Envs of kernel 6 resident on one SM of the current card at these shapes."""
+    return _occupancy(library().amb_newton_elliptic_occupancy, "newton_elliptic", nv, nefc, ncon, cdim)
 
 
 def newton_solve_dense(
@@ -163,12 +177,6 @@ def newton_solve_dense(
         check_launch(err, "newton_dense")
         LAUNCHES["newton_dense"] += 1
     return qacc, force, qfrc
-
-
-def elliptic_row_order(nh: int, ncon: int, cdim: int) -> np.ndarray:
-    """Kernel 6's row order [head | N(S) | T_1(S) ... T_{cdim-1}(S)] as
-    MuJoCo row ids (newton_pallas.py:1118)."""
-    return np.concatenate([np.arange(nh)] + [nh + np.arange(ncon) * cdim + k for k in range(cdim)])
 
 
 def newton_solve_elliptic(
@@ -216,9 +224,8 @@ def newton_solve_elliptic(
     force = torch.empty_like(aref)
     qfrc = torch.empty_like(qacc_smooth)
     if B:
-        perm = device_index(elliptic_row_order(nh, S, cdim), J.device, torch.int32)
-        ptrs = [x.data_ptr() for x in (J, qM, aref, D, fl, active, qacc_smooth, warmstart, tol, mu, scale, perm,
-                                      qacc, force, qfrc)]
+        ptrs = [x.data_ptr() for x in (J, qM, aref, D, fl, active, qacc_smooth, warmstart, tol, mu, scale, qacc,
+                                      force, qfrc)]
         ints = [B, nv, nefc, ne, nf, nh, S, cdim, iterations, ls_iterations, int(use_ws)]
         err = lib.amb_newton_elliptic(*ptrs, *ints, stream_handle(J.device))
         check_launch(err, "newton_elliptic")

@@ -148,13 +148,33 @@ CONVERGED = dict(iterations=15, ls_iterations=15)
 # rank-3 Hessian) falls short of plain's share by up to 0.93 points, and
 # reordering plain's own sums moves it by up to 0.87 points below
 # (tools/newton_share.py on the CPU: 4096 envs, NEWTON_NVS, seeds 3 + nv and
-# 80 + nv); the slack holds both. SYNTHETIC_EASED activates 15% (the
-# quadruped's pre-solve has 22 of 136 rows, 16%) with D in [0.1, 1], where
-# plain float32 meets float64 on 99.7-100% of envs, and the kernel is held
-# against plain float32 at the NEWTON_* bars.
+# 80 + nv); the slack holds both. Kernel 5's own problems
+# (synthetic_dense_problem's, seeds 80 + nv and 130 + nv): its order (rank-1
+# Hessian updates and J^T f row by row, warp sums) run as plain float32
+# falls short by up to 0.39 points, reordering by up to 0.32
+# (tools/newton_share.py --kernel 5 on the card). SYNTHETIC_EASED activates
+# 15% (the quadruped's pre-solve has 22 of 136 rows, 16%) with D in
+# [0.1, 1], where plain float32 meets float64 on 99.7-100% of envs, and
+# kernels 4 and 5 are held against plain float32 at the NEWTON_* bars.
 NEWTON_NVS = (1, 7, 18, 25, 32)
 NEWTON_F64_SLACK = 0.02
 SYNTHETIC_EASED = dict(active=0.15, d_range=(0.1, 1.0))
+# Kernel 6's sweep at NEWTON_NVS x cdim 2-6 (4096 envs; one line-search step
+# within ELLIPTIC_ENV_TOL, converged within ELLIPTIC_CONVERGED_TOL by
+# env_rel_err) is held against float64 in the same way. There its own
+# order (the rank-cdim contact updates, row-by-row sums, warp sums) run as
+# plain float32 falls short of plain's share by up to 2.08 points (nv = 1,
+# cdim 5, one step), reordering plain's sums by up to 0.73 (nv = 32)
+# (tools/newton_share.py --kernel 6 on the card): ELLIPTIC_F64_SLACK. A
+# converged cost can end far above float64's in any float32 order: a line
+# search that fails to lower the cost ends the solve, and whether it fails
+# can turn on an ulp of the bracket (tools/elliptic_trace.py). Reordered
+# or in kernel 6's order, plain float32 ends above the larger of plain
+# float32's and float64's cost by more than ELLIPTIC_COST_RTOL of
+# max(|cost|, 1) on up to 3 envs of 4096 (by up to 0.69 of it), so the
+# kernel may on at most ELLIPTIC_COST_ENVS.
+ELLIPTIC_F64_SLACK = 0.03
+ELLIPTIC_COST_ENVS = 4
 
 # PPO on the 4096-env quadruped (bench.py:142-177's settings): one training
 # step, 8 unrolls x 20 control steps x 4 physics steps = 640 physics steps.
@@ -178,10 +198,9 @@ PPO_PENDULUM = dict(
 JAX_PENDULUM_GAINS = (482.879, 217.651, 227.194)
 
 # kernels whose ptxas report must show no spill: kernel 1 at n <= 32 and
-# kernel 4, whose rows live in registers by design, and kernel 6, whose
-# factor (newton_common.cuh's newton_direction) holds them there too.
-# Kernel 5 trades a few spills for one wave (csrc/newton_dense.cu).
-SPILL_FREE = ("cholesky_kernel", "newton_structured_kernel", "newton_elliptic_kernel")
+# the Newton kernels 4-6, whose factor holds the Hessian's rows in
+# registers (kernels 5 and 6 in one instantiation per register tier).
+SPILL_FREE = ("cholesky_kernel", "newton_structured_kernel", "newton_dense_kernel", "newton_elliptic_kernel")
 # kernel name -> (CUDA source, the TPU kernel it replaces)
 KERNELS = {
     "cholesky": ("linalg.cu", "ambersim_tpu/ops/linalg_pallas.py:319"),
@@ -315,22 +334,37 @@ def newton_err(got: tuple, want: tuple, what: str) -> float:
     return err_max
 
 
-def newton_vs_float64(got: tuple, plain: tuple, exact: tuple, what: str) -> None:
-    """Where plain float32 itself misses float64 beyond NEWTON_MIN_SHARE's
-    slack: the kernel's outputs `got` must be finite, and its share of envs
-    within NEWTON_TOL of the float64 solve `exact` may fall short of the
-    plain float32 solve's (`plain`) by at most NEWTON_F64_SLACK."""
+def vs_float64(got: tuple, plain: tuple, exact: tuple, what: str, within=newton_within, costs: tuple | None = None,
+               slack: float = NEWTON_F64_SLACK) -> None:
+    """Where plain float32 itself misses float64 beyond the bars' slack: the
+    kernel's outputs `got` must be finite, and its share of envs within
+    `exact` (the float64 solve) by `within` (newton_within: rtol/atol
+    NEWTON_TOL on every component) may fall short of the plain float32
+    solve's (`plain`) by at most `slack`. With `costs` (kernel, plain
+    float32 and float64 total costs per env), at most ELLIPTIC_COST_ENVS
+    envs' kernel cost may exceed the larger of plain float32's and
+    float64's by more than ELLIPTIC_COST_RTOL of max(|cost|, 1)."""
     import torch
 
     for g, name in zip(got, ("qacc", "efc_force", "qfrc_constraint")):
         if not torch.isfinite(g).all():
             fail(f"{what} {name}: non-finite kernel output")
-    k_plain, k_exact, p_exact = (newton_within(a, b).double().mean().item()
-                                 for a, b in ((got, plain), (got, exact), (plain, exact)))
-    print(f"{what}: share of envs within rtol/atol {NEWTON_TOL}: kernel-plain {k_plain:.4f}, "
-          f"plain-f64 {p_exact:.4f}, kernel-f64 {k_exact:.4f}")
-    if k_exact < p_exact - NEWTON_F64_SLACK:
-        fail(f"{what}: the kernel meets float64 on {k_exact:.4f} of envs, plain float32 on {p_exact:.4f}")
+    k_plain, p_exact, k_exact = (within(a, b).double().mean().item()
+                                 for a, b in ((got, plain), (plain, exact), (got, exact)))
+    line = (f"{what}: share of envs within: kernel-plain {k_plain:.4f}, plain-f64 {p_exact:.4f}, "
+            f"kernel-f64 {k_exact:.4f}")
+    if k_exact < p_exact - slack:
+        fail(f"{line}: the kernel meets float64 on fewer envs than plain float32, by more than {slack}")
+    if costs is not None:
+        c_k, c_p, c_e = costs
+        ref = torch.maximum(c_p, c_e)
+        excess = (c_k - ref) / ref.abs().clamp(min=1.0)
+        over = int((excess > ELLIPTIC_COST_RTOL).sum())
+        line += (f"; {over} envs' kernel cost over max(plain, float64) by more than {ELLIPTIC_COST_RTOL} "
+                 f"(largest excess {excess.max().item():.3e})")
+        if over > ELLIPTIC_COST_ENVS:
+            fail(f"{line}: more than {ELLIPTIC_COST_ENVS}")
+    print(line)
 
 
 def env_rel_err(got: tuple, want: tuple, what: str):
@@ -429,18 +463,17 @@ def synthetic_structured_problem(B: int, seed: int, device, nv: int = 12, active
     return st, plain_args, t(bJ), t(dsc)
 
 
-def nonfinite_line_search(st, pa: dict, bJ, env: int) -> None:
-    """Make env `env` of a synthetic_structured_problem (nv >= 12) one whose
-    line search goes non-finite in float32, in place: its last dof j moves
-    nothing but a tendon-friction row in its linear (Huber) zone with
-    J_rj = 1e31, so H_jj = 1e-8, the gradient's j is 1e31 and the Newton
-    direction's is 1e39, past float32: inf there, NaN in the other dofs
-    after the backward sweep, and so a NaN step that the select turns to 0.
-    Every iteration keeps the start (qacc_smooth or the warmstart)."""
-    j, r = pa["J"].shape[2] - 1, int(st.dense_rows[st.nd_eq])
-    assert j not in set(int(x) for x in st.diag_dofs)
-    for x in (pa["J"], bJ):
-        x[env, :, j] = 0.0
+def nonfinite_row_line_search(pa: dict, env: int, r: int) -> None:
+    """Make env `env` of a Newton problem one whose line search goes
+    non-finite in float32, in place: its last dof j moves nothing but row r,
+    a Huber friction row put in its linear zone with J_rj = 1e31, so
+    H_jj = 1e-8, the gradient's j is 1e31 and the Newton direction's is
+    1e39, past float32: inf there, NaN in the other dofs after the backward
+    sweep, and so a step that kernels 4 and 5 select to 0 and kernel 6's
+    bracket takes to 0, with a NaN trial cost. Every iteration keeps the
+    start (qacc_smooth or the warmstart)."""
+    j = pa["J"].shape[2] - 1
+    pa["J"][env, :, j] = 0.0
     pa["J"][env, r, j] = 1e31
     pa["qM"][env, j, :] = 0.0
     pa["qM"][env, :, j] = 0.0
@@ -448,11 +481,40 @@ def nonfinite_line_search(st, pa: dict, bJ, env: int) -> None:
     pa["fl"][env, r], pa["act"][env, r], pa["D"][env, r], pa["aref"][env, r] = 1.0, 1.0, 10.0, 20.0
 
 
-def synthetic_dense_problem(B: int, nv: int, seed: int, device) -> dict:
+def nonfinite_line_search(st, pa: dict, bJ, env: int) -> None:
+    """nonfinite_row_line_search on env `env` of a
+    synthetic_structured_problem (nv >= 12), through its first tendon
+    friction row, and the basis likewise."""
+    j = pa["J"].shape[2] - 1
+    assert j not in set(int(x) for x in st.diag_dofs)
+    bJ[env, :, j] = 0.0
+    nonfinite_row_line_search(pa, env, int(st.dense_rows[st.nd_eq]))
+
+
+def kept_start(got, want, pa: dict, env: int, use_ws: bool) -> bool:
+    """Env `env` of kernel outputs `got` kept its start bit for bit
+    (qacc_smooth, or the warmstart when use_ws), as the plain version's
+    `want` did."""
+    import torch
+
+    starts = (pa["a_s"][env], pa["ws"][env]) if use_ws else (pa["a_s"][env],)
+    return torch.equal(got[0][env], want[0][env]) and any(torch.equal(got[0][env], x) for x in starts)
+
+
+def first_envs(pa: dict, b: int) -> dict:
+    """The first b envs of a problem's batch operands."""
+    import torch
+
+    B = pa["J"].shape[0]
+    return {k: v[:b].contiguous() if torch.is_tensor(v) and v.dim() and v.shape[0] == B else v for k, v in pa.items()}
+
+
+def synthetic_dense_problem(B: int, nv: int, seed: int, device, active: float = 0.8,
+                            d_range: tuple = (1.0, 10.0)) -> dict:
     """A numpy-seeded pyramidal Newton problem on dense rows: 2 equality
-    rows, 3 Huber friction rows and 2 nv + 3 one-sided rows. Returns the
-    arguments of engine.solver._newton_arrays (and, bar `J`'s name, of
-    ops.newton.newton_solve_dense)."""
+    rows, 3 Huber friction rows and 2 nv + 3 one-sided rows, each active
+    with chance `active`, D uniform on d_range. Returns the arguments of
+    engine.solver._newton_arrays (and of ops.newton.newton_solve_dense)."""
     import numpy as np
     import torch
 
@@ -468,9 +530,9 @@ def synthetic_dense_problem(B: int, nv: int, seed: int, device) -> dict:
         J=rng.standard_normal((B, nefc, nv)).astype(f32),
         qM=g @ np.swapaxes(g, -1, -2) / nv + np.eye(nv, dtype=f32),
         aref=rng.standard_normal((B, nefc)).astype(f32),
-        D=rng.uniform(1.0, 10.0, (B, nefc)).astype(f32),
+        D=rng.uniform(*d_range, (B, nefc)).astype(f32),
         fl=fl,
-        act=(rng.uniform(size=(B, nefc)) < 0.8).astype(f32),
+        act=(rng.uniform(size=(B, nefc)) < active).astype(f32),
         a_s=a_s,
         ws=a_s + 0.3 * rng.standard_normal((B, nv)).astype(f32),
     )
@@ -709,6 +771,18 @@ def check_linalg(device, results):
         pass
     else:
         fail(f"solve_pd_batched took n = {kernels.MAX_N + 1}")
+    # the times at every shape the paths launch kernels 1-3 at
+    for B, n in sorted({shape for shape, _ in PHASE_SHAPES.values()}):
+        a, b = random_spd(rng, B, n, device)
+        l_ref = plain.cholesky_unrolled(a)
+        for name, kern in (("cholesky", lambda: kernels.cholesky_batched(a)),
+                           ("cho_solve", lambda: kernels.cho_solve_batched(l_ref, b)),
+                           ("solve_pd", lambda: kernels.solve_pd_batched(a, b))):
+            key = name if n <= kernels.MAX_N_WARP else f"{name}_block"
+            SHAPE_TIMES[(key, (B, n))] = (cuda_ms(kern), linalg_bound(name, B, n)["bound_ms"])
+        print(f"kernels 1-3 at B={B} n={n}: " + ", ".join(
+            f"{k} {SHAPE_TIMES[(k, (B, n))][0]:.4f} ms (bound {SHAPE_TIMES[(k, (B, n))][1]:.4f})"
+            for k in ((f"{x}_block" if n > kernels.MAX_N_WARP else x) for x in _LINALG)))
 
 
 def pre_solve(m, d):
@@ -748,7 +822,7 @@ def check_newton(device, results):
     in float64) on the quadruped's pre-solve operands at 4096 envs and the
     humanoid's at 1024, then on synthetic problems with every row family:
     at nv = 12 and 257 envs against plain float32, and at NEWTON_NVS and
-    4096 envs both against float64 (newton_vs_float64) and, eased
+    4096 envs both against float64 (vs_float64) and, eased
     (SYNTHETIC_EASED), against plain float32 with the warmstart on and off
     and one env whose line search goes non-finite (nonfinite_line_search);
     the first 257 and the first 1 of the eased envs alone must give the same
@@ -796,6 +870,7 @@ def check_newton(device, results):
             operands = [d.efc_bJ, d.efc_dsc] + [pa[k] for k in ("qM", "aref", "D", "fl", "act", "a_s", "ws")]
             timed = dict(ms=cuda_ms(lambda: kern(pa, d.efc_bJ, d.efc_dsc, st, **kw)), plain_ms=cuda_ms(ref),
                          **newton_bound(operands, s.nefc, s.nv, pa["act"], kw["iterations"], kw["ls_iterations"]))
+            SHAPE_TIMES[("newton_structured", "quadruped")] = (timed["ms"], timed["bound_ms"])
 
     # dense, equality, tendon-friction and one-hot rows
     syn = dict(iterations=5, ls_iterations=8, use_ws=True)
@@ -803,8 +878,8 @@ def check_newton(device, results):
     err = max(err, newton_err(kern(pa, bJ, dsc, st, **syn), _newton_arrays(**pa, **syn), "newton_structured synthetic"))
     for nv in NEWTON_NVS:
         st, pa, bJ, dsc = synthetic_structured_problem(NUM_ENVS, seed=3 + nv, device=device, nv=nv)
-        newton_vs_float64(kern(pa, bJ, dsc, st, **syn), _newton_arrays(**pa, **syn),
-                          _newton_arrays(**as_dtype(pa, torch.float64), **syn), f"newton_structured synthetic nv={nv}")
+        vs_float64(kern(pa, bJ, dsc, st, **syn), _newton_arrays(**pa, **syn),
+                   _newton_arrays(**as_dtype(pa, torch.float64), **syn), f"newton_structured synthetic nv={nv}")
 
         st, pa, bJ, dsc = synthetic_structured_problem(NUM_ENVS, seed=3 + nv, device=device, nv=nv,
                                                        **SYNTHETIC_EASED)
@@ -817,13 +892,10 @@ def check_newton(device, results):
             got = kern(pa, bJ, dsc, st, **kw)
             want = _newton_arrays(**pa, **kw)
             err = max(err, newton_err(got, want, what))
-            if nv >= 12:
-                starts = (pa["a_s"][bad], pa["ws"][bad]) if use_ws else (pa["a_s"][bad],)
-                if not (torch.equal(got[0][bad], want[0][bad]) and any(torch.equal(got[0][bad], x) for x in starts)):
-                    fail(f"{what}: the env whose line search goes non-finite left its start")
+            if nv >= 12 and not kept_start(got, want, pa, bad, use_ws):
+                fail(f"{what}: the env whose line search goes non-finite left its start")
             for b in (257, 1):
-                part = kern({k: v[:b].contiguous() if torch.is_tensor(v) and v.shape[0] == NUM_ENVS else v
-                             for k, v in pa.items()}, bJ[:b].contiguous(), dsc[:b].contiguous(), st, **kw)
+                part = kern(first_envs(pa, b), bJ[:b].contiguous(), dsc[:b].contiguous(), st, **kw)
                 if not all(torch.equal(x, y[:b]) for x, y in zip(part, got)):
                     fail(f"{what}: the first {b} envs alone differ from the same envs in the whole batch")
         print(f"newton_structured eased synthetic nv={nv}: warmstart on and off match plain; B = 257 and 1 match "
@@ -834,23 +906,34 @@ def check_newton(device, results):
 
 
 def check_newton_dense(device, results):
-    """Kernel 5 against its plain version on the humanoid's, arm3's and
-    cartpole's operands at B=1024 and on synthetic problems; on the
-    humanoid also against kernel 4 on the same operands."""
+    """Kernel 5 against its plain version (and both against float64) on the
+    operands of the paths that launch it, arm3 and cartpole at B=1024, and
+    of the humanoid, which the JAX package sends to it and the port to
+    kernel 4 (the two kernels must agree there); then on synthetic problems
+    at nv = 1, 7, 25, 32 (257 envs), and at NEWTON_NVS as kernel 4's (4096
+    envs): synthetic_dense_problem's own against float64
+    (vs_float64), and eased (SYNTHETIC_EASED) against plain float32
+    with the warmstart on and off and one env whose line search goes
+    non-finite, where the first 257 envs and the first one alone must give
+    the bits they give in the batch. Also the envs resident
+    per SM at the paths' shapes: each path's batch in at most two waves.
+    The JSON row's time and bound are arm3's (the larger of the two shapes
+    its paths launch); cartpole and the humanoid are printed."""
     import torch
 
     from ambersim_tpu_torch import load_model
     from ambersim_tpu_torch.engine import rollout
     from ambersim_tpu_torch.engine.constraint import _pyramid_structure
     from ambersim_tpu_torch.engine.solver import _newton_arrays
-    from ambersim_tpu_torch.ops.newton import newton_solve_dense, newton_solve_structured
+    from ambersim_tpu_torch.ops.newton import dense_occupancy, newton_solve_dense, newton_solve_structured
 
     def dense(pa, **kw):
         pa = dict(pa)
         return newton_solve_dense(pa.pop("J"), pa.pop("qM"), pa.pop("aref"), pa.pop("D"), pa.pop("fl"),
                                   pa.pop("act"), pa.pop("a_s"), pa.pop("ws"), pa.pop("tol"), **pa, **kw)
 
-    err, timed, humanoid_bound = 0.0, None, None
+    err, timed = 0.0, {}
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     # the humanoid stands in contact at its start; arm3 and cartpole reach
     # their contacts and limits within their paths' first 100 steps
     for name, steps in (("humanoid", 0), ("arm3", 100), ("cartpole", 100)):
@@ -859,52 +942,86 @@ def check_newton_dense(device, results):
         d = pre_solve(m, rollout(m, PATHS[name]["start"](m, 1024, device), steps))
         pa = dict(solver_operands(m, d, seed=4), ne=int(s.ne), nf=int(s.nf))
         kw = dict(iterations=int(m.opt.iterations), ls_iterations=int(m.opt.ls_iterations), use_ws=True)
-        print(f"{name} pre-solve: active efc rows per env {pa['act'].sum(1).mean().item():.2f} of {s.nefc}")
+        envs = dense_occupancy(s.nv, s.nefc)
+        print(f"{name} pre-solve: active efc rows per env {pa['act'].sum(1).mean().item():.2f} of {s.nefc}; "
+              f"newton_dense holds {envs} envs per SM ({sms} SMs)")
+        if name != "humanoid" and 2 * sms * envs < 1024:
+            fail(f"newton_dense: {envs} envs per SM take more than two waves for {name}'s 1024 envs")
         got = dense(pa, **kw)
         err = max(err, newton_err(got, _newton_arrays(**pa, **kw), f"newton_dense {name}"))
         exact = _newton_arrays(**as_dtype(pa, torch.float64), **kw)
         newton_err(_newton_arrays(**pa, **kw), exact, f"newton_dense {name}, plain float32 vs float64")
         newton_err(got, exact, f"newton_dense {name}, kernel vs plain float64")
+        timed[name] = dict(ms=cuda_ms(lambda: dense(pa, **kw)), plain_ms=cuda_ms(lambda: _newton_arrays(**pa, **kw)),
+                           **newton_bound([pa[k] for k in ("J", "qM", "aref", "D", "fl", "act", "a_s", "ws")],
+                                          s.nefc, s.nv, pa["act"], kw["iterations"], kw["ls_iterations"]))
+        SHAPE_TIMES[("newton_dense", name)] = (timed[name]["ms"], timed[name]["bound_ms"])
+        line = (f"kernel newton_dense: {name} B=1024 {timed[name]['ms']:.4f} ms, plain {timed[name]['plain_ms']:.4f} "
+                f"ms, bound {timed[name]['bound_ms']:.4f} ms ({timed[name]['bound_by']})")
         if name == "humanoid":
             # the problem the JAX package sends to the dense kernel on the TPU
             # goes to kernel 4 here: the two kernels agree on it
             st = _pyramid_structure(s)
-            k4 = newton_solve_structured(
-                pa["J"], d.efc_bJ, d.efc_dsc, pa["qM"], pa["aref"], pa["D"], pa["fl"], pa["act"], pa["a_s"],
-                pa["ws"], pa["tol"], st=st, **kw,
-            )
-            newton_err(got, k4, "newton_dense vs newton_structured humanoid")
-            timed = (cuda_ms(lambda: dense(pa, **kw)), cuda_ms(lambda: _newton_arrays(**pa, **kw)),
-                     cuda_ms(lambda: newton_solve_structured(
-                         pa["J"], d.efc_bJ, d.efc_dsc, pa["qM"], pa["aref"], pa["D"], pa["fl"], pa["act"], pa["a_s"],
-                         pa["ws"], pa["tol"], st=st, **kw)))
-            humanoid_bound = newton_bound([pa[k] for k in ("J", "qM", "aref", "D", "fl", "act", "a_s", "ws")],
-                                          s.nefc, s.nv, pa["act"], kw["iterations"], kw["ls_iterations"])
-        elif name == "cartpole":
-            print(f"kernel newton_dense: cartpole B=1024 {cuda_ms(lambda: dense(pa, **kw)):.4f} ms, "
-                  f"plain {cuda_ms(lambda: _newton_arrays(**pa, **kw)):.4f} ms")
+
+            def k4(pa=pa, d=d, st=st, kw=kw):
+                return newton_solve_structured(pa["J"], d.efc_bJ, d.efc_dsc, pa["qM"], pa["aref"], pa["D"], pa["fl"],
+                                               pa["act"], pa["a_s"], pa["ws"], pa["tol"], st=st, **kw)
+
+            newton_err(got, k4(), "newton_dense vs newton_structured humanoid")
+            operands = [d.efc_bJ, d.efc_dsc] + [pa[k] for k in ("qM", "aref", "D", "fl", "act", "a_s", "ws")]
+            SHAPE_TIMES[("newton_structured", "humanoid")] = (cuda_ms(k4), newton_bound(
+                operands, s.nefc, s.nv, pa["act"], kw["iterations"], kw["ls_iterations"])["bound_ms"])
+            line += (f" (the JAX package's route), newton_structured (the port's) on the same "
+                     f"{SHAPE_TIMES[('newton_structured', 'humanoid')][0]:.4f} ms")
+        print(line)
+
+    syn = dict(iterations=5, ls_iterations=8, use_ws=True)
     for nv in (1, 7, 25, 32):
         pa = synthetic_dense_problem(257, nv, seed=5 + nv, device=device)
-        err = max(err, newton_err(dense(pa, iterations=5, ls_iterations=8, use_ws=True),
-                                  _newton_arrays(**pa, iterations=5, ls_iterations=8, use_ws=True),
-                                  f"newton_dense synthetic nv={nv}"))
-    ms, plain_ms, k4_ms = timed
-    print(f"kernel newton_dense: humanoid B=1024 {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"newton_structured on the same {k4_ms:.4f} ms, max |err| {err:.2e}")
-    results["newton_dense"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **humanoid_bound)
+        err = max(err, newton_err(dense(pa, **syn), _newton_arrays(**pa, **syn), f"newton_dense synthetic nv={nv}"))
+    bad = 5  # an env of the first 257, so every slice below holds it
+    for nv in NEWTON_NVS:
+        pa = synthetic_dense_problem(NUM_ENVS, nv, seed=80 + nv, device=device)
+        vs_float64(dense(pa, **syn), _newton_arrays(**pa, **syn),
+                   _newton_arrays(**as_dtype(pa, torch.float64), **syn), f"newton_dense synthetic nv={nv}")
+        pa = synthetic_dense_problem(NUM_ENVS, nv, seed=5 + nv, device=device, **SYNTHETIC_EASED)
+        nonfinite_row_line_search(pa, bad, pa["ne"])
+        for use_ws in (True, False):
+            kw = dict(syn, use_ws=use_ws)
+            what = f"newton_dense eased synthetic nv={nv} ws={use_ws}"
+            got, want = dense(pa, **kw), _newton_arrays(**pa, **kw)
+            err = max(err, newton_err(got, want, what))
+            if not kept_start(got, want, pa, bad, use_ws):
+                fail(f"{what}: the env whose line search goes non-finite left its start")
+            for b in (257, 1):
+                if not all(torch.equal(x, y[:b]) for x, y in zip(dense(first_envs(pa, b), **kw), got)):
+                    fail(f"{what}: the first {b} envs alone differ from the same envs in the whole batch")
+        print(f"newton_dense eased synthetic nv={nv}: warmstart on and off match plain; the non-finite line search "
+              f"keeps its start; B = 257 and 1 match B = {NUM_ENVS} bit for bit")
+    print(f"kernel newton_dense: max |err| {err:.2e}")
+    results["newton_dense"].update(max_abs_err=err, library_ms=None,
+                                   **{k: timed["arm3"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
 
 
 def check_newton_elliptic(device, results):
     """Kernel 6 against its plain version on the elliptic quadruped's
-    operands at B=4096 and on synthetic problems (nh = 0 and > 0, cdim 3 and
-    6), with a total-cost check, and its line-search step on non-finite
-    Newton steps."""
+    operands at B=4096 and on synthetic problems at nv = 12 (nh = 0 and 9,
+    cdim 3 and 6; 257 envs) at the ELLIPTIC_* bars, with a total-cost check;
+    at NEWTON_NVS with cdim 2-6, nh = 0 and 9 and the warmstart on and off
+    (4096 envs), where plain float32 itself misses float64 on more envs
+    than those bars leave, against float64 (vs_float64 with
+    ELLIPTIC_F64_SLACK and, converged, the ELLIPTIC_COST_ENVS count); at
+    each nv one problem with an env whose line search goes non-finite, run
+    with the warmstart on and off, where the first 37 envs and the first
+    one alone must give the bits they give in the batch; its line-search
+    step on non-finite Newton steps; and the envs resident per SM at the
+    path's shapes: its 4096 envs in at most two waves."""
     import torch
 
     from ambersim_tpu_torch import load_model
     from ambersim_tpu_torch.engine.solver import _newton_arrays_elliptic, cone_params, elliptic_tail
     from ambersim_tpu_torch.engine.solver import elliptic_total_cost
-    from ambersim_tpu_torch.ops.newton import elliptic_ls_step, newton_solve_elliptic
+    from ambersim_tpu_torch.ops.newton import elliptic_ls_step, elliptic_occupancy, newton_solve_elliptic
 
     def kern(pa, **kw):
         pa = dict(pa)
@@ -922,11 +1039,11 @@ def check_newton_elliptic(device, results):
         return elliptic_total_cost(q, jar, p["qM"], p["a_s"], p["D"], p["fl"], p["act"], mu, scale, ne=p["ne"],
                                    nf=p["nf"], nh=p["base"], S=p["ncon"], cdim=p["cdim"])
 
-    def compare(pa, what, iterations, ls_iterations):
+    def compare(pa, what, iterations, ls_iterations, use_ws=True):
         """Kernel vs plain float32 (and plain float32 vs float64) at the given
         iteration counts; returns (per-env relative error, max |err|, cost
         excess of the kernel over the plain version per env)."""
-        kw = dict(iterations=iterations, ls_iterations=ls_iterations, use_ws=True)
+        kw = dict(iterations=iterations, ls_iterations=ls_iterations, use_ws=use_ws)
         got, want = kern(pa, **kw), _newton_arrays_elliptic(**pa, **kw)
         exact = _newton_arrays_elliptic(**as_dtype(pa, torch.float64), **kw)
         rel, err = env_rel_err(got, want, what)
@@ -942,13 +1059,13 @@ def check_newton_elliptic(device, results):
               f"mean cost kernel/plain - 1 = {(c_got.mean() / c_want.mean() - 1).item():.3e}; max |err| {err:.3e}")
         return rel, err, excess, (c_got.mean() / c_want.mean() - 1).item()
 
-    def strict(pa, what):
-        rel1, err1, _, _ = compare(pa, what, 3, 1)
+    def strict(pa, what, use_ws=True):
+        rel1, err1, _, _ = compare(pa, what, 3, 1, use_ws)
         share = (rel1 <= ELLIPTIC_ENV_TOL).double().mean().item()
         if share < NEWTON_MIN_SHARE or rel1.max().item() > NEWTON_ENV_RTOL:
             fail(f"{what}, one line-search step: {share:.4f} of envs within {ELLIPTIC_ENV_TOL}, "
                  f"worst {rel1.max().item():.3e}")
-        relc, errc, excess, _ = compare(pa, what, CONVERGED["iterations"], CONVERGED["ls_iterations"])
+        relc, errc, excess, _ = compare(pa, what, CONVERGED["iterations"], CONVERGED["ls_iterations"], use_ws)
         share = (relc <= ELLIPTIC_CONVERGED_TOL).double().mean().item()
         if share < NEWTON_MIN_SHARE or relc.max().item() > NEWTON_ENV_RTOL:
             fail(f"{what}, converged: {share:.4f} of envs within {ELLIPTIC_CONVERGED_TOL}, "
@@ -965,7 +1082,12 @@ def check_newton_elliptic(device, results):
     pa = dict(solver_operands(m, d, seed=6), fr=d.contact.friction, impratio=m.opt.impratio, ne=int(s.ne),
               nf=int(s.nf), base=base, ncon=len(slots), cdim=cdim)
     it, ls = int(m.opt.iterations), int(m.opt.ls_iterations)
-    print(f"elliptic quadruped pre-solve: active efc rows per env {pa['act'].sum(1).mean().item():.1f} of {s.nefc}")
+    envs = elliptic_occupancy(s.nv, s.nefc, len(slots), cdim)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    print(f"elliptic quadruped pre-solve: active efc rows per env {pa['act'].sum(1).mean().item():.1f} of {s.nefc}; "
+          f"newton_elliptic holds {envs} envs per SM ({sms} SMs)")
+    if 2 * sms * envs < NUM_ENVS:
+        fail(f"newton_elliptic: {envs} envs per SM take more than two waves for {NUM_ENVS} envs")
     err = strict(pa, "newton_elliptic quadruped")  # max |err| where the bars are elementwise
     _, _, _, mean_excess = compare(pa, "newton_elliptic quadruped", it, ls)
     if abs(mean_excess) > ELLIPTIC_MEAN_COST_RTOL:
@@ -976,6 +1098,36 @@ def check_newton_elliptic(device, results):
     for nh, cd in ((0, 3), (9, 3), (0, 6), (9, 6)):
         sp = synthetic_elliptic_problem(257, nv=12, nh=nh, S=6, cdim=cd, seed=7 + nh + cd, device=device)
         err = max(err, strict(sp, f"newton_elliptic synthetic nh={nh} cdim={cd}"))
+    bad = 5  # an env of the first 37, so every slice below holds it
+    for nv in NEWTON_NVS:
+        for cd in range(2, 7):
+            nh = 9 if (nv + cd) % 2 else 0
+            sp = synthetic_elliptic_problem(NUM_ENVS, nv=nv, nh=nh, S=6, cdim=cd, seed=7 + nv + nh + cd, device=device)
+            for iterations, ls_iterations, tol in ((3, 1, ELLIPTIC_ENV_TOL),
+                                                   (CONVERGED["iterations"], CONVERGED["ls_iterations"],
+                                                    ELLIPTIC_CONVERGED_TOL)):
+                kw = dict(iterations=iterations, ls_iterations=ls_iterations, use_ws=cd != 4)
+                got, want = kern(sp, **kw), _newton_arrays_elliptic(**sp, **kw)
+                exact = _newton_arrays_elliptic(**as_dtype(sp, torch.float64), **kw)
+                what = (f"newton_elliptic synthetic nv={nv} nh={nh} cdim={cd} ws={cd != 4} "
+                        f"({iterations} x {ls_iterations})")
+                vs_float64(got, want, exact, what, within=lambda a, b: env_rel_err(a, b, what)[0] <= tol,
+                           costs=tuple(cost(sp, x[0]) for x in (got, want, exact)) if iterations > 3 else None,
+                           slack=ELLIPTIC_F64_SLACK)
+        cd = 2 + nv % 5
+        sp = synthetic_elliptic_problem(257, nv=nv, nh=9, S=6, cdim=cd, seed=90 + nv, device=device)
+        nonfinite_row_line_search(sp, bad, sp["ne"])
+        for use_ws in (True, False):
+            kw = dict(iterations=it, ls_iterations=ls, use_ws=use_ws)
+            what = f"newton_elliptic synthetic nv={nv} nh=9 cdim={cd} ws={use_ws} ({it} x {ls})"
+            got = kern(sp, **kw)
+            if not kept_start(got, _newton_arrays_elliptic(**sp, **kw), sp, bad, use_ws):
+                fail(f"{what}: the env whose line search goes non-finite left its start")
+            for b in (37, 1):
+                if not all(torch.equal(x, y[:b]) for x, y in zip(kern(first_envs(sp, b), **kw), got)):
+                    fail(f"{what}: the first {b} envs alone differ from the same envs in the whole batch")
+        print(f"newton_elliptic synthetic nv={nv} cdim={cd}: the non-finite line search keeps its start with the "
+              f"warmstart on and off; B = 37 and 1 match B = 257 bit for bit")
 
     # the line-search step selects, never blends, on a non-finite Newton step:
     # t - g/max(h, 1e-12) overflows to -inf / inf or is NaN, and the step
@@ -993,6 +1145,7 @@ def check_newton_elliptic(device, results):
     operands = [pa[k] for k in ("J", "qM", "aref", "D", "fl", "act", "a_s", "ws", "fr")]
     results["newton_elliptic"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
                                       **newton_bound(operands, s.nefc, s.nv, pa["act"], it, ls))
+    SHAPE_TIMES[("newton_elliptic", "elliptic quadruped")] = (ms, results["newton_elliptic"]["bound_ms"])
 
 
 def initial_batch(m, batch: int, device):
@@ -1071,6 +1224,18 @@ PATHS = {
 }
 # the clutter paths' final states, for the card-vs-CPU check
 SETTLED: dict = {}
+# Each launch-counting phase's shapes: the (batch, n) of kernels 1-3 and the
+# case its Newton kernel is timed on (weighted_launch_time). PPO's eval
+# launches (64 envs) are weighed at the training batch's shape.
+PHASE_SHAPES = {
+    "quadruped": ((NUM_ENVS, 18), "quadruped"), "cartpole": ((1024, 2), "cartpole"), "arm3": ((1024, 3), "arm3"),
+    "quadruped_elliptic": ((NUM_ENVS, 18), "elliptic quadruped"), "humanoid": ((1024, 25), "humanoid"),
+    "clutter32_rowcap192": ((CLUTTER_ENVS, 192), None), "clutter32_cap48": ((CLUTTER_ENVS, 192), None),
+    "ppo_quadruped": ((NUM_ENVS, 18), "quadruped"), "ppo_pendulum": ((512, 1), None),
+}
+# (kernel, shape) -> (ms, bound_ms) measured in this run: the shape is
+# (batch, n) for kernels 1-3 and a PHASE_SHAPES case for the Newton kernels
+SHAPE_TIMES: dict = {}
 
 
 def lowest_geom_point(m, d):
@@ -1466,6 +1631,26 @@ def check_ptxas(log: str) -> None:
             fail(f"{name} spills registers: {line.strip()}")
 
 
+def weighted_launch_time(phase_launches: dict) -> None:
+    """Print each kernel's launches by phase and shape (PHASE_SHAPES) with
+    launches x (ms - bound) at that shape and the sum over them: the device
+    time a redesign of the kernel could win on these runs."""
+    weighted = {}
+    for phase, launches in phase_launches.items():
+        linalg_shape, case = PHASE_SHAPES[phase]
+        for k, count in launches.items():
+            if not count:
+                continue
+            shape = case if k.startswith("newton") else linalg_shape
+            ms, bound_ms = SHAPE_TIMES[(k, shape)]
+            weighted.setdefault(k, []).append(dict(phase=phase, shape=str(shape), launches=count, ms=ms,
+                                                   bound_ms=bound_ms, product=count * (ms - bound_ms)))
+    for k, rows in weighted.items():
+        print(f"kernel {k}: launches x (ms - bound) {sum(r['product'] for r in rows):.2f} = " + " + ".join(
+            f"{r['phase']} {r['launches']} x ({r['ms']:.4f} - {r['bound_ms']:.4f}) at {r['shape']}" for r in rows))
+    print(json.dumps({"weighted": weighted}))
+
+
 def run_phases(device, card: str, results: dict) -> None:
     """Phases 3-6: every kernel against its plain version, every path, PPO,
     and the card against the CPU; adds each path's launches to results."""
@@ -1486,18 +1671,21 @@ def run_phases(device, card: str, results: dict) -> None:
           "the row cap", flush=True)
 
     # ---- 4. every path through the port, each with its own launch counts ----
+    phase_launches = {}
     for name in PATHS:
-        for k, n in drive_path(name, device, card).items():
-            results[k]["launches"] += n
+        phase_launches[name] = drive_path(name, device, card)
 
     for name in ("clutter32_rowcap192", "clutter32_cap48"):
         stage_split(name, device, card)
         clutter_newton_spread(name, device)
 
     # ---- 5. PPO training through the env layer, each with its own launch counts ----
-    for phase in (ppo_quadruped, ppo_pendulum_learns):
-        for k, n in phase(device, card).items():
+    for name, phase in (("ppo_quadruped", ppo_quadruped), ("ppo_pendulum", ppo_pendulum_learns)):
+        phase_launches[name] = phase(device, card)
+    for launches in phase_launches.values():
+        for k, n in launches.items():
             results[k]["launches"] += n
+    weighted_launch_time(phase_launches)
 
     # ---- 6. card (kernels) against CPU (plain versions), 8 envs x 20 steps ----
     for name in PATHS:

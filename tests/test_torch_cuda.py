@@ -242,8 +242,9 @@ def test_structured_newton_kernel_nv_sweep(cuda, nv, use_ws):
 
 
 def test_redesigned_kernels_do_not_spill(cuda):
-    """ptxas reports no spill for kernel 1 (n <= 32) and kernels 4 and 6,
-    which hold the factor's rows in registers (chip_smoke.SPILL_FREE)."""
+    """ptxas reports no spill for kernel 1 (n <= 32) and kernels 4-6, which
+    hold the factor's rows in registers (chip_smoke.SPILL_FREE; every
+    register tier of kernels 5 and 6)."""
     from chip_smoke import SPILL_FREE
 
     from ambersim_tpu_torch.ops import _build
@@ -306,6 +307,18 @@ def test_main_path_launch_counts(cuda):
     assert dict(LAUNCHES) == want
 
 
+def _within_newton_bars(got, want):
+    """chip_smoke.py's NEWTON_* bars: rtol/atol 1e-4 on >= 99% of envs, 5% of
+    each env's largest component on all."""
+    within = torch.ones(got[0].shape[0], dtype=torch.bool, device=got[0].device)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        err = (g - w).abs()
+        within &= (err <= NEWTON_TOL + NEWTON_TOL * w.abs()).all(1)
+        assert (err.amax(1) <= 0.05 * (w.abs().amax(1) + NEWTON_TOL)).all()
+    assert within.float().mean().item() >= 0.99
+
+
 @pytest.mark.parametrize("nv", (1, 7, 25, 32))
 def test_dense_newton_kernel_matches_plain(cuda, nv):
     """Kernel 5 on equality, Huber friction and one-sided rows."""
@@ -319,13 +332,7 @@ def test_dense_newton_kernel_matches_plain(cuda, nv):
     want = _newton_arrays(**pa, **kw)
     got = newton_solve_dense(pa["J"], pa["qM"], pa["aref"], pa["D"], pa["fl"], pa["act"], pa["a_s"], pa["ws"],
                              pa["tol"], ne=pa["ne"], nf=pa["nf"], **kw)
-    # bar of chip_smoke.py: rtol/atol 1e-4 on >= 99% of envs, 5% of each env's largest component on all
-    within = torch.ones(257, dtype=torch.bool, device=cuda)
-    for g, w in zip(got, want):
-        err = (g - w).abs()
-        within &= (err <= NEWTON_TOL + NEWTON_TOL * w.abs()).all(1)
-        assert (err.amax(1) <= 0.05 * (w.abs().amax(1) + NEWTON_TOL)).all()
-    assert within.float().mean().item() >= 0.99
+    _within_newton_bars(got, want)
 
 
 @pytest.mark.parametrize("nh, cdim", [(0, 3), (9, 3), (0, 6), (9, 6)])
@@ -362,6 +369,127 @@ def test_elliptic_newton_kernel_matches_plain(cuda, nh, cdim):
     c_got, c_want = cost(got[0]), cost(want[0])
     excess = (c_got - c_want) / c_want.abs().clamp(min=1.0)
     assert (excess <= 1e-5).all(), (excess.max().item(), c_want[excess.argmax()].item())
+
+
+# the edges of kernels 5 and 6's register tiers (8, 16 and 32 floats a lane)
+TIER_NVS = (1, 8, 9, 16, 17, 25, 32)
+
+
+def _dense(p, **kw):
+    from ambersim_tpu_torch.ops.newton import newton_solve_dense
+
+    return newton_solve_dense(p["J"], p["qM"], p["aref"], p["D"], p["fl"], p["act"], p["a_s"], p["ws"], p["tol"],
+                              ne=p["ne"], nf=p["nf"], **kw)
+
+
+@pytest.mark.parametrize("nv", TIER_NVS)
+@pytest.mark.parametrize("use_ws", (True, False))
+def test_dense_newton_kernel_register_tiers(cuda, nv, use_ws):
+    """Kernel 5 at its register tiers' edges on equality, Huber and one-sided
+    rows (4096 envs of chip_smoke.SYNTHETIC_EASED's problems): the NEWTON_*
+    bars against plain float32; the env whose line search goes non-finite
+    keeps its start; the first 257 envs, and the first one, alone give the
+    bits they give in the batch."""
+    from chip_smoke import SYNTHETIC_EASED, first_envs, kept_start, nonfinite_row_line_search, synthetic_dense_problem
+
+    from ambersim_tpu_torch.engine.solver import _newton_arrays
+
+    pa = synthetic_dense_problem(4096, nv, seed=110 + nv, device=cuda, **SYNTHETIC_EASED)
+    nonfinite_row_line_search(pa, 5, pa["ne"])
+    kw = dict(iterations=5, ls_iterations=8, use_ws=use_ws)
+    got, want = _dense(pa, **kw), _newton_arrays(**pa, **kw)
+    _within_newton_bars(got, want)
+    assert kept_start(got, want, pa, 5, use_ws)
+    for b in (257, 1):
+        assert all(torch.equal(x, y[:b]) for x, y in zip(_dense(first_envs(pa, b), **kw), got))
+
+
+@pytest.mark.parametrize("nv", TIER_NVS)
+def test_dense_newton_kernel_meets_float64_as_plain_does(cuda, nv):
+    """Kernel 5 on synthetic_dense_problem's own problems (80% of rows
+    active, D in [1, 10]; 4096 envs), where plain float32 misses float64 on
+    more envs than the NEWTON_* bars leave: the kernel's share of envs within
+    rtol/atol 1e-4 of float64 is at most chip_smoke.NEWTON_F64_SLACK below
+    plain float32's (chip_smoke.vs_float64)."""
+    from chip_smoke import as_dtype, synthetic_dense_problem, vs_float64
+
+    from ambersim_tpu_torch.engine.solver import _newton_arrays
+
+    pa = synthetic_dense_problem(4096, nv, seed=130 + nv, device=cuda)
+    kw = dict(iterations=5, ls_iterations=8, use_ws=True)
+    vs_float64(_dense(pa, **kw), _newton_arrays(**pa, **kw), _newton_arrays(**as_dtype(pa, torch.float64), **kw),
+               f"newton_dense nv={nv}")
+
+
+@pytest.mark.parametrize("nv", TIER_NVS)
+def test_elliptic_newton_kernel_register_tiers(cuda, nv):
+    """Kernel 6 at its register tiers' edges (nh = 9 head rows, cdim 2-6 by
+    nv), with the warmstart on and off. On 4096 envs, where plain float32
+    itself misses float64 on more envs than the ELLIPTIC_* bars leave, as
+    chip_smoke.vs_float64 holds it: the kernel's share of envs within 1e-4
+    of float64's largest component (one line-search step) and within 1e-2
+    (converged, 15 x 15) is at most ELLIPTIC_F64_SLACK below plain
+    float32's, and converged, at most ELLIPTIC_COST_ENVS envs' cost exceeds
+    the larger of plain float32's and float64's by more than
+    ELLIPTIC_COST_RTOL of max(|cost|, 1). On 257 envs
+    at the model's 3 x 6 the env whose line search goes non-finite keeps its
+    start, and the first 37 envs, and the first one, alone give the bits
+    they give in the batch."""
+    from chip_smoke import (ELLIPTIC_F64_SLACK, as_dtype, env_rel_err, first_envs, kept_start,
+                            nonfinite_row_line_search, synthetic_elliptic_problem, vs_float64)
+
+    from ambersim_tpu_torch.engine.solver import _newton_arrays_elliptic, cone_params, elliptic_total_cost
+    from ambersim_tpu_torch.ops.newton import newton_solve_elliptic
+
+    cdim = 2 + nv % 5
+    statics_keys = ("ne", "nf", "base", "ncon", "cdim")
+    arrays = ("J", "qM", "aref", "D", "fl", "act", "a_s", "ws", "tol", "fr", "impratio")
+
+    def kern(p, **kw):
+        return newton_solve_elliptic(*(p[k] for k in arrays), **{k: p[k] for k in statics_keys}, **kw)
+
+    def cost(p, q):
+        p = as_dtype(p, torch.float64)
+        mu, scale = cone_params(p["fr"], p["impratio"], cdim)
+        q = q.double()
+        jar = (p["J"] * q[:, None, :]).sum(-1) - p["aref"]
+        return elliptic_total_cost(q, jar, p["qM"], p["a_s"], p["D"], p["fl"], p["act"], mu, scale, ne=p["ne"],
+                                   nf=p["nf"], nh=9, S=p["ncon"], cdim=cdim)
+
+    sp = synthetic_elliptic_problem(4096, nv=nv, nh=9, S=6, cdim=cdim, seed=120 + nv, device=cuda)
+    for use_ws in (True, False):
+        for iterations, ls_iterations, tol in ((3, 1, 1e-4), (15, 15, 1e-2)):
+            kw = dict(iterations=iterations, ls_iterations=ls_iterations, use_ws=use_ws)
+            got, want = kern(sp, **kw), _newton_arrays_elliptic(**sp, **kw)
+            exact = _newton_arrays_elliptic(**as_dtype(sp, torch.float64), **kw)
+            what = f"newton_elliptic nv={nv} ws={use_ws} ({iterations} x {ls_iterations})"
+            vs_float64(got, want, exact, what, within=lambda a, b: env_rel_err(a, b, what)[0] <= tol,
+                       costs=tuple(cost(sp, x[0]) for x in (got, want, exact)) if iterations == 15 else None,
+                       slack=ELLIPTIC_F64_SLACK)
+    sp = synthetic_elliptic_problem(257, nv=nv, nh=9, S=6, cdim=cdim, seed=140 + nv, device=cuda)
+    nonfinite_row_line_search(sp, 5, sp["ne"])
+    for use_ws in (True, False):
+        kw = dict(iterations=3, ls_iterations=6, use_ws=use_ws)
+        got = kern(sp, **kw)
+        assert kept_start(got, _newton_arrays_elliptic(**sp, **kw), sp, 5, use_ws)
+        for b in (37, 1):
+            assert all(torch.equal(x, y[:b]) for x, y in zip(kern(first_envs(sp, b), **kw), got))
+
+
+def test_dense_and_elliptic_kernels_fit_their_paths_in_two_waves(cuda):
+    """Kernel 5 holds cartpole's and arm3's 1024 envs, and kernel 6 the
+    elliptic quadruped's 4096, in at most two waves of the card's SMs."""
+    from ambersim_tpu_torch import load_model
+    from ambersim_tpu_torch.engine.solver import elliptic_tail
+    from ambersim_tpu_torch.ops.newton import dense_occupancy, elliptic_occupancy
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for name in ("cartpole", "arm3"):
+        s = load_model(name, device=cuda).skel
+        assert 2 * sms * dense_occupancy(s.nv, s.nefc) >= 1024, name
+    s = load_model("quadruped_elliptic", device=cuda).skel
+    cdim, slots, _, _ = elliptic_tail(s)
+    assert 2 * sms * elliptic_occupancy(s.nv, s.nefc, len(slots), cdim) >= 4096
 
 
 def test_elliptic_line_search_step_selects_on_the_card(cuda):

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time the warp-factor kernels of the tree against another version, on a
-card: kernel 4 (csrc/newton_structured.cu), kernels 1-3 at n <= 32
-(csrc/linalg.cu), and kernels 5 and 6 (csrc/newton_dense.cu,
-newton_elliptic.cu), which share kernel 1's factor (csrc/linalg.cuh).
+card: the Newton kernels 4-6 (csrc/newton_structured.cu, newton_dense.cu,
+newton_elliptic.cu: one warp per env, csrc/newton_warp.cuh) and kernels 1-3
+at n <= 32 (csrc/linalg.cu), which share their factor (csrc/linalg.cuh).
 
     python3 tools/newton_probe.py [--against OTHER/csrc [OTHER2/csrc ...]]
 
@@ -19,12 +19,14 @@ several others, other1 .. otherN, tree, tree, otherN .. other1):
     (B = 1: one env's latency);
   * kernels 1, 2 and 3 at B = 4096, n = 18 (the main path's shapes) and
     kernel 1 at B = 1;
-  * kernel 5 on the humanoid's operands at B = 1024 and cartpole's after
-    100 steps at B = 1024, and kernel 6 on the elliptic quadruped's at
-    B = 4096 (chip_smoke.check_newton_dense / check_newton_elliptic);
-  * the split of env 0's clock cycles over kernel 4's phases, from a copy
-    of the tree's kernel built with -DAMB_NEWTON_CLOCKS, on the quadruped
-    at B = 1 and B = 4096.
+  * kernel 5 on the operands of arm3 and cartpole after 100 steps and of
+    the humanoid (the JAX package's route for it), each at B = 1024, and
+    kernel 6 on the elliptic quadruped's at B = 4096
+    (chip_smoke.check_newton_dense / check_newton_elliptic);
+  * the split of env 0's clock cycles over each Newton kernel's phases
+    (AMB_MARK), from a copy of the tree built with -DAMB_NEWTON_CLOCKS: kernel
+    4 on the quadruped, kernel 5 on arm3 and kernel 6 on the elliptic
+    quadruped, each at B = 1 and at its path's batch.
 
 Needs a CUDA card; imports nothing of JAX.
 """
@@ -43,8 +45,15 @@ sys.path.insert(0, str(REPO))
 from ambersim_tpu_torch.engine.forward import full_f32_matmul  # noqa: E402
 
 SOURCES = ("linalg.cu", "newton_structured.cu", "newton_dense.cu", "newton_elliptic.cu")
-PHASES = ("load", "start", "forces at jar", "gradient + Hessian", "factor", "solve", "J p, p M p", "line search",
-          "trial cost + take", "outputs")
+# each Newton kernel's AMB_MARK slots, in order
+PHASES = {
+    "newton_structured": ("load", "start", "forces at jar", "gradient + Hessian", "factor", "solve", "J p, p M p",
+                          "line search", "trial cost + take", "outputs"),
+    "newton_dense": ("load", "start", "M dacc, M row", "J^T f + Hessian", "factor", "solve", "J p, p M p",
+                     "line search", "trial cost + take", "outputs"),
+    "newton_elliptic": ("load", "start", "head rows: J^T f + Hessian", "cones: zones, W, J^T f + Hessian", "factor",
+                        "solve", "J p, p M p, cone scalars", "line search", "trial cost + take", "outputs"),
+}
 
 
 def build(builds: dict) -> dict:
@@ -73,11 +82,43 @@ def build(builds: dict) -> dict:
         lib.amb_solve_pd.argtypes = [P, P, P, I, I, P]
         lib.amb_newton_structured.argtypes = [P] * 16 + [I] * 12 + [P]
         lib.amb_newton_dense.argtypes = [P] * 12 + [I] * 8 + [P]
-        lib.amb_newton_elliptic.argtypes = [P] * 15 + [I] * 11 + [P]
-        if len(builds[name]) > 1:
-            lib.amb_newton_phase_clocks.argtypes = [P]
+        # kernel 6 took its rows through a permutation before it kept them in
+        # MuJoCo order; an older csrc/ has no occupancy entry for it
+        lib.rows_permuted = not hasattr(lib, "amb_newton_elliptic_occupancy")
+        lib.amb_newton_elliptic.argtypes = [P] * (15 if lib.rows_permuted else 14) + [I] * 11 + [P]
+        if "-DAMB_NEWTON_CLOCKS" in builds[name][1:]:
+            for fn in (lib.amb_newton_phase_clocks, lib.amb_newton_dense_phase_clocks,
+                       lib.amb_newton_elliptic_phase_clocks):
+                fn.argtypes = [P]
         libs[name] = lib
     return libs
+
+
+def launch_elliptic(lib, pa: dict, kw: dict):
+    """ops.newton.newton_solve_elliptic's launch on `lib` (a build()
+    library) for a problem on the card; returns (qacc, efc_force, qfrc)."""
+    import numpy as np
+    import torch
+
+    from ambersim_tpu_torch.engine.schedule import device_index
+    from ambersim_tpu_torch.engine.solver import cone_params
+    from ambersim_tpu_torch.ops._build import check_launch
+
+    B, nefc, nv = pa["J"].shape
+    S, cdim, nh = pa["ncon"], pa["cdim"], pa["base"]
+    mu, scale = cone_params(pa["fr"].float(), pa["impratio"], cdim)
+    scale = scale.transpose(1, 2).reshape(B, (cdim - 1) * S).contiguous()
+    perm = []
+    if lib.rows_permuted:  # [head | N(S) | T_1(S) ... T_{cdim-1}(S)] as MuJoCo rows
+        order = np.concatenate([np.arange(nh)] + [nh + np.arange(S) * cdim + k for k in range(cdim)])
+        perm = [device_index(order, pa["J"].device, torch.int32)]
+    out = torch.empty_like(pa["a_s"]), torch.empty_like(pa["aref"]), torch.empty_like(pa["a_s"])
+    ptrs = [x.data_ptr() for x in (pa["J"], pa["qM"], pa["aref"], pa["D"], pa["fl"], pa["act"], pa["a_s"], pa["ws"],
+                                  pa["tol"], mu.contiguous(), scale, *perm, *out)]
+    ints = [B, nv, nefc, pa["ne"], pa["nf"], nh, S, cdim, kw["iterations"], kw["ls_iterations"], int(kw["use_ws"])]
+    check_launch(lib.amb_newton_elliptic(*ptrs, *ints, torch.cuda.current_stream(pa["J"].device).cuda_stream),
+                 "newton_elliptic")
+    return out
 
 
 @full_f32_matmul()
@@ -96,10 +137,9 @@ def main() -> int:
     from ambersim_tpu_torch.engine import rollout
     from ambersim_tpu_torch.engine.constraint import _pyramid_structure
     from ambersim_tpu_torch.engine.schedule import device_index
-    from ambersim_tpu_torch.engine.solver import _newton_arrays, _newton_arrays_elliptic, cone_params, elliptic_tail
+    from ambersim_tpu_torch.engine.solver import _newton_arrays, _newton_arrays_elliptic, elliptic_tail
     from ambersim_tpu_torch.ops._build import check_launch
-    from ambersim_tpu_torch.ops.newton import elliptic_row_order
-
+    
     if not torch.cuda.is_available():
         cs.fail("no CUDA card")
     print(f"card: {cs.card_line()}")
@@ -144,21 +184,6 @@ def main() -> int:
         check_launch(lib.amb_newton_dense(*ptrs, *ints, stream()), "newton_dense")
         return out
 
-    def elliptic(lib, pa, kw):
-        """ops.newton.newton_solve_elliptic's launch on `lib`."""
-        B, nefc, nv = pa["J"].shape
-        S, cdim, nh = pa["ncon"], pa["cdim"], pa["base"]
-        mu, scale = cone_params(pa["fr"].float(), pa["impratio"], cdim)
-        scale = scale.transpose(1, 2).reshape(B, (cdim - 1) * S).contiguous()
-        perm = device_index(elliptic_row_order(nh, S, cdim), dev, torch.int32)
-        out = outputs(pa)
-        ptrs = [x.data_ptr() for x in (pa["J"], pa["qM"], pa["aref"], pa["D"], pa["fl"], pa["act"], pa["a_s"],
-                                      pa["ws"], pa["tol"], mu.contiguous(), scale, perm, *out)]
-        ints = [B, nv, nefc, pa["ne"], pa["nf"], nh, S, cdim, kw["iterations"], kw["ls_iterations"],
-                int(kw["use_ws"])]
-        check_launch(lib.amb_newton_elliptic(*ptrs, *ints, stream()), "newton_elliptic")
-        return out
-
     def structured(lib, case):
         pa, bJ, dsc, st, kw = case
         B, nefc, nv = pa["J"].shape
@@ -196,7 +221,8 @@ def main() -> int:
             cs.newton_err(structured(lib, c), want, f"{lname} newton_structured {name} B={B}")
         one = first(c, 1)
         for lname in order:
-            print(f"newton_structured {name} B={B} {lname}: {cs.cuda_ms(lambda: structured(libs[lname], c), 20):.4f} ms;"
+            ms = cs.cuda_ms(lambda: structured(libs[lname], c), 20)
+            print(f"newton_structured {name} B={B} {lname}: {ms:.4f} ms;"
                   f" B=1 {cs.cuda_ms(lambda: structured(libs[lname], one), 20):.4f} ms", flush=True)
     rng = np.random.default_rng(0)
     a, b = cs.random_spd(rng, cs.NUM_ENVS, 18, dev)
@@ -216,8 +242,8 @@ def main() -> int:
 
     # kernel 5 (chip_smoke.check_newton_dense's operands) and kernel 6
     # (check_newton_elliptic's), each build against the plain version
-    k56 = []
-    for name, steps in (("humanoid", 0), ("cartpole", 100)):
+    k56, clock_cases = [], []
+    for name, steps in (("arm3", 100), ("cartpole", 100), ("humanoid", 0)):
         m = load_model(name, device=dev)
         d = cs.pre_solve(m, rollout(m, cs.PATHS[name]["start"](m, 1024, dev), steps))
         pa = dict(cs.solver_operands(m, d, seed=4), ne=int(m.skel.ne), nf=int(m.skel.nf))
@@ -225,6 +251,8 @@ def main() -> int:
         for lname, lib in libs.items():
             cs.newton_err(dense(lib, pa, kw), _newton_arrays(**pa, **kw), f"{lname} newton_dense {name} B=1024")
         k56.append((f"newton_dense {name} B=1024", dense, pa, kw))
+        if name == "arm3":
+            clock_cases.append(("newton_dense", "arm3", dense, clocked.amb_newton_dense_phase_clocks, pa, kw))
     m = load_model("quadruped_elliptic", device=dev)
     cdim, slots, base, _ = elliptic_tail(m.skel)
     d = cs.initial_batch(m, cs.NUM_ENVS, dev)
@@ -234,25 +262,38 @@ def main() -> int:
     kw = dict(iterations=int(m.opt.iterations), ls_iterations=int(m.opt.ls_iterations), use_ws=True)
     want = _newton_arrays_elliptic(**pa, **kw)
     for lname, lib in libs.items():  # chaotic in float32 at these settings: printed, not held
-        rel, _ = cs.env_rel_err(elliptic(lib, pa, kw), want, f"{lname} newton_elliptic")
+        rel, _ = cs.env_rel_err(launch_elliptic(lib, pa, kw), want, f"{lname} newton_elliptic")
         print(f"{lname} newton_elliptic quadruped B={cs.NUM_ENVS}: env-relative |kernel - plain| median "
               f"{rel.median().item():.3e}, max {rel.max().item():.3e}")
-    k56.append((f"newton_elliptic quadruped B={cs.NUM_ENVS}", elliptic, pa, kw))
+    k56.append((f"newton_elliptic quadruped B={cs.NUM_ENVS}", launch_elliptic, pa, kw))
+    clock_cases.append(("newton_elliptic", "elliptic quadruped", launch_elliptic,
+                        clocked.amb_newton_elliptic_phase_clocks, pa, kw))
     for what, fn, pa, kw in k56:
         for lname in order:
             print(f"{what} {lname}: {cs.cuda_ms(lambda: fn(libs[lname], pa, kw), 20):.4f} ms", flush=True)
 
-    c = case("quadruped", cs.NUM_ENVS)
-    for what, cc in (("B=1", first(c, 1)), (f"B={cs.NUM_ENVS}", c)):
-        clocks = (ctypes.c_longlong * len(PHASES))()
-        structured(clocked, cc)  # warm-up
-        check_launch(clocked.amb_newton_phase_clocks(clocks), "phase clocks")  # zero them
-        structured(clocked, cc)
+    def split(kernel, model, run, read, batch):
+        """Env 0's clock cycles by phase of one launch of the clocked build."""
+        clocks = (ctypes.c_longlong * len(PHASES[kernel]))()
+        run()  # warm-up
+        check_launch(read(clocks), "phase clocks")  # zero them
+        run()
         torch.cuda.synchronize()
-        check_launch(clocked.amb_newton_phase_clocks(clocks), "phase clocks")
+        check_launch(read(clocks), "phase clocks")
         total = sum(clocks)
-        print(f"newton_structured quadruped {what}, env 0's clock cycles by phase (total {total}): " + ", ".join(
-            f"{p} {v} ({100 * v / total:.1f}%)" for p, v in zip(PHASES, clocks)), flush=True)
+        print(f"{kernel} {model} B={batch}, env 0's clock cycles by phase (total {total}): " + ", ".join(
+            f"{p} {v} ({100 * v / total:.1f}%)" for p, v in zip(PHASES[kernel], clocks)), flush=True)
+
+    c = case("quadruped", cs.NUM_ENVS)
+    for cc in (first(c, 1), c):
+        split("newton_structured", "quadruped", lambda cc=cc: structured(clocked, cc),
+              clocked.amb_newton_phase_clocks, cc[1].shape[0])
+    for kernel, model, fn, read, pa, kw in clock_cases:
+        B = pa["J"].shape[0]
+        for b in (1, B):
+            part = {k: v[:b].contiguous() if torch.is_tensor(v) and v.dim() and v.shape[0] == B else v
+                    for k, v in pa.items()}
+            split(kernel, model, lambda part=part: fn(clocked, part, kw), read, b)
     return 0
 
 
