@@ -19,8 +19,20 @@
 // buffer as they are made: kernel 1 copies it out; kernel 3 lays it at an
 // odd leading dimension, carries the forward sweep inside the factor and
 // sweeps back (amb::warp_back_solve).
-// Kernel 2 loads L with an odd leading dimension (lane i owning row i).
+// Kernel 2 copies the system by 16-byte loads whatever n (kernel 1's copy
+// when the systems start 16-byte aligned, else an aligned window around
+// each), and lane i takes 1/L_ii once. Its two sweeps are the
+// TPU body's (_solve_from_l, :61): a step is a multiply by the reciprocal,
+// a shuffle and one FMA, the FMA's entry of L read from shared memory off
+// the chain, so no divide and no load sits on it; the copy's upper
+// triangle is zeroed, so no entry above the diagonal enters the result and
+// no step needs a predicate. At most 64 registers a thread, so 32 warps fit
+// on an SM and the main path's 4096 systems run in one wave.
 // Lanes n..31 idle: at n = 18 that is 44% of the lanes.
+//
+// The arithmetic is that of engine/linalg.py's plain versions up to FMA
+// contraction, summation order and, in kernel 2, reciprocals in place of
+// divisions.
 
 #include <cuda_runtime.h>
 
@@ -49,13 +61,6 @@ __device__ inline void warp_copy(float* dst, const float* src, int count) {
   __syncwarp();
 }
 
-// Odd-ld layout for the Cholesky solve (kernel 2): lane i owns row i.
-__device__ inline void load_matrix(float* a, const float* src, int n, int ld) {
-  const int lane = threadIdx.x & 31;
-  for (int e = lane; e < n * n; e += 32) a[(e / n) * ld + (e % n)] = src[e];
-  __syncwarp();
-}
-
 __global__ void __launch_bounds__(kWarps * 32) cholesky_kernel(const float* __restrict__ A,
                                                                float* __restrict__ L, int B, int n) {
   extern __shared__ float4 smem4[];
@@ -73,19 +78,79 @@ __global__ void __launch_bounds__(kWarps * 32) cholesky_kernel(const float* __re
   warp_copy(L + (size_t)sys * n * n, a, n * n);
 }
 
-__global__ void __launch_bounds__(kWarps * 32) cho_solve_kernel(const float* __restrict__ Lg,
-                                                                const float* __restrict__ b,
-                                                                float* __restrict__ x, int B, int n) {
-  extern __shared__ float smem[];
-  const int ld = n | 1;
+// Copy one system (count floats at src) into the warp's buffer dst by
+// 16-byte loads of the aligned window around it, whatever n and src's
+// alignment: up to 3 floats before and after the system, in the 16-byte
+// chunks that hold its first and last float, are read and dropped. Four
+// loads a lane in flight at once (one round for n <= 22, two or three at n = 32).
+__device__ inline void warp_copy_window(float* dst, const float* src, int count) {
+  const int lane = threadIdx.x & 31;
+  const int head = (int)((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
+  const float4* win = reinterpret_cast<const float4*>(src - head);
+  const int chunks = (head + count + 3) >> 2;
+  for (int c0 = 0; c0 < chunks; c0 += 4 * 32) {
+    float4 v[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int c = c0 + lane + 32 * t;
+      v[t] = c < chunks ? win[c] : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int f = 4 * (c0 + lane + 32 * t) - head;
+      const float e[4] = {v[t].x, v[t].y, v[t].z, v[t].w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (f + q >= 0 && f + q < count) dst[f + q] = e[q];
+    }
+  }
+  __syncwarp();
+}
+
+// Solve L L^T x = b from lower factors L. Lane i holds b_i, then y_i, then
+// x_i, and 1/L_ii. The copy's upper triangle is zeroed first (lane c
+// clears column c above the diagonal), so that no step needs a predicate:
+// step j of either sweep is lane j's unknown times 1/L_jj, shuffled to
+// every lane, and one FMA with L_ij (forward) or L_ji (backward), read from
+// shared memory off the chain; on the lanes already solved that entry is
+// one of the zeros, and the FMA leaves them as they are. Lanes n..31 walk
+// row and column n - 1 and are dropped. The loops are unrolled by 4 only,
+// so the instruction stream stays short (a warp alone on an SM fetches it
+// at L2 latency). A zero L_jj gives inf, and 0 x inf the plain version's
+// NaNs. kWindow: the copy for systems that do not all start 16-byte
+// aligned (n odd); the aligned ones take warp_copy's 16-byte stores, in an
+// instantiation of their own so that neither carries the other's code.
+template <bool kWindow>
+__global__ void __launch_bounds__(kWarps * 32, 8) cho_solve_kernel(const float* __restrict__ Lg,
+                                                                   const float* __restrict__ b,
+                                                                   float* __restrict__ x, int B, int n) {
+  extern __shared__ float4 smem4[];
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int sys = blockIdx.x * kWarps + w;
   if (sys >= B) return;
-  float* l = smem + w * warp_floats(n);
-  load_matrix(l, Lg + (size_t)sys * n * n, n, ld);
-  const float bi = lane < n ? b[(size_t)sys * n + lane] : 0.f;
-  const float xi = amb::warp_cho_solve(l, bi, n, ld);
-  if (lane < n) x[(size_t)sys * n + lane] = xi;
+  float* l = reinterpret_cast<float*>(smem4) + w * warp_floats(n);
+  const int i = min(lane, n - 1);
+  float y = lane < n ? b[(size_t)sys * n + lane] : 0.f;
+  if constexpr (kWindow) {
+    warp_copy_window(l, Lg + (size_t)sys * n * n, n * n);
+  } else {
+    warp_copy(l, Lg + (size_t)sys * n * n, n * n);
+  }
+  for (int k = 0; k < i; ++k) l[k * n + i] = 0.f;
+  __syncwarp();
+  const float inv = 1.f / l[i * n + i];
+  const float* row = l + i * n;  // L_ij at row[j]
+#pragma unroll 4
+  for (int j = 0; j < n; ++j) {
+    const float yj = __shfl_sync(amb::kFullMask, y * inv, j);  // y_j = (b_j - sum_k<j L_jk y_k) / L_jj
+    y = lane == j ? yj : fmaf(-row[j], yj, y);
+  }
+#pragma unroll 4
+  for (int j = n - 1; j >= 0; --j) {
+    const float xj = __shfl_sync(amb::kFullMask, y * inv, j);  // x_j = (y_j - sum_k>j L_kj x_k) / L_jj
+    y = lane == j ? xj : fmaf(-l[j * n + i], xj, y);
+  }
+  if (lane < n) x[(size_t)sys * n + lane] = y;
 }
 
 __global__ void __launch_bounds__(kWarps * 32) solve_pd_kernel(const float* __restrict__ A,
@@ -123,7 +188,11 @@ int amb_cholesky(const float* A, float* L, int B, int n, void* stream) {
 }
 
 int amb_cho_solve(const float* L, const float* b, float* x, int B, int n, void* stream) {
-  cho_solve_kernel<<<grid_for(B), kWarps * 32, smem_for(n), (cudaStream_t)stream>>>(L, b, x, B, n);
+  if ((reinterpret_cast<uintptr_t>(L) & 15) == 0 && (n * n) % 4 == 0) {
+    cho_solve_kernel<false><<<grid_for(B), kWarps * 32, smem_for(n), (cudaStream_t)stream>>>(L, b, x, B, n);
+  } else {
+    cho_solve_kernel<true><<<grid_for(B), kWarps * 32, smem_for(n), (cudaStream_t)stream>>>(L, b, x, B, n);
+  }
   return (int)cudaGetLastError();
 }
 

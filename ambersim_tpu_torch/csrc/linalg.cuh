@@ -1,13 +1,14 @@
-// Warp-level dense Cholesky factor and solve for one small SPD system.
+// Warp-level dense Cholesky factor and backward sweep for one small SPD
+// system.
 //
-// Shared by linalg.cu (kernels 1-3) and the Newton kernels (4-6). One warp
-// owns one n x n system (n <= 32), lane i owning row i. The factor keeps
-// the row in registers (`warp_factor`, with the forward sweep of a solve
-// riding along); `warp_back_solve` is the one backward sweep, and
-// `warp_cho_solve` (an L already factored) is a forward sweep and it. The
-// arithmetic follows the plain versions in ambersim_tpu_torch/engine/
-// linalg.py (square root of max(a_jj, 1e-12), divide), up to FMA
-// contraction and summation order.
+// Shared by linalg.cu (kernels 1 and 3) and the Newton kernels (4-6). One
+// warp owns one n x n system (n <= 32), lane i owning row i. The factor
+// keeps the row in registers (`warp_factor`, with the forward sweep of a
+// solve riding along); `warp_back_solve` is the one backward sweep. Kernel
+// 2 (an L already factored) has sweeps of its own in linalg.cu, which
+// multiply by reciprocals of the diagonal. The arithmetic here follows the
+// plain versions in ambersim_tpu_torch/engine/linalg.py (square root of
+// max(a_jj, 1e-12), divide), up to FMA contraction and summation order.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -24,8 +25,8 @@ constexpr int kMaxN = 32;
 // the tier of their nv (newton_warp.cuh's row_tier). Entries above the
 // diagonal never reach L, and out's upper triangle is not written. With
 // kRhs, lane i also passes b_i in b and gets y_i of L y = b back: the
-// forward sweep rides along the factor, column by column, with the
-// arithmetic of warp_cho_solve's. Every lane of the warp must call it.
+// forward sweep rides along the factor, column by column (y_j = b_j / L_jj,
+// then b_i -= L_ij y_j below it). Every lane of the warp must call it.
 //
 // At pivot j, r[k] holds column j + k. One shuffle per trailing column
 // brings L_(j+k)j, and one FMA downdates the column and moves it down one
@@ -94,23 +95,6 @@ __device__ inline float warp_back_solve(const float* l, float y, int n, int ld) 
     x = i == j ? xj : (i < j ? fmaf(-lji, xj, x) : x);
   }
   return x;
-}
-
-// Solve L L^T x = b with L already factored (leading dimension ld): the
-// forward sweep, then warp_back_solve. Lane i passes b_i (any value for
-// i >= n) and gets x_i back. Every lane must call it.
-__device__ inline float warp_cho_solve(const float* l, float bi, int n, int ld) {
-  const int i = threadIdx.x & 31;
-  float y = bi;
-  for (int j = 0; j < n; ++j) {
-    const float yj = __shfl_sync(kFullMask, y, j) / l[j * ld + j];
-    if (i == j) {
-      y = yj;
-    } else if (i > j && i < n) {
-      y -= l[i * ld + j] * yj;
-    }
-  }
-  return warp_back_solve(l, y, n, ld);
 }
 
 }  // namespace amb

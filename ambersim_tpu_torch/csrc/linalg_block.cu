@@ -42,23 +42,33 @@
 //     panel segment (forward substitution, y = L^-1 b by tiles) and steps 2-3
 //     update its trailing segments. The backward substitution then walks the
 //     tiles from the last: warp 0 brings the next segment up to date and
-//     solves its transposed diagonal tile by shuffles while the other warps
-//     subtract the solved segment from the rows still open, one barrier a
-//     tile (12 at n = 192).
+//     solves its transposed diagonal tile in registers (back_diag) while the
+//     other warps subtract the solved segment from the rows still open, one
+//     barrier a tile (12 at n = 192).
 //   * No tensor cores: TF32 keeps about three digits, which would break the
 //     2e-4 bar against the plain version and the Newton solve's float32
 //     sensitivity; the 604 MFLOP take 9 us on the CUDA cores. 3xTF32 on the
 //     SYRK is a follow-up if the update turns out bound by the FMA rate; today
 //     the diagonal tiles' pivot chain is the longer part.
 //
-// Cholesky solve (cho_solve_block): the factor is loaded row by
-// row into dynamic shared memory at the odd leading dimension n | 1, and one
-// warp walks the forward and backward substitutions (the lanes own rows
-// i = lane + 32 k) with __syncwarp between the dependent steps.
+// Cholesky solve (cho_solve_block): the factor's lower triangle goes into
+// the same tiles (two blocks an SM at n = 192, one wave for the clutter
+// systems), by cp.async in one group per tile column: columns 0-2 up front,
+// then column p + 3 issued by warps 1-7 during panel p (a block's copies
+// issue no faster than the SM's share of L2, ~6k cycles for all 78 tiles on
+// an H100, so issuing them all first would hold the sweep back as long).
+// The forward substitution starts once columns 0 and 1 are in and goes by
+// tiles, the TPU's panels (_solve_from_l_panel): warp 0 brings segment
+// p + 1 up to date with the solved y_p, takes 1/L_jj of its diagonal tile
+// and solves it in registers (fwd_panel) while the other warps subtract
+// L_Kp y_p from the segments below, a thread a row, one barrier a tile; the
+// backward one is solve_pd_block's (tiled_back_solve). Zero entries of L are
+// not skipped: a zero pivot's 1/L_jj = inf meets them as 0 x inf, the plain
+// version's NaNs.
 //
 // The contracts of the warp-per-system kernels (linalg.cu) hold: only the
 // lower triangle enters the results (up to 3 entries above the diagonal are
-// copied with a row's last group and never read), L is zero above the
+// copied with a row's last group and never used), L is zero above the
 // diagonal, and the arithmetic is that of engine/linalg.py's plain versions
 // up to FMA contraction, summation order and reciprocals in place of
 // divisions.
@@ -212,22 +222,25 @@ __device__ inline void trsm_row(float* x_row, const float* lt, const float* inv)
   store_row(x_row, x);
 }
 
-// Warp 0: solve L_PP^T x = y for segment y (16) of tile t in place, by
-// shuffles; lane r holds y_r.
+// Warp 0: solve L_PP^T x = y for segment y (16) of tile t in place. Every
+// lane solves the whole segment in registers (lane 0 writes it): x_j =
+// y_j / L_jj, then y_r -= L_jr x_j for r < j, row j of the tile read four
+// floats a load (its entries from the diagonal on unused). No shuffle: the
+// chain is a multiply and an FMA a step.
 __device__ void back_diag(const float* t, const float* ldinv, float* y) {
-  const int lane = threadIdx.x & 31, r = lane & (kT - 1);
-  float yr = y[r];
+  float v[kT], inv[kT];
+  load_row(v, y);
+  load_row(inv, ldinv);
 #pragma unroll
   for (int j = kT - 1; j >= 0; --j) {
-    const float xj = __shfl_sync(kFull, yr, j) * ldinv[j];
-    if (r == j) {
-      yr = xj;
-    } else if (r < j) {
-      yr = fmaf(-t[j * kPitch + r], xj, yr);  // row j of L is column j of L^T
-    }
+    float l[kT];
+    load_row(l, t + j * kPitch);  // row j of L is column j of L^T
+    v[j] *= inv[j];
+#pragma unroll
+    for (int r = 0; r < j; ++r) v[r] = fmaf(-l[r], v[j], v[r]);
   }
   __syncwarp();
-  if (lane < kT) y[r] = yr;
+  if ((threadIdx.x & 31) == 0) store_row(y, v);
 }
 
 // The SYRK update of panel p, T_IK -= L_Ip L_Kp^T, on the trailing tiles of
@@ -327,6 +340,41 @@ __device__ void tiled_factor(float* tiles, float* lt, float* pinv, float* ldinv,
   }
 }
 
+// The backward substitution L^T x = y in place in y, a tile at a time from
+// the last: warp 0 brings segment P - 1 up to date with the solved x_P and
+// solves its transposed diagonal tile (back_diag) while the other warps
+// subtract x_P from the rows still open, one barrier a tile (12 at
+// n = 192). Every thread calls it after a barrier; it ends with one.
+__device__ void tiled_back_solve(const float* tiles, const float* ldinv, float* y, int nt) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp == 0) back_diag(tiles + tile_off(nt - 1, nt - 1), ldinv + (nt - 1) * kT, y + (nt - 1) * kT);
+  __syncthreads();
+  for (int P = nt - 1; P >= 1; --P) {
+    const float* xp = y + P * kT;  // solved
+    if (warp == 0) {
+      // segment P - 1 takes x_P's contribution, then its own diagonal solve
+      if (lane < kT) {
+        const float* l = tiles + tile_off(P, P - 1) + lane;
+        float s = 0.f;
+#pragma unroll
+        for (int c = 0; c < kT; ++c) s = fmaf(l[c * kPitch], xp[c], s);
+        y[(P - 1) * kT + lane] -= s;
+      }
+      __syncwarp();
+      back_diag(tiles + tile_off(P - 1, P - 1), ldinv + (P - 1) * kT, y + (P - 1) * kT);
+    } else {
+      for (int i = threadIdx.x - 32; i < (P - 1) * kT; i += kThreads - 32) {
+        const float* l = tiles + tile_off(P, i / kT) + i % kT;
+        float s = 0.f;
+#pragma unroll
+        for (int c = 0; c < kT; ++c) s = fmaf(l[c * kPitch], xp[c], s);
+        y[i] -= s;
+      }
+    }
+    __syncthreads();
+  }
+}
+
 __global__ void __launch_bounds__(kThreads, 2) cholesky_block_kernel(const float* __restrict__ A,
                                                                      float* __restrict__ L, int n) {
   extern __shared__ float smem[];
@@ -364,7 +412,7 @@ __global__ void __launch_bounds__(kThreads, 2) solve_pd_block_kernel(const float
                                                                      const float* __restrict__ b,
                                                                      float* __restrict__ x, int n) {
   extern __shared__ float smem[];
-  const int nt = tiles_for(n), warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nt = tiles_for(n);
   float* tiles = smem;
   float* lt = tiles + nt * (nt + 1) / 2 * kTileFloats;
   float* pinv = lt + kTileFloats;
@@ -373,89 +421,141 @@ __global__ void __launch_bounds__(kThreads, 2) solve_pd_block_kernel(const float
   load_tiles(tiles, A + (size_t)blockIdx.x * n * n, n, nt);
   for (int i = threadIdx.x; i < nt * kT; i += kThreads) y[i] = i < n ? b[(size_t)blockIdx.x * n + i] : 0.f;
   tiled_factor<true>(tiles, lt, pinv, ldinv, y, nt);  // y = L^-1 b
-  // backward substitution L^T x = y, a tile at a time from the last
-  if (warp == 0) back_diag(tiles + tile_off(nt - 1, nt - 1), ldinv + (nt - 1) * kT, y + (nt - 1) * kT);
-  __syncthreads();
-  for (int P = nt - 1; P >= 1; --P) {
-    const float* xp = y + P * kT;  // solved
-    if (warp == 0) {
-      // segment P - 1 takes x_P's contribution, then its own diagonal solve
-      if (lane < kT) {
-        const float* l = tiles + tile_off(P, P - 1) + lane;
-        float s = 0.f;
-#pragma unroll
-        for (int c = 0; c < kT; ++c) s = fmaf(l[c * kPitch], xp[c], s);
-        y[(P - 1) * kT + lane] -= s;
-      }
-      __syncwarp();
-      back_diag(tiles + tile_off(P - 1, P - 1), ldinv + (P - 1) * kT, y + (P - 1) * kT);
-    } else {
-      for (int i = threadIdx.x - 32; i < (P - 1) * kT; i += kThreads - 32) {
-        const float* l = tiles + tile_off(P, i / kT) + i % kT;
-        float s = 0.f;
-#pragma unroll
-        for (int c = 0; c < kT; ++c) s = fmaf(l[c * kPitch], xp[c], s);
-        y[i] -= s;
-      }
-    }
-    __syncthreads();
-  }
+  tiled_back_solve(tiles, ldinv, y, nt);
   for (int i = threadIdx.x; i < n; i += kThreads) x[(size_t)blockIdx.x * n + i] = y[i];
 }
 
 // ---- the Cholesky solve (kernel 2) ----
 
-__host__ __device__ inline int ld_for(int n) { return n | 1; }
-
-// the factor (n x ld), then its diagonal and the vector
+// the tiles of the lower triangle, then 1/L_jj of every (padded) column and
+// the right-hand side
 __host__ __device__ inline size_t solve_smem_bytes(int n) {
-  return ((size_t)n * ld_for(n) + 3 * (size_t)n) * sizeof(float);
+  const int nt = tiles_for(n);
+  return ((size_t)(nt * (nt + 1) / 2) * kTileFloats + 2 * (size_t)nt * kT) * sizeof(float);
 }
 
-__device__ inline void load_lower(float* a, const float* __restrict__ src, int n, int ld) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = warp; r < n; r += kWarps)
-    for (int c = lane; c <= r; c += 32) a[r * ld + c] = src[(size_t)r * n + c];
-}
-
-// Solve L L^T x = b in place in y (b on entry, x on exit) from the strict
-// lower part of l and the diagonal dg. Warp 0 alone calls it.
-__device__ void warp_cho_solve(const float* l, const float* dg, float* y, int n, int ld) {
-  const int lane = threadIdx.x & 31;
-  for (int j = 0; j < n; ++j) {
-    __syncwarp();
-    const float yj = y[j] / dg[j];
-    __syncwarp();  // every lane has read y[j] before lane 0 rewrites it
-    if (lane == 0) y[j] = yj;
-    for (int i = j + 1 + lane; i < n; i += 32) y[i] -= l[i * ld + j] * yj;
+// Copy tile column J of the lower triangle (tiles (J..nt-1, J)) by cp.async
+// as load_tiles does; worker t of `workers` takes items t, t + workers, ...
+// The caller commits the group.
+__device__ void load_tile_column(float* tiles, const float* __restrict__ src, int n, int nt, int J, int t,
+                                 int workers) {
+  const int rows = (nt - J) * kT;
+  if ((n & 3) == 0) {
+    for (int e = t; e < 4 * rows; e += workers) {
+      const int R = J * kT + (e >> 2), c = J * kT + 4 * (e & 3);
+      float* dst = tiles + tile_off(R / kT, J) + (R % kT) * kPitch + 4 * (e & 3);
+      if (R >= n) {
+        *reinterpret_cast<float4*>(dst) =
+            make_float4(c == R ? 1.f : 0.f, c + 1 == R ? 1.f : 0.f, c + 2 == R ? 1.f : 0.f, c + 3 == R ? 1.f : 0.f);
+      } else if (c <= R) {
+        cp_async16(dst, src + (size_t)R * n + c);
+      }
+    }
+  } else {
+    for (int e = t; e < kT * rows; e += workers) {
+      const int R = J * kT + (e >> 4), c = J * kT + (e & 15);
+      float* dst = tiles + tile_off(R / kT, J) + (R % kT) * kPitch + (e & 15);
+      if (R >= n) {
+        *dst = c == R ? 1.f : 0.f;
+      } else if (c <= R) {
+        cp_async4(dst, src + (size_t)R * n + c);
+      }
+    }
   }
-  for (int j = n - 1; j >= 0; --j) {
-    __syncwarp();
-    const float xj = y[j] / dg[j];
-    __syncwarp();
-    if (lane == 0) y[j] = xj;
-    for (int i = lane; i < j; i += 32) y[i] -= l[j * ld + i] * xj;  // row j of L is column j of L^T
+}
+
+// Close this thread's current group of cp.async copies, then wait until all
+// but the newest group have landed.
+__device__ inline void cp_async_commit_wait_one() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// L_R,p y_p for row R below panel p: the row's 16 entries of tile (R / 16,
+// p) against the solved segment p, both read four floats a load, in four
+// partial sums.
+__device__ inline float fwd_dot(const float* tiles, const float* y, int R, int p) {
+  float l[kT], v[kT], s[4] = {};
+  load_row(l, tiles + tile_off(R / kT, p) + (R % kT) * kPitch);
+  load_row(v, y + p * kT);
+#pragma unroll
+  for (int q = 0; q < kT; ++q) s[q & 3] = fmaf(l[q], v[q], s[q & 3]);
+  return (s[0] + s[1]) + (s[2] + s[3]);
+}
+
+// Warp 0: segment q of y takes the solved segment q - 1's contribution (for
+// q > 0; lane r < 16 its row r, which also takes 1/L_rr into ldinv), then
+// L_qq y_q = y_q, the mirror of back_diag: every lane solves the whole
+// segment in registers (lane 0 writes it), y_i = (y_i - sum_k<i L_ik y_k) /
+// L_ii, row i of the tile read four floats a load (its entries from the
+// diagonal on unused). No shuffle: the chain is an FMA and a multiply a
+// step.
+__device__ void fwd_panel(const float* tiles, float* ldinv, float* y, int q) {
+  const int lane = threadIdx.x & 31;
+  const float* t = tiles + tile_off(q, q);
+  float* yq = y + q * kT;
+  if (lane < kT) {
+    ldinv[q * kT + lane] = 1.f / t[lane * (kPitch + 1)];
+    if (q > 0) yq[lane] -= fwd_dot(tiles, y, q * kT + lane, q - 1);
   }
   __syncwarp();
+  float v[kT], inv[kT];
+  load_row(v, yq);
+  load_row(inv, ldinv + q * kT);
+#pragma unroll
+  for (int i = 0; i < kT; ++i) {
+    float l[kT];
+    load_row(l, t + i * kPitch);
+#pragma unroll
+    for (int k = 0; k < i; ++k) v[i] = fmaf(-l[k], v[k], v[i]);
+    v[i] *= inv[i];
+  }
+  __syncwarp();
+  if (lane == 0) store_row(yq, v);
 }
 
-__global__ void __launch_bounds__(kThreads) cho_solve_block_kernel(const float* __restrict__ Lg,
-                                                                   const float* __restrict__ b,
-                                                                   float* __restrict__ x, int n) {
+__global__ void __launch_bounds__(kThreads, 2) cho_solve_block_kernel(const float* __restrict__ Lg,
+                                                                      const float* __restrict__ b,
+                                                                      float* __restrict__ x, int n) {
   extern __shared__ float smem[];
-  const int ld = ld_for(n);
-  float *l = smem, *dg = l + (size_t)n * ld + n, *y = dg + n;
-  const size_t base = (size_t)blockIdx.x * n * n;
-  load_lower(l, Lg + base, n, ld);
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    dg[i] = Lg[base + (size_t)i * n + i];
-    y[i] = b[(size_t)blockIdx.x * n + i];
+  const int nt = tiles_for(n), warp = threadIdx.x >> 5;
+  float* tiles = smem;
+  float* ldinv = tiles + nt * (nt + 1) / 2 * kTileFloats;
+  float* y = ldinv + nt * kT;
+  const float* src = Lg + (size_t)blockIdx.x * n * n;
+  // b and tile columns 0, 1 and 2 by every thread, one group each (b with
+  // column 0); then column p + 3 by warps 1-7 during panel p, one group a
+  // panel on every thread (empty on warp 0 and past the last column), so
+  // that column p + 2 has landed at the end of panel p
+  for (int i = threadIdx.x; i < nt * kT; i += kThreads) {
+    if (i < n) {
+      cp_async4(y + i, b + (size_t)blockIdx.x * n + i);
+    } else {
+      y[i] = 0.f;
+    }
   }
+  load_tile_column(tiles, src, n, nt, 0, threadIdx.x, kThreads);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  load_tile_column(tiles, src, n, nt, 1, threadIdx.x, kThreads);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  load_tile_column(tiles, src, n, nt, 2, threadIdx.x, kThreads);  // nt >= 3 past n = 32
+  cp_async_commit_wait_one();  // columns 0 and 1
   __syncthreads();
-  if (threadIdx.x < 32) {
-    warp_cho_solve(l, dg, y, n, ld);
-    for (int i = threadIdx.x; i < n; i += 32) x[(size_t)blockIdx.x * n + i] = y[i];
+  // forward substitution L y = b, a tile at a time
+  if (warp == 0) fwd_panel(tiles, ldinv, y, 0);
+  __syncthreads();
+  for (int p = 0; p + 1 < nt; ++p) {
+    if (warp == 0) {
+      fwd_panel(tiles, ldinv, y, p + 1);
+    } else {
+      if (p + 3 < nt) load_tile_column(tiles, src, n, nt, p + 3, threadIdx.x - 32, kThreads - 32);
+      for (int R = (p + 2) * kT + threadIdx.x - 32; R < nt * kT; R += kThreads - 32) y[R] -= fwd_dot(tiles, y, R, p);
+    }
+    cp_async_commit_wait_one();  // column p + 2
+    __syncthreads();
   }
+  tiled_back_solve(tiles, ldinv, y, nt);  // L^T x = y
+  for (int i = threadIdx.x; i < n; i += kThreads) x[(size_t)blockIdx.x * n + i] = y[i];
 }
 
 // Opt in to more than 48 KB of dynamic shared memory (the size at n = 192)
@@ -506,8 +606,8 @@ int amb_solve_pd_block(const float* A, const float* b, float* x, int B, int n, v
   return (int)cudaGetLastError();
 }
 
-// Resident blocks per SM of a tiled kernel at size n (0: cholesky_block,
-// 1: solve_pd_block), after the same opt-in as a launch.
+// Resident blocks per SM of a block kernel at size n (0: cholesky_block,
+// 1: cho_solve_block, 2: solve_pd_block), after the same opt-in as a launch.
 int amb_linalg_block_occupancy(int kernel, int n, int* blocks) {
   cudaError_t err;
   switch (kernel) {
@@ -518,6 +618,12 @@ int amb_linalg_block_occupancy(int kernel, int n, int* blocks) {
                                                             tiled_smem_bytes(n));
       break;
     case 1:
+      err = opt_in_solve();
+      if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, cho_solve_block_kernel, kThreads,
+                                                            solve_smem_bytes(n));
+      break;
+    case 2:
       err = opt_in_pd();
       if (err == cudaSuccess)
         err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, solve_pd_block_kernel, kThreads,

@@ -5,9 +5,9 @@ fused SPD solve on CUDA tensors, in two designs chosen by n:
     `cholesky`, `cho_solve` and `solve_pd`;
   * 32 < n <= 192: one thread block per system (csrc/linalg_block.cu),
     counted as `cholesky_block`, `cho_solve_block` and `solve_pd_block`.
-    The factor and the fused solve keep the lower triangle as 16 x 16 tiles
-    in shared memory (two blocks an SM at n = 192) and factor it by panels;
-    the Cholesky solve keeps the whole factor and walks it with one warp.
+    All three keep the lower triangle as 16 x 16 tiles in shared memory
+    (two blocks an SM at n = 192); the factor and the fused solve factor it
+    by panels, and both solves substitute a tile at a time.
 
 They replace cholesky_batched, cho_solve_batched and solve_pd_batched of
 ambersim_tpu/ops/linalg_pallas.py, which the JAX package runs up to n = 192
@@ -31,8 +31,8 @@ import torch
 from ambersim_tpu_torch.ops._build import LAUNCHES, check_launch, library, stream_handle
 
 MAX_N_WARP = 32  # one warp per system: lane i owns row i
-MAX_N = 192  # one block per system: the factor's tiles or the solve's 192 x 193 floats in shared memory
-_TILED_KERNELS = ("cholesky_block", "solve_pd_block")
+MAX_N = 192  # one block per system: the lower triangle's 78 tiles of 16 x 16 in shared memory
+_TILED_KERNELS = ("cholesky_block", "cho_solve_block", "solve_pd_block")
 
 
 def _check(name: str, mats: torch.Tensor, vecs: torch.Tensor | None = None) -> tuple[int, int]:
@@ -94,8 +94,8 @@ def solve_pd_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def block_occupancy(name: str, n: int) -> int:
-    """Resident blocks per SM of the tiled kernel `name` (`cholesky_block` or
-    `solve_pd_block`) at size n, on the current card."""
+    """Resident blocks per SM of the block kernel `name` (`cholesky_block`,
+    `cho_solve_block` or `solve_pd_block`) at size n, on the current card."""
     blocks = ctypes.c_int(0)
     check_launch(library().amb_linalg_block_occupancy(_TILED_KERNELS.index(name), n, ctypes.byref(blocks)), name)
     return blocks.value

@@ -197,10 +197,12 @@ PPO_PENDULUM = dict(
 # least half their mean.
 JAX_PENDULUM_GAINS = (482.879, 217.651, 227.194)
 
-# kernels whose ptxas report must show no spill: kernel 1 at n <= 32 and
-# the Newton kernels 4-6, whose factor holds the Hessian's rows in
-# registers (kernels 5 and 6 in one instantiation per register tier).
-SPILL_FREE = ("cholesky_kernel", "newton_structured_kernel", "newton_dense_kernel", "newton_elliptic_kernel")
+# kernels whose ptxas report must show no spill: kernels 1 and 2 at n <= 32,
+# which hold a row of L in registers, and the Newton kernels 4-6, whose
+# factor holds the Hessian's rows in registers (kernels 5 and 6 in one
+# instantiation per register tier).
+SPILL_FREE = ("cholesky_kernel", "cho_solve_kernel", "newton_structured_kernel", "newton_dense_kernel",
+              "newton_elliptic_kernel")
 # kernel name -> (CUDA source, the TPU kernel it replaces)
 KERNELS = {
     "cholesky": ("linalg.cu", "ambersim_tpu/ops/linalg_pallas.py:319"),
@@ -689,8 +691,8 @@ def check_linalg(device, results):
     n <= 32, the block kernels at LARGE_NS on the clutter width and at
     LARGE_BATCH systems of n = 192; each leaves the upper triangle unread
     and L zero above the diagonal. A zero pivot (ZERO_PIVOT_ROWS) as the
-    plain version treats it, and at least two resident blocks per SM for the
-    tiled factor and fused solve at n = 192. Times (and the library calls':
+    plain version treats it, and at least two resident blocks per SM for
+    each block kernel at n = 192. Times (and the library calls':
     torch.linalg.cholesky_ex, which checks nothing on the host,
     torch.cholesky_solve) at the main path's (4096, 18) and the clutter
     path's (256, 192)."""
@@ -733,6 +735,9 @@ def check_linalg(device, results):
         l_got = kernels.cholesky_batched(a)
         max_err(kernels.cholesky_batched(a_low), l_got, 0.0, 0.0, f"upper triangle n={n}")
         max_err(kernels.solve_pd_batched(a_low, b), kernels.solve_pd_batched(a, b), 0.0, 0.0, f"upper triangle solve n={n}")
+        l_low = l_ref + torch.triu(torch.full_like(l_ref, 1e6), diagonal=1)
+        max_err(kernels.cho_solve_batched(l_low, b), kernels.cho_solve_batched(l_ref, b), 0.0, 0.0,
+                f"upper triangle cho_solve n={n}")
         if torch.triu(l_got, diagonal=1).abs().max().item() != 0.0:
             fail(f"cholesky n={n}: nonzero above the diagonal")
     # a zero pivot: the factor matches the plain version (L_jj = 0 exactly),
@@ -752,13 +757,17 @@ def check_linalg(device, results):
         x_got, x_want = kernels.solve_pd_batched(a, b), plain.solve_pd_unrolled(a, b)
         if not torch.equal(torch.isfinite(x_got), torch.isfinite(x_want)):
             fail(f"zero pivot solve n={n}: non-finite entries differ from the plain version's")
+        y_got, y_want = kernels.cho_solve_batched(l_got, b), plain.cho_solve_unrolled(l_got, b)
+        if not torch.equal(torch.isfinite(y_got), torch.isfinite(y_want)):
+            fail(f"zero pivot cho_solve n={n}: non-finite entries differ from the plain version's")
         print(f"zero pivot n={n} (row/column {rows} zero): factor within {err:.2e} of plain, L_jj = 0; solve "
-              f"non-finite in {int((~torch.isfinite(x_got)).sum())} entries, as the plain version")
+              f"non-finite in {int((~torch.isfinite(x_got)).sum())} entries, cho_solve in "
+              f"{int((~torch.isfinite(y_got)).sum())}, as the plain version")
     for k in _LINALG + _LINALG_BLOCK:
         print(f"kernel {k}: max |kernel - plain| {errs[k]:.2e}")
         results[k]["max_abs_err"] = errs[k]
-    # the tiled factor must keep two systems resident on every SM at n = 192
-    occupancy = {k: kernels.block_occupancy(k, kernels.MAX_N) for k in ("cholesky_block", "solve_pd_block")}
+    # the block kernels must keep two systems resident on every SM at n = 192
+    occupancy = {k: kernels.block_occupancy(k, kernels.MAX_N) for k in _LINALG_BLOCK}
     print(f"block kernels at n={kernels.MAX_N}: resident blocks per SM {occupancy}")
     for k in occupancy:
         if occupancy[k] < 2:

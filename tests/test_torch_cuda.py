@@ -47,6 +47,8 @@ def test_linalg_kernels_match_plain(cuda, n):
     a_low = torch.tril(a) + torch.triu(torch.full_like(a, 1e6), diagonal=1)
     assert torch.equal(kernels.cholesky_batched(a_low), got)
     assert torch.equal(kernels.solve_pd_batched(a_low, b), kernels.solve_pd_batched(a, b))
+    l_low = l + torch.triu(torch.full_like(l, 1e6), diagonal=1)
+    assert torch.equal(kernels.cho_solve_batched(l_low, b), kernels.cho_solve_batched(l, b))
     assert torch.all(torch.triu(got, diagonal=1) == 0)
 
 
@@ -76,16 +78,18 @@ def test_block_linalg_kernels_match_plain(cuda, B, n):
     a_low = torch.tril(a) + torch.triu(torch.full_like(a, 1e6), diagonal=1)
     assert torch.equal(kernels.cholesky_batched(a_low), got)
     assert torch.equal(kernels.solve_pd_batched(a_low, b), kernels.solve_pd_batched(a, b))
+    l_low = l + torch.triu(torch.full_like(l, 1e6), diagonal=1)
+    assert torch.equal(kernels.cho_solve_batched(l_low, b), kernels.cho_solve_batched(l, b))
     torch.cuda.synchronize()
-    assert (LAUNCHES["cholesky_block"], LAUNCHES["cho_solve_block"], LAUNCHES["solve_pd_block"]) == (2, 1, 3)
+    assert (LAUNCHES["cholesky_block"], LAUNCHES["cho_solve_block"], LAUNCHES["solve_pd_block"]) == (2, 3, 3)
     assert LAUNCHES["cholesky"] == LAUNCHES["cho_solve"] == LAUNCHES["solve_pd"] == 0
 
 
 @pytest.mark.parametrize("n", (18, 32, 100, 192))
 def test_block_kernels_zero_pivot(cuda, n):
     """Row and column j zero: the 1e-12 clamp gives L_jj = 0 as in the plain
-    version, and the solve is non-finite where the plain version's is (the
-    warp kernels at n <= 32, the block kernels past it)."""
+    version, and both solves are non-finite where the plain versions' are
+    (the warp kernels at n <= 32, the block kernels past it)."""
     from ambersim_tpu_torch.engine import linalg
     from ambersim_tpu_torch.ops import linalg as kernels
 
@@ -103,13 +107,16 @@ def test_block_kernels_zero_pivot(cuda, n):
     assert all(got[s, j, j].item() == 0.0 for s, j in enumerate(rows))
     x = kernels.solve_pd_batched(a, b)
     assert torch.equal(torch.isfinite(x), torch.isfinite(linalg.solve_pd_unrolled(a, b)))
+    y = kernels.cho_solve_batched(got, b)
+    assert torch.equal(torch.isfinite(y), torch.isfinite(linalg.cho_solve_unrolled(got, b)))
 
 
 def test_block_kernels_two_blocks_per_sm(cuda):
-    """The tiled factor and fused solve keep two systems on every SM at n = 192."""
+    """The block kernels keep two systems on every SM at n = 192."""
     from ambersim_tpu_torch.ops import linalg as kernels
 
     assert kernels.block_occupancy("cholesky_block", 192) >= 2
+    assert kernels.block_occupancy("cho_solve_block", 192) >= 2
     assert kernels.block_occupancy("solve_pd_block", 192) >= 2
 
 

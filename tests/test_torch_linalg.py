@@ -164,6 +164,17 @@ def test_large_n_cholesky_ignores_upper_triangle(n):
     np.testing.assert_allclose(low.numpy(), full.numpy(), rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("n", (18, 192))
+def test_cho_solve_ignores_upper_triangle(n):
+    """The plain Cholesky solve, which kernel 2 is held against, reads only
+    the lower triangle of L: 1e6-scale garbage above it changes no bit."""
+    a, b = _spd(n, seed=90 + n, batch=2)
+    l = linalg.cholesky(torch.as_tensor(a))
+    garbage = 1e6 * torch.as_tensor(np.random.default_rng(n).standard_normal(a.shape).astype(np.float32))
+    bt = torch.as_tensor(b)
+    assert torch.equal(linalg.cho_solve(l + torch.triu(garbage, diagonal=1), bt), linalg.cho_solve(l, bt))
+
+
 def test_launcher_names_by_n():
     """n <= 32 is counted under the warp kernels' names, 32 < n <= 192 under
     the block kernels'; the CUDA launchers refuse CPU tensors at any n."""

@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
-"""Time the block kernels 1 and 3 (csrc/linalg_block.cu) at n = 192 on a card.
+"""Time the block kernels 1-3 (csrc/linalg_block.cu) at n = 192 on a card.
 
     python3 tools/linalg_block_probe.py [--against OTHER/linalg_block.cu]
 
 Builds the tree's linalg_block.cu (and OTHER, e.g. a parent commit's copy
 unpacked with git archive) with the port's nvcc flags into
 ambersim_tpu_torch/_build/probe/, checks each against the plain versions at
-B = 256, then prints, CUDA events (chip_smoke.cuda_ms: ten back-to-back
+B = 256, prints whether OTHER's factor and fused solve give the tree's
+bits, then prints, CUDA events (chip_smoke.cuda_ms: ten back-to-back
 calls, median of 20 runs):
 
   * tree and OTHER in turns (tree, other, other, tree) at the clutter
-    shape B = 256, beside torch.linalg.cholesky;
+    shape B = 256, beside torch.linalg.cholesky and torch.cholesky_solve;
   * each at B = 1, 132, 264, 528, 1056: B = 1 is one system's latency, and
     the step from 264 to 528 shows when the systems no longer fit at once.
 
@@ -31,6 +32,7 @@ sys.path.insert(0, str(REPO))
 from ambersim_tpu_torch.engine.forward import full_f32_matmul  # noqa: E402
 
 N = 192
+KERNELS = ("cholesky_block", "cho_solve_block", "solve_pd_block")
 
 
 def build(src: Path, name: str) -> ctypes.CDLL:
@@ -43,10 +45,12 @@ def build(src: Path, name: str) -> ctypes.CDLL:
                          capture_output=True, text=True)
     if run.returncode:
         raise RuntimeError(f"nvcc failed on {src}:\n{run.stdout}{run.stderr}")
-    print(name, "\n".join(line.strip() for line in (run.stdout + run.stderr).splitlines() if "registers" in line))
+    print(name, "\n".join(line.strip() for line in (run.stdout + run.stderr).splitlines()
+                          if "registers" in line or "spill" in line or "Compiling entry" in line))
     lib = ctypes.CDLL(str(so))
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.amb_cholesky_block.argtypes = [P, P, I, I, P]
+    lib.amb_cho_solve_block.argtypes = [P, P, P, I, I, P]
     lib.amb_solve_pd_block.argtypes = [P, P, P, I, I, P]
     return lib
 
@@ -72,34 +76,46 @@ def main() -> int:
         libs["other"] = build(args.against, "other")
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
 
-    def chol(lib, a):
-        out = torch.empty_like(a)
-        check_launch(lib.amb_cholesky_block(a.data_ptr(), out.data_ptr(), a.shape[0], N, stream()), "cholesky_block")
-        return out
-
-    def solve(lib, a, b):
-        out = torch.empty_like(b)
-        check_launch(lib.amb_solve_pd_block(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0], N, stream()),
-                     "solve_pd_block")
+    def run(lib, name, a, b, l):
+        """Kernel `name` of `lib` on the factor's input a, the solve's L l and b."""
+        B = a.shape[0]
+        if name == "cholesky_block":
+            out = torch.empty_like(a)
+            err = lib.amb_cholesky_block(a.data_ptr(), out.data_ptr(), B, N, stream())
+        else:
+            out = torch.empty_like(b)
+            m = l if name == "cho_solve_block" else a
+            err = getattr(lib, f"amb_{name}")(m.data_ptr(), b.data_ptr(), out.data_ptr(), B, N, stream())
+        check_launch(err, name)
         return out
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
     a, b = cs.random_spd(rng, cs.CLUTTER_ENVS, N, dev)
-    for name, lib in libs.items():
-        cs.max_err(chol(lib, a), plain.cholesky_unrolled(a), cs.LARGE_LINALG_TOL, cs.LARGE_LINALG_TOL, f"{name} factor")
-        cs.max_err(solve(lib, a, b), plain.solve_pd_unrolled(a, b), cs.LARGE_LINALG_TOL, cs.LARGE_LINALG_TOL,
-                   f"{name} solve")
+    l = plain.cholesky_unrolled(a)
+    want = {"cholesky_block": l, "cho_solve_block": plain.cho_solve_unrolled(l, b),
+            "solve_pd_block": plain.solve_pd_unrolled(a, b)}
+    outs = {name: {k: run(lib, k, a, b, l) for k in KERNELS} for name, lib in libs.items()}
+    for name in libs:
+        for k in KERNELS:
+            err = cs.max_err(outs[name][k], want[k], cs.LARGE_LINALG_TOL, cs.LARGE_LINALG_TOL, f"{name} {k}")
+            print(f"{name} {k}: max |kernel - plain| {err:.3e}")
+    if args.against:
+        print("other vs tree, B=256: " + ", ".join(
+            f"{k} {'bit-identical' if torch.equal(outs['other'][k], outs['tree'][k]) else 'DIFFERS'}"
+            for k in KERNELS))
     order = ("tree", "other", "other", "tree") if args.against else ("tree", "tree")
     for name in order:
-        print(f"B={cs.CLUTTER_ENVS} n={N} {name}: cholesky_block {cs.cuda_ms(lambda: chol(libs[name], a), 20):.4f} ms, "
-              f"solve_pd_block {cs.cuda_ms(lambda: solve(libs[name], a, b), 20):.4f} ms")
-    print(f"B={cs.CLUTTER_ENVS} n={N} torch.linalg.cholesky {cs.cuda_ms(lambda: torch.linalg.cholesky(a), 20):.4f} ms")
+        print(f"B={cs.CLUTTER_ENVS} n={N} {name}: " + ", ".join(
+            f"{k} {cs.cuda_ms(lambda: run(libs[name], k, a, b, l), 20):.4f} ms" for k in KERNELS), flush=True)
+    print(f"B={cs.CLUTTER_ENVS} n={N} torch.linalg.cholesky {cs.cuda_ms(lambda: torch.linalg.cholesky(a), 20):.4f} "
+          f"ms, torch.cholesky_solve {cs.cuda_ms(lambda: torch.cholesky_solve(b[..., None], l), 20):.4f} ms")
     for B in (1, 132, 264, 528, 1056):
         a, b = cs.random_spd(rng, B, N, dev)
-        print(f"B={B} n={N} " + ", ".join(
-            f"{name}: cholesky_block {cs.cuda_ms(lambda: chol(lib, a), 20):.4f} ms solve_pd_block "
-            f"{cs.cuda_ms(lambda: solve(lib, a, b), 20):.4f} ms" for name, lib in libs.items()))
+        l = plain.cholesky_unrolled(a)
+        print(f"B={B} n={N} " + "; ".join(f"{name}: " + ", ".join(
+            f"{k} {cs.cuda_ms(lambda: run(lib, k, a, b, l), 20):.4f} ms" for k in KERNELS)
+            for name, lib in libs.items()), flush=True)
     return 0
 
 

@@ -9,16 +9,20 @@ at n <= 32 (csrc/linalg.cu), which share their factor (csrc/linalg.cuh).
 Builds those four sources of the tree (and of each OTHER, e.g. a parent
 commit's ambersim_tpu_torch/csrc unpacked with git archive) with the
 port's nvcc flags into ambersim_tpu_torch/_build/probe/, prints ptxas's
-registers and spills, checks each build against the plain versions, then
-prints, CUDA events (chip_smoke.cuda_ms: ten back-to-back calls, median of
-20 runs), the others and the tree in turns (other, tree, tree, other; with
+registers and spills, checks each build against the plain versions and
+prints whether each other build gives the tree's bits (kernels 1 and 3-6;
+kernel 2 too, where its code is the same), then prints, CUDA events
+(chip_smoke.cuda_ms: ten back-to-back calls, median of 20 runs), the
+others and the tree in turns (other, tree, tree, other; with
 several others, other1 .. otherN, tree, tree, otherN .. other1):
 
   * kernel 4 on the quadruped's pre-solve operands at B = 4096 and the
     humanoid's at B = 1024 (chip_smoke.py's), and on one env of each
     (B = 1: one env's latency);
   * kernels 1, 2 and 3 at B = 4096, n = 18 (the main path's shapes) and
-    kernel 1 at B = 1;
+    kernel 1 at B = 1, and at the other shapes the paths launch them at:
+    the humanoid's B = 1024, n = 25, the pendulum's B = 512, n = 1 and
+    cartpole's and arm3's B = 1024, n = 2 and 3 (the launch floor);
   * kernel 5 on the operands of arm3 and cartpole after 100 steps and of
     the humanoid (the JAX package's route for it), each at B = 1024, and
     kernel 6 on the elliptic quadruped's at B = 4096
@@ -172,6 +176,16 @@ def main() -> int:
                      "solve_pd")
         return out
 
+    def identical(what, outs):
+        """Print whether each other build's outputs (name -> tensor or
+        tuple) are the tree's bit for bit."""
+        def flat(x):
+            return x if isinstance(x, tuple) else (x,)
+
+        for lname in others:
+            same = all(torch.equal(g, t) for g, t in zip(flat(outs[lname]), flat(outs["tree"])))
+            print(f"{what}: {lname} {'bit-identical to the tree' if same else 'DIFFERS from the tree'}", flush=True)
+
     def outputs(pa):
         return torch.empty_like(pa["a_s"]), torch.empty_like(pa["aref"]), torch.empty_like(pa["a_s"])
 
@@ -219,26 +233,31 @@ def main() -> int:
         want = _newton_arrays(**pa, ne=st.nd_eq, nf=st.nfd + st.nd_ft, **kw)
         for lname, lib in libs.items():
             cs.newton_err(structured(lib, c), want, f"{lname} newton_structured {name} B={B}")
+        identical(f"newton_structured {name} B={B}", {lname: structured(lib, c) for lname, lib in libs.items()})
         one = first(c, 1)
         for lname in order:
             ms = cs.cuda_ms(lambda: structured(libs[lname], c), 20)
             print(f"newton_structured {name} B={B} {lname}: {ms:.4f} ms;"
                   f" B=1 {cs.cuda_ms(lambda: structured(libs[lname], one), 20):.4f} ms", flush=True)
     rng = np.random.default_rng(0)
-    a, b = cs.random_spd(rng, cs.NUM_ENVS, 18, dev)
-    l = plain.cholesky_unrolled(a)
     tol = (cs.LINALG_TOL, cs.LINALG_TOL)
-    for lname, lib in libs.items():
-        cs.max_err(chol(lib, a), l, *tol, f"{lname} cholesky")
-        cs.max_err(cho_solve(lib, l, b), plain.cho_solve_unrolled(l, b), *tol, f"{lname} cho_solve")
-        cs.max_err(solve_pd(lib, a, b), plain.solve_pd_unrolled(a, b), *tol, f"{lname} solve_pd")
-    a1 = a[:1].contiguous()
-    for lname in order:
-        lib = libs[lname]
-        print(f"B={cs.NUM_ENVS} n=18 {lname}: cholesky {cs.cuda_ms(lambda: chol(lib, a), 20):.4f} ms "
-              f"(B=1 {cs.cuda_ms(lambda: chol(lib, a1), 20):.4f}), cho_solve "
-              f"{cs.cuda_ms(lambda: cho_solve(lib, l, b), 20):.4f} ms, solve_pd "
-              f"{cs.cuda_ms(lambda: solve_pd(lib, a, b), 20):.4f} ms", flush=True)
+    for B, n in ((cs.NUM_ENVS, 18), (1024, 25), (512, 1), (1024, 2), (1024, 3)):
+        a, b = cs.random_spd(rng, B, n, dev)
+        l = plain.cholesky_unrolled(a)
+        for lname, lib in libs.items():
+            cs.max_err(chol(lib, a), l, *tol, f"{lname} cholesky n={n}")
+            cs.max_err(cho_solve(lib, l, b), plain.cho_solve_unrolled(l, b), *tol, f"{lname} cho_solve n={n}")
+            cs.max_err(solve_pd(lib, a, b), plain.solve_pd_unrolled(a, b), *tol, f"{lname} solve_pd n={n}")
+        for what, fn in (("cholesky", lambda lib: chol(lib, a)), ("cho_solve", lambda lib: cho_solve(lib, l, b)),
+                         ("solve_pd", lambda lib: solve_pd(lib, a, b))):
+            identical(f"{what} B={B} n={n}", {lname: fn(lib) for lname, lib in libs.items()})
+        a1 = a[:1].contiguous()
+        for lname in order:
+            lib = libs[lname]
+            print(f"B={B} n={n} {lname}: cholesky {cs.cuda_ms(lambda: chol(lib, a), 20):.4f} ms "
+                  f"(B=1 {cs.cuda_ms(lambda: chol(lib, a1), 20):.4f}), cho_solve "
+                  f"{cs.cuda_ms(lambda: cho_solve(lib, l, b), 20):.4f} ms, solve_pd "
+                  f"{cs.cuda_ms(lambda: solve_pd(lib, a, b), 20):.4f} ms", flush=True)
 
     # kernel 5 (chip_smoke.check_newton_dense's operands) and kernel 6
     # (check_newton_elliptic's), each build against the plain version
@@ -250,6 +269,7 @@ def main() -> int:
         kw = dict(iterations=int(m.opt.iterations), ls_iterations=int(m.opt.ls_iterations), use_ws=True)
         for lname, lib in libs.items():
             cs.newton_err(dense(lib, pa, kw), _newton_arrays(**pa, **kw), f"{lname} newton_dense {name} B=1024")
+        identical(f"newton_dense {name} B=1024", {lname: dense(lib, pa, kw) for lname, lib in libs.items()})
         k56.append((f"newton_dense {name} B=1024", dense, pa, kw))
         if name == "arm3":
             clock_cases.append(("newton_dense", "arm3", dense, clocked.amb_newton_dense_phase_clocks, pa, kw))
@@ -265,6 +285,8 @@ def main() -> int:
         rel, _ = cs.env_rel_err(launch_elliptic(lib, pa, kw), want, f"{lname} newton_elliptic")
         print(f"{lname} newton_elliptic quadruped B={cs.NUM_ENVS}: env-relative |kernel - plain| median "
               f"{rel.median().item():.3e}, max {rel.max().item():.3e}")
+    identical(f"newton_elliptic quadruped B={cs.NUM_ENVS}",
+              {lname: launch_elliptic(lib, pa, kw) for lname, lib in libs.items()})
     k56.append((f"newton_elliptic quadruped B={cs.NUM_ENVS}", launch_elliptic, pa, kw))
     clock_cases.append(("newton_elliptic", "elliptic quadruped", launch_elliptic,
                         clocked.amb_newton_elliptic_phase_clocks, pa, kw))
