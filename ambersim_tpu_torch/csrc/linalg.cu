@@ -12,13 +12,14 @@
 //
 // Design: one warp per system, four systems per 128-thread block, no
 // block barrier. Kernels 1 and 3 load the system with coalesced copies
-// (16-byte vectors when the rows allow) into a per-warp staging buffer,
-// hand lane i row i in registers and factor there (amb::warp_factor in
-// csrc/linalg.cuh: one shuffle and one FMA per trailing column and pivot,
-// no shared-memory round trip on the chain), writing L's columns into the
-// buffer as they are made: kernel 1 copies it out; kernel 3 lays it at an
-// odd leading dimension, carries the forward sweep inside the factor and
-// sweeps back (amb::warp_back_solve).
+// (16-byte vectors when the rows allow; kernel 3, like kernel 2, an
+// aligned window around each system when they do not) into a per-warp
+// staging buffer, hand lane i row i in registers and factor there
+// (amb::warp_factor in csrc/linalg.cuh: one shuffle and one FMA per
+// trailing column and pivot, no shared-memory round trip on the chain),
+// writing L's columns into the buffer as they are made: kernel 1 copies it
+// out; kernel 3 lays it at an odd leading dimension, carries the forward
+// sweep inside the factor and sweeps back (amb::warp_back_solve).
 // Kernel 2 copies the system by 16-byte loads whatever n (kernel 1's copy
 // when the systems start 16-byte aligned, else an aligned window around
 // each), and lane i takes 1/L_ii once. Its two sweeps are the
@@ -153,16 +154,23 @@ __global__ void __launch_bounds__(kWarps * 32, 8) cho_solve_kernel(const float* 
   if (lane < n) x[(size_t)sys * n + lane] = y;
 }
 
-__global__ void __launch_bounds__(kWarps * 32) solve_pd_kernel(const float* __restrict__ A,
-                                                               const float* __restrict__ b,
-                                                               float* __restrict__ x, int B, int n) {
+// Solve A x = b for SPD A: kernel 1's factor with the forward sweep riding
+// along, then the backward sweep. kWindow as in cho_solve_kernel.
+template <bool kWindow>
+__global__ void __launch_bounds__(kWarps * 32, 8) solve_pd_kernel(const float* __restrict__ A,
+                                                                  const float* __restrict__ b,
+                                                                  float* __restrict__ x, int B, int n) {
   extern __shared__ float4 smem4[];
   const int ld = n | 1;
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int sys = blockIdx.x * kWarps + w;
   if (sys >= B) return;
   float* a = reinterpret_cast<float*>(smem4) + w * warp_floats(n);
-  warp_copy(a, A + (size_t)sys * n * n, n * n);
+  if constexpr (kWindow) {
+    warp_copy_window(a, A + (size_t)sys * n * n, n * n);
+  } else {
+    warp_copy(a, A + (size_t)sys * n * n, n * n);
+  }
   float r[amb::kMaxN];
   amb::load_rows(r, a, n, n);
   float y = lane < n ? b[(size_t)sys * n + lane] : 0.f;
@@ -170,6 +178,11 @@ __global__ void __launch_bounds__(kWarps * 32) solve_pd_kernel(const float* __re
   __syncwarp();
   const float xi = amb::warp_back_solve(a, y, n, ld);
   if (lane < n) x[(size_t)sys * n + lane] = xi;
+}
+
+// Whether every system of a (B, n, n) batch at p starts 16-byte aligned.
+inline bool aligned_systems(const float* p, int n) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && (n * n) % 4 == 0;
 }
 
 inline dim3 grid_for(int B) { return dim3((B + kWarps - 1) / kWarps); }
@@ -188,7 +201,7 @@ int amb_cholesky(const float* A, float* L, int B, int n, void* stream) {
 }
 
 int amb_cho_solve(const float* L, const float* b, float* x, int B, int n, void* stream) {
-  if ((reinterpret_cast<uintptr_t>(L) & 15) == 0 && (n * n) % 4 == 0) {
+  if (aligned_systems(L, n)) {
     cho_solve_kernel<false><<<grid_for(B), kWarps * 32, smem_for(n), (cudaStream_t)stream>>>(L, b, x, B, n);
   } else {
     cho_solve_kernel<true><<<grid_for(B), kWarps * 32, smem_for(n), (cudaStream_t)stream>>>(L, b, x, B, n);
@@ -197,7 +210,11 @@ int amb_cho_solve(const float* L, const float* b, float* x, int B, int n, void* 
 }
 
 int amb_solve_pd(const float* A, const float* b, float* x, int B, int n, void* stream) {
-  solve_pd_kernel<<<grid_for(B), kWarps * 32, smem_for(n), (cudaStream_t)stream>>>(A, b, x, B, n);
+  if (aligned_systems(A, n)) {
+    solve_pd_kernel<false><<<grid_for(B), kWarps * 32, smem_for(n), (cudaStream_t)stream>>>(A, b, x, B, n);
+  } else {
+    solve_pd_kernel<true><<<grid_for(B), kWarps * 32, smem_for(n), (cudaStream_t)stream>>>(A, b, x, B, n);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -197,12 +197,13 @@ PPO_PENDULUM = dict(
 # least half their mean.
 JAX_PENDULUM_GAINS = (482.879, 217.651, 227.194)
 
-# kernels whose ptxas report must show no spill: kernels 1 and 2 at n <= 32,
-# which hold a row of L in registers, and the Newton kernels 4-6, whose
-# factor holds the Hessian's rows in registers (kernels 5 and 6 in one
-# instantiation per register tier).
-SPILL_FREE = ("cholesky_kernel", "cho_solve_kernel", "newton_structured_kernel", "newton_dense_kernel",
-              "newton_elliptic_kernel")
+# kernels whose ptxas report must show no spill: kernels 1-3 at n <= 32,
+# which hold a row of A or L in registers (kernels 2 and 3 in one
+# instantiation per copy), and the Newton kernels 4-6, whose factor holds
+# the Hessian's rows in registers (kernels 5 and 6 in one instantiation per
+# register tier).
+SPILL_FREE = ("cholesky_kernel", "cho_solve_kernel", "solve_pd_kernel", "newton_structured_kernel",
+              "newton_dense_kernel", "newton_elliptic_kernel")
 # kernel name -> (CUDA source, the TPU kernel it replaces)
 KERNELS = {
     "cholesky": ("linalg.cu", "ambersim_tpu/ops/linalg_pallas.py:319"),
@@ -688,14 +689,15 @@ def check_selection_exact(device, row_cap: bool) -> None:
 
 def check_linalg(device, results):
     """Kernels 1-3 against their plain versions: the warp kernels at every
-    n <= 32, the block kernels at LARGE_NS on the clutter width and at
-    LARGE_BATCH systems of n = 192; each leaves the upper triangle unread
-    and L zero above the diagonal. A zero pivot (ZERO_PIVOT_ROWS) as the
-    plain version treats it, and at least two resident blocks per SM for
-    each block kernel at n = 192. Times (and the library calls':
-    torch.linalg.cholesky_ex, which checks nothing on the host,
-    torch.cholesky_solve) at the main path's (4096, 18) and the clutter
-    path's (256, 192)."""
+    n <= 32 (kernel 3 also on systems at storage offset 1, which take its
+    window copy, with the aligned copy's bits), the block kernels at
+    LARGE_NS on the clutter width and at LARGE_BATCH systems of n = 192;
+    each leaves the upper triangle unread and L zero above the diagonal.
+    A zero pivot (ZERO_PIVOT_ROWS) as the plain version treats it, and at
+    least two resident blocks per SM for each block kernel at n = 192.
+    Times (and the library calls': torch.linalg.cholesky_ex, which checks
+    nothing on the host, torch.cholesky_solve) at the main path's (4096, 18)
+    and the clutter path's (256, 192)."""
     import numpy as np
     import torch
 
@@ -740,6 +742,12 @@ def check_linalg(device, results):
                 f"upper triangle cho_solve n={n}")
         if torch.triu(l_got, diagonal=1).abs().max().item() != 0.0:
             fail(f"cholesky n={n}: nonzero above the diagonal")
+        if n <= kernels.MAX_N_WARP:  # systems that do not start 16-byte aligned: kernel 3's window copy
+            a_off = torch.empty(a.numel() + 1, device=device)[1:].view_as(a).copy_(a)
+            x_off = kernels.solve_pd_batched(a_off, b)
+            errs["solve_pd"] = max(errs["solve_pd"], max_err(x_off, plain.solve_pd_unrolled(a_off, b), tol, tol,
+                                                             f"solve_pd at storage offset 1 n={n}"))
+            max_err(x_off, kernels.solve_pd_batched(a, b), 0.0, 0.0, f"solve_pd at storage offset 1 vs aligned n={n}")
     # a zero pivot: the factor matches the plain version (L_jj = 0 exactly),
     # and the solve is non-finite exactly where the plain version's is
     for n in (18, kernels.MAX_N_WARP, 100, kernels.MAX_N):

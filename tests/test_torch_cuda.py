@@ -52,6 +52,25 @@ def test_linalg_kernels_match_plain(cuda, n):
     assert torch.all(torch.triu(got, diagonal=1) == 0)
 
 
+@pytest.mark.parametrize("n", (3, 18, 25))
+def test_solve_pd_kernel_at_storage_offset_one(cuda, n):
+    """Kernel 3 on systems that do not start 16-byte aligned (a contiguous
+    batch at storage offset 1: its window copy) against the plain version,
+    with the bits of the same systems stored aligned."""
+    from ambersim_tpu_torch.engine import linalg
+    from ambersim_tpu_torch.ops import linalg as kernels
+
+    rng = np.random.default_rng(60 + n)
+    g = rng.standard_normal((257, n, n)).astype(np.float32)
+    a = torch.as_tensor(g @ np.swapaxes(g, -1, -2) + n * np.eye(n, dtype=np.float32), device=cuda)
+    b = torch.as_tensor(rng.standard_normal((257, n)).astype(np.float32), device=cuda)
+    a_off = torch.empty(a.numel() + 1, device=cuda)[1:].view_as(a).copy_(a)
+    assert a_off.is_contiguous() and a_off.data_ptr() % 16 == 4
+    got = kernels.solve_pd_batched(a_off, b)
+    torch.testing.assert_close(got, linalg.solve_pd_unrolled(a_off, b), rtol=LINALG_TOL, atol=LINALG_TOL)
+    assert torch.equal(got, kernels.solve_pd_batched(a, b))
+
+
 # n = 100 and 191 are not multiples of the 16-wide tiles; 1000 systems are
 # more than fit on the card at once (two blocks an SM)
 @pytest.mark.parametrize("B, n", [(37, 33), (37, 64), (37, 65), (37, 100), (37, 128), (37, 191), (37, 192),
@@ -249,9 +268,10 @@ def test_structured_newton_kernel_nv_sweep(cuda, nv, use_ws):
 
 
 def test_redesigned_kernels_do_not_spill(cuda):
-    """ptxas reports no spill for kernel 1 (n <= 32) and kernels 4-6, which
-    hold the factor's rows in registers (chip_smoke.SPILL_FREE; every
-    register tier of kernels 5 and 6)."""
+    """ptxas reports no spill for kernels 1-3 (n <= 32) and kernels 4-6,
+    which hold a row of a system in registers (chip_smoke.SPILL_FREE; each
+    copy's instantiation of kernels 2 and 3, every register tier of
+    kernels 5 and 6)."""
     from chip_smoke import SPILL_FREE
 
     from ambersim_tpu_torch.ops import _build

@@ -1,7 +1,9 @@
 """Plain versions of kernels 1-3 (engine/linalg.py of the PyTorch port)
 against the JAX package's unrolled jnp path (engine/linalg.py) and its
 Pallas kernel bodies (_chol_columns/_solve_from_l, batch-last), for
-n in {1, 7, 18, 25} and B=5 at rtol/atol 1e-5; and the dispatch by device.
+n in {1, 7, 18, 25} and B=5 at rtol/atol 1e-5; the fused solve against
+_chol_columns + _solve_from_l, zero pivots included, at n in
+{1, 2, 3, 18, 25, 32}; and the dispatch by device.
 
 Past n = 32 (the block-per-system kernels): n in {33, 65, 128, 192} against
 the JAX package's own CPU path at those sizes (the unrolled sweep at
@@ -76,6 +78,27 @@ def test_solve_pd_matches_jax(n):
     want = jax_linalg.cho_solve_unrolled(jax_linalg.cholesky_unrolled(jnp.asarray(a)), jnp.asarray(b))
     np.testing.assert_allclose(got, np.asarray(want), rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(got, np.linalg.solve(a.astype(np.float64), b[..., None])[..., 0], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", (1, 2, 3, 18, 25, 32))
+def test_solve_pd_matches_pallas_body(n):
+    """The plain fused solve, which kernel 3 is held to on the card, against
+    the TPU body it replaces (_solve_pd_kernel at n <= 64: the rsqrt-pivot
+    _chol_columns, then _solve_from_l's multiply-only sweeps); with a zero
+    row and column (j = 0 and n // 2), both are non-finite in the same
+    entries."""
+    a, b = _spd(n, seed=60 + n)
+    x_k = _solve_from_l(_chol_columns(_batch_last(a), n), _batch_last(b), n)
+    got = linalg.solve_pd(torch.as_tensor(a), torch.as_tensor(b)).numpy()
+    np.testing.assert_allclose(got, _batch_first(x_k), rtol=RTOL, atol=ATOL)
+    for j in sorted({0, n // 2}):
+        z = a.copy()
+        z[:, j, :] = 0.0
+        z[:, :, j] = 0.0
+        x_k = _batch_first(_solve_from_l(_chol_columns(_batch_last(z), n), _batch_last(b), n))
+        got = linalg.solve_pd(torch.as_tensor(z), torch.as_tensor(b)).numpy()
+        assert not np.isfinite(got).all(), f"zero row {j}: the plain solve stayed finite"
+        np.testing.assert_array_equal(np.isfinite(got), np.isfinite(x_k), err_msg=f"zero row {j}")
 
 
 def test_cholesky_ignores_upper_triangle():

@@ -37,6 +37,16 @@ float32's and float64's.
 chip_smoke.NEWTON_F64_SLACK rests on these numbers (the largest shortfall
 of an order below plain's share). Imports nothing of JAX; runs on the CPU
 or, faster, on a card (--device cuda).
+
+    python3 tools/newton_share.py --paths 96 98 100 102 104
+
+prints instead, on a card, kernel 5's shares on its paths' own operands
+(chip_smoke.check_newton_dense's: arm3 and cartpole, 1024 envs from their
+paths' starts, taken after each given number of steps), rolled out on the
+card (the kernels) and on the CPU (the plain versions): the kernel within
+NEWTON_TOL of plain float32, plain float32 of float64 and the kernel of
+float64. They show how far the share between two float32 solves moves with
+the rounding of the rollout that reached the operands.
 """
 
 from __future__ import annotations
@@ -357,6 +367,41 @@ def reordered_elliptic(pa: dict, rng, kw: dict):
     return qacc[:, torch.argsort(d)], force[:, torch.argsort(r)], qfrc[:, torch.argsort(d)]
 
 
+def dense_path_shares(steps: list) -> int:
+    """Kernel 5's shares on arm3's and cartpole's operands after each of
+    `steps` steps, rolled out on the card and on the CPU."""
+    import torch
+
+    import chip_smoke as cs
+    from ambersim_tpu_torch import load_model
+    from ambersim_tpu_torch.engine import rollout
+    from ambersim_tpu_torch.engine.forward import full_f32_matmul
+    from ambersim_tpu_torch.engine.solver import _newton_arrays
+    from ambersim_tpu_torch.ops.newton import newton_solve_dense
+
+    dev = torch.device("cuda", 0)
+    with full_f32_matmul():
+        for name in ("arm3", "cartpole"):
+            m = load_model(name, device=dev)
+            kw = dict(iterations=int(m.opt.iterations), ls_iterations=int(m.opt.ls_iterations), use_ws=True)
+            for where in (dev, torch.device("cpu")):
+                mr = m if where == dev else load_model(name, device=where)
+                start = cs.PATHS[name]["start"](mr, 1024, where)
+                for n in steps:
+                    d = cs.pre_solve(m, rollout(mr, start, n).to(dev))
+                    pa = dict(cs.solver_operands(m, d, seed=4), ne=int(m.skel.ne), nf=int(m.skel.nf))
+                    got = newton_solve_dense(*(pa[k] for k in ("J", "qM", "aref", "D", "fl", "act", "a_s", "ws",
+                                                                "tol")), ne=pa["ne"], nf=pa["nf"], **kw)
+                    plain = _newton_arrays(**pa, **kw)
+                    exact = _newton_arrays(**cs.as_dtype(pa, torch.float64), **kw)
+                    k_p, p_e, k_e = (cs.newton_within(a, b).double().mean().item()
+                                     for a, b in ((got, plain), (plain, exact), (got, exact)))
+                    print(f"kernel 5 {name}, rolled out {n} steps on {where.type}: share of envs within "
+                          f"{cs.NEWTON_TOL}: kernel-plain {k_p:.4f}, plain-f64 {p_e:.4f}, kernel-f64 {k_e:.4f}",
+                          flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernel", type=int, nargs="+", default=[4, 5, 6], choices=(4, 5, 6))
@@ -365,7 +410,11 @@ def main() -> int:
                     "sweep (3) and tests/test_torch_cuda.py's (80)")
     ap.add_argument("--envs", type=int, default=4096)
     ap.add_argument("--device", default="cpu")
+    ap.add_argument("--paths", type=int, nargs="+", default=[], help="kernel 5 on its paths' operands after these "
+                    "numbers of steps, on a card")
     args = ap.parse_args()
+    if args.paths:
+        return dense_path_shares(args.paths)
 
     import numpy as np
     import torch
