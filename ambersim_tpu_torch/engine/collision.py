@@ -1,5 +1,6 @@
-"""Batched collision: the plane against sphere, capsule and box, and
-sphere-sphere, sphere-box and box-box (SAT, engine/convex.py). Port of
+"""Batched collision: the plane against sphere, capsule and box,
+sphere-sphere, sphere-capsule, sphere-box, capsule-capsule, capsule-box and
+box-box (SAT, engine/convex.py). Port of
 ambersim_tpu/engine/collision.py (_make_frame, these narrowphases,
 _mix_params and `collision` with its broadphase-capped groups and global
 row cap).
@@ -110,6 +111,39 @@ def sphere_sphere(xp1, xm1, s1, xp2, xm2, s2):
     return dist[..., None], pos[..., None, :], _make_frame(n)[..., None, :, :]
 
 
+def _closest_on_segment(p, a, axis, hl):
+    t = torch.clamp(((p - a) * axis).sum(-1), -hl, hl)
+    return a + t[..., None] * axis
+
+
+def sphere_capsule(xp1, xm1, s1, xp2, xm2, s2):
+    c = _closest_on_segment(xp1, xp2, xm2[..., :, 2], s2[..., 1])
+    dist, pos, n = _sphere_sphere_raw(xp1, s1[..., 0], c, s2[..., 0])
+    return dist[..., None], pos[..., None, :], _make_frame(n)[..., None, :, :]
+
+
+def capsule_capsule(xp1, xm1, s1, xp2, xm2, s2):
+    """Closest points of the two segments by a clamped solve, then the two
+    spheres there. Near-parallel segments (|1 - (a1.a2)^2| <= 1e-9) start
+    from u = 0, and their branch divides by 1, so neither branch of the
+    select makes an inf or a NaN."""
+    a1, a2 = xm1[..., :, 2], xm2[..., :, 2]
+    hl1, hl2 = s1[..., 1], s2[..., 1]
+    d12 = (a1 * a2).sum(-1)
+    r = xp2 - xp1
+    s_, t_ = (r * a1).sum(-1), (r * a2).sum(-1)
+    denom = 1.0 - d12 * d12
+    ok = denom.abs() > 1e-9
+    u = torch.where(ok, (s_ - d12 * t_) / torch.where(ok, denom, 1.0), 0.0)
+    u = torch.clamp(u, -hl1, hl1)
+    v = torch.clamp(u * d12 - t_, -hl2, hl2)
+    u = torch.clamp(v * d12 + s_, -hl1, hl1)
+    p1 = xp1 + u[..., None] * a1
+    p2 = xp2 + v[..., None] * a2
+    dist, pos, n = _sphere_sphere_raw(p1, s1[..., 0], p2, s2[..., 0])
+    return dist[..., None], pos[..., None, :], _make_frame(n)[..., None, :, :]
+
+
 def _sphere_box_raw(center, r, xp2, xm2, s2):
     local = (xm2 * (center - xp2)[..., :, None]).sum(-2)  # sphere center in the box frame
     inside = (local.abs() < s2).all(-1)
@@ -131,6 +165,23 @@ def sphere_box(xp1, xm1, s1, xp2, xm2, s2):
     return dist[..., None], pos[..., None, :], _make_frame(n)[..., None, :, :]
 
 
+def capsule_box(xp1, xm1, s1, xp2, xm2, s2):
+    """Three contacts, in this slot order: sphere-box at the capsule's +axis
+    and -axis endpoints, then at the segment point nearest the box (8 fixed
+    rounds of alternating projection between segment and box)."""
+    r, hl = s1[..., 0], s1[..., 1]
+    axis = xm1[..., :, 2]
+    e1 = xp1 + hl[..., None] * axis
+    e2 = xp1 - hl[..., None] * axis
+    pseg = xp1
+    for _ in range(8):
+        local = (xm2 * (pseg - xp2)[..., :, None]).sum(-2)
+        q = xp2 + (xm2 * torch.clamp(local, -s2, s2)[..., None, :]).sum(-1)
+        pseg = _closest_on_segment(q, xp1, axis, hl)
+    dists, poss, ns = zip(*(_sphere_box_raw(c, r, xp2, xm2, s2) for c in (e1, e2, pseg)))
+    return torch.stack(dists, dim=-1), torch.stack(poss, dim=-2), _make_frame(torch.stack(ns, dim=-2))
+
+
 def box_box(xp1, xm1, s1, xp2, xm2, s2):
     """Exact SAT box-box with a clipped 8-point manifold (engine/convex.py)."""
     dist, pos, n = convex.hull_hull(convex.box_hull(xp1, xm1, s1), convex.box_hull(xp2, xm2, s2), 8)
@@ -143,7 +194,10 @@ _NARROWPHASE = {
     (int(GeomType.PLANE), int(GeomType.CAPSULE)): (plane_capsule, 2),
     (int(GeomType.PLANE), int(GeomType.BOX)): (plane_box, 4),
     (int(GeomType.SPHERE), int(GeomType.SPHERE)): (sphere_sphere, 1),
+    (int(GeomType.SPHERE), int(GeomType.CAPSULE)): (sphere_capsule, 1),
     (int(GeomType.SPHERE), int(GeomType.BOX)): (sphere_box, 1),
+    (int(GeomType.CAPSULE), int(GeomType.CAPSULE)): (capsule_capsule, 1),
+    (int(GeomType.CAPSULE), int(GeomType.BOX)): (capsule_box, 3),
     (int(GeomType.BOX), int(GeomType.BOX)): (box_box, 8),
 }
 

@@ -1,5 +1,6 @@
-"""Constraint assembly for the ported slice: dof friction, scalar joint
-limits, frictionless condim-1 contacts and condim-3 contacts (pyramidal or
+"""Constraint assembly for the ported slice: joint equality couplings, dof
+friction, scalar joint limits, frictionless condim-1 contacts and condim-3
+contacts (pyramidal or
 elliptic cones) -> batch-first efc rows (J, D, aref, pos, active) plus the
 factored operands efc_bJ/efc_dsc of the structured Newton kernel. Port of
 ambersim_tpu/engine/constraint.py (`_impedance`, `_kbi`, `PyramidStructure`,
@@ -16,6 +17,9 @@ Conventions (MuJoCo, parity-tested by the JAX package):
   * elliptic rows J = [Jn, Jt1, Jt2], D_n on diagApprox = invweight,
     D_f = D_n impratio (mu_f/mu0)^2, friction rows without a position term
   * limits: one row per limited joint, J = +1 near the lower bound, -1 near the upper
+  * joint equality: pos = (q1 - q1_0) - poly(q2 - q2_0) with the polycoef
+    quartic, J = e_dof1 - poly'(q2 - q2_0) e_dof2, diagApprox = the two
+    dofs' invweight (joint 1 alone when joint2 is absent)
 Every row exists every step; efc_active gates it.
 """
 
@@ -270,6 +274,33 @@ def make_constraint(m: Model, d: Data) -> Data:
     efc_fl = d.qpos.new_zeros((B, nefc))
     efc_active = torch.zeros((B, nefc), dtype=torch.bool, device=dev)
     row = 0
+
+    # -------- equality: joint couplings, the first rows --------
+    if s.neq:
+        neq = int(s.neq)
+        j1, j2 = np.asarray(s.eq_obj1id), np.asarray(s.eq_obj2id)
+        two = j2 >= 0
+        e2 = np.nonzero(two)[0]  # the rows coupling two joints
+        j2 = np.where(two, j2, j1)  # a one-joint row reads its own joint; `two` drops that term
+        qa1, da1 = ix(s.jnt_qposadr[j1]), ix(s.jnt_dofadr[j1])
+        qa2, da2 = ix(s.jnt_qposadr[j2]), ix(s.jnt_dofadr[j2])
+        two_t, rows, eqs = ix(two), ix(np.arange(row, row + neq)), ix(np.arange(neq))
+        c = m.eq_data[:, :5]
+        z = d.qpos[:, qa2] - m.qpos0[qa2]
+        poly = c[:, 0] + z * (c[:, 1] + z * (c[:, 2] + z * (c[:, 3] + z * c[:, 4])))
+        dpoly = c[:, 1] + z * (2 * c[:, 2] + z * (3 * c[:, 3] + z * 4 * c[:, 4]))
+        pos = (d.qpos[:, qa1] - m.qpos0[qa1]) - torch.where(two_t, poly, c[:, 0])
+        J_eq = d.qpos.new_zeros((B, neq, nv))
+        J_eq[:, eqs, da1] = 1.0
+        J_eq[:, ix(e2), ix(s.jnt_dofadr[j2[e2]])] = -dpoly[:, ix(e2)]
+        diag = m.dof_invweight0[da1] + torch.where(two_t, m.dof_invweight0[da2], 0.0)
+        k, b, imp = _kbi(m, m.eq_solref, m.eq_solimp, pos)
+        efc_J[:, rows] = J_eq
+        efc_pos[:, rows] = pos
+        efc_aref[:, rows] = -b * (J_eq * d.qvel[:, None, :]).sum(-1) - k * imp * pos
+        efc_D[:, rows] = imp / torch.clamp((1 - imp) * diag, min=_MINVAL)
+        efc_active[:, rows] = ix(np.asarray(s.eq_active0, bool)) & (not (m.opt.disableflags & DisableBit.EQUALITY))
+        row += neq
 
     # -------- friction loss: dof rows --------
     nfd = len(s.friction_dofid)

@@ -33,6 +33,7 @@ from ambersim_tpu_torch.core.types import (
     Data,
     DynType,
     EnableBit,
+    EqType,
     GainType,
     GeomType,
     IntegratorType,
@@ -52,7 +53,10 @@ _PAIRS = {
     (int(GeomType.PLANE), int(GeomType.CAPSULE)),
     (int(GeomType.PLANE), int(GeomType.BOX)),
     (int(GeomType.SPHERE), int(GeomType.SPHERE)),
+    (int(GeomType.SPHERE), int(GeomType.CAPSULE)),
     (int(GeomType.SPHERE), int(GeomType.BOX)),
+    (int(GeomType.CAPSULE), int(GeomType.CAPSULE)),
+    (int(GeomType.CAPSULE), int(GeomType.BOX)),
     (int(GeomType.BOX), int(GeomType.BOX)),
 }
 
@@ -156,7 +160,6 @@ def check_slice(m: Model) -> None:
     for n, feature in (
         ("ntendon", "tendons"),
         ("nsensor", "sensors"),
-        ("neq", "equality constraints"),
         ("nmocap", "mocap bodies"),
         ("na", "actuator activations (na > 0)"),
         ("ncam", "cameras (camlight)"),
@@ -164,6 +167,8 @@ def check_slice(m: Model) -> None:
     ):
         if getattr(s, n):
             missing.append(feature)
+    for t in sorted(set(np.asarray(s.eq_type).tolist()) - {int(EqType.JOINT)}):
+        missing.append(f"{EqType(t).name.lower()} equality constraints")
     if getattr(s, "has_fluid", False):
         missing.append("fluid forces")
     if getattr(s, "has_gravcomp", False):

@@ -1,6 +1,6 @@
 """RL environment layer and the PPO trainer of the PyTorch port (port of
-ambersim_tpu/rl: env base, wrappers, registry, the pendulum and quadruped
-tasks, PPO). The trainers share the (make_policy, params, metrics) /
+ambersim_tpu/rl: env base, wrappers, registry, the pendulum, quadruped and
+humanoid balance tasks, PPO). The trainers share the (make_policy, params, metrics) /
 progress_fn contract of the JAX package.
 """
 
@@ -26,10 +26,9 @@ def _register_packaged() -> None:
         )
 
     def _humanoid_balance(**kwargs):
-        raise NotImplementedError(
-            "humanoid_balance is not ported: ambersim_tpu/rl/humanoid/balance.py has no counterpart "
-            "in the port yet (the humanoid model itself already steps in the port)"
-        )
+        from ambersim_tpu_torch.rl.humanoid import HumanoidBalanceEnv
+
+        return HumanoidBalanceEnv(**kwargs)
 
     register_environment("pendulum_swingup", _pendulum)
     register_environment("quadruped_locomotion", _quadruped)

@@ -22,11 +22,20 @@ the card, and steps every ported path through the port's entry points:
   * PPO training of the 4096-env quadruped locomotion policy, one training
     step at bench.py:142-177's settings, through kernels 1-4;
   * PPO on the pendulum swingup at examples/rl/pendulum/ex_agents.py's
-    settings, which must learn.
+    settings, which must learn;
+  * BASELINE.md:13's predictive-sampling workload on the Barrett-class
+    hand (100 samples x 10 knots, Newton 1 x 4 iterations, contacts
+    disabled), its four joint equality rows through kernel 4, then MPC on
+    it (run_mpc, and run_mpc_batch over 8 initial states);
+  * the hand with contacts on, 1024 envs x 100 steps under a closing ctrl,
+    so its capsule, sphere and box geoms meet;
+  * PPO on humanoid_balance at benchmarks/ladder.py:194-219's settings,
+    one training step.
 
 For each path it checks that every step went through the path's kernels
 and compares 8 envs of the rollout on the card with the same rollout on the
-CPU (plain versions), and the quadruped env's obs and reward likewise. It
+CPU (plain versions), and the quadruped and humanoid envs' obs, reward and
+done likewise. It
 also checks that the clutter scene's broadphase and row-cap selections move
 geom ids above 256 and contact distances bit for bit with TF32 on. It
 imports nothing of JAX. Output: progress lines, a JSON line of per-kernel
@@ -192,6 +201,36 @@ PPO_PENDULUM = dict(
     num_minibatches=8, num_updates_per_batch=4, discounting=0.97, learning_rate=3e-4, entropy_cost=1e-3,
     num_envs=512, batch_size=640, reward_scaling=0.1, seed=0,
 )
+# PPO on humanoid_balance (benchmarks/ladder.py:194-219's settings): one
+# training step, 1 unroll x 20 control steps x 5 physics steps = 100
+# physics steps. Cut: episode_length 100 instead of 300 and one training
+# step, as the quadruped's is cut.
+PPO_HUMANOID = dict(
+    num_timesteps=20_480, num_evals=2, episode_length=100, normalize_observations=True, unroll_length=20,
+    num_minibatches=16, num_updates_per_batch=4, discounting=0.97, learning_rate=3e-4, entropy_cost=1e-2,
+    num_envs=1024, num_eval_envs=64, batch_size=64, seed=0,
+)
+# BASELINE.md:13's predictive-sampling workload on the Barrett-class hand
+# (models/hand/hand.xml): 100 samples x 10 knots, Newton with 1 iteration
+# and 4 line-search iterations, the model's dt 0.002 and Euler, contacts
+# disabled; the cost of the JAX package's
+# tests/trajopt/test_predictive_sampler.py:36-41 and its stdev 0.3.
+HAND_SAMPLES, HAND_HORIZON, HAND_STDEV = 100, 10, 0.3
+HAND_TRAJOPT = dict(iterations=1, ls_iterations=4)
+HAND_OPTIMIZE_CALLS = 20
+# MPC on the same hand: 20 control steps of one problem, and of a batch of
+# 8 (a solve is then 800 envs). Its cost weighs the goal's joint angles at
+# 10, as tests/trajopt/test_mpc.py weighs the pendulum's, and the joint
+# velocities at 1e-3: at the sampler's weights (0.1, terminal 10) the
+# 10-knot (0.02 s) horizon cannot turn a finger without paying more for
+# its speed than it gains in angle, and the loop keeps the guess.
+HAND_MPC_STEPS, HAND_MPC_BATCH, HAND_MPC_STDEV = 20, 8, 0.5
+# The hand at its own options (contacts on, 4 x 8 iterations): 1024 envs x
+# 100 steps from starts spread over the joints' ranges (hand_start) under a
+# closing ctrl (spread 1, each proximal joint 2, the top of its range), so
+# the fingers meet the palm and each other.
+HAND_CONTACT_ENVS, HAND_CONTACT_STEPS = 1024, 100
+HAND_CLOSING_CTRL = (1.0, 2.0, 2.0, 2.0)
 # What the JAX package's trainer gains at PPO_PENDULUM (final minus untrained
 # eval reward), run on a CPU with seeds 0, 1 and 2: the port must gain at
 # least half their mean.
@@ -922,6 +961,132 @@ def check_newton(device, results):
     results["newton_structured"].update(max_abs_err=err, library_ms=None, **timed)
 
 
+def hand_model(device, trajopt: bool = True):
+    """The hand (assets/hand.npz) at the predictive-sampling workload's
+    options (HAND_TRAJOPT, DisableBit.CONTACT), or at its own."""
+    from ambersim_tpu_torch import load_model
+    from ambersim_tpu_torch.core.types import DisableBit
+
+    m = load_model("hand", device=device)
+    if trajopt:
+        m = m.replace(opt=m.opt.replace(disableflags=m.opt.disableflags | DisableBit.CONTACT, **HAND_TRAJOPT))
+    return m
+
+
+def hand_start(m, batch: int, seed: int, scale: float):
+    """(batch, nq) hand qpos: each joint that no equality row drives uniform
+    over [0, scale] of its range (numpy.random.default_rng(seed)), each
+    coupled joint where its joint equality row puts it."""
+    import numpy as np
+    import torch
+
+    s = m.skel
+    rng = np.random.default_rng(seed)
+    lo, hi = (m.jnt_range[:, i].cpu().numpy() for i in (0, 1))
+    q0 = m.qpos0.cpu().numpy()
+    qpos = np.tile(q0, (batch, 1))
+    adr = np.asarray(s.jnt_qposadr)
+    qpos[:, adr] = lo + rng.uniform(0.0, scale, (batch, len(adr))) * (hi - lo)
+    c = m.eq_data.cpu().numpy()
+    for e in range(s.neq):
+        qa1, qa2 = adr[s.eq_obj1id[e]], adr[s.eq_obj2id[e]]
+        z = qpos[:, qa2] - q0[qa2]
+        qpos[:, qa1] = q0[qa1] + c[e, 0] + z * (c[e, 1] + z * (c[e, 2] + z * (c[e, 3] + z * c[e, 4])))
+    return torch.as_tensor(qpos.astype(np.float32), device=m.device)
+
+
+def hand_cost(device, mpc: bool = False):
+    """StaticGoalQuadraticCost of the hand: the sampler's (Q = 0.1 I, Qf =
+    10 I), or MPC's (Q = Qf, joint angles 10, velocities 1e-3); R = 1e-3 I,
+    goal f1_spread 0.8, f1_prox 0.5, the rest 0."""
+    import torch
+
+    from ambersim_tpu_torch.trajopt import StaticGoalQuadraticCost
+
+    nx, nu = 16, 4
+    xg = torch.zeros(nx, device=device)
+    xg[0], xg[1] = 0.8, 0.5
+    eye = torch.eye(nx, device=device)
+    if mpc:
+        Q = Qf = torch.diag(torch.tensor([10.0] * (nx // 2) + [1e-3] * (nx // 2), device=device))
+    else:
+        Q, Qf = 0.1 * eye, 10.0 * eye
+    return StaticGoalQuadraticCost(Q=Q, Qf=Qf, R=1e-3 * torch.eye(nu, device=device), xg=xg)
+
+
+def check_newton_hand(device, results):
+    """Kernel 4 on the hand's pre-solve operands, the first model path with
+    equality rows (nd_eq = 4), each after 20 steps of HAND_CLOSING_CTRL
+    from hand_start: the predictive-sampling path's at its 100 envs
+    (contacts disabled: the 192 contact rows inactive) against its plain
+    version at the NEWTON_* bars, and both against the plain version in
+    float64; the contacts-on path's at 1024 envs (condim-3 blocks beside
+    the equality rows) against float64 with vs_float64. Then kernel 4's
+    time at every batch the hand paths launch it at (SHAPE_TIMES)."""
+    import torch
+
+    from ambersim_tpu_torch.engine import make_data, rollout
+    from ambersim_tpu_torch.engine.constraint import _pyramid_structure
+    from ambersim_tpu_torch.engine.solver import _newton_arrays
+    from ambersim_tpu_torch.ops.newton import newton_solve_structured
+
+    err = results["newton_structured"]["max_abs_err"]
+    for trajopt, B in ((True, HAND_SAMPLES), (False, HAND_CONTACT_ENVS)):
+        m = hand_model(device, trajopt)
+        s = m.skel
+        st = _pyramid_structure(s)
+        first_contact = int(min(s.con_efcadr))
+        d = make_data(m, B).replace(qpos=hand_start(m, B, seed=9, scale=0.5 if trajopt else 1.0),
+                                    ctrl=torch.tensor(HAND_CLOSING_CTRL, device=device).expand(B, -1).contiguous())
+        d = pre_solve(m, rollout(m, d, 20))
+        pa = solver_operands(m, d, seed=6)
+        kw = dict(iterations=int(m.opt.iterations), ls_iterations=int(m.opt.ls_iterations), use_ws=True)
+        what = f"newton_structured hand {'trajopt' if trajopt else 'contacts'} B={B}"
+        act = pa["act"]
+        eq_on, con_on = act[:, : st.nd_eq].sum(1).mean().item(), act[:, first_contact:].sum(1).mean().item() / 4
+        print(f"{what}: nd_eq {st.nd_eq}, ndiag {st.ndiag}, ncon3 {st.ncon3}; active per env: equality rows "
+              f"{eq_on:.2f}, rows {act.sum(1).mean().item():.2f} of {s.nefc}, contacts {con_on:.2f}")
+        if st.nd_eq != 4 or eq_on != 4 or (con_on != 0 if trajopt else con_on < 1):
+            fail(f"{what}: the operands miss the rows this check is for")
+
+        def kern(pa=pa, d=d, st=st, kw=kw):
+            return newton_solve_structured(pa["J"], d.efc_bJ, d.efc_dsc, pa["qM"], pa["aref"], pa["D"], pa["fl"],
+                                           pa["act"], pa["a_s"], pa["ws"], pa["tol"], st=st, **kw)
+
+        def ref(dtype=torch.float32, pa=pa, kw=kw, s=s):
+            return _newton_arrays(**as_dtype(pa, dtype), ne=int(s.ne), nf=int(s.nf), **kw)
+
+        got, exact = kern(), ref(torch.float64)
+        if trajopt:
+            err = max(err, newton_err(got, ref(), what))
+            newton_err(ref(), exact, f"{what}, plain float32 vs float64")
+            newton_err(got, exact, f"{what}, kernel vs plain float64")
+        else:
+            # at 4 x 8 iterations with contacts plain float32 itself misses
+            # float64 on more envs than the NEWTON_* bars leave (1 of 16 on
+            # the CPU): the kernel is held against float64 as on kernel 4's
+            # hard synthetic problems
+            vs_float64(got, ref(), exact, what)
+        # kernel 4's time at each batch the hand paths launch it at: the
+        # operands' envs repeated or cut to that batch
+        for b in (HAND_SAMPLES, 1, HAND_MPC_BATCH, HAND_MPC_BATCH * HAND_SAMPLES) if trajopt else (B,):
+            idx = torch.arange(b, device=device) % B
+            pb = {k: v[idx].contiguous() if torch.is_tensor(v) and v.shape[0] == B else v for k, v in pa.items()}
+            bJ, dsc = d.efc_bJ[idx].contiguous(), d.efc_dsc[idx].contiguous()
+
+            def kb(pb=pb, bJ=bJ, dsc=dsc):
+                return newton_solve_structured(pb["J"], bJ, dsc, pb["qM"], pb["aref"], pb["D"], pb["fl"], pb["act"],
+                                               pb["a_s"], pb["ws"], pb["tol"], st=st, **kw)
+
+            operands = [bJ, dsc] + [pb[k] for k in ("qM", "aref", "D", "fl", "act", "a_s", "ws")]
+            case = f"hand B={b}" if trajopt else "hand contacts"
+            SHAPE_TIMES[("newton_structured", case)] = (cuda_ms(kb), newton_bound(
+                operands, s.nefc, s.nv, pb["act"], kw["iterations"], kw["ls_iterations"])["bound_ms"])
+            print(f"kernel newton_structured: {case} {SHAPE_TIMES[('newton_structured', case)][0]:.4f} ms, "
+                  f"bound {SHAPE_TIMES[('newton_structured', case)][1]:.4f} ms")
+    results["newton_structured"]["max_abs_err"] = err
+
+
 def check_newton_dense(device, results):
     """Kernel 5 against its plain version (and both against float64) on the
     operands of the paths that launch it, arm3 and cartpole at B=1024, and
@@ -1249,6 +1414,13 @@ PHASE_SHAPES = {
     "quadruped_elliptic": ((NUM_ENVS, 18), "elliptic quadruped"), "humanoid": ((1024, 25), "humanoid"),
     "clutter32_rowcap192": ((CLUTTER_ENVS, 192), None), "clutter32_cap48": ((CLUTTER_ENVS, 192), None),
     "ppo_quadruped": ((NUM_ENVS, 18), "quadruped"), "ppo_pendulum": ((512, 1), None),
+    "ppo_humanoid": ((1024, 25), "humanoid"),
+    # the hand's solves and plants, each at its own batch (hand_mpc splits its launches)
+    "hand_sampling": ((HAND_SAMPLES, 8), f"hand B={HAND_SAMPLES}"),
+    "hand_mpc": ((HAND_SAMPLES, 8), f"hand B={HAND_SAMPLES}"), "hand_mpc_plant": ((1, 8), "hand B=1"),
+    "hand_mpc_batch": ((HAND_MPC_BATCH * HAND_SAMPLES, 8), f"hand B={HAND_MPC_BATCH * HAND_SAMPLES}"),
+    "hand_mpc_batch_plant": ((HAND_MPC_BATCH, 8), f"hand B={HAND_MPC_BATCH}"),
+    "hand_contacts": ((HAND_CONTACT_ENVS, 8), "hand contacts"),
 }
 # (kernel, shape) -> (ms, bound_ms) measured in this run: the shape is
 # (batch, n) for kernels 1-3 and a PHASE_SHAPES case for the Newton kernels
@@ -1463,6 +1635,204 @@ def clutter_card_vs_cpu(device, name: str = "clutter32_rowcap192") -> None:
         fail(f"{name}: card rollout disagrees with the CPU rollout")
 
 
+_HAND_KERNELS = _LINALG + ("newton_structured",)
+
+
+def _hand_launches(forwards: int, steps: int) -> dict:
+    """Kernel launches of `forwards` forward calls and `steps` physics steps
+    of the hand: a forward factors qM (kernel 1), solves qacc_smooth
+    (kernel 2) and runs the Newton solve (kernel 4); a step adds Euler's
+    damping solve (kernel 3)."""
+    return {k: steps + (0 if k == "solve_pd" else forwards) for k in _HAND_KERNELS}
+
+
+def _goal_error(xs, xg):
+    """(...,) distance of the goal's joint angles (f1_spread, f1_prox)."""
+    import torch
+
+    return torch.linalg.vector_norm(xs[..., :2] - xg[:2], dim=-1)
+
+
+def hand_sampling(device, card: str) -> dict:
+    """BASELINE.md:13's predictive-sampling workload: HAND_OPTIMIZE_CALLS
+    optimize calls of 100 samples x 10 knots, the launch counts set to 0
+    just before and read just after (each call: one forward and 10 steps at
+    100 envs). Checks: exact launches, a finite result, 8 samples' card
+    rollout against the CPU's, and the chosen tape's cost at most the
+    guess's. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from ambersim_tpu_torch.trajopt import VanillaPredictiveSampler, VanillaPredictiveSamplerParams, shoot
+
+    m = hand_model(device)
+    sampler = VanillaPredictiveSampler(model=m, cost_function=hand_cost(device), nsamples=HAND_SAMPLES,
+                                       stdev=HAND_STDEV)
+    x0 = torch.cat([hand_start(m, 1, seed=10, scale=0.3)[0], torch.zeros(m.skel.nv, device=device)])
+    guess = torch.as_tensor(0.3 * np.random.default_rng(11).standard_normal((HAND_HORIZON, m.skel.nu)).astype(
+        np.float32), device=device)
+    params = VanillaPredictiveSamplerParams(x0=x0, us_guess=guess, generator=torch.Generator().manual_seed(0))
+    sampler.optimize(params)  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(HAND_OPTIMIZE_CALLS):
+        xs_star, us_star = sampler.optimize(params)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    _check_launches("hand_sampling", launches, _HAND_KERNELS, 1,
+                    {k: HAND_OPTIMIZE_CALLS * n for k, n in _hand_launches(1, HAND_HORIZON).items()})
+    if not (torch.isfinite(xs_star).all() and xs_star.shape == (HAND_HORIZON + 1, 16)):
+        fail(f"hand_sampling: non-finite or misshapen xs_star {tuple(xs_star.shape)}")
+    # 8 samples of the card's batched rollout against the CPU's
+    us = sampler.draw_samples(params)
+    xs = shoot(m, x0, us)
+    xs_cpu = shoot(hand_model("cpu"), x0.cpu(), us[:8].cpu())
+    nq = m.skel.nq
+    dq = (xs[:8, :, :nq].cpu() - xs_cpu[..., :nq]).abs().max().item()
+    dv = (xs[:8, :, nq:].cpu() - xs_cpu[..., nq:]).abs().max().item()
+    if not (dq <= QPOS_TOL and dv <= QVEL_TOL):
+        fail(f"hand_sampling: the card's shoot differs from the CPU's by {dq:.3e} / {dv:.3e}")
+    # sample 0 is the guess: the chosen tape costs at most what the guess
+    # rolled out alone costs, up to the rounding of a batch of 100 and of 1
+    # (the JAX package's slack, tests/trajopt/test_predictive_sampler.py:84-87)
+    cost = sampler.cost_function
+    c_star, c_guess = cost.cost(xs_star, us_star).item(), cost.cost(shoot(m, x0, guess), guess).item()
+    if not c_star <= c_guess + 1e-5 + 1e-5 * abs(c_guess):
+        fail(f"hand_sampling: the chosen tape costs {c_star:.6f}, the guess {c_guess:.6f}")
+    print(f"hand_sampling: {HAND_OPTIMIZE_CALLS} optimize calls of {HAND_SAMPLES} samples x {HAND_HORIZON} knots in "
+          f"{seconds:.3f} s = {HAND_OPTIMIZE_CALLS / seconds:.2f} calls/s, {1e3 * seconds / HAND_OPTIMIZE_CALLS:.3f} ms "
+          f"per call (eager, host-bound: each step is dispatched from Python) [{card}]; launches {launches}\n"
+          f"hand_sampling: 8 samples card vs cpu over {HAND_HORIZON} steps: max |dqpos| {dq:.3e} (<= {QPOS_TOL}), "
+          f"max |dqvel| {dv:.3e} (<= {QVEL_TOL}); cost of the chosen tape {c_star:.6f} <= the guess's {c_guess:.6f}",
+          flush=True)
+    return launches
+
+
+def hand_mpc(device, card: str) -> dict:
+    """run_mpc for HAND_MPC_STEPS control steps from rest, and run_mpc_batch
+    over HAND_MPC_BATCH initial states (a solve is then 800 envs, the plant
+    8), each with the launch counts set to 0 just before and read just
+    after. Checks: exact launches, finite states, and every problem ending
+    nearer the goal than the open-loop guess (the zero tape) takes it.
+    Returns the launches of the solves and of the plants apart."""
+    import torch
+
+    from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from ambersim_tpu_torch.trajopt import (VanillaPredictiveSampler, VanillaPredictiveSamplerParams, run_mpc,
+                                            run_mpc_batch, shoot)
+
+    m = hand_model(device)
+    s = m.skel
+    sampler = VanillaPredictiveSampler(model=m, cost_function=hand_cost(device, mpc=True), nsamples=HAND_SAMPLES,
+                                       stdev=HAND_MPC_STDEV)
+    xg = sampler.cost_function.xg
+    out = {}
+    for name, batch in (("hand_mpc", 1), ("hand_mpc_batch", HAND_MPC_BATCH)):
+        x0 = torch.zeros(batch, s.nq + s.nv, device=device)
+        if batch > 1:
+            x0[:, : s.nq] = hand_start(m, batch, seed=12, scale=0.1)
+        params = VanillaPredictiveSamplerParams(x0=x0, us_guess=torch.zeros(batch, HAND_HORIZON, s.nu, device=device),
+                                                generator=torch.Generator().manual_seed(3))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        if batch == 1:
+            params = params.replace(x0=x0[0], us_guess=params.us_guess[0])
+            xs, us, data = run_mpc(m, sampler, params, HAND_MPC_STEPS)
+            xs, us = xs[None], us[None]
+        else:
+            xs, us, data = run_mpc_batch(m, sampler, params, HAND_MPC_STEPS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        solves = {k: HAND_MPC_STEPS * n for k, n in _hand_launches(1, HAND_HORIZON).items()}
+        plant = _hand_launches(1, HAND_MPC_STEPS)
+        _check_launches(name, launches, _HAND_KERNELS, 1, {k: solves[k] + plant[k] for k in solves})
+        out[name], out[f"{name}_plant"] = solves, plant
+        if not (torch.isfinite(xs).all() and xs.shape == (batch, HAND_MPC_STEPS + 1, s.nq + s.nv)
+                and torch.equal(data.qpos, xs[:, -1, : s.nq])):
+            fail(f"{name}: non-finite or inconsistent states")
+        err = _goal_error(xs[:, -1], xg)
+        err_open = _goal_error(shoot(m, x0, torch.zeros(batch, HAND_MPC_STEPS, s.nu, device=device))[:, -1], xg)
+        print(f"{name}: {batch} x {HAND_MPC_STEPS} control steps (solves of {batch * HAND_SAMPLES} envs x "
+              f"{HAND_HORIZON} knots, plant {batch} envs) in {seconds:.3f} s, {1e3 * seconds / HAND_MPC_STEPS:.3f} ms "
+              f"per control step (eager, host-bound) [{card}]; goal angle error, the largest over the problems: start "
+              f"{_goal_error(x0, xg).max().item():.4f}, closed loop {err.max().item():.4f}, open-loop guess "
+              f"{err_open.max().item():.4f}; each problem's closed loop nearer by at least "
+              f"{(err_open - err).min().item():.4f}; launches {launches}", flush=True)
+        if not bool((err < err_open).all()):
+            fail(f"{name}: the closed loop ends no nearer the goal than the open-loop guess: {err} vs {err_open}")
+    return out
+
+
+def hand_contacts(device, card: str) -> dict:
+    """The hand at its own options with contacts on: HAND_CONTACT_ENVS x
+    HAND_CONTACT_STEPS steps of HAND_CLOSING_CTRL from hand_start over the
+    whole joint ranges, the launch counts set to 0 just before and read
+    just after. Checks: one launch of each of kernels 1-4 a step, finite
+    states, at least one active contact per env a step on average; then 8
+    envs x 20 steps on the card against the CPU. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from ambersim_tpu_torch.core.types import GeomType
+    from ambersim_tpu_torch.engine import make_data, rollout
+    from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    def start(m, B):
+        ctrl = torch.tensor(HAND_CLOSING_CTRL, device=m.device).expand(B, -1).contiguous()
+        return make_data(m, B).replace(qpos=hand_start(m, B, seed=13, scale=1.0), ctrl=ctrl)
+
+    m = hand_model(device, trajopt=False)
+    s = m.skel
+    first_contact = int(min(s.con_efcadr))
+    B, steps = HAND_CONTACT_ENVS, HAND_CONTACT_STEPS
+    d = start(m, B)
+    rollout(m, d, 3)  # warm-up
+    contacts = torch.zeros((), device=device)
+
+    def count(d):
+        contacts.add_(d.efc_active[:, first_contact:].sum())
+        return d.ctrl
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    d = rollout(m, d, steps, ctrl_fn=count)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    _check_launches("hand_contacts", launches, _HAND_KERNELS, steps, {k: steps for k in _HAND_KERNELS})
+    for field in ("qpos", "qvel", "qacc", "efc_force"):
+        if not torch.isfinite(getattr(d, field)).all():
+            fail(f"hand_contacts: non-finite {field}")
+    # rows of the steps before each of steps 2..100 and after the last; 4 rows a contact
+    per_env = (contacts + d.efc_active[:, first_contact:].sum()).item() / 4 / (B * steps)
+    act = d.efc_active[:, first_contact:].reshape(B, -1, 4)[..., 0].cpu().numpy()
+    types = np.asarray(s.geom_type)
+    g1, g2 = d.contact.geom1.cpu().numpy(), d.contact.geom2.cpu().numpy()
+    pairs = {}
+    for b, c in zip(*np.nonzero(act)):
+        key = f"{GeomType(int(types[g1[b, c]])).name.lower()}-{GeomType(int(types[g2[b, c]])).name.lower()}"
+        pairs[key] = pairs.get(key, 0) + 1
+    print(f"hand_contacts: {B} envs x {steps} steps in {seconds:.3f} s = {B * steps / seconds:.1f} env-steps/s, "
+          f"{1e3 * seconds / steps:.3f} ms per step [{card}]; active contacts per env, mean over the steps "
+          f"{per_env:.3f}; active contacts at the last step by geom pair {pairs}; launches {launches}", flush=True)
+    if not per_env >= 1.0:
+        fail(f"hand_contacts: {per_env:.3f} active contacts per env a step, want >= 1")
+    runs = [rollout(mm, start(mm, 8), 20) for mm in (hand_model(device, trajopt=False), hand_model("cpu", trajopt=False))]
+    dq = (runs[0].qpos.cpu() - runs[1].qpos).abs().max().item()
+    dv = (runs[0].qvel.cpu() - runs[1].qvel).abs().max().item()
+    print(f"hand_contacts card vs cpu after 20 steps: max |dqpos| {dq:.3e} (<= {QPOS_TOL}), max |dqvel| {dv:.3e} "
+          f"(<= {QVEL_TOL}); active contacts per env {runs[1].efc_active[:, first_contact:].sum(1).float().mean().item() / 4:.2f}")
+    if not (dq <= QPOS_TOL and dv <= QVEL_TOL):
+        fail("hand_contacts: card rollout disagrees with the CPU rollout")
+    return launches
+
+
 def _check_launches(what: str, launches: dict, kernels: tuple, at_least: int, exactly: dict | None = None) -> None:
     """Each of `kernels` launched at least `at_least` times, or as many times
     as `exactly` says when it is given; no other kernel at all."""
@@ -1497,9 +1867,11 @@ def _recording_networks(initial: dict):
     return factory
 
 
-def ppo_quadruped(device, card: str) -> dict:
-    """One PPO training step of the 4096-env quadruped locomotion policy, with
-    the launch counts set to 0 just before and read just after. Returns them."""
+def ppo_training_step(name: str, env_name: str, c: dict, device, card: str) -> dict:
+    """One PPO training step of `env_name`'s policy at the settings `c`, with
+    the launch counts set to 0 just before and read just after. Checks the
+    launches, finite losses and eval rewards, moved params and the
+    normalizer's count. Returns the launch counts."""
     import math
     import tempfile
 
@@ -1510,8 +1882,7 @@ def ppo_quadruped(device, card: str) -> dict:
     from ambersim_tpu_torch.rl import get_environment
     from ambersim_tpu_torch.rl.ppo import train
 
-    c = PPO_QUADRUPED
-    physics = get_environment("quadruped_locomotion").config.physics_steps_per_control_step
+    physics = get_environment(env_name).config.physics_steps_per_control_step
     num_unrolls = c["batch_size"] * c["num_minibatches"] // c["num_envs"]
     train_steps = num_unrolls * c["unroll_length"] * physics
     eval_steps = c["num_evals"] * c["episode_length"] * physics
@@ -1522,38 +1893,38 @@ def ppo_quadruped(device, card: str) -> dict:
         reset_launch_counts()
         t0 = time.perf_counter()
         _, (normalizer, _), metrics = train(
-            get_environment("quadruped_locomotion"), device=device, network_factory=_recording_networks(initial),
+            get_environment(env_name), device=device, network_factory=_recording_networks(initial),
             progress_fn=lambda step, m: marks.append((time.perf_counter(), step, m)), checkpoint_path=str(ckpt), **c,
         )
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = dict(LAUNCHES)
         final = load_params(ckpt, device=device)["params"]
-    _check_launches("ppo_quadruped", launches, _LINALG + ("newton_structured",), train_steps + eval_steps)
+    _check_launches(name, launches, _LINALG + ("newton_structured",), train_steps + eval_steps)
     for k, v in metrics.items():
         if not math.isfinite(v):
-            fail(f"ppo_quadruped: {k} = {v}")
+            fail(f"{name}: {k} = {v}")
     rewards = [m["eval/episode_reward"] for _, _, m in marks]
     if len(marks) != 2 or not all(math.isfinite(r) for r in rewards):
-        fail(f"ppo_quadruped: eval rewards {rewards}")
+        fail(f"{name}: eval rewards {rewards}")
     for net in ("policy", "value"):
         moved = max((final[net][k] - v).abs().max().item() for k, v in initial[net].items())
         if not moved > 0:
-            fail(f"ppo_quadruped: the {net} params did not change")
-        print(f"ppo_quadruped: {net} params moved by up to {moved:.3e}")
+            fail(f"{name}: the {net} params did not change")
+        print(f"{name}: {net} params moved by up to {moved:.3e}")
     count = float(normalizer.count)
     if count != c["num_envs"] * num_unrolls * c["unroll_length"]:
-        fail(f"ppo_quadruped: normalizer count {count}")
+        fail(f"{name}: normalizer count {count}")
     rollout_s, sgd_s, eval_s = metrics["timing/rollout_s"], metrics["timing/sgd_s"], metrics["timing/eval_s"]
     env_steps = marks[-1][1]
     first_update = marks[0][0] - t0 + rollout_s + sgd_s
     print(
-        f"ppo_quadruped: {c['num_envs']} envs, {env_steps} env steps ({train_steps} physics steps) + 2 evals of "
+        f"{name}: {c['num_envs']} envs, {env_steps} env steps ({train_steps} physics steps) + 2 evals of "
         f"{c['num_eval_envs']} envs ({eval_steps} physics steps) in {seconds:.3f} s; launches {launches}\n"
-        f"ppo_quadruped: training {env_steps / (rollout_s + sgd_s):.1f} env-steps/s; rollout {rollout_s:.3f} s, "
+        f"{name}: training {env_steps / (rollout_s + sgd_s):.1f} env-steps/s; rollout {rollout_s:.3f} s, "
         f"SGD {sgd_s:.3f} s, eval {eval_s:.3f} s; set-up + initial eval {marks[0][0] - t0:.3f} s; "
         f"first update after {first_update:.3f} s [{card}]\n"
-        f"ppo_quadruped: eval reward {rewards[0]:.3f} -> {rewards[1]:.3f}; losses "
+        f"{name}: eval reward {rewards[0]:.3f} -> {rewards[1]:.3f}; losses "
         + ", ".join(f"{k[len('training/'):]} {v:.4f}" for k, v in metrics.items() if k.startswith("training/")),
         flush=True,
     )
@@ -1595,42 +1966,41 @@ def ppo_pendulum_learns(device, card: str) -> dict:
     return launches
 
 
-def env_card_vs_cpu(device) -> None:
-    """The quadruped env, 8 envs x 10 control steps with the same actions on
-    the card (kernels) and on the CPU (plain versions): obs and reward within
-    the card-vs-CPU bars, qpos-derived columns at QPOS_TOL and qvel-derived
-    ones at QVEL_TOL."""
+def env_card_vs_cpu(device, name: str, env_cls, control_steps: int, obs_bars) -> None:
+    """An env, 8 envs x `control_steps` control steps with the same actions
+    on the card (kernels) and on the CPU (plain versions): obs within the
+    card-vs-CPU bars by column (obs_bars: qpos-derived columns at QPOS_TOL,
+    qvel-derived ones at QVEL_TOL, the last action exact), reward within
+    QVEL_TOL, done equal."""
     import numpy as np
     import torch
 
-    from ambersim_tpu_torch.rl.quadruped import QuadrupedLocomotionEnv
-
-    actions = np.random.default_rng(0).uniform(-1.0, 1.0, (10, 8, 12)).astype(np.float32)
     runs = []
     for dev in (device, "cpu"):
-        env = QuadrupedLocomotionEnv(device=dev)
+        env = env_cls(device=dev)
+        actions = np.random.default_rng(0).uniform(-1.0, 1.0, (control_steps, 8, env.action_size)).astype(np.float32)
         s = env.reset(torch.Generator().manual_seed(0), 8)  # a CPU generator: the same starts on both
         out = []
         for a in actions:
             s = env.step(s, torch.as_tensor(a, device=dev))
-            out.append((s.obs.cpu(), s.reward.cpu()))
+            out.append((s.obs.cpu(), s.reward.cpu(), s.done.cpu()))
         runs.append(out)
-    # obs columns: gravity, lin_vel, ang_vel, joint pos, 0.1 joint vel, last action
-    bars = ((slice(0, 3), QPOS_TOL), (slice(3, 9), QVEL_TOL), (slice(9, 21), QPOS_TOL),
-            (slice(21, 33), 0.1 * QVEL_TOL), (slice(33, 45), 0.0))
     worst = {"obs": 0.0, "reward": 0.0}
-    for t, ((obs_g, rew_g), (obs_c, rew_c)) in enumerate(zip(*runs)):
-        for cols, tol in bars:
+    for t, ((obs_g, rew_g, done_g), (obs_c, rew_c, done_c)) in enumerate(zip(*runs)):
+        for cols, tol in obs_bars:
             err = (obs_g[:, cols] - obs_c[:, cols]).abs().max().item()
             worst["obs"] = max(worst["obs"], err)
             if not err <= tol:
-                fail(f"env_card_vs_cpu: obs[{cols.start}:{cols.stop}] at control step {t} differs by {err:.3e} > {tol}")
+                fail(f"env_card_vs_cpu {name}: obs[{cols.start}:{cols.stop}] at control step {t} differs by "
+                     f"{err:.3e} > {tol}")
         err = (rew_g - rew_c).abs().max().item()
         worst["reward"] = max(worst["reward"], err)
         if not err <= QVEL_TOL:
-            fail(f"env_card_vs_cpu: reward at control step {t} differs by {err:.3e} > {QVEL_TOL}")
-    print(f"env_card_vs_cpu: quadruped env 8 envs x 10 control steps: max |dobs| {worst['obs']:.3e}, "
-          f"max |dreward| {worst['reward']:.3e}", flush=True)
+            fail(f"env_card_vs_cpu {name}: reward at control step {t} differs by {err:.3e} > {QVEL_TOL}")
+        if not torch.equal(done_g, done_c):
+            fail(f"env_card_vs_cpu {name}: done at control step {t} differs")
+    print(f"env_card_vs_cpu: {name} env 8 envs x {control_steps} control steps: max |dobs| {worst['obs']:.3e}, "
+          f"max |dreward| {worst['reward']:.3e}, done equal", flush=True)
 
 
 def check_ptxas(log: str) -> None:
@@ -1669,13 +2039,15 @@ def weighted_launch_time(phase_launches: dict) -> None:
 
 
 def run_phases(device, card: str, results: dict) -> None:
-    """Phases 3-6: every kernel against its plain version, every path, PPO,
-    and the card against the CPU; adds each path's launches to results."""
+    """Phases 3-7: every kernel against its plain version, every path,
+    trajectory optimization, PPO, and the card against the CPU; adds each
+    path's launches to results."""
     import torch
 
     # ---- 3. kernels against their plain versions ----
     check_linalg(device, results)
     check_newton(device, results)
+    check_newton_hand(device, results)
     check_newton_dense(device, results)
     check_newton_elliptic(device, results)
     torch.cuda.synchronize()
@@ -1696,15 +2068,22 @@ def run_phases(device, card: str, results: dict) -> None:
         stage_split(name, device, card)
         clutter_newton_spread(name, device)
 
-    # ---- 5. PPO training through the env layer, each with its own launch counts ----
-    for name, phase in (("ppo_quadruped", ppo_quadruped), ("ppo_pendulum", ppo_pendulum_learns)):
-        phase_launches[name] = phase(device, card)
+    # ---- 5. trajectory optimization on the hand, and the hand in contact ----
+    phase_launches["hand_sampling"] = hand_sampling(device, card)
+    phase_launches.update(hand_mpc(device, card))
+    phase_launches["hand_contacts"] = hand_contacts(device, card)
+
+    # ---- 6. PPO training through the env layer, each with its own launch counts ----
+    phase_launches["ppo_quadruped"] = ppo_training_step("ppo_quadruped", "quadruped_locomotion", PPO_QUADRUPED,
+                                                        device, card)
+    phase_launches["ppo_pendulum"] = ppo_pendulum_learns(device, card)
+    phase_launches["ppo_humanoid"] = ppo_training_step("ppo_humanoid", "humanoid_balance", PPO_HUMANOID, device, card)
     for launches in phase_launches.values():
         for k, n in launches.items():
             results[k]["launches"] += n
     weighted_launch_time(phase_launches)
 
-    # ---- 6. card (kernels) against CPU (plain versions), 8 envs x 20 steps ----
+    # ---- 7. card (kernels) against CPU (plain versions), 8 envs x 20 steps ----
     for name in PATHS:
         if name == "quadruped_elliptic":
             card_vs_cpu(name, device, QPOS_TOL, QVEL_TOL, opt=CONVERGED)
@@ -1712,7 +2091,17 @@ def run_phases(device, card: str, results: dict) -> None:
         elif "per_step" not in PATHS[name]:
             card_vs_cpu(name, device, QPOS_TOL, QVEL_TOL)
     clutter_card_vs_cpu(device)
-    env_card_vs_cpu(device)
+    from ambersim_tpu_torch.rl.humanoid import HumanoidBalanceEnv
+    from ambersim_tpu_torch.rl.quadruped import QuadrupedLocomotionEnv
+
+    # obs columns: gravity, lin_vel, ang_vel, joint pos, 0.1 joint vel, last action
+    env_card_vs_cpu(device, "quadruped", QuadrupedLocomotionEnv, 10, (
+        (slice(0, 3), QPOS_TOL), (slice(3, 9), QVEL_TOL), (slice(9, 21), QPOS_TOL), (slice(21, 33), 0.1 * QVEL_TOL),
+        (slice(33, 45), 0.0)))
+    # the humanoid's (nq 26, nv 25, nu 19): gravity, lin_vel, ang_vel, height, joint pos, 0.1 joint vel, last action
+    env_card_vs_cpu(device, "humanoid_balance", HumanoidBalanceEnv, 5, (
+        (slice(0, 3), QPOS_TOL), (slice(3, 9), QVEL_TOL), (slice(9, 29), QPOS_TOL), (slice(29, 48), 0.1 * QVEL_TOL),
+        (slice(48, 67), 0.0)))
 
 
 def main() -> int:

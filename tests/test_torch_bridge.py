@@ -3,8 +3,8 @@ PyTorch port: the committed model file, Skeleton and Model equality,
 make_data parity, the host schedules, the no-JAX import rule, and the
 refusal of every feature outside the ported slice. The committed model
 files (the quadruped, its elliptic-cone build, cartpole, arm3, the
-humanoid, the pendulum and the two clutter32 builds) must equal a fresh
-export.
+humanoid, the pendulum, the two clutter32 builds and the hand) must equal
+a fresh export.
 """
 
 import dataclasses
@@ -54,14 +54,20 @@ ELLIPTIC_MIXED_XML = """
 """
 
 
-# a capsule on a box: a pair type without a narrowphase in the port
-CAPSULE_BOX_XML = """
+# a capsule on a cylinder on the floor: the compiler pairs the capsule with
+# the cylinder's mesh hull, and neither pair has a narrowphase in the port
+CAPSULE_CYLINDER_XML = """
 <mujoco><worldbody>
   <geom type="plane" size="0 0 1"/>
-  <body pos="0 0 0.1"><freejoint/><geom type="box" size="0.1 0.1 0.05"/></body>
+  <body pos="0 0 0.1"><freejoint/><geom type="cylinder" size="0.1 0.05"/></body>
   <body pos="0 0 0.3"><freejoint/><geom type="capsule" size="0.03 0.1"/></body>
 </worldbody></mujoco>
 """
+
+# the hand with a weld between two fingertips: an equality type the port
+# does not assemble
+HAND_WELD_XML = (Path(__file__).resolve().parent.parent / "ambersim_tpu" / "models" / "hand" / "hand.xml").read_text(
+).replace("</equality>", '<weld body1="f1_dist_link" body2="f2_dist_link"/></equality>')
 
 # an explicit <pair> between two spheres (its friction overrides the mixed one)
 EXPLICIT_PAIR_XML = """
@@ -92,7 +98,7 @@ def test_asset_matches_fresh_export(quadruped):
 
 
 NEW_ASSETS = ["quadruped_elliptic", "cartpole", "arm3", "humanoid", "pendulum", "clutter32_cap48",
-              "clutter32_rowcap192"]
+              "clutter32_rowcap192", "hand"]
 
 
 @pytest.mark.parametrize("name", NEW_ASSETS)
@@ -206,13 +212,14 @@ def test_tree_schedule_matches_jax(quadruped):
         np.testing.assert_array_equal(got.jnt_by_type[k], want.jnt_by_type[k])
 
 
-@pytest.mark.parametrize("scene", ["quadruped", "contact_scene"])
+@pytest.mark.parametrize("scene", ["quadruped", "contact_scene", "hand"])
 def test_pyramid_structure_matches_jax(scene, quadruped):
     from ambersim_tpu.engine.constraint import _pyramid_structure as jax_structure
     from ambersim_tpu_torch.core.types import Skeleton
     from ambersim_tpu_torch.engine.constraint import _pyramid_structure
 
-    jm = quadruped if scene == "quadruped" else tp.jax_model_from_xml(tp.CONTACT_SCENE)
+    jm = {"quadruped": lambda: quadruped, "contact_scene": lambda: tp.jax_model_from_xml(tp.CONTACT_SCENE),
+          "hand": lambda: tp.jax_asset_model("hand")}[scene]()
     got = _pyramid_structure(Skeleton(**dict(jm.skel._fields)))
     want = jax_structure(jm.skel)
     assert got._fields == want._fields
@@ -228,10 +235,12 @@ def test_port_never_imports_jax():
         "import ambersim_tpu_torch.ops.newton, ambersim_tpu_torch.engine.convex, chip_smoke\n"
         "import ambersim_tpu_torch.rl, ambersim_tpu_torch.rl.ppo, ambersim_tpu_torch.rl.helpers\n"
         "import ambersim_tpu_torch.rl.pendulum, ambersim_tpu_torch.rl.quadruped, ambersim_tpu_torch.io.checkpoint\n"
+        "import ambersim_tpu_torch.rl.humanoid, ambersim_tpu_torch.trajopt\n"
         "from ambersim_tpu_torch import load_model\n"
         "from ambersim_tpu_torch.engine import make_data, step\n"
         "m = load_model('quadruped', device='cpu'); step(m, make_data(m, 2))\n"
         "m = load_model('clutter32_rowcap192', device='cpu'); step(m, make_data(m, 2))\n"
+        "m = load_model('hand', device='cpu'); step(m, make_data(m, 2))\n"
         "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'flax', 'ambersim_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -244,15 +253,15 @@ def test_port_never_imports_jax():
 @pytest.mark.parametrize(
     "source, features",
     [
-        ("models/hand/hand.xml", ["equality constraints"]),
+        (HAND_WELD_XML, ["weld equality constraints"]),
         (TENDON_SENSOR_XML, ["tendons", "sensors"]),
         (CONDIM46_XML, ["contact condim 4/6"]),
         (ELLIPTIC_MIXED_XML, ["elliptic cones with mixed contact condims"]),
-        (CAPSULE_BOX_XML, ["capsule-box contact pairs"]),
+        (CAPSULE_CYLINDER_XML, ["capsule-mesh contact pairs", "plane-cylinder contact pairs"]),
         (EXPLICIT_PAIR_XML, ["explicit <pair> contact overrides"]),
         ("models/rock/rock_scene.xml", ["contact pairs"]),
     ],
-    ids=["hand", "tendon_sensor", "condim46", "elliptic_mixed", "capsule_box", "explicit_pair", "mesh"],
+    ids=["hand_weld", "tendon_sensor", "condim46", "elliptic_mixed", "capsule_cylinder", "explicit_pair", "mesh"],
 )
 def test_models_outside_the_slice_are_refused(source, features):
     from ambersim_tpu_torch.io.bridge import model_from_numpy

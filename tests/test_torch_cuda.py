@@ -531,7 +531,8 @@ def test_elliptic_line_search_step_selects_on_the_card(cuda):
 
 
 @pytest.mark.parametrize("name, kernel", [("cartpole", "newton_dense"), ("arm3", "newton_dense"),
-                                          ("quadruped_elliptic", "newton_elliptic"), ("humanoid", "newton_structured")])
+                                          ("quadruped_elliptic", "newton_elliptic"), ("humanoid", "newton_structured"),
+                                          ("hand", "newton_structured")])
 def test_path_launch_counts(cuda, name, kernel):
     """Every step of these models launches kernels 1-3 and its solver kernel once."""
     from ambersim_tpu_torch import load_model
@@ -585,3 +586,90 @@ def test_pendulum_training_step_on_the_card(cuda):
     assert LAUNCHES["cholesky"] >= 82 and LAUNCHES["cho_solve"] >= 82
     action, _ = make_policy((normalizer, policy_params), deterministic=True)(torch.zeros(4, 3, device=cuda))
     assert action.is_cuda and action.shape == (4, 1)
+
+
+def test_structured_newton_kernel_on_hand_operands(cuda):
+    """Kernel 4 on the hand's pre-solve operands at the predictive-sampling
+    workload's options (chip_smoke.hand_model: Newton 1 x 4, contacts
+    disabled), the first model path with equality rows: nd_eq = 4 and 192
+    inactive contact rows, 100 envs after 20 steps of chip_smoke's closing
+    ctrl, against the plain version at the NEWTON_* bars."""
+    from chip_smoke import HAND_CLOSING_CTRL, hand_model, hand_start, pre_solve, solver_operands
+
+    from ambersim_tpu_torch.engine import make_data, rollout
+    from ambersim_tpu_torch.engine.constraint import _pyramid_structure
+    from ambersim_tpu_torch.engine.solver import _newton_arrays
+    from ambersim_tpu_torch.ops.newton import newton_solve_structured
+
+    m = hand_model(cuda)
+    s = m.skel
+    st = _pyramid_structure(s)
+    assert (st.nd_eq, st.ncon3) == (4, 48)
+    d = make_data(m, 100).replace(qpos=hand_start(m, 100, seed=9, scale=0.5),
+                                  ctrl=torch.tensor(HAND_CLOSING_CTRL, device=cuda).expand(100, -1).contiguous())
+    d = pre_solve(m, rollout(m, d, 20))
+    pa = solver_operands(m, d, seed=6)
+    assert (pa["act"][:, :4] == 1).all() and not pa["act"][:, int(min(s.con_efcadr)):].any()
+    kw = dict(iterations=int(m.opt.iterations), ls_iterations=int(m.opt.ls_iterations), use_ws=True)
+    got = newton_solve_structured(pa["J"], d.efc_bJ, d.efc_dsc, pa["qM"], pa["aref"], pa["D"], pa["fl"], pa["act"],
+                                  pa["a_s"], pa["ws"], pa["tol"], st=st, **kw)
+    want = _newton_arrays(**pa, ne=int(s.ne), nf=int(s.nf), **kw)
+    _within_newton_bars(got, want)
+
+
+def test_hand_sampler_launch_counts(cuda):
+    """One optimize call of the sampler rolls its samples out as one batch:
+    a forward (kernels 1, 2 and 4) and one launch of kernels 1-4 per knot."""
+    from chip_smoke import hand_cost, hand_model
+
+    from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from ambersim_tpu_torch.trajopt import VanillaPredictiveSampler, VanillaPredictiveSamplerParams
+
+    m = hand_model(cuda)
+    sampler = VanillaPredictiveSampler(model=m, cost_function=hand_cost(cuda), nsamples=100, stdev=0.3)
+    params = VanillaPredictiveSamplerParams(x0=torch.zeros(16, device=cuda), us_guess=torch.zeros(10, 4, device=cuda))
+    reset_launch_counts()
+    xs, us = sampler.optimize(params)
+    torch.cuda.synchronize()
+    assert xs.is_cuda and xs.shape == (11, 16) and torch.isfinite(xs).all()
+    want = {k: 0 for k in LAUNCHES}
+    want.update(cholesky=11, cho_solve=11, solve_pd=10, newton_structured=11)
+    assert dict(LAUNCHES) == want
+
+
+@pytest.mark.parametrize("pair", ["sphere_capsule", "capsule_capsule", "capsule_box"])
+def test_capsule_pairs_card_matches_cpu(cuda, pair):
+    """The three capsule narrowphases on the card against the CPU on 4096
+    seeded random poses, rtol/atol 1e-5 (pos and frame where a capsule-box
+    contact's normal is conditioned, |dist + r| >= 3e-3, as
+    tests/test_torch_capsule_pairs.py holds them against the JAX package)."""
+    from ambersim_tpu_torch.core import math as am
+    from ambersim_tpu_torch.engine import collision
+
+    rng = np.random.default_rng(sum(map(ord, pair)))
+    P = 4096
+
+    def pose():
+        q = torch.as_tensor(rng.standard_normal((P, 4)).astype(np.float32))
+        return torch.as_tensor((0.08 * rng.standard_normal((P, 3))).astype(np.float32)), am.quat_to_mat(
+            q / q.norm(dim=-1, keepdim=True))
+
+    def size(kind):
+        r = rng.uniform(0.01, 0.05, P)
+        cols = {"sphere": (r, 0 * r, 0 * r), "capsule": (r, rng.uniform(0.03, 0.15, P), 0 * r),
+                "box": tuple(rng.uniform(0.03, 0.12, (3, P)))}[kind]
+        return torch.as_tensor(np.stack(cols, -1).astype(np.float32))
+
+    kinds = pair.split("_")
+    (xp1, xm1), (xp2, xm2) = pose(), pose()
+    args = (xp1, xm1, size(kinds[0]), xp2, xm2, size(kinds[1]))
+    fn = getattr(collision, pair)
+    want = fn(*args)
+    got = [x.cpu() for x in fn(*(a.to(cuda) for a in args))]
+    defined = torch.ones(want[0].shape, dtype=torch.bool)
+    if pair == "capsule_box":
+        defined = (want[0] + args[2][:, :1]).abs() >= 3e-3
+    for what, g, w in zip(("dist", "pos", "frame"), got, want):
+        keep = torch.ones_like(defined) if what == "dist" else defined
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g[keep], w[keep], rtol=1e-5, atol=1e-5, msg=what)

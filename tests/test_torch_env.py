@@ -145,15 +145,14 @@ def test_registry():
 
 @pytest.mark.parametrize(
     "what, match",
-    [("quadruped_terrain", "height-field"), ("humanoid_balance", "humanoid/balance.py"),
-     ("randomization_fn", "domain randomization"), ("mesh", "multi-GPU")],
+    [("quadruped_terrain", "height-field"), ("randomization_fn", "domain randomization"), ("mesh", "multi-GPU")],
 )
 def test_unported_parts_are_refused(what, match):
     from ambersim_tpu_torch.rl import get_environment
     from ambersim_tpu_torch.rl.ppo import train
 
     with pytest.raises(NotImplementedError, match=match):
-        if what in ("quadruped_terrain", "humanoid_balance"):
+        if what == "quadruped_terrain":
             get_environment(what, device="cpu")
         else:
             train(get_environment("pendulum_swingup", device="cpu"), num_timesteps=1, device="cpu", **{what: object()})

@@ -29,7 +29,7 @@ def quadruped_case():
     qvel[:, :6] = 0.05 * rng.standard_normal((8, 6)).astype(np.float32)
     s = env.reset_to(torch.as_tensor(qpos), torch.as_tensor(qvel))
     # both packages step from the same carry: the port's reset state
-    jstate = tp.jax_quadruped_state(jenv, qpos, qvel, s.pipeline_state.qacc_warmstart.numpy())
+    jstate = tp.jax_env_state(jenv, qpos, qvel, s.pipeline_state.qacc_warmstart.numpy())
     start = (tp.env_state_to_numpy(jstate), tp.env_state_to_numpy(s))
     acts = tp.uniform_actions(6, 5, 8, 12)
     want = tp.jax_env_run(jenv, jstate, acts)

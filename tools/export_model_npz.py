@@ -42,6 +42,8 @@ ASSETS = {
     "arm3": ("models/arm3/arm3.xml", None, 0, 0),
     "humanoid": ("models/humanoid/humanoid.xml", None, 0, 0),
     "pendulum": ("models/pendulum/pendulum.xml", None, 0, 0),
+    # BASELINE.md:13's predictive-sampling hand: joint equality rows and capsule pairs
+    "hand": ("models/hand/hand.xml", None, 0, 0),
     # benchmarks/ladder.py rungs 3b (:120) and 3c (:133-142)
     "clutter32_cap48": (CLUTTER_XML, None, 48, 0),
     "clutter32_rowcap192": (CLUTTER_XML, None, 48, 192),

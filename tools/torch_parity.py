@@ -188,10 +188,13 @@ def jax_env_reset(env, batch: int, seed: int):
     return jax.jit(reset)(jax.random.split(jax.random.PRNGKey(seed), batch))
 
 
-def jax_quadruped_state(env, qpos: np.ndarray, qvel: np.ndarray, qacc_warmstart: np.ndarray):
-    """A batched State of the JAX quadruped env at the given numpy carry,
-    built without a forward pass: a step reads only qpos, qvel, act,
-    qacc_warmstart and time of its Data and recomputes the rest."""
+def jax_env_state(env, qpos: np.ndarray, qvel: np.ndarray, qacc_warmstart: np.ndarray,
+                  actions: tuple = ("last_action",)):
+    """A batched State of a JAX env (the quadruped's, or the humanoid's with
+    actions=("last_action", "prev_action")) at the given numpy carry, built
+    without a forward pass: a step reads only qpos, qvel, act,
+    qacc_warmstart and time of its Data and recomputes the rest. The info
+    entries named in `actions` start at zero."""
     import jax
     import jax.numpy as jnp
 
@@ -199,7 +202,7 @@ def jax_quadruped_state(env, qpos: np.ndarray, qvel: np.ndarray, qacc_warmstart:
 
     B = qpos.shape[0]
     data = jax_batch(env.model, qpos=qpos, qvel=qvel, qacc_warmstart=qacc_warmstart)
-    info = {"rng": jax.random.split(jax.random.PRNGKey(0), B), "last_action": jnp.zeros((B, env.model.nu))}
+    info = {"rng": jax.random.split(jax.random.PRNGKey(0), B), **{k: jnp.zeros((B, env.model.nu)) for k in actions}}
     obs = jax.vmap(env.compute_obs)(data, info)
     zeros = jnp.zeros(B)
     return State(data, obs, zeros, zeros, {"reward": zeros}, info)
