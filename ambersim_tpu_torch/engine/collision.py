@@ -1,9 +1,11 @@
-"""Batched collision: the plane against sphere, capsule and box,
-sphere-sphere, sphere-capsule, sphere-box, capsule-capsule, capsule-box and
-box-box (SAT, engine/convex.py). Port of
-ambersim_tpu/engine/collision.py (_make_frame, these narrowphases,
-_mix_params and `collision` with its broadphase-capped groups and global
-row cap).
+"""Batched collision: the plane against sphere, capsule, box, cylinder,
+ellipsoid and mesh, sphere-sphere, sphere-capsule, sphere-box,
+capsule-capsule, capsule-box, box-box, and sphere, capsule, box and mesh
+against a mesh's convex hull (box-box, box-mesh and mesh-mesh by SAT,
+engine/convex.py). Port of ambersim_tpu/engine/collision.py (_make_frame,
+these narrowphases, _mix_params and `collision` with its broadphase-capped
+groups and global row cap). A cylinder or ellipsoid in any other pair is
+the compiler's synthesized hull, so it meets that pair as a mesh.
 
 Each geom-type pair group runs one batched narrowphase and writes fixed
 contact slots; "no contact" is dist > includemargin, masked downstream.
@@ -188,6 +190,141 @@ def box_box(xp1, xm1, s1, xp2, xm2, s2):
     return dist, pos, _make_frame(n)[..., None, :, :].expand(pos.shape[:-1] + (3, 3))
 
 
+def plane_cylinder(xp1, xm1, s1, xp2, xm2, s2):
+    """Four candidate contacts: the low rim point of each cap (a cylinder
+    lying on its side) and the lower cap's rim at +-120 degrees from it (a
+    cylinder standing on a cap). Slots that do not touch are masked by
+    distance downstream."""
+    n = xm1[..., :, 2]
+    a = xm2[..., :, 2]
+    r, hl = s2[..., 0], s2[..., 1]
+    an = (a * n).sum(-1)
+    d = n - an[..., None] * a  # steepest descent in the cap plane
+    dn = torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+    d_rn = torch.where(dn > 1e-6, d / torch.clamp(dn, min=1e-12), xm2[..., :, 0])  # axis || n: any tangent
+    lower = -torch.sign(an)[..., None]
+    cap_lo = xp2 + lower * hl[..., None] * a
+    cap_hi = xp2 - lower * hl[..., None] * a
+    rim = -r[..., None] * d_rn
+
+    def rot_about_axis(v, ang):
+        cs, sn = float(np.cos(ang)), float(np.sin(ang))
+        return v * cs + am.cross(a, v) * sn + a * (a * v).sum(-1, keepdim=True) * (1 - cs)
+
+    pts = torch.stack([cap_lo + rim, cap_hi + rim, cap_lo + rot_about_axis(rim, 2.0 * np.pi / 3),
+                       cap_lo + rot_about_axis(rim, -2.0 * np.pi / 3)], dim=-2)
+    dist = ((pts - xp1[..., None, :]) * n[..., None, :]).sum(-1)
+    pos = pts - 0.5 * dist[..., None] * n[..., None, :]
+    return dist, pos, _make_frame(n)[..., None, :, :].expand(pos.shape[:-1] + (3, 3))
+
+
+def plane_ellipsoid(xp1, xm1, s1, xp2, xm2, s2):
+    """The ellipsoid's support point along -normal (one contact)."""
+    n = xm1[..., :, 2]
+    n_l = (xm2 * -n[..., :, None]).sum(-2)  # -n in the ellipsoid's frame
+    sn = s2 * n_l
+    w = s2 * sn / torch.clamp(torch.linalg.vector_norm(sn, dim=-1, keepdim=True), min=1e-12)
+    p = xp2 + (xm2 * w[..., None, :]).sum(-1)
+    dist = ((p - xp1) * n).sum(-1)
+    pos = p - 0.5 * dist[..., None] * n
+    return dist[..., None], pos[..., None, :], _make_frame(n)[..., None, :, :]
+
+
+# A mesh geom's hull arrives as the tuple (verts (.., V, 3), vert_mask
+# (.., V), face normals (.., F, 3), face offsets (.., F), face rings
+# (.., F, FV, 3), edges (.., E, 2, 3)), gathered by the pairs' mesh ids
+# (`_mesh_tuple`).
+
+
+def plane_mesh(xp1, xm1, s1, xp2, xm2, s2, mesh2):
+    """The 4 deepest hull vertices against the plane. Padded vertices sit at
+    +_BIG; a stable sort takes tied vertices (a face resting flat) lowest
+    index first, as the JAX package's argsort does."""
+    verts, vert_mask = mesh2[0], mesh2[1]
+    n = xm1[..., :, 2]
+    pts = xp2[..., None, :] + convex._rotate(xm2, verts)
+    dvert = ((pts - xp1[..., None, :]) * n[..., None, :]).sum(-1)
+    dvert = torch.where(vert_mask, dvert, _BIG)
+    idx = torch.sort(dvert, dim=-1, stable=True).indices[..., :4]
+    dist = torch.take_along_dim(dvert, idx, dim=-1)
+    pos = torch.take_along_dim(pts, idx[..., None], dim=-2) - 0.5 * dist[..., None] * n[..., None, :]
+    return dist, pos, _make_frame(n)[..., None, :, :].expand(pos.shape[:-1] + (3, 3))
+
+
+def _point_hull_sd(p_local, face_n, face_d):
+    """Signed distance of points p_local (..., K, 3), in the mesh frame, to a
+    hull by its face planes, and the outward normal of the first face that
+    attains it (..., K, 3). Exact inside and nearest a face; past an edge or
+    corner it overestimates the depth, which contact near the surface
+    tolerates."""
+    plane_d = (p_local[..., :, None, :] * face_n[..., None, :, :]).sum(-1) - face_d[..., None, :]  # (..., K, F)
+    sd, idx = plane_d.max(-1).values, plane_d.argmax(-1)
+    fn = face_n[..., None, :, :].expand(p_local.shape[:-1] + face_n.shape[-2:])
+    return sd, torch.take_along_dim(fn, idx[..., None, None], dim=-2).squeeze(-2)
+
+
+def _mesh_frame_points(pts_world, xp_m, xm_m):
+    """World points (..., K, 3) in a mesh's frame: R^T (p - xp)."""
+    return ((pts_world - xp_m[..., None, :])[..., :, :, None] * xm_m[..., None, :, :]).sum(-2)
+
+
+def _points_vs_hull(pts_world, r, xp_m, xm_m, face_n, face_d):
+    """Spheres of radius r centered at pts_world (..., K, 3) against a hull:
+    dist (..., K), pos at the middle of the overlap, and the hull's outward
+    world normal (..., K, 3)."""
+    sd, n_l = _point_hull_sd(_mesh_frame_points(pts_world, xp_m, xm_m), face_n, face_d)
+    n_w = convex._rotate(xm_m, n_l)
+    dist = sd - r
+    return dist, pts_world - (r + 0.5 * dist)[..., None] * n_w, n_w
+
+
+def sphere_mesh(xp1, xm1, s1, xp2, xm2, s2, mesh2):
+    dist, pos, n_w = _points_vs_hull(xp1[..., None, :], s1[..., 0:1], xp2, xm2, mesh2[2], mesh2[3])
+    return dist, pos, _make_frame(-n_w)  # the hull's outward normal points geom2 -> geom1
+
+
+def capsule_mesh(xp1, xm1, s1, xp2, xm2, s2, mesh2):
+    """Both endpoints and the segment point nearest the hull: a 12-round
+    ternary search on the hull's signed distance along the segment (a max
+    of affine functions, so convex)."""
+    fn2, fd2 = mesh2[2], mesh2[3]
+    r, hl = s1[..., 0], s1[..., 1]
+    axis = xm1[..., :, 2]
+
+    def sd_at(t):
+        p_l = _mesh_frame_points((xp1 + t[..., None] * axis)[..., None, :], xp2, xm2)
+        return _point_hull_sd(p_l, fn2, fd2)[0][..., 0]
+
+    lo, hi = -hl, hl
+    for _ in range(12):
+        m1 = lo + (hi - lo) / 3
+        m2 = hi - (hi - lo) / 3
+        left = sd_at(m1) < sd_at(m2)
+        hi = torch.where(left, m2, hi)
+        lo = torch.where(left, lo, m1)
+    tmid = 0.5 * (lo + hi)
+    pts = torch.stack([xp1 + hl[..., None] * axis, xp1 - hl[..., None] * axis, xp1 + tmid[..., None] * axis], dim=-2)
+    dist, pos, n_w = _points_vs_hull(pts, r[..., None], xp2, xm2, fn2, fd2)
+    return dist, pos, _make_frame(-n_w)
+
+
+def box_mesh(xp1, xm1, s1, xp2, xm2, s2, mesh2):
+    """Exact SAT box-hull with a clipped 4-point manifold (engine/convex.py)."""
+    h2 = convex.mesh_hull(xp2, xm2, mesh2[0], mesh2[2], mesh2[4], mesh2[5])
+    dist, pos, n = convex.hull_hull(convex.box_hull(xp1, xm1, s1), h2, 4)
+    return dist, pos, _make_frame(n)[..., None, :, :].expand(pos.shape[:-1] + (3, 3))
+
+
+def mesh_mesh(xp1, xm1, s1, xp2, xm2, s2, mesh1, mesh2):
+    """Exact SAT hull-hull with a clipped 4-point manifold (engine/convex.py).
+    Its axis set holds E1 x E2 edge-cross axes: two 186-edge hulls give
+    34,596, each projected on both hulls' vertices."""
+    h1 = convex.mesh_hull(xp1, xm1, mesh1[0], mesh1[2], mesh1[4], mesh1[5])
+    h2 = convex.mesh_hull(xp2, xm2, mesh2[0], mesh2[2], mesh2[4], mesh2[5])
+    dist, pos, n = convex.hull_hull(h1, h2, 4)
+    return dist, pos, _make_frame(n)[..., None, :, :].expand(pos.shape[:-1] + (3, 3))
+
+
 # keyed by (type1, type2) with type1 <= type2, as the compiler orders pairs
 _NARROWPHASE = {
     (int(GeomType.PLANE), int(GeomType.SPHERE)): (plane_sphere, 1),
@@ -199,6 +336,13 @@ _NARROWPHASE = {
     (int(GeomType.CAPSULE), int(GeomType.CAPSULE)): (capsule_capsule, 1),
     (int(GeomType.CAPSULE), int(GeomType.BOX)): (capsule_box, 3),
     (int(GeomType.BOX), int(GeomType.BOX)): (box_box, 8),
+    (int(GeomType.PLANE), int(GeomType.CYLINDER)): (plane_cylinder, 4),
+    (int(GeomType.PLANE), int(GeomType.ELLIPSOID)): (plane_ellipsoid, 1),
+    (int(GeomType.PLANE), int(GeomType.MESH)): (plane_mesh, 4),
+    (int(GeomType.SPHERE), int(GeomType.MESH)): (sphere_mesh, 1),
+    (int(GeomType.CAPSULE), int(GeomType.MESH)): (capsule_mesh, 3),
+    (int(GeomType.BOX), int(GeomType.MESH)): (box_mesh, 4),
+    (int(GeomType.MESH), int(GeomType.MESH)): (mesh_mesh, 4),
 }
 
 
@@ -223,6 +367,17 @@ def _broadphase(m: Model, d: Data, tkey, g1s: np.ndarray, g2s: np.ndarray, k: in
         bound = torch.linalg.vector_norm(delta, dim=-1) - m.geom_rbound[g1] - m.geom_rbound[g2]
     sel = _top_k(-(bound - margin_ub), k)
     return g1[sel], g2[sel]
+
+
+def _mesh_tuple(m: Model, g: torch.Tensor):
+    """The hull arrays of geoms `g` ((P,) or (B, k) ids) by their mesh ids,
+    in the order the mesh narrowphases take them."""
+    s = m.skel
+    meshid = device_index(s.geom_meshid, g.device)[g]
+    vertnum = device_index(s.mesh_vertnum, g.device)[meshid]
+    vert_mask = torch.arange(m.mesh_vert.shape[1], device=g.device) < vertnum[..., None]
+    return (m.mesh_vert[meshid], vert_mask, m.mesh_face_normal[meshid], m.mesh_face_dist[meshid],
+            m.mesh_face_vert[meshid], m.mesh_edge[meshid])
 
 
 def _mix_params(m: Model, g1: torch.Tensor, g2: torch.Tensor):
@@ -297,7 +452,9 @@ def collision(m: Model, d: Data) -> Data:
             g1, g2 = ix(s.pair_geom1[idx]), ix(s.pair_geom2[idx])  # (P,)
             slots = ix(np.concatenate([np.arange(ncon_per) + int(s.con_adr[i]) for i in idx]))
             poses = [x[:, g] for g in (g1, g2) for x in (d.geom_xpos, d.geom_xmat)]
-        dist, pos, frame = fn(poses[0], poses[1], m.geom_size[g1], poses[2], poses[3], m.geom_size[g2])
+        args = [poses[0], poses[1], m.geom_size[g1], poses[2], poses[3], m.geom_size[g2]]
+        args += [_mesh_tuple(m, g) for t, g in zip(tkey, (g1, g2)) if t == int(GeomType.MESH)]
+        dist, pos, frame = fn(*args)
         pair_dim = g1.dim() - 1  # the pairs' dim of _mix_params: (P, ...) static, (B, k, ...) capped
         friction, solref, solimp, margin, gap = (
             x.repeat_interleave(ncon_per, dim=pair_dim) for x in _mix_params(m, g1, g2)

@@ -1,7 +1,8 @@
-"""Box-box narrowphase: separating-axis test with a clipped contact manifold.
+"""Convex-convex narrowphase: separating-axis test with a clipped contact
+manifold, for box and mesh-hull geoms.
 
-Port of ambersim_tpu/engine/convex.py (`box_hull`, `_seg_seg_closest`,
-`hull_hull`). The SAT runs over the complete axis set of the two polytopes
+Port of ambersim_tpu/engine/convex.py (`box_hull`, `mesh_hull`,
+`_seg_seg_closest`, `hull_hull`). The SAT runs over the complete axis set of the two polytopes
 (all face normals and all edge-direction cross products), which is exact for
 convex polytopes, with no data-dependent control flow. The manifold comes
 from a flat, fully masked clip candidate set (incident face vertices inside
@@ -12,7 +13,8 @@ point, then points spread around the contact-plane compass.
 Every tensor is batch-first over arbitrary leading dims. Products are
 spelled as elementwise multiplies and sums and selections as index gathers,
 never as matrix products, so no TF32 question arises on the card.
-`mesh_hull` (:88) waits for the mesh pairs (ROADMAP.md).
+Mesh hulls come from the compiler, padded by repeating real geometry (the
+last vertex of a face ring, the first face), so no reduction needs a mask.
 
 Conventions match MuJoCo: the normal points from hull1 into hull2, the
 contact position is the midpoint of the surface overlap, dist < 0 inside.
@@ -87,6 +89,26 @@ def box_hull(xp: torch.Tensor, xm: torch.Tensor, size: torch.Tensor) -> Hull:
     return Hull(verts, face_n, face_v, edge)
 
 
+def mesh_hull(xp: torch.Tensor, xm: torch.Tensor, verts_l, face_n_l, face_v_l, edge_l) -> Hull:
+    """Hull view of a mesh geom from its compiled local-frame hull: verts
+    (..., V, 3), face normals (..., F, 3), face rings (..., F, FV, 3) and
+    edges (..., E, 2, 3), posed by xp (..., 3) and xm (..., 3, 3)."""
+    fv_shape, e_shape = face_v_l.shape, edge_l.shape
+    face_v = xp[..., None, :] + _rotate(xm, face_v_l.reshape(fv_shape[:-3] + (-1, 3)))
+    edge = xp[..., None, :] + _rotate(xm, edge_l.reshape(e_shape[:-3] + (-1, 3)))
+    return Hull(xp[..., None, :] + _rotate(xm, verts_l), _rotate(xm, face_n_l),
+                face_v.reshape(face_v.shape[:-2] + fv_shape[-3:]), edge.reshape(edge.shape[:-2] + e_shape[-3:]))
+
+
+def _pad_ring(fv: torch.Tensor, width: int) -> torch.Tensor:
+    """A face ring (..., FV, 3) padded to `width` vertices by repeating its
+    last one (a degenerate edge, harmless to the clip)."""
+    extra = width - fv.shape[-2]
+    if extra <= 0:
+        return fv
+    return torch.cat([fv, fv[..., -1:, :].expand(fv.shape[:-2] + (extra, 3))], dim=-2)
+
+
 def _seg_seg_closest(a0, a1, b0, b1):
     """Closest points between segments [a0, a1] and [b0, b1], branch-free."""
     da, db, r = a1 - a0, b1 - b0, b0 - a0
@@ -157,13 +179,14 @@ def hull_hull(h1: Hull, h2: Hull, ncon: int):
     # ================= face-case manifold =================
     # the reference face lives on hull1 iff the winning face axis is hull1's;
     # each hull's ring is its face most aligned with n as seen from that hull
-    # (the reference's rf = if selection). Box rings all have four vertices,
-    # so the reference's padding of unequal rings (for mesh hulls) is not needed.
+    # (the reference's rf = if selection). Rings of unequal width (a box's
+    # four against a mesh face's) are padded to the wider one.
     on1 = bf < F1
     if1 = _dot(h1.face_n, n[..., None, :]).argmax(-1)
     if2 = _dot(h2.face_n, n[..., None, :]).argmin(-1)
-    fv1, fn1 = _take(h1.face_v, if1, -3), _take(h1.face_n, if1, -2)
-    fv2, fn2 = _take(h2.face_v, if2, -3), _take(h2.face_n, if2, -2)
+    fvw = max(h1.face_v.shape[-2], h2.face_v.shape[-2])
+    fv1, fn1 = _pad_ring(_take(h1.face_v, if1, -3), fvw), _take(h1.face_n, if1, -2)
+    fv2, fn2 = _pad_ring(_take(h2.face_v, if2, -3), fvw), _take(h2.face_n, if2, -2)
     sel = on1[..., None, None]
     ref_v, inc_v = torch.where(sel, fv1, fv2), torch.where(sel, fv2, fv1)
     ref_n_own = torch.where(on1[..., None], fn1, fn2)

@@ -18,7 +18,9 @@ the route's kernel (ops/newton.py) and never falls back to a plain version:
     `_newton_arrays_elliptic` (batched _newton_arrays_elliptic_jnp, :624);
   * nv > ops.newton.MAX_NV (kernels 4-6 factor their Hessian with one warp)
     -> `_newton_arrays` / `_newton_arrays_elliptic` themselves on the card,
-    their Hessian solve through engine.linalg.solve_pd, i.e. kernel 3. This
+    their Hessian solve through engine.linalg.solve_pd, i.e. kernel 3, and
+    the pyramidal one with Option.hessian_bf16's bfloat16 Hessian product
+    when the model asks for it (check_slice refuses it elsewhere). This
     is the JAX package's own ladder on the TPU (solver.py:586-612, :855-873:
     structured -> dense -> jnp when the Newton kernels do not fit VMEM, as
     at the 32-body clutter scene's nv = 192), whose jnp Newton calls
@@ -114,12 +116,21 @@ def _mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def _newton_arrays(J, qM, aref, D, fl, act, a_s, ws, tol, *, ne, nf, iterations, ls_iterations, use_ws,
-                   solve=solve_pd_unrolled):
+                   solve=solve_pd_unrolled, hess_bf16=False):
     """Batched pyramidal Newton on dense rows in MuJoCo order. Returns
     (qacc, efc_force, J^T efc_force). Plain version of kernels 4 and 5 with
     the default `solve`; `solve` = engine.linalg.solve_pd makes it the
-    large-nv route, whose Hessian solve is kernel 3 on the card."""
+    large-nv route, whose Hessian solve is kernel 3 on the card.
+
+    `hess_bf16` (Option.hessian_bf16, JAX solver.py:465-480) rounds both
+    operands of J^T diag(h) J to bfloat16 and keeps the product and its sums
+    in float32, as the JAX package's preferred_element_type=float32 does: a
+    product of two bfloat16 values is exact in float32, so the rounded
+    operands go through the float32 product (TF32 off in engine.forward).
+    Only the Newton direction changes; gradient, cost and line search stay
+    float32."""
     nv = a_s.shape[-1]
+    J_h = J.to(torch.bfloat16).float() if hess_bf16 else J
 
     def total_cost(qacc, jar):
         dacc = qacc - a_s
@@ -144,7 +155,10 @@ def _newton_arrays(J, qM, aref, D, fl, act, a_s, ws, tol, *, ne, nf, iterations,
         Mdacc = _mv(qM, qacc - a_s)
         grad = Mdacc - (J * force[..., None]).sum(-2)
         h = torch.where(quad, D, 0.0)
-        H = qM + (J * h[..., None]).transpose(-1, -2) @ J + 1e-8 * eye
+        Jw = J * h[..., None]
+        if hess_bf16:
+            Jw = Jw.to(torch.bfloat16).float()
+        H = qM + Jw.transpose(-1, -2) @ J_h + 1e-8 * eye
         p = -solve(H, grad)
         jp = _mv(J, p)
         pmp = (p * _mv(qM, p)).sum(-1)
@@ -393,7 +407,8 @@ def solve(m: Model, d: Data) -> Data:
 
     st = _pyramid_structure(s)
     if arrays:
-        qacc, force, qfrc = _newton_arrays(*rows, tol, ne=int(s.ne), nf=int(s.nf), **statics, solve=linalg.solve_pd)
+        qacc, force, qfrc = _newton_arrays(*rows, tol, ne=int(s.ne), nf=int(s.nf), **statics, solve=linalg.solve_pd,
+                                           hess_bf16=bool(m.opt.hessian_bf16))
     elif st is not None:
         from ambersim_tpu_torch.ops.newton import newton_solve_structured
 

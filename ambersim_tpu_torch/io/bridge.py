@@ -47,19 +47,6 @@ from ambersim_tpu_torch.core.types import (
 
 ASSETS = Path(__file__).resolve().parent.parent / "assets"
 
-# the geom-type pairs of engine/collision.py's narrowphase table
-_PAIRS = {
-    (int(GeomType.PLANE), int(GeomType.SPHERE)),
-    (int(GeomType.PLANE), int(GeomType.CAPSULE)),
-    (int(GeomType.PLANE), int(GeomType.BOX)),
-    (int(GeomType.SPHERE), int(GeomType.SPHERE)),
-    (int(GeomType.SPHERE), int(GeomType.CAPSULE)),
-    (int(GeomType.SPHERE), int(GeomType.BOX)),
-    (int(GeomType.CAPSULE), int(GeomType.CAPSULE)),
-    (int(GeomType.CAPSULE), int(GeomType.BOX)),
-    (int(GeomType.BOX), int(GeomType.BOX)),
-}
-
 
 def _tuplify(v):
     """JSON lists back to the tuples the Skeleton stores."""
@@ -149,7 +136,9 @@ _CHECKED: set = set()
 def check_slice(m: Model) -> None:
     """Raise NotImplementedError naming every feature of `m` that the port
     does not implement. Nothing outside the slice is silently skipped."""
+    from ambersim_tpu_torch.engine.collision import _NARROWPHASE
     from ambersim_tpu_torch.engine.solver import _elliptic_meta, elliptic_tail
+    from ambersim_tpu_torch.ops.newton import MAX_NV
 
     s, o = m.skel, m.opt
     key = (s, o.integrator, o.solver, o.cone, o.noslip_iterations, o.enableflags,
@@ -200,7 +189,7 @@ def check_slice(m: Model) -> None:
         except NotImplementedError as err:
             missing.append(str(err))
     for t1, t2 in set(zip(np.asarray(s.pair_ctype1).tolist(), np.asarray(s.pair_ctype2).tolist())):
-        if (t1, t2) not in _PAIRS:
+        if (t1, t2) not in _NARROWPHASE:
             missing.append(f"{GeomType(t1).name.lower()}-{GeomType(t2).name.lower()} contact pairs")
     if (np.asarray(s.pair_explicit) >= 0).any():
         missing.append("explicit <pair> contact overrides")
@@ -215,8 +204,12 @@ def check_slice(m: Model) -> None:
     for bit in (EnableBit.ENERGY, EnableBit.FWDINV, EnableBit.OVERRIDE):
         if o.enableflags & bit:
             missing.append(f"the {bit.name} flag")
-    if o.hessian_bf16:
-        missing.append("Option.hessian_bf16 (bf16 Newton Hessian)")
+    # the bf16 Hessian lives on the batched-arrays route only (nv past the
+    # Newton kernels, pyramidal cones), where the JAX package applies it
+    if o.hessian_bf16 and s.nv <= MAX_NV:
+        missing.append(f"Option.hessian_bf16 (bf16 Newton Hessian) at nv <= {MAX_NV}: kernels 4-6 take float32 only")
+    elif o.hessian_bf16 and o.cone == int(ConeType.ELLIPTIC):
+        missing.append("Option.hessian_bf16 (bf16 Newton Hessian) with elliptic cones")
     if missing:
         raise NotImplementedError(
             "model uses features outside the ported slice: " + ", ".join(dict.fromkeys(missing))

@@ -186,7 +186,9 @@ def train(
     `timing/rollout_s`, `timing/sgd_s` and `timing/eval_s`: host seconds of
     the epoch's phases, each ended by a device synchronize."""
     if mesh is not None:
-        raise NotImplementedError("mesh: multi-GPU data parallelism is not ported (ROADMAP queue 13)")
+        raise NotImplementedError(
+            "mesh: multi-GPU data parallelism is not ported (ROADMAP, queue 1: multi-GPU and tooling)"
+        )
     if randomization_fn is not None:
         raise NotImplementedError("randomization_fn: domain randomization needs per-env Model leaves, not ported")
     device = torch.device(device)

@@ -30,7 +30,13 @@ the card, and steps every ported path through the port's entry points:
   * the hand with contacts on, 1024 envs x 100 steps under a closing ctrl,
     so its capsule, sphere and box geoms meet;
   * PPO on humanoid_balance at benchmarks/ladder.py:194-219's settings,
-    one training step.
+    one training step;
+  * the rest of benchmarks/ladder.py, so that every line it prints has a
+    path here: drop_scene and the rock drop (mesh collision) at 2048 envs
+    x (300 settle + 150 steps), exact clutter (no cap, nefc 5664) and the
+    row-capped clutter with Option.hessian_bf16 at 256 envs from the
+    row-capped path's settled state, the humanoid's predictive sampling
+    (64 samples x 8 knots) and the pendulum at a batch of one.
 
 For each path it checks that every step went through the path's kernels
 and compares 8 envs of the rollout on the card with the same rollout on the
@@ -97,6 +103,24 @@ CLUTTER_CARD_VS_CPU_STEPS = 5
 # (5.9e-3, 1.4e-5), plain float32 5.9e-3 and 1.8e-6. A route that rounds
 # like float32 stays within about three times the worst and seven times
 # the median; a fault in it (a wrong factor, a dropped row) moves every env.
+# benchmarks/ladder.py rungs 3 and 3a (:104-112): drop_scene and the rock
+# drop at 2048 envs, 300 settle steps and 150 timed steps
+DROP_ENVS, DROP_SETTLE, DROP_STEPS = 2048, 300, 150
+# Rungs 3b exact (clutter32 with no cap, :123-125) and 3d (rowcap192 with
+# Option.hessian_bf16, :145-148) at the ladder's 256 envs. Cut: both start
+# from the rowcap192 path's settled state; exact clutter settles
+# EXACT_SETTLE more steps at its own rows, then EXACT_STEPS timed steps;
+# bf16 runs BF16_STEPS timed steps (the ladder: 400 settle + 100 timed)
+EXACT_SETTLE, EXACT_STEPS, BF16_STEPS = 100, 20, 20
+# rung 5's humanoid predictive sampling (:160-184): 64 samples x 8 knots,
+# Q 0.1 I, Qf 10 I, R 1e-4 I, goal and start at (qpos0, 0), stdev 0.2
+HUMANOID_SAMPLES, HUMANOID_HORIZON, HUMANOID_STDEV = 64, 8, 0.2
+HUMANOID_OPTIMIZE_CALLS = 20
+# rung 1 (:94-96): the pendulum, a batch of one, 1000 steps
+PENDULUM_STEPS = 1000
+# mesh_mesh_memory's pairs: the rock against itself, whose SAT projects
+# 34,596 edge axes on 2 x 64 vertices a pair
+MESH_MESH_PAIRS = 16
 CLUTTER_SETTLED = REPO / "ambersim_tpu_torch" / "assets" / "clutter32_rowcap192_settled.npz"
 CLUTTER_SPREAD_BARS = {"clutter32_rowcap192": (2e-2, 1e-4), "clutter32_cap48": (2e-2, 1e-4)}
 # absolute floors under the clutter card-vs-CPU bars (10 x the card's own
@@ -749,6 +773,8 @@ def check_linalg(device, results):
     sizes = ((NUM_ENVS, 18),) + tuple((257, n) for n in range(1, kernels.MAX_N_WARP + 1))
     sizes += tuple((CLUTTER_ENVS, n) for n in LARGE_NS)
     sizes += ((LARGE_BATCH, kernels.MAX_N),)
+    # and at every (batch, n) a phase launches them at
+    sizes += tuple(sorted({shape for shape, _ in PHASE_SHAPES.values()} - set(sizes)))
     for B, n in sizes:
         tol = LINALG_TOL if n <= kernels.MAX_N_WARP else LARGE_LINALG_TOL
         a, b = random_spd(rng, B, n, device)
@@ -1380,13 +1406,34 @@ def pd_ctrl(d):
     return KP * (0.0 - d.qpos[:, 7:]) - KD * d.qvel[:, 6:]
 
 
+def settled_start(name: str):
+    """A path start: the first `batch` envs of path `name`'s final state
+    (SETTLED), its qpos, qvel and warmstart."""
+    def start(m, batch: int, device):
+        from ambersim_tpu_torch.engine import make_data
+
+        d = SETTLED[name]
+        return make_data(m, batch).replace(**{k: getattr(d, k)[:batch].clone() for k in
+                                              ("qpos", "qvel", "qacc_warmstart")})
+    return start
+
+
 _LINALG = ("cholesky", "cho_solve", "solve_pd")
 _LINALG_BLOCK = ("cholesky_block", "cho_solve_block", "solve_pd_block")
 # the clutter scene's launches per step: qM's factor, qacc_smooth's solve and
 # one Hessian solve per Newton iteration (opt.iterations = 6), no Newton kernel
 CLUTTER_PER_STEP = {"cholesky_block": 1, "cho_solve_block": 1, "solve_pd_block": 6}
-# path -> its model, batch, steps, start, controller and the kernels every
-# step launches (at least once each; exactly per_step where given)
+# drop_scene's and the rock's: qM's factor, qacc_smooth's solve and kernel 4
+# (no joint damping, so no Euler solve)
+DROP_PER_STEP = {"cholesky": 1, "cho_solve": 1, "newton_structured": 1}
+# path -> its model (and `opt` overrides), batch, steps, start, controller and
+# the kernels every step launches (at least once each; exactly per_step where
+# given). `floor` paths are held to FLOOR_TOL and keep their final state in
+# SETTLED; `vs_cpu` says how 8 envs are held against the CPU (run_phases):
+# "start" (default: 20 steps from the path's start at QPOS_TOL / QVEL_TOL),
+# "settled" (20 steps from the final state at those bars), "spread" (5
+# steps from it at 10 x the card's own spread, settled_card_vs_cpu) or
+# "none" (a model another path holds)
 PATHS = {
     "quadruped": dict(model="quadruped", envs=NUM_ENVS, steps=NUM_STEPS, start=initial_batch, ctrl=pd_ctrl,
                       kernels=_LINALG + ("newton_structured",), z=(0.20, 0.32)),
@@ -1400,9 +1447,22 @@ PATHS = {
                      kernels=_LINALG + ("newton_structured",)),
     "clutter32_rowcap192": dict(model="clutter32_rowcap192", envs=CLUTTER_ENVS, steps=CLUTTER_STEPS,
                                 settle=CLUTTER_SETTLE, start=rest_start, ctrl=None, kernels=_LINALG_BLOCK,
-                                per_step=CLUTTER_PER_STEP),
+                                per_step=CLUTTER_PER_STEP, floor=True, vs_cpu="spread"),
     "clutter32_cap48": dict(model="clutter32_cap48", envs=CLUTTER_ENVS, steps=CLUTTER_STEPS, settle=CLUTTER_SETTLE,
-                            start=rest_start, ctrl=None, kernels=_LINALG_BLOCK, per_step=CLUTTER_PER_STEP),
+                            start=rest_start, ctrl=None, kernels=_LINALG_BLOCK, per_step=CLUTTER_PER_STEP,
+                            floor=True, vs_cpu="none"),
+    "drop_scene": dict(model="drop_scene", envs=DROP_ENVS, steps=DROP_STEPS, settle=DROP_SETTLE, start=rest_start,
+                       ctrl=None, kernels=tuple(DROP_PER_STEP), per_step=DROP_PER_STEP, floor=True,
+                       vs_cpu="settled"),
+    "rock": dict(model="rock", envs=DROP_ENVS, steps=DROP_STEPS, settle=DROP_SETTLE, start=rest_start, ctrl=None,
+                 kernels=tuple(DROP_PER_STEP), per_step=DROP_PER_STEP, floor=True, vs_cpu="settled"),
+    "clutter32": dict(model="clutter32", envs=CLUTTER_ENVS, steps=EXACT_STEPS, settle=EXACT_SETTLE,
+                      start=settled_start("clutter32_rowcap192"), ctrl=None, kernels=_LINALG_BLOCK,
+                      per_step=CLUTTER_PER_STEP, floor=True, vs_cpu="spread"),
+    "clutter32_rowcap192_bf16": dict(model="clutter32_rowcap192", opt=dict(hessian_bf16=True), envs=CLUTTER_ENVS,
+                                     steps=BF16_STEPS, start=settled_start("clutter32_rowcap192"), ctrl=None,
+                                     kernels=_LINALG_BLOCK, per_step=CLUTTER_PER_STEP, floor=True,
+                                     vs_cpu="spread"),
 }
 # the clutter paths' final states, for the card-vs-CPU check
 SETTLED: dict = {}
@@ -1421,6 +1481,10 @@ PHASE_SHAPES = {
     "hand_mpc_batch": ((HAND_MPC_BATCH * HAND_SAMPLES, 8), f"hand B={HAND_MPC_BATCH * HAND_SAMPLES}"),
     "hand_mpc_batch_plant": ((HAND_MPC_BATCH, 8), f"hand B={HAND_MPC_BATCH}"),
     "hand_contacts": ((HAND_CONTACT_ENVS, 8), "hand contacts"),
+    "drop_scene": ((DROP_ENVS, 24), "drop_scene"), "rock": ((DROP_ENVS, 6), "rock"),
+    "clutter32": ((CLUTTER_ENVS, 192), None), "clutter32_rowcap192_bf16": ((CLUTTER_ENVS, 192), None),
+    "humanoid_sampling": ((HUMANOID_SAMPLES, 25), "humanoid sampling"),
+    "pendulum_single": ((1, 1), None),
 }
 # (kernel, shape) -> (ms, bound_ms) measured in this run: the shape is
 # (batch, n) for kernels 1-3 and a PHASE_SHAPES case for the Newton kernels
@@ -1428,22 +1492,44 @@ SHAPE_TIMES: dict = {}
 
 
 def lowest_geom_point(m, d):
-    """(B,) lowest z of the sphere and box geoms at d's geom poses."""
+    """(B,) lowest z of every sphere, box, capsule and mesh geom at d's geom
+    poses: a sphere's center less its radius, a box's lowest corner, a
+    capsule's lower endpoint less its radius, a mesh's lowest hull vertex."""
     import numpy as np
     import torch
 
     from ambersim_tpu_torch.core.types import GeomType
 
-    types = np.asarray(m.skel.geom_type)
+    s = m.skel
+    types = np.asarray(s.geom_type)
     low = []
-    for t in (GeomType.SPHERE, GeomType.BOX):
-        ids = torch.as_tensor(np.nonzero(types == int(t))[0], device=d.qpos.device)
-        if len(ids):
-            size = m.geom_size[ids]
-            # a box's half-height is sum_j |R[2, j]| size_j, a sphere's its radius
-            half = size[:, 0] if t == GeomType.SPHERE else (d.geom_xmat[:, ids, 2, :].abs() * size).sum(-1)
-            low.append((d.geom_xpos[:, ids, 2] - half).amin(1))
+    for t in (GeomType.SPHERE, GeomType.BOX, GeomType.CAPSULE, GeomType.MESH):
+        ids = np.nonzero(types == int(t))[0]
+        if not len(ids):
+            continue
+        idx = torch.as_tensor(ids, device=d.qpos.device)
+        z, size, rz = d.geom_xpos[:, idx, 2], m.geom_size[idx], d.geom_xmat[:, idx, 2, :]  # rz: R's z row
+        if t == GeomType.SPHERE:
+            low.append((z - size[:, 0]).amin(1))
+        elif t == GeomType.BOX:  # half-height sum_j |R[2, j]| size_j
+            low.append((z - (rz.abs() * size).sum(-1)).amin(1))
+        elif t == GeomType.CAPSULE:  # the axis is R's z column, its z component R[2, 2]
+            low.append((z - size[:, 1] * rz[..., 2].abs() - size[:, 0]).amin(1))
+        else:
+            for g in ids:
+                mid = int(s.geom_meshid[g])
+                verts = m.mesh_vert[mid, : int(s.mesh_vertnum[mid])]  # (V, 3) in the geom frame
+                low.append((d.geom_xpos[:, g, 2, None] + (d.geom_xmat[:, g, None, 2, :] * verts).sum(-1)).amin(1))
     return torch.stack(low, 1).amin(1)
+
+
+def path_model(name: str, device):
+    """The model of path `name` on `device`, with the path's option overrides."""
+    from ambersim_tpu_torch import load_model
+
+    p = PATHS[name]
+    m = load_model(p["model"], device=device)
+    return m.replace(opt=m.opt.replace(**p["opt"])) if p.get("opt") else m
 
 
 def drive_path(name: str, device, card: str) -> dict:
@@ -1458,7 +1544,7 @@ def drive_path(name: str, device, card: str) -> dict:
     from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
 
     p = PATHS[name]
-    m = load_model(p["model"], device=device)
+    m = path_model(name, device)
     d0 = p["start"](m, p["envs"], device)
     if p.get("settle"):
         t0 = time.perf_counter()
@@ -1477,6 +1563,7 @@ def drive_path(name: str, device, card: str) -> dict:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held_gib = torch.cuda.memory_allocated() / 2**30
     reset_launch_counts()
     t0 = time.perf_counter()
     d = rollout(m, d0, p["steps"], ctrl_fn=ctrl)
@@ -1495,14 +1582,17 @@ def drive_path(name: str, device, card: str) -> dict:
         print(f"{name} path: trunk z in [{z.min().item():.4f}, {z.max().item():.4f}]")
     exactly = {k: n * p["steps"] for k, n in p["per_step"].items()} if "per_step" in p else None
     _check_launches(f"{name} path", launches, p["kernels"], p["steps"], exactly)
-    if "per_step" in p:
+    if p.get("opt"):
+        print(f"{name} path: model {p['model']} with {p['opt']}")
+    if p.get("floor"):
         low = lowest_geom_point(m, d)
         force = d.efc_force.sum(1)
         if not (bool((low >= -FLOOR_TOL).all()) and bool(torch.isfinite(force).all())):
             fail(f"{name} path: a geom {-low.min().item():.4f} m below the floor or a non-finite contact force")
         print(f"{name} path: lowest geom point {low.min().item():.5f} m (>= -{FLOOR_TOL}); total contact force per "
               f"env mean {force.mean().item():.3f}; active contacts per env {d.efc_active.sum(1).float().mean().item() / 4:.1f}; "
-              f"peak device memory over the timed steps {peak_gib:.2f} GiB")
+              f"peak device memory over the timed steps {peak_gib:.2f} GiB, {peak_gib - held_gib:.2f} GiB above what "
+              f"was held before them")
         SETTLED[name] = d
     rate = p["envs"] * p["steps"] / seconds
     print(
@@ -1536,16 +1626,16 @@ def card_vs_cpu(name: str, device, qpos_tol: float, qvel_tol: float, opt=None) -
         fail(f"{what}: card rollout disagrees with the CPU rollout")
 
 
-def stage_split(name: str, device, card: str, steps: int = 10) -> None:
+def stage_split(name: str, device, card: str, steps: int = 10) -> dict:
     """Wall time of each stage of a step of a settled path (host clock around
-    a synchronize after each stage), median over `steps` steps."""
+    a synchronize after each stage), median over `steps` steps; returns the
+    medians by stage."""
     import numpy as np
     import torch
 
-    from ambersim_tpu_torch import load_model
     from ambersim_tpu_torch.engine import collision, constraint, integrate, smooth, solver
 
-    m = load_model(PATHS[name]["model"], device=device)
+    m = path_model(name, device)
     stages = (("fwd_position_smooth", smooth.fwd_position_smooth), ("collision", collision.collision),
               ("make_constraint", constraint.make_constraint), ("fwd_velocity", smooth.fwd_velocity),
               ("fwd_actuation", smooth.fwd_actuation), ("fwd_acceleration", smooth.fwd_acceleration),
@@ -1559,8 +1649,10 @@ def stage_split(name: str, device, card: str, steps: int = 10) -> None:
             d = fn(m, d)
             torch.cuda.synchronize()
             times[k].append(1e3 * (time.perf_counter() - t0))
-    split = ", ".join(f"{k} {np.median(v):.3f}" for k, v in times.items())
+    medians = {k: float(np.median(v)) for k, v in times.items()}
+    split = ", ".join(f"{k} {v:.3f}" for k, v in medians.items())
     print(f"{name} stages, median ms of {steps} settled steps [{card}]: {split}", flush=True)
+    return medians
 
 
 def clutter_newton_spread(name: str, device) -> dict:
@@ -1601,24 +1693,25 @@ def clutter_newton_spread(name: str, device) -> dict:
     return out
 
 
-def clutter_card_vs_cpu(device, name: str = "clutter32_rowcap192") -> None:
-    """8 envs of the clutter path from its state settled on the card, a few
-    steps on the card (kernels) and on the CPU (plain versions). Stacked
-    contact-rich float32 scenes amplify rounding, so the bars come from the
-    card's own spread: the same steps from a start moved by 1e-6 in qpos. The
-    card must meet the CPU within 10 x spread + CLUTTER_QPOS_EPS in qpos and
-    10 x spread + CLUTTER_QVEL_EPS in qvel."""
+def settled_card_vs_cpu(device, name: str) -> None:
+    """8 envs of a floor path from its final state on the card, stepped on
+    the card (kernels) and on the CPU (plain versions), with the path's
+    vs_cpu method: "settled", 20 steps at QPOS_TOL / QVEL_TOL; "spread",
+    CLUTTER_CARD_VS_CPU_STEPS steps at bars from the card's own spread (the
+    same steps from a start moved by 1e-6 in qpos: stacked contact-rich
+    float32 scenes amplify rounding), 10 x spread + CLUTTER_QPOS_EPS in
+    qpos and 10 x spread + CLUTTER_QVEL_EPS in qvel. Both print the spread."""
     import torch
 
-    from ambersim_tpu_torch import load_model
     from ambersim_tpu_torch.engine import make_data, rollout
 
     settled = SETTLED[name]
     start = {k: getattr(settled, k)[:8].cpu() for k in ("qpos", "qvel", "qacc_warmstart")}
-    k = CLUTTER_CARD_VS_CPU_STEPS
+    spread = PATHS[name]["vs_cpu"] == "spread"
+    k = CLUTTER_CARD_VS_CPU_STEPS if spread else 20
 
     def run(dev, nudge=0.0):
-        m = load_model(PATHS[name]["model"], device=dev)
+        m = path_model(name, dev)
         fields = {f: v.to(dev) for f, v in start.items()}
         fields["qpos"] = fields["qpos"] + nudge
         return rollout(m, make_data(m, 8).replace(**fields), k)
@@ -1628,7 +1721,10 @@ def clutter_card_vs_cpu(device, name: str = "clutter32_rowcap192") -> None:
     spread_v = (card.qvel - nudged.qvel).abs().max().item()
     dq = (card.qpos.cpu() - cpu.qpos).abs().max().item()
     dv = (card.qvel.cpu() - cpu.qvel).abs().max().item()
-    bar_q, bar_v = 10 * spread_q + CLUTTER_QPOS_EPS, 10 * spread_v + CLUTTER_QVEL_EPS
+    if spread:
+        bar_q, bar_v = 10 * spread_q + CLUTTER_QPOS_EPS, 10 * spread_v + CLUTTER_QVEL_EPS
+    else:
+        bar_q, bar_v = QPOS_TOL, QVEL_TOL
     print(f"{name} card vs cpu, 8 settled envs x {k} steps: max |dqpos| {dq:.3e} (<= {bar_q:.3e}), max |dqvel| "
           f"{dv:.3e} (<= {bar_v:.3e}); the card's spread under a 1e-6 nudge: {spread_q:.3e} / {spread_v:.3e}")
     if not (dq <= bar_q and dv <= bar_v and torch.isfinite(card.qpos).all()):
@@ -1831,6 +1927,226 @@ def hand_contacts(device, card: str) -> dict:
     if not (dq <= QPOS_TOL and dv <= QVEL_TOL):
         fail("hand_contacts: card rollout disagrees with the CPU rollout")
     return launches
+
+
+def humanoid_sampler(device, **opt):
+    """benchmarks/ladder.py rung 5's predictive sampler on the humanoid (its
+    own options, or `opt` overrides), with its params: x0 and the goal at
+    (qpos0, 0), a zero guess, draws from a CPU generator seeded 0."""
+    import torch
+
+    from ambersim_tpu_torch import load_model
+    from ambersim_tpu_torch.trajopt import (StaticGoalQuadraticCost, VanillaPredictiveSampler,
+                                            VanillaPredictiveSamplerParams)
+
+    m = load_model("humanoid", device=device)
+    if opt:
+        m = m.replace(opt=m.opt.replace(**opt))
+    s = m.skel
+    nx = s.nq + s.nv
+    x0 = torch.cat([m.qpos0, torch.zeros(s.nv, device=m.device)])
+    eye = torch.eye(nx, device=m.device)
+    cost = StaticGoalQuadraticCost(Q=0.1 * eye, Qf=10.0 * eye, R=1e-4 * torch.eye(s.nu, device=m.device), xg=x0)
+    sampler = VanillaPredictiveSampler(model=m, cost_function=cost, nsamples=HUMANOID_SAMPLES, stdev=HUMANOID_STDEV)
+    params = VanillaPredictiveSamplerParams(x0=x0, us_guess=torch.zeros(HUMANOID_HORIZON, s.nu, device=m.device),
+                                            generator=torch.Generator().manual_seed(0))
+    return sampler, params
+
+
+def humanoid_sampling(device, card: str) -> dict:
+    """benchmarks/ladder.py rung 5's humanoid predictive sampling:
+    HUMANOID_OPTIMIZE_CALLS optimize calls of 64 samples x 8 knots at the
+    humanoid's own options (contacts on, Newton 4 x 8), the launch counts
+    set to 0 just before and read just after (each call: one forward and 8
+    steps at 64 envs). Checks: exact launches, a finite result, the chosen
+    tape's cost at most the guess's, and 8 samples' card rollout against the
+    CPU's at QPOS_TOL / QVEL_TOL, at the humanoid's own options and with the
+    solve converged (CONVERGED: at 4 x 8 a take/keep decision of the last
+    iteration can turn on float32 rounding where ~12 contacts touch the
+    floor at qpos0, as tests/test_torch_humanoid_sampling.py records against
+    the JAX package). Returns the launch counts."""
+    import torch
+
+    from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from ambersim_tpu_torch.trajopt import shoot
+
+    sampler, params = humanoid_sampler(device)
+    sampler.optimize(params)  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(HUMANOID_OPTIMIZE_CALLS):
+        xs_star, us_star = sampler.optimize(params)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    _check_launches("humanoid_sampling", launches, _HAND_KERNELS, 1,
+                    {k: HUMANOID_OPTIMIZE_CALLS * n for k, n in _hand_launches(1, HUMANOID_HORIZON).items()})
+    m, x0 = sampler.model, params.x0
+    if not (torch.isfinite(xs_star).all() and xs_star.shape == (HUMANOID_HORIZON + 1, m.skel.nq + m.skel.nv)):
+        fail(f"humanoid_sampling: non-finite or misshapen xs_star {tuple(xs_star.shape)}")
+    cost = sampler.cost_function
+    c_star = cost.cost(xs_star, us_star).item()
+    c_guess = cost.cost(shoot(m, x0, params.us_guess), params.us_guess).item()
+    if not c_star <= c_guess + 1e-5 + 1e-5 * abs(c_guess):
+        fail(f"humanoid_sampling: the chosen tape costs {c_star:.6f}, the guess {c_guess:.6f}")
+    us = sampler.draw_samples(params)[:8]
+    nq, diffs = m.skel.nq, {}
+    for what, opt in (("converged", CONVERGED), ("own options", {})):
+        xs = [shoot(humanoid_sampler(dev, **opt)[0].model, x0.to(dev), us.to(dev)).cpu() for dev in (device, "cpu")]
+        diffs[what] = ((xs[0][..., :nq] - xs[1][..., :nq]).abs().max().item(),
+                       (xs[0][..., nq:] - xs[1][..., nq:]).abs().max().item())
+    print(f"humanoid_sampling: {HUMANOID_OPTIMIZE_CALLS} optimize calls of {HUMANOID_SAMPLES} samples x "
+          f"{HUMANOID_HORIZON} knots in {seconds:.3f} s = {HUMANOID_OPTIMIZE_CALLS / seconds:.2f} calls/s, "
+          f"{1e3 * seconds / HUMANOID_OPTIMIZE_CALLS:.3f} ms per call [{card}]; launches {launches}\n"
+          f"humanoid_sampling: 8 samples card vs cpu over {HUMANOID_HORIZON} steps, max |dqpos| / |dqvel| (<= "
+          f"{QPOS_TOL} / {QVEL_TOL}): at the humanoid's own options {diffs['own options'][0]:.3e} / "
+          f"{diffs['own options'][1]:.3e}, converged {diffs['converged'][0]:.3e} / {diffs['converged'][1]:.3e}; "
+          f"cost of the chosen tape {c_star:.6f} <= the guess's {c_guess:.6f}", flush=True)
+    if not all(dq <= QPOS_TOL and dv <= QVEL_TOL for dq, dv in diffs.values()):
+        fail(f"humanoid_sampling: the card's shoot differs from the CPU's: {diffs}")
+    return launches
+
+
+def pendulum_single(device, card: str) -> dict:
+    """benchmarks/ladder.py rung 1: the pendulum at a batch of one for
+    PENDULUM_STEPS steps, the launch counts set to 0 just before and read
+    just after (no constraint rows and no damping: one factor and one solve
+    of qM a step). It starts 1 rad from qpos0, so that it swings (the
+    ladder's start hangs at rest; a step's work is the same). Checks: exact
+    launches, a finite state, and the card against the same steps on the
+    CPU at QPOS_TOL / QVEL_TOL. Returns the launch counts."""
+    import torch
+
+    from ambersim_tpu_torch import load_model
+    from ambersim_tpu_torch.engine import make_data, rollout
+    from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    def start(dev):
+        m = load_model("pendulum", device=dev)
+        return m, make_data(m, 1).replace(qpos=m.qpos0[None] + 1.0)
+
+    m, d0 = start(device)
+    rollout(m, d0, 3)  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    d = rollout(m, d0, PENDULUM_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    _check_launches("pendulum_single", launches, ("cholesky", "cho_solve"), PENDULUM_STEPS,
+                    {"cholesky": PENDULUM_STEPS, "cho_solve": PENDULUM_STEPS})
+    cpu = rollout(*start("cpu"), PENDULUM_STEPS)
+    dq = (d.qpos.cpu() - cpu.qpos).abs().max().item()
+    dv = (d.qvel.cpu() - cpu.qvel).abs().max().item()
+    print(f"pendulum_single: 1 env x {PENDULUM_STEPS} steps in {seconds:.3f} s = {PENDULUM_STEPS / seconds:.1f} "
+          f"env-steps/s, {1e3 * seconds / PENDULUM_STEPS:.3f} ms per step [{card}]; launches {launches}; card vs cpu "
+          f"after {PENDULUM_STEPS} steps: max |dqpos| {dq:.3e} (<= {QPOS_TOL}), max |dqvel| {dv:.3e} "
+          f"(<= {QVEL_TOL})", flush=True)
+    if not (torch.isfinite(d.qpos).all() and dq <= QPOS_TOL and dv <= QVEL_TOL):
+        fail("pendulum_single: non-finite, or the card's rollout disagrees with the CPU's")
+    return launches
+
+
+def mesh_mesh_memory(device) -> None:
+    """The mesh-mesh narrowphase's device memory: MESH_MESH_PAIRS rock-rock
+    pairs (186 x 186 edge axes a pair, each projected on 2 x 64 vertices)
+    at seeded random poses; the peak allocated over the call, per pair and
+    times the ladder's 2048 envs (one pair an env). No ladder path launches
+    it."""
+    import numpy as np
+    import torch
+
+    from ambersim_tpu_torch import load_model
+    from ambersim_tpu_torch.core import math as am
+    from ambersim_tpu_torch.engine import collision
+
+    P = MESH_MESH_PAIRS
+    rock = load_model("rock", device=device)
+    n = int(rock.skel.mesh_vertnum[0])
+    mesh = tuple(x[0].expand((P,) + x.shape[1:]) for x in (
+        rock.mesh_vert, (torch.arange(rock.mesh_vert.shape[1], device=device) < n)[None], rock.mesh_face_normal,
+        rock.mesh_face_dist, rock.mesh_face_vert, rock.mesh_edge))
+    rng = np.random.default_rng(14)
+    poses = []
+    for _ in range(2):
+        q = torch.as_tensor(rng.standard_normal((P, 4)).astype(np.float32), device=device)
+        poses += [torch.as_tensor((0.08 * rng.standard_normal((P, 3))).astype(np.float32), device=device),
+                  am.quat_to_mat(q / q.norm(dim=-1, keepdim=True)), torch.zeros(P, 3, device=device)]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dist, pos, frame = collision.mesh_mesh(*poses, mesh, mesh)
+    torch.cuda.synchronize()
+    per_pair = (torch.cuda.max_memory_allocated() - base) / P
+    if not (torch.isfinite(dist).all() and torch.isfinite(pos).all()):
+        fail("mesh_mesh: non-finite output")
+    print(f"mesh_mesh: {P} rock-rock pairs peak {per_pair * P / 2**30:.3f} GiB over the call, {per_pair / 2**20:.1f} "
+          f"MiB a pair; at {DROP_ENVS} envs x 1 pair {per_pair * DROP_ENVS / 2**30:.1f} GiB", flush=True)
+
+
+def check_newton_ladder(device, results) -> None:
+    """Kernel 4 on the operands of the ladder paths this run added: the
+    drop_scene and rock paths' final states (SETTLED, 2048 envs) and the
+    humanoid sampler's 64 samples after 4 of their knots, each with a
+    warmstart of qacc_smooth + 0.1 N(0, 1). Against its plain version at
+    the NEWTON_* bars where plain float32 meets float64 there on at least
+    NEWTON_MIN_SHARE of the envs, else against float64 (vs_float64, as the
+    hand with contacts); the shares are printed. Then kernel 4's time at
+    each shape (SHAPE_TIMES)."""
+    import torch
+
+    from ambersim_tpu_torch import load_model
+    from ambersim_tpu_torch.engine import forward, make_data, step
+    from ambersim_tpu_torch.engine.constraint import _pyramid_structure
+    from ambersim_tpu_torch.engine.solver import _newton_arrays
+    from ambersim_tpu_torch.ops.newton import newton_solve_structured
+
+    def humanoid_state():
+        sampler, params = humanoid_sampler(device)
+        m, us = sampler.model, sampler.draw_samples(params)
+        nq = m.skel.nq
+        x0 = params.x0.expand(HUMANOID_SAMPLES, -1)
+        d = forward(m, make_data(m, HUMANOID_SAMPLES).replace(qpos=x0[:, :nq].contiguous(),
+                                                                qvel=x0[:, nq:].contiguous()))
+        for k in range(4):
+            d = step(m, d.replace(ctrl=us[:, k].contiguous()))
+        return m, d
+
+    err = results["newton_structured"]["max_abs_err"]
+    cases = (("drop_scene", lambda: (load_model("drop_scene", device=device), SETTLED["drop_scene"])),
+             ("rock", lambda: (load_model("rock", device=device), SETTLED["rock"])),
+             ("humanoid sampling", humanoid_state))
+    for case, state in cases:
+        m, d = state()
+        s = m.skel
+        st = _pyramid_structure(s)
+        d = pre_solve(m, d)
+        pa = solver_operands(m, d, seed=12)
+        kw = dict(iterations=int(m.opt.iterations), ls_iterations=int(m.opt.ls_iterations), use_ws=True)
+        what = f"newton_structured {case} (nefc {s.nefc}, nv {s.nv})"
+
+        def kern(pa=pa, d=d, st=st, kw=kw):
+            return newton_solve_structured(pa["J"], d.efc_bJ, d.efc_dsc, pa["qM"], pa["aref"], pa["D"], pa["fl"],
+                                           pa["act"], pa["a_s"], pa["ws"], pa["tol"], st=st, **kw)
+
+        def ref(dtype=torch.float32, pa=pa, kw=kw, s=s):
+            return _newton_arrays(**as_dtype(pa, dtype), ne=int(s.ne), nf=int(s.nf), **kw)
+
+        got, plain, exact = kern(), ref(), ref(torch.float64)
+        print(f"{what}: active rows per env {pa['act'].sum(1).mean().item():.2f} of {s.nefc}")
+        if newton_within(plain, exact).double().mean().item() >= NEWTON_MIN_SHARE:
+            err = max(err, newton_err(got, plain, what))
+            newton_err(plain, exact, f"{what}, plain float32 vs float64")
+        else:
+            vs_float64(got, plain, exact, what)
+        operands = [d.efc_bJ, d.efc_dsc] + [pa[k] for k in ("qM", "aref", "D", "fl", "act", "a_s", "ws")]
+        SHAPE_TIMES[("newton_structured", case)] = (cuda_ms(kern), newton_bound(
+            operands, s.nefc, s.nv, pa["act"], kw["iterations"], kw["ls_iterations"])["bound_ms"])
+        ms, bound_ms = SHAPE_TIMES[("newton_structured", case)]
+        print(f"kernel newton_structured: {case} B={pa['J'].shape[0]} {ms:.4f} ms, bound {bound_ms:.4f} ms", flush=True)
+    results["newton_structured"]["max_abs_err"] = err
 
 
 def _check_launches(what: str, launches: dict, kernels: tuple, at_least: int, exactly: dict | None = None) -> None:
@@ -2064,14 +2380,24 @@ def run_phases(device, card: str, results: dict) -> None:
     for name in PATHS:
         phase_launches[name] = drive_path(name, device, card)
 
+    splits = {}
+    for name in ("clutter32_rowcap192", "clutter32_cap48", "clutter32", "clutter32_rowcap192_bf16"):
+        splits[name] = stage_split(name, device, card)
     for name in ("clutter32_rowcap192", "clutter32_cap48"):
-        stage_split(name, device, card)
         clutter_newton_spread(name, device)
+    print(f"clutter32_rowcap192 solve stage, median ms: bfloat16 Hessian product "
+          f"{splits['clutter32_rowcap192_bf16']['solve']:.3f}, float32 {splits['clutter32_rowcap192']['solve']:.3f} "
+          f"[{card}]", flush=True)
 
-    # ---- 5. trajectory optimization on the hand, and the hand in contact ----
+    # ---- 5. trajectory optimization on the hand and the humanoid, the hand
+    # in contact, and the pendulum at a batch of one ----
     phase_launches["hand_sampling"] = hand_sampling(device, card)
     phase_launches.update(hand_mpc(device, card))
     phase_launches["hand_contacts"] = hand_contacts(device, card)
+    phase_launches["humanoid_sampling"] = humanoid_sampling(device, card)
+    phase_launches["pendulum_single"] = pendulum_single(device, card)
+    check_newton_ladder(device, results)
+    mesh_mesh_memory(device)
 
     # ---- 6. PPO training through the env layer, each with its own launch counts ----
     phase_launches["ppo_quadruped"] = ppo_training_step("ppo_quadruped", "quadruped_locomotion", PPO_QUADRUPED,
@@ -2085,12 +2411,14 @@ def run_phases(device, card: str, results: dict) -> None:
 
     # ---- 7. card (kernels) against CPU (plain versions), 8 envs x 20 steps ----
     for name in PATHS:
+        method = PATHS[name].get("vs_cpu", "start")
         if name == "quadruped_elliptic":
             card_vs_cpu(name, device, QPOS_TOL, QVEL_TOL, opt=CONVERGED)
             card_vs_cpu(name, device, ELLIPTIC_QPOS_TOL, ELLIPTIC_QVEL_TOL)
-        elif "per_step" not in PATHS[name]:
+        elif method == "start":
             card_vs_cpu(name, device, QPOS_TOL, QVEL_TOL)
-    clutter_card_vs_cpu(device)
+        elif method != "none":
+            settled_card_vs_cpu(device, name)
     from ambersim_tpu_torch.rl.humanoid import HumanoidBalanceEnv
     from ambersim_tpu_torch.rl.quadruped import QuadrupedLocomotionEnv
 
@@ -2105,6 +2433,7 @@ def run_phases(device, card: str, results: dict) -> None:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not (REPO / "ambersim_tpu_torch").is_dir():
         fail(f"run from a checkout of the repository: no ambersim_tpu_torch/ beside {Path(__file__).name}")
     sys.path.insert(0, str(REPO))
@@ -2139,6 +2468,7 @@ def main() -> int:
         missing = [f for f, v in r.items() if v is None and f != "library_ms"]
         if missing or not r["launches"]:
             fail(f"kernel {k}: not measured ({', '.join(missing) or 'no launches on the paths'})")
+    print(f"chip_smoke: total wall seconds {time.perf_counter() - t_start:.1f} (build included)")
     print(json.dumps({"kernels": [results[k] for k in KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

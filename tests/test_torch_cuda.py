@@ -673,3 +673,123 @@ def test_capsule_pairs_card_matches_cpu(cuda, pair):
         keep = torch.ones_like(defined) if what == "dist" else defined
         assert torch.isfinite(g).all()
         torch.testing.assert_close(g[keep], w[keep], rtol=1e-5, atol=1e-5, msg=what)
+
+
+@pytest.mark.parametrize("pair", ["plane_mesh", "sphere_mesh", "capsule_mesh", "box_mesh", "mesh_mesh",
+                                  "plane_cylinder", "plane_ellipsoid"])
+def test_mesh_and_round_pairs_card_match_cpu(cuda, pair):
+    """The narrowphases this slice added, on the card against the CPU on
+    seeded random poses against the rock's hull (4096 pairs; 1024 for
+    box-mesh and 16 for mesh-mesh, whose SAT holds 2,232 and 34,596 edge
+    axes a pair), rtol/atol 1e-5 as tests/test_torch_mesh_pairs.py holds
+    them against the JAX package: dist on every slot, pos and frame on
+    every slot but for the SAT pairs (box-mesh, mesh-mesh), there on every
+    slot that touches (dist <= 0; over 40% of the box-rock pairs). Hulls
+    centimetres apart get their one slot's point from the supporting edges
+    or vertices along the separating axis, which tie to float32 rounding:
+    another summation order can take another (the same box-rock pairs in
+    float64 on a CPU: 12 of 1,024 points moved, all 1.5-19 cm apart, every
+    dist alike). Such a slot is past every margin, masked downstream."""
+    from ambersim_tpu_torch import load_model
+    from ambersim_tpu_torch.core import math as am
+    from ambersim_tpu_torch.engine import collision
+
+    P = {"mesh_mesh": 16, "box_mesh": 1024}.get(pair, 4096)
+    rng = np.random.default_rng(sum(map(ord, pair)))
+    rock = load_model("rock", device="cpu")
+    n = int(rock.skel.mesh_vertnum[0])
+    mesh = tuple(x[0].expand((P,) + x.shape[1:]) for x in (
+        rock.mesh_vert, (torch.arange(rock.mesh_vert.shape[1]) < n)[None], rock.mesh_face_normal,
+        rock.mesh_face_dist, rock.mesh_face_vert, rock.mesh_edge))
+
+    def pose(spread=0.08):
+        q = torch.as_tensor(rng.standard_normal((P, 4)).astype(np.float32))
+        return (torch.as_tensor((spread * rng.standard_normal((P, 3))).astype(np.float32)),
+                am.quat_to_mat(q / q.norm(dim=-1, keepdim=True)))
+
+    def size(lo, hi, cols):
+        out = np.zeros((P, 3), np.float32)
+        out[:, :cols] = rng.uniform(lo, hi, (P, cols))
+        return torch.as_tensor(out)
+
+    zeros = torch.zeros(P, 3)
+    first = {"plane_mesh": zeros, "sphere_mesh": size(0.02, 0.08, 1), "capsule_mesh": size(0.01, 0.1, 2),
+             "box_mesh": size(0.02, 0.1, 3), "mesh_mesh": zeros, "plane_cylinder": zeros,
+             "plane_ellipsoid": zeros}[pair]
+    second = {"plane_cylinder": size(0.02, 0.1, 2), "plane_ellipsoid": size(0.02, 0.1, 3)}.get(pair, zeros)
+    args = (*pose(), first, *pose(), second)
+    if pair.endswith("mesh"):
+        args += (mesh, mesh) if pair == "mesh_mesh" else (mesh,)
+    fn = getattr(collision, pair)
+    want = fn(*args)
+    on_card = [tuple(y.to(cuda) for y in a) if isinstance(a, tuple) else a.to(cuda) for a in args]
+    got = [x.cpu() for x in fn(*on_card)]
+    held = torch.ones_like(want[0], dtype=torch.bool)
+    if pair in ("box_mesh", "mesh_mesh"):
+        held = want[0] <= 0
+        assert held.any(1).float().mean().item() > (0.4 if pair == "box_mesh" else 0.0)
+    for what, g, w in zip(("dist", "pos", "frame"), got, want):
+        assert torch.isfinite(g).all() and g.shape == w.shape
+        keep = torch.ones_like(held) if what == "dist" else held
+        torch.testing.assert_close(g[keep], w[keep], rtol=1e-5, atol=1e-5, msg=what)
+
+
+@pytest.mark.parametrize("name", ["drop_scene", "rock"])
+def test_drop_paths_launch_counts(cuda, name):
+    """drop_scene and the rock launch kernels 1, 2 and 4 once a step, and no
+    kernel 3 (no joint damping)."""
+    from ambersim_tpu_torch import load_model
+    from ambersim_tpu_torch.engine import make_data, rollout
+    from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    m = load_model(name, device=cuda)
+    reset_launch_counts()
+    d = rollout(m, make_data(m, 16), 3)
+    torch.cuda.synchronize()
+    assert torch.isfinite(d.qpos).all()
+    want = {k: 0 for k in LAUNCHES}
+    want.update(cholesky=3, cho_solve=3, newton_structured=3)
+    assert dict(LAUNCHES) == want
+
+
+def test_bf16_route_card_matches_cpu(cuda):
+    """Option.hessian_bf16 on the batched-arrays route (clutter32_rowcap192,
+    nv = 192): the Newton solve on the card (kernel 3 inside) against the
+    same solve on the CPU (plain versions), on the same operands: the CPU's
+    pre-solve of 16 envs of the committed settled state with seeded
+    warmstarts (the card's own pre-solve may take other contacts where the
+    row cap's candidates tie at this state). Per env max |card - cpu| /
+    (max |cpu| + 1) over qacc, efc_force and qfrc_constraint at most 2e-2
+    (chip_smoke's CLUTTER_SPREAD_BARS max): the bf16 direction stops the
+    solve where it no longer lowers the cost, and float32 rounding moves
+    that point (the CPU's float32 solve ends 5.5e-3 from its float64 one in
+    the median env, 8.1e-3 at most, on a CPU). The bf16 solve differs from
+    the float32 one."""
+    from pathlib import Path
+
+    from ambersim_tpu_torch import load_model
+    from ambersim_tpu_torch.engine import collision, constraint, linalg, make_data, smooth
+    from ambersim_tpu_torch.engine.solver import _newton_arrays
+
+    z = np.load(Path(__file__).resolve().parent.parent / "ambersim_tpu_torch" / "assets"
+                / "clutter32_rowcap192_settled.npz")
+    ws_noise = 0.1 * np.random.default_rng(8).standard_normal((16, 192)).astype(np.float32)
+    m = load_model("clutter32_rowcap192", device="cpu")
+    s = m.skel
+    d = make_data(m, 16).replace(**{k: torch.as_tensor(z[k]).expand(16, -1).contiguous() for k in ("qpos", "qvel")})
+    d = constraint.make_constraint(m, collision.collision(m, smooth.fwd_position_smooth(m, d)))
+    d = smooth.fwd_acceleration(m, smooth.fwd_actuation(m, smooth.fwd_velocity(m, d)))
+    tol = (m.opt.tolerance * s.nv * torch.clamp(m.body_mass.sum(), min=1.0)).reshape(1)
+    ops = (d.efc_J, d.qM, d.efc_aref, d.efc_D, d.efc_frictionloss, d.efc_active.float(), d.qacc_smooth,
+           d.qacc_smooth + torch.as_tensor(ws_noise), tol)
+    kw = dict(ne=int(s.ne), nf=int(s.nf), iterations=int(m.opt.iterations), ls_iterations=int(m.opt.ls_iterations),
+              use_ws=True, solve=linalg.solve_pd)
+    cpu = _newton_arrays(*ops, **kw, hess_bf16=True)
+    card, card_f32 = ([x.cpu() for x in _newton_arrays(*(o.to(cuda) for o in ops), **kw, hess_bf16=bf)]
+                      for bf in (True, False))
+    rel = torch.zeros(16, dtype=torch.float64)
+    for g, w in zip(card, cpu):
+        assert torch.isfinite(g).all()
+        rel = torch.maximum(rel, (g.double() - w.double()).abs().amax(1) / (w.double().abs().amax(1) + 1.0))
+    assert rel.max().item() <= 2e-2
+    assert not torch.equal(card[0], card_f32[0])

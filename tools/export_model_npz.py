@@ -47,6 +47,10 @@ ASSETS = {
     # benchmarks/ladder.py rungs 3b (:120) and 3c (:133-142)
     "clutter32_cap48": (CLUTTER_XML, None, 48, 0),
     "clutter32_rowcap192": (CLUTTER_XML, None, 48, 192),
+    # benchmarks/ladder.py rungs 3 (:104-106), 3a (:108-112) and 3b exact (:123-125)
+    "drop_scene": ("models/objects/drop_scene.xml", None, 0, 0),
+    "rock": ("models/rock/rock_scene.xml", None, 0, 0),
+    "clutter32": (CLUTTER_XML, None, 0, 0),
 }
 
 

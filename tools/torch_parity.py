@@ -309,13 +309,13 @@ def clutter_small_xml(nbodies: int = 12, squeeze: float = 0.5, depth: float = 0.
     return head + "\n    ".join(out) + "\n  </worldbody>\n</mujoco>\n"
 
 
-def export_small_clutter(tmp_path, broadphase_cap: int, max_contact_points: int = 0):
-    """(JAX model, the port's model) of clutter_small_xml(), the port's
-    loaded from what tools/export_model_npz.py's command line writes."""
+def export_small_clutter(tmp_path, broadphase_cap: int, max_contact_points: int = 0, nbodies: int = 12):
+    """(JAX model, the port's model) of clutter_small_xml(nbodies), the
+    port's loaded from what tools/export_model_npz.py's command line writes."""
     from tools.export_model_npz import load_jax_model, main
 
     xml, npz = tmp_path / "clutter_small.xml", tmp_path / "clutter_small.npz"
-    xml.write_text(clutter_small_xml())
+    xml.write_text(clutter_small_xml(nbodies))
     cli = [str(xml), str(npz), "--broadphase-cap", str(broadphase_cap)]
     if max_contact_points:
         cli += ["--max-contact-points", str(max_contact_points)]
@@ -342,3 +342,26 @@ def free_body_state(jm, batch: int, seed: int, pos_scale=1e-3, rot_scale=2e-2, q
     q[..., 3:] /= np.linalg.norm(q[..., 3:], axis=-1, keepdims=True)
     qvel = qvel_scale * rng.standard_normal((batch, jm.skel.nv))
     return q.reshape(batch, -1).astype(np.float32), qvel.astype(np.float32)
+
+
+def drop_rollouts(name: str, batch: int, steps: int, seed: int):
+    """(port model, JAX final Data, port final Data) of `batch` envs of the
+    asset `name` (a scene of free bodies) stepped `steps` times by the JAX
+    package's step (jit of vmap, one call a step: it compiles in about half
+    the time of the scanned rollout) and by the port's rollout, from qpos0
+    with positions moved by 1 cm, orientations turned by ~0.2 rad and
+    velocities of 0.1 N(0, 1) (free_body_state, seeded)."""
+    import jax
+
+    from ambersim_tpu.engine import step as jax_step
+    from ambersim_tpu_torch.engine import rollout
+
+    jm = jax_asset_model(name)
+    tm = torch_model(jm)
+    qpos, qvel = free_body_state(jm, batch, seed, pos_scale=1e-2, rot_scale=0.2, qvel_scale=0.1)
+    jd = jax_batch(jm, qpos=qpos, qvel=qvel)
+    got = rollout(tm, torch_batch(tm, jd), steps)
+    step = jax.jit(jax.vmap(lambda d: jax_step(jm, d)))
+    for _ in range(steps):
+        jd = step(jd)
+    return tm, jd, got
