@@ -26,6 +26,13 @@ the route's kernel (ops/newton.py) and never falls back to a plain version:
     at the 32-body clutter scene's nv = 192), whose jnp Newton calls
     linalg.solve_pd under the env vmap (:481).
 Any other elliptic layout raises NotImplementedError (io.bridge.check_slice).
+Reverse-mode gradients: each kernel route goes through
+linalg.differentiable_dispatch, whose backward pass runs autograd through
+the route's plain version (what the JAX package differentiates,
+solver.py:615-619); kernel 4's factored operands (efc_bJ, efc_dsc) get no
+gradient there, which reaches the same rows through efc_J. The batched
+arrays differentiate directly, their Hessian solve through kernel 3's
+Function.
 Outside the kernels J^T diag(h) J is a batched matrix product (engine.forward
 turns TF32 off for it); the matrix-vector products stay elementwise sums,
 the order the CPU parity bars were set in.
@@ -39,7 +46,7 @@ import torch
 from ambersim_tpu_torch.core.types import ConeType, Data, DisableBit, Model
 from ambersim_tpu_torch.engine import linalg
 from ambersim_tpu_torch.engine.constraint import _pyramid_structure
-from ambersim_tpu_torch.engine.linalg import solve_pd_unrolled
+from ambersim_tpu_torch.engine.linalg import differentiable_dispatch, solve_pd_unrolled
 from ambersim_tpu_torch.engine.schedule import device_index
 from ambersim_tpu_torch.ops.newton import MAX_NV
 
@@ -377,6 +384,39 @@ def elliptic_tail(s):
     return cdim, slots, base, full
 
 
+def _structured_kernel(J, bJ, dsc, qM, aref, D, fl, act, a_s, ws, tol, *, st, ne, nf, **kw):
+    from ambersim_tpu_torch.ops.newton import newton_solve_structured
+
+    return newton_solve_structured(J, bJ, dsc, qM, aref, D, fl, act, a_s, ws, tol, st=st, **kw)
+
+
+def _structured_plain(J, bJ, dsc, *rows, st, **kw):
+    """Kernel 4's plain version on its arguments: the dense rows J alone."""
+    return _newton_arrays(J, *rows, **kw)
+
+
+def _dense_kernel(*rows, **kw):
+    from ambersim_tpu_torch.ops.newton import newton_solve_dense
+
+    return newton_solve_dense(*rows, **kw)
+
+
+def _elliptic_kernel(*rows, impratio, **kw):
+    from ambersim_tpu_torch.ops.newton import newton_solve_elliptic
+
+    return newton_solve_elliptic(*rows, impratio, **kw)
+
+
+def _elliptic_plain(*rows, impratio, **kw):
+    return _newton_arrays_elliptic(*rows, impratio, **kw)
+
+
+# kernels 4, 5 and 6, each with its plain version's gradient
+newton_structured = differentiable_dispatch(_structured_kernel, _structured_plain)
+newton_dense = differentiable_dispatch(_dense_kernel, _newton_arrays)
+newton_elliptic = differentiable_dispatch(_elliptic_kernel, _elliptic_plain)
+
+
 def solve(m: Model, d: Data) -> Data:
     """Newton solve for qacc, efc_force and qfrc_constraint."""
     s = m.skel
@@ -400,9 +440,7 @@ def solve(m: Model, d: Data) -> Data:
         if arrays:
             qacc, force, qfrc = _newton_arrays_elliptic(*rows, tol, fr, m.opt.impratio, **cone, solve=linalg.solve_pd)
         else:
-            from ambersim_tpu_torch.ops.newton import newton_solve_elliptic
-
-            qacc, force, qfrc = newton_solve_elliptic(*rows, tol.reshape(1), fr, m.opt.impratio, **cone)
+            qacc, force, qfrc = newton_elliptic(*rows, tol.reshape(1), fr, impratio=m.opt.impratio, **cone)
         return d.replace(qacc=qacc, qfrc_constraint=qfrc, efc_force=force, qacc_warmstart=qacc)
 
     st = _pyramid_structure(s)
@@ -410,13 +448,8 @@ def solve(m: Model, d: Data) -> Data:
         qacc, force, qfrc = _newton_arrays(*rows, tol, ne=int(s.ne), nf=int(s.nf), **statics, solve=linalg.solve_pd,
                                            hess_bf16=bool(m.opt.hessian_bf16))
     elif st is not None:
-        from ambersim_tpu_torch.ops.newton import newton_solve_structured
-
-        qacc, force, qfrc = newton_solve_structured(
-            d.efc_J, d.efc_bJ, d.efc_dsc, *rows[1:], tol.reshape(1), st=st, **statics
-        )
+        qacc, force, qfrc = newton_structured(d.efc_J, d.efc_bJ, d.efc_dsc, *rows[1:], tol.reshape(1), st=st,
+                                              ne=int(s.ne), nf=int(s.nf), **statics)
     else:
-        from ambersim_tpu_torch.ops.newton import newton_solve_dense
-
-        qacc, force, qfrc = newton_solve_dense(*rows, tol.reshape(1), ne=int(s.ne), nf=int(s.nf), **statics)
+        qacc, force, qfrc = newton_dense(*rows, tol.reshape(1), ne=int(s.ne), nf=int(s.nf), **statics)
     return d.replace(qacc=qacc, qfrc_constraint=qfrc, efc_force=force, qacc_warmstart=qacc)

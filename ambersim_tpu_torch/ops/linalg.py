@@ -19,7 +19,10 @@ engine/linalg.py; `engine.linalg.cholesky` etc. choose by device.
 
 Each launcher takes only what its kernels take and raises on anything else
 (no fallback): float32, contiguous, on a CUDA device, (B, n, n) with
-1 <= n <= 192 and (B, n) right-hand sides, no autograd.
+1 <= n <= 192 and (B, n) right-hand sides, no tensor that requires grad.
+The kernels have no backward: engine.linalg's Functions
+(`differentiable_dispatch`) carry the gradient, handing the launchers
+detached tensors and running autograd through the plain versions.
 """
 
 from __future__ import annotations

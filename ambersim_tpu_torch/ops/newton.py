@@ -15,8 +15,12 @@ held against, are `_newton_arrays` (kernels 4 and 5) and
 `_newton_arrays_elliptic` (kernel 6) in engine/solver.py; `solve` there
 chooses the route. Each launcher takes only what its kernel takes and
 raises on anything else (no fallback): float32, contiguous, on one CUDA
-device, no autograd, 1 <= nv <= 32, one block's envs within the card's
-shared memory.
+device, no tensor that requires grad, 1 <= nv <= 32, one block's envs
+within the card's shared memory. The kernels have no backward: the
+Functions of engine.solver (`newton_structured`, `newton_dense`,
+`newton_elliptic`, built by engine.linalg.differentiable_dispatch) carry
+the gradient through the plain versions and hand the launchers detached
+tensors.
 """
 
 from __future__ import annotations

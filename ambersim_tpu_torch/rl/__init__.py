@@ -1,7 +1,9 @@
-"""RL environment layer and the PPO trainer of the PyTorch port (port of
-ambersim_tpu/rl: env base, wrappers, registry, the pendulum, quadruped and
-humanoid balance tasks, PPO). The trainers share the (make_policy, params, metrics) /
-progress_fn contract of the JAX package.
+"""RL environment layer and the PPO and APG trainers of the PyTorch port
+(port of ambersim_tpu/rl: env base, wrappers, registry, the pendulum,
+quadruped and humanoid balance tasks, PPO, and APG, which differentiates
+the episode return through the step). The trainers share the (make_policy,
+params, metrics) / progress_fn contract of the JAX package; SAC, ES and
+ARS are still to port.
 """
 
 from ambersim_tpu_torch.rl.base import MjxEnv, State  # noqa: F401

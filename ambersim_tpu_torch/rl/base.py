@@ -4,9 +4,12 @@ ambersim_tpu/rl/base.py).
 The port's envs are batch-first: one `reset` starts B envs and one `step`
 advances all of them, so every State tensor carries a leading env axis and
 no vmap is needed. The physics underneath is the port's engine, which on a
-CUDA model launches the hand-written kernels. It runs under
-`torch.no_grad()`: the kernels have no backward, and an env step never
-builds an autograd graph.
+CUDA model launches the hand-written kernels. An env step builds an
+autograd graph only when the caller asks for one (grad mode on and an
+action or state that requires grad, as APG's rollout does): each kernel
+then goes through its Function, whose backward pass is the plain
+version's (engine.linalg.differentiable_dispatch). Callers that want no
+graph step under `torch.no_grad()`, as PPO's rollout and eval do.
 """
 
 from __future__ import annotations
@@ -72,16 +75,14 @@ class MjxEnv(abc.ABC):
 
     def pipeline_init(self, qpos: torch.Tensor, qvel: torch.Tensor, ctrl: Optional[torch.Tensor] = None) -> Data:
         """B fresh envs at (B, nq) qpos and (B, nv) qvel, through forward."""
-        with torch.no_grad():
-            data = make_data(self.model, qpos.shape[0]).replace(qpos=qpos, qvel=qvel)
-            if ctrl is not None:
-                data = data.replace(ctrl=ctrl)
-            return forward(self.model, data)
+        data = make_data(self.model, qpos.shape[0]).replace(qpos=qpos, qvel=qvel)
+        if ctrl is not None:
+            data = data.replace(ctrl=ctrl)
+        return forward(self.model, data)
 
     def pipeline_step(self, data: Data, ctrl: torch.Tensor) -> Data:
         """`physics_steps_per_control_step` physics steps at fixed (B, nu) ctrl."""
-        with torch.no_grad():
-            return rollout(self.model, data.replace(ctrl=ctrl), self._physics_steps_per_control_step)
+        return rollout(self.model, data.replace(ctrl=ctrl), self._physics_steps_per_control_step)
 
     @property
     def dt(self) -> torch.Tensor:

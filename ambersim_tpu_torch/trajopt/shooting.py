@@ -31,17 +31,18 @@ def shoot(m: Model, x0: torch.Tensor, us: torch.Tensor) -> torch.Tensor:
     """Roll out controls `us` (B, N, nu) from states `x0` = [qpos, qvel],
     (B, nq+nv) or one (nq+nv,) state for every tape, as one batch of B envs:
     make_data, forward, then N steps. Returns xs (B, N+1, nq+nv). An
-    unbatched tape (N, nu) with an unbatched x0 gives (N+1, nq+nv)."""
+    unbatched tape (N, nu) with an unbatched x0 gives (N+1, nq+nv). Under
+    grad mode with `us` or `x0` requiring grad, xs carries the graph of the
+    rollout (the gradient optimizers differentiate it)."""
     if us.dim() == 2:
         return shoot(m, x0.reshape(1, -1), us[None])[0]
     B, nq = us.shape[0], m.skel.nq
     x0 = x0.expand(B, -1) if x0.dim() == 1 else x0
-    with torch.no_grad():
-        d = forward(m, make_data(m, B).replace(qpos=x0[:, :nq].contiguous(), qvel=x0[:, nq:].contiguous()))
-        xs = [x0]
-        for k in range(us.shape[1]):
-            d = step(m, d.replace(ctrl=us[:, k].contiguous()))
-            xs.append(torch.cat([d.qpos, d.qvel], dim=-1))
+    d = forward(m, make_data(m, B).replace(qpos=x0[:, :nq].contiguous(), qvel=x0[:, nq:].contiguous()))
+    xs = [x0]
+    for k in range(us.shape[1]):
+        d = step(m, d.replace(ctrl=us[:, k].contiguous()))
+        xs.append(torch.cat([d.qpos, d.qvel], dim=-1))
     return torch.stack(xs, dim=1)
 
 
@@ -100,6 +101,7 @@ class VanillaPredictiveSampler(ShootingAlgorithm):
         hi = torch.where(limited, m.actuator_ctrlrange[:, 1], inf)
         return torch.clamp(us, lo, hi)
 
+    @torch.no_grad()
     def select(self, x0: torch.Tensor, us_samples: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Roll out every sample from x0 in one batch, cost them in one call
         and take each problem's argmin. x0 (nq+nv,) with us_samples
@@ -114,6 +116,7 @@ class VanillaPredictiveSampler(ShootingAlgorithm):
         us_star = torch.take_along_dim(us_samples, idx, dim=-3).squeeze(-3)
         return xs_star, us_star, best
 
+    @torch.no_grad()
     def optimize(self, params: VanillaPredictiveSamplerParams) -> Tuple[torch.Tensor, torch.Tensor]:
         xs_star, us_star, _ = self.select(params.x0, self.draw_samples(params))
         return xs_star, us_star

@@ -36,7 +36,16 @@ the card, and steps every ported path through the port's entry points:
     x (300 settle + 150 steps), exact clutter (no cap, nefc 5664) and the
     row-capped clutter with Option.hessian_bf16 at 256 envs from the
     row-capped path's settled state, the humanoid's predictive sampling
-    (64 samples x 8 knots) and the pendulum at a batch of one.
+    (64 samples x 8 knots) and the pendulum at a batch of one;
+  * gradients through the kernels: each kernel route's Function (the
+    kernel forward, autograd through its plain version backward) against
+    the plain version's gradient on the CPU, with its backward's time
+    (grad_kernels); d(sum qpos + sum qvel)/d(ctrl) through T steps of six
+    models, card against CPU (grad_paths); APG on the pendulum
+    (examples/rl/pendulum/ex_agents.py's settings, 4 updates) and one APG
+    update of the 4096-env locomotion policy; iLQR on the pendulum
+    (examples/trajopt/ex_ilqr.py's first task); gradient shooting and iLQR
+    on the hand at BASELINE.md:13's 10 knots.
 
 For each path it checks that every step went through the path's kernels
 and compares 8 envs of the rollout on the card with the same rollout on the
@@ -48,7 +57,8 @@ imports nothing of JAX. Output: progress lines, a JSON line of per-kernel
 results (launches on the paths, error against the plain version, ms beside
 the plain version's, the library call's where PyTorch has one, and the
 bound: bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s, the
-H100 SXM's published peaks), the card's name and power limit, and as the
+H100 SXM's published peaks, and the time of its Function's backward), the
+card's name and power limit, and as the
 last line {"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}. Any failed check exits non-zero without that line.
 """
@@ -259,6 +269,66 @@ HAND_CLOSING_CTRL = (1.0, 2.0, 2.0, 2.0)
 # eval reward), run on a CPU with seeds 0, 1 and 2: the port must gain at
 # least half their mean.
 JAX_PENDULUM_GAINS = (482.879, 217.651, 227.194)
+
+# Gradients through the kernels (each kernel's Function: the kernel forward,
+# autograd through its plain version backward) against the plain version's
+# gradient on the CPU from the same inputs. Per input, an env is within when
+# its largest |card - CPU| is at most GRAD_TOL of the largest |CPU gradient|
+# of that input: every env for kernels 1-3 and the paths, GRAD_MIN_SHARE of
+# the envs for the Newton routes (as their forward bars, NEWTON_MIN_SHARE),
+# whose gradients follow active rows and line-search steps that the two
+# devices' sums can tip apart; where plain float32 itself meets float64 on
+# fewer, vs_float64's rule (grad_kernels). The CPU gradient is taken on the
+# first GRAD_CPU_ENVS envs of a Newton row and GRAD_CPU_SYSTEMS systems of
+# kernels 1-3 (each env's gradient reads its own inputs alone); the card's
+# on the JSON row's whole batch.
+GRAD_TOL = 1e-3
+GRAD_MIN_SHARE = 0.99
+GRAD_CPU_ENVS, GRAD_CPU_SYSTEMS = 512, 64
+# The unrolled Newton solves' float32 gradients with respect to qM and the
+# warmstart (and, converged, the elliptic solve's with respect to every
+# input) meet float64 within GRAD_TOL on only 47-94% of envs on the CPU
+# (line-search steps whose derivatives cancel large terms); there the card's
+# share may fall short of plain float32's by GRAD_F64_SLACK. The card and
+# plain float32 parted by at most 0.016 of 512 envs (an H100 80GB HBM3, 700 W).
+GRAD_F64_SLACK = 0.05
+# The elliptic quadruped's path gradient, converged: every env within this
+# share of the largest |g| (converged elliptic solves still end where float32
+# rounding moves them, as the forward's ELLIPTIC_* bars say: one of 16 envs
+# parted by 3.5e-2, the first 8 by 1.1e-4, on an H100 80GB HBM3 at 700 W)
+GRAD_ELLIPTIC_PATH_TOL = 1e-1
+# d(sum qpos + sum qvel after T steps)/d(ctrl tape, initial qvel), card vs
+# CPU: path -> (model, envs, steps, solver options); the elliptic
+# quadruped converged, as its forward is compared (CONVERGED); the hand at
+# the trajectory-optimization workload's options (hand_model: Newton 1 x 4,
+# contacts off), where its gradient optimizers run (with contacts on an
+# env's gradient parted by 2.7e-2 of the largest |g| on an H100 80GB HBM3)
+GRAD_PATHS = {
+    "pendulum": ("pendulum", 16, 20, None), "arm3": ("arm3", 16, 20, None), "quadruped": ("quadruped", 64, 10, None),
+    "quadruped_elliptic": ("quadruped_elliptic", 8, 10, CONVERGED), "hand": ("hand", 16, 10, None),
+    "clutter32_rowcap192": ("clutter32_rowcap192", 4, 2, None),
+}
+# APG on the pendulum swingup (examples/rl/pendulum/ex_agents.py:80-87 and
+# its env, 2 physics steps per control step). Cut: 4 policy updates and 2
+# evals instead of 60 and 5. The first update's loss and grad norm, card
+# against CPU from the same params and starts, within APG_FIRST_RTOL.
+APG_PENDULUM = dict(episode_length=200, num_envs=64, policy_updates=4, learning_rate=2e-3, max_gradient_norm=1.0,
+                    num_evals=2, seed=0)
+APG_FIRST_RTOL = 1e-3
+# APG on quadruped_locomotion at bench.py's 4096 envs. Cut: episode_length
+# 20 control steps (80 physics steps) and one update.
+APG_QUADRUPED = dict(episode_length=20, num_envs=4096, num_eval_envs=64, policy_updates=1, learning_rate=1e-3,
+                     max_gradient_norm=1.0, num_evals=1, seed=0)
+# examples/trajopt/ex_ilqr.py task 1: the pendulum asset, 50 knots, 12
+# iterations, goal angle 0.7. The JAX package reaches 0.6759496 on a CPU
+# (the example's task run as written); the port's final angle may be at
+# most ILQR_ANGLE_SLACK farther from the goal than that.
+ILQR_PENDULUM = dict(knots=50, iterations=12, goal=0.7)
+JAX_ILQR_PENDULUM_ANGLE = 0.6759496
+ILQR_ANGLE_SLACK = 1e-3
+# The hand at BASELINE.md:13's 10 knots (hand_sampling's cost, start and
+# guess): Adam through the step, and iLQR.
+HAND_GRADIENT_ITERS, HAND_ILQR_ITERS = 30, 5
 
 # kernels whose ptxas report must show no spill: kernels 1-3 at n <= 32,
 # which hold a row of A or L in registers (kernels 2 and 3 in one
@@ -1485,6 +1555,12 @@ PHASE_SHAPES = {
     "clutter32": ((CLUTTER_ENVS, 192), None), "clutter32_rowcap192_bf16": ((CLUTTER_ENVS, 192), None),
     "humanoid_sampling": ((HUMANOID_SAMPLES, 25), "humanoid sampling"),
     "pendulum_single": ((1, 1), None),
+    # the gradient phases (grad_paths' at each path's own batch)
+    "grad_pendulum": ((16, 1), None), "grad_arm3": ((16, 3), "arm3"), "grad_quadruped": ((64, 18), "quadruped"),
+    "grad_quadruped_elliptic": ((8, 18), "elliptic quadruped"), "grad_hand": ((16, 8), "hand B=8"),
+    "grad_clutter32_rowcap192": ((4, 192), None), "apg_pendulum": ((64, 1), None),
+    "apg_quadruped": ((NUM_ENVS, 18), "quadruped"), "ilqr_pendulum": ((1, 1), None),
+    "hand_gradient_trajopt": ((1, 8), "hand B=1"),
 }
 # (kernel, shape) -> (ms, bound_ms) measured in this run: the shape is
 # (batch, n) for kernels 1-3 and a PHASE_SHAPES case for the Newton kernels
@@ -2282,6 +2358,544 @@ def ppo_pendulum_learns(device, card: str) -> dict:
     return launches
 
 
+def _grad_share(got: dict, want: dict, envs: int) -> tuple[float, float]:
+    """Over the inputs of `want`: the smallest share of the first `envs`
+    envs whose largest |got - want| gradient entry is within GRAD_TOL of
+    want's largest |entry| (non-finite entries must sit where want's are),
+    and the largest difference over that scale."""
+    import torch
+
+    worst_rel, worst_share = 0.0, 1.0
+    for k, w in want.items():
+        g = got[k][:envs].detach().cpu().to(w.dtype)
+        if g.shape != w.shape:
+            fail(f"gradient d/d{k}: shape {tuple(g.shape)} vs {tuple(w.shape)}")
+        same_nonfinite = (torch.isfinite(g) == torch.isfinite(w)).flatten(1).all(1)
+        err = (torch.nan_to_num(g) - torch.nan_to_num(w)).abs().flatten(1).amax(1)
+        scale = torch.nan_to_num(w).abs().max().item()
+        worst_share = min(worst_share, (same_nonfinite & (err <= GRAD_TOL * scale)).double().mean().item())
+        worst_rel = max(worst_rel, err.max().item() / max(scale, 1e-30))
+    return worst_rel, worst_share
+
+
+def grad_cases(device) -> dict:
+    """kernel -> (its dispatch call, the plain version, inputs on the card,
+    the inputs that take a gradient, statics, the statics compared at, the
+    JSON row's shape): kernels 1-3 on random SPD systems at (4096, 18) and
+    (256, 192), kernels 4-6 on the pre-solve operands of their check phases
+    (the quadruped at 4096, arm3 at 1024 after 100 steps, the elliptic
+    quadruped at 4096). The elliptic solve is compared converged (CONVERGED,
+    as its forward is: at 3 x 6 iterations it is chaotic in float32) and
+    timed at the model's options."""
+    import numpy as np
+
+    from ambersim_tpu_torch import load_model
+    from ambersim_tpu_torch.engine import linalg, rollout, solver
+    from ambersim_tpu_torch.engine.constraint import _pyramid_structure
+
+    rng = np.random.default_rng(40)
+    cases = {}
+    for B, n, suffix in ((NUM_ENVS, 18, ""), (CLUTTER_ENVS, 192, "_block")):
+        a, b = random_spd(rng, B, n, device)
+        l = linalg.cholesky_unrolled(a)
+        shape = f"B={B}, n={n}"
+        for name, inputs in (("cholesky", dict(a=a)), ("cho_solve", dict(l=l, b=b)), ("solve_pd", dict(a=a, b=b))):
+            cases[name + suffix] = (getattr(linalg, f"{name}_kernel"), getattr(linalg, f"{name}_unrolled"), inputs,
+                                    tuple(inputs), {}, {}, shape)
+    rows = ("J", "qM", "aref", "D", "fl", "act", "a_s", "ws", "tol")
+    wrt = ("J", "qM", "aref", "D", "fl", "a_s", "ws")
+
+    def options(m):
+        return dict(iterations=int(m.opt.iterations), ls_iterations=int(m.opt.ls_iterations), use_ws=True)
+
+    m = load_model("quadruped", device=device)
+    s = m.skel
+    d = initial_batch(m, NUM_ENVS, device)
+    d = pre_solve(m, d.replace(ctrl=pd_ctrl(d)))
+    pa = solver_operands(m, d, seed=2)
+    statics = dict(st=_pyramid_structure(s), ne=int(s.ne), nf=int(s.nf), **options(m))
+    cases["newton_structured"] = (solver.newton_structured, solver._structured_plain,
+                                  dict(J=pa["J"], bJ=d.efc_bJ, dsc=d.efc_dsc, **{k: pa[k] for k in rows[1:]}),
+                                  wrt + ("bJ", "dsc"), statics, statics,
+                                  f"quadruped B={NUM_ENVS}, nefc={s.nefc}, nv={s.nv}")
+    m = load_model("arm3", device=device)
+    s = m.skel
+    d = pre_solve(m, rollout(m, PATHS["arm3"]["start"](m, 1024, device), 100))
+    pa = solver_operands(m, d, seed=4)
+    statics = dict(ne=int(s.ne), nf=int(s.nf), **options(m))
+    cases["newton_dense"] = (solver.newton_dense, solver._newton_arrays, {k: pa[k] for k in rows}, wrt, statics,
+                             statics, f"arm3 B=1024, nefc={s.nefc}, nv={s.nv}")
+    m = load_model("quadruped_elliptic", device=device)
+    s = m.skel
+    cdim, slots, base, _ = solver.elliptic_tail(s)
+    d = initial_batch(m, NUM_ENVS, device)
+    d = pre_solve(m, d.replace(ctrl=pd_ctrl(d)))
+    pa = solver_operands(m, d, seed=6)
+    statics = dict(impratio=m.opt.impratio, ne=int(s.ne), nf=int(s.nf), base=base, ncon=len(slots), cdim=cdim,
+                   use_ws=True)
+    cases["newton_elliptic"] = (solver.newton_elliptic, solver._elliptic_plain,
+                                dict({k: pa[k] for k in rows}, fr=d.contact.friction), wrt, dict(statics, **options(m)),
+                                dict(statics, **CONVERGED),
+                                f"elliptic quadruped B={NUM_ENVS}, nefc={s.nefc}, nv={s.nv}")
+    return cases
+
+
+def _on(statics: dict, device, dtype=None) -> dict:
+    import torch
+
+    return {k: v.to(device, dtype) if isinstance(v, torch.Tensor) and v.is_floating_point() else
+            v.to(device) if isinstance(v, torch.Tensor) else v for k, v in statics.items()}
+
+
+def _linear_grads(call, inputs: dict, names, weights, **statics) -> dict:
+    """Gradients of sum_i (weights_i * outputs_i).sum() of call(*inputs)
+    with respect to the inputs named in `names` (None where unused)."""
+    import torch
+
+    leaves = {n: v.detach().clone().requires_grad_(n in names) for n, v in inputs.items()}
+    outs = call(*leaves.values(), **statics)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    loss = sum((w.to(o.dtype) * o).sum() for w, o in zip(weights, outs))
+    return dict(zip(names, torch.autograd.grad(loss, [leaves[n] for n in names], allow_unused=True)))
+
+
+def grad_kernels(device, results) -> None:
+    """Each of the nine kernel routes' gradient on the card (its Function:
+    the kernel forward, autograd through the plain version backward) of a
+    seeded linear functional of its outputs, against the plain version's
+    gradient on the CPU from the same inputs, at each JSON row's shape, input
+    by input: every env within GRAD_TOL for kernels 1-3; GRAD_MIN_SHARE of
+    the envs for the Newton routes or, for an input under it, the card's
+    share within GRAD_TOL of the float64 gradient at most GRAD_F64_SLACK
+    under plain float32's (vs_float64's rule). Kernel 4's factored operands
+    must get no gradient. Records each row's backward_ms: CUDA-event time of the
+    Function's backward at the row's shape (the graph kept, autograd.grad
+    again)."""
+    import numpy as np
+    import torch
+
+    from ambersim_tpu_torch.ops import LAUNCHES
+
+    for k, (call, plain, inputs, wrt, statics, compared, shape) in grad_cases(device).items():
+        names = [n for n in wrt if n not in ("bJ", "dsc")]
+        # the backward's time at the row's shape and statics, through the Function
+        leaves = {n: v.detach().clone().requires_grad_(n in wrt) for n, v in inputs.items()}
+        launched = LAUNCHES[k]
+        outs = call(*leaves.values(), **statics)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        if LAUNCHES[k] != launched + 1:
+            fail(f"grad_kernels {k}: the Function launched the kernel {LAUNCHES[k] - launched} times, want 1")
+        rng = np.random.default_rng(41)
+        weights = [torch.as_tensor(rng.standard_normal(o.shape).astype(np.float32), device=device) for o in outs]
+        loss = sum((w * o).sum() for w, o in zip(weights, outs))
+        unread = [leaves[n] for n in wrt if n not in names]
+        if unread and any(g is not None for g in torch.autograd.grad(loss, unread, retain_graph=True,
+                                                                     allow_unused=True)):
+            fail("grad_kernels newton_structured: efc_bJ or efc_dsc got a gradient (the plain version reads J)")
+        ms = cuda_ms(lambda: torch.autograd.grad(loss, [leaves[n] for n in names], retain_graph=True), reps=3,
+                     calls=2)
+        results[k]["backward_ms"] = ms
+        del leaves, outs, loss
+        # the comparison, at the compared statics, on the first envs on the CPU
+        got = _linear_grads(call, inputs, names, weights, **compared)
+        for n in names:
+            if got[n] is None or not torch.isfinite(got[n]).all():
+                fail(f"grad_kernels {k}: d/d{n} missing or not finite on the card")
+        B = next(iter(inputs.values())).shape[0]
+        envs = min(B, GRAD_CPU_ENVS if k.startswith("newton") else GRAD_CPU_SYSTEMS)
+        cpu = {n: (v[:envs] if v.shape[0] == B else v).cpu() for n, v in inputs.items()}
+        weights_cpu = [w[:envs].cpu() for w in weights]
+        want = _linear_grads(plain, cpu, names, weights_cpu, **_on(compared, "cpu"))
+        newton = k.startswith("newton")
+        exact = None
+        parts, worst = [], 0.0
+        for n in names:
+            rel, share = _grad_share(got, {n: want[n]}, envs)
+            worst = max(worst, rel)
+            part = f"{n} {share:.4f}"
+            if newton and share < GRAD_MIN_SHARE:
+                if exact is None:
+                    exact = _linear_grads(plain, {i: v.double() if v.is_floating_point() else v for i, v in cpu.items()},
+                                          names, weights_cpu, **_on(compared, "cpu", torch.float64))
+                _, plain_exact = _grad_share(want, {n: exact[n]}, envs)
+                _, card_exact = _grad_share(got, {n: exact[n]}, envs)
+                part += f" (of float64: plain float32 {plain_exact:.4f}, card {card_exact:.4f})"
+                if card_exact < plain_exact - GRAD_F64_SLACK:
+                    fail(f"grad_kernels {k} d/d{n}: the card's gradient meets float64 on {card_exact:.4f} of envs, "
+                         f"plain float32's on {plain_exact:.4f} (slack {GRAD_F64_SLACK})")
+            elif share < (GRAD_MIN_SHARE if newton else 1.0):
+                fail(f"grad_kernels {k} d/d{n}: {share:.4f} of envs within {GRAD_TOL} of the largest |g|")
+            parts.append(part)
+        line = (f"grad_kernels {k} ({shape}): card vs CPU over {envs} envs, largest difference {worst:.3e} of the "
+                f"largest |g|; share of envs within {GRAD_TOL} by input: {', '.join(parts)}")
+        print(f"{line}; backward {ms:.4f} ms at the row's shape (the plain version's autograd on the card)",
+              flush=True)
+
+
+def _per_call_launches(m, device) -> tuple[dict, dict]:
+    """Launches of one forward and of one step of model `m` at one env,
+    without grad: the unit counts the gradient phases multiply."""
+    import torch
+
+    from ambersim_tpu_torch.engine import forward, make_data, step
+    from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    with torch.no_grad():
+        d = make_data(m, 1)
+        reset_launch_counts()
+        d = forward(m, d)
+        per_forward = dict(LAUNCHES)
+        reset_launch_counts()
+        step(m, d)
+        per_step = dict(LAUNCHES)
+    torch.cuda.synchronize()
+    return per_forward, per_step
+
+
+def _expect(per_forward: dict, per_step: dict, forwards: int, steps: int) -> dict:
+    return {k: forwards * per_forward[k] + steps * per_step[k] for k in per_step}
+
+
+def grad_path_start(name: str, m, B: int, device):
+    """Data of B envs at path `name`'s start (the pendulum 1 rad off qpos0,
+    the hand from hand_start, clutter at its committed settled state)."""
+    import numpy as np
+    import torch
+
+    from ambersim_tpu_torch.engine import make_data
+
+    if name == "pendulum":
+        return make_data(m, B).replace(qpos=m.qpos0.expand(B, -1) + 1.0)
+    if name == "hand":
+        return make_data(m, B).replace(qpos=hand_start(m, B, seed=12, scale=0.5))
+    if name.startswith("clutter"):
+        z = np.load(CLUTTER_SETTLED)
+        return make_data(m, B).replace(**{k: torch.as_tensor(z[k], device=device).expand(B, -1).contiguous()
+                                          for k in ("qpos", "qvel")})
+    return PATHS[name]["start"](m, B, device)
+
+
+def grad_path(name: str, device) -> tuple[dict, dict, float]:
+    """d(sum qpos + sum qvel after T steps)/d(ctrl tape, initial qvel) of
+    one GRAD_PATHS path on `device` (grad mode through the engine's
+    dispatch; a seeded 0.3 N(0, 1) ctrl tape). Returns the gradients, the
+    launches and the backward's host seconds."""
+    import numpy as np
+    import torch
+
+    from ambersim_tpu_torch import load_model
+    from ambersim_tpu_torch.engine import step
+    from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    model, B, T, opt = GRAD_PATHS[name]
+    m = hand_model(device) if name == "hand" else load_model(model, device=device)
+    m = m.replace(opt=m.opt.replace(**opt)) if opt else m
+    d = grad_path_start(name, m, B, device)
+    nu = m.skel.nu
+    u = torch.as_tensor(0.3 * np.random.default_rng(42).standard_normal((T, B, nu)).astype(np.float32),
+                        device=device).requires_grad_(True)
+    qvel0 = d.qvel.detach().clone().requires_grad_(True)
+    d = d.replace(qvel=qvel0)
+    reset_launch_counts()
+    for k in range(T):
+        d = step(m, d.replace(ctrl=u[k]))
+    loss = d.qpos.sum() + d.qvel.sum()
+    t0 = time.perf_counter()
+    gu, gv = torch.autograd.grad(loss, (u, qvel0), allow_unused=True)  # clutter has no actuators
+    if device != "cpu":
+        torch.cuda.synchronize()
+    gu = torch.zeros_like(u) if gu is None else gu
+    return dict(ctrl=gu.transpose(0, 1), qvel=gv), dict(LAUNCHES), time.perf_counter() - t0
+
+
+def grad_paths(device, card: str) -> dict:
+    """Each GRAD_PATHS path's gradient on the card against the CPU's (every
+    env within GRAD_TOL of the largest |g|, the elliptic quadruped within
+    GRAD_ELLIPTIC_PATH_TOL), with its peak device memory and
+    exact launches (one forward pass: the step's kernels once a step).
+    Returns the launch counts by phase (grad_<path>)."""
+    import torch
+
+    from ambersim_tpu_torch import load_model
+
+    phases = {}
+    for name, (model, B, T, _) in GRAD_PATHS.items():
+        m = hand_model(device) if name == "hand" else load_model(model, device=device)
+        per_forward, per_step = _per_call_launches(m, device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2**30
+        t0 = time.perf_counter()
+        got, launches, backward_s = grad_path(name, device)
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want, _, _ = grad_path(name, "cpu")
+        for k, g in got.items():
+            if not torch.isfinite(g).all():
+                fail(f"grad_paths {name}: d/d{k} not finite on the card")
+        rel, _ = _grad_share(got, {k: v for k, v in want.items() if v.numel()}, B)
+        tol = GRAD_ELLIPTIC_PATH_TOL if name == "quadruped_elliptic" else GRAD_TOL
+        if not rel <= tol:
+            fail(f"grad_paths {name}: an env's gradient differs by {rel:.3e} of the largest |g| (bar {tol})")
+        expected = _expect(per_forward, per_step, 0, T)
+        _check_launches(f"grad_paths {name}", launches, tuple(k for k, n in expected.items() if n), 1, expected)
+        phases[f"grad_{name}"] = launches
+        print(f"grad_paths {name}: {B} envs x {T} steps, d(sum qpos + sum qvel)/d(ctrl, qvel0) card vs CPU: largest "
+              f"difference {rel:.3e} of the largest |g| (bar {tol}); forward + backward "
+              f"{seconds:.3f} s (backward {backward_s:.3f} s); peak device memory {peak:.3f} GiB ({peak - held:.3f} "
+              f"above what was held) [{card}]; launches {launches}", flush=True)
+    return phases
+
+
+def _apg_first_update(device, seed: int = 0):
+    """The first APG update's loss and grad norm at APG_PENDULUM's width:
+    params from a CPU generator, starts drawn by a CPU generator, so the
+    card and the CPU start from the same bits."""
+    import torch
+
+    from ambersim_tpu_torch.rl import wrappers
+    from ambersim_tpu_torch.rl.apg import make_apg_networks
+    from ambersim_tpu_torch.rl.apg.train import rollout_loss
+    from ambersim_tpu_torch.rl.pendulum import PendulumSwingupConfig, PendulumSwingupEnv
+    from ambersim_tpu_torch.rl.ppo.running_statistics import init_state
+
+    c = APG_PENDULUM
+    env = PendulumSwingupEnv(PendulumSwingupConfig(physics_steps_per_control_step=2), device=device)
+    wrapped = wrappers.wrap_for_training(env, c["episode_length"])
+    nets = make_apg_networks(3, 1)
+    params = {k: v.to(device).requires_grad_(True) for k, v in nets.policy_network.init(
+        torch.Generator().manual_seed(seed)).items()}
+    with torch.no_grad():
+        state = wrapped.reset(torch.Generator().manual_seed(seed + 1), c["num_envs"])
+    loss, _, _ = rollout_loss(wrapped, nets, params, init_state(torch.zeros(3, device=device)), state,
+                              c["episode_length"])
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.item(), torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads])).item()
+
+
+def apg_pendulum(device, card: str) -> dict:
+    """APG on the pendulum swingup at APG_PENDULUM: finite losses and grad
+    norms, exact launches (each update: a reset, then every control step's
+    physics twice, forward and the checkpoint's recompute; each eval: a
+    reset and one pass), training env-steps/s; and the first update's loss
+    and grad norm card vs CPU within APG_FIRST_RTOL. Returns the launches."""
+    import math
+
+    import torch
+
+    from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from ambersim_tpu_torch.rl.apg import train
+    from ambersim_tpu_torch.rl.pendulum import PendulumSwingupConfig, PendulumSwingupEnv
+
+    c = APG_PENDULUM
+    env = PendulumSwingupEnv(PendulumSwingupConfig(physics_steps_per_control_step=2), device=device)
+    per_forward, per_step = _per_call_launches(env.model, device)
+    marks = []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    train(env, device=device, progress_fn=lambda step, m: marks.append((step, m)), **c)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    physics = 2 * c["episode_length"]
+    # the observation size's one-env reset, an eval before and after, and per update a reset and two passes
+    expected = _expect(per_forward, per_step, 1 + c["num_evals"] + c["policy_updates"],
+                       c["num_evals"] * physics + 2 * c["policy_updates"] * physics)
+    _check_launches("apg_pendulum", launches, ("cholesky", "cho_solve"), 1, expected)
+    last = marks[-1][1]
+    for k, v in last.items():
+        if not math.isfinite(v):
+            fail(f"apg_pendulum: {k} = {v}")
+    train_s = last["timing/forward_s"] + last["timing/backward_s"]
+    rate = c["policy_updates"] * c["num_envs"] * c["episode_length"] / train_s
+    rewards = ", ".join(f"{m['eval/episode_reward']:.1f}" for _, m in marks)
+    loss_card, norm_card = _apg_first_update(device)
+    loss_cpu, norm_cpu = _apg_first_update("cpu")
+    rel_loss, rel_norm = abs(loss_card - loss_cpu) / abs(loss_cpu), abs(norm_card - norm_cpu) / abs(norm_cpu)
+    print(f"apg_pendulum: {c['policy_updates']} updates of {c['num_envs']} envs x {c['episode_length']} control steps "
+          f"+ {c['num_evals']} evals in {seconds:.3f} s [{card}]; training {rate:.1f} env-steps/s (forward "
+          f"{last['timing/forward_s']:.3f} s, backward {last['timing/backward_s']:.3f} s, eval "
+          f"{last['timing/eval_s']:.3f} s); eval rewards {rewards}; "
+          f"loss {last['training/episode_loss']:.4f}, grad norm {last['training/grad_norm']:.4f}; launches {launches}\n"
+          f"apg_pendulum: first update card vs CPU: loss {loss_card:.6f} / {loss_cpu:.6f} (rel {rel_loss:.2e}), grad "
+          f"norm {norm_card:.6f} / {norm_cpu:.6f} (rel {rel_norm:.2e}; bar {APG_FIRST_RTOL})", flush=True)
+    if not (rel_loss <= APG_FIRST_RTOL and rel_norm <= APG_FIRST_RTOL):
+        fail("apg_pendulum: the first update's loss or grad norm differs between the card and the CPU")
+    return launches
+
+
+def apg_quadruped(device, card: str) -> dict:
+    """One APG update of the 4096-env locomotion policy at APG_QUADRUPED,
+    kernels 1-4 under the gradient: a finite, nonzero grad norm, moved
+    params, exact launches, the update's forward and backward seconds,
+    training env-steps/s and peak device memory. Returns the launches."""
+    import math
+
+    import torch
+
+    from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from ambersim_tpu_torch.rl import get_environment
+    from ambersim_tpu_torch.rl.apg import make_apg_networks, train
+    from ambersim_tpu_torch.rl.ppo import networks
+
+    c = APG_QUADRUPED
+    env = get_environment("quadruped_locomotion", device=device)
+    physics = env.config.physics_steps_per_control_step * c["episode_length"]
+    per_forward, per_step = _per_call_launches(env.model, device)
+    initial = {}
+
+    def factory(obs_size, action_size, preprocess_observations_fn):
+        nets = make_apg_networks(obs_size, action_size, preprocess_observations_fn=preprocess_observations_fn)
+
+        def init(generator):
+            params = nets.policy_network.init(generator)
+            initial.update({k: v.clone() for k, v in params.items()})
+            return params
+
+        return networks.PPONetworks(networks.FeedForwardNetwork(init=init, apply=nets.policy_network.apply),
+                                    nets.value_network, nets.parametric_action_distribution)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    _, (_, params), metrics = train(env, device=device, network_factory=factory, **c)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = dict(LAUNCHES)
+    expected = _expect(per_forward, per_step, 3, 3 * physics)  # obs size, update and eval resets; two passes + eval
+    _check_launches("apg_quadruped", launches, _LINALG + ("newton_structured",), 1, expected)
+    norm = metrics["training/grad_norm"]
+    moved = max((params[k] - v).abs().max().item() for k, v in initial.items())
+    if not (math.isfinite(norm) and norm > 0 and math.isfinite(metrics["training/episode_loss"]) and moved > 0):
+        fail(f"apg_quadruped: grad norm {norm}, loss {metrics['training/episode_loss']}, params moved {moved}")
+    fwd, bwd = metrics["timing/forward_s"], metrics["timing/backward_s"]
+    print(f"apg_quadruped: one update of {c['num_envs']} envs x {c['episode_length']} control steps ({physics} physics "
+          f"steps, each checkpointed control step recomputed) in {seconds:.3f} s with the eval [{card}]: forward "
+          f"{fwd:.3f} s, backward {bwd:.3f} s, training {c['num_envs'] * c['episode_length'] / (fwd + bwd):.1f} "
+          f"env-steps/s; loss {metrics['training/episode_loss']:.4f}, grad norm {norm:.4f}, params moved by up to "
+          f"{moved:.3e}; peak device memory {peak:.3f} GiB ({peak - held:.3f} above what was held); launches "
+          f"{launches}", flush=True)
+    return launches
+
+
+def _pendulum_ilqr(m, device):
+    import torch
+
+    from ambersim_tpu_torch.trajopt import ILQR
+
+    c = ILQR_PENDULUM
+    goal = torch.tensor([c["goal"], 0.0], device=device)
+
+    def running(x, u):
+        return 0.02 * (u @ u)
+
+    def terminal(x):
+        dx = x - goal
+        return 100.0 * (dx @ dx)
+
+    return ILQR(model=m, running_cost=running, terminal_cost=terminal, iterations=c["iterations"])
+
+
+def ilqr_pendulum(device, card: str) -> dict:
+    """examples/trajopt/ex_ilqr.py task 1 on the card (ILQR_PENDULUM): the
+    cost at most the guess's, the final angle within the JAX package's
+    distance to the goal plus ILQR_ANGLE_SLACK, exact launches (the guess's
+    rollout, then per iteration the linearization's one step of N x 2 nv
+    envs and the line search's N steps of all step sizes), ms per
+    iteration. Returns the launches."""
+    import torch
+
+    from ambersim_tpu_torch import load_model
+    from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from ambersim_tpu_torch.trajopt import ILQRParams, shoot
+
+    c = ILQR_PENDULUM
+    m = load_model("pendulum", device=device)
+    per_forward, per_step = _per_call_launches(m, device)
+    opt = _pendulum_ilqr(m, device)
+    params = ILQRParams(x0=torch.zeros(2, device=device), us_guess=torch.zeros(c["knots"], 1, device=device))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    xs, us = opt.optimize(params)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    N, I = c["knots"], c["iterations"]
+    _check_launches("ilqr_pendulum", launches, ("cholesky", "cho_solve"), 1,
+                    _expect(per_forward, per_step, 1, N + I * (1 + N)))
+    with torch.no_grad():
+        c_guess = opt._traj_cost(shoot(m, params.x0, params.us_guess), params.us_guess).item()
+    c_star = opt._traj_cost(xs, us).item()
+    angle = xs[-1, 0].item()
+    bar = abs(JAX_ILQR_PENDULUM_ANGLE - c["goal"]) + ILQR_ANGLE_SLACK
+    print(f"ilqr_pendulum: {N} knots x {I} iterations in {seconds:.3f} s = {1e3 * seconds / I:.1f} ms per iteration "
+          f"[{card}]; cost {c_guess:.4f} -> {c_star:.4f}; final angle {angle:.6f} (goal {c['goal']}, JAX package "
+          f"{JAX_ILQR_PENDULUM_ANGLE}; |error| bar {bar:.4f}); launches {launches}", flush=True)
+    if not (torch.isfinite(xs).all() and c_star <= c_guess and abs(angle - c["goal"]) <= bar):
+        fail(f"ilqr_pendulum: cost {c_star} (guess {c_guess}) or final angle {angle} off")
+    return launches
+
+
+def hand_gradient_trajopt(device, card: str) -> dict:
+    """The hand at BASELINE.md:13's 10 knots, hand_sampling's cost, start
+    and guess: GradientShootingOptimizer (HAND_GRADIENT_ITERS Adam steps
+    through the step) and ILQR (HAND_ILQR_ITERS iterations, the cost split
+    into its running and terminal terms), one optimize call each, timed;
+    each must cost at most the guess; exact launches. Returns the launches
+    of both calls."""
+    import numpy as np
+    import torch
+
+    from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from ambersim_tpu_torch.trajopt import ILQR, GradientShootingOptimizer, ILQRParams, ShootingParams, shoot
+
+    m = hand_model(device)
+    cost = hand_cost(device)
+    per_forward, per_step = _per_call_launches(m, device)
+    x0 = torch.cat([hand_start(m, 1, seed=10, scale=0.3)[0], torch.zeros(m.skel.nv, device=device)])
+    guess = torch.as_tensor(0.3 * np.random.default_rng(11).standard_normal((HAND_HORIZON, m.skel.nu)).astype(
+        np.float32), device=device)
+    with torch.no_grad():
+        c_guess = cost.cost(shoot(m, x0, guess), guess).item()
+
+    def running(x, u):
+        dx = x - cost.xg
+        return dx @ cost.Q @ dx + u @ cost.R @ u
+
+    def terminal(x):
+        dx = x - cost.xg
+        return dx @ cost.Qf @ dx
+
+    H, G, I = HAND_HORIZON, HAND_GRADIENT_ITERS, HAND_ILQR_ITERS
+    runs = {
+        "gradient": (GradientShootingOptimizer(model=m, cost_function=cost, iters=G, learning_rate=0.05),
+                     ShootingParams(x0=x0, us_guess=guess), _expect(per_forward, per_step, G + 2, H * (G + 2))),
+        "ilqr": (ILQR(model=m, running_cost=running, terminal_cost=terminal, iterations=I),
+                 ILQRParams(x0=x0, us_guess=guess), _expect(per_forward, per_step, 1, H + I * (1 + H))),
+    }
+    launches = {k: 0 for k in LAUNCHES}
+    for name, (opt, params, expected) in runs.items():
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        xs, us = opt.optimize(params)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        _check_launches(f"hand_gradient_trajopt {name}", dict(LAUNCHES), _HAND_KERNELS, 1, expected)
+        launches = {k: launches[k] + LAUNCHES[k] for k in launches}
+        c_star = cost.cost(xs, us).item()
+        print(f"hand_gradient_trajopt {name}: one optimize call of {H} knots in {1e3 * seconds:.1f} ms [{card}]; cost "
+              f"{c_guess:.6f} -> {c_star:.6f}; launches {dict(LAUNCHES)}", flush=True)
+        if not (torch.isfinite(xs).all() and c_star <= c_guess + 1e-5 + 1e-5 * abs(c_guess)):
+            fail(f"hand_gradient_trajopt {name}: the result costs {c_star:.6f}, the guess {c_guess:.6f}")
+    return launches
+
+
 def env_card_vs_cpu(device, name: str, env_cls, control_steps: int, obs_bars) -> None:
     """An env, 8 envs x `control_steps` control steps with the same actions
     on the card (kernels) and on the CPU (plain versions): obs within the
@@ -2355,9 +2969,10 @@ def weighted_launch_time(phase_launches: dict) -> None:
 
 
 def run_phases(device, card: str, results: dict) -> None:
-    """Phases 3-7: every kernel against its plain version, every path,
-    trajectory optimization, PPO, and the card against the CPU; adds each
-    path's launches to results."""
+    """Phases 3-8: every kernel against its plain version, every path,
+    trajectory optimization, PPO, gradients through the kernels (the
+    Functions, APG, gradient shooting and iLQR), and the card against the
+    CPU; adds each path's launches to results."""
     import torch
 
     # ---- 3. kernels against their plain versions ----
@@ -2404,12 +3019,20 @@ def run_phases(device, card: str, results: dict) -> None:
                                                         device, card)
     phase_launches["ppo_pendulum"] = ppo_pendulum_learns(device, card)
     phase_launches["ppo_humanoid"] = ppo_training_step("ppo_humanoid", "humanoid_balance", PPO_HUMANOID, device, card)
+
+    # ---- 7. gradients through the kernels' Functions, and their users ----
+    grad_kernels(device, results)
+    phase_launches.update(grad_paths(device, card))
+    phase_launches["apg_pendulum"] = apg_pendulum(device, card)
+    phase_launches["apg_quadruped"] = apg_quadruped(device, card)
+    phase_launches["ilqr_pendulum"] = ilqr_pendulum(device, card)
+    phase_launches["hand_gradient_trajopt"] = hand_gradient_trajopt(device, card)
     for launches in phase_launches.values():
         for k, n in launches.items():
             results[k]["launches"] += n
     weighted_launch_time(phase_launches)
 
-    # ---- 7. card (kernels) against CPU (plain versions), 8 envs x 20 steps ----
+    # ---- 8. card (kernels) against CPU (plain versions), 8 envs x 20 steps ----
     for name in PATHS:
         method = PATHS[name].get("vs_cpu", "start")
         if name == "quadruped_elliptic":
@@ -2458,7 +3081,8 @@ def main() -> int:
 
     results = {
         k: dict(name=k, route="cuda", source=f"ambersim_tpu_torch/csrc/{src}", replaces=rep, launches=0,
-                max_abs_err=None, ms=None, plain_ms=None, bound_ms=None, bound_by=None, library_ms=None)
+                max_abs_err=None, ms=None, plain_ms=None, bound_ms=None, bound_by=None, library_ms=None,
+                backward_ms=None)
         for k, (src, rep) in KERNELS.items()
     }
     with full_f32_matmul():

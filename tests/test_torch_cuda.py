@@ -793,3 +793,153 @@ def test_bf16_route_card_matches_cpu(cuda):
         rel = torch.maximum(rel, (g.double() - w.double()).abs().amax(1) / (w.double().abs().amax(1) + 1.0))
     assert rel.max().item() <= 2e-2
     assert not torch.equal(card[0], card_f32[0])
+
+
+# ---- gradients: each kernel's Function (kernel forward, plain backward) ----
+
+GRAD_TOL = 1e-3  # of the largest |g|: chip_smoke.GRAD_TOL
+
+
+def _grad_of_linear(call, inputs: dict, wrt, seed: int, **statics):
+    """Gradients of a seeded linear functional of call(*inputs)'s outputs
+    with respect to the inputs named in `wrt` (None where unused)."""
+    leaves = {k: v.detach().clone().requires_grad_(k in wrt) for k, v in inputs.items()}
+    outs = call(*leaves.values(), **statics)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    rng = np.random.default_rng(seed)
+    loss = sum((torch.as_tensor(rng.standard_normal(o.shape).astype(np.float32), device=o.device) * o).sum()
+               for o in outs)
+    return dict(zip(wrt, torch.autograd.grad(loss, [leaves[k] for k in wrt], allow_unused=True)))
+
+
+def _assert_grads_close(got: dict, want: dict):
+    for k, w in want.items():
+        assert got[k] is not None and torch.isfinite(got[k]).all(), k
+        scale = w.abs().max().item()
+        assert (got[k].cpu() - w).abs().max().item() <= GRAD_TOL * scale, k
+
+
+@pytest.mark.parametrize("n", (5, 18, 64, 192))
+@pytest.mark.parametrize("name", ("cholesky", "cho_solve", "solve_pd"))
+def test_linalg_function_backward_matches_cpu(cuda, name, n):
+    """Kernels 1-3's Functions: one launch forward, and the gradient on the
+    card equals the plain version's on the CPU."""
+    from ambersim_tpu_torch.engine import linalg
+    from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    rng = np.random.default_rng(70 + n)
+    g = rng.standard_normal((33, n, n)).astype(np.float32)
+    a = torch.as_tensor(g @ np.swapaxes(g, -1, -2) + n * np.eye(n, dtype=np.float32))
+    b = torch.as_tensor(rng.standard_normal((33, n)).astype(np.float32))
+    inputs = dict(a=a) if name == "cholesky" else dict(a=linalg.cholesky_unrolled(a), b=b) if name == "cho_solve" \
+        else dict(a=a, b=b)
+    call = getattr(linalg, f"{name}_kernel")
+    plain = getattr(linalg, f"{name}_unrolled")
+    reset_launch_counts()
+    got = _grad_of_linear(call, {k: v.to(cuda) for k, v in inputs.items()}, tuple(inputs), seed=n)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name if n <= 32 else f"{name}_block"] == 1
+    _assert_grads_close(got, _grad_of_linear(plain, inputs, tuple(inputs), seed=n))
+
+
+@pytest.mark.parametrize("route", ("structured", "dense", "elliptic"))
+def test_newton_function_backward_matches_cpu(cuda, route):
+    """Kernels 4-6's Functions on synthetic problems (64 envs): one launch
+    forward; the gradient on the card against the plain version's on the
+    CPU by chip_smoke.grad_kernels' rule on every input the plain version
+    reads (kernel 4's factored operands get none)."""
+    from chip_smoke import GRAD_F64_SLACK, GRAD_MIN_SHARE, _grad_share
+    from chip_smoke import synthetic_dense_problem, synthetic_elliptic_problem, synthetic_structured_problem
+
+    from ambersim_tpu_torch.engine import solver
+    from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    kw = dict(iterations=5, ls_iterations=8, use_ws=True)
+    rows = ("J", "qM", "aref", "D", "fl", "act", "a_s", "ws", "tol")
+    if route == "structured":
+        st, pa, bJ, dsc = synthetic_structured_problem(64, seed=3, device="cpu", active=0.15, d_range=(0.1, 1.0))
+        inputs = dict(J=pa["J"], bJ=bJ, dsc=dsc, **{k: pa[k] for k in rows[1:]})
+        call, plain = solver.newton_structured, solver._structured_plain
+        kw.update(st=st, ne=pa["ne"], nf=pa["nf"])
+        wrt = ("J", "bJ", "qM", "aref", "D", "a_s", "ws")
+    elif route == "dense":
+        pa = synthetic_dense_problem(64, 7, seed=12, device="cpu", active=0.15, d_range=(0.1, 1.0))
+        inputs = {k: pa[k] for k in rows}
+        call, plain = solver.newton_dense, solver._newton_arrays
+        kw.update(ne=pa["ne"], nf=pa["nf"])
+        wrt = ("J", "qM", "aref", "D", "fl", "a_s", "ws")
+    else:
+        pa = synthetic_elliptic_problem(64, 12, 9, 3, 3, seed=5, device="cpu")
+        inputs = dict({k: pa[k] for k in rows}, fr=pa["fr"])
+        call, plain = solver.newton_elliptic, solver._elliptic_plain
+        kw.update(iterations=15, ls_iterations=15, **{k: pa[k] for k in ("ne", "nf", "base", "ncon", "cdim")})
+        wrt = ("J", "qM", "aref", "D", "fl", "a_s", "ws")
+    statics = dict(kw, impratio=pa["impratio"]) if route == "elliptic" else kw
+    reset_launch_counts()
+    card_statics = {k: v.to(cuda) if isinstance(v, torch.Tensor) else v for k, v in statics.items()}
+    got = _grad_of_linear(call, {k: v.to(cuda) for k, v in inputs.items()}, wrt, seed=1, **card_statics)
+    torch.cuda.synchronize()
+    assert LAUNCHES[f"newton_{route}"] == 1
+    want = _grad_of_linear(plain, inputs, wrt, seed=1, **statics)
+    if route == "structured":
+        assert got.pop("bJ") is None and want.pop("bJ") is None
+    # chip_smoke.grad_kernels' rule: 99% of envs within GRAD_TOL, or the
+    # card as close to the float64 gradient as plain float32 is
+    exact = _grad_of_linear(plain, {k: v.double() for k, v in inputs.items()}, wrt, seed=1,
+                            **{k: v.double() if isinstance(v, torch.Tensor) else v for k, v in statics.items()})
+    for k, w in want.items():
+        assert torch.isfinite(got[k]).all(), k
+        _, share = _grad_share(got, {k: w}, 64)
+        if share < GRAD_MIN_SHARE:
+            _, plain_exact = _grad_share(want, {k: exact[k]}, 64)
+            _, card_exact = _grad_share(got, {k: exact[k]}, 64)
+            assert card_exact >= plain_exact - GRAD_F64_SLACK, (k, card_exact, plain_exact)
+
+
+def test_launchers_refuse_requires_grad_and_dispatch_launches_directly(cuda):
+    """The launchers raise on a tensor that requires grad; without grad the
+    dispatch launches the kernel itself (no Function, no graph)."""
+    from ambersim_tpu_torch.engine import linalg
+    from ambersim_tpu_torch.ops import linalg as kernels
+
+    a = torch.eye(4, device=cuda).expand(8, 4, 4).contiguous().requires_grad_(True)
+    with pytest.raises(ValueError, match="requires_grad"):
+        kernels.cholesky_batched(a)
+    with torch.no_grad():
+        assert linalg.cholesky(a).grad_fn is None
+    assert linalg.cholesky(a).grad_fn is not None
+    assert linalg.cholesky(a.detach()).grad_fn is None
+
+
+def test_apg_update_launches_forward_and_recompute(cuda):
+    """One APG update on the pendulum: every physics step's kernels launch
+    twice (forward and the checkpoint's recompute), the gradient is finite
+    and matches the CPU's."""
+    from chip_smoke import _per_call_launches
+
+    from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from ambersim_tpu_torch.rl import wrappers
+    from ambersim_tpu_torch.rl.apg import make_apg_networks
+    from ambersim_tpu_torch.rl.apg.train import rollout_loss
+    from ambersim_tpu_torch.rl.pendulum import PendulumSwingupEnv
+    from ambersim_tpu_torch.rl.ppo.running_statistics import init_state
+
+    grads = {}
+    for device in (cuda, "cpu"):
+        env = wrappers.wrap_for_training(PendulumSwingupEnv(device=device), 8)
+        nets = make_apg_networks(3, 1, hidden_layer_sizes=(16,))
+        params = {k: v.to(device).requires_grad_(True)
+                  for k, v in nets.policy_network.init(torch.Generator().manual_seed(0)).items()}
+        with torch.no_grad():
+            state = env.reset(torch.Generator().manual_seed(1), 4)
+        if device == cuda:
+            _, per_step = _per_call_launches(env.unwrapped.model, cuda)
+            reset_launch_counts()
+        loss, _, _ = rollout_loss(env, nets, params, init_state(torch.zeros(3, device=device)), state, 8)
+        grads[str(device)] = torch.autograd.grad(loss, list(params.values()))
+        if device == cuda:
+            torch.cuda.synchronize()
+            assert {k: n for k, n in LAUNCHES.items() if n} == {k: 2 * 8 * n for k, n in per_step.items() if n}
+    for g, w in zip(grads[str(cuda)], grads["cpu"]):
+        assert torch.isfinite(g).all()
+        assert (g.cpu() - w).abs().max().item() <= GRAD_TOL * w.abs().max().item()

@@ -114,15 +114,22 @@ def test_autoreset_selects_every_data_field():
 
 
 def test_physics_runs_without_autograd():
-    """An action that requires grad leaves no graph behind the env step."""
+    """Under torch.no_grad() (PPO's rollout and eval) an action that
+    requires grad leaves no graph behind the env step; with grad on (APG)
+    the step carries the graph back to the action."""
     from ambersim_tpu_torch.rl.quadruped import QuadrupedLocomotionEnv
 
     torch.set_num_threads(1)
     env = QuadrupedLocomotionEnv(device="cpu")
-    s = env.reset(torch.Generator().manual_seed(0), 2)
-    s = env.step(s, torch.zeros(2, 12, requires_grad=True))
+    s0 = env.reset(torch.Generator().manual_seed(0), 2)
+    action = torch.zeros(2, 12, requires_grad=True)
+    with torch.no_grad():
+        s = env.step(s0, action)
     d = s.pipeline_state
     assert not (d.qpos.requires_grad or d.qvel.requires_grad or d.qacc.requires_grad or s.reward.requires_grad)
+    s = env.step(s0, action)
+    (g,) = torch.autograd.grad(s.reward.sum(), action)
+    assert torch.isfinite(g).all() and g.abs().max() > 0
 
 
 def test_registry():
