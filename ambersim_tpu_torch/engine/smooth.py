@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from ambersim_tpu_torch.core import math as am
-from ambersim_tpu_torch.core.types import Data, DisableBit, JointType, Model
+from ambersim_tpu_torch.core.types import Data, DisableBit, JointType, Model, TrnType
 from ambersim_tpu_torch.engine import linalg
 from ambersim_tpu_torch.engine.schedule import device_index, tree_schedule
 
@@ -349,6 +349,32 @@ def fwd_actuation(m: Model, d: Data) -> Data:
     return d.replace(
         actuator_length=length, actuator_velocity=velocity, actuator_force=force, qfrc_actuator=qfrc
     )
+
+
+def actuator_moment(m: Model, d: Data) -> torch.Tensor:
+    """(B, nu, nv) transmission moment matrix of joint transmissions: the
+    gear on a hinge/slide joint's dof (JOINT or JOINTINPARENT), and the gear
+    vector on a free (6) or ball (3) joint's dofs (JOINT). The JAX package's
+    tendon, site, slider-crank, body and ball/free JOINTINPARENT
+    transmissions are refused by name (ROADMAP, queue 1, item 5)."""
+    s = m.skel
+    moment = d.qpos.new_zeros((d.qpos.shape[0], s.nu, s.nv))
+    scalar = (int(TrnType.JOINT), int(TrnType.JOINTINPARENT))
+    for u in range(s.nu):
+        trn, j = int(s.actuator_trntype[u]), int(s.actuator_trnid[u])
+        jtype = JointType(int(s.jnt_type[j])) if trn in scalar else None
+        da = int(s.jnt_dofadr[j]) if jtype is not None else 0
+        if jtype in (JointType.HINGE, JointType.SLIDE):
+            moment[:, u, da] = m.actuator_gear[u, 0]
+        elif trn == int(TrnType.JOINT):
+            width = jtype.dof_width if jtype == JointType.FREE else 3
+            moment[:, u, da : da + width] = m.actuator_gear[u, :width]
+        else:
+            what = TrnType(trn).name + (f" on {jtype.name.lower()} joints" if jtype is not None else "")
+            raise NotImplementedError(
+                f"actuator transmission {what} is not ported (ROADMAP, queue 1, item 5: engine breadth)"
+            )
+    return moment
 
 
 def _body_dof_support(s) -> np.ndarray:

@@ -1,8 +1,13 @@
-"""Carry compiled models and state from the JAX package into the port.
+"""Build the port's Model from numpy arrays, and carry state from the JAX
+package into the port.
 
-The port has no MJCF compiler yet. A model is compiled by the JAX package
-and exported to ``ambersim_tpu_torch/assets/<name>.npz`` by
-``tools/export_model_npz.py``; this module reads such a file without JAX.
+Arrays come from the port's own MJCF/URDF compiler
+(``ambersim_tpu_torch.mjcf.compile_spec_arrays``) or from a model file the
+JAX package compiled and ``tools/export_model_npz.py`` exported to
+``ambersim_tpu_torch/assets/<name>.npz``; this module reads such a file
+without JAX. Both give the same leaf names. Not to be mixed up:
+`load_model(name)` loads an exported file, while
+`ambersim_tpu_torch.mjcf.load_model(path)` compiles an MJCF file.
 
 File layout (all plain numpy, no pickles):
   * ``leaf.<field>``: every Model array leaf; ``leaf.opt.<field>``: Option
@@ -75,6 +80,15 @@ def model_from_numpy(skel_fields: dict, leaves: dict, device="cuda") -> Model:
     """Build a Model on `device` from Skeleton fields and numpy leaves (see the
     module docstring for the leaf names). Raises NotImplementedError for a
     model outside the ported slice."""
+    m = build_model(skel_fields, leaves, device)
+    check_slice(m)
+    return m
+
+
+def build_model(skel_fields: dict, leaves: dict, device="cuda") -> Model:
+    """`model_from_numpy` without `check_slice`: for host code that runs only
+    the parts of the engine a model outside the slice may still use
+    (`engine.setconst`)."""
     opt_kw, model_kw = {}, {}
     for k, v in leaves.items():
         if k.startswith("opt."):
@@ -87,15 +101,15 @@ def model_from_numpy(skel_fields: dict, leaves: dict, device="cuda") -> Model:
                 opt_kw[name] = _f32(v, device)
         else:
             model_kw[k] = _f32(v, device)
-    m = Model(skel=Skeleton(**skel_fields), opt=Option(**opt_kw), **model_kw)
-    check_slice(m)
-    return m
+    return Model(skel=Skeleton(**skel_fields), opt=Option(**opt_kw), **model_kw)
 
 
 def load_model(name: str, device="cuda") -> Model:
     """Load the exported model ``assets/<name>.npz`` onto `device`: the card
     by default (the kernels), "cpu" for the plain versions. Without a card
-    the default raises; nothing falls back to the CPU."""
+    the default raises; nothing falls back to the CPU. Takes an asset name,
+    not a path: `ambersim_tpu_torch.mjcf.load_model(path)` and
+    `utils.io_utils.load_model_from_file(path)` compile an MJCF/URDF file."""
     path = ASSETS / f"{name}.npz"
     if not path.is_file():
         raise FileNotFoundError(f"no exported model '{name}' at {path}")

@@ -37,6 +37,13 @@ the card, and steps every ported path through the port's entry points:
     row-capped clutter with Option.hessian_bf16 at 256 envs from the
     row-capped path's settled state, the humanoid's predictive sampling
     (64 samples x 8 knots) and the pendulum at a batch of one;
+  * model I/O: the port's own compiler (ambersim_tpu_torch.mjcf) on this
+    machine, every committed asset compiled from its MJCF and held against
+    its .npz, the main path run from the compiled quadruped; the gripper
+    URDF of tests/test_model_io.py (a mimic joint, a forced floating base)
+    at 1024 envs x 100 steps; and models/hand/grasp_scene.xml, the mesh
+    hand closing on a free mesh object, 300 steps at the largest batch its
+    mesh-mesh collision memory allows;
   * gradients through the kernels: each kernel route's Function (the
     kernel forward, autograd through its plain version backward) against
     the plain version's gradient on the CPU, with its backward's time
@@ -311,10 +318,12 @@ GRAD_PATHS = {
 # APG on the pendulum swingup (examples/rl/pendulum/ex_agents.py:80-87 and
 # its env, 2 physics steps per control step). Cut: 4 policy updates and 2
 # evals instead of 60 and 5. The first update's loss and grad norm, card
-# against CPU from the same params and starts, within APG_FIRST_RTOL.
+# against CPU from the same params and starts, within APG_FIRST_RTOL; that
+# repeated update is cut to APG_FIRST_EPISODE control steps of the 200.
 APG_PENDULUM = dict(episode_length=200, num_envs=64, policy_updates=4, learning_rate=2e-3, max_gradient_norm=1.0,
                     num_evals=2, seed=0)
 APG_FIRST_RTOL = 1e-3
+APG_FIRST_EPISODE = 50
 # APG on quadruped_locomotion at bench.py's 4096 envs. Cut: episode_length
 # 20 control steps (80 physics steps) and one update.
 APG_QUADRUPED = dict(episode_length=20, num_envs=4096, num_eval_envs=64, policy_updates=1, learning_rate=1e-3,
@@ -329,6 +338,106 @@ ILQR_ANGLE_SLACK = 1e-3
 # The hand at BASELINE.md:13's 10 knots (hand_sampling's cost, start and
 # guess): Adam through the step, and iLQR.
 HAND_GRADIENT_ITERS, HAND_ILQR_ITERS = 30, 5
+
+# Model I/O on the card: the port's own compiler (ambersim_tpu_torch.mjcf)
+# on this machine. tools/export_model_npz.py:37-53's table, copied (this
+# script imports nothing of tools/): asset -> (MJCF file, the loader's cone
+# override, broadphase cap, max_contact_points row cap). compile_models
+# compiles each and holds it against the committed assets/<name>.npz, which
+# the JAX package compiled on another machine.
+COMPILED_ASSETS = {
+    "quadruped": ("models/quadruped/quadruped.xml", None, 0, 0),
+    "quadruped_elliptic": ("models/quadruped/quadruped.xml", "elliptic", 0, 0),
+    "cartpole": ("models/cartpole/cartpole.xml", None, 0, 0),
+    "arm3": ("models/arm3/arm3.xml", None, 0, 0),
+    "humanoid": ("models/humanoid/humanoid.xml", None, 0, 0),
+    "pendulum": ("models/pendulum/pendulum.xml", None, 0, 0),
+    "hand": ("models/hand/hand.xml", None, 0, 0),
+    "clutter32_cap48": ("models/objects/clutter32.xml", None, 48, 0),
+    "clutter32_rowcap192": ("models/objects/clutter32.xml", None, 48, 192),
+    "drop_scene": ("models/objects/drop_scene.xml", None, 0, 0),
+    "rock": ("models/rock/rock_scene.xml", None, 0, 0),
+    "clutter32": ("models/objects/clutter32.xml", None, 0, 0),
+}
+# compile_models' bars: integer, bool and structural fields exact; float
+# leaves within COMPILE_RTOL / COMPILE_ATOL (numpy's eigh at the meshes'
+# principal frames and the inertias' may round otherwise on another
+# LAPACK); the three setconst fields within cond(qM at qpos0) x float32's
+# unit roundoff, floored at 1e-6 (the port's float32 smooth pass against the
+# JAX package's XLA one: tests/test_torch_mjcf.py). Mesh fields are held up
+# to the hull's vertex, face and edge order if qhull orders them otherwise.
+COMPILE_RTOL, COMPILE_ATOL = 1e-5, 1e-6
+UNIT_ROUNDOFF_F32 = 2.0**-24
+SETCONST_FIELDS = ("dof_invweight0", "body_invweight0", "actuator_acc0")
+MESH_FIELDS = ("mesh_vert", "mesh_face_normal", "mesh_face_dist", "mesh_face_vert", "mesh_edge", "mesh_face_nvert")
+# tests/test_model_io.py:20-50's gripper URDF, copied: one revolute joint
+# mimics the other (q2 = 0.1 + 0.5 q1, a joint equality row) and one
+# transmission makes a motor. gripper_urdf loads it with force_float and
+# steps GRIPPER_ENVS x GRIPPER_STEPS under a closing ctrl, each env's drawn
+# from U(0.25, 0.75) by numpy seed 21 (the effort limit is 1.5); the mimic
+# row holds to MIMIC_TOL in every env at the end. Card vs CPU on 8 envs x
+# GRIPPER_CPU_STEPS: the plain Newton solve runs all of the model's default
+# 100 x 50 iterations, ~1.5 s a step on a CPU.
+GRIPPER_URDF = """<?xml version="1.0"?>
+<robot name="gripper">
+  <link name="palm">
+    <inertial><mass value="0.5"/><origin xyz="0 0 0"/>
+      <inertia ixx="0.001" ixy="0" ixz="0" iyy="0.001" iyz="0" izz="0.001"/></inertial>
+    <collision><geometry><box size="0.08 0.04 0.02"/></geometry></collision>
+  </link>
+  <link name="finger1">
+    <inertial><mass value="0.1"/><origin xyz="0 0 0.02"/>
+      <inertia ixx="0.0001" ixy="0" ixz="0" iyy="0.0001" iyz="0" izz="0.0001"/></inertial>
+    <collision><geometry><capsule radius="0.008" length="0.04"/></geometry></collision>
+  </link>
+  <link name="finger2">
+    <inertial><mass value="0.1"/><origin xyz="0 0 0.02"/>
+      <inertia ixx="0.0001" ixy="0" ixz="0" iyy="0.0001" iyz="0" izz="0.0001"/></inertial>
+    <collision><geometry><capsule radius="0.008" length="0.04"/></geometry></collision>
+  </link>
+  <joint name="finger1_joint" type="revolute">
+    <parent link="palm"/><child link="finger1"/>
+    <origin xyz="0.04 0 0.01"/><axis xyz="0 1 0"/>
+    <limit effort="1.5" lower="0" upper="1.2"/>
+  </joint>
+  <joint name="finger2_joint" type="revolute">
+    <parent link="palm"/><child link="finger2"/>
+    <origin xyz="-0.04 0 0.01"/><axis xyz="0 -1 0"/>
+    <limit effort="1.5" lower="0" upper="1.2"/>
+    <mimic joint="finger1_joint" multiplier="0.5" offset="0.1"/>
+  </joint>
+  <transmission name="t1"><type>x</type><joint name="finger1_joint"/>
+    <actuator name="finger1_act"/></transmission>
+</robot>
+"""
+GRIPPER_ENVS, GRIPPER_STEPS, GRIPPER_CPU_STEPS = 1024, 100, 5
+MIMIC_TOL = 5e-3
+# models/hand/grasp_scene.xml (the mesh hand's seven convex-decomposed parts
+# closing on a free mesh object: 12 mesh-mesh pairs a step, 4 mimic rows) at
+# tests/test_models_parity.py:171-196's settings, GRASP_STEPS steps of
+# GRASP_CTRL. Batch: the largest of GRASP_BATCHES whose collision stage
+# (mesh_mesh's SAT inside), at the per-env peak measured on GRASP_PROBE_ENVS
+# envs, stays under GRASP_PEAK_GIB (grasp_memory). Every env's object moved
+# by GRASP_NUDGE N(0, 1) per axis (numpy seed 22). Gates: the object held in
+# the palm channel (GRASP_Z on its height) in every env, and on 8 envs over
+# GRASP_CPU_STEPS steps the card against the CPU by the spread method
+# (settled_card_vs_cpu's bars: the contact is sustained from step ~60) and
+# the f1 mimic ratio within MIMIC_TOL. Cut: the CPU's 8 envs take ~0.12 s a
+# step, so they run GRASP_CPU_STEPS of the 300.
+GRASP_XML = "models/hand/grasp_scene.xml"
+GRASP_CTRL = (0.0, 1.2, 1.2, 1.2)
+GRASP_STEPS = 300
+GRASP_CPU_STEPS = 150
+GRASP_BATCHES = (1024, 256, 64)
+GRASP_PEAK_GIB = 20.0
+GRASP_PROBE_ENVS = 16
+GRASP_NUDGE = 1e-3
+GRASP_Z = (0.08, 0.15)
+# conditioned_within's factor on cond(qM) x u: plain float32's qacc on the
+# gripper's operands (cond 7.9e3) reached 1.01 of that first-order bound on
+# 64 envs on a CPU; check_newton_ladder prints the factor plain float32 and
+# the kernel reach on the card (conditioned_factor)
+CONDITIONED_QACC = 2.0
 
 # kernels whose ptxas report must show no spill: kernels 1-3 at n <= 32,
 # which hold a row of A or L in registers (kernels 2 and 3 in one
@@ -1561,6 +1670,8 @@ PHASE_SHAPES = {
     "grad_clutter32_rowcap192": ((4, 192), None), "apg_pendulum": ((64, 1), None),
     "apg_quadruped": ((NUM_ENVS, 18), "quadruped"), "ilqr_pendulum": ((1, 1), None),
     "hand_gradient_trajopt": ((1, 8), "hand B=1"),
+    # the model-I/O phases (grasp_scene's batch is set by grasp_memory)
+    "compile_models": ((NUM_ENVS, 18), "quadruped"), "gripper_urdf": ((GRIPPER_ENVS, 8), "gripper"),
 }
 # (kernel, shape) -> (ms, bound_ms) measured in this run: the shape is
 # (batch, n) for kernels 1-3 and a PHASE_SHAPES case for the Newton kernels
@@ -2165,12 +2276,20 @@ def mesh_mesh_memory(device) -> None:
 def check_newton_ladder(device, results) -> None:
     """Kernel 4 on the operands of the ladder paths this run added: the
     drop_scene and rock paths' final states (SETTLED, 2048 envs) and the
-    humanoid sampler's 64 samples after 4 of their knots, each with a
-    warmstart of qacc_smooth + 0.1 N(0, 1). Against its plain version at
-    the NEWTON_* bars where plain float32 meets float64 there on at least
-    NEWTON_MIN_SHARE of the envs, else against float64 (vs_float64, as the
-    hand with contacts); the shares are printed. Then kernel 4's time at
-    each shape (SHAPE_TIMES)."""
+    humanoid sampler's 64 samples after 4 of their knots, and on those of
+    the model-I/O paths: the gripper's and the grasp scene's final states
+    (SETTLED, 1024 envs), each with a warmstart of qacc_smooth + 0.1
+    N(0, 1). Against its plain version at the NEWTON_* bars where plain
+    float32 meets float64 there on at least NEWTON_MIN_SHARE of the envs,
+    else against float64 (vs_float64, as the hand with contacts) by the
+    case's comparator; the shares are printed. The ladder's comparator is
+    newton_within. The model-I/O cases' is conditioned_within: both
+    floating scenes carry light fingers on a heavier base (the gripper's qM
+    has cond ~7.9e3), so qacc = M^-1 (...) rounds in float32 by cond(qM) x
+    u beyond any solver's order, and plain float32 meets float64 on the
+    gripper's qacc at the NEWTON_* bars on only 16-29% of the envs; its
+    forces agree at those bars. Then kernel 4's time at each shape
+    (SHAPE_TIMES)."""
     import torch
 
     from ambersim_tpu_torch import load_model
@@ -2191,17 +2310,21 @@ def check_newton_ladder(device, results) -> None:
         return m, d
 
     err = results["newton_structured"]["max_abs_err"]
-    cases = (("drop_scene", lambda: (load_model("drop_scene", device=device), SETTLED["drop_scene"])),
-             ("rock", lambda: (load_model("rock", device=device), SETTLED["rock"])),
-             ("humanoid sampling", humanoid_state))
-    for case, state in cases:
+    # (case, its model and state, the operands' seed, whether its float64
+    # comparison is conditioned_within)
+    cases = (("drop_scene", lambda: (load_model("drop_scene", device=device), SETTLED["drop_scene"]), 12, False),
+             ("rock", lambda: (load_model("rock", device=device), SETTLED["rock"]), 12, False),
+             ("humanoid sampling", humanoid_state, 12, False),
+             ("gripper", lambda: (gripper_model(device), SETTLED["gripper_urdf"]), 23, True),
+             ("grasp scene", lambda: (grasp_model(device), SETTLED["grasp_scene"]), 23, True))
+    for case, state, seed, conditioned in cases:
         m, d = state()
         s = m.skel
         st = _pyramid_structure(s)
         d = pre_solve(m, d)
-        pa = solver_operands(m, d, seed=12)
+        pa = solver_operands(m, d, seed=seed)
         kw = dict(iterations=int(m.opt.iterations), ls_iterations=int(m.opt.ls_iterations), use_ws=True)
-        what = f"newton_structured {case} (nefc {s.nefc}, nv {s.nv})"
+        what = f"newton_structured {case} (nefc {s.nefc}, nv {s.nv}{f', nd_eq {st.nd_eq}' if st.nd_eq else ''})"
 
         def kern(pa=pa, d=d, st=st, kw=kw):
             return newton_solve_structured(pa["J"], d.efc_bJ, d.efc_dsc, pa["qM"], pa["aref"], pa["D"], pa["fl"],
@@ -2212,11 +2335,17 @@ def check_newton_ladder(device, results) -> None:
 
         got, plain, exact = kern(), ref(), ref(torch.float64)
         print(f"{what}: active rows per env {pa['act'].sum(1).mean().item():.2f} of {s.nefc}")
+        within = newton_within
+        if conditioned:
+            within = conditioned_within(pa["qM"])
+            print(f"{what}: qacc's distance from float64 over cond(qM) x u x max|qacc| (beyond the NEWTON_* "
+                  f"bars), largest over the envs: plain float32 {conditioned_factor(plain, exact, pa['qM']):.4f}, "
+                  f"kernel {conditioned_factor(got, exact, pa['qM']):.4f} (CONDITIONED_QACC {CONDITIONED_QACC})")
         if newton_within(plain, exact).double().mean().item() >= NEWTON_MIN_SHARE:
             err = max(err, newton_err(got, plain, what))
             newton_err(plain, exact, f"{what}, plain float32 vs float64")
         else:
-            vs_float64(got, plain, exact, what)
+            vs_float64(got, plain, exact, what, within=within)
         operands = [d.efc_bJ, d.efc_dsc] + [pa[k] for k in ("qM", "aref", "D", "fl", "act", "a_s", "ws")]
         SHAPE_TIMES[("newton_structured", case)] = (cuda_ms(kern), newton_bound(
             operands, s.nefc, s.nv, pa["act"], kw["iterations"], kw["ls_iterations"])["bound_ms"])
@@ -2648,9 +2777,10 @@ def grad_paths(device, card: str) -> dict:
 
 
 def _apg_first_update(device, seed: int = 0):
-    """The first APG update's loss and grad norm at APG_PENDULUM's width:
-    params from a CPU generator, starts drawn by a CPU generator, so the
-    card and the CPU start from the same bits."""
+    """The first APG update's loss and grad norm at APG_PENDULUM's width
+    over APG_FIRST_EPISODE control steps: params from a CPU generator,
+    starts drawn by a CPU generator, so the card and the CPU start from the
+    same bits."""
     import torch
 
     from ambersim_tpu_torch.rl import wrappers
@@ -2661,14 +2791,14 @@ def _apg_first_update(device, seed: int = 0):
 
     c = APG_PENDULUM
     env = PendulumSwingupEnv(PendulumSwingupConfig(physics_steps_per_control_step=2), device=device)
-    wrapped = wrappers.wrap_for_training(env, c["episode_length"])
+    wrapped = wrappers.wrap_for_training(env, APG_FIRST_EPISODE)
     nets = make_apg_networks(3, 1)
     params = {k: v.to(device).requires_grad_(True) for k, v in nets.policy_network.init(
         torch.Generator().manual_seed(seed)).items()}
     with torch.no_grad():
         state = wrapped.reset(torch.Generator().manual_seed(seed + 1), c["num_envs"])
     loss, _, _ = rollout_loss(wrapped, nets, params, init_state(torch.zeros(3, device=device)), state,
-                              c["episode_length"])
+                              APG_FIRST_EPISODE)
     grads = torch.autograd.grad(loss, list(params.values()))
     return loss.item(), torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads])).item()
 
@@ -2718,7 +2848,7 @@ def apg_pendulum(device, card: str) -> dict:
           f"{last['timing/forward_s']:.3f} s, backward {last['timing/backward_s']:.3f} s, eval "
           f"{last['timing/eval_s']:.3f} s); eval rewards {rewards}; "
           f"loss {last['training/episode_loss']:.4f}, grad norm {last['training/grad_norm']:.4f}; launches {launches}\n"
-          f"apg_pendulum: first update card vs CPU: loss {loss_card:.6f} / {loss_cpu:.6f} (rel {rel_loss:.2e}), grad "
+          f"apg_pendulum: first update ({APG_FIRST_EPISODE} control steps) card vs CPU: loss {loss_card:.6f} / {loss_cpu:.6f} (rel {rel_loss:.2e}), grad "
           f"norm {norm_card:.6f} / {norm_cpu:.6f} (rel {rel_norm:.2e}; bar {APG_FIRST_RTOL})", flush=True)
     if not (rel_loss <= APG_FIRST_RTOL and rel_norm <= APG_FIRST_RTOL):
         fail("apg_pendulum: the first update's loss or grad norm differs between the card and the CPU")
@@ -2933,6 +3063,457 @@ def env_card_vs_cpu(device, name: str, env_cls, control_steps: int, obs_bars) ->
           f"max |dreward| {worst['reward']:.3e}, done equal", flush=True)
 
 
+def compile_asset(name: str, device):
+    """The committed asset `name` compiled from its MJCF on this machine by
+    the port's loader, with the exporter's options. The row cap is the
+    max_contact_points custom numeric spliced into the XML through
+    parse_mjcf_string, as benchmarks/ladder.py:133-142 does."""
+    import os
+
+    from ambersim_tpu_torch.engine.setconst import set_constants
+    from ambersim_tpu_torch.io.bridge import model_from_numpy
+    from ambersim_tpu_torch.mjcf import compile_spec_arrays, parse_mjcf_string
+    from ambersim_tpu_torch.utils._internal_utils import _check_filepath
+    from ambersim_tpu_torch.utils.io_utils import load_model_from_file
+
+    xml, cone, cap, rows = COMPILED_ASSETS[name]
+    if not rows:
+        return load_model_from_file(xml, cone=cone, broadphase_cap=cap, device=device)
+    path = _check_filepath(xml)
+    text = Path(path).read_text().replace(
+        "</mujoco>", f'<custom><numeric name="max_contact_points" data="{rows}"/></custom></mujoco>')
+    spec = parse_mjcf_string(text, base_dir=os.path.dirname(path))
+    skel_fields, leaves = compile_spec_arrays(spec, broadphase_cap=cap)
+    return model_from_numpy(skel_fields, set_constants(skel_fields, leaves), device=device)
+
+
+def model_numpy(m) -> tuple[dict, dict]:
+    """(skel_fields, leaves) of a port Model as numpy, under the exported
+    model files' names (io/bridge.py)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    leaves = {f.name: getattr(m, f.name).cpu().numpy() for f in dataclasses.fields(m) if f.name not in ("skel", "opt")}
+    for f in dataclasses.fields(m.opt):
+        v = getattr(m.opt, f.name)
+        leaves["opt." + f.name] = v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+    return dict(m.skel._fields), leaves
+
+
+def mesh_canonical(skel: dict, leaves: dict, i: int, decimals: int = 4) -> tuple:
+    """Mesh i's hull with qhull's order taken out: its vertices, its faces
+    (normal, offset, vertex count, centroid) and its edges (endpoints in
+    order), each as rows sorted by their values rounded to `decimals`."""
+    import numpy as np
+
+    def rows_sorted(a):
+        a = a.reshape(len(a), -1).astype(np.float64)
+        return a[np.lexsort(np.round(a, decimals).T[::-1])]
+
+    nv, nf, ne = int(skel["mesh_vertnum"][i]), int(skel["mesh_facenum"][i]), int(skel["mesh_edgenum"][i])
+    nvert = skel["mesh_face_nvert"][i, :nf]
+    ring = leaves["mesh_face_vert"][i, :nf]
+    centroid = np.stack([ring[f, : nvert[f]].mean(0) for f in range(nf)]) if nf else np.zeros((0, 3))
+    faces = np.concatenate([leaves["mesh_face_normal"][i, :nf], leaves["mesh_face_dist"][i, :nf, None],
+                            nvert[:, None], centroid], 1)
+    edges = leaves["mesh_edge"][i, :ne].astype(np.float64)
+    swap = np.lexsort(np.round(edges, decimals).transpose(2, 0, 1)[::-1])  # (ne, 2): each edge's endpoint order
+    edges = np.take_along_axis(edges, swap[:, :, None], 1)
+    return rows_sorted(leaves["mesh_vert"][i, :nv]), rows_sorted(faces), rows_sorted(edges)
+
+
+def setconst_rtol(skel_fields: dict, leaves: dict) -> float:
+    """The setconst fields' bar: cond(qM at qpos0) x float32's unit roundoff,
+    at least 1e-6 (qM from the port's smooth pass on the CPU)."""
+    import numpy as np
+
+    from ambersim_tpu_torch.engine import make_data, smooth
+    from ambersim_tpu_torch.io.bridge import build_model
+
+    m = build_model(skel_fields, leaves, device="cpu")
+    qm = smooth.fwd_position_smooth(m, make_data(m, 1)).qM[0].double().numpy()
+    return max(float(np.linalg.cond(qm)) * UNIT_ROUNDOFF_F32, 1e-6)
+
+
+def compare_compiled(name: str, m) -> str:
+    """Hold the compiled model `m` against the committed assets/<name>.npz at
+    compile_models' bars; returns what it found, fails on a field outside."""
+    import numpy as np
+
+    from ambersim_tpu_torch.io.bridge import ASSETS, unpack_npz
+
+    with np.load(ASSETS / f"{name}.npz", allow_pickle=False) as npz:
+        want_skel, want = unpack_npz(npz)
+    got_skel, got = model_numpy(m)
+    if set(got_skel) != set(want_skel) or set(got) != set(want):
+        fail(f"compile_models {name}: fields differ: {sorted(set(got_skel) ^ set(want_skel))} "
+             f"{sorted(set(got) ^ set(want))}")
+    for k, w in want_skel.items():
+        if k in MESH_FIELDS:
+            continue
+        g = got_skel[k]
+        same = (isinstance(g, np.ndarray) and g.dtype == w.dtype and g.shape == w.shape and np.array_equal(g, w)
+                ) if isinstance(w, np.ndarray) else g == w
+        if not same:
+            fail(f"compile_models {name}: Skeleton field {k} differs from the committed file")
+    exact, worst, worst_field = 0, 0.0, None
+    for k, w in want.items():
+        if k in SETCONST_FIELDS or k in MESH_FIELDS:
+            continue
+        g = got[k]
+        if g.shape != w.shape or (w.dtype.kind != "f" and not np.array_equal(g, w)):
+            fail(f"compile_models {name}: leaf {k} differs from the committed file")
+        if w.dtype.kind == "f":
+            if not np.allclose(g, w, rtol=COMPILE_RTOL, atol=COMPILE_ATOL):
+                fail(f"compile_models {name}: leaf {k} off by {np.abs(g - w).max():.3e} "
+                     f"(rtol {COMPILE_RTOL}, atol {COMPILE_ATOL})")
+            if w.size and np.abs(g - w).max() > worst:
+                worst, worst_field = float(np.abs(g - w).max()), k
+        exact += int(np.array_equal(g, w))
+    rtol = setconst_rtol(got_skel, got)
+    rel = 0.0
+    for k in SETCONST_FIELDS:
+        if got[k].shape != want[k].shape or not np.allclose(got[k], want[k], rtol=rtol, atol=0.0):
+            fail(f"compile_models {name}: {k} outside rtol {rtol:.2e} of the committed file")
+        if want[k].size:
+            rel = max(rel, float((np.abs(got[k] - want[k]) / np.maximum(np.abs(want[k]), 1e-30)).max()))
+    mesh = "no meshes"
+    if int(got_skel["nmesh"]):
+        direct = all(got_skel[k].shape == want_skel[k].shape and np.array_equal(got_skel[k], want_skel[k])
+                     for k in MESH_FIELDS if k in want_skel)
+        direct = direct and all(got[k].shape == want[k].shape and np.allclose(
+            got[k], want[k], rtol=COMPILE_RTOL, atol=COMPILE_ATOL) for k in MESH_FIELDS if k in want)
+        if direct:
+            mesh = "mesh fields in qhull's order of the committed file"
+        else:
+            for i in range(int(got_skel["nmesh"])):
+                for g, w in zip(mesh_canonical(got_skel, got, i), mesh_canonical(want_skel, want, i)):
+                    if g.shape != w.shape or not np.allclose(g, w, rtol=COMPILE_RTOL, atol=COMPILE_ATOL):
+                        fail(f"compile_models {name}: mesh {i} differs from the committed file beyond qhull's order")
+            mesh = "mesh fields equal up to the hull's vertex, face and edge order (qhull ordered them otherwise)"
+    n_float = sum(1 for k, w in want.items() if w.dtype.kind == "f" and k not in SETCONST_FIELDS + MESH_FIELDS)
+    return (f"{len(want_skel)} Skeleton fields exact; {exact} of {len(want) - 3 - sum(k in want for k in MESH_FIELDS)} "
+            f"other leaves bit for bit ({n_float} float), largest float difference {worst:.3e}"
+            f"{f' ({worst_field})' if worst_field else ''}; setconst fields within {rel:.3e} relative "
+            f"(bar {rtol:.3e}); {mesh}")
+
+
+def compile_models(device, card: str) -> dict:
+    """Compile every committed asset from its MJCF on this machine, through
+    the port's loader with the exporter's options, and hold each against the
+    committed file (compare_compiled), printing the seconds each took. Then
+    the main path from the compiled quadruped: NUM_ENVS x NUM_STEPS PD steps
+    from initial_batch with the launch counts set to 0 just before and read
+    just after (kernels 1-4, exactly once a step each), held against the
+    same rollout of the committed quadruped.npz within the card-vs-CPU bars.
+    Returns the main path's launch counts."""
+    import numpy as np
+    import scipy
+    import torch
+
+    from ambersim_tpu_torch import load_model
+    from ambersim_tpu_torch.engine import rollout
+    from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    print(f"compile_models: numpy {np.__version__}, scipy {scipy.__version__} (qhull's ConvexHull)", flush=True)
+    compiled, total = {}, 0.0
+    for name in COMPILED_ASSETS:
+        t0 = time.perf_counter()
+        m = compile_asset(name, device)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        total += seconds
+        print(f"compile_models: {name} ({COMPILED_ASSETS[name][0]}) compiled onto the card in {seconds:.3f} s "
+              f"(nv {m.skel.nv}, nefc {m.skel.nefc}); {compare_compiled(name, m)}", flush=True)
+        compiled[name] = m
+    print(f"compile_models: {len(compiled)} models in {total:.3f} s", flush=True)
+
+    m, steps = compiled["quadruped"], NUM_STEPS
+    d0 = initial_batch(m, NUM_ENVS, device)
+    rollout(m, d0, 3, ctrl_fn=pd_ctrl)  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    d = rollout(m, d0, steps, ctrl_fn=pd_ctrl)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    kernels = _LINALG + ("newton_structured",)
+    _check_launches("compile_models quadruped", launches, kernels, steps, {k: steps for k in kernels})
+    for field in ("qpos", "qvel", "qacc", "efc_force"):
+        if not torch.isfinite(getattr(d, field)).all():
+            fail(f"compile_models quadruped: non-finite {field}")
+    ref = load_model("quadruped", device=device)
+    want = rollout(ref, initial_batch(ref, NUM_ENVS, device), steps, ctrl_fn=pd_ctrl)
+    dq = (d.qpos - want.qpos).abs().max().item()
+    dv = (d.qvel - want.qvel).abs().max().item()
+    print(f"compile_models quadruped path from the compiled model: {NUM_ENVS} envs x {steps} steps in "
+          f"{seconds:.3f} s = {NUM_ENVS * steps / seconds:.1f} env-steps/s [{card}]; against the committed "
+          f"quadruped.npz's rollout on all envs: max |dqpos| {dq:.3e} (<= {QPOS_TOL}), max |dqvel| {dv:.3e} "
+          f"(<= {QVEL_TOL}); launches {launches}", flush=True)
+    if not (dq <= QPOS_TOL and dv <= QVEL_TOL):
+        fail("compile_models quadruped: the compiled model's rollout parts from the committed model's")
+    return launches
+
+
+def gripper_model(device):
+    """GRIPPER_URDF written to a temporary file and loaded with force_float."""
+    import tempfile
+
+    from ambersim_tpu_torch.utils.io_utils import load_model_from_file
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "gripper.urdf"
+        path.write_text(GRIPPER_URDF)
+        return load_model_from_file(path, force_float=True, device=device)
+
+
+def gripper_start(m, batch: int):
+    """qpos0 (the free base at the origin, fingers at 0) and a closing ctrl
+    per env from U(0.25, 0.75), numpy seed 21 (the first `batch` of
+    GRIPPER_ENVS draws)."""
+    import numpy as np
+    import torch
+
+    from ambersim_tpu_torch.engine import make_data
+
+    ctrl = np.random.default_rng(21).uniform(0.25, 0.75, (GRIPPER_ENVS, 1)).astype(np.float32)[:batch]
+    return make_data(m, batch).replace(ctrl=torch.as_tensor(ctrl, device=m.device))
+
+
+def mimic_residual(m, d):
+    """(B,) |q2 - (0.1 + 0.5 q1)|: the gripper's mimic row (finger2 follows
+    finger1 with multiplier 0.5 and offset 0.1)."""
+    names = list(m.skel.jnt_names)
+    q1 = d.qpos[:, int(m.skel.jnt_qposadr[names.index("finger1_joint")])]
+    q2 = d.qpos[:, int(m.skel.jnt_qposadr[names.index("finger2_joint")])]
+    return (q2 - (0.1 + 0.5 * q1)).abs()
+
+
+def gripper_urdf(device, card: str) -> dict:
+    """The gripper URDF through the port's loader with force_float: its mimic
+    joint is one joint equality row (kernel 4 with nd_eq = 1).
+    GRIPPER_ENVS x GRIPPER_STEPS steps of gripper_start's closing ctrl with
+    the launch counts set to 0 just before and read just after (kernels 1,
+    2 and 4 once a step, kernel 3 once a step if the model is damped);
+    finite state; the mimic held to MIMIC_TOL in every env; then 8 envs x
+    GRIPPER_CPU_STEPS on the card against the CPU. Returns the launches."""
+    import torch
+
+    from ambersim_tpu_torch.engine import rollout
+    from ambersim_tpu_torch.engine.constraint import _pyramid_structure
+    from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    m = gripper_model(device)
+    s = m.skel
+    st = _pyramid_structure(s)
+    print(f"gripper_urdf: nq {s.nq}, nv {s.nv}, nu {s.nu}, neq {s.neq} ({list(s.eq_names)}), nefc {s.nefc}, "
+          f"nd_eq {st.nd_eq if st else None}, damped {s.has_damping}", flush=True)
+    if s.neq != 1 or st is None or st.nd_eq != 1 or s.nq != 9:
+        fail("gripper_urdf: the URDF did not compile to a floating base with one joint equality row")
+    B, steps = GRIPPER_ENVS, GRIPPER_STEPS
+    d0 = gripper_start(m, B)
+    rollout(m, d0, 3)  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    d = rollout(m, d0, steps)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    exactly = {"cholesky": steps, "cho_solve": steps, "newton_structured": steps,
+               "solve_pd": steps if s.has_damping else 0}
+    _check_launches("gripper_urdf", launches, tuple(k for k, n in exactly.items() if n), steps, exactly)
+    for field in ("qpos", "qvel", "qacc", "efc_force"):
+        if not torch.isfinite(getattr(d, field)).all():
+            fail(f"gripper_urdf: non-finite {field}")
+    residual = mimic_residual(m, d)
+    print(f"gripper_urdf: {B} envs x {steps} steps in {seconds:.3f} s = {B * steps / seconds:.1f} env-steps/s, "
+          f"{1e3 * seconds / steps:.3f} ms per step [{card}]; mimic |q2 - (0.1 + 0.5 q1)| max {residual.max().item():.3e} "
+          f"(<= {MIMIC_TOL}) median {residual.median().item():.3e}; launches {launches}", flush=True)
+    if not residual.max().item() <= MIMIC_TOL:
+        fail(f"gripper_urdf: the mimic row is off by {residual.max().item():.3e}")
+    SETTLED["gripper_urdf"] = d
+    k = GRIPPER_CPU_STEPS
+    runs = [rollout(mm, gripper_start(mm, 8), k) for mm in (m, gripper_model("cpu"))]
+    dq = (runs[0].qpos.cpu() - runs[1].qpos).abs().max().item()
+    dv = (runs[0].qvel.cpu() - runs[1].qvel).abs().max().item()
+    print(f"gripper_urdf card vs cpu after {k} steps: max |dqpos| {dq:.3e} (<= {QPOS_TOL}), max |dqvel| {dv:.3e} "
+          f"(<= {QVEL_TOL})", flush=True)
+    if not (dq <= QPOS_TOL and dv <= QVEL_TOL):
+        fail("gripper_urdf: card rollout disagrees with the CPU rollout")
+    return launches
+
+
+def grasp_model(device):
+    from ambersim_tpu_torch.utils.io_utils import load_model_from_file
+
+    return load_model_from_file(GRASP_XML, device=device)
+
+
+def grasp_start(m, batch: int, nudge: float = 0.0):
+    """qpos0 with the object's position moved by GRASP_NUDGE N(0, 1) per axis
+    (numpy seed 22, the first `batch` of GRASP_BATCHES[0] draws) and every
+    qpos by `nudge` more; ctrl GRASP_CTRL."""
+    import numpy as np
+    import torch
+
+    from ambersim_tpu_torch.engine import make_data
+
+    d = make_data(m, batch)
+    move = GRASP_NUDGE * np.random.default_rng(22).standard_normal((GRASP_BATCHES[0], 3)).astype(np.float32)
+    qpos = d.qpos.clone()
+    qpos[:, 8:11] += torch.as_tensor(move[:batch], device=m.device)
+    ctrl = torch.tensor(GRASP_CTRL, device=m.device).expand(batch, -1).contiguous()
+    return d.replace(qpos=qpos + nudge, ctrl=ctrl)
+
+
+def grasp_memory(device) -> int:
+    """The grasp scene's collision stage (12 mesh-mesh SAT pairs and 9
+    plane-mesh pairs an env) on GRASP_PROBE_ENVS envs at their start: peak
+    device memory over the call per env and per mesh-mesh pair; returns the
+    largest of GRASP_BATCHES whose peak stays under GRASP_PEAK_GIB."""
+    import numpy as np
+    import torch
+
+    from ambersim_tpu_torch.core.types import GeomType
+    from ambersim_tpu_torch.engine import collision, smooth
+
+    m = grasp_model(device)
+    s = m.skel
+    pairs = sum(1 for t1, t2 in zip(np.asarray(s.pair_ctype1), np.asarray(s.pair_ctype2))
+                if t1 == t2 == int(GeomType.MESH))
+    P = GRASP_PROBE_ENVS
+    d = smooth.fwd_position_smooth(m, grasp_start(m, P))
+    collision.collision(m, d)  # warm-up
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = collision.collision(m, d)
+    torch.cuda.synchronize()
+    per_env = (torch.cuda.max_memory_allocated() - base) / P
+    if not torch.isfinite(out.contact.dist).all():
+        fail("grasp_memory: non-finite contact distances")
+    batch = next((b for b in GRASP_BATCHES if b * per_env < GRASP_PEAK_GIB * 2**30), None)
+    print(f"grasp_memory: collision stage on {P} envs (meshes of {np.asarray(s.mesh_vertnum).tolist()} hull vertices, "
+          f"{np.asarray(s.mesh_edgenum).tolist()} edges): peak {per_env / 2**20:.2f} MiB an env, "
+          f"{per_env / pairs / 2**20:.2f} MiB a mesh-mesh pair ({pairs} an env); batch {batch} "
+          f"({batch and batch * per_env / 2**30:.2f} GiB at it, bar {GRASP_PEAK_GIB} GiB)", flush=True)
+    if batch is None:
+        fail(f"grasp_memory: {per_env / 2**20:.1f} MiB an env leaves no batch of {GRASP_BATCHES} under "
+             f"{GRASP_PEAK_GIB} GiB")
+    return batch
+
+
+def grasp_scene(device, card: str, batch: int) -> dict:
+    """models/hand/grasp_scene.xml compiled by the port: `batch` envs x
+    GRASP_STEPS steps of GRASP_CTRL from grasp_start with the launch counts
+    set to 0 just before and read just after (kernels 1-4 exactly once a
+    step: the joints are damped). Checks finite state, the object held in
+    the palm channel in every env (GRASP_Z); prints env-steps/s, the peak
+    device memory and the active contacts per env. Then 8 envs on the card
+    against the CPU over GRASP_CPU_STEPS steps by the spread method (10 x the
+    card's own spread under a 1e-6 nudge, plus CLUTTER_QPOS_EPS /
+    CLUTTER_QVEL_EPS), and their f1 mimic ratio (f1_dist / f1_prox) within
+    MIMIC_TOL of the CPU's. Returns the launch counts."""
+    import torch
+
+    from ambersim_tpu_torch.engine import rollout
+    from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    m = grasp_model(device)
+    s = m.skel
+    first_contact = int(min(s.con_efcadr))
+    steps = GRASP_STEPS
+    d0 = grasp_start(m, batch)
+    rollout(m, d0, 3)  # warm-up
+    contacts = torch.zeros((), device=device)
+
+    def count(d):
+        contacts.add_(d.efc_active[:, first_contact:].sum())
+        return d.ctrl
+
+    torch.cuda.synchronize()
+    held_gib = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    d = rollout(m, d0, steps, ctrl_fn=count)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    kernels = _LINALG + ("newton_structured",)
+    _check_launches("grasp_scene", launches, kernels, steps, {k: steps for k in kernels})
+    for field in ("qpos", "qvel", "qacc", "efc_force"):
+        if not torch.isfinite(getattr(d, field)).all():
+            fail(f"grasp_scene: non-finite {field}")
+    z = d.qpos[:, 10]
+    per_env = (contacts + d.efc_active[:, first_contact:].sum()).item() / 4 / (batch * steps)
+    print(f"grasp_scene: {batch} envs x {steps} steps in {seconds:.3f} s = {batch * steps / seconds:.1f} env-steps/s, "
+          f"{1e3 * seconds / steps:.3f} ms per step [{card}]; peak device memory over the steps {peak_gib:.2f} GiB "
+          f"({peak_gib - held_gib:.2f} GiB above what was held before them); active contacts per env, mean over "
+          f"the steps {per_env:.3f} of {s.ncon}; object height in [{z.min().item():.4f}, {z.max().item():.4f}] "
+          f"(bar {GRASP_Z}); launches {launches}", flush=True)
+    if not bool(((z > GRASP_Z[0]) & (z < GRASP_Z[1])).all()):
+        fail("grasp_scene: the object left the palm channel in some env")
+    SETTLED["grasp_scene"] = d
+
+    mc, k = grasp_model("cpu"), GRASP_CPU_STEPS
+    card_run, nudged, cpu = rollout(m, grasp_start(m, 8), k), rollout(m, grasp_start(m, 8, 1e-6), k), \
+        rollout(mc, grasp_start(mc, 8), k)
+    spread_q = (card_run.qpos - nudged.qpos).abs().max().item()
+    spread_v = (card_run.qvel - nudged.qvel).abs().max().item()
+    dq = (card_run.qpos.cpu() - cpu.qpos).abs().max().item()
+    dv = (card_run.qvel.cpu() - cpu.qvel).abs().max().item()
+    bar_q, bar_v = 10 * spread_q + CLUTTER_QPOS_EPS, 10 * spread_v + CLUTTER_QVEL_EPS
+    names = list(s.jnt_names)
+    prox, dist = names.index("f1_prox"), names.index("f1_dist")
+
+    def ratio(x):
+        return x.qpos[:, dist].cpu() / x.qpos[:, prox].cpu()
+
+    dr = (ratio(card_run) - ratio(cpu)).abs().max().item()
+    print(f"grasp_scene card vs cpu, 8 envs x {k} steps: max |dqpos| {dq:.3e} (<= {bar_q:.3e}), max |dqvel| "
+          f"{dv:.3e} (<= {bar_v:.3e}); the card's spread under a 1e-6 nudge: {spread_q:.3e} / {spread_v:.3e}; "
+          f"f1 mimic ratio card vs cpu max {dr:.3e} (<= {MIMIC_TOL}), card {ratio(card_run).mean().item():.4f}",
+          flush=True)
+    if not (dq <= bar_q and dv <= bar_v and dr <= MIMIC_TOL):
+        fail("grasp_scene: card rollout disagrees with the CPU rollout")
+    return launches
+
+
+def conditioned_within(qM):
+    """newton_within with qacc's bar widened, per env, by CONDITIONED_QACC x
+    cond(qM) x float32's unit roundoff x max |qacc|: the first-order
+    rounding of a solve with qM alone (efc_force and qfrc_constraint keep
+    the NEWTON_* bars)."""
+    import torch
+
+    widen = CONDITIONED_QACC * torch.linalg.cond(qM.double()) * UNIT_ROUNDOFF_F32
+
+    def within(got: tuple, want: tuple):
+        g, w = got[0].double(), want[0].double()
+        bar = NEWTON_TOL + NEWTON_TOL * w.abs() + widen[:, None] * w.abs().amax(1, keepdim=True)
+        return newton_within(got[1:], want[1:]) & ((g - w).abs() <= bar).all(1)
+
+    return within
+
+
+def conditioned_factor(got: tuple, want: tuple, qM) -> float:
+    """The least CONDITIONED_QACC at which conditioned_within would pass
+    every env on qacc: max over envs and components of |got - want| less
+    the NEWTON_* bar, over cond(qM) x u x max |want|."""
+    import torch
+
+    g, w = got[0].double(), want[0].double()
+    over = ((g - w).abs() - NEWTON_TOL - NEWTON_TOL * w.abs()).clamp(min=0.0)
+    unit = torch.linalg.cond(qM.double())[:, None] * UNIT_ROUNDOFF_F32 * w.abs().amax(1, keepdim=True)
+    return float((over / unit.clamp(min=1e-300)).max().item())
+
+
 def check_ptxas(log: str) -> None:
     """Print ptxas's registers and spills of every kernel; fail on a spill in
     the kernels that hold their factor's rows in registers (SPILL_FREE)."""
@@ -2969,11 +3550,25 @@ def weighted_launch_time(phase_launches: dict) -> None:
 
 
 def run_phases(device, card: str, results: dict) -> None:
-    """Phases 3-8: every kernel against its plain version, every path,
-    trajectory optimization, PPO, gradients through the kernels (the
+    """Phases 3-8: every kernel against its plain version, every path, model
+    I/O (the port's compiler, a URDF, the mesh grasp), trajectory
+    optimization, PPO, gradients through the kernels (the
     Functions, APG, gradient shooting and iLQR), and the card against the
-    CPU; adds each path's launches to results."""
+    CPU; adds each path's launches to results. Prints each section's wall
+    seconds (how the run's time spreads over its sections, host by host)."""
     import torch
+
+    lap = [time.perf_counter()]
+
+    def section(what: str) -> None:
+        now = time.perf_counter()
+        print(f"chip_smoke: section {what} took {now - lap[0]:.1f} s", flush=True)
+        lap[0] = now
+
+    # the grasp scene's batch, from its mesh-mesh SAT's memory, before the
+    # kernels are timed at every phase's shape
+    grasp_batch = grasp_memory(device)
+    PHASE_SHAPES["grasp_scene"] = ((grasp_batch, 14), "grasp scene")
 
     # ---- 3. kernels against their plain versions ----
     check_linalg(device, results)
@@ -2989,6 +3584,7 @@ def run_phases(device, card: str, results: dict) -> None:
             fail(f"selection with TF32 on (row cap {row_cap}): {err}")
     print("clutter selections with TF32 on: geom ids above 256 and distances exact through the broadphase and "
           "the row cap", flush=True)
+    section("3 (kernels against their plain versions)")
 
     # ---- 4. every path through the port, each with its own launch counts ----
     phase_launches = {}
@@ -3003,6 +3599,14 @@ def run_phases(device, card: str, results: dict) -> None:
     print(f"clutter32_rowcap192 solve stage, median ms: bfloat16 Hessian product "
           f"{splits['clutter32_rowcap192_bf16']['solve']:.3f}, float32 {splits['clutter32_rowcap192']['solve']:.3f} "
           f"[{card}]", flush=True)
+    section("4 (every path)")
+
+    # ---- 4b. model I/O: the port's compiler on this machine, the main path
+    # from a compiled model, a URDF with a mimic joint, the mesh grasp ----
+    phase_launches["compile_models"] = compile_models(device, card)
+    phase_launches["gripper_urdf"] = gripper_urdf(device, card)
+    phase_launches["grasp_scene"] = grasp_scene(device, card, grasp_batch)
+    section("4b (model I/O)")
 
     # ---- 5. trajectory optimization on the hand and the humanoid, the hand
     # in contact, and the pendulum at a batch of one ----
@@ -3013,12 +3617,14 @@ def run_phases(device, card: str, results: dict) -> None:
     phase_launches["pendulum_single"] = pendulum_single(device, card)
     check_newton_ladder(device, results)
     mesh_mesh_memory(device)
+    section("5 (trajectory optimization, kernel 4 on the ladder's and model I/O's operands)")
 
     # ---- 6. PPO training through the env layer, each with its own launch counts ----
     phase_launches["ppo_quadruped"] = ppo_training_step("ppo_quadruped", "quadruped_locomotion", PPO_QUADRUPED,
                                                         device, card)
     phase_launches["ppo_pendulum"] = ppo_pendulum_learns(device, card)
     phase_launches["ppo_humanoid"] = ppo_training_step("ppo_humanoid", "humanoid_balance", PPO_HUMANOID, device, card)
+    section("6 (PPO)")
 
     # ---- 7. gradients through the kernels' Functions, and their users ----
     grad_kernels(device, results)
@@ -3031,6 +3637,7 @@ def run_phases(device, card: str, results: dict) -> None:
         for k, n in launches.items():
             results[k]["launches"] += n
     weighted_launch_time(phase_launches)
+    section("7 (gradients)")
 
     # ---- 8. card (kernels) against CPU (plain versions), 8 envs x 20 steps ----
     for name in PATHS:
@@ -3053,6 +3660,7 @@ def run_phases(device, card: str, results: dict) -> None:
     env_card_vs_cpu(device, "humanoid_balance", HumanoidBalanceEnv, 5, (
         (slice(0, 3), QPOS_TOL), (slice(3, 9), QVEL_TOL), (slice(9, 29), QPOS_TOL), (slice(29, 48), 0.1 * QVEL_TOL),
         (slice(48, 67), 0.0)))
+    section("8 (card against CPU)")
 
 
 def main() -> int:

@@ -237,9 +237,20 @@ def test_pyramid_structure_matches_jax(scene, quadruped):
         np.testing.assert_array_equal(np.asarray(getattr(got, k)), np.asarray(getattr(want, k)), k)
 
 
-def test_port_never_imports_jax():
+def test_port_never_imports_jax(tmp_path):
+    """The port and chip_smoke import nothing of JAX: in a subprocess where
+    importing jax or ambersim_tpu fails, they import, step the exported
+    models, and compile and step grasp_scene.xml and the gripper URDF with
+    the port's own compiler."""
+    from test_model_io import GRIPPER_URDF
+
+    urdf = tmp_path / "gripper.urdf"
+    urdf.write_text(GRIPPER_URDF)
     code = (
-        "import sys, torch\n"
+        "import sys\n"
+        "for n in ('jax', 'jaxlib', 'flax', 'ambersim_tpu'):\n"
+        "    sys.modules[n] = None  # import fails\n"
+        "import torch\n"
         "torch.set_num_threads(1)\n"
         "import ambersim_tpu_torch, ambersim_tpu_torch.engine, ambersim_tpu_torch.ops.linalg\n"
         "import ambersim_tpu_torch.ops.newton, ambersim_tpu_torch.engine.convex, chip_smoke\n"
@@ -253,7 +264,14 @@ def test_port_never_imports_jax():
         "m = load_model('hand', device='cpu'); step(m, make_data(m, 2))\n"
         "m = load_model('drop_scene', device='cpu'); step(m, make_data(m, 2))\n"
         "m = load_model('rock', device='cpu'); step(m, make_data(m, 2))\n"
-        "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'flax', 'ambersim_tpu')]\n"
+        "import ambersim_tpu_torch.mjcf, ambersim_tpu_torch.utils.conversion_utils\n"
+        "import ambersim_tpu_torch.utils.introspection_utils\n"
+        "from ambersim_tpu_torch.utils import load_model_from_file\n"
+        "m = load_model_from_file('models/hand/grasp_scene.xml', device='cpu'); step(m, make_data(m, 2))\n"
+        f"m = load_model_from_file({str(urdf)!r}, force_float=True, device='cpu'); step(m, make_data(m, 2))\n"
+        "assert m.skel.neq == 1\n"
+        "bad = [n for n, mod in sys.modules.items()\n"
+        "       if mod is not None and n.split('.')[0] in ('jax', 'jaxlib', 'flax', 'ambersim_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )

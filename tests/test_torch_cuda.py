@@ -943,3 +943,61 @@ def test_apg_update_launches_forward_and_recompute(cuda):
     for g, w in zip(grads[str(cuda)], grads["cpu"]):
         assert torch.isfinite(g).all()
         assert (g.cpu() - w).abs().max().item() <= GRAD_TOL * w.abs().max().item()
+
+
+def test_models_compiled_on_the_card_machine_match_the_assets(cuda):
+    """The port's compiler on the card's machine, straight onto the card:
+    each committed asset's MJCF, with the exporter's options, held against
+    its assets/<name>.npz at chip_smoke's bars (compare_compiled)."""
+    from chip_smoke import COMPILED_ASSETS, compare_compiled, compile_asset
+
+    for name in COMPILED_ASSETS:
+        m = compile_asset(name, cuda)
+        assert m.device.type == "cuda"
+        compare_compiled(name, m)
+
+
+def test_gripper_urdf_on_the_card(cuda):
+    """The gripper URDF with force_float: kernels 1, 2 and 4 once a step (no
+    joint damping, so no kernel 3), its mimic row (nd_eq = 1) closing within
+    20 steps toward q2 = 0.1 + 0.5 q1, and 8 envs x 5 steps card vs CPU."""
+    from chip_smoke import QPOS_TOL, QVEL_TOL, gripper_model, gripper_start, mimic_residual
+
+    from ambersim_tpu_torch.engine import rollout
+    from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    m = gripper_model(cuda)
+    reset_launch_counts()
+    d = rollout(m, gripper_start(m, 64), 20)
+    torch.cuda.synchronize()
+    assert torch.isfinite(d.qpos).all()
+    want = {k: 0 for k in LAUNCHES}
+    want.update(cholesky=20, cho_solve=20, newton_structured=20)
+    assert dict(LAUNCHES) == want
+    assert mimic_residual(m, d).max().item() < 0.1  # 0.1 at the start
+    runs = [rollout(mm, gripper_start(mm, 8), 5) for mm in (m, gripper_model("cpu"))]
+    assert (runs[0].qpos.cpu() - runs[1].qpos).abs().max().item() <= QPOS_TOL
+    assert (runs[0].qvel.cpu() - runs[1].qvel).abs().max().item() <= QVEL_TOL
+
+
+def test_grasp_scene_on_the_card(cuda):
+    """The mesh hand's grasp scene compiled by the port: kernels 1-4 once a
+    step, the object in the palm channel, and 8 envs x 20 steps card vs CPU."""
+    from chip_smoke import GRASP_Z, QPOS_TOL, QVEL_TOL, grasp_model, grasp_start
+
+    from ambersim_tpu_torch.engine import rollout
+    from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    m = grasp_model(cuda)
+    reset_launch_counts()
+    d = rollout(m, grasp_start(m, 64), 20)
+    torch.cuda.synchronize()
+    assert torch.isfinite(d.qpos).all() and torch.isfinite(d.efc_force).all()
+    want = {k: 0 for k in LAUNCHES}
+    want.update(cholesky=20, cho_solve=20, solve_pd=20, newton_structured=20)
+    assert dict(LAUNCHES) == want
+    z = d.qpos[:, 10]
+    assert bool(((z > GRASP_Z[0]) & (z < GRASP_Z[1])).all())
+    runs = [rollout(mm, grasp_start(mm, 8), 20) for mm in (m, grasp_model("cpu"))]
+    assert (runs[0].qpos.cpu() - runs[1].qpos).abs().max().item() <= QPOS_TOL
+    assert (runs[0].qvel.cpu() - runs[1].qvel).abs().max().item() <= QVEL_TOL
