@@ -16,8 +16,9 @@ File layout (all plain numpy, no pickles):
   * ``skel_json``: the Skeleton's ints, bools, strings and tuples as JSON.
 
 `check_slice` refuses, by name, every feature the port does not cover yet.
-`ppo_params_from_jax` carries the JAX package's PPO params (flax MLPs and
-running statistics) into the port's trainer and networks.
+`ppo_params_from_jax` carries the JAX package's network params (flax MLPs,
+stacked ones included, and running statistics) into the port's trainers and
+networks; `sac_state_from_jax` carries a SAC training state.
 """
 
 from __future__ import annotations
@@ -241,12 +242,15 @@ def _is_flax_mlp(tree) -> bool:
 
 
 def ppo_params_from_jax(tree, device="cuda"):
-    """The JAX package's PPO params (as numpy) in the port's form, on `device`.
+    """The JAX package's network params (as numpy) in the port's form, on
+    `device`.
 
     Converts, anywhere in a tree of dicts, lists and tuples:
       * a flax MLP's ``{"params": {"hidden_i": {"kernel", "bias"}}}`` into the
         port's ``{"hidden.i.weight", "hidden.i.bias"}`` (a flax kernel is
-        (in, out), an ``nn.Linear`` weight (out, in));
+        (in, out), an ``nn.Linear`` weight (out, in)). Leading axes stay
+        where they are: a kernel stacked as (S, in, out), SAC's twin critics
+        or a population of policies, becomes a weight of (S, out, in);
       * a RunningStatisticsState (count, mean, summed_variance, std; an
         object with those attributes or a dict with those keys) into the
         port's RunningStatisticsState.
@@ -257,7 +261,7 @@ def ppo_params_from_jax(tree, device="cuda"):
         out = {}
         for name, layer in tree["params"].items():
             i = int(name[len("hidden_"):])
-            out[f"hidden.{i}.weight"] = _f32(np.asarray(layer["kernel"]).T, device)
+            out[f"hidden.{i}.weight"] = _f32(np.swapaxes(np.asarray(layer["kernel"]), -1, -2), device)
             if "bias" in layer:
                 out[f"hidden.{i}.bias"] = _f32(layer["bias"], device)
         return out
@@ -270,6 +274,27 @@ def ppo_params_from_jax(tree, device="cuda"):
     if isinstance(tree, (list, tuple)):
         return type(tree)(ppo_params_from_jax(v, device) for v in tree)
     raise TypeError(f"not a PPO params tree of the JAX package: {type(tree).__name__}")
+
+
+# A SAC training state's leaves that carry across (the JAX package's
+# rl/sac/train.py TrainingState; the Adam moments and train_iters do not)
+SAC_STATE_FIELDS = ("policy_params", "q_params", "target_q_params", "log_alpha", "normalizer_params")
+
+
+def sac_state_from_jax(state, device="cuda") -> dict:
+    """The JAX package's SAC TrainingState (as numpy, or an object or dict
+    with its fields) as a dict of the port's leaves on `device`, one key per
+    SAC_STATE_FIELDS name: the policy's MLP params, the twin critics' and
+    their target's (stacked on a leading n_critics axis), `log_alpha` as a
+    0-d tensor and the normalizer's RunningStatisticsState. The optimizer
+    states are not carried: a port trainer starts fresh Adam moments."""
+
+    def field(k):
+        return state[k] if isinstance(state, Mapping) else getattr(state, k)
+
+    out = {k: ppo_params_from_jax(field(k), device) for k in SAC_STATE_FIELDS if k != "log_alpha"}
+    out["log_alpha"] = _f32(field("log_alpha"), device)
+    return out
 
 
 def ppo_params_to_numpy(tree):
@@ -288,7 +313,7 @@ def ppo_params_to_numpy(tree):
         for k, v in tree.items():
             _, i, kind = k.split(".")
             layers.setdefault(f"hidden_{i}", {})["kernel" if kind == "weight" else "bias"] = (
-                host(v).T if kind == "weight" else host(v)
+                np.swapaxes(host(v), -1, -2) if kind == "weight" else host(v)
             )
         return {"params": layers}
     if isinstance(tree, Mapping):

@@ -1,9 +1,12 @@
-"""RL environment layer and the PPO and APG trainers of the PyTorch port
-(port of ambersim_tpu/rl: env base, wrappers, registry, the pendulum,
-quadruped and humanoid balance tasks, PPO, and APG, which differentiates
-the episode return through the step). The trainers share the (make_policy,
-params, metrics) / progress_fn contract of the JAX package; SAC, ES and
-ARS are still to port.
+"""RL environment layer and the trainers of the PyTorch port (port of
+ambersim_tpu/rl: env base, wrappers, registry, the pendulum, quadruped and
+humanoid balance tasks, and the five trainers: PPO; APG, which
+differentiates the episode return through the step; SAC, off-policy from
+an on-device replay buffer; ES and ARS, gradient-free, each population
+member rolling out with its own params). The trainers share the
+(make_policy, params, metrics) / progress_fn contract of the JAX package:
+`rl.ppo.train`, `rl.apg.train`, `rl.sac.train`, `rl.es.train` and
+`rl.ars.train`.
 """
 
 from ambersim_tpu_torch.rl.base import MjxEnv, State  # noqa: F401

@@ -39,6 +39,7 @@ from ambersim_tpu_torch.engine.forward import full_f32_matmul
 from ambersim_tpu_torch.learning.architectures import MLP
 from ambersim_tpu_torch.rl import wrappers
 from ambersim_tpu_torch.rl.base import MjxEnv, State, draw_normal
+from ambersim_tpu_torch.rl.common import check_device, episode_return, refuse_mesh, sync
 from ambersim_tpu_torch.rl.ppo import running_statistics
 from ambersim_tpu_torch.rl.ppo.distributions import DeterministicTanhDistribution, NormalTanhDistribution
 from ambersim_tpu_torch.rl.ppo.networks import (
@@ -140,11 +141,6 @@ def restore_training_state(ts: TrainingState, saved: Dict[str, Any]) -> None:
     ts.train_iters = int(saved["train_iters"])
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 @full_f32_matmul()
 def train(
     environment: MjxEnv,
@@ -173,13 +169,8 @@ def train(
     (the global norm before clipping), plus `timing/forward_s`,
     `timing/backward_s` and `timing/eval_s`: host seconds of the epoch's
     rollouts, backward passes and eval, each ended by a device synchronize."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: multi-GPU data parallelism is not ported (ROADMAP, queue 1: multi-GPU and tooling)"
-        )
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' asked for, but torch sees no CUDA card")
+    refuse_mesh(mesh)
+    device = check_device(device)
     environment = environment.to(device)
     env = wrappers.wrap_for_training(environment, episode_length, action_repeat)
     eval_env = wrappers.wrap_for_training(environment, episode_length, action_repeat)
@@ -210,24 +201,15 @@ def train(
     def policy_params():
         return (ts.normalizer_params, {k: v.detach() for k, v in ts.policy_params.items()})
 
-    @torch.no_grad()
     def run_evaluation() -> torch.Tensor:
-        policy = make_policy(policy_params(), deterministic=True)
-        state = eval_env.reset(generator, num_eval_envs)
-        active = torch.ones(num_eval_envs, device=device)
-        total = torch.zeros(num_eval_envs, device=device)
-        for _ in range(steps):
-            act, _ = policy(state.obs)
-            state = eval_env.step(state, act)
-            total = total + state.reward * active
-            active = active * (1 - state.done)
-        return total.mean()
+        return episode_return(eval_env, make_policy(policy_params(), deterministic=True), generator, num_eval_envs,
+                              steps)
 
     def training_step(env_state: State, timing: Dict[str, float]) -> Dict[str, torch.Tensor]:
         t0 = time.perf_counter()
         noise = None if deterministic_rollout else draw_normal(generator, (steps, num_envs, action_size), device)
         loss, _, obs = rollout_loss(env, apg_network, ts.policy_params, ts.normalizer_params, env_state, steps, noise)
-        _sync(device)
+        sync(device)
         t1 = time.perf_counter()
         ts.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -236,7 +218,7 @@ def train(
         if normalize_observations:
             ts.normalizer_params = running_statistics.update(ts.normalizer_params, obs.reshape(-1, obs_size).detach())
         ts.train_iters += 1
-        _sync(device)
+        sync(device)
         timing["timing/forward_s"] += t1 - t0
         timing["timing/backward_s"] += time.perf_counter() - t1
         return {"episode_loss": loss.detach(), "grad_norm": grad_norm.detach()}

@@ -30,6 +30,7 @@ import torch
 from ambersim_tpu_torch.engine.forward import full_f32_matmul
 from ambersim_tpu_torch.rl import wrappers
 from ambersim_tpu_torch.rl.base import MjxEnv, State
+from ambersim_tpu_torch.rl.common import check_device, episode_return, refuse_mesh, sync
 from ambersim_tpu_torch.rl.ppo import losses as ppo_losses
 from ambersim_tpu_torch.rl.ppo import networks as ppo_networks_lib
 from ambersim_tpu_torch.rl.ppo import running_statistics
@@ -146,11 +147,6 @@ def stack_transitions(steps: list) -> ppo_losses.Transition:
     )
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 @full_f32_matmul()
 def train(
     environment: MjxEnv,
@@ -185,15 +181,10 @@ def train(
     policy_params), metrics). Besides the JAX package's keys, metrics carry
     `timing/rollout_s`, `timing/sgd_s` and `timing/eval_s`: host seconds of
     the epoch's phases, each ended by a device synchronize."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: multi-GPU data parallelism is not ported (ROADMAP, queue 1: multi-GPU and tooling)"
-        )
+    refuse_mesh(mesh)
     if randomization_fn is not None:
         raise NotImplementedError("randomization_fn: domain randomization needs per-env Model leaves, not ported")
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' asked for, but torch sees no CUDA card")
+    device = check_device(device)
     if (batch_size * num_minibatches) % num_envs != 0:
         raise ValueError("batch_size * num_minibatches must be divisible by num_envs")
 
@@ -232,18 +223,9 @@ def train(
     def policy_params():
         return (ts.normalizer_params, {k: v.detach() for k, v in ts.params["policy"].items()})
 
-    @torch.no_grad()
     def run_evaluation() -> torch.Tensor:
-        policy = make_policy(policy_params(), deterministic=True)
-        state = eval_env.reset(generator, num_eval_envs)
-        active = torch.ones(num_eval_envs, device=device)
-        total = torch.zeros(num_eval_envs, device=device)
-        for _ in range(episode_length // action_repeat):
-            act, _ = policy(state.obs)
-            state = eval_env.step(state, act)
-            total = total + state.reward * active
-            active = active * (1 - state.done)
-        return total.mean()
+        return episode_return(eval_env, make_policy(policy_params(), deterministic=True), generator, num_eval_envs,
+                              episode_length // action_repeat)
 
     def training_step(env_state: State, timing: Dict[str, float]):
         t0 = time.perf_counter()
@@ -253,7 +235,7 @@ def train(
             env_state, data = generate_unroll(env, env_state, policy, generator, unroll_length)
             unrolls.append(data)
         data = merge_unrolls(stack_transitions(unrolls), num_envs, num_unrolls)
-        _sync(device)
+        sync(device)
         t1 = time.perf_counter()
         if normalize_observations:
             ts.normalizer_params = running_statistics.update(ts.normalizer_params, data.observation)
@@ -267,7 +249,7 @@ def train(
         )
         metrics = sgd_update(ts, data, perms, noise, ppo_network, num_minibatches, **loss_kwargs)
         ts.train_iters += 1
-        _sync(device)
+        sync(device)
         timing["timing/rollout_s"] += t1 - t0
         timing["timing/sgd_s"] += time.perf_counter() - t1
         return env_state, metrics

@@ -52,7 +52,13 @@ the card, and steps every ported path through the port's entry points:
     (examples/rl/pendulum/ex_agents.py's settings, 4 updates) and one APG
     update of the 4096-env locomotion policy; iLQR on the pendulum
     (examples/trajopt/ex_ilqr.py's first task); gradient shooting and iLQR
-    on the hand at BASELINE.md:13's 10 knots.
+    on the hand at BASELINE.md:13's 10 knots;
+  * the gradient-free and off-policy trainers (section 9): ES, ARS and SAC
+    on the pendulum at examples/rl/pendulum/ex_agents.py's settings (cut
+    in depth), each with a first update (ES, ARS) or the first SGD steps
+    (SAC) card against CPU; ES at population 512 on the locomotion task,
+    each env acting with its own params; SAC on the locomotion task with
+    its 1,000,000-transition replay buffer on the card.
 
 For each path it checks that every step went through the path's kernels
 and compares 8 envs of the rollout on the card with the same rollout on the
@@ -133,8 +139,9 @@ EXACT_SETTLE, EXACT_STEPS, BF16_STEPS = 100, 20, 20
 # Q 0.1 I, Qf 10 I, R 1e-4 I, goal and start at (qpos0, 0), stdev 0.2
 HUMANOID_SAMPLES, HUMANOID_HORIZON, HUMANOID_STDEV = 64, 8, 0.2
 HUMANOID_OPTIMIZE_CALLS = 20
-# rung 1 (:94-96): the pendulum, a batch of one, 1000 steps
-PENDULUM_STEPS = 1000
+# rung 1 (:94-96): the pendulum, a batch of one, 1000 steps. Cut: 500
+# steps (1000 until section 9 came)
+PENDULUM_STEPS = 500
 # mesh_mesh_memory's pairs: the rock against itself, whose SAT projects
 # 34,596 edge axes on 2 x 64 vertices a pair
 MESH_MESH_PAIRS = 16
@@ -228,10 +235,10 @@ ELLIPTIC_COST_ENVS = 4
 
 # PPO on the 4096-env quadruped (bench.py:142-177's settings): one training
 # step, 8 unrolls x 20 control steps x 4 physics steps = 640 physics steps.
-# Cut: episode_length 100 instead of 500, so that the two evals stay short
-# and the 160-step unroll crosses a truncation.
+# Cut: episode_length 25 instead of 500 (100 until section 9 came), so that
+# the two evals stay short and the 160-step unroll crosses truncations.
 PPO_QUADRUPED = dict(
-    num_timesteps=655_360, num_evals=2, episode_length=100, normalize_observations=True, unroll_length=20,
+    num_timesteps=655_360, num_evals=2, episode_length=25, normalize_observations=True, unroll_length=20,
     num_minibatches=32, num_updates_per_batch=4, discounting=0.97, learning_rate=3e-4, entropy_cost=1e-2,
     num_envs=4096, num_eval_envs=64, batch_size=1024, seed=0,
 )
@@ -244,10 +251,10 @@ PPO_PENDULUM = dict(
 )
 # PPO on humanoid_balance (benchmarks/ladder.py:194-219's settings): one
 # training step, 1 unroll x 20 control steps x 5 physics steps = 100
-# physics steps. Cut: episode_length 100 instead of 300 and one training
-# step, as the quadruped's is cut.
+# physics steps. Cut: episode_length 25 instead of 300 (100 until section 9
+# came) and one training step, as the quadruped's is cut.
 PPO_HUMANOID = dict(
-    num_timesteps=20_480, num_evals=2, episode_length=100, normalize_observations=True, unroll_length=20,
+    num_timesteps=20_480, num_evals=2, episode_length=25, normalize_observations=True, unroll_length=20,
     num_minibatches=16, num_updates_per_batch=4, discounting=0.97, learning_rate=3e-4, entropy_cost=1e-2,
     num_envs=1024, num_eval_envs=64, batch_size=64, seed=0,
 )
@@ -316,18 +323,63 @@ GRAD_PATHS = {
     "clutter32_rowcap192": ("clutter32_rowcap192", 4, 2, None),
 }
 # APG on the pendulum swingup (examples/rl/pendulum/ex_agents.py:80-87 and
-# its env, 2 physics steps per control step). Cut: 4 policy updates and 2
-# evals instead of 60 and 5. The first update's loss and grad norm, card
-# against CPU from the same params and starts, within APG_FIRST_RTOL; that
-# repeated update is cut to APG_FIRST_EPISODE control steps of the 200.
-APG_PENDULUM = dict(episode_length=200, num_envs=64, policy_updates=4, learning_rate=2e-3, max_gradient_norm=1.0,
+# its env, 2 physics steps per control step). Cut: 2 policy updates and 2
+# evals instead of 60 and 5 (4 updates until section 9 came). The first
+# update's loss and grad norm, card against CPU from the same params and
+# starts, within APG_FIRST_RTOL; that repeated update is cut to
+# APG_FIRST_EPISODE control steps of the 200 (50 until section 9 came).
+APG_PENDULUM = dict(episode_length=200, num_envs=64, policy_updates=2, learning_rate=2e-3, max_gradient_norm=1.0,
                     num_evals=2, seed=0)
 APG_FIRST_RTOL = 1e-3
-APG_FIRST_EPISODE = 50
+APG_FIRST_EPISODE = 20
 # APG on quadruped_locomotion at bench.py's 4096 envs. Cut: episode_length
-# 20 control steps (80 physics steps) and one update.
-APG_QUADRUPED = dict(episode_length=20, num_envs=4096, num_eval_envs=64, policy_updates=1, learning_rate=1e-3,
+# 10 control steps (40 physics steps; 20 until section 9 came) and one
+# update.
+APG_QUADRUPED = dict(episode_length=10, num_envs=4096, num_eval_envs=64, policy_updates=1, learning_rate=1e-3,
                      max_gradient_norm=1.0, num_evals=1, seed=0)
+# ES on the pendulum swingup (examples/rl/pendulum/ex_agents.py:60-67 and
+# its env, 2 physics steps per control step): population 256, std 0.08,
+# lr 0.02. Cut: 4 policy updates and 2 evals instead of 120 and 5.
+ES_PENDULUM = dict(episode_length=200, population_size=256, perturbation_std=0.08, learning_rate=0.02,
+                   policy_updates=4, num_evals=2, seed=0)
+# ARS on the pendulum (ex_agents.py:69-78): 64 directions, top 16, step
+# 0.015, noise 0.04, normalized obs. Cut as ES_PENDULUM.
+ARS_PENDULUM = dict(episode_length=200, number_of_directions=64, top_directions=16, step_size=0.015,
+                    exploration_noise_std=0.04, normalize_observations=True, policy_updates=4, num_evals=2, seed=0)
+# SAC on the pendulum (ex_agents.py:45-58): 64 envs, batch 256, replay
+# 2,048-262,144, 4 gradient updates a step, discount 0.97, lr 6e-4, reward
+# scaling 0.1, normalized obs. Cut: num_timesteps 18,432 instead of 120,000
+# (the 32-step prefill, then 256 training steps) and 2 evals instead of 5.
+SAC_PENDULUM = dict(num_timesteps=18_432, num_evals=2, episode_length=200, normalize_observations=True, num_envs=64,
+                    batch_size=256, min_replay_size=2_048, max_replay_size=262_144, grad_updates_per_step=4,
+                    discounting=0.97, learning_rate=6e-4, reward_scaling=0.1, seed=0)
+# ES on quadruped_locomotion (nv 18, obs 45, 12 actions, 4 physics steps a
+# control step) at population 512, the trainer's defaults otherwise: each
+# of 512 envs acts with its own params. Cut: episode_length 50, one update
+# and one eval of 64 envs.
+ES_QUADRUPED = dict(episode_length=50, population_size=512, policy_updates=1, num_evals=1, num_eval_envs=64, seed=0)
+# SAC on quadruped_locomotion at the trainer's defaults (128 envs, batch
+# 256, (256, 256) critics and policy, a replay of 1,000,000 transitions on
+# the card). Cut: min replay 1,024 (8 prefill actor steps), episode_length
+# 100, 50 training steps and one eval of 64 envs.
+SAC_QUADRUPED = dict(num_timesteps=1_024 + 50 * 128, num_evals=1, episode_length=100, min_replay_size=1_024,
+                     num_eval_envs=64, seed=0)
+# Card against CPU. ES and ARS: the first update's population returns
+# over POPULATION_FIRST_EPISODE control steps from the same params, starts
+# and noise, their mean within APG_FIRST_RTOL; then the update from the
+# CPU's returns on both devices within POPULATION_UPDATE_RTOL of each
+# leaf's largest |param|. SAC: SAC_FIRST_SGD SGD steps from the same
+# buffer, indices and normals, the losses within SAC_LOSS_RTOL, the params
+# within rtol 1e-4 and atol 1e-3 x the learning rate. Where a param parts
+# by more, the card is held to the same steps in float64 on the CPU: in
+# no leaf farther from it than the CPU's float32 farthest, plus that atol.
+# (Adam divides each gradient component by its running scale, so a
+# component that float32 sums to near 0 moves by a good part of the
+# learning rate on either device, however its sums are ordered.)
+POPULATION_FIRST_EPISODE = 50
+POPULATION_UPDATE_RTOL = 1e-5
+SAC_FIRST_SGD = 4
+SAC_LOSS_RTOL = 1e-3
 # examples/trajopt/ex_ilqr.py task 1: the pendulum asset, 50 knots, 12
 # iterations, goal angle 0.7. The JAX package reaches 0.6759496 on a CPU
 # (the example's task run as written); the port's final angle may be at
@@ -336,8 +388,9 @@ ILQR_PENDULUM = dict(knots=50, iterations=12, goal=0.7)
 JAX_ILQR_PENDULUM_ANGLE = 0.6759496
 ILQR_ANGLE_SLACK = 1e-3
 # The hand at BASELINE.md:13's 10 knots (hand_sampling's cost, start and
-# guess): Adam through the step, and iLQR.
-HAND_GRADIENT_ITERS, HAND_ILQR_ITERS = 30, 5
+# guess): Adam through the step, and iLQR. Cut: 15 Adam iterations (30
+# until section 9 came).
+HAND_GRADIENT_ITERS, HAND_ILQR_ITERS = 15, 5
 
 # Model I/O on the card: the port's own compiler (ambersim_tpu_torch.mjcf)
 # on this machine. tools/export_model_npz.py:37-53's table, copied (this
@@ -1033,7 +1086,16 @@ def check_linalg(device, results):
     else:
         fail(f"solve_pd_batched took n = {kernels.MAX_N + 1}")
     # the times at every shape the paths launch kernels 1-3 at
-    for B, n in sorted({shape for shape, _ in PHASE_SHAPES.values()}):
+    time_linalg_shapes(rng, {shape for shape, _ in PHASE_SHAPES.values()}, device)
+
+
+def time_linalg_shapes(rng, shapes, device) -> None:
+    """Kernels 1-3's times and bounds at each (B, n) of `shapes` into
+    SHAPE_TIMES (for weighted_launch_time)."""
+    from ambersim_tpu_torch.engine import linalg as plain
+    from ambersim_tpu_torch.ops import linalg as kernels
+
+    for B, n in sorted(shapes):
         a, b = random_spd(rng, B, n, device)
         l_ref = plain.cholesky_unrolled(a)
         for name, kern in (("cholesky", lambda: kernels.cholesky_batched(a)),
@@ -1672,6 +1734,16 @@ PHASE_SHAPES = {
     "hand_gradient_trajopt": ((1, 8), "hand B=1"),
     # the model-I/O phases (grasp_scene's batch is set by grasp_memory)
     "compile_models": ((NUM_ENVS, 18), "quadruped"), "gripper_urdf": ((GRIPPER_ENVS, 8), "gripper"),
+}
+# Section 9's phases, timed in section 9 (time_linalg_shapes) so that
+# section 3 does the same work as before it; the evals' launches are
+# weighed at the training batch's shape, the quadruped's Newton launches at
+# the 4096-env case.
+SECTION9_SHAPES = {
+    "es_pendulum": ((ES_PENDULUM["population_size"], 1), None),
+    "ars_pendulum": ((2 * ARS_PENDULUM["number_of_directions"], 1), None),
+    "sac_pendulum": ((SAC_PENDULUM["num_envs"], 1), None),
+    "es_quadruped": ((ES_QUADRUPED["population_size"], 18), "quadruped"), "sac_quadruped": ((128, 18), "quadruped"),
 }
 # (kernel, shape) -> (ms, bound_ms) measured in this run: the shape is
 # (batch, n) for kernels 1-3 and a PHASE_SHAPES case for the Newton kernels
@@ -2840,8 +2912,11 @@ def apg_pendulum(device, card: str) -> dict:
     train_s = last["timing/forward_s"] + last["timing/backward_s"]
     rate = c["policy_updates"] * c["num_envs"] * c["episode_length"] / train_s
     rewards = ", ".join(f"{m['eval/episode_reward']:.1f}" for _, m in marks)
+    t0 = time.perf_counter()
     loss_card, norm_card = _apg_first_update(device)
+    t1 = time.perf_counter()
     loss_cpu, norm_cpu = _apg_first_update("cpu")
+    t2 = time.perf_counter()
     rel_loss, rel_norm = abs(loss_card - loss_cpu) / abs(loss_cpu), abs(norm_card - norm_cpu) / abs(norm_cpu)
     print(f"apg_pendulum: {c['policy_updates']} updates of {c['num_envs']} envs x {c['episode_length']} control steps "
           f"+ {c['num_evals']} evals in {seconds:.3f} s [{card}]; training {rate:.1f} env-steps/s (forward "
@@ -2849,7 +2924,8 @@ def apg_pendulum(device, card: str) -> dict:
           f"{last['timing/eval_s']:.3f} s); eval rewards {rewards}; "
           f"loss {last['training/episode_loss']:.4f}, grad norm {last['training/grad_norm']:.4f}; launches {launches}\n"
           f"apg_pendulum: first update ({APG_FIRST_EPISODE} control steps) card vs CPU: loss {loss_card:.6f} / {loss_cpu:.6f} (rel {rel_loss:.2e}), grad "
-          f"norm {norm_card:.6f} / {norm_cpu:.6f} (rel {rel_norm:.2e}; bar {APG_FIRST_RTOL})", flush=True)
+          f"norm {norm_card:.6f} / {norm_cpu:.6f} (rel {rel_norm:.2e}; bar {APG_FIRST_RTOL}); {t1 - t0:.1f} s on the "
+          f"card, {t2 - t1:.1f} s on the CPU", flush=True)
     if not (rel_loss <= APG_FIRST_RTOL and rel_norm <= APG_FIRST_RTOL):
         fail("apg_pendulum: the first update's loss or grad norm differs between the card and the CPU")
     return launches
@@ -3024,6 +3100,324 @@ def hand_gradient_trajopt(device, card: str) -> dict:
         if not (torch.isfinite(xs).all() and c_star <= c_guess + 1e-5 + 1e-5 * abs(c_guess)):
             fail(f"hand_gradient_trajopt {name}: the result costs {c_star:.6f}, the guess {c_guess:.6f}")
     return launches
+
+
+# ---- 9. ES, ARS and SAC: the gradient-free and off-policy trainers ----
+
+
+def _with_defaults(train, c: dict) -> dict:
+    """`c` over `train`'s own defaults."""
+    import inspect
+
+    return {**{k: p.default for k, p in inspect.signature(train).parameters.items()
+               if p.default is not inspect.Parameter.empty}, **c}
+
+
+def _evals_and_epochs(c: dict) -> tuple[int, int]:
+    """(evals, epochs) of a trainer at `c`: an initial eval when num_evals > 1,
+    then one eval after each of max(num_evals - 1, 1) epochs."""
+    epochs = max(c["num_evals"] - 1, 1)
+    return epochs + (c["num_evals"] > 1), epochs
+
+
+def _check_actions(name: str, make_policy, params, device) -> None:
+    """The returned policy's actions lie in [-1, 1], deterministic and
+    sampled, on obs of 10 N(0, 1)."""
+    import torch
+
+    normalizer = params[0]
+    obs = 10 * torch.randn((256, normalizer.mean.shape[0]), generator=torch.Generator(device).manual_seed(0),
+                           device=device)
+    for deterministic in (True, False):
+        act, _ = make_policy(params, deterministic=deterministic)(obs, torch.Generator(device).manual_seed(1))
+        if not (torch.isfinite(act).all() and bool((act.abs() <= 1.0).all())):
+            fail(f"{name}: the policy's actions leave [-1, 1] (deterministic {deterministic})")
+
+
+def _check_metrics(name: str, metrics: dict) -> None:
+    import math
+
+    for k, v in metrics.items():
+        if not math.isfinite(v):
+            fail(f"{name}: {k} = {v}")
+
+
+def gradient_free_phase(name: str, kind: str, env, c: dict, device, card: str) -> dict:
+    """ES or ARS (`kind`) on `env` at the settings `c`, with the launch
+    counts set to 0 just before and read just after: exact launches (one
+    reset for the observation size; per update a reset of the population
+    and every control step's physics; per eval a reset and one pass),
+    finite metrics, actions in [-1, 1]; prints training env-steps/s and the
+    timing split. Returns the launches."""
+    import torch
+
+    from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from ambersim_tpu_torch.rl import ars, es
+
+    train = {"es": es.train, "ars": ars.train}[kind]
+    settings, c = c, _with_defaults(train, c)
+    members = c["population_size"] if kind == "es" else 2 * c["number_of_directions"]
+    physics = env.config.physics_steps_per_control_step * c["episode_length"]
+    evals, epochs = _evals_and_epochs(c)
+    updates = epochs * -(-c["policy_updates"] // epochs)
+    per_forward, per_step = _per_call_launches(env.model, device)
+    marks = []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    make_policy, params, metrics = train(env, device=device, progress_fn=lambda step, m: marks.append((step, m)),
+                                         **settings)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    expected = _expect(per_forward, per_step, 1 + updates + evals, (updates + evals) * physics)
+    _check_launches(name, launches, tuple(k for k, n in expected.items() if n), 1, expected)
+    _check_metrics(name, metrics)
+    _check_actions(name, make_policy, params, device)
+    if marks[-1][0] != updates * members * c["episode_length"]:
+        fail(f"{name}: {marks[-1][0]} env steps reported, want {updates * members * c['episode_length']}")
+    rollout_s, update_s, eval_s = metrics["timing/rollout_s"], metrics["timing/update_s"], metrics["timing/eval_s"]
+    rewards = ", ".join(f"{m['eval/episode_reward']:.1f}" for _, m in marks)
+    print(f"{name}: {updates} updates of {members} members x {c['episode_length']} control steps ({physics} physics "
+          f"steps each) + {evals} evals of {c['num_eval_envs']} envs in {seconds:.3f} s [{card}]; training "
+          f"{updates * members * c['episode_length'] / (rollout_s + update_s):.1f} env-steps/s; rollout "
+          f"{rollout_s:.3f} s, update {update_s:.3f} s, eval {eval_s:.3f} s; eval rewards {rewards}; "
+          + ", ".join(f"{k[len('training/'):]} {v:.4f}" for k, v in metrics.items() if k.startswith("training/"))
+          + f"; launches {launches}", flush=True)
+    return launches
+
+
+def _population_first(kind: str, c: dict, device, returns=None):
+    """The first update of ES or ARS (`kind`) at `c`'s width on the pendulum,
+    its rollout cut to POPULATION_FIRST_EPISODE control steps: params, noise
+    and starts from CPU generators, so both devices start from the same bits.
+    The update is computed from `returns` (the CPU's (shifted, raw)
+    returns) when given, else from the rollout's own. Returns the
+    rollout's (shifted, raw) returns and the updated params, on the CPU."""
+    import torch
+
+    from ambersim_tpu_torch.rl import ars, es, wrappers
+    from ambersim_tpu_torch.rl.apg.train import make_deterministic_networks
+    from ambersim_tpu_torch.rl.ars.train import TrainingState, ars_update, candidates, draw_directions
+    from ambersim_tpu_torch.rl.es.train import es_update, make_training_state, mirrored_noise, population_rollout
+    from ambersim_tpu_torch.rl.pendulum import PendulumSwingupConfig, PendulumSwingupEnv
+    from ambersim_tpu_torch.rl.ppo import running_statistics
+    from ambersim_tpu_torch.rl.ppo.networks import identity_observation_preprocessor
+
+    c = _with_defaults({"es": es.train, "ars": ars.train}[kind], c)
+    env = PendulumSwingupEnv(PendulumSwingupConfig(physics_steps_per_control_step=2), device=device)
+    wrapped = wrappers.wrap_for_training(env, POPULATION_FIRST_EPISODE)
+    normalize = c["normalize_observations"]
+    nets = make_deterministic_networks(3, 1, preprocess_observations_fn=running_statistics.normalize if normalize
+                                       else identity_observation_preprocessor)
+    cpu = torch.Generator().manual_seed(c["seed"])
+    params = {k: v.to(device) for k, v in nets.policy_network.init(cpu).items()}
+    norm = running_statistics.init_state(torch.zeros(3, device=device))
+    if kind == "es":
+        members = c["population_size"]
+        noise = mirrored_noise(cpu, params, members)
+        pop = {k: p[None] + c["perturbation_std"] * noise[k] for k, p in params.items()}
+    else:
+        members = 2 * c["number_of_directions"]
+        noise = draw_directions(cpu, params, c["number_of_directions"])
+        pop = candidates(params, noise, c["exploration_noise_std"])
+    with torch.no_grad():
+        state = wrapped.reset(cpu, members)
+    total, raw, obs = population_rollout(wrapped, nets, pop, norm, state, POPULATION_FIRST_EPISODE,
+                                         c.get("reward_shift", 0.0))
+    r, r_raw = (total, raw) if returns is None else (x.to(device) for x in returns)
+    if kind == "es":
+        ts = make_training_state(params, norm, c["learning_rate"])
+        es_update(ts, noise, r, obs, c["perturbation_std"], c["l2coeff"], normalize_observations=normalize)
+    else:
+        ts = TrainingState(policy_params=params, normalizer_params=norm)
+        ars_update(ts, noise, r, r_raw, obs, c["top_directions"], c["step_size"], normalize)
+    return (total.cpu(), raw.cpu()), {k: v.cpu() for k, v in ts.policy_params.items()}
+
+
+def population_card_vs_cpu(name: str, kind: str, c: dict, device) -> None:
+    """ES's or ARS's first update, card against CPU (_population_first): the
+    population's mean return within APG_FIRST_RTOL, with the share of
+    members within it printed; then the update from the CPU's returns and
+    the same noise on both devices within POPULATION_UPDATE_RTOL of each
+    leaf's largest |param| (pure arithmetic: a rank swap cannot hide in
+    it)."""
+    returns_cpu, after_cpu = _population_first(kind, c, "cpu")
+    (total, _), after_card = _population_first(kind, c, device, returns=returns_cpu)
+    total_cpu = returns_cpu[0]
+    rel = abs(total.mean().item() - total_cpu.mean().item()) / abs(total_cpu.mean().item())
+    share = ((total - total_cpu).abs() <= APG_FIRST_RTOL * total_cpu.abs()).float().mean().item()
+    upd = max(((after_card[k] - v).abs().max() / v.abs().max()).item() for k, v in after_cpu.items())
+    print(f"{name}: first update ({total.shape[0]} members x {POPULATION_FIRST_EPISODE} control steps) card vs "
+          f"CPU: mean return {total.mean().item():.4f} / {total_cpu.mean().item():.4f} (rel {rel:.2e}, bar {APG_FIRST_RTOL}); "
+          f"{share:.4f} of members within {APG_FIRST_RTOL}; the update from the CPU's returns, card vs CPU: "
+          f"{upd:.2e} of each leaf's largest |param| (bar {POPULATION_UPDATE_RTOL})", flush=True)
+    if not rel <= APG_FIRST_RTOL:
+        fail(f"{name}: the first update's mean return differs between the card and the CPU by {rel:.2e}")
+    if not upd <= POPULATION_UPDATE_RTOL:
+        fail(f"{name}: the update from the same returns and noise differs between the card and the CPU by {upd:.2e}")
+
+
+def sac_phase(name: str, env, c: dict, device, card: str) -> dict:
+    """SAC on `env` at the settings `c`, with the launch counts set to 0 just
+    before and read just after: exact launches (one reset for the
+    observation size, one for the envs, every actor step's physics of the
+    prefill and the training steps, and per eval a reset and one pass),
+    finite metrics, actions in [-1, 1], the normalizer's count; prints
+    training env-steps/s, SGD steps/s, the timing split and the peak device
+    memory (the replay buffer lives on the card). Returns the launches."""
+    import torch
+
+    from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from ambersim_tpu_torch.rl import sac
+
+    settings, c = c, _with_defaults(sac.train, c)
+    control = env.config.physics_steps_per_control_step
+    evals, epochs = _evals_and_epochs(c)
+    prefill = max(-(-c["min_replay_size"] // c["num_envs"]), 1)
+    steps = epochs * max(1, -(-(c["num_timesteps"] - prefill * c["num_envs"]) // (c["num_envs"] * epochs)))
+    per_forward, per_step = _per_call_launches(env.model, device)
+    marks = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    make_policy, params, metrics = sac.train(env, device=device, progress_fn=lambda step, m: marks.append((step, m)),
+                                             **settings)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = dict(LAUNCHES)
+    expected = _expect(per_forward, per_step, 2 + evals, control * (prefill + steps + evals * c["episode_length"]))
+    _check_launches(name, launches, tuple(k for k, n in expected.items() if n), 1, expected)
+    _check_metrics(name, metrics)
+    _check_actions(name, make_policy, params, device)
+    env_steps = (prefill + steps) * c["num_envs"]
+    if marks[-1][0] != env_steps or (c["normalize_observations"] and float(params[0].count) != env_steps):
+        fail(f"{name}: {marks[-1][0]} env steps reported, normalizer count {float(params[0].count)}, want {env_steps}")
+    actor_s, sgd_s, eval_s = metrics["timing/actor_s"], metrics["timing/sgd_s"], metrics["timing/eval_s"]
+    obs_size, act_size = params[0].mean.shape[0], env.action_size
+    buffer_gib = c["max_replay_size"] * (2 * obs_size + act_size + 3) * 4 / 2**30
+    rewards = ", ".join(f"{m['eval/episode_reward']:.1f}" for _, m in marks)
+    print(f"{name}: {c['num_envs']} envs, prefill {prefill} + {steps} training steps x {control} physics steps, "
+          f"{steps * c['grad_updates_per_step']} SGD steps of batch {c['batch_size']}, + {evals} evals of "
+          f"{c['num_eval_envs']} envs in {seconds:.3f} s [{card}]; training "
+          f"{steps * c['num_envs'] / (actor_s + sgd_s):.1f} env-steps/s, "
+          f"{steps * c['grad_updates_per_step'] / sgd_s:.1f} SGD steps/s; prefill {metrics['timing/prefill_s']:.3f} "
+          f"s, actor {actor_s:.3f} s, SGD {sgd_s:.3f} s, eval {eval_s:.3f} s; replay buffer of "
+          f"{c['max_replay_size']} transitions {buffer_gib:.3f} GiB; peak device memory {peak:.3f} GiB "
+          f"({peak - held:.3f} above what was held); eval rewards {rewards}; "
+          + ", ".join(f"{k[len('training/'):]} {v:.4f}" for k, v in metrics.items() if k.startswith("training/"))
+          + f"; launches {launches}", flush=True)
+    return launches
+
+
+def _sac_first_sgd(c: dict, device, dtype=None):
+    """SAC_FIRST_SGD SGD steps at `c`'s settings on the pendulum's shapes
+    from params, a replay buffer of min_replay_size seeded transitions, a
+    normalizer fitted to them, sample indices and normals, all drawn by CPU
+    generators (in float32; the steps run in `dtype`, float32 unless
+    given). Returns each step's (critic, actor, alpha) losses and alpha,
+    and the params after, on the CPU."""
+    import torch
+
+    from ambersim_tpu_torch.rl import sac
+    from ambersim_tpu_torch.rl.ppo import running_statistics
+    from ambersim_tpu_torch.rl.sac import replay
+    from ambersim_tpu_torch.rl.sac.losses import Transition
+    from ambersim_tpu_torch.rl.sac.train import make_training_state, sgd_step
+
+    c = _with_defaults(sac.train, c)
+    n, batch = c["min_replay_size"], c["batch_size"]
+    cpu = torch.Generator().manual_seed(c["seed"])
+    nets = sac.make_sac_networks(3, 1, preprocess_observations_fn=running_statistics.normalize)
+    policy, q = nets.policy_network.init(cpu), nets.q_network.init(cpu)
+    scale = torch.tensor([1.0, 1.0, 4.0])
+    truncation = (torch.rand(n, generator=cpu) < 0.01).float()
+    data = Transition(observation=scale * torch.randn((n, 3), generator=cpu),
+                      action=torch.randn((n, 1), generator=cpu), reward=-10 * torch.rand(n, generator=cpu),
+                      discount=1 - truncation, truncation=truncation,
+                      next_observation=scale * torch.randn((n, 3), generator=cpu))
+    norm = running_statistics.update(running_statistics.init_state(torch.zeros(3)), data.observation)
+    idx = torch.randint(0, n, (SAC_FIRST_SGD, batch), generator=cpu)
+    noise = torch.randn((SAC_FIRST_SGD, 3, batch, 1), generator=cpu)
+    dtype = dtype or torch.float32
+    ts = make_training_state({k: v.to(device, dtype) for k, v in policy.items()},
+                             {k: v.to(device, dtype) for k, v in q.items()}, torch.zeros((), device=device, dtype=dtype),
+                             norm.to(device).to(dtype), c["learning_rate"])
+    data = data.to(device).to(dtype)
+    buffer = replay.insert(replay.init(n, data.map(lambda x: x[0])), data)
+    losses = []
+    for i in range(SAC_FIRST_SGD):
+        m = sgd_step(ts, replay.sample(buffer, idx[i]), noise[i].to(device, dtype), nets, target_entropy=-0.5,
+                     reward_scaling=c["reward_scaling"], discounting=c["discounting"], tau=c["tau"])
+        losses.append(torch.stack([m[k] for k in ("critic_loss", "actor_loss", "alpha_loss", "alpha")]))
+    after = {f"{net} {k}": v.detach().cpu() for net in ("policy_params", "q_params", "target_q_params")
+             for k, v in getattr(ts, net).items()}
+    after["log_alpha"] = ts.log_alpha.detach().cpu()
+    return torch.stack(losses).cpu(), after
+
+
+def sac_card_vs_cpu(name: str, c: dict, device) -> None:
+    """SAC's first SAC_FIRST_SGD SGD steps, card against CPU
+    (_sac_first_sgd): every loss within SAC_LOSS_RTOL, every param within
+    rtol 1e-4 and atol 1e-3 x the learning rate of the CPU's; where one is
+    not, each leaf within that atol of as close to the float64 steps as the
+    CPU's float32 (the comment above POPULATION_FIRST_EPISODE)."""
+    import torch
+
+    losses_card, card = _sac_first_sgd(c, device)
+    losses_cpu, cpu = _sac_first_sgd(c, "cpu")
+    rel = ((losses_card - losses_cpu).abs() / losses_cpu.abs()).max().item()
+    atol = 1e-3 * c["learning_rate"]
+    excess = {k: ((card[k] - v).abs() - 1e-4 * v.abs()).max().item() for k, v in cpu.items()}
+    worst = max(excess, key=excess.get)
+    apart = {k: ((card[k] - v).abs() > 1e-4 * v.abs() + atol).sum().item() for k, v in cpu.items()}
+    print(f"{name}: first {SAC_FIRST_SGD} SGD steps card vs CPU: losses within {rel:.2e} relative (bar "
+          f"{SAC_LOSS_RTOL}); params: largest |card - CPU| - 1e-4 |CPU| {excess[worst]:.2e} at {worst} (bar "
+          f"{atol:.1e}); {sum(apart.values())} of {sum(v.numel() for v in cpu.values())} params past it", flush=True)
+    if not rel <= SAC_LOSS_RTOL:
+        fail(f"{name}: the first SGD steps' losses differ between the card and the CPU by {rel:.2e}")
+    if excess[worst] <= atol:
+        return
+    _, exact = _sac_first_sgd(c, "cpu", torch.float64)
+    farther = {k: ((card[k] - exact[k]).abs().max() - (v - exact[k]).abs().max()).item() for k, v in cpu.items()}
+    far = max(farther, key=farther.get)
+    print(f"{name}: against the float64 steps: the card's farthest param exceeds the CPU float32's farthest in its "
+          f"leaf by at most {farther[far]:.2e} ({far}; bar {atol:.1e}); " + ", ".join(
+              f"{k} card {(card[k] - exact[k]).abs().max().item():.2e} / CPU {(cpu[k] - exact[k]).abs().max().item():.2e}"
+              for k in cpu if apart[k]), flush=True)
+    if not farther[far] <= atol:
+        fail(f"{name}: {far} after the first SGD steps is farther from float64 on the card than on the CPU")
+
+
+def gradient_free_and_off_policy(device, card: str, lap) -> dict:
+    """Section 9: ES, ARS and SAC on the pendulum at
+    examples/rl/pendulum/ex_agents.py's settings (cut), each with its card
+    against CPU check, then ES at population 512 and SAC with a 1,000,000
+    transition replay on quadruped_locomotion. Returns the launches by
+    phase."""
+    from ambersim_tpu_torch.rl import get_environment
+    from ambersim_tpu_torch.rl.pendulum import PendulumSwingupConfig, PendulumSwingupEnv
+
+    pendulum = PendulumSwingupEnv(PendulumSwingupConfig(physics_steps_per_control_step=2), device=device)
+    quadruped = get_environment("quadruped_locomotion", device=device)
+    phases = {}
+    phases["es_pendulum"] = gradient_free_phase("es_pendulum", "es", pendulum, ES_PENDULUM, device, card)
+    population_card_vs_cpu("es_pendulum", "es", ES_PENDULUM, device)
+    lap("es_pendulum")
+    phases["ars_pendulum"] = gradient_free_phase("ars_pendulum", "ars", pendulum, ARS_PENDULUM, device, card)
+    population_card_vs_cpu("ars_pendulum", "ars", ARS_PENDULUM, device)
+    lap("ars_pendulum")
+    phases["sac_pendulum"] = sac_phase("sac_pendulum", pendulum, SAC_PENDULUM, device, card)
+    sac_card_vs_cpu("sac_pendulum", SAC_PENDULUM, device)
+    lap("sac_pendulum")
+    phases["es_quadruped"] = gradient_free_phase("es_quadruped", "es", quadruped, ES_QUADRUPED, device, card)
+    lap("es_quadruped")
+    phases["sac_quadruped"] = sac_phase("sac_quadruped", quadruped, SAC_QUADRUPED, device, card)
+    lap("sac_quadruped")
+    return phases
 
 
 def env_card_vs_cpu(device, name: str, env_cls, control_steps: int, obs_bars) -> None:
@@ -3550,20 +3944,28 @@ def weighted_launch_time(phase_launches: dict) -> None:
 
 
 def run_phases(device, card: str, results: dict) -> None:
-    """Phases 3-8: every kernel against its plain version, every path, model
+    """Phases 3-9: every kernel against its plain version, every path, model
     I/O (the port's compiler, a URDF, the mesh grasp), trajectory
     optimization, PPO, gradients through the kernels (the
-    Functions, APG, gradient shooting and iLQR), and the card against the
-    CPU; adds each path's launches to results. Prints each section's wall
-    seconds (how the run's time spreads over its sections, host by host)."""
+    Functions, APG, gradient shooting and iLQR), the card against the
+    CPU, and ES, ARS and SAC; adds each path's launches to results. Prints
+    each section's wall seconds (how the run's time spreads over its
+    sections, host by host) and each phase's within sections 4-9."""
     import torch
 
-    lap = [time.perf_counter()]
+    lap = [time.perf_counter(), time.perf_counter()]
 
     def section(what: str) -> None:
         now = time.perf_counter()
         print(f"chip_smoke: section {what} took {now - lap[0]:.1f} s", flush=True)
-        lap[0] = now
+        lap[0] = lap[1] = now
+
+    def phase(what: str) -> None:
+        """A lap inside a section: the seconds since the section's start or
+        the phase before."""
+        now = time.perf_counter()
+        print(f"chip_smoke: phase {what} took {now - lap[1]:.1f} s", flush=True)
+        lap[1] = now
 
     # the grasp scene's batch, from its mesh-mesh SAT's memory, before the
     # kernels are timed at every phase's shape
@@ -3590,6 +3992,7 @@ def run_phases(device, card: str, results: dict) -> None:
     phase_launches = {}
     for name in PATHS:
         phase_launches[name] = drive_path(name, device, card)
+        phase(name)
 
     splits = {}
     for name in ("clutter32_rowcap192", "clutter32_cap48", "clutter32", "clutter32_rowcap192_bf16"):
@@ -3604,17 +4007,24 @@ def run_phases(device, card: str, results: dict) -> None:
     # ---- 4b. model I/O: the port's compiler on this machine, the main path
     # from a compiled model, a URDF with a mimic joint, the mesh grasp ----
     phase_launches["compile_models"] = compile_models(device, card)
+    phase("compile_models")
     phase_launches["gripper_urdf"] = gripper_urdf(device, card)
+    phase("gripper_urdf")
     phase_launches["grasp_scene"] = grasp_scene(device, card, grasp_batch)
     section("4b (model I/O)")
 
     # ---- 5. trajectory optimization on the hand and the humanoid, the hand
     # in contact, and the pendulum at a batch of one ----
     phase_launches["hand_sampling"] = hand_sampling(device, card)
+    phase("hand_sampling")
     phase_launches.update(hand_mpc(device, card))
+    phase("hand_mpc")
     phase_launches["hand_contacts"] = hand_contacts(device, card)
+    phase("hand_contacts")
     phase_launches["humanoid_sampling"] = humanoid_sampling(device, card)
+    phase("humanoid_sampling")
     phase_launches["pendulum_single"] = pendulum_single(device, card)
+    phase("pendulum_single")
     check_newton_ladder(device, results)
     mesh_mesh_memory(device)
     section("5 (trajectory optimization, kernel 4 on the ladder's and model I/O's operands)")
@@ -3622,21 +4032,24 @@ def run_phases(device, card: str, results: dict) -> None:
     # ---- 6. PPO training through the env layer, each with its own launch counts ----
     phase_launches["ppo_quadruped"] = ppo_training_step("ppo_quadruped", "quadruped_locomotion", PPO_QUADRUPED,
                                                         device, card)
+    phase("ppo_quadruped")
     phase_launches["ppo_pendulum"] = ppo_pendulum_learns(device, card)
+    phase("ppo_pendulum")
     phase_launches["ppo_humanoid"] = ppo_training_step("ppo_humanoid", "humanoid_balance", PPO_HUMANOID, device, card)
     section("6 (PPO)")
 
     # ---- 7. gradients through the kernels' Functions, and their users ----
     grad_kernels(device, results)
+    phase("grad_kernels")
     phase_launches.update(grad_paths(device, card))
+    phase("grad_paths")
     phase_launches["apg_pendulum"] = apg_pendulum(device, card)
+    phase("apg_pendulum")
     phase_launches["apg_quadruped"] = apg_quadruped(device, card)
+    phase("apg_quadruped")
     phase_launches["ilqr_pendulum"] = ilqr_pendulum(device, card)
+    phase("ilqr_pendulum")
     phase_launches["hand_gradient_trajopt"] = hand_gradient_trajopt(device, card)
-    for launches in phase_launches.values():
-        for k, n in launches.items():
-            results[k]["launches"] += n
-    weighted_launch_time(phase_launches)
     section("7 (gradients)")
 
     # ---- 8. card (kernels) against CPU (plain versions), 8 envs x 20 steps ----
@@ -3649,6 +4062,7 @@ def run_phases(device, card: str, results: dict) -> None:
             card_vs_cpu(name, device, QPOS_TOL, QVEL_TOL)
         elif method != "none":
             settled_card_vs_cpu(device, name)
+        phase(f"{name} card vs CPU")
     from ambersim_tpu_torch.rl.humanoid import HumanoidBalanceEnv
     from ambersim_tpu_torch.rl.quadruped import QuadrupedLocomotionEnv
 
@@ -3661,6 +4075,18 @@ def run_phases(device, card: str, results: dict) -> None:
         (slice(0, 3), QPOS_TOL), (slice(3, 9), QVEL_TOL), (slice(9, 29), QPOS_TOL), (slice(29, 48), 0.1 * QVEL_TOL),
         (slice(48, 67), 0.0)))
     section("8 (card against CPU)")
+
+    # ---- 9. ES, ARS and SAC, each with its own launch counts ----
+    import numpy as np
+
+    time_linalg_shapes(np.random.default_rng(9), {shape for shape, _ in SECTION9_SHAPES.values()}, device)
+    PHASE_SHAPES.update(SECTION9_SHAPES)
+    phase_launches.update(gradient_free_and_off_policy(device, card, phase))
+    for launches in phase_launches.values():
+        for k, n in launches.items():
+            results[k]["launches"] += n
+    weighted_launch_time(phase_launches)
+    section("9 (ES, ARS and SAC)")
 
 
 def main() -> int:

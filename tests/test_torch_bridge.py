@@ -239,16 +239,16 @@ def test_pyramid_structure_matches_jax(scene, quadruped):
 
 def test_port_never_imports_jax(tmp_path):
     """The port and chip_smoke import nothing of JAX: in a subprocess where
-    importing jax or ambersim_tpu fails, they import, step the exported
-    models, and compile and step grasp_scene.xml and the gripper URDF with
-    the port's own compiler."""
+    importing jax, flax, optax or ambersim_tpu fails, they import (the five
+    trainers among them), step the exported models, and compile and step
+    grasp_scene.xml and the gripper URDF with the port's own compiler."""
     from test_model_io import GRIPPER_URDF
 
     urdf = tmp_path / "gripper.urdf"
     urdf.write_text(GRIPPER_URDF)
     code = (
         "import sys\n"
-        "for n in ('jax', 'jaxlib', 'flax', 'ambersim_tpu'):\n"
+        "for n in ('jax', 'jaxlib', 'flax', 'optax', 'ambersim_tpu'):\n"
         "    sys.modules[n] = None  # import fails\n"
         "import torch\n"
         "torch.set_num_threads(1)\n"
@@ -257,6 +257,8 @@ def test_port_never_imports_jax(tmp_path):
         "import ambersim_tpu_torch.rl, ambersim_tpu_torch.rl.ppo, ambersim_tpu_torch.rl.helpers\n"
         "import ambersim_tpu_torch.rl.pendulum, ambersim_tpu_torch.rl.quadruped, ambersim_tpu_torch.io.checkpoint\n"
         "import ambersim_tpu_torch.rl.humanoid, ambersim_tpu_torch.trajopt\n"
+        "import ambersim_tpu_torch.rl.apg, ambersim_tpu_torch.rl.es, ambersim_tpu_torch.rl.ars\n"
+        "import ambersim_tpu_torch.rl.sac, ambersim_tpu_torch.rl.sac.replay, ambersim_tpu_torch.rl.sac.losses\n"
         "from ambersim_tpu_torch import load_model\n"
         "from ambersim_tpu_torch.engine import make_data, step\n"
         "m = load_model('quadruped', device='cpu'); step(m, make_data(m, 2))\n"
@@ -271,13 +273,44 @@ def test_port_never_imports_jax(tmp_path):
         f"m = load_model_from_file({str(urdf)!r}, force_float=True, device='cpu'); step(m, make_data(m, 2))\n"
         "assert m.skel.neq == 1\n"
         "bad = [n for n, mod in sys.modules.items()\n"
-        "       if mod is not None and n.split('.')[0] in ('jax', 'jaxlib', 'flax', 'ambersim_tpu')]\n"
+        "       if mod is not None and n.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'ambersim_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_stacked_mlp_params_carry_across():
+    """A flax MLP whose leaves carry a leading axis (SAC's twin critics,
+    kernels (2, in, out)) arrives as weights (2, out, in): only the last two
+    axes swap. Both critics applied in the port give the JAX package's
+    q_network.apply, and the round trip gives the same arrays back."""
+    import jax
+    import jax.numpy as jnp
+
+    from ambersim_tpu.rl.sac import make_sac_networks as jax_sac_networks
+    from ambersim_tpu_torch.io.bridge import ppo_params_from_jax, ppo_params_to_numpy
+    from ambersim_tpu_torch.rl.sac import make_sac_networks
+
+    jnets = jax_sac_networks(3, 2)
+    jparams = jax.device_get(jnets.q_network.init(jax.random.PRNGKey(0)))
+    assert jparams["params"]["hidden_0"]["kernel"].shape == (2, 5, 256)
+    got = ppo_params_from_jax(jparams, device="cpu")
+    assert {k: tuple(v.shape) for k, v in got.items()} == {
+        "hidden.0.weight": (2, 256, 5), "hidden.0.bias": (2, 256), "hidden.1.weight": (2, 256, 256),
+        "hidden.1.bias": (2, 256), "hidden.2.weight": (2, 1, 256), "hidden.2.bias": (2, 1)}
+    rng = np.random.default_rng(0)
+    obs, act = rng.standard_normal((7, 3)).astype(np.float32), rng.uniform(-1, 1, (7, 2)).astype(np.float32)
+    want = np.asarray(jnets.q_network.apply(None, jparams, jnp.asarray(obs), jnp.asarray(act)))
+    q = make_sac_networks(3, 2).q_network.apply(None, got, torch.as_tensor(obs), torch.as_tensor(act))
+    assert q.shape == (7, 2)
+    np.testing.assert_allclose(q.numpy(), want, rtol=1e-5, atol=1e-5)
+    back = ppo_params_to_numpy(got)
+    for name, layer in jparams["params"].items():
+        for kind, w in layer.items():
+            np.testing.assert_array_equal(back["params"][name][kind], w, err_msg=f"{name} {kind}")
 
 
 @pytest.mark.parametrize(
