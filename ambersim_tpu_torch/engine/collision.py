@@ -1,11 +1,13 @@
 """Batched collision: the plane against sphere, capsule, box, cylinder,
 ellipsoid and mesh, sphere-sphere, sphere-capsule, sphere-box,
-capsule-capsule, capsule-box, box-box, and sphere, capsule, box and mesh
+capsule-capsule, capsule-box, box-box, sphere, capsule, box and mesh
 against a mesh's convex hull (box-box, box-mesh and mesh-mesh by SAT,
-engine/convex.py). Port of ambersim_tpu/engine/collision.py (_make_frame,
-these narrowphases, _mix_params and `collision` with its broadphase-capped
-groups and global row cap). A cylinder or ellipsoid in any other pair is
-the compiler's synthesized hull, so it meets that pair as a mesh.
+engine/convex.py), and a height field against sphere, capsule and box
+(each env against the triangles of its own window of the grid). Port of
+ambersim_tpu/engine/collision.py (_make_frame, these narrowphases,
+_mix_params and `collision` with its broadphase-capped groups and global
+row cap). A cylinder or ellipsoid in any other pair is the compiler's
+synthesized hull, so it meets that pair as a mesh.
 
 Each geom-type pair group runs one batched narrowphase and writes fixed
 contact slots; "no contact" is dist > includemargin, masked downstream.
@@ -325,7 +327,159 @@ def mesh_mesh(xp1, xm1, s1, xp2, xm2, s2, mesh1, mesh2):
     return dist, pos, _make_frame(n)[..., None, :, :].expand(pos.shape[:-1] + (3, 3))
 
 
-# keyed by (type1, type2) with type1 <= type2, as the compiler orders pairs
+def _closest_on_triangle(p, a, b, c):
+    """Closest point on triangle (a, b, c) to p, branch-free (Ericson,
+    Real-Time Collision Detection 5.1.5); all (..., 3), broadcasting."""
+    ab, ac = b - a, c - a
+    ap, bp, cp = p - a, p - b, p - c
+    d1, d2 = (ab * ap).sum(-1), (ac * ap).sum(-1)
+    d3, d4 = (ab * bp).sum(-1), (ac * bp).sum(-1)
+    d5, d6 = (ab * cp).sum(-1), (ac * cp).sum(-1)
+    va = d3 * d6 - d5 * d4
+    vb = d5 * d2 - d1 * d6
+    vc = d1 * d4 - d3 * d2
+    denom = torch.clamp(va + vb + vc, min=1e-20)
+    v = torch.clamp(vb / denom, 0.0, 1.0)
+    w = torch.clamp(vc / denom, 0.0, 1.0)
+    out = a + v[..., None] * ab + w[..., None] * ac
+    # the edge and vertex regions, in the JAX package's order of selects
+    t_ab = torch.clamp(d1 / torch.clamp(d1 - d3, min=1e-20), 0.0, 1.0)
+    t_ac = torch.clamp(d2 / torch.clamp(d2 - d6, min=1e-20), 0.0, 1.0)
+    t_bc = torch.clamp((d4 - d3) / torch.clamp((d4 - d3) + (d5 - d6), min=1e-20), 0.0, 1.0)
+    for region, q in (
+        ((vc <= 0) & (d1 >= 0) & (d3 <= 0), a + t_ab[..., None] * ab),
+        ((vb <= 0) & (d2 >= 0) & (d6 <= 0), a + t_ac[..., None] * ac),
+        ((va <= 0) & ((d4 - d3) >= 0) & ((d5 - d6) >= 0), b + t_bc[..., None] * (c - b)),
+        ((d1 <= 0) & (d2 <= 0), a),
+        ((d3 >= 0) & (d4 <= d3), b),
+        ((d6 >= 0) & (d5 <= d6), c),
+    ):
+        out = torch.where(region[..., None], q, out)
+    return out
+
+
+def _hfield_window_tris(m: Model, hid: int, c_local: torch.Tensor, K: int):
+    """The 2 (K-1)^2 local-frame surface triangles (a, b, c), each (..., T, 3),
+    of the K x K grid window of height field `hid` nearest each local point
+    c_local (..., 3): every env gets its own window. Cells split along the
+    (j, i) -> (j + 1, i + 1) diagonal. The window's corner is clamped to
+    this field's own nrow - K / ncol - K (hfield_data pads every grid to
+    the largest)."""
+    s = m.skel
+    nrow, ncol = int(s.hfield_nrow[hid]), int(s.hfield_ncol[hid])
+    size = m.hfield_size[hid]
+    dx = 2.0 * size[0] / (ncol - 1)
+    dy = 2.0 * size[1] / (nrow - 1)
+    # the cell's floor, (c + size) / dx as the jitted JAX package computes
+    # it: XLA folds a division by the constant dx into a product with its
+    # float32 reciprocal, which floors otherwise on a cell border
+    i0 = torch.clamp(torch.floor((c_local[..., 0] + size[0]) * (1.0 / dx)).long() - (K - 1) // 2, 0, ncol - K)
+    j0 = torch.clamp(torch.floor((c_local[..., 1] + size[1]) * (1.0 / dy)).long() - (K - 1) // 2, 0, nrow - K)
+    ar = torch.arange(K, device=c_local.device)
+    cols, rows = i0[..., None] + ar, j0[..., None] + ar  # (..., K)
+    win = m.hfield_data[hid][rows[..., :, None], cols[..., None, :]] * size[2]  # (..., K, K) as [j, i]
+    xs = -size[0] + cols.to(win.dtype) * dx
+    ys = -size[1] + rows.to(win.dtype) * dy
+    V = torch.stack([xs[..., None, :].expand(win.shape), ys[..., :, None].expand(win.shape), win], dim=-1)
+    lead = V.shape[:-3]
+    v00 = V[..., :-1, :-1, :].reshape(lead + (-1, 3))
+    v01 = V[..., :-1, 1:, :].reshape(lead + (-1, 3))
+    v10 = V[..., 1:, :-1, :].reshape(lead + (-1, 3))
+    v11 = V[..., 1:, 1:, :].reshape(lead + (-1, 3))
+    return torch.cat([v00, v00], -2), torch.cat([v01, v11], -2), torch.cat([v11, v10], -2)
+
+
+def _hfield_spheres(m: Model, hid: int, K: int, xp_h, xm_h, centers_w, r, k_out: int):
+    """The k_out deepest contacts between spheres of radius r (P,) centered
+    at centers_w (B, P, N, 3) and the triangles of each pair's window of
+    height field `hid` at pose (xp_h (B, P, 3), xm_h (B, P, 3, 3)). Returns
+    dist (B, P, k_out), world pos (B, P, k_out, 3) and frames (B, P, k_out,
+    3, 3), the normal from the field into the sphere.
+
+    A center below a triangle's plane inside that triangle's column is
+    pushed up along the plane's normal; one below a plane outside its
+    column is ignored (_BIG), so that a tall neighbour cannot claim a
+    sphere beside it. The deepest candidates over (sphere, triangle) are
+    taken in the order of lax.top_k (stable: ties lowest index first), so
+    ignored ones fill the slots when fewer than k_out are valid."""
+    cs = _mesh_frame_points(centers_w, xp_h, xm_h)  # (B, P, N, 3) local centers
+    N = cs.shape[-2]
+    c_sum = cs[..., 0, :]
+    for i in range(1, N):  # jnp.mean's order: a sum left to right, then x float32(1 / N) (XLA's fold)
+        c_sum = c_sum + cs[..., i, :]
+    tri_a, tri_b, tri_c = _hfield_window_tris(m, hid, c_sum * (1.0 / cs.new_tensor(float(N))), K)  # (B, P, T, 3)
+    a, b, c = tri_a[..., None, :, :], tri_b[..., None, :, :], tri_c[..., None, :, :]
+    p = cs[..., :, None, :]  # (B, P, N, 1, 3)
+    cp = _closest_on_triangle(p, a, b, c)  # (B, P, N, T, 3)
+    dvec = p - cp
+    dd = torch.linalg.vector_norm(dvec, dim=-1)
+    n = dvec / torch.clamp(dd, min=1e-12)[..., None]
+    # the upward plane normal of each triangle and the centers' signed
+    # distance to it. The JAX package divides by jnp.linalg.norm(nt, -1,
+    # keepdims=True), whose -1 is `ord`: the (T, 3) matrix's 1-norm of
+    # order -1, its smallest column sum of |nt|, one scale for the window,
+    # not a unit normal per triangle. Copied as it is (ROADMAP, queue 3).
+    nt = am.cross(b - a, c - a)
+    nt = nt * torch.sign(nt[..., 2:3])
+    nt = nt / torch.clamp(nt.abs().sum(-2, keepdim=True).amin(-1, keepdim=True), min=1e-12)
+    sd = ((p - a) * nt).sum(-1)
+    # is the center's xy inside the triangle's column? (2D barycentric)
+    e0, e1, dp = (b - a)[..., :2], (c - a)[..., :2], (p - a)[..., :2]
+    det = e0[..., 0] * e1[..., 1] - e0[..., 1] * e1[..., 0]
+    det = torch.where(det.abs() < 1e-20, 1e-20, det)
+    u = (dp[..., 0] * e1[..., 1] - dp[..., 1] * e1[..., 0]) / det
+    v = (e0[..., 0] * dp[..., 1] - e0[..., 1] * dp[..., 0]) / det
+    inside = (u >= 0) & (v >= 0) & (u + v <= 1)
+    below = inside & (sd < 0)
+    ignore = ~inside & (sd < 0)
+    rr = r[:, None, None]
+    n = torch.where(below[..., None], nt.expand(n.shape), n)
+    dist = torch.where(ignore, _BIG, torch.where(below, sd - rr, dd - rr))
+    cp = torch.where(below[..., None], p - sd[..., None] * nt, cp)
+    lead = dist.shape[:-2]
+    flat = dist.reshape(lead + (-1,))
+    sel = _top_k(-flat, k_out)
+    dist_k = torch.take_along_dim(flat, sel, dim=-1)
+    cp_k = torch.take_along_dim(cp.reshape(lead + (-1, 3)), sel[..., None], dim=-2)
+    n_w = convex._rotate(xm_h, torch.take_along_dim(n.reshape(lead + (-1, 3)), sel[..., None], dim=-2))
+    pos = xp_h[..., None, :] + convex._rotate(xm_h, cp_k) + 0.5 * dist_k[..., None] * n_w
+    return dist_k, pos, _make_frame(n_w)
+
+
+def _hfield_group(m: Model, d: Data, idx: np.ndarray, other_type: int, k_out: int):
+    """Height field against spheres, capsules (3 spheres along the axis) or
+    boxes (the 8 corners as points of radius 0) for the pairs `idx` of one
+    group, batched over the pairs that share a field and a window size
+    (pair_hfk). Returns (B, P, k_out) dist and its pos and frames."""
+    s = m.skel
+    gh, go = s.pair_geom1[idx], s.pair_geom2[idx]
+    keys = [(int(s.geom_hfieldid[g]), int(s.pair_hfk[i])) for g, i in zip(gh, idx)]
+    out = None
+    for key in dict.fromkeys(keys):
+        sub = np.array([j for j, k in enumerate(keys) if k == key])
+        gh_s, go_s = device_index(gh[sub], d.qpos.device), device_index(go[sub], d.qpos.device)
+        xp, xm, size = d.geom_xpos[:, go_s], d.geom_xmat[:, go_s], m.geom_size[go_s]
+        if other_type == int(GeomType.SPHERE):
+            centers, r = xp[..., None, :], size[:, 0]
+        elif other_type == int(GeomType.CAPSULE):
+            coef = xp.new_tensor([-1.0, 0.0, 1.0])[:, None] * size[:, 1, None, None]  # (P, 3, 1)
+            centers, r = xp[..., None, :] + coef * xm[..., None, :, 2], size[:, 0]
+        else:
+            corners = device_index(_BOX_CORNERS, xp.device) * size[:, None, :]  # (P, 8, 3)
+            centers, r = xp[..., None, :] + convex._rotate(xm, corners), torch.zeros_like(size[:, 0])
+        res = _hfield_spheres(m, *key, d.geom_xpos[:, gh_s], d.geom_xmat[:, gh_s], centers, r, k_out)
+        if len(sub) == len(idx):
+            return res
+        if out is None:
+            out = [x.new_zeros(x.shape[:1] + (len(idx),) + x.shape[2:]) for x in res]
+        for o, x in zip(out, res):
+            o[:, device_index(sub, x.device)] = x
+    return tuple(out)
+
+
+# keyed by (type1, type2) with type1 <= type2, as the compiler orders pairs;
+# the height-field pairs dispatch through _hfield_group, which reads the
+# field's grid and the pairs' window sizes
 _NARROWPHASE = {
     (int(GeomType.PLANE), int(GeomType.SPHERE)): (plane_sphere, 1),
     (int(GeomType.PLANE), int(GeomType.CAPSULE)): (plane_capsule, 2),
@@ -343,6 +497,9 @@ _NARROWPHASE = {
     (int(GeomType.CAPSULE), int(GeomType.MESH)): (capsule_mesh, 3),
     (int(GeomType.BOX), int(GeomType.MESH)): (box_mesh, 4),
     (int(GeomType.MESH), int(GeomType.MESH)): (mesh_mesh, 4),
+    (int(GeomType.HFIELD), int(GeomType.SPHERE)): (None, 4),
+    (int(GeomType.HFIELD), int(GeomType.CAPSULE)): (None, 4),
+    (int(GeomType.HFIELD), int(GeomType.BOX)): (None, 4),
 }
 
 
@@ -452,9 +609,12 @@ def collision(m: Model, d: Data) -> Data:
             g1, g2 = ix(s.pair_geom1[idx]), ix(s.pair_geom2[idx])  # (P,)
             slots = ix(np.concatenate([np.arange(ncon_per) + int(s.con_adr[i]) for i in idx]))
             poses = [x[:, g] for g in (g1, g2) for x in (d.geom_xpos, d.geom_xmat)]
-        args = [poses[0], poses[1], m.geom_size[g1], poses[2], poses[3], m.geom_size[g2]]
-        args += [_mesh_tuple(m, g) for t, g in zip(tkey, (g1, g2)) if t == int(GeomType.MESH)]
-        dist, pos, frame = fn(*args)
+        if tkey[0] == int(GeomType.HFIELD):
+            dist, pos, frame = _hfield_group(m, d, idx, tkey[1], ncon_per)
+        else:
+            args = [poses[0], poses[1], m.geom_size[g1], poses[2], poses[3], m.geom_size[g2]]
+            args += [_mesh_tuple(m, g) for t, g in zip(tkey, (g1, g2)) if t == int(GeomType.MESH)]
+            dist, pos, frame = fn(*args)
         pair_dim = g1.dim() - 1  # the pairs' dim of _mix_params: (P, ...) static, (B, k, ...) capped
         friction, solref, solimp, margin, gap = (
             x.repeat_interleave(ncon_per, dim=pair_dim) for x in _mix_params(m, g1, g2)

@@ -1,12 +1,12 @@
 """RL environment layer and the trainers of the PyTorch port (port of
-ambersim_tpu/rl: env base, wrappers, registry, the pendulum, quadruped and
-humanoid balance tasks, and the five trainers: PPO; APG, which
-differentiates the episode return through the step; SAC, off-policy from
-an on-device replay buffer; ES and ARS, gradient-free, each population
-member rolling out with its own params). The trainers share the
-(make_policy, params, metrics) / progress_fn contract of the JAX package:
-`rl.ppo.train`, `rl.apg.train`, `rl.sac.train`, `rl.es.train` and
-`rl.ars.train`.
+ambersim_tpu/rl: env base, wrappers, registry, the pendulum, quadruped (on
+flat ground and over height-field terrain) and humanoid balance tasks, and
+the five trainers: PPO; APG, which differentiates the episode return
+through the step; SAC, off-policy from an on-device replay buffer; ES and
+ARS, gradient-free, each population member rolling out with its own
+params). The trainers share the (make_policy, params, metrics) /
+progress_fn contract of the JAX package: `rl.ppo.train`, `rl.apg.train`,
+`rl.sac.train`, `rl.es.train` and `rl.ars.train`.
 """
 
 from ambersim_tpu_torch.rl.base import MjxEnv, State  # noqa: F401
@@ -25,10 +25,9 @@ def _register_packaged() -> None:
         return QuadrupedLocomotionEnv(**kwargs)
 
     def _quadruped_terrain(**kwargs):
-        raise NotImplementedError(
-            "quadruped_terrain is not ported: it needs height-field collision and the MJCF compiler "
-            "(its terrain grid is generated from the config seed when the model is compiled)"
-        )
+        from ambersim_tpu_torch.rl.quadruped.terrain import QuadrupedTerrainEnv
+
+        return QuadrupedTerrainEnv(**kwargs)
 
     def _humanoid_balance(**kwargs):
         from ambersim_tpu_torch.rl.humanoid import HumanoidBalanceEnv

@@ -49,10 +49,17 @@ the card, and steps every ported path through the port's entry points:
     the plain version's gradient on the CPU, with its backward's time
     (grad_kernels); d(sum qpos + sum qvel)/d(ctrl) through T steps of six
     models, card against CPU (grad_paths); APG on the pendulum
-    (examples/rl/pendulum/ex_agents.py's settings, 4 updates) and one APG
+    (examples/rl/pendulum/ex_agents.py's settings, cut) and one APG
     update of the 4096-env locomotion policy; iLQR on the pendulum
     (examples/trajopt/ex_ilqr.py's first task); gradient shooting and iLQR
     on the hand at BASELINE.md:13's 10 knots;
+  * height fields: quadruped_terrain (the quadruped over a 24 x 24 height
+    field generated from examples/rl/quadruped/ex_terrain.py's seed, its
+    scene compiled here by the port) at 4096 envs x 100 steps from seeded
+    xy over its relief through kernels 1-4 at nefc 296, held above the
+    terrain's surface, and one PPO training step of it at ex_terrain.py's
+    settings; ray() against every geom type, a convex mesh and the
+    terrain, card against CPU;
   * the gradient-free and off-policy trainers (section 9): ES, ARS and SAC
     on the pendulum at examples/rl/pendulum/ex_agents.py's settings (cut
     in depth), each with a first update (ES, ARS) or the first SGD steps
@@ -62,8 +69,8 @@ the card, and steps every ported path through the port's entry points:
 
 For each path it checks that every step went through the path's kernels
 and compares 8 envs of the rollout on the card with the same rollout on the
-CPU (plain versions), and the quadruped and humanoid envs' obs, reward and
-done likewise. It
+CPU (plain versions), and the quadruped's (flat and terrain) and the
+humanoid's envs' obs, reward and done likewise. It
 also checks that the clutter scene's broadphase and row-cap selections move
 geom ids above 256 and contact distances bit for bit with TF32 on. It
 imports nothing of JAX. Output: progress lines, a JSON line of per-kernel
@@ -258,6 +265,68 @@ PPO_HUMANOID = dict(
     num_minibatches=16, num_updates_per_batch=4, discounting=0.97, learning_rate=3e-4, entropy_cost=1e-2,
     num_envs=1024, num_eval_envs=64, batch_size=64, seed=0,
 )
+# quadruped_terrain (ambersim_tpu_torch/rl/quadruped/terrain.py) at
+# examples/rl/quadruped/ex_terrain.py:26's config: the quadruped over a
+# 24 x 24 height field generated from terrain_seed 3 (17 height-field
+# pairs, ncon 68, nefc 296), a forward command of 0.4 m/s.
+TERRAIN_CONFIG = dict(terrain_seed=3, target_vel=0.4)
+# The generator flattens the field to ~1-3 mm about the spawn (xy = 0), so
+# the terrain path, its card-vs-CPU rollout and env, and kernel 4's
+# terrain operands start each env at a seeded xy within TERRAIN_SPREAD m of
+# it, over the relief (onto_terrain).
+TERRAIN_SPREAD = 5.0
+# PPO on it at ex_terrain.py:26-44's settings, which are PPO_QUADRUPED's
+# but for the cuts: one training step, episode_length 25 instead of 500
+# and 2 evals of 64 envs instead of 10 of 512, as PPO_QUADRUPED is cut.
+PPO_TERRAIN = dict(PPO_QUADRUPED)
+# ray() card against CPU: tests/test_ray.py:40-62's rig of every geom type
+# (its rangefinders left out: the port computes no sensors yet) with
+# tests/test_ray.py:65-90's convex octahedron mesh beside them (ray_hull),
+# RAY_ENVS envs each at its own pose casting one ray; and the terrain scene,
+# NUM_ENVS quadrupeds spread over the field each casting TERRAIN_RAYS
+# downward rays about its trunk. Distances within RAY_TOL (the JAX
+# package's bar against mj_ray, tests/test_ray.py), the same geom ids.
+RAY_RIG = """
+<mujoco>
+  <option timestep="0.002"/>
+  <asset><mesh name="octa" file="octa.obj"/></asset>
+  <worldbody>
+    <geom name="floor" type="plane" size="3 3 0.1"/>
+    <body pos="0 0 1">
+      <joint name="jy" axis="0 1 0" damping="0.1"/>
+      <geom name="host" type="box" size="0.1 0.1 0.1"/>
+    </body>
+    <body pos="1.2 0 1"><joint axis="0 1 0"/><geom name="ball" type="sphere" size="0.15"/></body>
+    <body pos="0 1.2 1"><joint axis="1 0 0"/><geom name="cap" type="capsule" size="0.08 0.2" euler="90 0 0"/></body>
+    <body pos="-1.2 0 1"><joint axis="0 1 0"/><geom name="cyl" type="cylinder" size="0.12 0.15"/></body>
+    <body pos="0 -1.2 1"><joint axis="1 0 0"/><geom name="ell" type="ellipsoid" size="0.1 0.15 0.2"/></body>
+    <body pos="1.2 1.2 1"><joint axis="0 1 0"/><geom name="bx" type="box" size="0.1 0.12 0.14" euler="10 20 30"/></body>
+    <body pos="-1.2 1.2 1"><joint axis="0 1 0"/><geom name="m" type="mesh" mesh="octa"/></body>
+  </worldbody>
+</mujoco>
+"""
+OCTA_OBJ = """
+v 0.2 0 0
+v -0.2 0 0
+v 0 0.25 0
+v 0 -0.25 0
+v 0 0 0.3
+v 0 0 -0.3
+f 1 3 5
+f 3 2 5
+f 2 4 5
+f 4 1 5
+f 3 1 6
+f 2 3 6
+f 4 2 6
+f 1 4 6
+"""
+RAY_ENVS = 4096
+# after one untimed pass of a case's casts on the card (the one compared),
+# its rays/s are timed over RAY_REPS more
+RAY_REPS = 5
+TERRAIN_RAYS = 9
+RAY_TOL = 1e-4
 # BASELINE.md:13's predictive-sampling workload on the Barrett-class hand
 # (models/hand/hand.xml): 100 samples x 10 knots, Newton with 1 iteration
 # and 4 line-search iterations, the model's dt 0.002 and Euler, contacts
@@ -323,12 +392,13 @@ GRAD_PATHS = {
     "clutter32_rowcap192": ("clutter32_rowcap192", 4, 2, None),
 }
 # APG on the pendulum swingup (examples/rl/pendulum/ex_agents.py:80-87 and
-# its env, 2 physics steps per control step). Cut: 2 policy updates and 2
-# evals instead of 60 and 5 (4 updates until section 9 came). The first
+# its env, 2 physics steps per control step). Cut: 1 policy update and 2
+# evals instead of 60 and 5 (4 updates until section 9 came, 2 until the
+# terrain phases came). The first
 # update's loss and grad norm, card against CPU from the same params and
 # starts, within APG_FIRST_RTOL; that repeated update is cut to
 # APG_FIRST_EPISODE control steps of the 200 (50 until section 9 came).
-APG_PENDULUM = dict(episode_length=200, num_envs=64, policy_updates=2, learning_rate=2e-3, max_gradient_norm=1.0,
+APG_PENDULUM = dict(episode_length=200, num_envs=64, policy_updates=1, learning_rate=2e-3, max_gradient_norm=1.0,
                     num_evals=2, seed=0)
 APG_FIRST_RTOL = 1e-3
 APG_FIRST_EPISODE = 20
@@ -339,18 +409,20 @@ APG_QUADRUPED = dict(episode_length=10, num_envs=4096, num_eval_envs=64, policy_
                      max_gradient_norm=1.0, num_evals=1, seed=0)
 # ES on the pendulum swingup (examples/rl/pendulum/ex_agents.py:60-67 and
 # its env, 2 physics steps per control step): population 256, std 0.08,
-# lr 0.02. Cut: 4 policy updates and 2 evals instead of 120 and 5.
+# lr 0.02. Cut: 2 policy updates and 2 evals instead of 120 and 5 (4
+# updates until the terrain phases came).
 ES_PENDULUM = dict(episode_length=200, population_size=256, perturbation_std=0.08, learning_rate=0.02,
-                   policy_updates=4, num_evals=2, seed=0)
+                   policy_updates=2, num_evals=2, seed=0)
 # ARS on the pendulum (ex_agents.py:69-78): 64 directions, top 16, step
 # 0.015, noise 0.04, normalized obs. Cut as ES_PENDULUM.
 ARS_PENDULUM = dict(episode_length=200, number_of_directions=64, top_directions=16, step_size=0.015,
-                    exploration_noise_std=0.04, normalize_observations=True, policy_updates=4, num_evals=2, seed=0)
+                    exploration_noise_std=0.04, normalize_observations=True, policy_updates=2, num_evals=2, seed=0)
 # SAC on the pendulum (ex_agents.py:45-58): 64 envs, batch 256, replay
 # 2,048-262,144, 4 gradient updates a step, discount 0.97, lr 6e-4, reward
-# scaling 0.1, normalized obs. Cut: num_timesteps 18,432 instead of 120,000
-# (the 32-step prefill, then 256 training steps) and 2 evals instead of 5.
-SAC_PENDULUM = dict(num_timesteps=18_432, num_evals=2, episode_length=200, normalize_observations=True, num_envs=64,
+# scaling 0.1, normalized obs. Cut: num_timesteps 10,240 instead of 120,000
+# (the 32-step prefill, then 128 training steps; 256 until the terrain
+# phases came) and 2 evals instead of 5.
+SAC_PENDULUM = dict(num_timesteps=10_240, num_evals=2, episode_length=200, normalize_observations=True, num_envs=64,
                     batch_size=256, min_replay_size=2_048, max_replay_size=262_144, grad_updates_per_step=4,
                     discounting=0.97, learning_rate=6e-4, reward_scaling=0.1, seed=0)
 # ES on quadruped_locomotion (nv 18, obs 45, 12 actions, 4 physics steps a
@@ -1611,6 +1683,19 @@ def initial_batch(m, batch: int, device):
     return d.replace(qpos=qpos)
 
 
+def terrain_start(m, batch: int, device):
+    """initial_batch moved onto the terrain's relief (onto_terrain)."""
+    d = initial_batch(m, batch, device)
+    return d.replace(qpos=onto_terrain(m, d.qpos))
+
+
+def terrain_reset(env, generator, batch: int):
+    """The terrain env's reset (its draw_start) moved onto the relief
+    (onto_terrain)."""
+    qpos, qvel = env.draw_start(generator, batch)
+    return env.reset_to(onto_terrain(env.model, qpos), qvel)
+
+
 def cartpole_start(m, batch: int, device):
     """qpos0 with qvel[:, 0] = 2 N(0, 1) from numpy.random.default_rng(0), so
     the slider's limit row becomes active."""
@@ -1667,10 +1752,14 @@ CLUTTER_PER_STEP = {"cholesky_block": 1, "cho_solve_block": 1, "solve_pd_block":
 # drop_scene's and the rock's: qM's factor, qacc_smooth's solve and kernel 4
 # (no joint damping, so no Euler solve)
 DROP_PER_STEP = {"cholesky": 1, "cho_solve": 1, "newton_structured": 1}
-# path -> its model (and `opt` overrides), batch, steps, start, controller and
-# the kernels every step launches (at least once each; exactly per_step where
-# given). `floor` paths are held to FLOOR_TOL and keep their final state in
-# SETTLED; `vs_cpu` says how 8 envs are held against the CPU (run_phases):
+# the terrain quadruped's: those and the Euler damping solve
+TERRAIN_PER_STEP = {"cholesky": 1, "cho_solve": 1, "solve_pd": 1, "newton_structured": 1}
+# path -> its model (an asset, or `build`(device); and `opt` overrides),
+# batch, steps, start, controller and the kernels every step launches (at
+# least once each; exactly per_step where given). `floor` paths are held to
+# FLOOR_TOL above the plane, `terrain` paths above the height field's
+# surface (terrain_floor_gap), and both keep their final state in SETTLED;
+# `vs_cpu` says how 8 envs are held against the CPU (run_phases):
 # "start" (default: 20 steps from the path's start at QPOS_TOL / QVEL_TOL),
 # "settled" (20 steps from the final state at those bars), "spread" (5
 # steps from it at 10 x the card's own spread, settled_card_vs_cpu) or
@@ -1704,6 +1793,9 @@ PATHS = {
                                      steps=BF16_STEPS, start=settled_start("clutter32_rowcap192"), ctrl=None,
                                      kernels=_LINALG_BLOCK, per_step=CLUTTER_PER_STEP, floor=True,
                                      vs_cpu="spread"),
+    "quadruped_terrain": dict(build=lambda device: terrain_env(device).model, envs=NUM_ENVS, steps=NUM_STEPS,
+                              start=terrain_start, ctrl=pd_ctrl, kernels=tuple(TERRAIN_PER_STEP),
+                              per_step=TERRAIN_PER_STEP, z=(0.20, 0.32), terrain=True),
 }
 # the clutter paths' final states, for the card-vs-CPU check
 SETTLED: dict = {}
@@ -1734,6 +1826,8 @@ PHASE_SHAPES = {
     "hand_gradient_trajopt": ((1, 8), "hand B=1"),
     # the model-I/O phases (grasp_scene's batch is set by grasp_memory)
     "compile_models": ((NUM_ENVS, 18), "quadruped"), "gripper_urdf": ((GRIPPER_ENVS, 8), "gripper"),
+    # the height field's (kernel 4 at nefc 296, check_newton_ladder)
+    "quadruped_terrain": ((NUM_ENVS, 18), "quadruped_terrain"), "ppo_terrain": ((NUM_ENVS, 18), "quadruped_terrain"),
 }
 # Section 9's phases, timed in section 9 (time_linalg_shapes) so that
 # section 3 does the same work as before it; the evals' launches are
@@ -1782,12 +1876,98 @@ def lowest_geom_point(m, d):
     return torch.stack(low, 1).amin(1)
 
 
+def terrain_env(device):
+    """quadruped_terrain at TERRAIN_CONFIG on `device` (its scene compiled
+    by the port on this machine)."""
+    from ambersim_tpu_torch.rl.quadruped import QuadrupedTerrainConfig, QuadrupedTerrainEnv
+
+    return QuadrupedTerrainEnv(QuadrupedTerrainConfig(**TERRAIN_CONFIG), device=device)
+
+
+def terrain_clearance(m, d, pts):
+    """(B, k) the height of world points `pts` (B, k, 3) above the height
+    field's surface at their own xy, in the field's frame; the surface is
+    the grid's triangle there (cells split along the (j, i) -> (j + 1,
+    i + 1) diagonal, as the narrowphase splits them)."""
+    import numpy as np
+    import torch
+
+    s = m.skel
+    gh = int(np.nonzero(np.asarray(s.geom_hfieldid) >= 0)[0][0])
+    hid = int(s.geom_hfieldid[gh])
+    R, p0 = d.geom_xmat[:, gh], d.geom_xpos[:, gh]
+    local = ((pts - p0[:, None, :])[..., :, None] * R[:, None]).sum(-2)  # R^T (p - p0)
+    size = m.hfield_size[hid]
+    nrow, ncol = int(s.hfield_nrow[hid]), int(s.hfield_ncol[hid])
+    z = m.hfield_data[hid, :nrow, :ncol] * size[2]
+    fx = (local[..., 0] + size[0]) / (2 * size[0] / (ncol - 1))
+    fy = (local[..., 1] + size[1]) / (2 * size[1] / (nrow - 1))
+    i = torch.clamp(torch.floor(fx).long(), 0, ncol - 2)
+    j = torch.clamp(torch.floor(fy).long(), 0, nrow - 2)
+    u, v = fx - i, fy - j
+    z00, z01, z10, z11 = z[j, i], z[j, i + 1], z[j + 1, i], z[j + 1, i + 1]
+    h = torch.where(u >= v, z00 + u * (z01 - z00) + v * (z11 - z01), z00 + v * (z10 - z00) + u * (z11 - z10))
+    return local[..., 2] - h
+
+
+def terrain_floor_gap(m, d):
+    """(B,) the least height above the height field's surface, at its own
+    xy, of every sphere's lowest point (its center less its radius), each
+    capsule endpoint's less its radius and each box corner
+    (terrain_clearance)."""
+    import numpy as np
+    import torch
+
+    from ambersim_tpu_torch.core.types import GeomType
+    from ambersim_tpu_torch.engine.collision import _BOX_CORNERS
+
+    types, dev = np.asarray(m.skel.geom_type), d.qpos.device
+    pts, drop = [], []  # world points (B, k, 3) and how far below each the surface is met (k,)
+    for t in (GeomType.SPHERE, GeomType.CAPSULE, GeomType.BOX):
+        ids = torch.as_tensor(np.nonzero(types == int(t))[0], device=dev)
+        if not len(ids):
+            continue
+        xp, xm, size = d.geom_xpos[:, ids], d.geom_xmat[:, ids], m.geom_size[ids]
+        if t == GeomType.SPHERE:
+            pts.append(xp)
+            drop.append(size[:, 0])
+        elif t == GeomType.CAPSULE:
+            for sign in (1.0, -1.0):
+                pts.append(xp + sign * size[:, 1, None] * xm[..., :, 2])
+                drop.append(size[:, 0])
+        else:
+            corners = torch.as_tensor(_BOX_CORNERS, device=dev) * size[:, None, :]  # (k, 8, 3)
+            pts.append((xp[:, :, None, :] + (xm[:, :, None, :, :] * corners[None, :, :, None, :]).sum(-1)).flatten(1, 2))
+            drop.append(torch.zeros(corners.shape[0] * 8, device=dev))
+    return (terrain_clearance(m, d, torch.cat(pts, 1)) - torch.cat(drop)).amin(1)
+
+
+def onto_terrain(m, qpos):
+    """`qpos` (B, nq) moved to seeded xy over the field's relief, within
+    TERRAIN_SPREAD m of the spawn (numpy.random.default_rng(15); env b's xy
+    the same at every batch), and raised or lowered so that its lowest
+    sphere, capsule or box point keeps the height above the terrain's
+    surface it had at its own xy."""
+    import numpy as np
+    import torch
+
+    from ambersim_tpu_torch.engine import make_data, smooth
+
+    B = qpos.shape[0]
+    xy = np.random.default_rng(15).uniform(-TERRAIN_SPREAD, TERRAIN_SPREAD, (NUM_ENVS, 2)).astype(np.float32)[:B]
+    moved = qpos.clone()
+    moved[:, :2] += torch.as_tensor(xy, device=qpos.device)
+    gap = [terrain_floor_gap(m, smooth.kinematics(m, make_data(m, B).replace(qpos=q))) for q in (qpos, moved)]
+    moved[:, 2] += gap[0] - gap[1]
+    return moved
+
+
 def path_model(name: str, device):
     """The model of path `name` on `device`, with the path's option overrides."""
     from ambersim_tpu_torch import load_model
 
     p = PATHS[name]
-    m = load_model(p["model"], device=device)
+    m = p["build"](device) if "build" in p else load_model(p["model"], device=device)
     return m.replace(opt=m.opt.replace(**p["opt"])) if p.get("opt") else m
 
 
@@ -1835,10 +2015,14 @@ def drive_path(name: str, device, card: str) -> dict:
         if not torch.isfinite(getattr(d, field)).all():
             fail(f"{name} path: non-finite {field}")
     if "z" in p:
+        # the trunk's height above the floor, or above the terrain's surface under it
         z, (lo, hi) = d.qpos[:, 2], p["z"]
+        if p.get("terrain"):
+            z = terrain_clearance(m, d, d.qpos[:, None, :3])[:, 0]
+        what = "trunk height above the terrain's surface" if p.get("terrain") else "trunk z"
         if not bool(((z >= lo) & (z <= hi)).all()):
-            fail(f"{name} path: trunk z outside [{lo}, {hi}]: min {z.min().item():.4f} max {z.max().item():.4f}")
-        print(f"{name} path: trunk z in [{z.min().item():.4f}, {z.max().item():.4f}]")
+            fail(f"{name} path: {what} outside [{lo}, {hi}]: min {z.min().item():.4f} max {z.max().item():.4f}")
+        print(f"{name} path: {what} in [{z.min().item():.4f}, {z.max().item():.4f}]")
     exactly = {k: n * p["steps"] for k, n in p["per_step"].items()} if "per_step" in p else None
     _check_launches(f"{name} path", launches, p["kernels"], p["steps"], exactly)
     if p.get("opt"):
@@ -1853,6 +2037,15 @@ def drive_path(name: str, device, card: str) -> dict:
               f"peak device memory over the timed steps {peak_gib:.2f} GiB, {peak_gib - held_gib:.2f} GiB above what "
               f"was held before them")
         SETTLED[name] = d
+    if p.get("terrain"):
+        gap = terrain_floor_gap(m, d)
+        if not bool((gap >= -FLOOR_TOL).all()):
+            fail(f"{name} path: a sphere, capsule or box point {-gap.min().item():.4f} m below the terrain's surface")
+        print(f"{name} path: lowest sphere, capsule or box point above the terrain's surface {gap.min().item():.5f} m "
+              f"(>= -{FLOOR_TOL}); active contacts per env {d.efc_active.sum(1).float().mean().item() / 4:.1f}; "
+              f"peak device memory over the timed steps {peak_gib:.2f} GiB, {peak_gib - held_gib:.2f} GiB above "
+              f"what was held before them")
+        SETTLED[name] = d
     rate = p["envs"] * p["steps"] / seconds
     print(
         f"{name} path: {p['envs']} envs x {p['steps']} steps in {seconds:.3f} s = {rate:.1f} env-steps/s, "
@@ -1866,13 +2059,12 @@ def drive_path(name: str, device, card: str) -> dict:
 def card_vs_cpu(name: str, device, qpos_tol: float, qvel_tol: float, opt=None) -> None:
     """8 envs x 20 steps of a path on the card (kernels) and on the CPU
     (plain versions); `opt` overrides solver options on both."""
-    from ambersim_tpu_torch import load_model
     from ambersim_tpu_torch.engine import rollout
 
     p = PATHS[name]
     runs = []
     for dev in (device, "cpu"):
-        m = load_model(p["model"], device=dev)
+        m = path_model(name, dev)
         if opt:
             m = m.replace(opt=m.opt.replace(**opt))
         runs.append(rollout(m, p["start"](m, 8, dev), 20, ctrl_fn=p["ctrl"]))
@@ -2348,10 +2540,11 @@ def mesh_mesh_memory(device) -> None:
 def check_newton_ladder(device, results) -> None:
     """Kernel 4 on the operands of the ladder paths this run added: the
     drop_scene and rock paths' final states (SETTLED, 2048 envs) and the
-    humanoid sampler's 64 samples after 4 of their knots, and on those of
-    the model-I/O paths: the gripper's and the grasp scene's final states
-    (SETTLED, 1024 envs), each with a warmstart of qacc_smooth + 0.1
-    N(0, 1). Against its plain version at the NEWTON_* bars where plain
+    humanoid sampler's 64 samples after 4 of their knots, on those of the
+    model-I/O paths: the gripper's and the grasp scene's final states
+    (SETTLED, 1024 envs), and on the terrain quadruped's final state
+    (SETTLED, 4096 envs, nefc 296), each with a warmstart of qacc_smooth +
+    0.1 N(0, 1). Against its plain version at the NEWTON_* bars where plain
     float32 meets float64 there on at least NEWTON_MIN_SHARE of the envs,
     else against float64 (vs_float64, as the hand with contacts) by the
     case's comparator; the shares are printed. The ladder's comparator is
@@ -2361,14 +2554,15 @@ def check_newton_ladder(device, results) -> None:
     u beyond any solver's order, and plain float32 meets float64 on the
     gripper's qacc at the NEWTON_* bars on only 16-29% of the envs; its
     forces agree at those bars. Then kernel 4's time at each shape
-    (SHAPE_TIMES)."""
+    (SHAPE_TIMES) beside its resident envs per SM, and on the terrain's
+    beside its plain version's."""
     import torch
 
     from ambersim_tpu_torch import load_model
     from ambersim_tpu_torch.engine import forward, make_data, step
     from ambersim_tpu_torch.engine.constraint import _pyramid_structure
     from ambersim_tpu_torch.engine.solver import _newton_arrays
-    from ambersim_tpu_torch.ops.newton import newton_solve_structured
+    from ambersim_tpu_torch.ops.newton import newton_solve_structured, structured_occupancy
 
     def humanoid_state():
         sampler, params = humanoid_sampler(device)
@@ -2388,7 +2582,9 @@ def check_newton_ladder(device, results) -> None:
              ("rock", lambda: (load_model("rock", device=device), SETTLED["rock"]), 12, False),
              ("humanoid sampling", humanoid_state, 12, False),
              ("gripper", lambda: (gripper_model(device), SETTLED["gripper_urdf"]), 23, True),
-             ("grasp scene", lambda: (grasp_model(device), SETTLED["grasp_scene"]), 23, True))
+             ("grasp scene", lambda: (grasp_model(device), SETTLED["grasp_scene"]), 23, True),
+             ("quadruped_terrain", lambda: (path_model("quadruped_terrain", device), SETTLED["quadruped_terrain"]), 12,
+              False))
     for case, state, seed, conditioned in cases:
         m, d = state()
         s = m.skel
@@ -2422,7 +2618,9 @@ def check_newton_ladder(device, results) -> None:
         SHAPE_TIMES[("newton_structured", case)] = (cuda_ms(kern), newton_bound(
             operands, s.nefc, s.nv, pa["act"], kw["iterations"], kw["ls_iterations"])["bound_ms"])
         ms, bound_ms = SHAPE_TIMES[("newton_structured", case)]
-        print(f"kernel newton_structured: {case} B={pa['J'].shape[0]} {ms:.4f} ms, bound {bound_ms:.4f} ms", flush=True)
+        plain = f", plain {cuda_ms(ref):.4f} ms" if case == "quadruped_terrain" else ""
+        print(f"kernel newton_structured: {case} B={pa['J'].shape[0]} {ms:.4f} ms{plain}, bound {bound_ms:.4f} ms; "
+              f"{structured_occupancy(s.nv, s.nefc, st)} envs resident per SM", flush=True)
     results["newton_structured"]["max_abs_err"] = err
 
 
@@ -2460,11 +2658,12 @@ def _recording_networks(initial: dict):
     return factory
 
 
-def ppo_training_step(name: str, env_name: str, c: dict, device, card: str) -> dict:
-    """One PPO training step of `env_name`'s policy at the settings `c`, with
-    the launch counts set to 0 just before and read just after. Checks the
-    launches, finite losses and eval rewards, moved params and the
-    normalizer's count. Returns the launch counts."""
+def ppo_training_step(name: str, env_name: str, c: dict, device, card: str, env_kwargs: dict | None = None) -> dict:
+    """One PPO training step of `env_name`'s policy (built with
+    `env_kwargs`) at the settings `c`, with the launch counts set to 0 just
+    before and read just after. Checks the launches, finite losses and eval
+    rewards, moved params and the normalizer's count. Returns the launch
+    counts."""
     import math
     import tempfile
 
@@ -2475,7 +2674,8 @@ def ppo_training_step(name: str, env_name: str, c: dict, device, card: str) -> d
     from ambersim_tpu_torch.rl import get_environment
     from ambersim_tpu_torch.rl.ppo import train
 
-    physics = get_environment(env_name).config.physics_steps_per_control_step
+    env = get_environment(env_name, device=device, **(env_kwargs or {}))
+    physics = env.config.physics_steps_per_control_step
     num_unrolls = c["batch_size"] * c["num_minibatches"] // c["num_envs"]
     train_steps = num_unrolls * c["unroll_length"] * physics
     eval_steps = c["num_evals"] * c["episode_length"] * physics
@@ -2486,7 +2686,7 @@ def ppo_training_step(name: str, env_name: str, c: dict, device, card: str) -> d
         reset_launch_counts()
         t0 = time.perf_counter()
         _, (normalizer, _), metrics = train(
-            get_environment(env_name), device=device, network_factory=_recording_networks(initial),
+            env, device=device, network_factory=_recording_networks(initial),
             progress_fn=lambda step, m: marks.append((time.perf_counter(), step, m)), checkpoint_path=str(ckpt), **c,
         )
         torch.cuda.synchronize()
@@ -3420,12 +3620,12 @@ def gradient_free_and_off_policy(device, card: str, lap) -> dict:
     return phases
 
 
-def env_card_vs_cpu(device, name: str, env_cls, control_steps: int, obs_bars) -> None:
+def env_card_vs_cpu(device, name: str, env_cls, control_steps: int, obs_bars, reset=None) -> None:
     """An env, 8 envs x `control_steps` control steps with the same actions
-    on the card (kernels) and on the CPU (plain versions): obs within the
-    card-vs-CPU bars by column (obs_bars: qpos-derived columns at QPOS_TOL,
-    qvel-derived ones at QVEL_TOL, the last action exact), reward within
-    QVEL_TOL, done equal."""
+    on the card (kernels) and on the CPU (plain versions), from the env's
+    reset or `reset`(env, generator, 8): obs within the card-vs-CPU bars by
+    column (obs_bars: qpos-derived columns at QPOS_TOL, qvel-derived ones at
+    QVEL_TOL, the last action exact), reward within QVEL_TOL, done equal."""
     import numpy as np
     import torch
 
@@ -3433,7 +3633,8 @@ def env_card_vs_cpu(device, name: str, env_cls, control_steps: int, obs_bars) ->
     for dev in (device, "cpu"):
         env = env_cls(device=dev)
         actions = np.random.default_rng(0).uniform(-1.0, 1.0, (control_steps, 8, env.action_size)).astype(np.float32)
-        s = env.reset(torch.Generator().manual_seed(0), 8)  # a CPU generator: the same starts on both
+        generator = torch.Generator().manual_seed(0)  # a CPU generator: the same starts on both
+        s = reset(env, generator, 8) if reset else env.reset(generator, 8)
         out = []
         for a in actions:
             s = env.step(s, torch.as_tensor(a, device=dev))
@@ -3455,6 +3656,87 @@ def env_card_vs_cpu(device, name: str, env_cls, control_steps: int, obs_bars) ->
             fail(f"env_card_vs_cpu {name}: done at control step {t} differs")
     print(f"env_card_vs_cpu: {name} env 8 envs x {control_steps} control steps: max |dobs| {worst['obs']:.3e}, "
           f"max |dreward| {worst['reward']:.3e}, done equal", flush=True)
+
+
+def ray_card_vs_cpu(device, card: str) -> None:
+    """engine.ray.ray on the card against the CPU: RAY_RIG (every geom type
+    and a convex mesh; compiled by the port) at RAY_ENVS seeded poses of its
+    hinges, one ray an env (half aimed at a geom, half in any direction),
+    and the terrain scene at NUM_ENVS quadrupeds spread over the field,
+    TERRAIN_RAYS downward rays an env from 1 m about its trunk. Distances
+    within RAY_TOL where both hit, the same geom ids, misses (-1, -1) on
+    both; every geom of the rig hit, and every terrain ray. Prints rays/s
+    on the card over RAY_REPS passes after the compared one."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ambersim_tpu_torch.engine import make_data, smooth
+    from ambersim_tpu_torch.engine.ray import ray
+    from ambersim_tpu_torch.engine.setconst import set_constants
+    from ambersim_tpu_torch.io.bridge import model_from_numpy
+    from ambersim_tpu_torch.mjcf import compile_spec_arrays, parse_mjcf_string
+
+    def unit(v):
+        return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        (Path(tmp) / "octa.obj").write_text(OCTA_OBJ)
+        skel, leaves = compile_spec_arrays(parse_mjcf_string(RAY_RIG, base_dir=tmp))
+    leaves = set_constants(skel, leaves)
+    rng = np.random.default_rng(7)
+    B = RAY_ENVS
+    rig_qpos = rng.uniform(-1.2, 1.2, (B, skel["nq"]))
+    pnt = np.concatenate([rng.uniform(-2, 2, (B, 2)), rng.uniform(0.2, 2, (B, 1))], -1)
+    targets = np.array([[0, 0, 1], [1.2, 0, 1], [0, 1.2, 1], [-1.2, 0, 1], [0, -1.2, 1], [1.2, 1.2, 1], [-1.2, 1.2, 1],
+                        [0, 0, 0]])
+    vec = unit(targets[rng.integers(0, len(targets), B)] + 0.1 * rng.standard_normal((B, 3)) - pnt)
+    vec[B // 2:] = unit(rng.standard_normal((B - B // 2, 3)))
+    cases = [("rig", lambda dev: model_from_numpy(skel, leaves, device=dev), rig_qpos, [(pnt, vec)])]
+    m = terrain_env("cpu").model
+    tq = np.tile(m.qpos0.numpy(), (NUM_ENVS, 1))
+    tq[:, :2] += np.random.default_rng(14).uniform(-5.0, 5.0, (NUM_ENVS, 2))
+    offsets = np.stack(np.meshgrid(np.linspace(-0.3, 0.3, 3), np.linspace(-0.3, 0.3, 3)), -1).reshape(-1, 2)
+    down = np.tile([0.0, 0.0, -1.0], (NUM_ENVS, 1))
+    rays = [(np.concatenate([tq[:, :2] + o, np.ones((NUM_ENVS, 1))], -1), down) for o in offsets[:TERRAIN_RAYS]]
+    cases.append(("terrain", lambda dev: terrain_env(dev).model, tq, rays))
+    for what, build, qpos, casts in cases:
+        out, seconds = {}, 0.0
+        for on_card, dev in ((True, device), (False, "cpu")):
+            m = build(dev)
+            d = smooth.kinematics(m, make_data(m, len(qpos)).replace(
+                qpos=torch.as_tensor(qpos, dtype=torch.float32, device=dev)))
+            on_dev = [tuple(torch.as_tensor(x, dtype=torch.float32, device=dev) for x in c) for c in casts]
+            out[on_card] = [tuple(x.cpu() for x in ray(m, d, p, v)) for p, v in on_dev]
+            if on_card:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(RAY_REPS):
+                    for p, v in on_dev:
+                        ray(m, d, p, v)
+                torch.cuda.synchronize()
+                seconds = (time.perf_counter() - t0) / RAY_REPS
+        n, worst, hit = 0, 0.0, set()
+        for (tg, gg), (tc, gc) in zip(out[True], out[False]):
+            if not torch.equal(gg, gc):
+                fail(f"ray {what}: the card and the CPU hit other geoms on {(gg != gc).sum().item()} rays")
+            both = gc >= 0
+            if not (bool((tg[~both] == -1).all()) and bool((tc[~both] == -1).all())):
+                fail(f"ray {what}: a miss is not (-1, -1)")
+            worst = max(worst, (tg[both] - tc[both]).abs().max().item() if both.any() else 0.0)
+            n += int(both.sum())
+            hit |= set(gc[both].tolist())
+        if not worst <= RAY_TOL:
+            fail(f"ray {what}: distances differ by {worst:.3e} > {RAY_TOL}")
+        rays = len(casts) * len(qpos)
+        if what == "rig" and hit != set(range(skel["ngeom"])):
+            fail(f"ray rig: geoms {sorted(set(range(skel['ngeom'])) - hit)} never hit")
+        if what == "terrain" and n != rays:
+            fail(f"ray terrain: {rays - n} of {rays} downward rays missed")
+        print(f"ray {what}: {len(casts)} x {len(qpos)} rays, {n} hits on geoms {sorted(hit)}; card vs CPU max "
+              f"|ddist| {worst:.3e} (<= {RAY_TOL}), geom ids equal; {rays / seconds:.1f} rays/s on the card "
+              f"({1e3 * seconds / len(casts):.3f} ms a call of {len(qpos)} rays, {RAY_REPS} passes) [{card}]", flush=True)
 
 
 def compile_asset(name: str, device):
@@ -3944,11 +4226,12 @@ def weighted_launch_time(phase_launches: dict) -> None:
 
 
 def run_phases(device, card: str, results: dict) -> None:
-    """Phases 3-9: every kernel against its plain version, every path, model
-    I/O (the port's compiler, a URDF, the mesh grasp), trajectory
-    optimization, PPO, gradients through the kernels (the
-    Functions, APG, gradient shooting and iLQR), the card against the
-    CPU, and ES, ARS and SAC; adds each path's launches to results. Prints
+    """Phases 3-9: every kernel against its plain version, every path (the
+    terrain's among them), model I/O (the port's compiler, a URDF, the mesh
+    grasp), trajectory optimization, PPO, gradients through the kernels
+    (the Functions, APG, gradient shooting and iLQR), the card against the
+    CPU (rollouts, envs and ray), and ES, ARS and SAC; adds each path's
+    launches to results. Prints
     each section's wall seconds (how the run's time spreads over its
     sections, host by host) and each phase's within sections 4-9."""
     import torch
@@ -4036,6 +4319,11 @@ def run_phases(device, card: str, results: dict) -> None:
     phase_launches["ppo_pendulum"] = ppo_pendulum_learns(device, card)
     phase("ppo_pendulum")
     phase_launches["ppo_humanoid"] = ppo_training_step("ppo_humanoid", "humanoid_balance", PPO_HUMANOID, device, card)
+    phase("ppo_humanoid")
+    from ambersim_tpu_torch.rl.quadruped import QuadrupedTerrainConfig
+
+    phase_launches["ppo_terrain"] = ppo_training_step("ppo_terrain", "quadruped_terrain", PPO_TERRAIN, device, card,
+                                                      dict(config=QuadrupedTerrainConfig(**TERRAIN_CONFIG)))
     section("6 (PPO)")
 
     # ---- 7. gradients through the kernels' Functions, and their users ----
@@ -4067,13 +4355,17 @@ def run_phases(device, card: str, results: dict) -> None:
     from ambersim_tpu_torch.rl.quadruped import QuadrupedLocomotionEnv
 
     # obs columns: gravity, lin_vel, ang_vel, joint pos, 0.1 joint vel, last action
-    env_card_vs_cpu(device, "quadruped", QuadrupedLocomotionEnv, 10, (
-        (slice(0, 3), QPOS_TOL), (slice(3, 9), QVEL_TOL), (slice(9, 21), QPOS_TOL), (slice(21, 33), 0.1 * QVEL_TOL),
-        (slice(33, 45), 0.0)))
+    quad_bars = ((slice(0, 3), QPOS_TOL), (slice(3, 9), QVEL_TOL), (slice(9, 21), QPOS_TOL),
+                 (slice(21, 33), 0.1 * QVEL_TOL), (slice(33, 45), 0.0))
+    env_card_vs_cpu(device, "quadruped", QuadrupedLocomotionEnv, 10, quad_bars)
+    env_card_vs_cpu(device, "quadruped_terrain", terrain_env, 10, quad_bars, reset=terrain_reset)
     # the humanoid's (nq 26, nv 25, nu 19): gravity, lin_vel, ang_vel, height, joint pos, 0.1 joint vel, last action
     env_card_vs_cpu(device, "humanoid_balance", HumanoidBalanceEnv, 5, (
         (slice(0, 3), QPOS_TOL), (slice(3, 9), QVEL_TOL), (slice(9, 29), QPOS_TOL), (slice(29, 48), 0.1 * QVEL_TOL),
         (slice(48, 67), 0.0)))
+    phase("env card vs CPU")
+    ray_card_vs_cpu(device, card)
+    phase("ray card vs CPU")
     section("8 (card against CPU)")
 
     # ---- 9. ES, ARS and SAC, each with its own launch counts ----

@@ -54,8 +54,8 @@ ELLIPTIC_MIXED_XML = """
 """
 
 
-# a ball over a height field (tests/test_hfield.py's scene): the
-# height-field pairs wait for the port's compiler (ROADMAP.md)
+# a ball over a height field (tests/test_hfield.py's scene), in the slice
+# since the height-field narrowphase
 HFIELD_SPHERE_XML = """
 <mujoco><option timestep="0.002"/>
   <asset><hfield name="terrain" nrow="9" ncol="9" size="1 1 0.3 0.1"/></asset>
@@ -240,8 +240,9 @@ def test_pyramid_structure_matches_jax(scene, quadruped):
 def test_port_never_imports_jax(tmp_path):
     """The port and chip_smoke import nothing of JAX: in a subprocess where
     importing jax, flax, optax or ambersim_tpu fails, they import (the five
-    trainers among them), step the exported models, and compile and step
-    grasp_scene.xml and the gripper URDF with the port's own compiler."""
+    trainers among them), step the exported models, compile and step
+    grasp_scene.xml, the gripper URDF and the terrain quadruped with the
+    port's own compiler, and cast rays over the terrain."""
     from test_model_io import GRIPPER_URDF
 
     urdf = tmp_path / "gripper.urdf"
@@ -272,6 +273,10 @@ def test_port_never_imports_jax(tmp_path):
         "m = load_model_from_file('models/hand/grasp_scene.xml', device='cpu'); step(m, make_data(m, 2))\n"
         f"m = load_model_from_file({str(urdf)!r}, force_float=True, device='cpu'); step(m, make_data(m, 2))\n"
         "assert m.skel.neq == 1\n"
+        "from ambersim_tpu_torch.engine.ray import ray\n"
+        "from ambersim_tpu_torch.rl import get_environment\n"
+        "m = get_environment('quadruped_terrain', device='cpu').model; d = step(m, make_data(m, 2))\n"
+        "assert (ray(m, d, d.qpos[:, :3], torch.tensor([0.0, 0.0, -1.0]))[1] >= 0).all()\n"
         "bad = [n for n, mod in sys.modules.items()\n"
         "       if mod is not None and n.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'ambersim_tpu')]\n"
         "assert not bad, bad\n"
@@ -320,11 +325,10 @@ def test_stacked_mlp_params_carry_across():
         (TENDON_SENSOR_XML, ["tendons", "sensors"]),
         (CONDIM46_XML, ["contact condim 4/6"]),
         (ELLIPTIC_MIXED_XML, ["elliptic cones with mixed contact condims"]),
-        (HFIELD_SPHERE_XML, ["hfield-sphere contact pairs"]),
         (EXPLICIT_PAIR_XML, ["explicit <pair> contact overrides"]),
         (RK4_XML, ["the RK4 integrator"]),
     ],
-    ids=["hand_weld", "tendon_sensor", "condim46", "elliptic_mixed", "hfield_sphere", "explicit_pair", "rk4"],
+    ids=["hand_weld", "tendon_sensor", "condim46", "elliptic_mixed", "explicit_pair", "rk4"],
 )
 def test_models_outside_the_slice_are_refused(source, features):
     from ambersim_tpu_torch.io.bridge import model_from_numpy
@@ -334,6 +338,31 @@ def test_models_outside_the_slice_are_refused(source, features):
         model_from_numpy(*model_arrays(jm), device="cpu")
     for feature in features:
         assert feature in str(err.value)
+
+
+@pytest.mark.parametrize("other", ["sphere", "capsule", "box"])
+def test_hfield_pairs_are_accepted(other):
+    """A height field against a sphere, a capsule or a box is in the slice
+    (engine/collision.py's height-field narrowphase): the bridge carries
+    the field's size and grid and the Skeleton's hfield fields; an explicit
+    <pair> on such a model is still refused by name."""
+    from ambersim_tpu_torch.io.bridge import model_from_numpy
+
+    size = {"sphere": "0.08", "capsule": "0.05 0.15", "box": "0.1 0.08 0.05"}[other]
+    xml = HFIELD_SPHERE_XML.replace('type="sphere" size="0.08"', f'type="{other}" size="{size}"')
+    jm = tp.jax_model_from_xml(xml)
+    data = np.linspace(0.0, 1.0, 81, dtype=np.float32).reshape(1, 9, 9)
+    jm = jm.replace(hfield_data=data)
+    m = model_from_numpy(*model_arrays(jm), device="cpu")
+    np.testing.assert_array_equal(m.hfield_data.numpy(), data)
+    np.testing.assert_array_equal(m.hfield_size.numpy(), np.asarray(jm.hfield_size))
+    s = m.skel
+    for k in ("geom_hfieldid", "hfield_nrow", "hfield_ncol", "pair_hfk"):
+        np.testing.assert_array_equal(getattr(s, k), getattr(jm.skel, k), err_msg=k)
+    assert s.pair_hfk.tolist() == [int(jm.skel.pair_hfk[0])] and s.pair_hfk[0] >= 2
+    explicit = xml.replace("</mujoco>", '<contact><pair geom1="hf" geom2="s"/></contact></mujoco>')
+    with pytest.raises(NotImplementedError, match="explicit <pair> contact overrides"):
+        model_from_numpy(*model_arrays(tp.jax_model_from_xml(explicit)), device="cpu")
 
 
 def test_hessian_bf16_is_accepted_past_the_newton_kernels(tmp_path):

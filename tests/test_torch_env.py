@@ -1,7 +1,8 @@
 """The PyTorch port's env layer against the JAX package's (CPU): the pendulum
 task from the JAX env's own reset state, the training wrappers, the
-registry, and the refusals of what is not ported. The quadruped task is in
-test_torch_env_quadruped.py.
+registry (quadruped_terrain built on the CPU), and the refusals of what is
+not ported. The quadruped task is in test_torch_env_quadruped.py, its
+terrain variant in test_torch_terrain.py.
 """
 
 import numpy as np
@@ -150,16 +151,24 @@ def test_registry():
         get_environment("nope")
 
 
-@pytest.mark.parametrize(
-    "what, match",
-    [("quadruped_terrain", "height-field"), ("randomization_fn", "domain randomization"), ("mesh", "multi-GPU")],
-)
+@pytest.mark.parametrize("what, match", [("randomization_fn", "domain randomization"), ("mesh", "multi-GPU")])
 def test_unported_parts_are_refused(what, match):
     from ambersim_tpu_torch.rl import get_environment
     from ambersim_tpu_torch.rl.ppo import train
 
     with pytest.raises(NotImplementedError, match=match):
-        if what == "quadruped_terrain":
-            get_environment(what, device="cpu")
-        else:
-            train(get_environment("pendulum_swingup", device="cpu"), num_timesteps=1, device="cpu", **{what: object()})
+        train(get_environment("pendulum_swingup", device="cpu"), num_timesteps=1, device="cpu", **{what: object()})
+
+
+def test_quadruped_terrain_builds_on_the_cpu():
+    """The registry builds quadruped_terrain (the scene compiled by the
+    port, its field generated from the seed) and it steps on the CPU."""
+    from ambersim_tpu_torch.rl import get_environment
+    from ambersim_tpu_torch.rl.quadruped import QuadrupedTerrainConfig, QuadrupedTerrainEnv
+
+    env = get_environment("quadruped_terrain", config=QuadrupedTerrainConfig(terrain_seed=3), device="cpu")
+    assert isinstance(env, QuadrupedTerrainEnv) and env.device == torch.device("cpu")
+    assert (env.observation_size, env.action_size) == (45, 12)
+    assert env.config.min_height == 0.10 and float(env.dt) == pytest.approx(0.016)
+    s = env.step(env.reset(torch.Generator().manual_seed(0), 4), torch.zeros(4, 12))
+    assert torch.isfinite(s.obs).all() and s.pipeline_state.efc_active.any(1).all()
