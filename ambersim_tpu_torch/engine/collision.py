@@ -578,7 +578,7 @@ def collision(m: Model, d: Data) -> Data:
     ncand = s.ncand
     dist_all = d.qpos.new_full((B, ncand), _BIG)
     pos_all = d.qpos.new_zeros((B, ncand, 3))
-    frame_all = torch.eye(3, device=dev).expand(B, ncand, 3, 3).clone()
+    frame_all = torch.eye(3, dtype=d.qpos.dtype, device=dev).expand(B, ncand, 3, 3).clone()
     fric_all = d.qpos.new_zeros((B, ncand, 5))
     solref_all = d.qpos.new_zeros((B, ncand, 2))
     solimp_all = d.qpos.new_zeros((B, ncand, 5))
@@ -637,3 +637,53 @@ def collision(m: Model, d: Data) -> Data:
         fields = [torch.take_along_dim(x, sel[(...,) + (None,) * (x.dim() - 2)], dim=1) for x in fields]
     names = ("dist", "pos", "frame", "friction", "solref", "solimp", "includemargin", "gap", "geom1", "geom2")
     return d.replace(contact=Contact(**dict(zip(names, fields))))
+
+
+def geom_pair_distance(m: Model, d: Data, g1, g2):
+    """Signed surface distance and closest points of static geom pairs, for
+    every env (port of the JAX package's `geom_pair_distance`, batched).
+
+    `g1`, `g2`: geom ids, two ints or two equal-length int arrays. Returns
+    (dist, p1, p2), p1 on geom1's surface and p2 on geom2's: (B,), (B, 3),
+    (B, 3) for ints, (B, P), (B, P, 3), (B, P, 3) for arrays. Pairs of one
+    type pair share one batched narrowphase (the deepest of its contact
+    points, ties to the first); a type pair outside the narrowphases (a
+    height field, plane-plane) raises by name. Backs the <distance>,
+    <normal> and <fromto> sensors (engine/sensor.py)."""
+    s = m.skel
+    dev = d.qpos.device
+    scalar = np.ndim(g1) == 0
+    g1 = np.atleast_1d(np.asarray(g1, np.int64))
+    g2 = np.atleast_1d(np.asarray(g2, np.int64))
+    types = np.asarray(s.geom_type)
+    swap = types[g1] > types[g2]
+    ga, gb = np.where(swap, g2, g1), np.where(swap, g1, g2)
+    keys = list(zip(types[ga].tolist(), types[gb].tolist()))
+    order, parts = [], []
+    for key in dict.fromkeys(keys):
+        fn = _NARROWPHASE.get(key, (None, 0))[0]
+        if fn is None:
+            raise NotImplementedError(
+                f"distance sensor between geom types {GeomType(key[0]).name} and {GeomType(key[1]).name} "
+                "is not supported")
+        idx = np.array([i for i, k in enumerate(keys) if k == key])
+        a, b = device_index(ga[idx], dev), device_index(gb[idx], dev)
+        args = [d.geom_xpos[:, a], d.geom_xmat[:, a], m.geom_size[a], d.geom_xpos[:, b], d.geom_xmat[:, b],
+                m.geom_size[b]]
+        args += [_mesh_tuple(m, g) for t, g in zip(key, (a, b)) if t == int(GeomType.MESH)]
+        dist, pos, frame = fn(*args)  # (B, P, k), (B, P, k, 3), (B, P, k, 3, 3)
+        i = dist.argmin(-1)[..., None]
+        di = torch.take_along_dim(dist, i, dim=-1)[..., 0]
+        n = torch.take_along_dim(frame[..., 0, :], i[..., None], dim=-2)[..., 0, :]  # the normal, geom1 to geom2
+        p = torch.take_along_dim(pos, i[..., None], dim=-2)[..., 0, :]
+        half = n * (di * 0.5)[..., None]
+        p1, p2 = p - half, p + half
+        sw = device_index(swap[idx], dev)[:, None]
+        parts.append((di, torch.where(sw, p2, p1), torch.where(sw, p1, p2)))
+        order.append(idx)
+    if len(parts) == 1:
+        di, p1, p2 = parts[0]
+    else:
+        inv = device_index(np.argsort(np.concatenate(order)), dev)
+        di, p1, p2 = (torch.cat(x, 1)[:, inv] for x in zip(*parts))
+    return (di[:, 0], p1[:, 0], p2[:, 0]) if scalar else (di, p1, p2)

@@ -329,7 +329,7 @@ def make_constraint(m: Model, d: Data) -> Data:
         dist_lo, dist_hi = q - m.jnt_range[jt, 0], m.jnt_range[jt, 1] - q
         lower = dist_lo < dist_hi
         dist = torch.where(lower, dist_lo, dist_hi)
-        sign = torch.where(lower, 1.0, -1.0)
+        sign = torch.where(lower, 1.0, -1.0).to(q.dtype)
         margin = m.jnt_margin[jt]
         pos = dist - margin
         k, b, imp = _kbi(m, m.jnt_solref[jt], m.jnt_solimp[jt], pos)

@@ -1,6 +1,5 @@
 """Forward dynamics and step (port of ambersim_tpu/engine/forward.py without
-the ENERGY, FWDINV, noslip and sensor branches, which `check_slice`
-refuses)."""
+the FWDINV and noslip branches, which `check_slice` refuses)."""
 
 from __future__ import annotations
 
@@ -8,8 +7,8 @@ import contextlib
 
 import torch
 
-from ambersim_tpu_torch.core.types import Data, DisableBit, Model
-from ambersim_tpu_torch.engine import collision, constraint, integrate, smooth, solver
+from ambersim_tpu_torch.core.types import Data, DisableBit, EnableBit, Model
+from ambersim_tpu_torch.engine import collision, constraint, integrate, sensor, smooth, solver
 from ambersim_tpu_torch.io.bridge import check_slice
 
 
@@ -40,14 +39,23 @@ def fwd_position(m: Model, d: Data) -> Data:
 def forward(m: Model, d: Data) -> Data:
     """Full forward dynamics: populate qacc without integrating."""
     check_slice(m)
+    energy = m.opt.enableflags & EnableBit.ENERGY
     d = fwd_position(m, d)
+    if energy:  # mj_energyPos at the end of the position stage
+        e_pos = smooth.energy_pos(m, d)
     d = smooth.fwd_velocity(m, d)
+    if energy:  # mj_energyVel at the end of the velocity stage
+        d = d.replace(energy=torch.stack([e_pos, smooth.energy_vel(m, d)], -1))
     d = smooth.fwd_actuation(m, d)
     d = smooth.fwd_acceleration(m, d)
     if m.opt.disableflags & DisableBit.CONSTRAINT or m.skel.nefc == 0:
         # the integrator reads qacc; no constraint force this step
-        return d.replace(qacc=d.qacc_smooth, qfrc_constraint=torch.zeros_like(d.qfrc_constraint))
-    return solver.solve(m, d)
+        d = d.replace(qacc=d.qacc_smooth, qfrc_constraint=torch.zeros_like(d.qfrc_constraint))
+    else:
+        d = solver.solve(m, d)
+    if m.skel.nsensor and not (m.opt.disableflags & DisableBit.SENSOR):
+        d = sensor.sensors(m, d)
+    return d
 
 
 def step(m: Model, d: Data) -> Data:

@@ -17,9 +17,11 @@ def _pyr_sizes(s) -> tuple[int, int]:
     return (st.ncon3, st.ndiag) if st is not None else (0, 0)
 
 
-def make_data(m: Model, batch_size: int) -> Data:
-    """Allocate `batch_size` fresh envs at qpos0, zero velocity, on the
-    model's device."""
+def make_data(m: Model, batch_size: int, keyframe: int | None = None) -> Data:
+    """Allocate `batch_size` fresh envs on the model's device: at qpos0 with
+    zero velocity, activations and ctrl and the mocap bodies at their
+    body_pos / body_quat, or at keyframe `keyframe` (its time, qpos, qvel,
+    act, ctrl and mocap poses)."""
     s = m.skel
     dev = m.device
     B = batch_size
@@ -37,6 +39,14 @@ def make_data(m: Model, batch_size: int) -> Data:
 
     ncon3, ndiag = _pyr_sizes(s)
     mocap_ids = torch.as_tensor(np.array(s.mocap_bodyid, np.int64), device=dev)
+    k = keyframe
+    if k is None:
+        time, qpos, qvel, act, ctrl = z(), tile(m.qpos0, s.nq), z(s.nv), z(s.na), z(s.nu)
+        mocap_pos, mocap_quat = m.body_pos[mocap_ids], m.body_quat[mocap_ids]
+    else:
+        time, qpos, qvel, act, ctrl = (tile(x[k], *x.shape[1:]) for x in (
+            m.key_time, m.key_qpos, m.key_qvel, m.key_act, m.key_ctrl))
+        mocap_pos, mocap_quat = m.key_mpos[k], m.key_mquat[k]
     contact = Contact(
         dist=torch.full((B, s.ncon), 1e10, dtype=f32, device=dev),
         pos=z(s.ncon, 3),
@@ -50,16 +60,16 @@ def make_data(m: Model, batch_size: int) -> Data:
         geom2=torch.as_tensor(np.array(s.con_geom2[: s.ncon], np.int32), device=dev).expand(B, -1).clone(),
     )
     return Data(
-        time=z(),
-        qpos=tile(m.qpos0, s.nq),
-        qvel=z(s.nv),
-        act=z(s.na),
-        ctrl=z(s.nu),
+        time=time,
+        qpos=qpos,
+        qvel=qvel,
+        act=act,
+        ctrl=ctrl,
         qfrc_applied=z(s.nv),
         xfrc_applied=z(s.nbody, 6),
         qacc_warmstart=z(s.nv),
-        mocap_pos=tile(m.body_pos[mocap_ids], s.nmocap, 3),
-        mocap_quat=tile(m.body_quat[mocap_ids], s.nmocap, 4),
+        mocap_pos=tile(mocap_pos, s.nmocap, 3),
+        mocap_quat=tile(mocap_quat, s.nmocap, 4),
         xpos=z(s.nbody, 3),
         xquat=tile(torch.tensor([1.0, 0, 0, 0]), s.nbody, 4),
         xipos=z(s.nbody, 3),

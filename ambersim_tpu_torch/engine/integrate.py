@@ -1,5 +1,6 @@
-"""Semi-implicit Euler with implicit joint damping (port of `euler`,
-`integrate_pos` and `_advance_act` of ambersim_tpu/engine/integrate.py).
+"""Semi-implicit Euler with implicit joint damping and the actuator
+activations (port of `euler`, `integrate_pos` and `_advance_act` of
+ambersim_tpu/engine/integrate.py).
 
 As in MuJoCo's mj_Euler: with joint damping present (and EULERDAMP and
 DAMPER not disabled) the damping is integrated implicitly by solving
@@ -12,8 +13,8 @@ import numpy as np
 import torch
 
 from ambersim_tpu_torch.core import math as am
-from ambersim_tpu_torch.core.types import Data, DisableBit, JointType, Model
-from ambersim_tpu_torch.engine import linalg
+from ambersim_tpu_torch.core.types import Data, DisableBit, DynType, JointType, Model
+from ambersim_tpu_torch.engine import linalg, smooth
 from ambersim_tpu_torch.engine.schedule import device_index, tree_schedule
 
 
@@ -44,10 +45,24 @@ def integrate_pos(m: Model, qpos: torch.Tensor, qvel: torch.Tensor, dt) -> torch
 
 
 def _advance_act(m: Model, d: Data, h) -> Data:
-    """Actuator activations; `io.bridge.check_slice` admits only na == 0."""
-    if m.skel.na:
-        raise NotImplementedError("actuator activations (na > 0)")
-    return d
+    """Integrate the actuator activations (filter, filterexact, integrator
+    dynamics): Euler on act_dot, the exact exponential for FILTEREXACT, and
+    the actrange clamp of act-limited actuators (cf. mj_advance)."""
+    s = m.skel
+    if s.na == 0:
+        return d
+    dev = d.act.device
+    act = d.act + h * d.act_dot
+    dyn_u = smooth.dyn_actuators(s)
+    exact = np.asarray(s.actuator_dyntype)[dyn_u] == int(DynType.FILTEREXACT)
+    if exact.any():
+        tau = torch.clamp(m.actuator_dynprm[device_index(dyn_u, dev), 0], min=1e-8)
+        act = torch.where(device_index(exact, dev), d.act + d.act_dot * tau * (1.0 - torch.exp(-h / tau)), act)
+    limited = np.asarray(s.actuator_actlimited)[dyn_u]
+    if limited.any():
+        rng = m.actuator_actrange[device_index(dyn_u, dev)]
+        act = torch.where(device_index(limited, dev), torch.clamp(act, rng[:, 0], rng[:, 1]), act)
+    return d.replace(act=act)
 
 
 def euler(m: Model, d: Data) -> Data:

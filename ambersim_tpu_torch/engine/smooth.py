@@ -1,6 +1,7 @@
-"""Smooth (unconstrained) dynamics: FK, COM quantities, CRBA, RNE, passive
-forces, motor actuation. Port of the main-path subset of
-ambersim_tpu/engine/smooth.py.
+"""Smooth (unconstrained) dynamics: FK (mocap bodies included), COM
+quantities, CRBA, RNE, passive forces, energy and actuation (motors, affine
+servos, filter/filterexact/integrator activations). Port of the main-path
+subset of ambersim_tpu/engine/smooth.py.
 
 Every function takes a Model and a batch-first Data and returns an updated
 Data. Tree propagation is level-vectorized over the static schedule
@@ -13,7 +14,16 @@ import numpy as np
 import torch
 
 from ambersim_tpu_torch.core import math as am
-from ambersim_tpu_torch.core.types import Data, DisableBit, JointType, Model, TrnType
+from ambersim_tpu_torch.core.types import (
+    BiasType,
+    Data,
+    DisableBit,
+    DynType,
+    GainType,
+    JointType,
+    Model,
+    TrnType,
+)
 from ambersim_tpu_torch.engine import linalg
 from ambersim_tpu_torch.engine.schedule import device_index, tree_schedule
 
@@ -41,11 +51,21 @@ def kinematics(m: Model, d: Data) -> Data:
     xanchor = d.qpos.new_zeros((B, s.njnt, 3))
     xaxis = d.qpos.new_zeros((B, s.njnt, 3))
 
+    # mocap bodies: jointless world children whose frame comes from
+    # d.mocap_pos / mocap_quat instead of body_pos / body_quat (per env)
+    body_pos, body_quat = m.body_pos, m.body_quat
+    if s.nmocap:
+        mid = ix(s.mocap_bodyid)
+        body_pos = body_pos.expand(B, -1, -1).clone()
+        body_quat = body_quat.expand(B, -1, -1).clone()
+        body_pos[:, mid] = d.mocap_pos
+        body_quat[:, mid] = am.normalize_quat(d.mocap_quat)
+
     for level in sched.levels:
         for sig, ids, parents, jnt_slots in level:
             pt = ix(parents)
-            pos = xpos[:, pt] + am.rotate(m.body_pos[ix(ids)], xquat[:, pt])
-            quat = am.mul_quat(xquat[:, pt], m.body_quat[ix(ids)])
+            pos = xpos[:, pt] + am.rotate(body_pos[..., ix(ids), :], xquat[:, pt])
+            quat = am.mul_quat(xquat[:, pt], body_quat[..., ix(ids), :])
             for slot, jtype_int in enumerate(sig):
                 jids = jnt_slots[slot]
                 jt = ix(jids)
@@ -311,15 +331,34 @@ def passive(m: Model, d: Data) -> Data:
     return d.replace(qfrc_spring=spring, qfrc_damper=damper, qfrc_passive=spring + damper)
 
 
-def _motor_arrays(s):
-    """(dof ids, qpos ids) driven by each actuator: every actuator is a motor
-    on a hinge/slide joint (`io.bridge.check_slice` admits no other)."""
+def _joint_arrays(s):
+    """(dof ids, qpos ids) driven by each actuator: every actuator sits on a
+    hinge/slide joint (`io.bridge.check_slice` admits no other)."""
     j = np.asarray(s.actuator_trnid)
     return np.asarray(s.jnt_dofadr)[j], np.asarray(s.jnt_qposadr)[j]
 
 
+def _all_motors(s) -> bool:
+    """Every actuator a motor: fixed gain, no bias, no dynamics."""
+    return bool(
+        (np.asarray(s.actuator_gaintype) == int(GainType.FIXED)).all()
+        and (np.asarray(s.actuator_biastype) == int(BiasType.NONE)).all()
+        and (np.asarray(s.actuator_dyntype) == int(DynType.NONE)).all()
+    )
+
+
+def dyn_actuators(s) -> np.ndarray:
+    """Actuators with activation dynamics, in the order of d.act."""
+    return np.nonzero(np.asarray(s.actuator_dyntype) != int(DynType.NONE))[0]
+
+
 def fwd_actuation(m: Model, d: Data) -> Data:
-    """ctrl -> generalized actuator force for motors on hinge/slide joints."""
+    """ctrl -> generalized actuator force for actuators on hinge/slide joints:
+    gain (fixed or affine) times input (ctrl, or the activation) plus bias
+    (none or affine), act_dot of filter, filterexact and integrator
+    dynamics, the forcerange clamp, disabled actuator groups and the joints'
+    actuatorfrcrange clamp. A model of motors alone keeps the motor
+    arithmetic, gainprm[0] * ctrl, with no bias term."""
     s = m.skel
     dev = d.qpos.device
     if s.nu == 0:
@@ -332,23 +371,98 @@ def fwd_actuation(m: Model, d: Data) -> Data:
     if not (m.opt.disableflags & DisableBit.CLAMPCTRL):
         lo, hi = m.actuator_ctrlrange[:, 0], m.actuator_ctrlrange[:, 1]
         ctrl = torch.where(ix(s.actuator_ctrllimited), torch.clamp(ctrl, lo, hi), ctrl)
-    dof, qa = _motor_arrays(s)
+    dof, qa = _joint_arrays(s)
     gear = m.actuator_gear[:, 0]
     length = d.qpos[:, ix(qa)] * gear
     velocity = d.qvel[:, ix(dof)] * gear
-    force = m.actuator_gainprm[:, 0] * ctrl
+    act_dot = d.act_dot
+    if _all_motors(s):
+        force = m.actuator_gainprm[:, 0] * ctrl
+    else:
+        gp, bp = m.actuator_gainprm, m.actuator_biasprm
+        gain = torch.where(
+            ix(np.asarray(s.actuator_gaintype) == int(GainType.FIXED)), gp[:, 0],
+            gp[:, 0] + gp[:, 1] * length + gp[:, 2] * velocity)
+        bias = torch.where(
+            ix(np.asarray(s.actuator_biastype) == int(BiasType.AFFINE)),
+            bp[:, 0] + bp[:, 1] * length + bp[:, 2] * velocity, 0.0)
+        inp = ctrl  # the force's input: ctrl, or the activation where there are dynamics
+        if s.na:
+            # filter / filterexact: act_dot = (ctrl - act) / tau; integrator: ctrl
+            dyn_u = dyn_actuators(s)
+            dyn = np.asarray(s.actuator_dyntype)[dyn_u]
+            is_filter = ix((dyn == int(DynType.FILTER)) | (dyn == int(DynType.FILTEREXACT)))
+            tau = torch.clamp(m.actuator_dynprm[ix(dyn_u), 0], min=1e-8)
+            u = ix(dyn_u)
+            act_dot = torch.where(is_filter, (ctrl[:, u] - d.act) / tau, ctrl[:, u])
+            inp = ctrl.clone()
+            inp[:, u] = d.act
+        force = gain * inp + bias
     force = torch.where(
         ix(s.actuator_forcelimited),
         torch.clamp(force, m.actuator_forcerange[:, 0], m.actuator_forcerange[:, 1]),
         force,
     )
+    if m.opt.disableactuator:
+        # <option actuatorgroupdisable>: no force from actuators of disabled
+        # groups; their lengths, velocities and activations still advance
+        group = np.asarray(s.actuator_group)
+        disabled = ((m.opt.disableactuator >> np.clip(group, 0, 30)) & 1).astype(bool) & (group >= 0)
+        force = torch.where(ix(disabled), 0.0, force)
     qfrc = torch.zeros_like(d.qvel).index_add_(1, ix(dof), gear * force)
+    if np.asarray(s.jnt_actfrclimited).any():
+        # a joint's actuatorfrcrange clamps the total actuator force on its dofs
+        dof_jnt = np.asarray(s.dof_jntid)
+        rng = m.jnt_actfrcrange[ix(dof_jnt)]
+        qfrc = torch.where(ix(np.asarray(s.jnt_actfrclimited)[dof_jnt]), torch.clamp(qfrc, rng[:, 0], rng[:, 1]), qfrc)
     if m.opt.disableflags & DisableBit.ACTUATION:
         force = torch.zeros_like(force)
         qfrc = torch.zeros_like(qfrc)
     return d.replace(
-        actuator_length=length, actuator_velocity=velocity, actuator_force=force, qfrc_actuator=qfrc
+        actuator_length=length, actuator_velocity=velocity, actuator_force=force, act_dot=act_dot,
+        qfrc_actuator=qfrc,
     )
+
+
+def energy_pos(m: Model, d: Data) -> torch.Tensor:
+    """(B,) potential energy (mj_energyPos): gravity (unless GRAVITY is
+    disabled) and joint springs (unless SPRING is disabled); ball and free
+    rotational springs as 0.5 k |quat_sub|^2, as in `passive`. The tendon
+    springs' part waits with the tendons (`io.bridge.check_slice`)."""
+    s = m.skel
+    sched = tree_schedule(s)
+    dev = d.qpos.device
+
+    def ix(a):
+        return device_index(a, dev)
+
+    e = d.qpos.new_zeros(d.qpos.shape[0])
+    if not (m.opt.disableflags & DisableBit.GRAVITY):
+        e = e - (m.body_mass[:, None] * d.xipos * m.opt.gravity).sum((-2, -1))
+    if m.opt.disableflags & DisableBit.SPRING:
+        return e
+    for jtype_int, jids in sched.jnt_by_type.items():
+        jtype = JointType(jtype_int)
+        qa = s.jnt_qposadr[jids]
+        k = m.jnt_stiffness[ix(jids)]
+        if jtype in (JointType.HINGE, JointType.SLIDE):
+            e = e + (0.5 * k * (d.qpos[:, ix(qa)] - m.qpos_spring[ix(qa)]) ** 2).sum(-1)
+        elif jtype == JointType.BALL:
+            dif = am.quat_sub(d.qpos[:, ix(_span(qa, 4))], m.qpos_spring[ix(_span(qa, 4))])
+            e = e + (0.5 * k * (dif**2).sum(-1)).sum(-1)
+        else:  # FREE: translational and rotational parts
+            dt3 = d.qpos[:, ix(_span(qa, 3))] - m.qpos_spring[ix(_span(qa, 3))]
+            e = e + (0.5 * k * (dt3**2).sum(-1)).sum(-1)
+            dif = am.quat_sub(d.qpos[:, ix(_span(qa + 3, 4))], m.qpos_spring[ix(_span(qa + 3, 4))])
+            e = e + (0.5 * k * (dif**2).sum(-1)).sum(-1)
+    return e
+
+
+def energy_vel(m: Model, d: Data) -> torch.Tensor:
+    """(B,) kinetic energy 0.5 qvel' M qvel (mj_energyVel); needs crb."""
+    if m.skel.nv == 0:
+        return d.qpos.new_zeros(d.qpos.shape[0])
+    return 0.5 * (d.qvel * (d.qM * d.qvel[:, None, :]).sum(-1)).sum(-1)
 
 
 def actuator_moment(m: Model, d: Data) -> torch.Tensor:

@@ -152,6 +152,7 @@ def check_slice(m: Model) -> None:
     """Raise NotImplementedError naming every feature of `m` that the port
     does not implement. Nothing outside the slice is silently skipped."""
     from ambersim_tpu_torch.engine.collision import _NARROWPHASE
+    from ambersim_tpu_torch.engine.sensor import refused_sensors
     from ambersim_tpu_torch.engine.solver import _elliptic_meta, elliptic_tail
     from ambersim_tpu_torch.ops.newton import MAX_NV
 
@@ -163,9 +164,6 @@ def check_slice(m: Model) -> None:
     missing = []
     for n, feature in (
         ("ntendon", "tendons"),
-        ("nsensor", "sensors"),
-        ("nmocap", "mocap bodies"),
-        ("na", "actuator activations (na > 0)"),
         ("ncam", "cameras (camlight)"),
         ("nlight", "lights (camlight)"),
     ):
@@ -185,15 +183,13 @@ def check_slice(m: Model) -> None:
         if not scalar_joint:
             missing.append(f"actuator transmission {TrnType(trn).name} (only hinge/slide joints)")
         if (
-            int(s.actuator_gaintype[u]) != int(GainType.FIXED)
-            or int(s.actuator_biastype[u]) != int(BiasType.NONE)
-            or int(s.actuator_dyntype[u]) != int(DynType.NONE)
+            int(s.actuator_gaintype[u]) == int(GainType.MUSCLE)
+            or int(s.actuator_biastype[u]) == int(BiasType.MUSCLE)
+            or int(s.actuator_dyntype[u]) == int(DynType.MUSCLE)
         ):
-            missing.append("non-motor actuators")
-    if np.asarray(s.jnt_actfrclimited).any():
-        missing.append("joint actuatorfrcrange clamps")
-    if o.disableactuator:
-        missing.append("actuator group disabling")
+            missing.append("muscle actuators")
+    if s.nsensor:
+        missing.extend(refused_sensors(s))
     con_dim = np.asarray(s.con_dim)
     if np.isin(con_dim, (4, 6)).any():
         missing.append("contact condim 4/6 (torsional and rolling friction)")
@@ -216,7 +212,7 @@ def check_slice(m: Model) -> None:
         missing.append(f"the {IntegratorType(o.integrator).name} integrator")
     if o.noslip_iterations > 0:
         missing.append("noslip iterations")
-    for bit in (EnableBit.ENERGY, EnableBit.FWDINV, EnableBit.OVERRIDE):
+    for bit in (EnableBit.FWDINV, EnableBit.OVERRIDE):
         if o.enableflags & bit:
             missing.append(f"the {bit.name} flag")
     # the bf16 Hessian lives on the batched-arrays route only (nv past the

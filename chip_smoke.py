@@ -65,7 +65,15 @@ the card, and steps every ported path through the port's entry points:
     in depth), each with a first update (ES, ARS) or the first SGD steps
     (SAC) card against CPU; ES at population 512 on the locomotion task,
     each env acting with its own params; SAC on the locomotion task with
-    its 1,000,000-transition replay buffer on the card.
+    its 1,000,000-transition replay buffer on the card;
+  * sensors and servos: quadruped_sensors, the main path's quadruped with
+    an IMU, encoders, foot touch and contact sensors (52 sensors) and its
+    motors made position servos, at 4096 envs x 100 steps through kernels
+    1-4, its encoders held to its state, its servo rollout to the PD
+    path's, its sensors card against CPU on the same Data and over 20
+    steps; the sensor rigs of the JAX package's tests (sensors, contact
+    sensors, distance, rangefinder) and this script's actuator and mocap
+    fixtures, card against CPU.
 
 For each path it checks that every step went through the path's kernels
 and compares 8 envs of the rollout on the card with the same rollout on the
@@ -118,8 +126,11 @@ F32_OPS_PER_S = 67e12
 SLEEP_CYCLES = 4_000_000
 # The clutter scene at benchmarks/ladder.py's width (rungs 3b and 3c):
 # 256 envs, CLUTTER_SETTLE steps of settling, CLUTTER_STEPS timed steps.
+# Cut: both paths start from the committed settled state (CLUTTER_SETTLED,
+# where their Newton spread check and the gradient path start too) and
+# settle 20 steps there, instead of 400 from rest (the ladder's own settle).
 CLUTTER_ENVS = 256
-CLUTTER_SETTLE = 400
+CLUTTER_SETTLE = 20
 CLUTTER_STEPS = 100
 FLOOR_TOL = 0.005  # no geom below the floor by more than 5 mm after the settle
 CLUTTER_CARD_VS_CPU_STEPS = 5
@@ -134,7 +145,11 @@ CLUTTER_CARD_VS_CPU_STEPS = 5
 # like float32 stays within about three times the worst and seven times
 # the median; a fault in it (a wrong factor, a dropped row) moves every env.
 # benchmarks/ladder.py rungs 3 and 3a (:104-112): drop_scene and the rock
-# drop at 2048 envs, 300 settle steps and 150 timed steps
+# drop at 2048 envs, 300 settle steps and 150 timed steps. Not cut: kernel
+# 4 is held on drop_scene's final state (check_newton_ladder), and after
+# 300 + 100 steps it met float64 on 0.1357 of envs against plain float32's
+# 0.7266 (an NVIDIA H100 80GB HBM3, 700 W), where after 300 + 150 it
+# meets it on all
 DROP_ENVS, DROP_SETTLE, DROP_STEPS = 2048, 300, 150
 # Rungs 3b exact (clutter32 with no cap, :123-125) and 3d (rowcap192 with
 # Option.hessian_bf16, :145-148) at the ladder's 256 envs. Cut: both start
@@ -143,12 +158,13 @@ DROP_ENVS, DROP_SETTLE, DROP_STEPS = 2048, 300, 150
 # bf16 runs BF16_STEPS timed steps (the ladder: 400 settle + 100 timed)
 EXACT_SETTLE, EXACT_STEPS, BF16_STEPS = 100, 20, 20
 # rung 5's humanoid predictive sampling (:160-184): 64 samples x 8 knots,
-# Q 0.1 I, Qf 10 I, R 1e-4 I, goal and start at (qpos0, 0), stdev 0.2
+# Q 0.1 I, Qf 10 I, R 1e-4 I, goal and start at (qpos0, 0), stdev 0.2.
+# Cut: 10 optimize calls (20 until the sensor phases came)
 HUMANOID_SAMPLES, HUMANOID_HORIZON, HUMANOID_STDEV = 64, 8, 0.2
-HUMANOID_OPTIMIZE_CALLS = 20
-# rung 1 (:94-96): the pendulum, a batch of one, 1000 steps. Cut: 500
-# steps (1000 until section 9 came)
-PENDULUM_STEPS = 500
+HUMANOID_OPTIMIZE_CALLS = 10
+# rung 1 (:94-96): the pendulum, a batch of one, 1000 steps. Cut: 125
+# steps (1000 until section 9 came, 500 until the sensor phases came)
+PENDULUM_STEPS = 125
 # mesh_mesh_memory's pairs: the rock against itself, whose SAT projects
 # 34,596 edge axes on 2 x 64 vertices a pair
 MESH_MESH_PAIRS = 16
@@ -241,11 +257,12 @@ ELLIPTIC_F64_SLACK = 0.03
 ELLIPTIC_COST_ENVS = 4
 
 # PPO on the 4096-env quadruped (bench.py:142-177's settings): one training
-# step, 8 unrolls x 20 control steps x 4 physics steps = 640 physics steps.
+# step, 8 unrolls x 10 control steps x 4 physics steps = 320 physics steps.
 # Cut: episode_length 25 instead of 500 (100 until section 9 came), so that
-# the two evals stay short and the 160-step unroll crosses truncations.
+# the two evals stay short and the 80-step unroll crosses truncations, and
+# unroll_length 10 instead of 20 (until the sensor phases came).
 PPO_QUADRUPED = dict(
-    num_timesteps=655_360, num_evals=2, episode_length=25, normalize_observations=True, unroll_length=20,
+    num_timesteps=327_680, num_evals=2, episode_length=25, normalize_observations=True, unroll_length=10,
     num_minibatches=32, num_updates_per_batch=4, discounting=0.97, learning_rate=3e-4, entropy_cost=1e-2,
     num_envs=4096, num_eval_envs=64, batch_size=1024, seed=0,
 )
@@ -257,11 +274,12 @@ PPO_PENDULUM = dict(
     num_envs=512, batch_size=640, reward_scaling=0.1, seed=0,
 )
 # PPO on humanoid_balance (benchmarks/ladder.py:194-219's settings): one
-# training step, 1 unroll x 20 control steps x 5 physics steps = 100
+# training step, 1 unroll x 10 control steps x 5 physics steps = 50
 # physics steps. Cut: episode_length 25 instead of 300 (100 until section 9
-# came) and one training step, as the quadruped's is cut.
+# came), one training step and unroll_length 10 instead of 20 (until the
+# sensor phases came), as the quadruped's is cut.
 PPO_HUMANOID = dict(
-    num_timesteps=20_480, num_evals=2, episode_length=25, normalize_observations=True, unroll_length=20,
+    num_timesteps=10_240, num_evals=2, episode_length=25, normalize_observations=True, unroll_length=10,
     num_minibatches=16, num_updates_per_batch=4, discounting=0.97, learning_rate=3e-4, entropy_cost=1e-2,
     num_envs=1024, num_eval_envs=64, batch_size=64, seed=0,
 )
@@ -334,14 +352,14 @@ RAY_TOL = 1e-4
 # tests/trajopt/test_predictive_sampler.py:36-41 and its stdev 0.3.
 HAND_SAMPLES, HAND_HORIZON, HAND_STDEV = 100, 10, 0.3
 HAND_TRAJOPT = dict(iterations=1, ls_iterations=4)
-HAND_OPTIMIZE_CALLS = 20
-# MPC on the same hand: 20 control steps of one problem, and of a batch of
-# 8 (a solve is then 800 envs). Its cost weighs the goal's joint angles at
+HAND_OPTIMIZE_CALLS = 10  # cut: 20 until the sensor phases came
+# MPC on the same hand: 10 control steps of one problem, and of a batch of
+# 8 (a solve is then 800 envs); cut: 20 until the sensor phases came. Its cost weighs the goal's joint angles at
 # 10, as tests/trajopt/test_mpc.py weighs the pendulum's, and the joint
 # velocities at 1e-3: at the sampler's weights (0.1, terminal 10) the
 # 10-knot (0.02 s) horizon cannot turn a finger without paying more for
 # its speed than it gains in angle, and the loop keeps the guess.
-HAND_MPC_STEPS, HAND_MPC_BATCH, HAND_MPC_STDEV = 20, 8, 0.5
+HAND_MPC_STEPS, HAND_MPC_BATCH, HAND_MPC_STDEV = 10, 8, 0.5
 # The hand at its own options (contacts on, 4 x 8 iterations): 1024 envs x
 # 100 steps from starts spread over the joints' ranges (hand_start) under a
 # closing ctrl (spread 1, each proximal joint 2, the top of its range), so
@@ -385,56 +403,60 @@ GRAD_ELLIPTIC_PATH_TOL = 1e-1
 # quadruped converged, as its forward is compared (CONVERGED); the hand at
 # the trajectory-optimization workload's options (hand_model: Newton 1 x 4,
 # contacts off), where its gradient optimizers run (with contacts on an
-# env's gradient parted by 2.7e-2 of the largest |g| on an H100 80GB HBM3)
+# env's gradient parted by 2.7e-2 of the largest |g| on an H100 80GB HBM3).
+# Cut: half the steps (20 / 10 until the sensor phases came).
 GRAD_PATHS = {
-    "pendulum": ("pendulum", 16, 20, None), "arm3": ("arm3", 16, 20, None), "quadruped": ("quadruped", 64, 10, None),
-    "quadruped_elliptic": ("quadruped_elliptic", 8, 10, CONVERGED), "hand": ("hand", 16, 10, None),
+    "pendulum": ("pendulum", 16, 10, None), "arm3": ("arm3", 16, 10, None), "quadruped": ("quadruped", 64, 5, None),
+    "quadruped_elliptic": ("quadruped_elliptic", 8, 5, CONVERGED), "hand": ("hand", 16, 5, None),
     "clutter32_rowcap192": ("clutter32_rowcap192", 4, 2, None),
 }
 # APG on the pendulum swingup (examples/rl/pendulum/ex_agents.py:80-87 and
 # its env, 2 physics steps per control step). Cut: 1 policy update and 2
 # evals instead of 60 and 5 (4 updates until section 9 came, 2 until the
-# terrain phases came). The first
+# terrain phases came), episodes of 50 control steps instead of 200
+# (until the sensor phases came). The first
 # update's loss and grad norm, card against CPU from the same params and
 # starts, within APG_FIRST_RTOL; that repeated update is cut to
-# APG_FIRST_EPISODE control steps of the 200 (50 until section 9 came).
-APG_PENDULUM = dict(episode_length=200, num_envs=64, policy_updates=1, learning_rate=2e-3, max_gradient_norm=1.0,
+# APG_FIRST_EPISODE control steps (50 until section 9 came).
+APG_PENDULUM = dict(episode_length=50, num_envs=64, policy_updates=1, learning_rate=2e-3, max_gradient_norm=1.0,
                     num_evals=2, seed=0)
 APG_FIRST_RTOL = 1e-3
 APG_FIRST_EPISODE = 20
 # APG on quadruped_locomotion at bench.py's 4096 envs. Cut: episode_length
-# 10 control steps (40 physics steps; 20 until section 9 came) and one
-# update.
-APG_QUADRUPED = dict(episode_length=10, num_envs=4096, num_eval_envs=64, policy_updates=1, learning_rate=1e-3,
+# 5 control steps (20 physics steps; 20 until section 9 came, 10 until the
+# sensor phases came) and one update.
+APG_QUADRUPED = dict(episode_length=5, num_envs=4096, num_eval_envs=64, policy_updates=1, learning_rate=1e-3,
                      max_gradient_norm=1.0, num_evals=1, seed=0)
 # ES on the pendulum swingup (examples/rl/pendulum/ex_agents.py:60-67 and
 # its env, 2 physics steps per control step): population 256, std 0.08,
-# lr 0.02. Cut: 2 policy updates and 2 evals instead of 120 and 5 (4
-# updates until the terrain phases came).
-ES_PENDULUM = dict(episode_length=200, population_size=256, perturbation_std=0.08, learning_rate=0.02,
-                   policy_updates=2, num_evals=2, seed=0)
+# lr 0.02. Cut: 1 policy update and 2 evals instead of 120 and 5 (4
+# updates until the terrain phases came, 2 until the sensor phases came),
+# episodes of 100 control steps instead of 200 (until the sensor phases).
+ES_PENDULUM = dict(episode_length=100, population_size=256, perturbation_std=0.08, learning_rate=0.02,
+                   policy_updates=1, num_evals=2, seed=0)
 # ARS on the pendulum (ex_agents.py:69-78): 64 directions, top 16, step
 # 0.015, noise 0.04, normalized obs. Cut as ES_PENDULUM.
-ARS_PENDULUM = dict(episode_length=200, number_of_directions=64, top_directions=16, step_size=0.015,
-                    exploration_noise_std=0.04, normalize_observations=True, policy_updates=2, num_evals=2, seed=0)
+ARS_PENDULUM = dict(episode_length=100, number_of_directions=64, top_directions=16, step_size=0.015,
+                    exploration_noise_std=0.04, normalize_observations=True, policy_updates=1, num_evals=2, seed=0)
 # SAC on the pendulum (ex_agents.py:45-58): 64 envs, batch 256, replay
 # 2,048-262,144, 4 gradient updates a step, discount 0.97, lr 6e-4, reward
-# scaling 0.1, normalized obs. Cut: num_timesteps 10,240 instead of 120,000
-# (the 32-step prefill, then 128 training steps; 256 until the terrain
-# phases came) and 2 evals instead of 5.
-SAC_PENDULUM = dict(num_timesteps=10_240, num_evals=2, episode_length=200, normalize_observations=True, num_envs=64,
+# scaling 0.1, normalized obs. Cut: num_timesteps 4,096 instead of 120,000
+# (the 32-step prefill, then 32 training steps; 256 until the terrain
+# phases came, 128 until the sensor phases came) and 2 evals instead of 5.
+SAC_PENDULUM = dict(num_timesteps=4_096, num_evals=2, episode_length=200, normalize_observations=True, num_envs=64,
                     batch_size=256, min_replay_size=2_048, max_replay_size=262_144, grad_updates_per_step=4,
                     discounting=0.97, learning_rate=6e-4, reward_scaling=0.1, seed=0)
 # ES on quadruped_locomotion (nv 18, obs 45, 12 actions, 4 physics steps a
 # control step) at population 512, the trainer's defaults otherwise: each
-# of 512 envs acts with its own params. Cut: episode_length 50, one update
-# and one eval of 64 envs.
-ES_QUADRUPED = dict(episode_length=50, population_size=512, policy_updates=1, num_evals=1, num_eval_envs=64, seed=0)
+# of 512 envs acts with its own params. Cut: episode_length 25 (50 until
+# the sensor phases came), one update and one eval of 64 envs.
+ES_QUADRUPED = dict(episode_length=25, population_size=512, policy_updates=1, num_evals=1, num_eval_envs=64, seed=0)
 # SAC on quadruped_locomotion at the trainer's defaults (128 envs, batch
 # 256, (256, 256) critics and policy, a replay of 1,000,000 transitions on
 # the card). Cut: min replay 1,024 (8 prefill actor steps), episode_length
-# 100, 50 training steps and one eval of 64 envs.
-SAC_QUADRUPED = dict(num_timesteps=1_024 + 50 * 128, num_evals=1, episode_length=100, min_replay_size=1_024,
+# 50, 25 training steps (100 and 50 until the sensor phases came) and one
+# eval of 64 envs.
+SAC_QUADRUPED = dict(num_timesteps=1_024 + 25 * 128, num_evals=1, episode_length=50, min_replay_size=1_024,
                      num_eval_envs=64, seed=0)
 # Card against CPU. ES and ARS: the first update's population returns
 # over POPULATION_FIRST_EPISODE control steps from the same params, starts
@@ -460,9 +482,9 @@ ILQR_PENDULUM = dict(knots=50, iterations=12, goal=0.7)
 JAX_ILQR_PENDULUM_ANGLE = 0.6759496
 ILQR_ANGLE_SLACK = 1e-3
 # The hand at BASELINE.md:13's 10 knots (hand_sampling's cost, start and
-# guess): Adam through the step, and iLQR. Cut: 15 Adam iterations (30
-# until section 9 came).
-HAND_GRADIENT_ITERS, HAND_ILQR_ITERS = 15, 5
+# guess): Adam through the step, and iLQR. Cut: 8 Adam iterations (30
+# until section 9 came, 15 until the sensor phases came).
+HAND_GRADIENT_ITERS, HAND_ILQR_ITERS = 8, 5
 
 # Model I/O on the card: the port's own compiler (ambersim_tpu_torch.mjcf)
 # on this machine. tools/export_model_npz.py:37-53's table, copied (this
@@ -548,11 +570,13 @@ MIMIC_TOL = 5e-3
 # GRASP_CPU_STEPS steps the card against the CPU by the spread method
 # (settled_card_vs_cpu's bars: the contact is sustained from step ~60) and
 # the f1 mimic ratio within MIMIC_TOL. Cut: the CPU's 8 envs take ~0.12 s a
-# step, so they run GRASP_CPU_STEPS of the 300.
+# step, so they run GRASP_CPU_STEPS of the 300 (150 until the sensor phases
+# came). The 300 stay: kernel 4 is held on the final state
+# (check_newton_ladder).
 GRASP_XML = "models/hand/grasp_scene.xml"
 GRASP_CTRL = (0.0, 1.2, 1.2, 1.2)
 GRASP_STEPS = 300
-GRASP_CPU_STEPS = 150
+GRASP_CPU_STEPS = 100
 GRASP_BATCHES = (1024, 256, 64)
 GRASP_PEAK_GIB = 20.0
 GRASP_PROBE_ENVS = 16
@@ -583,6 +607,106 @@ KERNELS = {
     "newton_dense": ("newton_dense.cu", "ambersim_tpu/ops/newton_pallas.py:247"),
     "newton_elliptic": ("newton_elliptic.cu", "ambersim_tpu/ops/newton_pallas.py:1083"),
 }
+
+# Sensors and servos. quadruped_sensors: the main path's quadruped with an
+# IMU site, a sphere site at each foot and 52 sensors (81 sensordata
+# columns), its 12 motors made position servos whose kp, kv and forcerange
+# are pd_ctrl's gains and the motors' +-28 (quadruped_sensors_xml), at
+# NUM_ENVS x NUM_STEPS from initial_batch with ctrl at zero.
+QUADRUPED_XML = "ambersim_tpu/models/quadruped/quadruped.xml"
+FEET = ("FL", "FR", "RL", "RR")
+# the same-input check: sensors() on the card and on the CPU from one Data,
+# position and velocity rows within SENSOR_TOL, acceleration and force rows
+# within SENSOR_FORCE_TOL (rtol, atol)
+SENSOR_TOL, SENSOR_FORCE_TOL = (1e-5, 1e-6), (1e-4, 1e-4)
+# a geom-distance normal's rounding: four float32 ulps of a world
+# coordinate near 1 m, over the distance dd between the points it joins
+# (normal_atol; tests/test_torch_sensor_contacts.py holds the port to the
+# JAX package at the same bar)
+NORMAL_ULPS = 4 * 1.2e-7
+# The sensor rigs' rollouts, card against CPU: SENSOR_RIG_STEPS steps at
+# CONVERGED solver options (below), not the rigs' default 100 x 50
+# iterations, which the CPU's plain Newton arrays take ~1.4 s a step at
+SENSOR_RIG_STEPS = 10
+# the actuator fixture: a position servo on a joint with an actuatorfrcrange
+# clamp, a velocity servo, an intvelocity (integrator dynamics, act-limited),
+# filter, filterexact (with an affine bias) and integrator actuators, and a
+# motor in a disabled group; a keyframe sets qpos and the four activations;
+# Newton 8 x 8 (its limit row needs no more)
+ACTUATOR_RIG = """
+<mujoco model="actuator_rig">
+  <option timestep="0.004" iterations="8" ls_iterations="8" actuatorgroupdisable="3"/>
+  <worldbody>
+    <body pos="0 0 1">
+      <joint name="j1" axis="0 1 0" damping="0.1" actuatorfrcrange="-0.8 0.5"/>
+      <geom type="capsule" fromto="0 0 0 0.3 0 0" size="0.04"/>
+      <body pos="0.3 0 0">
+        <joint name="j2" axis="0 1 0" damping="0.1"/>
+        <geom type="capsule" fromto="0 0 0 0.25 0 0" size="0.035"/>
+        <body pos="0.25 0 0">
+          <joint name="j3" type="slide" axis="1 0 0" damping="0.2" range="-0.2 0.2"/>
+          <geom type="box" size="0.04 0.03 0.03"/>
+        </body>
+      </body>
+    </body>
+  </worldbody>
+  <actuator>
+    <position name="pos" joint="j1" kp="8" kv="0.5" forcerange="-3 3"/>
+    <velocity name="vel" joint="j2" kv="2"/>
+    <intvelocity name="intvel" joint="j3" kp="20" actrange="-0.3 0.3"/>
+    <general name="filter" joint="j2" dyntype="filter" dynprm="0.05" gainprm="1.5" ctrlrange="-2 2"/>
+    <general name="filterexact" joint="j1" dyntype="filterexact" dynprm="0.08" gainprm="2" biastype="affine"
+             biasprm="0 -1 -0.1"/>
+    <general name="integrator" joint="j3" dyntype="integrator" gainprm="4" actrange="-1 1" actlimited="true"/>
+    <motor name="off" joint="j2" gear="3" group="3" ctrlrange="-1 1"/>
+  </actuator>
+  <sensor>
+    <actuatorpos actuator="pos"/>
+    <actuatorvel actuator="vel"/>
+    <actuatorfrc actuator="filterexact"/>
+    <actuatorfrc actuator="off"/>
+    <jointactuatorfrc joint="j1"/>
+    <jointlimitpos joint="j3"/>
+    <jointlimitfrc joint="j3"/>
+  </sensor>
+  <keyframe>
+    <key name="start" qpos="0.3 -0.2 0.1" act="0.1 -0.4 0.6 -0.9"/>
+  </keyframe>
+</mujoco>
+"""
+# the geom-distance trio on tests/test_distance_sensors.py's shapes (its
+# spheres, box and capsules, a plane, two bodies' geoms, a cutoff the pair
+# lies beyond and a zero cutoff), in one scene of free bodies that do not
+# collide (the trio measures any two geoms)
+DISTANCE_RIG = """
+<mujoco model="distance_rig">
+  <default><geom contype="0" conaffinity="0"/></default>
+  <worldbody>
+    <geom name="floor" type="plane" size="5 5 0.1"/>
+    <body name="a" pos="0 0 1"><joint type="free"/><geom name="ga" type="sphere" size="0.1" mass="1"/>
+      <geom name="ga2" type="sphere" size="0.05" pos="0.3 0 0" mass="1"/></body>
+    <body name="b" pos="0.5 0.2 1.2"><joint type="free"/><geom name="gb" type="sphere" size="0.15" mass="1"/></body>
+    <body name="c" pos="0.12 -0.05 0.9"><joint type="free"/><geom name="gc" type="box" size="0.1 0.12 0.14" mass="1"/></body>
+    <body name="d" pos="-0.5 0 1"><joint type="free"/><geom name="gd" type="capsule" size="0.05 0.2" mass="1"/></body>
+    <body name="e" pos="-0.2 0.3 1.1"><joint type="free"/>
+      <geom name="ge" type="capsule" size="0.07 0.15" euler="30 20 0" mass="1"/>
+      <geom name="ge2" type="box" size="0.05 0.05 0.05" pos="-0.2 0 0" mass="1"/></body>
+  </worldbody>
+  <sensor>
+    <distance geom1="ga" geom2="gb" cutoff="2"/><normal geom1="ga" geom2="gb" cutoff="2"/>
+    <fromto geom1="ga" geom2="gb" cutoff="2"/>
+    <distance geom1="ga" geom2="gc" cutoff="2"/><normal geom1="ga" geom2="gc" cutoff="2"/>
+    <fromto geom1="ga" geom2="gc" cutoff="2"/>
+    <distance geom1="gd" geom2="ge" cutoff="2"/><fromto geom1="gd" geom2="ge" cutoff="2"/>
+    <distance geom1="ge" geom2="ga" cutoff="2"/><normal geom1="ge" geom2="ga" cutoff="2"/>
+    <distance geom1="floor" geom2="gb" cutoff="5"/><fromto geom1="floor" geom2="gb" cutoff="5"/>
+    <distance body1="a" body2="e" cutoff="3"/><normal body1="a" body2="e" cutoff="3"/>
+    <fromto body1="a" body2="e" cutoff="3"/>
+    <distance geom1="gd" geom2="gb" cutoff="0.1"/><fromto geom1="gd" geom2="gb" cutoff="0.1"/>
+    <distance geom1="ga" geom2="gc" cutoff="0"/>
+  </sensor>
+</mujoco>
+"""
 
 
 def fail(msg: str) -> None:
@@ -682,13 +806,16 @@ def newton_within(got: tuple, want: tuple):
     return within
 
 
-def newton_err(got: tuple, want: tuple, what: str) -> float:
-    """Max |got - want| over (qacc, efc_force, qfrc_constraint); fails on the
-    NEWTON_* bars above."""
+NEWTON_OUTPUTS = ("qacc", "efc_force", "qfrc_constraint")
+
+
+def newton_err(got: tuple, want: tuple, what: str, names: tuple = NEWTON_OUTPUTS) -> float:
+    """Max |got - want| over (qacc, efc_force, qfrc_constraint), or the
+    tensors `names` names; fails on the NEWTON_* bars above."""
     import torch
 
     err_max = 0.0
-    for g, w, name in zip(got, want, ("qacc", "efc_force", "qfrc_constraint")):
+    for g, w, name in zip(got, want, names):
         if g.shape != w.shape or not torch.isfinite(g).all():
             fail(f"{what} {name}: shape {tuple(g.shape)} vs {tuple(w.shape)} or non-finite output")
         g, w = g.double(), w.double()
@@ -705,7 +832,7 @@ def newton_err(got: tuple, want: tuple, what: str) -> float:
 
 
 def vs_float64(got: tuple, plain: tuple, exact: tuple, what: str, within=newton_within, costs: tuple | None = None,
-               slack: float = NEWTON_F64_SLACK) -> None:
+               slack: float = NEWTON_F64_SLACK, names: tuple = NEWTON_OUTPUTS) -> None:
     """Where plain float32 itself misses float64 beyond the bars' slack: the
     kernel's outputs `got` must be finite, and its share of envs within
     `exact` (the float64 solve) by `within` (newton_within: rtol/atol
@@ -716,7 +843,7 @@ def vs_float64(got: tuple, plain: tuple, exact: tuple, what: str, within=newton_
     float64's by more than ELLIPTIC_COST_RTOL of max(|cost|, 1)."""
     import torch
 
-    for g, name in zip(got, ("qacc", "efc_force", "qfrc_constraint")):
+    for g, name in zip(got, names):
         if not torch.isfinite(g).all():
             fail(f"{what} {name}: non-finite kernel output")
     k_plain, p_exact, k_exact = (within(a, b).double().mean().item()
@@ -1728,8 +1855,105 @@ def rest_start(m, batch: int, device):
     return make_data(m, batch)
 
 
+def clutter_settled_start(m, batch: int, device):
+    """The committed settled clutter state (CLUTTER_SETTLED: qpos, qvel) in
+    every env."""
+    import numpy as np
+    import torch
+
+    from ambersim_tpu_torch.engine import make_data
+
+    z = np.load(CLUTTER_SETTLED)
+    return make_data(m, batch).replace(**{k: torch.as_tensor(z[k], device=device).expand(batch, -1).contiguous()
+                                          for k in ("qpos", "qvel")})
+
+
 def pd_ctrl(d):
     return KP * (0.0 - d.qpos[:, 7:]) - KD * d.qvel[:, 6:]
+
+
+def quadruped_sensors_xml() -> str:
+    """The main path's quadruped (read as text) with an `imu` site at the
+    trunk's origin, a sphere site of radius 0.03 at each foot's centre, its
+    12 motors made position servos (kp KP, kv KD, forcerange the motors'
+    +-28: with ctrl at zero the actuator computes pd_ctrl, clamped as the
+    motors clamp it) and 52 sensors: an IMU (framequat, gyro,
+    accelerometer, velocimeter, framepos and framezaxis on `imu`), the
+    trunk's subtreecom and subtreelinvel, jointpos, jointvel and
+    actuatorfrc of the 12 joints and actuators, touch on the 4 foot sites,
+    and per foot a netforce contact sensor of its foot and the floor."""
+    xml = (REPO / QUADRUPED_XML).read_text()
+    xml = xml.replace('<freejoint name="root"/>', '<freejoint name="root"/>\n      <site name="imu"/>')
+    for f in FEET:
+        foot = f'<geom name="{f}_foot" type="sphere" pos="0 0 -0.2" size="0.022" density="1100"/>'
+        if foot not in xml:
+            fail(f"quadruped_sensors_xml: no {f}_foot geom in {QUADRUPED_XML}")
+        xml = xml.replace(foot, foot + f'\n            <site name="{f}_foot" type="sphere" pos="0 0 -0.2" size="0.03"/>')
+    xml, n = re.subn(r'<motor name="(\w+)" joint="(\w+)" class="motor"/>',
+                     rf'<position name="\1" joint="\2" kp="{KP:g}" kv="{KD:g}" forcerange="-28 28"/>', xml)
+    if n != 12:
+        fail(f"quadruped_sensors_xml: {n} motors made servos, not 12")
+    joints = re.findall(r'<position name="\w+" joint="(\w+)"', xml)
+    actuators = re.findall(r'<position name="(\w+)"', xml)
+    rows = [f'<{t} objtype="site" objname="imu"/>' for t in ("framequat",)]
+    rows += [f'<{t} site="imu"/>' for t in ("gyro", "accelerometer", "velocimeter")]
+    rows += [f'<{t} objtype="site" objname="imu"/>' for t in ("framepos", "framezaxis")]
+    rows += ['<subtreecom body="trunk"/>', '<subtreelinvel body="trunk"/>']
+    rows += [f'<jointpos joint="{j}"/>' for j in joints] + [f'<jointvel joint="{j}"/>' for j in joints]
+    rows += [f'<actuatorfrc actuator="{a}"/>' for a in actuators]
+    rows += [f'<touch site="{f}_foot"/>' for f in FEET]
+    rows += [f'<contact geom1="{f}_foot" geom2="floor" data="found force" reduce="netforce"/>' for f in FEET]
+    sensors = "  <sensor>\n" + "".join(f"    {r}\n" for r in rows) + "  </sensor>\n"
+    return xml.replace("</mujoco>", sensors + "</mujoco>")
+
+
+def tests_xml(file: str, name: str) -> str:
+    """The XML string constant `name` of tests/`file`, read as text (the JAX
+    package's test modules import JAX; this imports nothing of them)."""
+    found = re.search(rf'^{name} = """(.*?)"""', (REPO / "tests" / file).read_text(), re.S | re.M)
+    if not found:
+        fail(f"no {name} in tests/{file}")
+    return found.group(1)
+
+
+def mocap_rig_xml() -> str:
+    """tests/test_mocap.py's target rig without its weld (weld equality rows
+    are not ported): a mocap sphere and a free box."""
+    return re.sub(r"<equality>.*?</equality>", "", tests_xml("test_mocap.py", "MOCAP_WELD"), flags=re.S)
+
+
+# the sensor rigs of the JAX package's tests and this script's actuator,
+# distance and mocap fixtures: name -> (its XML, stepped SENSOR_RIG_STEPS
+# steps card against CPU: the rigs with contacts or limit rows, the
+# activations, the falling bodies; sensor_rigs)
+SENSOR_RIGS = {
+    "sensor_rig": (lambda: tests_xml("test_sensors.py", "SENSOR_RIG"), False),
+    "contact_rig": (lambda: tests_xml("test_sensors.py", "CONTACT_RIG"), True),
+    "box_rig": (lambda: tests_xml("test_contact_sensor.py", "BOX_RIG"), True),
+    "subtree_rig": (lambda: tests_xml("test_contact_sensor.py", "SUBTREE_RIG"), True),
+    "distance_rig": (lambda: DISTANCE_RIG, True),
+    "ray_rig": (lambda: tests_xml("test_ray.py", "RAY_RIG"), False),
+    "actuator_rig": (lambda: ACTUATOR_RIG, True),
+    "mocap_rig": (mocap_rig_xml, True),
+}
+
+
+_XML_ARRAYS: dict = {}
+
+
+def xml_model(xml: str, device, opt: dict | None = None):
+    """The port's Model of an MJCF string on `device`, compiled here by the
+    port's compiler with setconst (the numpy arrays cached by text), with
+    `opt`'s Option overrides."""
+    from ambersim_tpu_torch.engine.setconst import set_constants
+    from ambersim_tpu_torch.io.bridge import model_from_numpy
+    from ambersim_tpu_torch.mjcf import compile_spec_arrays, parse_mjcf_string
+
+    if xml not in _XML_ARRAYS:
+        skel_fields, leaves = compile_spec_arrays(parse_mjcf_string(xml))
+        _XML_ARRAYS[xml] = skel_fields, set_constants(skel_fields, leaves)
+    m = model_from_numpy(*_XML_ARRAYS[xml], device=device)
+    return m.replace(opt=m.opt.replace(**opt)) if opt else m
 
 
 def settled_start(name: str):
@@ -1758,15 +1982,17 @@ TERRAIN_PER_STEP = {"cholesky": 1, "cho_solve": 1, "solve_pd": 1, "newton_struct
 # batch, steps, start, controller and the kernels every step launches (at
 # least once each; exactly per_step where given). `floor` paths are held to
 # FLOOR_TOL above the plane, `terrain` paths above the height field's
-# surface (terrain_floor_gap), and both keep their final state in SETTLED;
+# surface (terrain_floor_gap), and both keep their final state in SETTLED,
+# as `keep` paths do;
 # `vs_cpu` says how 8 envs are held against the CPU (run_phases):
 # "start" (default: 20 steps from the path's start at QPOS_TOL / QVEL_TOL),
 # "settled" (20 steps from the final state at those bars), "spread" (5
-# steps from it at 10 x the card's own spread, settled_card_vs_cpu) or
+# steps from it at 10 x the card's own spread, settled_card_vs_cpu),
+# "sensors" (20 steps from the start, sensordata too: sensor_rollout) or
 # "none" (a model another path holds)
 PATHS = {
     "quadruped": dict(model="quadruped", envs=NUM_ENVS, steps=NUM_STEPS, start=initial_batch, ctrl=pd_ctrl,
-                      kernels=_LINALG + ("newton_structured",), z=(0.20, 0.32)),
+                      kernels=_LINALG + ("newton_structured",), z=(0.20, 0.32), keep=True),
     "cartpole": dict(model="cartpole", envs=1024, steps=200, start=cartpole_start, ctrl=None,
                      kernels=_LINALG + ("newton_dense",)),
     "arm3": dict(model="arm3", envs=1024, steps=200, start=arm3_start, ctrl=None,
@@ -1776,10 +2002,10 @@ PATHS = {
     "humanoid": dict(model="humanoid", envs=1024, steps=20, start=rest_start, ctrl=None,
                      kernels=_LINALG + ("newton_structured",)),
     "clutter32_rowcap192": dict(model="clutter32_rowcap192", envs=CLUTTER_ENVS, steps=CLUTTER_STEPS,
-                                settle=CLUTTER_SETTLE, start=rest_start, ctrl=None, kernels=_LINALG_BLOCK,
+                                settle=CLUTTER_SETTLE, start=clutter_settled_start, ctrl=None, kernels=_LINALG_BLOCK,
                                 per_step=CLUTTER_PER_STEP, floor=True, vs_cpu="spread"),
     "clutter32_cap48": dict(model="clutter32_cap48", envs=CLUTTER_ENVS, steps=CLUTTER_STEPS, settle=CLUTTER_SETTLE,
-                            start=rest_start, ctrl=None, kernels=_LINALG_BLOCK, per_step=CLUTTER_PER_STEP,
+                            start=clutter_settled_start, ctrl=None, kernels=_LINALG_BLOCK, per_step=CLUTTER_PER_STEP,
                             floor=True, vs_cpu="none"),
     "drop_scene": dict(model="drop_scene", envs=DROP_ENVS, steps=DROP_STEPS, settle=DROP_SETTLE, start=rest_start,
                        ctrl=None, kernels=tuple(DROP_PER_STEP), per_step=DROP_PER_STEP, floor=True,
@@ -1796,9 +2022,15 @@ PATHS = {
     "quadruped_terrain": dict(build=lambda device: terrain_env(device).model, envs=NUM_ENVS, steps=NUM_STEPS,
                               start=terrain_start, ctrl=pd_ctrl, kernels=tuple(TERRAIN_PER_STEP),
                               per_step=TERRAIN_PER_STEP, z=(0.20, 0.32), terrain=True),
+    "quadruped_sensors": dict(build=lambda device: xml_model(quadruped_sensors_xml(), device), envs=NUM_ENVS,
+                              steps=NUM_STEPS, start=initial_batch, ctrl=None, kernels=tuple(TERRAIN_PER_STEP),
+                              per_step=TERRAIN_PER_STEP, z=(0.20, 0.32), keep=True, vs_cpu="sensors"),
 }
-# the clutter paths' final states, for the card-vs-CPU check
+# the floor, terrain and `keep` paths' final states (the card-vs-CPU
+# checks, the starts of later paths, the sensor path's checks)
 SETTLED: dict = {}
+# path -> ms per step of its timed run in this call
+STEP_MS: dict = {}
 # Each launch-counting phase's shapes: the (batch, n) of kernels 1-3 and the
 # case its Newton kernel is timed on (weighted_launch_time). PPO's eval
 # launches (64 envs) are weighed at the training batch's shape.
@@ -1828,6 +2060,7 @@ PHASE_SHAPES = {
     "compile_models": ((NUM_ENVS, 18), "quadruped"), "gripper_urdf": ((GRIPPER_ENVS, 8), "gripper"),
     # the height field's (kernel 4 at nefc 296, check_newton_ladder)
     "quadruped_terrain": ((NUM_ENVS, 18), "quadruped_terrain"), "ppo_terrain": ((NUM_ENVS, 18), "quadruped_terrain"),
+    "quadruped_sensors": ((NUM_ENVS, 18), "quadruped"),
 }
 # Section 9's phases, timed in section 9 (time_linalg_shapes) so that
 # section 3 does the same work as before it; the evals' launches are
@@ -2046,6 +2279,9 @@ def drive_path(name: str, device, card: str) -> dict:
               f"peak device memory over the timed steps {peak_gib:.2f} GiB, {peak_gib - held_gib:.2f} GiB above "
               f"what was held before them")
         SETTLED[name] = d
+    if p.get("keep"):
+        SETTLED[name] = d
+    STEP_MS[name] = 1e3 * seconds / p["steps"]
     rate = p["envs"] * p["steps"] / seconds
     print(
         f"{name} path: {p['envs']} envs x {p['steps']} steps in {seconds:.3f} s = {rate:.1f} env-steps/s, "
@@ -2084,13 +2320,14 @@ def stage_split(name: str, device, card: str, steps: int = 10) -> dict:
     import numpy as np
     import torch
 
-    from ambersim_tpu_torch.engine import collision, constraint, integrate, smooth, solver
+    from ambersim_tpu_torch.engine import collision, constraint, integrate, sensor, smooth, solver
 
     m = path_model(name, device)
     stages = (("fwd_position_smooth", smooth.fwd_position_smooth), ("collision", collision.collision),
               ("make_constraint", constraint.make_constraint), ("fwd_velocity", smooth.fwd_velocity),
               ("fwd_actuation", smooth.fwd_actuation), ("fwd_acceleration", smooth.fwd_acceleration),
-              ("solve", solver.solve), ("euler", integrate.euler))
+              ("solve", solver.solve)) + ((("sensors", sensor.sensors),) if m.skel.nsensor else ()) + (
+              ("euler", integrate.euler),)
     times = {k: [] for k, _ in stages}
     d = SETTLED[name]
     for _ in range(steps):
@@ -2180,6 +2417,274 @@ def settled_card_vs_cpu(device, name: str) -> None:
           f"{dv:.3e} (<= {bar_v:.3e}); the card's spread under a 1e-6 nudge: {spread_q:.3e} / {spread_v:.3e}")
     if not (dq <= bar_q and dv <= bar_v and torch.isfinite(card.qpos).all()):
         fail(f"{name}: card rollout disagrees with the CPU rollout")
+
+
+def float64_copy(x):
+    """A Model or Data (dataclasses of tensors) with every floating tensor
+    in float64: the plain versions run in it on the CPU."""
+    import dataclasses
+
+    import torch
+
+    kw = {}
+    for f in dataclasses.fields(x):
+        v = getattr(x, f.name)
+        if isinstance(v, torch.Tensor) and v.is_floating_point():
+            kw[f.name] = v.double()
+        elif dataclasses.is_dataclass(v):
+            kw[f.name] = float64_copy(v)
+    return dataclasses.replace(x, **kw)
+
+
+def data_head(d, n: int):
+    """The first n envs of a batch-first Data (its contact set too)."""
+    import dataclasses
+
+    import torch
+
+    kw = {}
+    for f in dataclasses.fields(d):
+        v = getattr(d, f.name)
+        if isinstance(v, torch.Tensor):
+            kw[f.name] = v[:n]
+        elif dataclasses.is_dataclass(v):
+            kw[f.name] = data_head(v, n)
+    return dataclasses.replace(d, **kw)
+
+
+def sensor_columns(m) -> tuple:
+    """(position, velocity, acceleration) stage masks over m's sensordata
+    columns (numpy bool; the acceleration stage holds the force-derived
+    rows and the contact sensor's)."""
+    import numpy as np
+
+    from ambersim_tpu_torch.core.types import SensorType
+    from ambersim_tpu_torch.engine.sensor import ACC_STAGE, VEL_STAGE
+
+    s = m.skel
+    stage = np.zeros(s.nsensordata, np.int64)
+    for t, a, n in zip(s.sensor_type, s.sensor_adr, s.sensor_dim):
+        t = SensorType(int(t))
+        stage[int(a): int(a + n)] = 2 if t in ACC_STAGE else 1 if t in VEL_STAGE else 0
+    return stage == 0, stage == 1, stage == 2
+
+
+def normal_atol(m, d):
+    """(B, nsensordata) the atol a <normal> sensor's columns are held at by
+    same_input_sensors, 0 elsewhere: the normal is the direction between
+    two points dd apart (a sphere's or a capsule's core point and the other
+    geom's closest point, dd = |dist + the core radii|), and float32
+    rounding of their world coordinates turns it by up to NORMAL_ULPS / dd
+    on either device."""
+    import numpy as np
+    import torch
+
+    from ambersim_tpu_torch.core.types import GeomType, ObjType, SensorType
+    from ambersim_tpu_torch.engine.collision import geom_pair_distance
+
+    s = m.skel
+    out = torch.zeros(d.qpos.shape[0], s.nsensordata, dtype=torch.float64)
+    types, size = np.asarray(s.geom_type), m.geom_size[:, 0].cpu().numpy()
+    core = np.where(np.isin(types, (int(GeomType.SPHERE), int(GeomType.CAPSULE))), size, 0.0)
+    for i in np.nonzero(np.asarray(s.sensor_type) == int(SensorType.GEOMNORMAL))[0]:
+        a, b = int(s.sensor_objid[i]), int(s.sensor_refid[i])
+        if int(s.sensor_objtype[i]) == int(ObjType.GEOM):
+            pairs = [(a, b)]
+        else:  # two bodies' geoms
+            pairs = [(x, y) for x in range(int(s.body_geomadr[a]), int(s.body_geomadr[a] + s.body_geomnum[a]))
+                     for y in range(int(s.body_geomadr[b]), int(s.body_geomadr[b] + s.body_geomnum[b]))]
+        g1, g2 = np.array([p[0] for p in pairs]), np.array([p[1] for p in pairs])
+        dist = geom_pair_distance(m, d, g1, g2)[0].double()  # (B, P)
+        k = dist.argmin(-1, keepdim=True)
+        dd = (torch.take_along_dim(dist + torch.as_tensor(core[g1] + core[g2]), k, -1)).abs()
+        adr = int(s.sensor_adr[i])
+        out[:, adr:adr + 3] = NORMAL_ULPS / dd
+    return out
+
+
+def same_input_sensors(what: str, m_card, d_card, m_cpu) -> None:
+    """sensor.sensors on the card and on the CPU from one Data, the first 8
+    envs of d_card copied to the CPU: position and velocity rows within
+    SENSOR_TOL, acceleration and force rows within SENSOR_FORCE_TOL (rtol,
+    atol), every env; a <normal> sensor's at its conditioned bar where
+    that is larger (normal_atol). Isolates the module from the solver's
+    float32 spread."""
+    import torch
+
+    from ambersim_tpu_torch.engine import sensor
+
+    d8 = data_head(d_card, 8).to("cpu")
+    got = sensor.sensors(m_card, data_head(d_card, 8)).sensordata.cpu().double()
+    want = sensor.sensors(m_cpu, d8).sensordata.double()
+    cond = normal_atol(m_cpu, d8)
+    pos, vel, acc = (torch.as_tensor(c) for c in sensor_columns(m_cpu))
+    line = []
+    for cols, (rtol, atol), rows in ((pos | vel, SENSOR_TOL, "position and velocity"),
+                                     (acc, SENSOR_FORCE_TOL, "acceleration and force")):
+        g, w = got[:, cols], want[:, cols]
+        err = (g - w).abs()
+        bar = torch.maximum(atol + rtol * w.abs(), cond[:, cols])
+        line.append(f"{rows} rows ({int(cols.sum())} columns) max |d| {err.max().item() if err.numel() else 0.0:.3e} "
+                    f"(rtol/atol {rtol}/{atol}, normals at NORMAL_ULPS / dd)")
+        if not (bool(torch.isfinite(g).all()) and bool((err <= bar).all())):
+            fail(f"{what}: sensors on the card and on the CPU from the same Data part: {line[-1]}")
+    print(f"{what}: sensors card vs CPU on the same Data (8 envs, {m_cpu.skel.nsensor} sensors): " + "; ".join(line),
+          flush=True)
+
+
+def sensor_rollout(what: str, build, start, steps: int, device, ctrl_fn=None):
+    """8 envs x `steps` steps of a sensor model on the card, on the CPU and
+    on the CPU in float64 (float64_copy), each followed by a forward for the
+    final state's sensordata. qpos, qvel and act, and the position and
+    velocity rows, against the CPU at QPOS_TOL / QVEL_TOL; the acceleration
+    and force rows as kernel 4's outputs are held: within NEWTON_TOL on
+    NEWTON_MIN_SHARE of envs and NEWTON_ENV_RTOL of each env's largest
+    (newton_err) where plain float32 meets float64 so, else against float64
+    (vs_float64). Returns the card's final Data."""
+    from ambersim_tpu_torch.engine import rollout
+    from ambersim_tpu_torch.engine.forward import forward
+
+    runs = []
+    for dev, f64 in ((device, False), ("cpu", False), ("cpu", True)):
+        m = build(dev)
+        d = start(m, 8, dev)
+        if f64:
+            m, d = float64_copy(m), float64_copy(d)
+        runs.append(forward(m, rollout(m, d, steps, ctrl_fn=ctrl_fn)))
+    card, cpu, exact = runs
+    pos, vel, acc = sensor_columns(m)
+
+    def dmax(a, b):
+        return (a.cpu() - b).abs().max().item() if a.numel() else 0.0
+
+    diffs = dict(qpos=(dmax(card.qpos, cpu.qpos), QPOS_TOL), qvel=(dmax(card.qvel, cpu.qvel), QVEL_TOL),
+                 act=(dmax(card.act, cpu.act), QPOS_TOL),
+                 position_rows=(dmax(card.sensordata[:, pos], cpu.sensordata[:, pos]), QPOS_TOL),
+                 velocity_rows=(dmax(card.sensordata[:, vel], cpu.sensordata[:, vel]), QVEL_TOL))
+    print(f"{what} card vs cpu after {steps} steps, max |d|: "
+          + ", ".join(f"{k} {v:.3e} (<= {bar})" for k, (v, bar) in diffs.items()), flush=True)
+    if not all(v <= bar for v, bar in diffs.values()):
+        fail(f"{what}: card rollout or its position / velocity sensor rows disagree with the CPU's")
+    if acc.any():
+        got, plain, f64 = (x.sensordata[:, acc].cpu() for x in (card, cpu, exact))
+        names = ("acceleration and force rows",)
+        if newton_within((plain,), (f64,)).double().mean().item() >= NEWTON_MIN_SHARE:
+            newton_err((got,), (plain,), f"{what} sensordata, card vs CPU", names)
+            newton_err((plain,), (f64,), f"{what} sensordata, plain float32 vs float64", names)
+        else:
+            vs_float64((got,), (plain,), (f64,), f"{what} sensordata", names=names)
+    return card
+
+
+def rig_start(m, batch: int, device):
+    """A sensor rig's start: make_data (at its first keyframe if it has
+    one) with qpos + 0.01 N(0, 1), qvel 0.2 N(0, 1), ctrl 0.5 N(0, 1) and
+    each mocap body moved by 0.1 N(0, 1) and turned to a random
+    orientation, drawn by numpy.random.default_rng(16)."""
+    import numpy as np
+    import torch
+
+    from ambersim_tpu_torch.engine import make_data
+
+    s = m.skel
+    d = make_data(m, batch, keyframe=0 if m.key_qpos.shape[0] else None)
+    rng = np.random.default_rng(16)
+
+    def draw(scale, *shape):
+        return torch.as_tensor((scale * rng.standard_normal((batch,) + shape)).astype(np.float32), device=device)
+
+    quat = draw(1.0, s.nmocap, 4)
+    return d.replace(qpos=d.qpos + draw(0.01, s.nq), qvel=draw(0.2, s.nv), ctrl=draw(0.5, s.nu),
+                     mocap_pos=d.mocap_pos + draw(0.1, s.nmocap, 3), mocap_quat=quat / quat.norm(dim=-1, keepdim=True))
+
+
+def sensor_rigs(device) -> None:
+    """Every SENSOR_RIGS model, card against CPU at 8 envs from rig_start:
+    a rollout of SENSOR_RIG_STEPS steps at CONVERGED solver options
+    (sensor_rollout) where the table says so, else a forward on the card;
+    then that Data's sensors on both (same_input_sensors); a mocap body's
+    frame is its mocap pose, bit for bit in position."""
+    import numpy as np
+    import torch
+
+    from ambersim_tpu_torch.core import math as am
+    from ambersim_tpu_torch.engine.forward import forward
+
+    for name, (xml, roll) in SENSOR_RIGS.items():
+        text = xml()
+        m = xml_model(text, device, CONVERGED)
+        if roll:
+            card = sensor_rollout(name, lambda dev: xml_model(text, dev, CONVERGED), rig_start, SENSOR_RIG_STEPS,
+                                  device)
+        else:
+            card = forward(m, rig_start(m, 8, device))
+        if m.skel.nsensor:
+            same_input_sensors(name, m, card, xml_model(text, "cpu", CONVERGED))
+        if m.skel.nmocap:
+            d = forward(m, rig_start(m, 8, device))
+            body = torch.as_tensor(np.array(m.skel.mocap_bodyid), device=device)
+            dpos = (d.xpos[:, body] - d.mocap_pos).abs().max().item()
+            dquat = (d.xquat[:, body] - am.normalize_quat(d.mocap_quat)).abs().max().item()
+            print(f"{name}: mocap bodies at their mocap poses: max |dpos| {dpos:.3e} (== 0), max |dquat| {dquat:.3e} "
+                  f"(<= 1e-6)", flush=True)
+            if not (dpos == 0.0 and dquat <= 1e-6):
+                fail(f"{name}: a mocap body's frame is not its mocap pose")
+
+
+def sensor_cols(m, stype) -> list:
+    """The sensordata columns of every sensor of type `stype`, in order."""
+    s = m.skel
+    return [c for t, a, n in zip(s.sensor_type, s.sensor_adr, s.sensor_dim) if int(t) == int(stype)
+            for c in range(int(a), int(a + n))]
+
+
+def quadruped_sensors_checks(device, card: str) -> None:
+    """The sensor path's final state (a forward there): jointpos, jointvel,
+    actuatorfrc and subtreecom equal to qpos[:, 7:], qvel[:, 6:],
+    actuator_force and subtree_com[:, 1] bit for bit, framequat the trunk's
+    xquat up to sign within 1e-6; the touch readings over M g (recorded);
+    the servo rollout's qpos / qvel against the PD path's (`quadruped`, the
+    same start) at QPOS_TOL / QVEL_TOL; sensors card vs CPU on the same
+    Data; the rate beside the flat quadruped's and the stage split."""
+    import torch
+
+    from ambersim_tpu_torch.core.types import SensorType
+    from ambersim_tpu_torch.engine.forward import forward
+
+    m = path_model("quadruped_sensors", device)
+    d = forward(m, SETTLED["quadruped_sensors"])
+    sd = d.sensordata
+
+    def col(t):
+        return sd[:, sensor_cols(m, t)]
+
+    exact = {"jointpos": (col(SensorType.JOINTPOS), d.qpos[:, 7:]),
+             "jointvel": (col(SensorType.JOINTVEL), d.qvel[:, 6:]),
+             "actuatorfrc": (col(SensorType.ACTUATORFRC), d.actuator_force),
+             "subtreecom": (col(SensorType.SUBTREECOM), d.subtree_com[:, 1])}
+    for k, (a, b) in exact.items():
+        if not torch.equal(a, b):
+            fail(f"quadruped_sensors: {k} differs from its Data field by {(a - b).abs().max().item():.3e}")
+    q, x = col(SensorType.FRAMEQUAT), d.xquat[:, 1]
+    dquat = torch.minimum((q - x).abs().amax(-1), (q + x).abs().amax(-1)).max().item()
+    if dquat > 1e-6:
+        fail(f"quadruped_sensors: framequat parts from the trunk's xquat by {dquat:.3e}")
+    weight = m.body_mass.sum() * m.opt.gravity.norm()
+    touch = (col(SensorType.TOUCH).sum(1) / weight).mean().item()
+    servo, pd = SETTLED["quadruped_sensors"], SETTLED["quadruped"]
+    dq = (servo.qpos - pd.qpos).abs().max().item()
+    dv = (servo.qvel - pd.qvel).abs().max().item()
+    print(f"quadruped_sensors: jointpos, jointvel, actuatorfrc and subtreecom equal to their Data fields; framequat "
+          f"within {dquat:.3e} of the trunk's xquat; touch over M g, mean over envs {touch:.4f}; servo vs PD after "
+          f"{NUM_STEPS} steps: max |dqpos| {dq:.3e} (<= {QPOS_TOL}), max |dqvel| {dv:.3e} (<= {QVEL_TOL})", flush=True)
+    if not (dq <= QPOS_TOL and dv <= QVEL_TOL):
+        fail("quadruped_sensors: the servo rollout parts from the PD rollout")
+    same_input_sensors("quadruped_sensors", m, d, path_model("quadruped_sensors", "cpu"))
+    split = stage_split("quadruped_sensors", device, card)
+    print(f"quadruped_sensors: {STEP_MS['quadruped_sensors']:.3f} ms a step "
+          f"({NUM_ENVS * 1e3 / STEP_MS['quadruped_sensors']:.1f} env-steps/s) against the flat quadruped's "
+          f"{STEP_MS['quadruped']:.3f} ms in this call; sensors stage {split['sensors']:.3f} ms (median of 10) "
+          f"[{card}]", flush=True)
 
 
 _HAND_KERNELS = _LINALG + ("newton_structured",)
@@ -2970,9 +3475,7 @@ def grad_path_start(name: str, m, B: int, device):
     if name == "hand":
         return make_data(m, B).replace(qpos=hand_start(m, B, seed=12, scale=0.5))
     if name.startswith("clutter"):
-        z = np.load(CLUTTER_SETTLED)
-        return make_data(m, B).replace(**{k: torch.as_tensor(z[k], device=device).expand(B, -1).contiguous()
-                                          for k in ("qpos", "qvel")})
+        return clutter_settled_start(m, B, device)
     return PATHS[name]["start"](m, B, device)
 
 
@@ -3883,13 +4386,13 @@ def compile_models(device, card: str) -> dict:
     the main path from the compiled quadruped: NUM_ENVS x NUM_STEPS PD steps
     from initial_batch with the launch counts set to 0 just before and read
     just after (kernels 1-4, exactly once a step each), held against the
-    same rollout of the committed quadruped.npz within the card-vs-CPU bars.
+    same rollout of the committed quadruped.npz (the main path's final
+    state, SETTLED) within the card-vs-CPU bars.
     Returns the main path's launch counts."""
     import numpy as np
     import scipy
     import torch
 
-    from ambersim_tpu_torch import load_model
     from ambersim_tpu_torch.engine import rollout
     from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
 
@@ -3921,8 +4424,7 @@ def compile_models(device, card: str) -> dict:
     for field in ("qpos", "qvel", "qacc", "efc_force"):
         if not torch.isfinite(getattr(d, field)).all():
             fail(f"compile_models quadruped: non-finite {field}")
-    ref = load_model("quadruped", device=device)
-    want = rollout(ref, initial_batch(ref, NUM_ENVS, device), steps, ctrl_fn=pd_ctrl)
+    want = SETTLED["quadruped"]  # the committed quadruped.npz's rollout: the main path's
     dq = (d.qpos - want.qpos).abs().max().item()
     dv = (d.qvel - want.qvel).abs().max().item()
     print(f"compile_models quadruped path from the compiled model: {NUM_ENVS} envs x {steps} steps in "
@@ -4282,6 +4784,7 @@ def run_phases(device, card: str, results: dict) -> None:
         splits[name] = stage_split(name, device, card)
     for name in ("clutter32_rowcap192", "clutter32_cap48"):
         clutter_newton_spread(name, device)
+    quadruped_sensors_checks(device, card)
     print(f"clutter32_rowcap192 solve stage, median ms: bfloat16 Hessian product "
           f"{splits['clutter32_rowcap192_bf16']['solve']:.3f}, float32 {splits['clutter32_rowcap192']['solve']:.3f} "
           f"[{card}]", flush=True)
@@ -4348,6 +4851,9 @@ def run_phases(device, card: str, results: dict) -> None:
             card_vs_cpu(name, device, ELLIPTIC_QPOS_TOL, ELLIPTIC_QVEL_TOL)
         elif method == "start":
             card_vs_cpu(name, device, QPOS_TOL, QVEL_TOL)
+        elif method == "sensors":
+            p = PATHS[name]
+            sensor_rollout(name, lambda dev: path_model(name, dev), p["start"], 20, device, p["ctrl"])
         elif method != "none":
             settled_card_vs_cpu(device, name)
         phase(f"{name} card vs CPU")
@@ -4366,6 +4872,8 @@ def run_phases(device, card: str, results: dict) -> None:
     phase("env card vs CPU")
     ray_card_vs_cpu(device, card)
     phase("ray card vs CPU")
+    sensor_rigs(device)
+    phase("sensor rigs card vs CPU")
     section("8 (card against CPU)")
 
     # ---- 9. ES, ARS and SAC, each with its own launch counts ----

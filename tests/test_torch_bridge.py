@@ -34,6 +34,37 @@ TENDON_SENSOR_XML = """
 """
 
 
+# a tendon's length sensor (tendon sensors wait with the tendons)
+TENDON_POS_SENSOR_XML = TENDON_SENSOR_XML.replace('<jointpos joint="a"/>', '<tendonpos tendon="t"/>')
+
+# a camera projecting a site (CAMPROJECTION waits with the cameras)
+CAMPROJECTION_XML = """
+<mujoco><worldbody>
+  <body pos="0 0 1"><joint axis="0 0 1"/><geom type="sphere" size="0.05"/>
+    <camera name="cam" pos="0.3 0 0.2"/><site name="s" pos="0.1 0 0"/></body>
+</worldbody>
+<sensor><camprojection site="s" camera="cam"/></sensor>
+</mujoco>
+"""
+
+# a muscle on a hinge joint
+MUSCLE_XML = """
+<mujoco><worldbody>
+  <body><joint name="j" axis="0 1 0" range="-1 1"/><geom type="capsule" fromto="0 0 0 0 0 -0.3" size="0.02"/></body>
+</worldbody>
+<actuator><muscle joint="j" lengthrange="-1 1"/></actuator>
+</mujoco>
+"""
+
+# a motor on a ball joint
+BALL_MOTOR_XML = """
+<mujoco><worldbody>
+  <body><joint name="b" type="ball"/><geom type="capsule" fromto="0 0 0 0 0 -0.3" size="0.02"/></body>
+</worldbody>
+<actuator><motor joint="b" gear="1 0 0"/></actuator>
+</mujoco>
+"""
+
 # contacts of condim 4 (torsional friction) and 6 (rolling friction)
 CONDIM46_XML = """
 <mujoco><worldbody>
@@ -322,22 +353,69 @@ def test_stacked_mlp_params_carry_across():
     "source, features",
     [
         (HAND_WELD_XML, ["weld equality constraints"]),
-        (TENDON_SENSOR_XML, ["tendons", "sensors"]),
+        (TENDON_SENSOR_XML, ["tendons"]),
+        (TENDON_POS_SENSOR_XML, ["tendons", "tendon sensors"]),
+        (CAMPROJECTION_XML, ["cameras (camlight)", "camera projection sensors (CAMPROJECTION)"]),
+        (MUSCLE_XML, ["muscle actuators"]),
+        (BALL_MOTOR_XML, ["actuator transmission JOINT (only hinge/slide joints)"]),
+        ("SLIDE_RIG", ["contact condim 4/6"]),
+        ("MOCAP_WELD", ["weld equality constraints"]),
         (CONDIM46_XML, ["contact condim 4/6"]),
         (ELLIPTIC_MIXED_XML, ["elliptic cones with mixed contact condims"]),
         (EXPLICIT_PAIR_XML, ["explicit <pair> contact overrides"]),
         (RK4_XML, ["the RK4 integrator"]),
     ],
-    ids=["hand_weld", "tendon_sensor", "condim46", "elliptic_mixed", "explicit_pair", "rk4"],
+    ids=["hand_weld", "tendon_sensor", "tendon_pos_sensor", "camprojection", "muscle", "ball_motor",
+         "contact_sensor_condim6", "mocap_weld", "condim46", "elliptic_mixed", "explicit_pair", "rk4"],
 )
 def test_models_outside_the_slice_are_refused(source, features):
+    """Each feature outside the slice is refused by name: tendons and their
+    sensors, CAMPROJECTION, muscles, actuators on ball joints, condim 6
+    (tests/test_contact_sensor.py's first fixture), weld equality (the
+    mocap drag of tests/test_mocap.py), and the rest."""
     from ambersim_tpu_torch.io.bridge import model_from_numpy
+    from test_contact_sensor import SLIDE_RIG
+    from test_mocap import MOCAP_WELD
 
+    source = {"SLIDE_RIG": SLIDE_RIG, "MOCAP_WELD": MOCAP_WELD}.get(source, source)
     jm = tp.jax_model(source) if source.endswith(".xml") else tp.jax_model_from_xml(source)
     with pytest.raises(NotImplementedError) as err:
         model_from_numpy(*model_arrays(jm), device="cpu")
     for feature in features:
         assert feature in str(err.value)
+    assert "sensors" not in str(err.value).split(": ", 1)[1].split(", ")  # sensors as such are in the slice
+
+
+def _lifted(name):
+    """The XML of each feature lifted in the sensor and servo slice."""
+    import chip_smoke
+    from test_actgroup_user import XML as ACTGROUP_XML
+    from test_actfrcrange import XML as ACTFRCRANGE_XML
+    from test_contact_sensor import BOX_RIG
+    from test_sensors import SENSOR_RIG
+
+    return {"sensors": SENSOR_RIG, "contact_sensors": BOX_RIG, "mocap": chip_smoke.mocap_rig_xml(),
+            "activations_and_servos": chip_smoke.ACTUATOR_RIG, "actuator_group_disabling": ACTGROUP_XML,
+            "actuatorfrcrange": ACTFRCRANGE_XML,
+            "energy": chip_smoke.ACTUATOR_RIG.replace('actuatorgroupdisable="3"/>',
+                                                      'actuatorgroupdisable="3"><flag energy="enable"/></option>')}[name]
+
+
+@pytest.mark.parametrize("name", ["sensors", "contact_sensors", "mocap", "activations_and_servos",
+                                  "actuator_group_disabling", "actuatorfrcrange", "energy"])
+def test_lifted_features_are_accepted(name):
+    """Sensors (but tendon sensors and CAMPROJECTION), mocap bodies,
+    filter / filterexact / integrator activations, affine servos, a joint's
+    actuatorfrcrange, actuator group disabling and the ENERGY flag load
+    through the bridge; two CPU steps stay finite."""
+    from ambersim_tpu_torch.core.types import EnableBit
+    from ambersim_tpu_torch.engine import make_data, step
+    from ambersim_tpu_torch.io.bridge import model_from_numpy
+
+    m = model_from_numpy(*model_arrays(tp.jax_model_from_xml(_lifted(name))), device="cpu")
+    assert bool(m.opt.enableflags & EnableBit.ENERGY) == (name == "energy")
+    d = step(m, step(m, make_data(m, 2)))
+    assert torch.isfinite(d.qpos).all() and torch.isfinite(d.sensordata).all() and torch.isfinite(d.act).all()
 
 
 @pytest.mark.parametrize("other", ["sphere", "capsule", "box"])
