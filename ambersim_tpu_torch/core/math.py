@@ -61,6 +61,11 @@ def rotate_inv(vec: torch.Tensor, quat: torch.Tensor) -> torch.Tensor:
     return rotate(vec, neg_quat(quat))
 
 
+def mat_t_vec(mat: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """mat^T @ v over the last axes: (..., 3, 3), (..., 3) -> (..., 3)."""
+    return (mat * v[..., :, None]).sum(-2)
+
+
 def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
     """(..., 4) quaternion -> (..., 3, 3) rotation matrix."""
     w, x, y, z = q.unbind(-1)

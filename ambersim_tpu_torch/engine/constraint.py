@@ -1,6 +1,6 @@
-"""Constraint assembly for the ported slice: joint equality couplings, dof
-friction, scalar joint limits, frictionless condim-1 contacts and condim-3
-contacts (pyramidal or
+"""Constraint assembly for the ported slice: joint and tendon equality
+couplings, dof and tendon friction, scalar joint and tendon limits,
+frictionless condim-1 contacts and condim-3 contacts (pyramidal or
 elliptic cones) -> batch-first efc rows (J, D, aref, pos, active) plus the
 factored operands efc_bJ/efc_dsc of the structured Newton kernel. Port of
 ambersim_tpu/engine/constraint.py (`_impedance`, `_kbi`, `PyramidStructure`,
@@ -19,7 +19,9 @@ Conventions (MuJoCo, parity-tested by the JAX package):
   * limits: one row per limited joint, J = +1 near the lower bound, -1 near the upper
   * joint equality: pos = (q1 - q1_0) - poly(q2 - q2_0) with the polycoef
     quartic, J = e_dof1 - poly'(q2 - q2_0) e_dof2, diagApprox = the two
-    dofs' invweight (joint 1 alone when joint2 is absent)
+    dofs' invweight (joint 1 alone when joint2 is absent); tendon equality
+    likewise on ten_length - length0 and ten_J, on the tendons' invweight0
+  * tendon friction rows J = ten_J, tendon limit rows J = +-ten_J (dense)
 Every row exists every step; efc_active gates it.
 """
 
@@ -252,6 +254,63 @@ def _frame_rows(frame: torch.Tensor, jac_rows):
     ]
 
 
+def _poly(c: torch.Tensor, z: torch.Tensor):
+    """The equality's quartic polycoef c (..., 5) at z and its derivative."""
+    poly = c[:, 0] + z * (c[:, 1] + z * (c[:, 2] + z * (c[:, 3] + z * c[:, 4])))
+    dpoly = c[:, 1] + z * (2 * c[:, 2] + z * (3 * c[:, 3] + z * 4 * c[:, 4]))
+    return poly, dpoly
+
+
+def _joint_eq(m: Model, d: Data, eqs: np.ndarray):
+    """Joint equality rows `eqs`: (eqs, J (B, E, nv), pos (B, E), diagApprox
+    (E,)): pos = (q1 - q1_0) - poly(q2 - q2_0), J = e_dof1 - poly' e_dof2,
+    joint 1 alone (pos = q1 - q1_0 - c0) where joint2 is absent."""
+    s = m.skel
+    dev = d.qpos.device
+
+    def ix(a):
+        return device_index(a, dev)
+
+    j1, j2 = np.asarray(s.eq_obj1id)[eqs], np.asarray(s.eq_obj2id)[eqs]
+    two = j2 >= 0
+    e2 = np.nonzero(two)[0]  # the rows coupling two joints
+    j2 = np.where(two, j2, j1)  # a one-joint row reads its own joint; `two` drops that term
+    qa1, da1 = ix(s.jnt_qposadr[j1]), ix(s.jnt_dofadr[j1])
+    qa2, da2 = ix(s.jnt_qposadr[j2]), ix(s.jnt_dofadr[j2])
+    two_t = ix(two)
+    c = m.eq_data[ix(eqs), :5]
+    poly, dpoly = _poly(c, d.qpos[:, qa2] - m.qpos0[qa2])
+    pos = (d.qpos[:, qa1] - m.qpos0[qa1]) - torch.where(two_t, poly, c[:, 0])
+    J_eq = d.qpos.new_zeros((d.qpos.shape[0], len(eqs), s.nv))
+    J_eq[:, ix(np.arange(len(eqs))), da1] = 1.0
+    J_eq[:, ix(e2), ix(s.jnt_dofadr[j2[e2]])] = -dpoly[:, ix(e2)]
+    diag = m.dof_invweight0[da1] + torch.where(two_t, m.dof_invweight0[da2], 0.0)
+    return eqs, J_eq, pos, diag
+
+
+def _tendon_eq(m: Model, d: Data, eqs: np.ndarray):
+    """Tendon equality rows `eqs`, as `_joint_eq` on tendon lengths less
+    their length0: J = ten_J1 - poly' ten_J2, diagApprox the tendons'
+    invweight0 (JAX constraint.py:330-350)."""
+    s = m.skel
+    dev = d.qpos.device
+
+    def ix(a):
+        return device_index(a, dev)
+
+    t1, t2 = np.asarray(s.eq_obj1id)[eqs], np.asarray(s.eq_obj2id)[eqs]
+    two = ix(t2 >= 0)
+    t2 = np.where(t2 >= 0, t2, t1)
+    t1, t2 = ix(t1), ix(t2)
+    c = m.eq_data[ix(eqs), :5]
+    poly, dpoly = _poly(c, d.ten_length[:, t2] - m.tendon_length0[t2])
+    pos = (d.ten_length[:, t1] - m.tendon_length0[t1]) - torch.where(two, poly, c[:, 0])
+    J1, J2 = d.ten_J[:, t1], d.ten_J[:, t2]
+    J_eq = torch.where(two[:, None], J1 - dpoly[..., None] * J2, J1)
+    diag = torch.where(two, m.tendon_invweight0[t1] + m.tendon_invweight0[t2], m.tendon_invweight0[t1])
+    return eqs, J_eq, pos, diag
+
+
 def make_constraint(m: Model, d: Data) -> Data:
     s = m.skel
     nv, nefc = s.nv, s.nefc
@@ -275,32 +334,23 @@ def make_constraint(m: Model, d: Data) -> Data:
     efc_active = torch.zeros((B, nefc), dtype=torch.bool, device=dev)
     row = 0
 
-    # -------- equality: joint couplings, the first rows --------
+    # -------- equality: joint and tendon couplings, the first rows --------
     if s.neq:
-        neq = int(s.neq)
-        j1, j2 = np.asarray(s.eq_obj1id), np.asarray(s.eq_obj2id)
-        two = j2 >= 0
-        e2 = np.nonzero(two)[0]  # the rows coupling two joints
-        j2 = np.where(two, j2, j1)  # a one-joint row reads its own joint; `two` drops that term
-        qa1, da1 = ix(s.jnt_qposadr[j1]), ix(s.jnt_dofadr[j1])
-        qa2, da2 = ix(s.jnt_qposadr[j2]), ix(s.jnt_dofadr[j2])
-        two_t, rows, eqs = ix(two), ix(np.arange(row, row + neq)), ix(np.arange(neq))
-        c = m.eq_data[:, :5]
-        z = d.qpos[:, qa2] - m.qpos0[qa2]
-        poly = c[:, 0] + z * (c[:, 1] + z * (c[:, 2] + z * (c[:, 3] + z * c[:, 4])))
-        dpoly = c[:, 1] + z * (2 * c[:, 2] + z * (3 * c[:, 3] + z * 4 * c[:, 4]))
-        pos = (d.qpos[:, qa1] - m.qpos0[qa1]) - torch.where(two_t, poly, c[:, 0])
-        J_eq = d.qpos.new_zeros((B, neq, nv))
-        J_eq[:, eqs, da1] = 1.0
-        J_eq[:, ix(e2), ix(s.jnt_dofadr[j2[e2]])] = -dpoly[:, ix(e2)]
-        diag = m.dof_invweight0[da1] + torch.where(two_t, m.dof_invweight0[da2], 0.0)
-        k, b, imp = _kbi(m, m.eq_solref, m.eq_solimp, pos)
-        efc_J[:, rows] = J_eq
-        efc_pos[:, rows] = pos
-        efc_aref[:, rows] = -b * (J_eq * d.qvel[:, None, :]).sum(-1) - k * imp * pos
-        efc_D[:, rows] = imp / torch.clamp((1 - imp) * diag, min=_MINVAL)
-        efc_active[:, rows] = ix(np.asarray(s.eq_active0, bool)) & (not (m.opt.disableflags & DisableBit.EQUALITY))
-        row += neq
+        eq_type = np.asarray(s.eq_type)
+        on = ix(np.asarray(s.eq_active0, bool)) & (not (m.opt.disableflags & DisableBit.EQUALITY))
+        ej = np.nonzero(eq_type == int(EqType.JOINT))[0]  # one row each, in model order
+        et = np.nonzero(eq_type == int(EqType.TENDON))[0]
+        for eqs, J_eq, pos, diag in (_joint_eq(m, d, ej), _tendon_eq(m, d, et)):
+            if not len(eqs):
+                continue
+            e, rows = ix(eqs), ix(row + eqs)
+            k, b, imp = _kbi(m, m.eq_solref[e], m.eq_solimp[e], pos)
+            efc_J[:, rows] = J_eq
+            efc_pos[:, rows] = pos
+            efc_aref[:, rows] = -b * (J_eq * d.qvel[:, None, :]).sum(-1) - k * imp * pos
+            efc_D[:, rows] = imp / torch.clamp((1 - imp) * diag, min=_MINVAL)
+            efc_active[:, rows] = on[e]
+        row += int(s.neq)
 
     # -------- friction loss: dof rows --------
     nfd = len(s.friction_dofid)
@@ -317,6 +367,21 @@ def make_constraint(m: Model, d: Data) -> Data:
         efc_fl[:, rows] = m.dof_frictionloss[dofs]
         efc_active[:, rows] = not (m.opt.disableflags & DisableBit.FRICTIONLOSS)
         row += nfd
+    # -------- friction loss: tendon rows (dense) --------
+    nft = len(s.friction_tenid)
+    if nft:
+        tens = ix(s.friction_tenid)
+        rows = ix(np.arange(row, row + nft))
+        k, b, imp = _kbi(m, m.tendon_solref_fri[tens], m.tendon_solimp_fri[tens], d.qpos.new_zeros((nft,)))
+        efc_J[:, rows] = d.ten_J[:, tens]
+        # d.ten_velocity is the Data's own: the JAX package sets it in
+        # fwd_velocity, after this stage (smooth.py:1268-1270), so within a
+        # step the row reads the tendon velocity of the step before
+        efc_aref[:, rows] = -b * d.ten_velocity[:, tens]
+        efc_D[:, rows] = imp / torch.clamp((1 - imp) * m.tendon_invweight0[tens], min=_MINVAL)
+        efc_fl[:, rows] = m.tendon_frictionloss[tens]
+        efc_active[:, rows] = not (m.opt.disableflags & DisableBit.FRICTIONLOSS)
+        row += nft
 
     # -------- limits: scalar joints --------
     nlj = len(s.limit_jntid)
@@ -343,6 +408,27 @@ def make_constraint(m: Model, d: Data) -> Data:
         efc_D[:, rows] = imp / torch.clamp((1 - imp) * m.dof_invweight0[das], min=_MINVAL)
         efc_active[:, rows] = (not (m.opt.disableflags & DisableBit.LIMIT)) & (dist < margin)
         row += nlj
+    # -------- limits: tendons (dense rows) --------
+    nlt = len(s.limit_tenid)
+    if nlt:
+        tens = ix(s.limit_tenid)
+        rows = ix(np.arange(row, row + nlt))
+        L = d.ten_length[:, tens]
+        dist_lo, dist_hi = L - m.tendon_range[tens, 0], m.tendon_range[tens, 1] - L
+        lower = dist_lo < dist_hi
+        dist = torch.where(lower, dist_lo, dist_hi)
+        sign = torch.where(lower, 1.0, -1.0).to(L.dtype)
+        margin = m.tendon_margin[tens]
+        pos = dist - margin
+        k, b, imp = _kbi(m, m.tendon_solref_lim[tens], m.tendon_solimp_lim[tens], pos)
+        J_lim = sign[..., None] * d.ten_J[:, tens]
+        efc_J[:, rows] = J_lim
+        efc_pos[:, rows] = pos
+        efc_margin[:, rows] = margin.expand(B, -1)
+        efc_aref[:, rows] = -b * (J_lim * d.qvel[:, None, :]).sum(-1) - k * imp * pos
+        efc_D[:, rows] = imp / torch.clamp((1 - imp) * m.tendon_invweight0[tens], min=_MINVAL)
+        efc_active[:, rows] = (not (m.opt.disableflags & DisableBit.LIMIT)) & (dist < margin)
+        row += nlt
 
     # -------- contacts: one group per condim --------
     if s.ncon and not (m.opt.disableflags & DisableBit.CONTACT):

@@ -14,9 +14,10 @@ the number of sensors. The shared intermediates (cacc, the contact forces
 and wrenches, cfrc_int, subtree momentum) are computed once a call and
 only when a present type needs them.
 
-Every function takes a Model and a batch-first Data. Tendon sensors and
-CAMPROJECTION raise by name (`io.bridge.check_slice` refuses them); the
-rangefinder casts one `engine.ray.ray` a sensor.
+Every function takes a Model and a batch-first Data. CAMPROJECTION raises
+by name (`io.bridge.check_slice` refuses it); the rangefinder casts one
+`engine.ray.ray` a sensor; the tendon limit sensors read the tendon's
+limit row, as the joint limit sensors read the joint's.
 """
 
 from __future__ import annotations
@@ -27,15 +28,12 @@ import numpy as np
 import torch
 
 from ambersim_tpu_torch.core import math as am
-from ambersim_tpu_torch.core.types import ConeType, Data, DisableBit, JointType, Model, ObjType, SensorType, SiteType
+from ambersim_tpu_torch.core.types import (ConeType, Data, DisableBit, JointType, Model, ObjType, SensorType, SiteType,
+                                           TrnType)
 from ambersim_tpu_torch.engine.schedule import device_index, tree_schedule
 
 # geom-distance trio: the cutoff is the search range, not an output clamp
 _GEOMPAIR = {SensorType.GEOMDIST, SensorType.GEOMNORMAL, SensorType.GEOMFROMTO}
-TENDON_SENSORS = {
-    SensorType.TENDONPOS, SensorType.TENDONVEL, SensorType.TENDONACTFRC,
-    SensorType.TENDONLIMITPOS, SensorType.TENDONLIMITVEL, SensorType.TENDONLIMITFRC,
-}
 # the acceleration stage (mj_sensorAcc), whose values derive from qacc and
 # efc_force, and the contact sensor
 ACC_STAGE = {
@@ -59,7 +57,10 @@ _FRAME = {SensorType.FRAMEPOS, SensorType.FRAMEQUAT, SensorType.FRAMEXAXIS, Sens
 _PER_SENSOR_KIND = _GEOMPAIR | {SensorType.CONTACT, SensorType.USER, SensorType.RANGEFINDER}
 # the cutoff clamps every type's values but these
 _UNCLIPPED = _GEOMPAIR | {SensorType.CONTACT, SensorType.USER}
-_LIMIT = {SensorType.JOINTLIMITPOS, SensorType.JOINTLIMITVEL, SensorType.JOINTLIMITFRC}
+_LIMIT = {SensorType.JOINTLIMITPOS, SensorType.JOINTLIMITVEL, SensorType.JOINTLIMITFRC,
+          SensorType.TENDONLIMITPOS, SensorType.TENDONLIMITVEL, SensorType.TENDONLIMITFRC}
+_LIMIT_POS = {SensorType.JOINTLIMITPOS, SensorType.TENDONLIMITPOS}
+_LIMIT_VEL = {SensorType.JOINTLIMITVEL, SensorType.TENDONLIMITVEL}
 # <contact> sensor data fields in their required order: (name, bit, width)
 _CONTACT_FIELDS = (("found", 1, 1), ("force", 2, 3), ("torque", 4, 3), ("dist", 8, 1), ("pos", 16, 3),
                    ("normal", 32, 3), ("tangent", 64, 3))
@@ -69,8 +70,6 @@ def refused_sensors(s) -> list[str]:
     """The features of skeleton `s`'s sensors the port does not evaluate."""
     types = {int(t) for t in np.asarray(s.sensor_type)}
     out = []
-    if types & {int(t) for t in TENDON_SENSORS}:
-        out.append("tendon sensors")
     if int(SensorType.CAMPROJECTION) in types:
         out.append("camera projection sensors (CAMPROJECTION)")
     return out
@@ -172,9 +171,7 @@ def _ix(a, dev):
     return device_index(np.asarray(a), dev)
 
 
-def _tmul(mat: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """mat^T @ v over the last axes: (..., 3, 3), (..., 3) -> (..., 3)."""
-    return (mat * v[..., :, None]).sum(-2)
+_tmul = am.mat_t_vec
 
 
 def _object_pos_mat(m: Model, d: Data, objtype: int, ids):
@@ -387,13 +384,15 @@ def _subtree_momentum(m: Model, d: Data, angmom: bool):
     return linvel, am_acc
 
 
-def _limit_rows(s, jnt_ids) -> np.ndarray:
-    """efc row of each joint's limit row, or -1 (static layout)."""
-    limit_jntid = np.asarray(s.limit_jntid)
+def _limit_rows(s, ids, tendon: bool = False) -> np.ndarray:
+    """efc row of each joint's (or tendon's) limit row, or -1 (static
+    layout: the tendon limit rows follow the joint limit rows)."""
+    limit_ids = np.asarray(s.limit_tenid if tendon else s.limit_jntid)
+    first = s.ne + s.nf + (len(s.limit_jntid) if tendon else 0)
     rows = []
-    for j in np.asarray(jnt_ids):
-        where = np.nonzero(limit_jntid == j)[0]
-        rows.append(int(s.ne + s.nf + where[0]) if len(where) else -1)
+    for j in np.asarray(ids):
+        where = np.nonzero(limit_ids == j)[0]
+        rows.append(int(first + where[0]) if len(where) else -1)
     return np.asarray(rows, np.int64)
 
 
@@ -587,6 +586,15 @@ def _eval_group(m: Model, d: Data, g: _Group, lazy: dict) -> torch.Tensor:
         return d.qvel[:, ix(np.asarray(s.jnt_dofadr)[objid])][..., None]
     if st == SensorType.JOINTACTFRC:
         return d.qfrc_actuator[:, ix(np.asarray(s.jnt_dofadr)[objid])][..., None]
+    if st == SensorType.TENDONPOS:
+        return d.ten_length[:, ix(objid)][..., None]
+    if st == SensorType.TENDONVEL:
+        return d.ten_velocity[:, ix(objid)][..., None]
+    if st == SensorType.TENDONACTFRC:
+        # the force of the actuators with a transmission on the tendon, summed
+        on = (np.asarray(s.actuator_trntype) == int(TrnType.TENDON))[None] & (
+            np.asarray(s.actuator_trnid)[None] == objid[:, None])  # (G, nu)
+        return torch.where(ix(on), d.actuator_force[:, None, :], 0.0).sum(-1)[..., None]
     if st == SensorType.BALLQUAT:
         return am.normalize_quat(d.qpos[:, ix(np.asarray(s.jnt_qposadr)[objid][:, None] + np.arange(4))])
     if st == SensorType.BALLANGVEL:
@@ -616,14 +624,14 @@ def _eval_group(m: Model, d: Data, g: _Group, lazy: dict) -> torch.Tensor:
                 for i in objid]
         return torch.stack(dist, 1)[..., None]
     if st in _LIMIT:
-        rows = _limit_rows(s, objid)
+        rows = _limit_rows(s, objid, tendon=int(st) >= int(SensorType.TENDONLIMITPOS))
         if not (rows >= 0).any():
             return d.qpos.new_zeros((B, G, 1))
         r = ix(np.maximum(rows, 0))
         active = d.efc_active[:, r] & ix(rows >= 0)
-        if st == SensorType.JOINTLIMITPOS:
+        if st in _LIMIT_POS:
             val = d.efc_pos[:, r] - d.efc_margin[:, r]
-        elif st == SensorType.JOINTLIMITVEL:
+        elif st in _LIMIT_VEL:
             val = (d.efc_J[:, r] * d.qvel[:, None, :]).sum(-1)
         else:
             val = d.efc_force[:, r]

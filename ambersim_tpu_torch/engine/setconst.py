@@ -1,9 +1,11 @@
-"""Compile-time derived constants: invweight0 and acc0 (mirrors mj_setConst).
+"""Compile-time derived constants: invweight0, acc0 and the tendons' length0
+and springlength (mirrors mj_setConst).
 
 Port of ambersim_tpu/engine/setconst.py. The port's own smooth pass
-(`smooth.fwd_position_smooth`, float32) runs on the CPU at qpos0; the
-inverse of qM and the rest are float64 numpy, as in the JAX package. Works
-on the arrays of `mjcf.compile_spec_arrays`, before any Model is on a device.
+(`smooth.fwd_position_smooth`, float32, tendons included) runs on the CPU at
+qpos0; the inverse of qM and the rest are float64 numpy, as in the JAX
+package. Works on the arrays of `mjcf.compile_spec_arrays`, before any Model
+is on a device.
 """
 
 from __future__ import annotations
@@ -13,27 +15,19 @@ import torch
 
 from ambersim_tpu_torch.core.types import JointType
 
-_ROADMAP = "ROADMAP, queue 1, item 5: engine breadth"
-
 
 def set_constants(skel_fields: dict, leaves: dict) -> dict:
-    """`leaves` with dof_invweight0, body_invweight0 and actuator_acc0 set.
-
-    Raises NotImplementedError, by name, for what the port's smooth pass
-    lacks: tendon lengths and Jacobians (the JAX package's ten_J/ten_length
-    give tendon_invweight0 and tendon_length0) and every transmission but
-    joints (`smooth.actuator_moment`)."""
+    """`leaves` with dof_invweight0, body_invweight0 and actuator_acc0 set,
+    and with tendons tendon_invweight0 (ten_J M^-1 ten_J^T at qpos0),
+    tendon_length0 and the NaN (spatial default) springlength rows filled
+    with length0. Raises NotImplementedError, by name, for a transmission
+    the port's `smooth.actuator_moment` lacks (site, slider-crank, body)."""
     from ambersim_tpu_torch.engine import smooth
     from ambersim_tpu_torch.engine.init import make_data
     from ambersim_tpu_torch.io.bridge import build_model
 
     if skel_fields["nv"] == 0:
         return leaves
-    if skel_fields["ntendon"]:
-        raise NotImplementedError(
-            "set_constants: tendon lengths and Jacobians (ten_J, ten_length) for "
-            f"tendon_invweight0 and tendon_length0 are not ported ({_ROADMAP})"
-        )
     model = build_model(skel_fields, leaves, device="cpu")
     s = model.skel
     with torch.no_grad():
@@ -75,6 +69,17 @@ def set_constants(skel_fields: dict, leaves: dict) -> dict:
     out = dict(leaves)
     out["dof_invweight0"] = np.asarray(dof_invweight0, np.float32)
     out["body_invweight0"] = body_inv
+    if s.ntendon:
+        # the run-time Jacobian at qpos0 covers fixed (constant) and spatial rows
+        tj = d.ten_J[0].numpy().astype(np.float64)
+        out["tendon_invweight0"] = np.asarray(np.einsum("ti,ij,tj->t", tj, minv_np, tj), np.float32)
+        length0 = d.ten_length[0].numpy().astype(np.float32)
+        out["tendon_length0"] = length0
+        ls = np.array(leaves["tendon_lengthspring"], np.float32)
+        nan_rows = np.isnan(ls).any(axis=1)
+        if nan_rows.any():
+            ls[nan_rows] = length0[nan_rows, None]
+            out["tendon_lengthspring"] = ls
     if s.nu:
         # acc0 = |M^-1 moment| at qpos0 (muscle force auto-scaling, mj_setConst)
         out["actuator_acc0"] = np.asarray(np.linalg.norm(moment0 @ minv_np, axis=1), np.float32)

@@ -1,14 +1,23 @@
 """Smooth (unconstrained) dynamics: FK (mocap bodies included), COM
-quantities, CRBA, RNE, passive forces, energy and actuation (motors, affine
-servos, filter/filterexact/integrator activations). Port of the main-path
-subset of ambersim_tpu/engine/smooth.py.
+quantities, tendon lengths and Jacobians (fixed and spatial, with sphere and
+cylinder wraps and pulleys), CRBA, RNE, passive forces (joint and tendon
+springs and dampers), energy and actuation (joint and tendon transmissions;
+motors, affine servos, FLV muscles; filter/filterexact/integrator/muscle
+activations). Port of the main-path subset of
+ambersim_tpu/engine/smooth.py.
 
 Every function takes a Model and a batch-first Data and returns an updated
 Data. Tree propagation is level-vectorized over the static schedule
-(engine/schedule.py); indices are cached device tensors.
+(engine/schedule.py); indices are cached device tensors. The JAX package
+unrolls one branch per spatial tendon and path element; here a plan per
+skeleton (`tendon_plan`) groups the spatial tendons' segments by kind, so
+the tendon stage's op count is set by the kinds present, not by the number
+of tendons.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -28,6 +37,7 @@ from ambersim_tpu_torch.engine import linalg
 from ambersim_tpu_torch.engine.schedule import device_index, tree_schedule
 
 _SUPPORT_CACHE: dict = {}
+_PLAN_CACHE: dict = {}
 
 
 def _span(base: np.ndarray, width: int) -> np.ndarray:
@@ -323,6 +333,10 @@ def passive(m: Model, d: Data) -> Data:
             dif = am.quat_sub(d.qpos[:, q4], m.qpos_spring[q4])
             spring[:, ix(_span(da + 3, 3))] += -k[:, None] * dif
     damper = -m.dof_damping * d.qvel
+    if s.ntendon:
+        # the tendons' deadband springs (springlength's [lo, hi] range) and dampers
+        spring = spring + _ten_transpose(d, -m.tendon_stiffness * _ten_deadband(m, d))
+        damper = damper + _ten_transpose(d, -m.tendon_damping * d.ten_velocity)
     df = m.opt.disableflags
     if df & DisableBit.SPRING:
         spring = torch.zeros_like(spring)
@@ -331,11 +345,29 @@ def passive(m: Model, d: Data) -> Data:
     return d.replace(qfrc_spring=spring, qfrc_damper=damper, qfrc_passive=spring + damper)
 
 
-def _joint_arrays(s):
-    """(dof ids, qpos ids) driven by each actuator: every actuator sits on a
-    hinge/slide joint (`io.bridge.check_slice` admits no other)."""
-    j = np.asarray(s.actuator_trnid)
-    return np.asarray(s.jnt_dofadr)[j], np.asarray(s.jnt_qposadr)[j]
+def _ten_deadband(m: Model, d: Data) -> torch.Tensor:
+    """(B, ntendon) each tendon's length past its springlength range [lo, hi]."""
+    lo, hi = m.tendon_lengthspring[:, 0], m.tendon_lengthspring[:, 1]
+    L = d.ten_length
+    return torch.where(L < lo, L - lo, 0.0) + torch.where(L > hi, L - hi, 0.0)
+
+
+def _ten_transpose(d: Data, f: torch.Tensor) -> torch.Tensor:
+    """ten_J^T f: (B, ntendon) tendon forces -> (B, nv) generalized forces."""
+    return (d.ten_J * f[..., None]).sum(1)
+
+
+def _transmissions(s):
+    """(joint actuators, their dofs, their qpos addresses, tendon actuators,
+    their tendons): every actuator sits on a hinge/slide joint or on a
+    tendon (`io.bridge.check_slice` admits no other)."""
+    key = (s, "trn")
+    if key not in _PLAN_CACHE:
+        trn, ids = np.asarray(s.actuator_trntype), np.asarray(s.actuator_trnid)
+        ten = trn == int(TrnType.TENDON)
+        ju, tu = np.nonzero(~ten)[0], np.nonzero(ten)[0]
+        _PLAN_CACHE[key] = (ju, np.asarray(s.jnt_dofadr)[ids[ju]], np.asarray(s.jnt_qposadr)[ids[ju]], tu, ids[tu])
+    return _PLAN_CACHE[key]
 
 
 def _all_motors(s) -> bool:
@@ -352,13 +384,70 @@ def dyn_actuators(s) -> np.ndarray:
     return np.nonzero(np.asarray(s.actuator_dyntype) != int(DynType.NONE))[0]
 
 
+_EPS_MUSCLE = 1e-10
+
+
+def muscle_gain_bias(m: Model, length: torch.Tensor, velocity: torch.Tensor, u=None):
+    """FLV muscle curves (mju_muscleGain / mju_muscleBias) of actuators `u`
+    (all by default; numpy ids) at `length` and `velocity` (..., len(u)):
+    returns (gain, bias). biasprm == gainprm for muscles."""
+    u = np.arange(m.skel.nu) if u is None else np.asarray(u)
+    ux = device_index(u, length.device)
+    prm, LR, acc0 = m.actuator_gainprm[ux], m.actuator_lengthrange[ux], m.actuator_acc0[ux]
+    r0, r1, force, scale, lmin, lmax, vmax, fpmax, fvmax = prm[:, :9].unbind(-1)
+    force = torch.where(force < 0, scale / torch.clamp(acc0, min=_EPS_MUSCLE), force)
+    L0 = (LR[:, 1] - LR[:, 0]) / torch.clamp(r1 - r0, min=_EPS_MUSCLE)
+    L = r0 + (length - LR[:, 0]) / torch.clamp(L0, min=_EPS_MUSCLE)
+    V = velocity / torch.clamp(L0 * vmax, min=_EPS_MUSCLE)
+
+    def sq(x):
+        return x * x
+
+    # active force-length: a piecewise-quadratic bump over [lmin, 1, lmax]
+    left, right = 0.5 * (lmin + 1.0), 0.5 * (1.0 + lmax)
+    FL = torch.where(
+        (L <= lmin) | (L >= lmax), 0.0,
+        torch.where(L < left, 0.5 * sq((L - lmin) / torch.clamp(left - lmin, min=_EPS_MUSCLE)),
+                    torch.where(L < 1.0, 1.0 - 0.5 * sq((1.0 - L) / torch.clamp(1.0 - left, min=_EPS_MUSCLE)),
+                                torch.where(L < right,
+                                            1.0 - 0.5 * sq((L - 1.0) / torch.clamp(right - 1.0, min=_EPS_MUSCLE)),
+                                            0.5 * sq((lmax - L) / torch.clamp(lmax - right, min=_EPS_MUSCLE))))))
+    # force-velocity: parabolic on [-1, 0], saturating at fvmax
+    y = fvmax - 1.0
+    FV = torch.where(V <= -1.0, 0.0, torch.where(
+        V <= 0.0, sq(V + 1.0), torch.where(V <= y, fvmax - sq(y - V) / torch.clamp(y, min=_EPS_MUSCLE), fvmax)))
+    # passive force-length: a quadratic ramp to fpmax / 2 at b, linear past it
+    b = 0.5 * (1.0 + lmax)
+    xb = torch.clamp(b - 1.0, min=_EPS_MUSCLE)
+    FP = torch.where(L <= 1.0, 0.0, torch.where(L <= b, 0.5 * fpmax * sq((L - 1.0) / xb),
+                                                fpmax * (0.5 + (L - b) / xb)))
+    return -force * FL * FV, -force * FP
+
+
+def muscle_dynamics(m: Model, ctrl: torch.Tensor, act: torch.Tensor, u) -> torch.Tensor:
+    """mju_muscleDynamics of actuators `u` (numpy ids; ctrl and act are their
+    columns): the activation ODE, whose time constant blends activation and
+    deactivation by a quintic smoothstep when tausmooth > 0."""
+    prm = m.actuator_dynprm[device_index(np.asarray(u), ctrl.device)]
+    tau_act, tau_deact, tsmooth = prm[:, 0], prm[:, 1], prm[:, 2]
+    dctrl = torch.clamp(ctrl, 0.0, 1.0) - act
+    t1 = tau_act * (0.5 + 1.5 * act)
+    t2 = tau_deact / (0.5 + 1.5 * act)
+    xs = torch.clamp(dctrl / torch.clamp(tsmooth, min=_EPS_MUSCLE) + 0.5, 0.0, 1.0)
+    sig = xs * xs * xs * (xs * (6.0 * xs - 15.0) + 10.0)
+    tau = torch.where(tsmooth > 0, t2 + (t1 - t2) * sig, torch.where(dctrl > 0, t1, t2))
+    return dctrl / torch.clamp(tau, min=_EPS_MUSCLE)
+
+
 def fwd_actuation(m: Model, d: Data) -> Data:
-    """ctrl -> generalized actuator force for actuators on hinge/slide joints:
-    gain (fixed or affine) times input (ctrl, or the activation) plus bias
-    (none or affine), act_dot of filter, filterexact and integrator
-    dynamics, the forcerange clamp, disabled actuator groups and the joints'
-    actuatorfrcrange clamp. A model of motors alone keeps the motor
-    arithmetic, gainprm[0] * ctrl, with no bias term."""
+    """ctrl -> generalized actuator force for actuators on hinge/slide joints
+    and on tendons (moment gear * ten_J): gain (fixed, affine or muscle)
+    times input (ctrl, or the activation where there are dynamics) plus
+    bias (none, affine or muscle), act_dot of filter, filterexact,
+    integrator and muscle dynamics, the forcerange clamp, disabled actuator
+    groups and the joints' actuatorfrcrange clamp. A model of motors alone
+    on joints keeps the motor arithmetic, gainprm[0] * ctrl, with no bias
+    term."""
     s = m.skel
     dev = d.qpos.device
     if s.nu == 0:
@@ -371,21 +460,41 @@ def fwd_actuation(m: Model, d: Data) -> Data:
     if not (m.opt.disableflags & DisableBit.CLAMPCTRL):
         lo, hi = m.actuator_ctrlrange[:, 0], m.actuator_ctrlrange[:, 1]
         ctrl = torch.where(ix(s.actuator_ctrllimited), torch.clamp(ctrl, lo, hi), ctrl)
-    dof, qa = _joint_arrays(s)
+    ju, dof, qa, tu, tid = _transmissions(s)
     gear = m.actuator_gear[:, 0]
-    length = d.qpos[:, ix(qa)] * gear
-    velocity = d.qvel[:, ix(dof)] * gear
+    if len(tu):
+        # tendon transmissions: length gear * ten_length, moment gear * ten_J
+        tmom = gear[ix(tu), None] * d.ten_J[:, ix(tid)]  # (B, ntu, nv)
+        length = d.qpos.new_zeros((d.qpos.shape[0], s.nu))
+        velocity = torch.zeros_like(length)
+        length[:, ix(ju)] = d.qpos[:, ix(qa)] * gear[ix(ju)]
+        velocity[:, ix(ju)] = d.qvel[:, ix(dof)] * gear[ix(ju)]
+        length[:, ix(tu)] = d.ten_length[:, ix(tid)] * gear[ix(tu)]
+        velocity[:, ix(tu)] = (tmom * d.qvel[:, None, :]).sum(-1)
+    else:
+        length = d.qpos[:, ix(qa)] * gear
+        velocity = d.qvel[:, ix(dof)] * gear
     act_dot = d.act_dot
     if _all_motors(s):
         force = m.actuator_gainprm[:, 0] * ctrl
     else:
         gp, bp = m.actuator_gainprm, m.actuator_biasprm
+        gaintype, biastype = np.asarray(s.actuator_gaintype), np.asarray(s.actuator_biastype)
         gain = torch.where(
-            ix(np.asarray(s.actuator_gaintype) == int(GainType.FIXED)), gp[:, 0],
+            ix(gaintype == int(GainType.FIXED)), gp[:, 0],
             gp[:, 0] + gp[:, 1] * length + gp[:, 2] * velocity)
         bias = torch.where(
-            ix(np.asarray(s.actuator_biastype) == int(BiasType.AFFINE)),
+            ix(biastype == int(BiasType.AFFINE)),
             bp[:, 0] + bp[:, 1] * length + bp[:, 2] * velocity, 0.0)
+        if (gaintype == int(GainType.MUSCLE)).any():
+            # the FLV curves, evaluated on the muscles' columns only (the
+            # JAX package evaluates them on every column and selects)
+            mu = np.nonzero((gaintype == int(GainType.MUSCLE)) | (biastype == int(BiasType.MUSCLE)))[0]
+            mgain, mbias = muscle_gain_bias(m, length[:, ix(mu)], velocity[:, ix(mu)], mu)
+            gain, bias = gain.clone(), bias.clone()
+            g_m, b_m = gaintype[mu] == int(GainType.MUSCLE), biastype[mu] == int(BiasType.MUSCLE)
+            gain[:, ix(mu)] = torch.where(ix(g_m), mgain, gain[:, ix(mu)])
+            bias[:, ix(mu)] = torch.where(ix(b_m), mbias, bias[:, ix(mu)])
         inp = ctrl  # the force's input: ctrl, or the activation where there are dynamics
         if s.na:
             # filter / filterexact: act_dot = (ctrl - act) / tau; integrator: ctrl
@@ -395,6 +504,11 @@ def fwd_actuation(m: Model, d: Data) -> Data:
             tau = torch.clamp(m.actuator_dynprm[ix(dyn_u), 0], min=1e-8)
             u = ix(dyn_u)
             act_dot = torch.where(is_filter, (ctrl[:, u] - d.act) / tau, ctrl[:, u])
+            muscle = np.nonzero(dyn == int(DynType.MUSCLE))[0]
+            if len(muscle):  # the muscles' activation ODE, on their columns only
+                k = ix(muscle)
+                act_dot = act_dot.clone()
+                act_dot[:, k] = muscle_dynamics(m, ctrl[:, ix(dyn_u[muscle])], d.act[:, k], dyn_u[muscle])
             inp = ctrl.clone()
             inp[:, u] = d.act
         force = gain * inp + bias
@@ -409,7 +523,11 @@ def fwd_actuation(m: Model, d: Data) -> Data:
         group = np.asarray(s.actuator_group)
         disabled = ((m.opt.disableactuator >> np.clip(group, 0, 30)) & 1).astype(bool) & (group >= 0)
         force = torch.where(ix(disabled), 0.0, force)
-    qfrc = torch.zeros_like(d.qvel).index_add_(1, ix(dof), gear * force)
+    if len(tu):
+        qfrc = torch.zeros_like(d.qvel).index_add_(1, ix(dof), gear[ix(ju)] * force[:, ix(ju)])
+        qfrc = qfrc + (tmom * force[:, ix(tu), None]).sum(1)
+    else:
+        qfrc = torch.zeros_like(d.qvel).index_add_(1, ix(dof), gear * force)
     if np.asarray(s.jnt_actfrclimited).any():
         # a joint's actuatorfrcrange clamps the total actuator force on its dofs
         dof_jnt = np.asarray(s.dof_jntid)
@@ -426,9 +544,9 @@ def fwd_actuation(m: Model, d: Data) -> Data:
 
 def energy_pos(m: Model, d: Data) -> torch.Tensor:
     """(B,) potential energy (mj_energyPos): gravity (unless GRAVITY is
-    disabled) and joint springs (unless SPRING is disabled); ball and free
-    rotational springs as 0.5 k |quat_sub|^2, as in `passive`. The tendon
-    springs' part waits with the tendons (`io.bridge.check_slice`)."""
+    disabled) and joint and tendon springs (unless SPRING is disabled); ball
+    and free rotational springs as 0.5 k |quat_sub|^2, as in `passive`, the
+    tendons' deadband springs as 0.5 k (length past the range)^2."""
     s = m.skel
     sched = tree_schedule(s)
     dev = d.qpos.device
@@ -455,6 +573,8 @@ def energy_pos(m: Model, d: Data) -> torch.Tensor:
             e = e + (0.5 * k * (dt3**2).sum(-1)).sum(-1)
             dif = am.quat_sub(d.qpos[:, ix(_span(qa + 3, 4))], m.qpos_spring[ix(_span(qa + 3, 4))])
             e = e + (0.5 * k * (dif**2).sum(-1)).sum(-1)
+    if s.ntendon:
+        e = e + (0.5 * m.tendon_stiffness * _ten_deadband(m, d) ** 2).sum(-1)
     return e
 
 
@@ -466,16 +586,20 @@ def energy_vel(m: Model, d: Data) -> torch.Tensor:
 
 
 def actuator_moment(m: Model, d: Data) -> torch.Tensor:
-    """(B, nu, nv) transmission moment matrix of joint transmissions: the
-    gear on a hinge/slide joint's dof (JOINT or JOINTINPARENT), and the gear
-    vector on a free (6) or ball (3) joint's dofs (JOINT). The JAX package's
-    tendon, site, slider-crank, body and ball/free JOINTINPARENT
-    transmissions are refused by name (ROADMAP, queue 1, item 5)."""
+    """(B, nu, nv) transmission moment matrix of joint and tendon
+    transmissions: the gear on a hinge/slide joint's dof (JOINT or
+    JOINTINPARENT), the gear vector on a free (6) or ball (3) joint's dofs
+    (JOINT), gear[0] * ten_J on a tendon. The JAX package's site,
+    slider-crank, body and ball/free JOINTINPARENT transmissions are refused
+    by name (ROADMAP, queue 1, item 5)."""
     s = m.skel
     moment = d.qpos.new_zeros((d.qpos.shape[0], s.nu, s.nv))
     scalar = (int(TrnType.JOINT), int(TrnType.JOINTINPARENT))
     for u in range(s.nu):
         trn, j = int(s.actuator_trntype[u]), int(s.actuator_trnid[u])
+        if trn == int(TrnType.TENDON):
+            moment[:, u] = m.actuator_gear[u, 0] * d.ten_J[:, j]
+            continue
         jtype = JointType(int(s.jnt_type[j])) if trn in scalar else None
         da = int(s.jnt_dofadr[j]) if jtype is not None else 0
         if jtype in (JointType.HINGE, JointType.SLIDE):
@@ -520,14 +644,312 @@ def xfrc_accumulate(m: Model, d: Data) -> torch.Tensor:
     return (per_body * sup).sum(1)
 
 
+# ---------------------------------------------------------------------------
+# tendons
+
+
+@dataclasses.dataclass(frozen=True)
+class _SegGroup:
+    """Spatial-tendon segments of one kind: straight, or wrapping a sphere
+    or a cylinder geom, with or without a sidesite."""
+
+    gtype: int  # -1 (straight), GeomType.SPHERE or GeomType.CYLINDER
+    side: bool  # a sidesite (wraps only)
+    site1: np.ndarray  # (G,) the segment's end sites
+    site2: np.ndarray
+    geom: np.ndarray  # (G,) the wrap geom
+    sidesite: np.ndarray  # (G,) its sidesite
+
+
+@dataclasses.dataclass(frozen=True)
+class TendonPlan:
+    spatial: np.ndarray  # (T,) the spatial tendons
+    groups: tuple
+    order: np.ndarray  # (nseg,) segment k's place in the groups' concatenated values
+    div: np.ndarray  # (nseg,) each segment's pulley divisor
+    segs: np.ndarray  # (T, width) each spatial tendon's segments, padded with nseg (a zero)
+
+
+def tendon_plan(s) -> TendonPlan:
+    """The spatial tendons' segments grouped by kind (cached by skeleton).
+    A path is walked as the JAX package walks it (smooth.py:1207-1236): a
+    segment joins each site to the site before it, through the geom between
+    them if there is one; a pulley starts a new branch with its divisor."""
+    key = (s, "tendon")
+    if key in _PLAN_CACHE:
+        return _PLAN_CACHE[key]
+    spatial = [t for t in range(s.ntendon) if s.tendon_kind[t] == "spatial"]
+    segs, per_tendon = [], []  # segment: (kind key, site1, site2, geom, sidesite, div)
+    for t in spatial:
+        mine, div, prev, pending = [], 1.0, None, None
+        for el in s.tendon_path[t]:
+            if el[0] == "pulley":
+                div, prev, pending = float(el[1]), None, None
+            elif el[0] == "geom":
+                pending = (int(el[1]), int(el[2]))
+            else:
+                sid = int(el[1])
+                if prev is not None:
+                    if pending is None:
+                        kind, g, side = (-1, False), -1, -1
+                    else:
+                        g, side = pending
+                        kind = (int(s.geom_type[g]), side >= 0)
+                    mine.append(len(segs))
+                    segs.append((kind, prev, sid, g, side, div))
+                    pending = None
+                prev = sid
+        per_tendon.append(mine)
+    kinds = sorted({seg[0] for seg in segs})
+    groups, order = [], np.zeros(len(segs), np.int64)
+    start = 0
+    for kind in kinds:
+        ids = [k for k, seg in enumerate(segs) if seg[0] == kind]
+        order[ids] = start + np.arange(len(ids))
+        start += len(ids)
+        col = [np.asarray([segs[k][i] for k in ids], np.int64) for i in (1, 2, 3, 4)]
+        groups.append(_SegGroup(kind[0], kind[1], *col))
+    width = max((len(x) for x in per_tendon), default=0)
+    padded = np.full((len(spatial), width), len(segs), np.int64)
+    for i, x in enumerate(per_tendon):
+        padded[i, : len(x)] = x
+    plan = TendonPlan(np.asarray(spatial, np.int64), tuple(groups), order,
+                      np.asarray([seg[5] for seg in segs], np.float64), padded)
+    _PLAN_CACHE[key] = plan
+    return plan
+
+
+def _point_jac(m: Model, d: Data, p: torch.Tensor, body: np.ndarray) -> torch.Tensor:
+    """(B, G, nv, 3) translational Jacobians of world points p (B, G, 3)
+    fixed to bodies `body` (G,)."""
+    s = m.skel
+    dev = d.qpos.device
+    sup = device_index(_body_dof_support(s)[body], dev, dtype=d.qpos.dtype)  # (G, nv)
+    origin = d.subtree_com[:, device_index(np.asarray(s.body_rootid)[s.dof_bodyid], dev)]  # (B, nv, 3)
+    r = p[:, :, None, :] - origin[:, None]  # (B, G, nv, 3)
+    ang = d.cdof[:, None, :, :3].expand_as(r)  # one op at every G (broadcasting in cross skips it at G = 1)
+    return (d.cdof[:, None, :, 3:] + am.cross(ang, r)) * sup[None, :, :, None]
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a * b).sum(-1)
+
+
+def _norm(v: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt((v * v).sum(-1))
+
+
+def _straight(m: Model, d: Data, p1, b1, p2, b2):
+    """Length (B, G) and Jacobian row (B, G, nv) of straight segments p1 -> p2
+    between points fixed to bodies b1 and b2."""
+    v = p2 - p1
+    ln = _norm(v)
+    u = v / torch.clamp(ln, min=1e-12)[..., None]
+    djac = _point_jac(m, d, p2, b2) - _point_jac(m, d, p1, b1)
+    return ln, (djac * u[:, :, None, :]).sum(-1)
+
+
+def _acos(x: torch.Tensor) -> torch.Tensor:
+    """arccos of x clamped to [-1, 1], whose gradient is 0 (not infinite) at
+    and past the ends."""
+    x = torch.clamp(x, -1.0, 1.0)
+    inside = x.abs() < 1.0
+    return torch.where(inside, torch.acos(torch.where(inside, x, 0.0)), torch.where(x > 0, 0.0, float(np.pi)))
+
+
+def _sqrt0(x: torch.Tensor) -> torch.Tensor:
+    """sqrt of x >= 0 whose gradient at 0 is 0 (not infinite)."""
+    pos = x > 0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
+
+
+def _wrap(m: Model, d: Data, g: _SegGroup):
+    """Length and Jacobian row of segments wrapping a sphere or a cylinder
+    (mju_wrap; the JAX package's _wrap_seg, smooth.py:1048-1204, batched over
+    envs and the group's segments). Both the wrapped path (tangent, arc,
+    tangent) and the straight one are computed and selected per env; the
+    tangent points are fixed to the geom's body, and the Jacobian is the two
+    straight end pieces'. With a sidesite, the long way round when the
+    sidesite is across the chord from the center, and a sidesite inside the
+    geom bends the segment at one circle point (found by bisection) where
+    the straight segment misses the disk."""
+    from ambersim_tpu_torch.core.types import GeomType
+
+    s = m.skel
+    dev, dt = d.qpos.device, d.qpos.dtype
+
+    def ix(a):
+        return device_index(a, dev)
+
+    s1, s2, gid = ix(g.site1), ix(g.site2), ix(g.geom)
+    b1, b2 = np.asarray(s.site_bodyid)[g.site1], np.asarray(s.site_bodyid)[g.site2]
+    bg = np.asarray(s.geom_bodyid)[g.geom]
+    p1, p2 = d.site_xpos[:, s1], d.site_xpos[:, s2]
+    R, c = d.geom_xmat[:, gid], d.geom_xpos[:, gid]  # world <- local
+    r = m.geom_size[gid, 0]
+    a, b = am.mat_t_vec(R, p1 - c), am.mat_t_vec(R, p2 - c)
+    cyl = g.gtype == int(GeomType.CYLINDER)
+    eps = 1e-12
+    zero = torch.zeros_like(a[..., 0])
+    if cyl:
+        # the circle problem in the plane across the cylinder's axis
+        A3 = torch.stack([a[..., 0], a[..., 1], zero], -1)
+        B3 = torch.stack([b[..., 0], b[..., 1], zero], -1)
+        e1 = A3 / torch.clamp(_norm(A3), min=eps)[..., None]
+        perp = am.cross(device_index(np.array([0.0, 0.0, 1.0]), dev, dtype=dt), e1)
+        e2 = torch.where(_dot(B3, perp) >= 0, 1.0, -1.0)[..., None] * perp  # B on e2's nonnegative side
+        ax, bx, by = _dot(A3, e1), _dot(B3, e1), _dot(B3, e2)
+    else:
+        # the plane through a, b and the center
+        e1 = a / torch.clamp(_norm(a), min=eps)[..., None]
+        borth = b - _dot(b, e1)[..., None] * e1
+        e2 = borth / torch.clamp(_norm(borth), min=eps)[..., None]
+        ax, bx, by = _dot(a, e1), _dot(b, e1), _dot(b, e2)
+    la = torch.clamp(torch.sqrt(ax * ax), min=eps)
+    lb = torch.clamp(torch.sqrt(bx * bx + by * by), min=eps)
+    phi = _acos((ax * bx) / (la * lb))  # [0, pi]
+
+    # the taut path passes on the sidesite's side of the center: a sidesite
+    # across the chord from the center forces the long way round
+    if g.side:
+        ss = am.mat_t_vec(R, d.site_xpos[:, ix(g.sidesite)] - c)
+        if cyl:
+            ss = torch.stack([ss[..., 0], ss[..., 1], zero], -1)
+        sx, sy = _dot(ss, e1), _dot(ss, e2)
+        side_inside = torch.sqrt(sx * sx + sy * sy) < r
+        cx, cy = bx - ax, by
+        nn = torch.clamp(torch.sqrt(cy * cy + cx * cx), min=eps)
+        nx, ny = -cy / nn, cx / nn
+        h_line, h_side = nx * ax, nx * sx + ny * sy
+        sgn = torch.where(h_line * h_side >= 0, 1.0, -1.0)
+        big_phi = torch.where(sgn > 0, phi, 2.0 * np.pi - phi)
+    else:
+        sgn = torch.ones_like(phi)
+        big_phi = phi
+    alpha_a, alpha_b = _acos(r / la), _acos(r / lb)
+    wrapped = (big_phi > alpha_a + alpha_b) & (la > r) & (lb > r)
+    arc_ang = torch.clamp(big_phi - alpha_a - alpha_b, min=0.0)
+    t1, t2 = sgn * alpha_a, phi - sgn * alpha_b
+    az, bz = a[..., 2], b[..., 2]
+
+    def world(p):
+        return c + (R * p[..., None, :]).sum(-1)
+
+    def on_circle(x, y, z=None):
+        """Local point x e1 + y e2 (+ z along the axis) -> world."""
+        p = x[..., None] * e1 + y[..., None] * e2
+        if z is not None:
+            p = torch.stack([p[..., 0], p[..., 1], p[..., 2] + z], -1)
+        return world(p)
+
+    if cyl:
+        len_a2 = torch.sqrt(torch.clamp(la * la - r * r, min=eps))
+        len_b2 = torch.sqrt(torch.clamp(lb * lb - r * r, min=eps))
+        arc2 = r * arc_ang
+        tot2 = torch.clamp(len_a2 + arc2 + len_b2, min=eps)
+        z1 = az + (bz - az) * len_a2 / tot2
+        z2 = az + (bz - az) * (len_a2 + arc2) / tot2
+        T1w = on_circle(r * torch.cos(t1), r * torch.sin(t1), z1)
+        T2w = on_circle(r * torch.cos(t2), r * torch.sin(t2), z2)
+        L_wrap = (_sqrt0(len_a2 * len_a2 + (z1 - az) ** 2) + _sqrt0(arc2 * arc2 + (z2 - z1) ** 2)
+                  + _sqrt0(len_b2 * len_b2 + (bz - z2) ** 2))
+    else:
+        T1w = world(r[..., None] * (torch.cos(t1)[..., None] * e1 + torch.sin(t1)[..., None] * e2))
+        T2w = world(r[..., None] * (torch.cos(t2)[..., None] * e1 + torch.sin(t2)[..., None] * e2))
+        L_wrap = (torch.sqrt(torch.clamp(la * la - r * r, min=eps)) + r * arc_ang
+                  + torch.sqrt(torch.clamp(lb * lb - r * r, min=eps)))
+    _, j1 = _straight(m, d, p1, b1, T1w, bg)
+    _, j2 = _straight(m, d, T2w, bg, p2, b2)
+    L_str, J_str = _straight(m, d, p1, b1, p2, b2)
+    if not g.side:
+        return torch.where(wrapped, L_wrap, L_str), torch.where(wrapped[..., None], j1 + j2, J_str)
+
+    # interior wrap (a sidesite inside the geom): where the straight segment
+    # misses the disk, the tendon bends at the circle point of least total
+    # length, by bisection on the reflection condition over [0, phi]
+    bvx, bvy = lb * torch.cos(phi), lb * torch.sin(phi)
+
+    def h(theta):
+        tx, ty = r * torch.cos(theta), r * torch.sin(theta)
+        n1 = torch.clamp(torch.sqrt((tx - la) ** 2 + ty * ty), min=eps)
+        n2 = torch.clamp(torch.sqrt((tx - bvx) ** 2 + (ty - bvy) ** 2), min=eps)
+        ux, uy = (tx - la) / n1 + (tx - bvx) / n2, ty / n1 + (ty - bvy) / n2
+        return -torch.sin(theta) * ux + torch.cos(theta) * uy
+
+    lo_t, hi_t = torch.zeros_like(phi), phi
+    h_lo = h(lo_t)
+    for _ in range(30):
+        mid_t = 0.5 * (lo_t + hi_t)
+        h_mid = h(mid_t)
+        same = h_mid * h_lo > 0
+        lo_t = torch.where(same, mid_t, lo_t)
+        h_lo = torch.where(same, h_mid, h_lo)
+        hi_t = torch.where(same, hi_t, mid_t)
+    theta_b = 0.5 * (lo_t + hi_t)
+    tbx, tby = r * torch.cos(theta_b), r * torch.sin(theta_b)
+    if cyl:
+        lenA2 = torch.sqrt((tbx - la) ** 2 + tby * tby)
+        lenB2 = torch.sqrt((tbx - bvx) ** 2 + (tby - bvy) ** 2)
+        Tbw = on_circle(tbx, tby, az + (bz - az) * lenA2 / torch.clamp(lenA2 + lenB2, min=eps))
+    else:
+        Tbw = on_circle(tbx, tby)
+    lb1, jb1 = _straight(m, d, p1, b1, Tbw, bg)
+    lb2, jb2 = _straight(m, d, Tbw, bg, p2, b2)
+    bend = side_inside & (phi <= alpha_a + alpha_b) & (la > r) & (lb > r)
+    wrapped = wrapped & ~side_inside
+    L = torch.where(wrapped, L_wrap, torch.where(bend, lb1 + lb2, L_str))
+    J = torch.where(wrapped[..., None], j1 + j2, torch.where(bend[..., None], jb1 + jb2, J_str))
+    return L, J
+
+
+def tendon(m: Model, d: Data) -> Data:
+    """Tendon lengths and Jacobians. Fixed tendons are linear in qpos with
+    the compile-time Jacobian; spatial tendons run their segments' geometry,
+    one batch per segment kind (`tendon_plan`), each segment divided by its
+    branch's pulley divisor and summed over its tendon."""
+    s = m.skel
+    if s.ntendon == 0:
+        return d
+    dev = d.qpos.device
+    B = d.qpos.shape[0]
+    ten_length = (m.tendon_Jq * d.qpos[:, None, :]).sum(-1)
+    ten_J = m.tendon_J.expand(B, -1, -1)
+    plan = tendon_plan(s)
+    if len(plan.spatial):
+        Ls, Js = [], []
+        for g in plan.groups:
+            if g.gtype < 0:
+                p1, p2 = d.site_xpos[:, device_index(g.site1, dev)], d.site_xpos[:, device_index(g.site2, dev)]
+                L, J = _straight(m, d, p1, np.asarray(s.site_bodyid)[g.site1], p2,
+                                 np.asarray(s.site_bodyid)[g.site2])
+            else:
+                L, J = _wrap(m, d, g)
+            Ls.append(L)
+            Js.append(J)
+        order = device_index(plan.order, dev)
+        div = device_index(plan.div, dev, dtype=d.qpos.dtype)
+        L = torch.cat(Ls, 1)[:, order] / div
+        J = torch.cat(Js, 1)[:, order] / div[:, None]
+        segs, sp = device_index(plan.segs, dev), device_index(plan.spatial, dev)
+        L = torch.cat([L, L.new_zeros((B, 1))], 1)[:, segs].sum(-1)
+        J = torch.cat([J, J.new_zeros((B, 1, s.nv))], 1)[:, segs].sum(-2)
+        ten_length, ten_J = ten_length.clone(), ten_J.clone()
+        ten_length[:, sp] = L
+        ten_J[:, sp] = J
+    return d.replace(ten_length=ten_length, ten_J=ten_J)
+
+
 def fwd_position_smooth(m: Model, d: Data) -> Data:
     d = kinematics(m, d)
     d = com_pos(m, d)
+    d = tendon(m, d)
     d = crb(m, d)
     return factor_m(m, d)
 
 
 def fwd_velocity(m: Model, d: Data) -> Data:
+    if m.skel.ntendon:
+        d = d.replace(ten_velocity=(d.ten_J * d.qvel[:, None, :]).sum(-1))
     d = com_vel(m, d)
     d = passive(m, d)
     return rne(m, d)

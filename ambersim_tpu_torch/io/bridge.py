@@ -33,14 +33,11 @@ import torch
 
 from ambersim_tpu_torch.core.types import (
     OPTION_STATIC_FIELDS,
-    BiasType,
     ConeType,
     Contact,
     Data,
-    DynType,
     EnableBit,
     EqType,
-    GainType,
     GeomType,
     IntegratorType,
     JointType,
@@ -163,13 +160,12 @@ def check_slice(m: Model) -> None:
         return
     missing = []
     for n, feature in (
-        ("ntendon", "tendons"),
         ("ncam", "cameras (camlight)"),
         ("nlight", "lights (camlight)"),
     ):
         if getattr(s, n):
             missing.append(feature)
-    for t in sorted(set(np.asarray(s.eq_type).tolist()) - {int(EqType.JOINT)}):
+    for t in sorted(set(np.asarray(s.eq_type).tolist()) - {int(EqType.JOINT), int(EqType.TENDON)}):
         missing.append(f"{EqType(t).name.lower()} equality constraints")
     if getattr(s, "has_fluid", False):
         missing.append("fluid forces")
@@ -180,14 +176,8 @@ def check_slice(m: Model) -> None:
         scalar_joint = trn in (int(TrnType.JOINT), int(TrnType.JOINTINPARENT)) and int(
             s.jnt_type[j]
         ) in (int(JointType.HINGE), int(JointType.SLIDE))
-        if not scalar_joint:
+        if not (scalar_joint or trn == int(TrnType.TENDON)):
             missing.append(f"actuator transmission {TrnType(trn).name} (only hinge/slide joints)")
-        if (
-            int(s.actuator_gaintype[u]) == int(GainType.MUSCLE)
-            or int(s.actuator_biastype[u]) == int(BiasType.MUSCLE)
-            or int(s.actuator_dyntype[u]) == int(DynType.MUSCLE)
-        ):
-            missing.append("muscle actuators")
     if s.nsensor:
         missing.extend(refused_sensors(s))
     con_dim = np.asarray(s.con_dim)

@@ -9,8 +9,8 @@ ambersim_tpu_torch/csrc/, holds each against its plain PyTorch version on
 the card, and steps every ported path through the port's entry points:
 
   * the main path, the 4096-env quadruped PD rollout (bench.py:62-127);
-  * cartpole and arm3 at 1024 envs x 200 steps (benchmarks/ladder.py:98-102),
-    whose rows go to the dense Newton kernel;
+  * cartpole and arm3 at 1024 envs x 100 steps (benchmarks/ladder.py:98-102,
+    cut in depth), whose rows go to the dense Newton kernel;
   * the quadruped compiled with elliptic cones at 4096 envs x 100 steps
     (benchmarks/elliptic_gap.py:30-35), through the elliptic Newton kernel;
   * the humanoid at 1024 envs x 20 steps, through the structured kernel at
@@ -73,7 +73,17 @@ the card, and steps every ported path through the port's entry points:
     path's, its sensors card against CPU on the same Data and over 20
     steps; the sensor rigs of the JAX package's tests (sensors, contact
     sensors, distance, rangefinder) and this script's actuator and mocap
-    fixtures, card against CPU.
+    fixtures, card against CPU;
+  * tendons and muscles: muscle_arm, examples/ex_muscle_tendon.py's arm (a
+    spatial tendon wrapped on a cylinder, FLV muscles on it and on the
+    shoulder) at 4096 envs x 300 steps of the example's excitation
+    through kernels 1, 2, 3 and 5, its tendon shortening under the
+    excitation, and the example's predictive sampling (64 samples x 100
+    knots, 5 calls); tendon_rig, the JAX tests' TENDON_RIG (a tendon
+    equality, friction and limit row and a contact) at 4096 x 100
+    through kernels 1-4; kernels 4 and 5 held on those paths' final
+    operands; the JAX tests' spatial, pulley, limit-sensor, muscle and
+    tendon rigs card against CPU.
 
 For each path it checks that every step went through the path's kernels
 and compares 8 envs of the rollout on the card with the same rollout on the
@@ -129,11 +139,17 @@ SLEEP_CYCLES = 4_000_000
 # Cut: both paths start from the committed settled state (CLUTTER_SETTLED,
 # where their Newton spread check and the gradient path start too) and
 # settle 20 steps there, instead of 400 from rest (the ladder's own settle).
+# The cap-48 path times CAP48_STEPS (100 until the tendon phases came):
+# nothing reads its final state but its stage split.
 CLUTTER_ENVS = 256
 CLUTTER_SETTLE = 20
 CLUTTER_STEPS = 100
+CAP48_STEPS = 50
 FLOOR_TOL = 0.005  # no geom below the floor by more than 5 mm after the settle
 CLUTTER_CARD_VS_CPU_STEPS = 5
+# the quadruped envs' (flat and terrain) card-vs-CPU control steps, 4
+# physics steps each (10 until the tendon phases came)
+ENV_CONTROL_STEPS = 5
 # Fixed operands of the clutter Newton spread check: one env of
 # clutter32_rowcap192 settled 600 steps on the CPU (tools/settle_clutter.py),
 # the start of both clutter models (one scene, one nq and nv). Their bars,
@@ -159,9 +175,13 @@ DROP_ENVS, DROP_SETTLE, DROP_STEPS = 2048, 300, 150
 EXACT_SETTLE, EXACT_STEPS, BF16_STEPS = 100, 20, 20
 # rung 5's humanoid predictive sampling (:160-184): 64 samples x 8 knots,
 # Q 0.1 I, Qf 10 I, R 1e-4 I, goal and start at (qpos0, 0), stdev 0.2.
-# Cut: 10 optimize calls (20 until the sensor phases came)
+# Cut: 5 optimize calls (20 until the sensor phases came, 10 until the
+# tendon phases came)
 HUMANOID_SAMPLES, HUMANOID_HORIZON, HUMANOID_STDEV = 64, 8, 0.2
-HUMANOID_OPTIMIZE_CALLS = 10
+HUMANOID_OPTIMIZE_CALLS = 5
+# rung 2 (:98-102): cartpole and arm3 at 1024 envs. Cut: 100 steps (200
+# until the tendon phases came; check_newton_dense rolls its own 100)
+LADDER_STEPS = 100
 # rung 1 (:94-96): the pendulum, a batch of one, 1000 steps. Cut: 125
 # steps (1000 until section 9 came, 500 until the sensor phases came)
 PENDULUM_STEPS = 125
@@ -352,7 +372,7 @@ RAY_TOL = 1e-4
 # tests/trajopt/test_predictive_sampler.py:36-41 and its stdev 0.3.
 HAND_SAMPLES, HAND_HORIZON, HAND_STDEV = 100, 10, 0.3
 HAND_TRAJOPT = dict(iterations=1, ls_iterations=4)
-HAND_OPTIMIZE_CALLS = 10  # cut: 20 until the sensor phases came
+HAND_OPTIMIZE_CALLS = 5  # cut: 20 until the sensor phases came, 10 until the tendon phases came
 # MPC on the same hand: 10 control steps of one problem, and of a batch of
 # 8 (a solve is then 800 envs); cut: 20 until the sensor phases came. Its cost weighs the goal's joint angles at
 # 10, as tests/trajopt/test_mpc.py weighs the pendulum's, and the joint
@@ -628,6 +648,37 @@ NORMAL_ULPS = 4 * 1.2e-7
 # CONVERGED solver options (below), not the rigs' default 100 x 50
 # iterations, which the CPU's plain Newton arrays take ~1.4 s a step at
 SENSOR_RIG_STEPS = 10
+# Tendons and muscles. muscle_arm: examples/ex_muscle_tendon.py's ARM
+# (:27-61; a spatial tendon over a cylinder, FLV muscles on it and on the
+# shoulder), read from the file as text and compiled here, at NUM_ENVS x
+# ARM_STEPS from qpos0 + 0.05 N(0, 1) (arm_start) under the example's
+# excitation (:71-72): biceps ARM_BICEPS[0] on steps ARM_EXCITE, ARM_BICEPS[1]
+# otherwise, shoulder ARM_SHOULDER. Its rows (two joint limits, the
+# tendon's limit; no contacts) go to kernel 5.
+ARM_STEPS, ARM_EXCITE, ARM_BICEPS, ARM_SHOULDER = 300, (50, 200), (0.8, 0.05), 0.3
+# muscle_arm_sampling, the example's predictive sampling (:88-102): Q 0.1 I,
+# Qf 10 I, R 0.01 I, goal ARM_GOAL, 64 samples of stdev 0.3 around a
+# 100-knot guess of 0.3 from x0 = 0; ARM_OPTIMIZE_CALLS calls
+ARM_SAMPLES, ARM_KNOTS, ARM_STDEV, ARM_GUESS, ARM_OPTIMIZE_CALLS = 64, 100, 0.3, 0.3, 5
+ARM_GOAL = (0.0, -1.2, 0.0, 0.0)
+# tendon_rig: tests/test_tendon_parity.py's TENDON_RIG (:24-63: a tendon
+# equality, friction and limit row and a condim-3 contact, through kernel 4
+# with nd_eq = nd_ft = 1) at NUM_ENVS x TENDON_RIG_STEPS from 0.05 N(0, 1)
+# under the test's rollout ctrl (:146)
+TENDON_RIG_STEPS = 100
+# tendon_rigs, card against CPU as the sensor rigs (SENSOR_RIG_STEPS steps
+# at CONVERGED options, then one forward from the same Data): the JAX
+# package's tendon and muscle fixtures, TENDON_RIG with a tendonactuatorfrc
+# sensor, each from tendon_rig_start
+TENDON_RIGS = {
+    "spatial_rig": lambda: tests_xml("test_spatial_tendon.py", "SPATIAL_RIG"),
+    "pulley_ring": lambda: tests_xml("test_spatial_tendon.py", "PULLEY_RING"),
+    "tendon_limit_sensor_rig": lambda: tests_xml("test_tendon_parity.py", "TENDON_LIMIT_SENSOR_RIG"),
+    "muscle_rig": lambda: tests_xml("test_muscle.py", "MUSCLE_RIG"),
+    "tendon_rig_actfrc": lambda: tests_xml("test_tendon_parity.py", "TENDON_RIG").replace(
+        '<tendonvel name="tv" tendon="couple"/>',
+        '<tendonvel name="tv" tendon="couple"/>\n    <tendonactuatorfrc name="taf" tendon="flex"/>'),
+}
 # the actuator fixture: a position servo on a joint with an actuatorfrcrange
 # clamp, a velocity servo, an intvelocity (integrator dynamics, act-limited),
 # filter, filterexact (with an affine bias) and integrator actuators, and a
@@ -1907,13 +1958,91 @@ def quadruped_sensors_xml() -> str:
     return xml.replace("</mujoco>", sensors + "</mujoco>")
 
 
-def tests_xml(file: str, name: str) -> str:
-    """The XML string constant `name` of tests/`file`, read as text (the JAX
-    package's test modules import JAX; this imports nothing of them)."""
-    found = re.search(rf'^{name} = """(.*?)"""', (REPO / "tests" / file).read_text(), re.S | re.M)
+def tests_xml(file: str, name: str, folder: str = "tests") -> str:
+    """The XML string constant `name` of `folder`/`file`, read as text (the
+    JAX package's test modules and examples import JAX; this imports
+    nothing of them)."""
+    found = re.search(rf'^{name} = """(.*?)"""', (REPO / folder / file).read_text(), re.S | re.M)
     if not found:
-        fail(f"no {name} in tests/{file}")
+        fail(f"no {name} in {folder}/{file}")
     return found.group(1)
+
+
+def muscle_arm_xml() -> str:
+    """examples/ex_muscle_tendon.py's ARM."""
+    return tests_xml("ex_muscle_tendon.py", "ARM", folder="examples")
+
+
+def tendon_rig_xml() -> str:
+    """tests/test_tendon_parity.py's TENDON_RIG."""
+    return tests_xml("test_tendon_parity.py", "TENDON_RIG")
+
+
+def step_index(d, dt: float):
+    """(B,) the index of the step each env of d is about to take (its time
+    over the timestep, rounded), on d's device."""
+    import torch
+
+    return torch.round(d.time / dt)
+
+
+def seeded_noise(seed: int, shape: tuple, batch: int, device):
+    """N(0, 1) of numpy.random.default_rng(seed), (NUM_ENVS,) + shape drawn
+    and the first `batch` kept (env b's the same at every batch)."""
+    import numpy as np
+    import torch
+
+    noise = np.random.default_rng(seed).standard_normal((max(NUM_ENVS, batch),) + shape).astype(np.float32)
+    return torch.as_tensor(noise[:batch], device=device)
+
+
+def arm_start(m, batch: int, device):
+    """qpos0 + 0.05 N(0, 1) (seeded_noise 17)."""
+    from ambersim_tpu_torch.engine import make_data
+
+    d = make_data(m, batch)
+    return d.replace(qpos=d.qpos + 0.05 * seeded_noise(17, (m.nq,), batch, device))
+
+
+# the biceps length (sensordata column 0, the forward before the step) each
+# env carries into steps ARM_EXCITE[0] and ARM_EXCITE[1] of the latest arm
+# rollout, recorded by arm_ctrl on the card
+ARM_TRACE: dict = {}
+TENDON_PATHS_DT = 0.002  # the ARM's and TENDON_RIG's <option timestep>
+
+
+def arm_ctrl(d):
+    """The example's excitation for the step each env is about to take
+    (biceps ARM_BICEPS[0] on steps ARM_EXCITE, ARM_BICEPS[1] otherwise;
+    shoulder ARM_SHOULDER), recording ARM_TRACE without a host sync."""
+    import torch
+
+    i = step_index(d, TENDON_PATHS_DT)
+    length = d.sensordata[:, 0]
+    for k in ARM_EXCITE:
+        prev = ARM_TRACE.get(k)
+        if prev is None or prev.shape != length.shape or prev.device != length.device:
+            prev = torch.full_like(length, float("nan"))
+        ARM_TRACE[k] = torch.where(i == k, length, prev)
+    biceps = torch.where((i >= ARM_EXCITE[0]) & (i < ARM_EXCITE[1]), ARM_BICEPS[0], ARM_BICEPS[1])
+    return torch.stack([biceps, torch.full_like(biceps, ARM_SHOULDER)], -1)
+
+
+def tendon_rig_start(m, batch: int, device):
+    """qpos 0.05 N(0, 1) about qpos0 = 0 (seeded_noise 18)."""
+    from ambersim_tpu_torch.engine import make_data
+
+    d = make_data(m, batch)
+    return d.replace(qpos=d.qpos + 0.05 * seeded_noise(18, (m.nq,), batch, device))
+
+
+def tendon_rig_ctrl(d):
+    """tests/test_tendon_parity.py:146's ctrl at the step each env is about
+    to take: (0.6 sin(0.01 i), 0.3 cos(0.013 i))."""
+    import torch
+
+    i = step_index(d, TENDON_PATHS_DT)
+    return torch.stack([0.6 * torch.sin(0.01 * i), 0.3 * torch.cos(0.013 * i)], -1)
 
 
 def mocap_rig_xml() -> str:
@@ -1976,8 +2105,10 @@ CLUTTER_PER_STEP = {"cholesky_block": 1, "cho_solve_block": 1, "solve_pd_block":
 # drop_scene's and the rock's: qM's factor, qacc_smooth's solve and kernel 4
 # (no joint damping, so no Euler solve)
 DROP_PER_STEP = {"cholesky": 1, "cho_solve": 1, "newton_structured": 1}
-# the terrain quadruped's: those and the Euler damping solve
+# the terrain quadruped's: those and the Euler damping solve (tendon_rig's too)
 TERRAIN_PER_STEP = {"cholesky": 1, "cho_solve": 1, "solve_pd": 1, "newton_structured": 1}
+# the muscle arm's: the dense Newton kernel in kernel 4's place
+ARM_PER_STEP = {"cholesky": 1, "cho_solve": 1, "solve_pd": 1, "newton_dense": 1}
 # path -> its model (an asset, or `build`(device); and `opt` overrides),
 # batch, steps, start, controller and the kernels every step launches (at
 # least once each; exactly per_step where given). `floor` paths are held to
@@ -1988,14 +2119,16 @@ TERRAIN_PER_STEP = {"cholesky": 1, "cho_solve": 1, "solve_pd": 1, "newton_struct
 # "start" (default: 20 steps from the path's start at QPOS_TOL / QVEL_TOL),
 # "settled" (20 steps from the final state at those bars), "spread" (5
 # steps from it at 10 x the card's own spread, settled_card_vs_cpu),
-# "sensors" (20 steps from the start, sensordata too: sensor_rollout) or
+# "sensors" (20 steps from the start, sensordata too: sensor_rollout),
+# "converged" (as "start", both at CONVERGED solver options: the CPU's
+# plain Newton arrays take ~1.5 s a step at the default 100 x 50) or
 # "none" (a model another path holds)
 PATHS = {
     "quadruped": dict(model="quadruped", envs=NUM_ENVS, steps=NUM_STEPS, start=initial_batch, ctrl=pd_ctrl,
                       kernels=_LINALG + ("newton_structured",), z=(0.20, 0.32), keep=True),
-    "cartpole": dict(model="cartpole", envs=1024, steps=200, start=cartpole_start, ctrl=None,
+    "cartpole": dict(model="cartpole", envs=1024, steps=LADDER_STEPS, start=cartpole_start, ctrl=None,
                      kernels=_LINALG + ("newton_dense",)),
-    "arm3": dict(model="arm3", envs=1024, steps=200, start=arm3_start, ctrl=None,
+    "arm3": dict(model="arm3", envs=1024, steps=LADDER_STEPS, start=arm3_start, ctrl=None,
                  kernels=_LINALG + ("newton_dense",)),
     "quadruped_elliptic": dict(model="quadruped_elliptic", envs=NUM_ENVS, steps=NUM_STEPS, start=initial_batch,
                                ctrl=pd_ctrl, kernels=_LINALG + ("newton_elliptic",), z=(0.20, 0.32)),
@@ -2004,7 +2137,7 @@ PATHS = {
     "clutter32_rowcap192": dict(model="clutter32_rowcap192", envs=CLUTTER_ENVS, steps=CLUTTER_STEPS,
                                 settle=CLUTTER_SETTLE, start=clutter_settled_start, ctrl=None, kernels=_LINALG_BLOCK,
                                 per_step=CLUTTER_PER_STEP, floor=True, vs_cpu="spread"),
-    "clutter32_cap48": dict(model="clutter32_cap48", envs=CLUTTER_ENVS, steps=CLUTTER_STEPS, settle=CLUTTER_SETTLE,
+    "clutter32_cap48": dict(model="clutter32_cap48", envs=CLUTTER_ENVS, steps=CAP48_STEPS, settle=CLUTTER_SETTLE,
                             start=clutter_settled_start, ctrl=None, kernels=_LINALG_BLOCK, per_step=CLUTTER_PER_STEP,
                             floor=True, vs_cpu="none"),
     "drop_scene": dict(model="drop_scene", envs=DROP_ENVS, steps=DROP_STEPS, settle=DROP_SETTLE, start=rest_start,
@@ -2025,6 +2158,12 @@ PATHS = {
     "quadruped_sensors": dict(build=lambda device: xml_model(quadruped_sensors_xml(), device), envs=NUM_ENVS,
                               steps=NUM_STEPS, start=initial_batch, ctrl=None, kernels=tuple(TERRAIN_PER_STEP),
                               per_step=TERRAIN_PER_STEP, z=(0.20, 0.32), keep=True, vs_cpu="sensors"),
+    "muscle_arm": dict(build=lambda device: xml_model(muscle_arm_xml(), device), envs=NUM_ENVS, steps=ARM_STEPS,
+                       start=arm_start, ctrl=arm_ctrl, kernels=tuple(ARM_PER_STEP), per_step=ARM_PER_STEP, keep=True,
+                       vs_cpu="converged"),
+    "tendon_rig": dict(build=lambda device: xml_model(tendon_rig_xml(), device), envs=NUM_ENVS,
+                       steps=TENDON_RIG_STEPS, start=tendon_rig_start, ctrl=tendon_rig_ctrl,
+                       kernels=tuple(TERRAIN_PER_STEP), per_step=TERRAIN_PER_STEP, keep=True, vs_cpu="converged"),
 }
 # the floor, terrain and `keep` paths' final states (the card-vs-CPU
 # checks, the starts of later paths, the sensor path's checks)
@@ -2061,6 +2200,9 @@ PHASE_SHAPES = {
     # the height field's (kernel 4 at nefc 296, check_newton_ladder)
     "quadruped_terrain": ((NUM_ENVS, 18), "quadruped_terrain"), "ppo_terrain": ((NUM_ENVS, 18), "quadruped_terrain"),
     "quadruped_sensors": ((NUM_ENVS, 18), "quadruped"),
+    # the tendon and muscle paths (their Newton cases: check_newton_tendon)
+    "muscle_arm": ((NUM_ENVS, 2), "muscle_arm"), "tendon_rig": ((NUM_ENVS, 3), "tendon_rig"),
+    "muscle_arm_sampling": ((ARM_SAMPLES, 2), f"muscle_arm B={ARM_SAMPLES}"),
 }
 # Section 9's phases, timed in section 9 (time_linalg_shapes) so that
 # section 3 does the same work as before it; the evals' launches are
@@ -2533,9 +2675,10 @@ def same_input_sensors(what: str, m_card, d_card, m_cpu) -> None:
 
 
 def sensor_rollout(what: str, build, start, steps: int, device, ctrl_fn=None):
-    """8 envs x `steps` steps of a sensor model on the card, on the CPU and
-    on the CPU in float64 (float64_copy), each followed by a forward for the
-    final state's sensordata. qpos, qvel and act, and the position and
+    """8 envs x `steps` steps of a sensor model on the card, on the CPU and,
+    where it has acceleration or force rows, on the CPU in float64
+    (float64_copy), each followed by a forward for the final state's
+    sensordata. qpos, qvel and act, and the position and
     velocity rows, against the CPU at QPOS_TOL / QVEL_TOL; the acceleration
     and force rows as kernel 4's outputs are held: within NEWTON_TOL on
     NEWTON_MIN_SHARE of envs and NEWTON_ENV_RTOL of each env's largest
@@ -2544,15 +2687,16 @@ def sensor_rollout(what: str, build, start, steps: int, device, ctrl_fn=None):
     from ambersim_tpu_torch.engine import rollout
     from ambersim_tpu_torch.engine.forward import forward
 
+    pos, vel, acc = sensor_columns(build("cpu"))
     runs = []
-    for dev, f64 in ((device, False), ("cpu", False), ("cpu", True)):
+    # the float64 run only where there are acceleration and force rows to hold
+    for dev, f64 in ((device, False), ("cpu", False)) + ((("cpu", True),) if acc.any() else ()):
         m = build(dev)
         d = start(m, 8, dev)
         if f64:
             m, d = float64_copy(m), float64_copy(d)
         runs.append(forward(m, rollout(m, d, steps, ctrl_fn=ctrl_fn)))
-    card, cpu, exact = runs
-    pos, vel, acc = sensor_columns(m)
+    card, cpu = runs[:2]
 
     def dmax(a, b):
         return (a.cpu() - b).abs().max().item() if a.numel() else 0.0
@@ -2566,7 +2710,7 @@ def sensor_rollout(what: str, build, start, steps: int, device, ctrl_fn=None):
     if not all(v <= bar for v, bar in diffs.values()):
         fail(f"{what}: card rollout or its position / velocity sensor rows disagree with the CPU's")
     if acc.any():
-        got, plain, f64 = (x.sensordata[:, acc].cpu() for x in (card, cpu, exact))
+        got, plain, f64 = (x.sensordata[:, acc].cpu() for x in runs)
         names = ("acceleration and force rows",)
         if newton_within((plain,), (f64,)).double().mean().item() >= NEWTON_MIN_SHARE:
             newton_err((got,), (plain,), f"{what} sensordata, card vs CPU", names)
@@ -2629,6 +2773,236 @@ def sensor_rigs(device) -> None:
                   f"(<= 1e-6)", flush=True)
             if not (dpos == 0.0 and dquat <= 1e-6):
                 fail(f"{name}: a mocap body's frame is not its mocap pose")
+
+
+def tendon_rigs_start(m, batch: int, device):
+    """A tendon rig's start: qpos0 + 0.5 N(0, 1) (wraps on either branch,
+    limits on either side), qvel 0.5 N(0, 1), ctrl and act uniform over
+    [0, 1], drawn by numpy.random.default_rng(19)."""
+    import numpy as np
+    import torch
+
+    from ambersim_tpu_torch.engine import make_data
+
+    s = m.skel
+    rng = np.random.default_rng(19)
+
+    def draw(x):
+        return torch.as_tensor(x.astype(np.float32), device=device)
+
+    d = make_data(m, batch)
+    return d.replace(qpos=d.qpos + draw(0.5 * rng.standard_normal((batch, s.nq))),
+                     qvel=draw(0.5 * rng.standard_normal((batch, s.nv))), ctrl=draw(rng.uniform(0, 1, (batch, s.nu))),
+                     act=draw(rng.uniform(0, 1, (batch, s.na))))
+
+
+TENDON_FIELDS = ("ten_length", "ten_J", "ten_velocity", "actuator_length", "actuator_velocity")
+TENDON_FORCE_FIELDS = ("qfrc_passive", "actuator_force", "qfrc_actuator", "act_dot")
+
+
+def same_input_tendons(what: str, m_card, d_card, m_cpu) -> None:
+    """A forward on the card and on the CPU from one Data (the first 8 envs
+    of d_card): tendon lengths, Jacobians and velocities and actuator
+    lengths and velocities within SENSOR_TOL, passive and actuator forces
+    and act_dot within SENSOR_FORCE_TOL (rtol, atol), every env."""
+    from ambersim_tpu_torch.engine import forward
+
+    got = forward(m_card, data_head(d_card, 8))
+    want = forward(m_cpu, data_head(d_card, 8).to("cpu"))
+    line = []
+    for fields, (rtol, atol) in ((TENDON_FIELDS, SENSOR_TOL), (TENDON_FORCE_FIELDS, SENSOR_FORCE_TOL)):
+        for f in fields:
+            g, w = getattr(got, f).cpu().double(), getattr(want, f).double()
+            err = (g - w).abs()
+            line.append(f"{f} {err.max().item() if err.numel() else 0.0:.3e}")
+            if not (finite(g) and bool((err <= atol + rtol * w.abs()).all())):
+                fail(f"{what}: {f} on the card and on the CPU from the same Data part: {line[-1]} "
+                     f"(rtol/atol {rtol}/{atol})")
+    print(f"{what}: a forward card vs CPU on the same Data (8 envs), max |d|: {', '.join(line)} (rtol/atol "
+          f"{SENSOR_TOL} for lengths, Jacobians and velocities, {SENSOR_FORCE_TOL} for forces)", flush=True)
+
+
+def finite(x) -> bool:
+    import torch
+
+    return bool(torch.isfinite(x).all())
+
+
+def tendon_rigs(device) -> None:
+    """Every TENDON_RIGS model, card against CPU at 8 envs from
+    tendon_rigs_start: a rollout of SENSOR_RIG_STEPS steps at CONVERGED
+    solver options (sensor_rollout: qpos, qvel, act and the sensor rows),
+    then from the card's final Data a forward on both (same_input_tendons)
+    and the sensors on both (same_input_sensors)."""
+    for name, xml in TENDON_RIGS.items():
+        text = xml()
+        card = sensor_rollout(name, lambda dev: xml_model(text, dev, CONVERGED), tendon_rigs_start,
+                              SENSOR_RIG_STEPS, device)
+        m_card, m_cpu = xml_model(text, device, CONVERGED), xml_model(text, "cpu", CONVERGED)
+        same_input_tendons(name, m_card, card, m_cpu)
+        if m_cpu.skel.nsensor:
+            same_input_sensors(name, m_card, card, m_cpu)
+
+
+def muscle_arm_checks(device, card: str) -> None:
+    """The muscle arm path's final state (SETTLED) and its trace: act finite
+    and in [0, 1]; the biceps_len sensor equal to ten_length bit for bit;
+    the tendon shortened under the excitation, every env's length at step
+    ARM_EXCITE[1] below the tendon's rest length at qpos0 (tendon_length0:
+    the example's start, the forearm held on its limit by gravity) and the
+    mean below the mean at step ARM_EXCITE[0]. Per env, the length at
+    ARM_EXCITE[1] is below the one at ARM_EXCITE[0] only where the env has
+    come to rest before the excitation: a start flexed by the noise is
+    still falling back at step ARM_EXCITE[0] (its share is printed)."""
+    import torch
+
+    m, d = path_model("muscle_arm", device), SETTLED["muscle_arm"]
+    if not (finite(d.act) and bool(((d.act >= 0) & (d.act <= 1)).all())):
+        fail(f"muscle_arm: act non-finite or outside [0, 1]: [{d.act.min().item()}, {d.act.max().item()}]")
+    if not torch.equal(d.sensordata[:, 0], d.ten_length[:, 0]):
+        fail("muscle_arm: the biceps_len sensor is not ten_length")
+    start, end = (ARM_TRACE[k] for k in ARM_EXCITE)
+    rest = m.tendon_length0[0]
+    if not (finite(start) and finite(end)):
+        fail(f"muscle_arm: no biceps length recorded at steps {ARM_EXCITE}")
+    if not (bool((end < rest).all()) and end.mean().item() < start.mean().item()):
+        fail(f"muscle_arm: the tendon did not shorten under the excitation: at step {ARM_EXCITE[1]} "
+             f"[{end.min().item():.5f}, {end.max().item():.5f}] against its rest length {rest.item():.5f}, mean "
+             f"{end.mean().item():.5f} against {start.mean().item():.5f} at step {ARM_EXCITE[0]}")
+    print(f"muscle_arm: act in [{d.act.min().item():.4f}, {d.act.max().item():.4f}]; biceps_len == ten_length; "
+          f"biceps length at step {ARM_EXCITE[1]} in [{end.min().item():.5f}, {end.max().item():.5f}] < its rest "
+          f"length {rest.item():.5f} on every env, mean {end.mean().item():.5f} < {start.mean().item():.5f} at step "
+          f"{ARM_EXCITE[0]}; shorter than at step {ARM_EXCITE[0]} on {(end < start).float().mean().item():.4f} "
+          f"of the envs [{card}]", flush=True)
+
+
+def arm_cost(device):
+    """The example's StaticGoalQuadraticCost: Q 0.1 I, Qf 10 I, R 0.01 I,
+    goal ARM_GOAL."""
+    import torch
+
+    from ambersim_tpu_torch.trajopt import StaticGoalQuadraticCost
+
+    eye = torch.eye(len(ARM_GOAL), device=device)
+    return StaticGoalQuadraticCost(Q=0.1 * eye, Qf=10.0 * eye, R=0.01 * torch.eye(2, device=device),
+                                   xg=torch.tensor(ARM_GOAL, device=device))
+
+
+def muscle_arm_sampling(device, card: str) -> dict:
+    """The example's predictive sampling: ARM_OPTIMIZE_CALLS optimize calls
+    of ARM_SAMPLES samples x ARM_KNOTS knots from x0 = 0, the launch counts
+    set to 0 just before and read just after (each call: one forward and
+    ARM_KNOTS steps, _per_call_launches). Checks: exact launches and finite
+    results; then every call's chosen tape and the guess shot as one batch
+    on the card and on the CPU (both at CONVERGED options, the CPU's plain
+    Newton arrays being ~1.5 s a step at the default 100 x 50), within
+    QPOS_TOL / QVEL_TOL, and on the card's shoot each chosen tape costing
+    at most the guess (sample 0 of every call; a call none of whose 63
+    draws does better returns it) and the best of them less. Returns the
+    launch counts."""
+    import torch
+
+    from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from ambersim_tpu_torch.trajopt import VanillaPredictiveSampler, VanillaPredictiveSamplerParams, shoot
+
+    m = xml_model(muscle_arm_xml(), device)
+    nq, nx = m.skel.nq, m.skel.nq + m.skel.nv
+    cost = arm_cost(device)
+    sampler = VanillaPredictiveSampler(model=m, cost_function=cost, nsamples=ARM_SAMPLES, stdev=ARM_STDEV)
+    x0 = torch.zeros(nx, device=device)
+    guess = torch.full((ARM_KNOTS, m.skel.nu), ARM_GUESS, device=device)
+    params = VanillaPredictiveSamplerParams(x0=x0, us_guess=guess, generator=torch.Generator().manual_seed(0))
+    per_forward, per_step = _per_call_launches(m, device)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    calls = [sampler.optimize(params) for _ in range(ARM_OPTIMIZE_CALLS)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    _check_launches("muscle_arm_sampling", launches, tuple(k for k, n in per_step.items() if n), 1,
+                    _expect(per_forward, per_step, ARM_OPTIMIZE_CALLS, ARM_OPTIMIZE_CALLS * ARM_KNOTS))
+    for xs, us in calls:
+        if not (finite(xs) and xs.shape == (ARM_KNOTS + 1, nx)):
+            fail(f"muscle_arm_sampling: non-finite or misshapen xs_star {tuple(xs.shape)}")
+    tapes = torch.stack([us for _, us in calls] + [guess])  # the chosen tapes, then the guess
+    xs = shoot(xml_model(muscle_arm_xml(), device, CONVERGED), x0, tapes)
+    xs_cpu = shoot(xml_model(muscle_arm_xml(), "cpu", CONVERGED), x0.cpu(), tapes.cpu())
+    dq = (xs[..., :nq].cpu() - xs_cpu[..., :nq]).abs().max().item()
+    dv = (xs[..., nq:].cpu() - xs_cpu[..., nq:]).abs().max().item()
+    if not (dq <= QPOS_TOL and dv <= QVEL_TOL):
+        fail(f"muscle_arm_sampling: the card's shoot of the chosen tapes differs from the CPU's by {dq:.3e} / {dv:.3e}")
+    *costs, c_guess = cost.cost(xs, tapes).tolist()
+    if not (all(c <= c_guess + 1e-5 + 1e-5 * abs(c_guess) for c in costs) and min(costs) < c_guess):
+        fail(f"muscle_arm_sampling: the chosen tapes' costs {costs} against the guess's {c_guess:.4f}")
+    print(f"muscle_arm_sampling: {ARM_OPTIMIZE_CALLS} optimize calls of {ARM_SAMPLES} samples x {ARM_KNOTS} knots in "
+          f"{seconds:.3f} s, {1e3 * seconds / ARM_OPTIMIZE_CALLS:.3f} ms per call [{card}]; launches {launches}; "
+          f"costs of the chosen tapes {', '.join(f'{c:.4f}' for c in costs)} against the guess's {c_guess:.4f}; final "
+          f"elbow {calls[-1][0][-1, 1].item():+.4f} rad; the {len(tapes)} tapes' shoot card vs cpu over {ARM_KNOTS} "
+          f"steps (CONVERGED): max |dqpos| {dq:.3e} (<= {QPOS_TOL}), max |dqvel| {dv:.3e} (<= {QVEL_TOL})", flush=True)
+    return launches
+
+
+def check_newton_tendon(device, results) -> None:
+    """The Newton kernels on the tendon paths' final states (SETTLED), with
+    a warmstart of qacc_smooth + 0.1 N(0, 1): kernel 5 on the muscle arm's
+    rows (two joint limits, the tendon's limit; 4096 envs), kernel 4 on
+    TENDON_RIG's (its tendon equality, friction and limit rows and a
+    contact; 4096 envs). Against the plain version at the NEWTON_* bars
+    where plain float32 meets float64 on at least NEWTON_MIN_SHARE of the
+    envs, else against float64 (vs_float64); each kernel's time beside its
+    bound and its resident envs per SM, and kernel 5's at the sampler's
+    batch (the first ARM_SAMPLES envs). Both models run the default 100 x
+    50 Newton iterations: the plain version takes ~4 s a call there (host
+    dispatch of every line-search step), so it is run once a dtype and
+    not timed."""
+    import torch
+
+    from ambersim_tpu_torch.engine.constraint import _pyramid_structure
+    from ambersim_tpu_torch.engine.solver import _newton_arrays
+    from ambersim_tpu_torch.ops.newton import (dense_occupancy, newton_solve_dense, newton_solve_structured,
+                                               structured_occupancy)
+
+    for name in ("muscle_arm", "tendon_rig"):
+        m = path_model(name, device)
+        s = m.skel
+        st = _pyramid_structure(s)
+        d = pre_solve(m, SETTLED[name])
+        pa = solver_operands(m, d, seed=12)
+        kw = dict(iterations=int(m.opt.iterations), ls_iterations=int(m.opt.ls_iterations), use_ws=True)
+        key = "newton_dense" if st is None else "newton_structured"
+
+        def kern(b=NUM_ENVS, pa=pa, d=d, st=st, s=s):
+            p = {k: v[:b] if k != "tol" else v for k, v in pa.items()}
+            if st is None:
+                return newton_solve_dense(p["J"], p["qM"], p["aref"], p["D"], p["fl"], p["act"], p["a_s"], p["ws"],
+                                          p["tol"], ne=int(s.ne), nf=int(s.nf), **kw)
+            return newton_solve_structured(p["J"], d.efc_bJ[:b], d.efc_dsc[:b], p["qM"], p["aref"], p["D"], p["fl"],
+                                           p["act"], p["a_s"], p["ws"], p["tol"], st=st, **kw)
+
+        def ref(dtype, pa=pa, s=s):
+            return _newton_arrays(**as_dtype(pa, dtype), ne=int(s.ne), nf=int(s.nf), **kw)
+
+        what = (f"{key} {name} (nefc {s.nefc}, nv {s.nv}"
+                f"{f', nd_eq {st.nd_eq}, nd_ft {st.nd_ft}, {st.ncon3} contact' if st else ''})")
+        got, plain, exact = kern(), ref(torch.float32), ref(torch.float64)
+        share = newton_within(plain, exact).double().mean().item()
+        print(f"{what}: active rows per env {pa['act'].sum(1).mean().item():.3f} of {s.nefc}; plain float32 meets "
+              f"float64 on {share:.4f} of the envs")
+        if share >= NEWTON_MIN_SHARE:
+            err = newton_err(got, plain, what)
+            results[key]["max_abs_err"] = max(results[key]["max_abs_err"], err)
+            newton_err(plain, exact, f"{what}, plain float32 vs float64")
+        else:
+            vs_float64(got, plain, exact, what)
+        envs = dense_occupancy(s.nv, s.nefc) if st is None else structured_occupancy(s.nv, s.nefc, st)
+        for case, b in ((name, NUM_ENVS),) + (((f"{name} B={ARM_SAMPLES}", ARM_SAMPLES),) if st is None else ()):
+            operands = ([d.efc_bJ[:b], d.efc_dsc[:b]] if st else [pa["J"][:b]]) + [
+                pa[k][:b] for k in ("qM", "aref", "D", "fl", "act", "a_s", "ws")]
+            bound = newton_bound(operands, s.nefc, s.nv, pa["act"][:b], kw["iterations"], kw["ls_iterations"])
+            SHAPE_TIMES[(key, case)] = (cuda_ms(lambda b=b: kern(b)), bound["bound_ms"])
+            print(f"kernel {key}: {name} B={b} {SHAPE_TIMES[(key, case)][0]:.4f} ms, bound {bound['bound_ms']:.4f} "
+                  f"ms ({bound['bound_by']}); {envs} envs resident per SM", flush=True)
 
 
 def sensor_cols(m, stype) -> list:
@@ -4785,6 +5159,7 @@ def run_phases(device, card: str, results: dict) -> None:
     for name in ("clutter32_rowcap192", "clutter32_cap48"):
         clutter_newton_spread(name, device)
     quadruped_sensors_checks(device, card)
+    muscle_arm_checks(device, card)
     print(f"clutter32_rowcap192 solve stage, median ms: bfloat16 Hessian product "
           f"{splits['clutter32_rowcap192_bf16']['solve']:.3f}, float32 {splits['clutter32_rowcap192']['solve']:.3f} "
           f"[{card}]", flush=True)
@@ -4811,9 +5186,13 @@ def run_phases(device, card: str, results: dict) -> None:
     phase("humanoid_sampling")
     phase_launches["pendulum_single"] = pendulum_single(device, card)
     phase("pendulum_single")
+    phase_launches["muscle_arm_sampling"] = muscle_arm_sampling(device, card)
+    phase("muscle_arm_sampling")
     check_newton_ladder(device, results)
+    check_newton_tendon(device, results)
+    phase("check_newton_ladder and check_newton_tendon")
     mesh_mesh_memory(device)
-    section("5 (trajectory optimization, kernel 4 on the ladder's and model I/O's operands)")
+    section("5 (trajectory optimization, kernels 4 and 5 on the ladder's, model I/O's and the tendon paths' operands)")
 
     # ---- 6. PPO training through the env layer, each with its own launch counts ----
     phase_launches["ppo_quadruped"] = ppo_training_step("ppo_quadruped", "quadruped_locomotion", PPO_QUADRUPED,
@@ -4851,6 +5230,8 @@ def run_phases(device, card: str, results: dict) -> None:
             card_vs_cpu(name, device, ELLIPTIC_QPOS_TOL, ELLIPTIC_QVEL_TOL)
         elif method == "start":
             card_vs_cpu(name, device, QPOS_TOL, QVEL_TOL)
+        elif method == "converged":
+            card_vs_cpu(name, device, QPOS_TOL, QVEL_TOL, opt=CONVERGED)
         elif method == "sensors":
             p = PATHS[name]
             sensor_rollout(name, lambda dev: path_model(name, dev), p["start"], 20, device, p["ctrl"])
@@ -4863,8 +5244,8 @@ def run_phases(device, card: str, results: dict) -> None:
     # obs columns: gravity, lin_vel, ang_vel, joint pos, 0.1 joint vel, last action
     quad_bars = ((slice(0, 3), QPOS_TOL), (slice(3, 9), QVEL_TOL), (slice(9, 21), QPOS_TOL),
                  (slice(21, 33), 0.1 * QVEL_TOL), (slice(33, 45), 0.0))
-    env_card_vs_cpu(device, "quadruped", QuadrupedLocomotionEnv, 10, quad_bars)
-    env_card_vs_cpu(device, "quadruped_terrain", terrain_env, 10, quad_bars, reset=terrain_reset)
+    env_card_vs_cpu(device, "quadruped", QuadrupedLocomotionEnv, ENV_CONTROL_STEPS, quad_bars)
+    env_card_vs_cpu(device, "quadruped_terrain", terrain_env, ENV_CONTROL_STEPS, quad_bars, reset=terrain_reset)
     # the humanoid's (nq 26, nv 25, nu 19): gravity, lin_vel, ang_vel, height, joint pos, 0.1 joint vel, last action
     env_card_vs_cpu(device, "humanoid_balance", HumanoidBalanceEnv, 5, (
         (slice(0, 3), QPOS_TOL), (slice(3, 9), QVEL_TOL), (slice(9, 29), QPOS_TOL), (slice(29, 48), 0.1 * QVEL_TOL),
@@ -4874,6 +5255,8 @@ def run_phases(device, card: str, results: dict) -> None:
     phase("ray card vs CPU")
     sensor_rigs(device)
     phase("sensor rigs card vs CPU")
+    tendon_rigs(device)
+    phase("tendon rigs card vs CPU")
     section("8 (card against CPU)")
 
     # ---- 9. ES, ARS and SAC, each with its own launch counts ----

@@ -34,7 +34,7 @@ TENDON_SENSOR_XML = """
 """
 
 
-# a tendon's length sensor (tendon sensors wait with the tendons)
+# a tendon's length sensor
 TENDON_POS_SENSOR_XML = TENDON_SENSOR_XML.replace('<jointpos joint="a"/>', '<tendonpos tendon="t"/>')
 
 # a camera projecting a site (CAMPROJECTION waits with the cameras)
@@ -353,10 +353,7 @@ def test_stacked_mlp_params_carry_across():
     "source, features",
     [
         (HAND_WELD_XML, ["weld equality constraints"]),
-        (TENDON_SENSOR_XML, ["tendons"]),
-        (TENDON_POS_SENSOR_XML, ["tendons", "tendon sensors"]),
         (CAMPROJECTION_XML, ["cameras (camlight)", "camera projection sensors (CAMPROJECTION)"]),
-        (MUSCLE_XML, ["muscle actuators"]),
         (BALL_MOTOR_XML, ["actuator transmission JOINT (only hinge/slide joints)"]),
         ("SLIDE_RIG", ["contact condim 4/6"]),
         ("MOCAP_WELD", ["weld equality constraints"]),
@@ -365,12 +362,12 @@ def test_stacked_mlp_params_carry_across():
         (EXPLICIT_PAIR_XML, ["explicit <pair> contact overrides"]),
         (RK4_XML, ["the RK4 integrator"]),
     ],
-    ids=["hand_weld", "tendon_sensor", "tendon_pos_sensor", "camprojection", "muscle", "ball_motor",
+    ids=["hand_weld", "camprojection", "ball_motor",
          "contact_sensor_condim6", "mocap_weld", "condim46", "elliptic_mixed", "explicit_pair", "rk4"],
 )
 def test_models_outside_the_slice_are_refused(source, features):
-    """Each feature outside the slice is refused by name: tendons and their
-    sensors, CAMPROJECTION, muscles, actuators on ball joints, condim 6
+    """Each feature outside the slice is refused by name: CAMPROJECTION,
+    actuators on ball joints, condim 6
     (tests/test_contact_sensor.py's first fixture), weld equality (the
     mocap drag of tests/test_mocap.py), and the rest."""
     from ambersim_tpu_torch.io.bridge import model_from_numpy
@@ -387,7 +384,8 @@ def test_models_outside_the_slice_are_refused(source, features):
 
 
 def _lifted(name):
-    """The XML of each feature lifted in the sensor and servo slice."""
+    """The XML of each feature lifted in the sensor and servo slice and in
+    the tendon and muscle slice."""
     import chip_smoke
     from test_actgroup_user import XML as ACTGROUP_XML
     from test_actfrcrange import XML as ACTFRCRANGE_XML
@@ -396,18 +394,20 @@ def _lifted(name):
 
     return {"sensors": SENSOR_RIG, "contact_sensors": BOX_RIG, "mocap": chip_smoke.mocap_rig_xml(),
             "activations_and_servos": chip_smoke.ACTUATOR_RIG, "actuator_group_disabling": ACTGROUP_XML,
-            "actuatorfrcrange": ACTFRCRANGE_XML,
+            "actuatorfrcrange": ACTFRCRANGE_XML, "tendon_sensor": TENDON_SENSOR_XML,
+            "tendon_pos_sensor": TENDON_POS_SENSOR_XML, "muscle": MUSCLE_XML,
             "energy": chip_smoke.ACTUATOR_RIG.replace('actuatorgroupdisable="3"/>',
                                                       'actuatorgroupdisable="3"><flag energy="enable"/></option>')}[name]
 
 
 @pytest.mark.parametrize("name", ["sensors", "contact_sensors", "mocap", "activations_and_servos",
-                                  "actuator_group_disabling", "actuatorfrcrange", "energy"])
+                                  "actuator_group_disabling", "actuatorfrcrange", "energy", "tendon_sensor",
+                                  "tendon_pos_sensor", "muscle"])
 def test_lifted_features_are_accepted(name):
-    """Sensors (but tendon sensors and CAMPROJECTION), mocap bodies,
-    filter / filterexact / integrator activations, affine servos, a joint's
-    actuatorfrcrange, actuator group disabling and the ENERGY flag load
-    through the bridge; two CPU steps stay finite."""
+    """Sensors (but CAMPROJECTION), tendons and their sensors, muscles,
+    mocap bodies, filter / filterexact / integrator activations, affine
+    servos, a joint's actuatorfrcrange, actuator group disabling and the
+    ENERGY flag load through the bridge; two CPU steps stay finite."""
     from ambersim_tpu_torch.core.types import EnableBit
     from ambersim_tpu_torch.engine import make_data, step
     from ambersim_tpu_torch.io.bridge import model_from_numpy

@@ -11,7 +11,8 @@ under a constant ctrl, at its own options and at the predictive-sampling
 workload's (BASELINE.md:13: Newton 1 x 4 iterations, contacts disabled),
 against the JAX package's rollout at the main path's rollout bars (qpos
 atol 1e-4, qvel atol 1e-3). `check_slice` still refuses the equality types
-the port does not assemble, by name.
+the port does not assemble (connect, weld), by name; tendon equality rows
+are tests/test_torch_tendon.py's.
 """
 
 import jax
@@ -135,8 +136,6 @@ EQ_XML = """
 UNPORTED_EQ = {
     "connect": '<equality><connect body1="a" body2="b" anchor="0 0 -0.3"/></equality>',
     "weld": '<equality><weld body1="a" body2="b"/></equality>',
-    "tendon": '<tendon><fixed name="t"><joint joint="ja" coef="1"/></fixed><fixed name="u"><joint joint="jb" '
-              'coef="1"/></fixed></tendon><equality><tendon tendon1="t" tendon2="u"/></equality>',
 }
 
 

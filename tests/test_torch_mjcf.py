@@ -41,7 +41,7 @@ from tools.export_model_npz import ASSETS, ASSETS_DIR, model_arrays
 REPO = Path(__file__).resolve().parent.parent
 MODELS = REPO / "ambersim_tpu" / "models"
 MODEL_FILES = sorted(str(Path(f).relative_to(MODELS)) for f in glob.glob(str(MODELS / "**" / "*.xml"), recursive=True))
-SETCONST = ("dof_invweight0", "body_invweight0", "actuator_acc0")
+SETCONST = ("dof_invweight0", "body_invweight0", "actuator_acc0", "tendon_invweight0")
 
 FIXTURES = {
     "frame": FRAME_XML,
@@ -126,17 +126,18 @@ def test_compile_spec_arrays_matches_jax_on_parser_fixtures(name):
     check_against_jax(FIXTURES[name])
 
 
-def test_tendon_model_compiles_and_set_constants_refuses_it():
-    """A fixed tendon compiles to the JAX package's arrays; set_constants
-    refuses it by name (the port's smooth pass has no ten_J/ten_length)."""
+def test_tendon_model_compiles_and_set_constants_matches_jax():
+    """A fixed tendon compiles to the JAX package's arrays, and
+    set_constants gives the JAX package's tendon fields: tendon_length0 and
+    the springlength range bit for bit, tendon_invweight0 within
+    cond(qM) x 2^-24 (the port's float32 smooth pass gives ten_J)."""
     from ambersim_tpu_torch.engine.setconst import set_constants
     from ambersim_tpu_torch.mjcf import compile_spec_arrays
 
-    check_against_jax(TENDON_SENSOR_XML, setconst=False)
+    check_against_jax(TENDON_SENSOR_XML)
     skel, leaves = compile_spec_arrays(port_spec(TENDON_SENSOR_XML))
     assert skel["ntendon"] == 1
-    with pytest.raises(NotImplementedError, match=r"tendon.*ROADMAP, queue 1, item 5"):
-        set_constants(skel, leaves)
+    assert set_constants(skel, leaves)["tendon_invweight0"].all()
 
 
 SITE_TRANSMISSION_XML = """
@@ -240,8 +241,8 @@ def test_compile_spec_and_load_model():
     assert full.dof_invweight0.all()
     asset = ambersim_tpu_torch.load_model("arm3", device="cpu")
     assert asset.skel == full.skel
-    with pytest.raises(NotImplementedError, match="tendons"):
-        mjcf.compile_spec(port_spec(TENDON_SENSOR_XML), device="cpu")
+    with pytest.raises(NotImplementedError, match="actuator transmission SITE"):
+        mjcf.compile_spec(port_spec(SITE_TRANSMISSION_XML), device="cpu")
 
 
 def test_chip_smoke_copies_match_their_sources():
