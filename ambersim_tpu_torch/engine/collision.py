@@ -5,9 +5,10 @@ against a mesh's convex hull (box-box, box-mesh and mesh-mesh by SAT,
 engine/convex.py), and a height field against sphere, capsule and box
 (each env against the triangles of its own window of the grid). Port of
 ambersim_tpu/engine/collision.py (_make_frame, these narrowphases,
-_mix_params and `collision` with its broadphase-capped groups and global
-row cap). A cylinder or ellipsoid in any other pair is the compiler's
-synthesized hull, so it meets that pair as a mesh.
+_mix_params, explicit <pair> overrides, the OVERRIDE flag and `collision`
+with its broadphase-capped groups and global row cap). A cylinder or
+ellipsoid in any other pair is the compiler's synthesized hull, so it
+meets that pair as a mesh.
 
 Each geom-type pair group runs one batched narrowphase and writes fixed
 contact slots; "no contact" is dist > includemargin, masked downstream.
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 
 from ambersim_tpu_torch.core import math as am
-from ambersim_tpu_torch.core.types import Contact, Data, GeomType, Model
+from ambersim_tpu_torch.core.types import Contact, Data, EnableBit, GeomType, Model
 from ambersim_tpu_torch.engine import convex
 from ambersim_tpu_torch.engine.schedule import device_index
 
@@ -511,19 +512,23 @@ def _top_k(x: torch.Tensor, k: int) -> torch.Tensor:
     return torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
 
 
-def _broadphase(m: Model, d: Data, tkey, g1s: np.ndarray, g2s: np.ndarray, k: int):
-    """(B, k) geom ids of the k most-overlapping pairs of a capped group, by
-    bounding-sphere (or plane half-space) distance minus the larger margin."""
+def _broadphase(m: Model, d: Data, tkey, g1s: np.ndarray, g2s: np.ndarray, exp: np.ndarray, k: int):
+    """(B, k) geom ids and explicit-pair ids of the k most-overlapping pairs
+    of a capped group, by bounding-sphere (or plane half-space) distance
+    minus the larger margin, or an explicit <pair>'s own margin."""
     dev = d.qpos.device
     g1, g2 = device_index(g1s, dev), device_index(g2s, dev)
     delta = d.geom_xpos[:, g2] - d.geom_xpos[:, g1]  # (B, P, 3)
     margin_ub = torch.maximum(m.geom_margin[g1], m.geom_margin[g2])
+    if (exp >= 0).any():
+        margin_ub = torch.where(device_index(exp >= 0, dev), m.pair_margin[device_index(np.maximum(exp, 0), dev)],
+                                margin_ub)
     if tkey[0] == int(GeomType.PLANE):
         bound = (delta * d.geom_xmat[:, g1, :, 2]).sum(-1) - m.geom_rbound[g2]
     else:
         bound = torch.linalg.vector_norm(delta, dim=-1) - m.geom_rbound[g1] - m.geom_rbound[g2]
     sel = _top_k(-(bound - margin_ub), k)
-    return g1[sel], g2[sel]
+    return g1[sel], g2[sel], device_index(exp, dev)[sel]
 
 
 def _mesh_tuple(m: Model, g: torch.Tensor):
@@ -563,6 +568,28 @@ def _mix_params(m: Model, g1: torch.Tensor, g2: torch.Tensor):
     return friction, solref, solimp, margin, gap
 
 
+def _contact_params(m: Model, g1: torch.Tensor, g2: torch.Tensor, exp: np.ndarray, exp_t: torch.Tensor):
+    """(friction, solref, solimp, includemargin, gap) of pairs g1-g2: the
+    mixed geom parameters, an explicit <pair>'s own where the pair has one
+    (`exp` its static ids, `exp_t` those the pairs carry; JAX collision.py:
+    779-792), and under the OVERRIDE flag the Option's o_* values for every
+    pair, with includemargin o_margin and gap 0 (:794-808)."""
+    friction, solref, solimp, margin, gap = _mix_params(m, g1, g2)
+    if (exp >= 0).any():
+        has, e = exp_t >= 0, torch.clamp(exp_t, min=0)
+        friction = torch.where(has[..., None], m.pair_friction[e], friction)
+        solref = torch.where(has[..., None], m.pair_solref[e], solref)
+        solimp = torch.where(has[..., None], m.pair_solimp[e], solimp)
+        margin = torch.where(has, m.pair_margin[e], margin)
+        gap = torch.where(has, m.pair_gap[e], gap)
+    if m.opt.enableflags & EnableBit.OVERRIDE:
+        o = m.opt
+        friction, solref, solimp = (x.to(margin.dtype).expand_as(y) for x, y in (
+            (o.o_friction, friction), (o.o_solref, solref), (o.o_solimp, solimp)))
+        margin, gap = o.o_margin.to(margin.dtype).expand_as(margin), torch.zeros_like(gap)
+    return friction, solref, solimp, margin, gap
+
+
 def collision(m: Model, d: Data) -> Data:
     """Narrowphase for every candidate pair group into its contact slots, then
     the row cap when the model has one."""
@@ -597,16 +624,17 @@ def collision(m: Model, d: Data) -> Data:
     for tkey, idx_list in groups.items():
         fn, ncon_per = _NARROWPHASE[tkey]
         idx = np.array(idx_list, dtype=np.int32)
+        exp = np.asarray(s.pair_explicit)[idx]  # each pair's explicit <pair> id, -1 for none
         if tkey in capped:
             adr, k = capped[tkey]
-            g1, g2 = _broadphase(m, d, tkey, s.pair_geom1[idx], s.pair_geom2[idx], k)  # (B, k)
+            g1, g2, exp_t = _broadphase(m, d, tkey, s.pair_geom1[idx], s.pair_geom2[idx], exp, k)  # (B, k)
             slots = ix(adr + np.arange(k * ncon_per))
             geom1_all[:, slots] = g1.repeat_interleave(ncon_per, dim=1).to(torch.int32)
             geom2_all[:, slots] = g2.repeat_interleave(ncon_per, dim=1).to(torch.int32)
             poses = [torch.take_along_dim(x, g[(...,) + (None,) * (x.dim() - 2)], dim=1)
                      for g in (g1, g2) for x in (d.geom_xpos, d.geom_xmat)]
         else:
-            g1, g2 = ix(s.pair_geom1[idx]), ix(s.pair_geom2[idx])  # (P,)
+            g1, g2, exp_t = ix(s.pair_geom1[idx]), ix(s.pair_geom2[idx]), ix(exp)  # (P,)
             slots = ix(np.concatenate([np.arange(ncon_per) + int(s.con_adr[i]) for i in idx]))
             poses = [x[:, g] for g in (g1, g2) for x in (d.geom_xpos, d.geom_xmat)]
         if tkey[0] == int(GeomType.HFIELD):
@@ -617,7 +645,7 @@ def collision(m: Model, d: Data) -> Data:
             dist, pos, frame = fn(*args)
         pair_dim = g1.dim() - 1  # the pairs' dim of _mix_params: (P, ...) static, (B, k, ...) capped
         friction, solref, solimp, margin, gap = (
-            x.repeat_interleave(ncon_per, dim=pair_dim) for x in _mix_params(m, g1, g2)
+            x.repeat_interleave(ncon_per, dim=pair_dim) for x in _contact_params(m, g1, g2, exp, exp_t)
         )
         dist_all[:, slots] = dist.reshape(B, -1)
         pos_all[:, slots] = pos.reshape(B, -1, 3)

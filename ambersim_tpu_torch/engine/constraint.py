@@ -1,11 +1,11 @@
-"""Constraint assembly for the ported slice: joint and tendon equality
-couplings, dof and tendon friction, scalar joint and tendon limits,
-frictionless condim-1 contacts and condim-3 contacts (pyramidal or
-elliptic cones) -> batch-first efc rows (J, D, aref, pos, active) plus the
-factored operands efc_bJ/efc_dsc of the structured Newton kernel. Port of
-ambersim_tpu/engine/constraint.py (`_impedance`, `_kbi`, `PyramidStructure`,
-and the matching branches of `make_constraint`); `io.bridge.check_slice`
-refuses models with other row families.
+"""Constraint assembly for the ported slice: joint, tendon, connect and
+weld equality rows, dof and tendon friction, scalar and ball joint limits,
+tendon limits, frictionless condim-1 contacts and condim-3 contacts
+(pyramidal or elliptic cones) -> batch-first efc rows (J, D, aref, pos,
+active) plus the factored operands efc_bJ/efc_dsc of the structured Newton
+kernel. Port of ambersim_tpu/engine/constraint.py (`_impedance`, `_kbi`,
+`PyramidStructure`, and the matching branches of `make_constraint`);
+`io.bridge.check_slice` refuses models with other row families.
 
 Conventions (MuJoCo, parity-tested by the JAX package):
   * impedance: solimp=(d0,dmax,width,mid,power) sigmoid on |pos|/width
@@ -16,13 +16,19 @@ Conventions (MuJoCo, parity-tested by the JAX package):
   * pyramid rows J = Jn +- mu_i Jt_i, diagApprox = 2 mu0^2 (1+mu0^2) invweight / impratio
   * elliptic rows J = [Jn, Jt1, Jt2], D_n on diagApprox = invweight,
     D_f = D_n impratio (mu_f/mu0)^2, friction rows without a position term
-  * limits: one row per limited joint, J = +1 near the lower bound, -1 near the upper
+  * limits: one row per limited joint, J = +1 near the lower bound, -1 near
+    the upper; a ball joint's row is on its total rotation angle, J = -axis
   * joint equality: pos = (q1 - q1_0) - poly(q2 - q2_0) with the polycoef
     quartic, J = e_dof1 - poly'(q2 - q2_0) e_dof2, diagApprox = the two
     dofs' invweight (joint 1 alone when joint2 is absent); tendon equality
     likewise on ten_length - length0 and ten_J, on the tendons' invweight0
+  * connect: 3 rows, the two bodies' anchors apart, J the difference of
+    their point Jacobians; weld: those and 3 rows of the relative rotation's
+    quat_sub residual scaled by torquescale, on the bodies' translational
+    and rotational invweight0
   * tendon friction rows J = ten_J, tendon limit rows J = +-ten_J (dense)
-Every row exists every step; efc_active gates it.
+Every row exists every step; efc_active gates it. Equality rows come first,
+in model order, 1, 1, 3 or 6 rows each (`_eq_plan`).
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ambersim_tpu_torch.core import math as am
 from ambersim_tpu_torch.core.types import ConeType, Data, DisableBit, EqType, JointType, Model
 from ambersim_tpu_torch.engine.schedule import device_index
 
@@ -113,9 +120,8 @@ def _row_families(s):
     """(family, dof) per non-contact MuJoCo efc row, mirroring
     make_constraint's assembly order exactly."""
     rows = []
-    eq_rows = {EqType.JOINT: 1, EqType.TENDON: 1, EqType.CONNECT: 3, EqType.WELD: 6}
     for e in range(s.neq):
-        rows += [("eq", -1)] * eq_rows[EqType(int(s.eq_type[e]))]
+        rows += [("eq", -1)] * _EQ_ROWS[int(s.eq_type[e])]
     for dof in s.friction_dofid:
         rows.append(("fric_dof", int(dof)))
     for _ in getattr(s, "friction_tenid", ()):
@@ -229,6 +235,27 @@ def _geom_support(s) -> np.ndarray:
     return _CACHE[key]
 
 
+def _contact_support(m: Model, d: Data):
+    """(signed dof support (ncon, nv), invweight (ncon,), body 1, body 2
+    (ncon,)) of the contact slots, or each (B, ncon, ...) where capped
+    groups and the row cap choose pairs at run time: then they are selected
+    by each env's contact geom ids (the reference's one-hot products at
+    precision=HIGHEST, constraint.py:548-562, as exact gathers)."""
+    s = m.skel
+    dev = d.qpos.device
+    gsup = _geom_support(s)
+    if len(s.bpg_adr) == 0 and s.ncon == s.ncand:
+        # every contact slot has a compile-time geom pair
+        signed_sup = device_index(gsup[s.con_geom2] - gsup[s.con_geom1], dev)  # (ncon, nv)
+        b1, b2 = device_index(s.geom_bodyid[s.con_geom1], dev), device_index(s.geom_bodyid[s.con_geom2], dev)
+        return signed_sup, m.body_invweight0[b1, 0] + m.body_invweight0[b2, 0], b1, b2
+    g1, g2 = d.contact.geom1.long(), d.contact.geom2.long()
+    gsup_t = device_index(gsup, dev)
+    biw = m.body_invweight0[device_index(s.geom_bodyid, dev), 0]  # (ngeom,)
+    gbody = device_index(s.geom_bodyid, dev)
+    return gsup_t[g2] - gsup_t[g1], biw[g1] + biw[g2], gbody[g1], gbody[g2]
+
+
 def _point_jac_rows(m: Model, d: Data, pos: torch.Tensor, signed_support: torch.Tensor):
     """Translational jacobian of the relative velocity at world points.
 
@@ -311,6 +338,65 @@ def _tendon_eq(m: Model, d: Data, eqs: np.ndarray):
     return eqs, J_eq, pos, diag
 
 
+_EQ_ROWS = {int(EqType.JOINT): 1, int(EqType.TENDON): 1, int(EqType.CONNECT): 3, int(EqType.WELD): 6}
+
+
+def _eq_plan(s):
+    """(first row of each equality, its rows in all, the equalities of each
+    type in model order): the static layout of the equality rows."""
+    key = (s, "eq_plan")
+    if key not in _CACHE:
+        eq_type = np.asarray(s.eq_type, np.int64)
+        nrow = np.asarray([_EQ_ROWS[int(t)] for t in eq_type], np.int64)
+        adr = np.concatenate([[0], np.cumsum(nrow)[:-1]]).astype(np.int64)
+        by_type = {t: np.nonzero(eq_type == int(t))[0] for t in EqType}
+        _CACHE[key] = adr, int(nrow.sum()), by_type
+    return _CACHE[key]
+
+
+def _body_eq(m: Model, d: Data, eqs: np.ndarray, weld: bool):
+    """Connect (3 rows each) or weld (6 rows each) equality rows `eqs`,
+    batched over the equalities (JAX constraint.py:353-400): (J (B, E, nrow,
+    nv), pos (B, E, nrow), diagApprox (E, nrow)). The residual is anchor 1
+    less anchor 2 in the world, J the difference of the two bodies' point
+    Jacobians there; a weld adds the relative rotation's quat_sub from its
+    qpos0 value (eq_data[6:10]), J the bodies' rotational Jacobians apart,
+    both scaled by torquescale (eq_data[10], 1 where it is not positive). A
+    mocap body has no dofs: its support row is zero."""
+    from ambersim_tpu_torch.engine.smooth import _body_dof_support
+
+    s = m.skel
+    dev = d.qpos.device
+
+    def ix(a):
+        return device_index(a, dev)
+
+    b1, b2 = np.asarray(s.eq_obj1id)[eqs], np.asarray(s.eq_obj2id)[eqs]
+    data = m.eq_data[ix(eqs)]
+    # a weld's anchor is on body 2 (eq_data[:3]) and its counterpart on body 1
+    anchor1, anchor2 = (data[:, 3:6], data[:, :3]) if weld else (data[:, :3], data[:, 3:6])
+    x1, x2 = ix(b1), ix(b2)
+    p1 = d.xpos[:, x1] + am.rotate(anchor1, d.xquat[:, x1])
+    p2 = d.xpos[:, x2] + am.rotate(anchor2, d.xquat[:, x2])
+    sup = _body_dof_support(s).astype(np.float32)
+    jr1 = _point_jac_rows(m, d, p1, device_index(sup[b1], dev, d.qpos.dtype))
+    jr2 = _point_jac_rows(m, d, p2, device_index(sup[b2], dev, d.qpos.dtype))
+    J = torch.stack([a - b for a, b in zip(jr1, jr2)], 2)  # (B, E, 3, nv)
+    pos = p1 - p2
+    diag = (m.body_invweight0[x1, 0] + m.body_invweight0[x2, 0])[:, None].expand(-1, 3)
+    if weld:
+        target = am.mul_quat(d.xquat[:, x1], data[:, 6:10])  # body 2's rotation at the weld's qpos0 pose
+        rot = am.quat_sub(d.xquat[:, x2], target)
+        ssup = device_index(sup[b1] - sup[b2], dev, d.qpos.dtype)  # (E, nv)
+        jacr = d.cdof[:, None, :, :3].transpose(-1, -2) * ssup[None, :, None, :]  # (B, E, 3, nv)
+        ts = torch.where(data[:, 10] > 0, data[:, 10], 1.0)
+        J = torch.cat([J, jacr * ts[:, None, None]], 2)
+        pos = torch.cat([pos, rot * ts[:, None]], -1)
+        diag_r = (m.body_invweight0[x1, 1] + m.body_invweight0[x2, 1])[:, None].expand(-1, 3)
+        diag = torch.cat([diag, diag_r], -1)
+    return J, pos, diag
+
+
 def make_constraint(m: Model, d: Data) -> Data:
     s = m.skel
     nv, nefc = s.nv, s.nefc
@@ -334,23 +420,36 @@ def make_constraint(m: Model, d: Data) -> Data:
     efc_active = torch.zeros((B, nefc), dtype=torch.bool, device=dev)
     row = 0
 
-    # -------- equality: joint and tendon couplings, the first rows --------
+    # -------- equality: one group per type, the first rows --------
     if s.neq:
-        eq_type = np.asarray(s.eq_type)
+        eq_adr, n_eq_rows, by_type = _eq_plan(s)
         on = ix(np.asarray(s.eq_active0, bool)) & (not (m.opt.disableflags & DisableBit.EQUALITY))
-        ej = np.nonzero(eq_type == int(EqType.JOINT))[0]  # one row each, in model order
-        et = np.nonzero(eq_type == int(EqType.TENDON))[0]
+        ej, et = by_type[EqType.JOINT], by_type[EqType.TENDON]  # one row each
         for eqs, J_eq, pos, diag in (_joint_eq(m, d, ej), _tendon_eq(m, d, et)):
             if not len(eqs):
                 continue
-            e, rows = ix(eqs), ix(row + eqs)
+            e, rows = ix(eqs), ix(row + eq_adr[eqs])
             k, b, imp = _kbi(m, m.eq_solref[e], m.eq_solimp[e], pos)
             efc_J[:, rows] = J_eq
             efc_pos[:, rows] = pos
             efc_aref[:, rows] = -b * (J_eq * d.qvel[:, None, :]).sum(-1) - k * imp * pos
             efc_D[:, rows] = imp / torch.clamp((1 - imp) * diag, min=_MINVAL)
             efc_active[:, rows] = on[e]
-        row += int(s.neq)
+        for eqs, weld in ((by_type[EqType.CONNECT], False), (by_type[EqType.WELD], True)):
+            if not len(eqs):
+                continue
+            J_eq, pos, diag = _body_eq(m, d, eqs, weld)  # (B, E, nrow, nv), (B, E, nrow), (E, nrow)
+            nrow = pos.shape[-1]
+            e = ix(eqs)
+            rows = ix((row + eq_adr[eqs][:, None] + np.arange(nrow)[None, :]).reshape(-1))
+            k, b, imp = _kbi(m, m.eq_solref[e][:, None, :], m.eq_solimp[e][:, None, :], pos)
+            efc_J[:, rows] = J_eq.reshape(B, -1, nv)
+            efc_pos[:, rows] = pos.reshape(B, -1)
+            aref = -b * (J_eq * d.qvel[:, None, None, :]).sum(-1) - k * imp * pos
+            efc_aref[:, rows] = aref.reshape(B, -1)
+            efc_D[:, rows] = (imp / torch.clamp((1 - imp) * diag, min=_MINVAL)).reshape(B, -1)
+            efc_active[:, rows] = on[e].repeat_interleave(nrow)
+        row += n_eq_rows
 
     # -------- friction loss: dof rows --------
     nfd = len(s.friction_dofid)
@@ -383,30 +482,62 @@ def make_constraint(m: Model, d: Data) -> Data:
         efc_active[:, rows] = not (m.opt.disableflags & DisableBit.FRICTIONLOSS)
         row += nft
 
-    # -------- limits: scalar joints --------
+    # -------- limits: joints in id order, scalar rows and ball rows --------
     nlj = len(s.limit_jntid)
     if nlj:
-        jids = s.limit_jntid
-        qas, das = ix(s.jnt_qposadr[jids]), ix(s.jnt_dofadr[jids])
-        rows = ix(np.arange(row, row + nlj))
-        jt = ix(jids)
-        q = d.qpos[:, qas]
-        dist_lo, dist_hi = q - m.jnt_range[jt, 0], m.jnt_range[jt, 1] - q
-        lower = dist_lo < dist_hi
-        dist = torch.where(lower, dist_lo, dist_hi)
-        sign = torch.where(lower, 1.0, -1.0).to(q.dtype)
-        margin = m.jnt_margin[jt]
-        pos = dist - margin
-        k, b, imp = _kbi(m, m.jnt_solref[jt], m.jnt_solimp[jt], pos)
-        efc_J[:, rows, das] = sign
-        if ndiag:
-            # limit signs follow the nfd dof-friction entries of the one-hot section
-            efc_dsc[:, nfd : nfd + nlj] = sign
-        efc_pos[:, rows] = pos
-        efc_margin[:, rows] = margin.expand(B, -1)
-        efc_aref[:, rows] = -b * (sign * d.qvel[:, das]) - k * imp * pos
-        efc_D[:, rows] = imp / torch.clamp((1 - imp) * m.dof_invweight0[das], min=_MINVAL)
-        efc_active[:, rows] = (not (m.opt.disableflags & DisableBit.LIMIT)) & (dist < margin)
+        ball = np.asarray(s.jnt_type)[s.limit_jntid] == int(JointType.BALL)
+        scalar = np.nonzero(~ball)[0]
+        lim_on = not (m.opt.disableflags & DisableBit.LIMIT)
+        if len(scalar):
+            jids = s.limit_jntid[scalar]
+            qas, das = ix(s.jnt_qposadr[jids]), ix(s.jnt_dofadr[jids])
+            rows = ix(row + scalar)
+            jt = ix(jids)
+            q = d.qpos[:, qas]
+            dist_lo, dist_hi = q - m.jnt_range[jt, 0], m.jnt_range[jt, 1] - q
+            lower = dist_lo < dist_hi
+            dist = torch.where(lower, dist_lo, dist_hi)
+            sign = torch.where(lower, 1.0, -1.0).to(q.dtype)
+            margin = m.jnt_margin[jt]
+            pos = dist - margin
+            k, b, imp = _kbi(m, m.jnt_solref[jt], m.jnt_solimp[jt], pos)
+            efc_J[:, rows, das] = sign
+            if ndiag:
+                # the scalar limits' signs follow the nfd dof-friction entries
+                # of the one-hot section (a ball limit's row is dense)
+                efc_dsc[:, nfd : nfd + len(scalar)] = sign
+            efc_pos[:, rows] = pos
+            efc_margin[:, rows] = margin.expand(B, -1)
+            efc_aref[:, rows] = -b * (sign * d.qvel[:, das]) - k * imp * pos
+            efc_D[:, rows] = imp / torch.clamp((1 - imp) * m.dof_invweight0[das], min=_MINVAL)
+            efc_active[:, rows] = lim_on & (dist < margin)
+        if ball.any():
+            # one row on the total rotation angle (mj_instantiateLimit):
+            # dist = max(range) - |angle|, J = -axis (JAX constraint.py:474-499)
+            jids = s.limit_jntid[ball]
+            jt, da = ix(jids), s.jnt_dofadr[jids]
+            rows = ix(row + np.nonzero(ball)[0])
+            q = d.qpos[:, ix(s.jnt_qposadr[jids][:, None] + np.arange(4))]  # (B, L, 4)
+            v = q[..., 1:]
+            ss = (v * v).sum(-1)
+            # the norm and the axis in forms whose gradient stays finite at
+            # the identity (sin_half 0), with the same values
+            sin_half = torch.where(ss > 0, torch.sqrt(torch.where(ss > 0, ss, 1.0)), 0.0)
+            angle = 2.0 * torch.atan2(sin_half, q[..., 0])
+            angle = torch.where(angle > np.pi, angle - 2.0 * np.pi, angle)
+            axis = v / torch.clamp(sin_half, min=_MINVAL)[..., None] * torch.sign(angle)[..., None]
+            dist = torch.maximum(m.jnt_range[jt, 0], m.jnt_range[jt, 1]) - angle.abs()
+            margin = m.jnt_margin[jt]
+            pos = dist - margin
+            k, b, imp = _kbi(m, m.jnt_solref[jt], m.jnt_solimp[jt], pos)
+            dofs = ix(da[:, None] + np.arange(3))
+            J_b = -axis
+            efc_J[:, rows[:, None], dofs] = J_b
+            efc_pos[:, rows] = pos
+            efc_margin[:, rows] = margin.expand(B, -1)
+            efc_aref[:, rows] = -b * (J_b * d.qvel[:, dofs]).sum(-1) - k * imp * pos
+            efc_D[:, rows] = imp / torch.clamp((1 - imp) * m.dof_invweight0[ix(da)], min=_MINVAL)
+            efc_active[:, rows] = lim_on & (dist < margin)
         row += nlj
     # -------- limits: tendons (dense rows) --------
     nlt = len(s.limit_tenid)
@@ -433,21 +564,7 @@ def make_constraint(m: Model, d: Data) -> Data:
     # -------- contacts: one group per condim --------
     if s.ncon and not (m.opt.disableflags & DisableBit.CONTACT):
         c = d.contact
-        gsup = _geom_support(s)
-        if len(s.bpg_adr) == 0 and s.ncon == s.ncand:
-            # every contact slot has a compile-time geom pair
-            signed_sup = ix(gsup[s.con_geom2] - gsup[s.con_geom1])  # (ncon, nv)
-            b1, b2 = ix(s.geom_bodyid[s.con_geom1]), ix(s.geom_bodyid[s.con_geom2])
-            invweight = m.body_invweight0[b1, 0] + m.body_invweight0[b2, 0]
-        else:
-            # capped groups and the row cap choose pairs at run time: select by
-            # each env's contact geom ids (the reference's one-hot products at
-            # precision=HIGHEST, constraint.py:548-562, as exact gathers)
-            g1, g2 = c.geom1.long(), c.geom2.long()
-            gsup_t = ix(gsup)
-            signed_sup = gsup_t[g2] - gsup_t[g1]  # (B, ncon, nv)
-            biw = m.body_invweight0[ix(s.geom_bodyid), 0]  # (ngeom,)
-            invweight = biw[g1] + biw[g2]  # (B, ncon)
+        signed_sup, invweight, _, _ = _contact_support(m, d)
         jframe = _frame_rows(c.frame, _point_jac_rows(m, d, c.pos, signed_sup))  # 3 x (B, ncon, nv)
         pos_c = c.dist - c.includemargin
         k, b, imp = _kbi(m, c.solref, c.solimp, pos_c)

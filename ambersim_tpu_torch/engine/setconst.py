@@ -20,8 +20,10 @@ def set_constants(skel_fields: dict, leaves: dict) -> dict:
     """`leaves` with dof_invweight0, body_invweight0 and actuator_acc0 set,
     and with tendons tendon_invweight0 (ten_J M^-1 ten_J^T at qpos0),
     tendon_length0 and the NaN (spatial default) springlength rows filled
-    with length0. Raises NotImplementedError, by name, for a transmission
-    the port's `smooth.actuator_moment` lacks (site, slider-crank, body)."""
+    with length0. acc0 runs over every transmission of
+    `smooth.actuator_moment`; an adhesion (BODY) actuator's moment reads
+    make_data's empty contact, so its acc0 is 0, as the JAX package's
+    set_constants computes it."""
     from ambersim_tpu_torch.engine import smooth
     from ambersim_tpu_torch.engine.init import make_data
     from ambersim_tpu_torch.io.bridge import build_model

@@ -357,17 +357,226 @@ def _ten_transpose(d: Data, f: torch.Tensor) -> torch.Tensor:
     return (d.ten_J * f[..., None]).sum(1)
 
 
-def _transmissions(s):
-    """(joint actuators, their dofs, their qpos addresses, tendon actuators,
-    their tendons): every actuator sits on a hinge/slide joint or on a
-    tendon (`io.bridge.check_slice` admits no other)."""
+@dataclasses.dataclass(frozen=True)
+class TrnPlan:
+    """The actuators grouped by transmission kind (cached by skeleton), so
+    the actuation stage's op count is set by the kinds present, not by the
+    number of actuators. `joint` are the actuators on hinge and slide
+    joints (JOINT and JOINTINPARENT coincide there): one dof each, the gear
+    on it. Every other actuator is in `rows`, in model order, and in one
+    kind's group below; its moment is a full (nv,) row."""
+
+    joint: np.ndarray  # (J,) hinge/slide actuators
+    joint_dof: np.ndarray  # (J,) their dofs
+    joint_qa: np.ndarray  # (J,) their qpos addresses
+    rows: np.ndarray  # (R,) every other actuator
+    tendon: np.ndarray  # actuators on tendons ...
+    tendon_id: np.ndarray  # ... and their tendons
+    ball: np.ndarray  # JOINT on a ball joint: gear[:3] on its dofs
+    ball_inparent: np.ndarray  # JOINTINPARENT on a ball joint: R(q)^T gear[:3]
+    ball_jnt: np.ndarray  # (len(ball) + len(ball_inparent),) their joints, ball first
+    free: np.ndarray  # JOINT on a free joint: gear[:6] on its dofs, length 0
+    free_inparent: np.ndarray  # JOINTINPARENT on a free joint: gear[:3], R(q)^T gear[3:]
+    free_jnt: np.ndarray  # (len(free) + len(free_inparent),) their joints, free first
+    site: np.ndarray  # SITE, with or without a refsite
+    site_id: np.ndarray  # their sites
+    site_ref: np.ndarray  # their refsites (-1 for none): length and moment in its frame
+    crank: np.ndarray  # SLIDERCRANK ...
+    crank_slider: np.ndarray  # ... their slider sites
+    crank_site: np.ndarray  # ... and crank sites
+    body: np.ndarray  # BODY (adhesion) ...
+    body_id: np.ndarray  # ... and their bodies
+
+    @property
+    def kinds(self) -> tuple:
+        """The groups in the order their rows are computed (`_trn_rows`)."""
+        return (self.tendon, self.ball, self.ball_inparent, self.free, self.free_inparent, self.site, self.crank,
+                self.body)
+
+
+def trn_plan(s) -> TrnPlan:
+    """The skeleton's TrnPlan, built once and cached."""
     key = (s, "trn")
-    if key not in _PLAN_CACHE:
-        trn, ids = np.asarray(s.actuator_trntype), np.asarray(s.actuator_trnid)
-        ten = trn == int(TrnType.TENDON)
-        ju, tu = np.nonzero(~ten)[0], np.nonzero(ten)[0]
-        _PLAN_CACHE[key] = (ju, np.asarray(s.jnt_dofadr)[ids[ju]], np.asarray(s.jnt_qposadr)[ids[ju]], tu, ids[tu])
-    return _PLAN_CACHE[key]
+    if key in _PLAN_CACHE:
+        return _PLAN_CACHE[key]
+    trn, ids = np.asarray(s.actuator_trntype), np.asarray(s.actuator_trnid)
+    refid = np.asarray(getattr(s, "actuator_refid", np.full(s.nu, -1)))
+    on_joint = (trn == int(TrnType.JOINT)) | (trn == int(TrnType.JOINTINPARENT))
+    jtype = np.where(on_joint, np.asarray(s.jnt_type)[np.where(on_joint, ids, 0)], -1)
+    scalar = on_joint & ((jtype == int(JointType.HINGE)) | (jtype == int(JointType.SLIDE)))
+    inparent = trn == int(TrnType.JOINTINPARENT)
+
+    def pick(mask):
+        return np.nonzero(mask)[0].astype(np.int64)
+
+    ball = pick(on_joint & ~inparent & (jtype == int(JointType.BALL)))
+    ball_in = pick(inparent & (jtype == int(JointType.BALL)))
+    free = pick(on_joint & ~inparent & (jtype == int(JointType.FREE)))
+    free_in = pick(inparent & (jtype == int(JointType.FREE)))
+    site = pick(trn == int(TrnType.SITE))
+    crank = pick(trn == int(TrnType.SLIDERCRANK))
+    body = pick(trn == int(TrnType.BODY))
+    tendon = pick(trn == int(TrnType.TENDON))
+    joint = pick(scalar)
+    plan = TrnPlan(
+        joint=joint, joint_dof=np.asarray(s.jnt_dofadr)[ids[joint]], joint_qa=np.asarray(s.jnt_qposadr)[ids[joint]],
+        rows=pick(~scalar), tendon=tendon, tendon_id=ids[tendon], ball=ball, ball_inparent=ball_in,
+        ball_jnt=ids[np.concatenate([ball, ball_in])], free=free, free_inparent=free_in,
+        free_jnt=ids[np.concatenate([free, free_in])], site=site, site_id=ids[site], site_ref=refid[site],
+        crank=crank, crank_slider=ids[crank], crank_site=refid[crank], body=body, body_id=ids[body])
+    _PLAN_CACHE[key] = plan
+    return plan
+
+
+def _quat2vel(q: torch.Tensor) -> torch.Tensor:
+    """mju_quat2Vel(q, dt=1): the expmap 3-vector of (..., 4) quaternions,
+    without the shortest-arc sign flip (JAX smooth.py:718-727)."""
+    v = q[..., 1:]
+    s2 = (v * v).sum(-1)
+    good = s2 > 1e-24
+    sin_half = torch.sqrt(torch.where(good, s2, 1.0))
+    angle = 2.0 * torch.atan2(sin_half, q[..., 0])
+    return torch.where(good[..., None], v / sin_half[..., None] * angle[..., None], 2.0 * v)
+
+
+def _rot_jac(m: Model, d: Data, body: np.ndarray) -> torch.Tensor:
+    """(B, G, nv, 3) rotational Jacobians of bodies `body` (G,)."""
+    sup = device_index(_body_dof_support(m.skel)[body], d.qpos.device, dtype=d.qpos.dtype)
+    return d.cdof[:, None, :, :3] * sup[None, :, :, None]
+
+
+def _slidercrank(m: Model, d: Data, u: np.ndarray, slider: np.ndarray, crank: np.ndarray):
+    """Slider-crank transmissions (mj_transmission SLIDERCRANK; JAX
+    smooth.py:729-756) of actuators `u`: a rod of length r from the crank
+    site to a piston sliding along the slider site's z axis. Returns length
+    a.v - sqrt((a.v)^2 - v.v + r^2), v the slider-to-crank vector, and its
+    (B, G, nv) derivative, without the gear. Where the discriminant is not
+    positive the rod is broken and the root and its derivative drop out: a
+    batch-wide where whose root is taken of 1 there, so the branch not taken
+    keeps a finite gradient."""
+    s = m.skel
+    dev = d.qpos.device
+    sid, cid = device_index(slider, dev), device_index(crank, dev)
+    bs, bc = np.asarray(s.site_bodyid)[slider], np.asarray(s.site_bodyid)[crank]
+    a = d.site_xmat[:, sid][..., :, 2]  # (B, G, 3)
+    v = d.site_xpos[:, cid] - d.site_xpos[:, sid]
+    dv = _point_jac(m, d, d.site_xpos[:, cid], bc) - _point_jac(m, d, d.site_xpos[:, sid], bs)  # (B, G, nv, 3)
+    da = am.cross(_rot_jac(m, d, bs), a[:, :, None, :])  # d(a)/dqvel_k = w_k x a
+    av = _dot(a, v)
+    dav = _dot(dv, a[:, :, None, :]) + _dot(da, v[:, :, None, :])  # (B, G, nv)
+    r = m.actuator_cranklength[device_index(u, dev)]
+    sdet = av * av - _dot(v, v) + r * r
+    ok = sdet > 1e-12
+    sq = torch.sqrt(torch.where(ok, sdet, 1.0))
+    length = av - torch.where(ok, sq, 0.0)
+    dlen = dav - torch.where(ok[..., None], (av[..., None] * dav - _dot(dv, v[:, :, None, :])) / sq[..., None], 0.0)
+    return length, dlen
+
+
+def _adhesion(m: Model, d: Data, body: np.ndarray) -> torch.Tensor:
+    """(B, G, nv) moments of adhesion (BODY) transmissions on bodies `body`:
+    minus the mean contact-normal Jacobian row over the contacts of the body
+    within includemargin (JAX smooth.py:686-715). Reads d.contact, so it
+    runs after collision."""
+    from ambersim_tpu_torch.engine.constraint import _contact_support, _frame_rows, _point_jac_rows
+
+    dev = d.qpos.device
+    c = d.contact
+    signed_sup, _, gb1, gb2 = _contact_support(m, d)
+    jn = _frame_rows(c.frame, _point_jac_rows(m, d, c.pos, signed_sup))[0]  # (B, ncon, nv)
+    b = device_index(body, dev)[:, None]  # (G, 1)
+    mask = (c.dist < c.includemargin)[:, None, :] & ((gb1[..., None, :] == b) | (gb2[..., None, :] == b))  # (B, G, ncon)
+    cnt = mask.to(jn.dtype).sum(-1)
+    return -torch.where(mask[..., None], jn[:, None], 0.0).sum(2) / torch.clamp(cnt, min=1.0)[..., None]
+
+
+def _trn_rows(m: Model, d: Data):
+    """Lengths (B, R) and moment rows (B, R, nv) of the plan's `rows`
+    actuators, one batch per transmission kind: a tendon's gear[0] ten_J; a
+    ball joint's gear . expmap(its quat) (JOINT and JOINTINPARENT alike) on
+    its dofs, the moment gear[:3] (JOINT) or R(q)^T gear[:3]
+    (JOINTINPARENT); a free joint's length 0, its moment gear[:6] (JOINT)
+    or gear[:3] and R(q)^T gear[3:] (JOINTINPARENT); a site's wrench gear
+    in its frame, length 0, or with a refsite the site's pose relative to
+    the refsite in the refsite's frame and the two sites' Jacobians apart
+    (the rotation composed as site_quat * body xquat, JAX smooth.py:758-
+    778); a slider-crank's gear[0] times its length and derivative; an
+    adhesion body's `_adhesion`, length 0."""
+    s = m.skel
+    dev, dt = d.qpos.device, d.qpos.dtype
+    B = d.qpos.shape[0]
+    plan = trn_plan(s)
+
+    def ix(a):
+        return device_index(a, dev)
+
+    gear = m.actuator_gear
+    lengths, moments = [], []
+    if len(plan.tendon):
+        g0 = gear[ix(plan.tendon), 0]
+        lengths.append(d.ten_length[:, ix(plan.tendon_id)] * g0)
+        moments.append(g0[:, None] * d.ten_J[:, ix(plan.tendon_id)])
+    nball = len(plan.ball) + len(plan.ball_inparent)
+    if nball:
+        bu = np.concatenate([plan.ball, plan.ball_inparent])
+        q = am.normalize_quat(d.qpos[:, ix(np.asarray(s.jnt_qposadr)[plan.ball_jnt][:, None] + np.arange(4))])
+        g = gear[ix(bu), :3]
+        lengths.append((g * _quat2vel(q)).sum(-1))
+        mom3 = g.expand(B, -1, -1)
+        if len(plan.ball_inparent):
+            inp = ix(np.arange(len(plan.ball), nball))
+            mom3 = mom3.clone()
+            mom3[:, inp] = am.mat_t_vec(am.quat_to_mat(q[:, inp]), g[inp])
+        row = d.qpos.new_zeros((B, nball, s.nv))
+        row[:, ix(np.arange(nball)[:, None]), ix(np.asarray(s.jnt_dofadr)[plan.ball_jnt][:, None] + np.arange(3))] = mom3
+        moments.append(row)
+    nfree = len(plan.free) + len(plan.free_inparent)
+    if nfree:
+        fu = np.concatenate([plan.free, plan.free_inparent])
+        g = gear[ix(fu)].expand(B, -1, -1)
+        if len(plan.free_inparent):
+            inp = ix(np.arange(len(plan.free), nfree))
+            qa = np.asarray(s.jnt_qposadr)[plan.free_jnt[len(plan.free):]]
+            R = am.quat_to_mat(am.normalize_quat(d.qpos[:, ix(qa[:, None] + 3 + np.arange(4))]))
+            g = g.clone()
+            g[:, inp, 3:] = am.mat_t_vec(R, g[:, inp, 3:])
+        row = d.qpos.new_zeros((B, nfree, s.nv))
+        row[:, ix(np.arange(nfree)[:, None]), ix(np.asarray(s.jnt_dofadr)[plan.free_jnt][:, None] + np.arange(6))] = g
+        lengths.append(d.qpos.new_zeros((B, nfree)))
+        moments.append(row)
+    if len(plan.site):
+        sid, ref = plan.site_id, plan.site_ref
+        has_ref = ref >= 0
+        rid = np.where(has_ref, ref, sid)  # a site without a refsite takes its own frame
+        bs, br = np.asarray(s.site_bodyid)[sid], np.asarray(s.site_bodyid)[rid]
+        R = d.site_xmat[:, ix(rid)]  # (B, G, 3, 3) world <- the frame the gear is in
+        g = gear[ix(plan.site)]
+        rf = ix(has_ref)[:, None, None]
+        jacp = _point_jac(m, d, d.site_xpos[:, ix(sid)], bs)
+        jacr = _rot_jac(m, d, bs)
+        jacp = jacp - torch.where(rf, _point_jac(m, d, d.site_xpos[:, ix(rid)], br), 0.0)
+        jacr = jacr - torch.where(rf, _rot_jac(m, d, br), 0.0)
+        fdir = (R * g[:, None, :3]).sum(-1)  # R @ gear[:3]
+        tdir = (R * g[:, None, 3:]).sum(-1)
+        moments.append(_dot(jacp, fdir[:, :, None, :]) + _dot(jacr, tdir[:, :, None, :]))
+        # the refsite's length (0 without one)
+        vec = am.mat_t_vec(R, d.site_xpos[:, ix(sid)] - d.site_xpos[:, ix(rid)])
+        rot = am.quat_sub(am.mul_quat(m.site_quat[ix(sid)], d.xquat[:, ix(bs)]),
+                          am.mul_quat(m.site_quat[ix(rid)], d.xquat[:, ix(br)]))
+        lengths.append(torch.where(ix(has_ref), _dot(g[:, :3], vec) + _dot(g[:, 3:], rot), 0.0))
+    if len(plan.crank):
+        length, dlen = _slidercrank(m, d, plan.crank, plan.crank_slider, plan.crank_site)
+        g0 = gear[ix(plan.crank), 0]
+        lengths.append(g0 * length)
+        moments.append(g0[:, None] * dlen)
+    if len(plan.body):
+        lengths.append(d.qpos.new_zeros((B, len(plan.body))))
+        moments.append(_adhesion(m, d, plan.body))
+    length, moment = torch.cat(lengths, 1), torch.cat(moments, 1)
+    order = np.argsort(np.concatenate(plan.kinds))  # the kinds' actuators back to model order
+    if (order == np.arange(len(order))).all():
+        return length, moment
+    return length[:, ix(order)], moment[:, ix(order)]
 
 
 def _all_motors(s) -> bool:
@@ -440,14 +649,15 @@ def muscle_dynamics(m: Model, ctrl: torch.Tensor, act: torch.Tensor, u) -> torch
 
 
 def fwd_actuation(m: Model, d: Data) -> Data:
-    """ctrl -> generalized actuator force for actuators on hinge/slide joints
-    and on tendons (moment gear * ten_J): gain (fixed, affine or muscle)
-    times input (ctrl, or the activation where there are dynamics) plus
-    bias (none, affine or muscle), act_dot of filter, filterexact,
-    integrator and muscle dynamics, the forcerange clamp, disabled actuator
-    groups and the joints' actuatorfrcrange clamp. A model of motors alone
-    on joints keeps the motor arithmetic, gainprm[0] * ctrl, with no bias
-    term."""
+    """ctrl -> generalized actuator force, over every transmission
+    (`trn_plan`, `_trn_rows`): gain (fixed, affine or muscle) times input
+    (ctrl, or the activation where there are dynamics) plus bias (none,
+    affine or muscle), act_dot of filter, filterexact, integrator and
+    muscle dynamics, the forcerange clamp, disabled actuator groups and the
+    joints' actuatorfrcrange clamp. Actuators on hinge and slide joints take
+    their dof's qpos and qvel times the gear, with no moment row; a model
+    of motors alone keeps the motor arithmetic, gainprm[0] * ctrl, with no
+    bias term."""
     s = m.skel
     dev = d.qpos.device
     if s.nu == 0:
@@ -460,17 +670,18 @@ def fwd_actuation(m: Model, d: Data) -> Data:
     if not (m.opt.disableflags & DisableBit.CLAMPCTRL):
         lo, hi = m.actuator_ctrlrange[:, 0], m.actuator_ctrlrange[:, 1]
         ctrl = torch.where(ix(s.actuator_ctrllimited), torch.clamp(ctrl, lo, hi), ctrl)
-    ju, dof, qa, tu, tid = _transmissions(s)
+    plan = trn_plan(s)
+    ju, dof, qa, ru = plan.joint, plan.joint_dof, plan.joint_qa, plan.rows
     gear = m.actuator_gear[:, 0]
-    if len(tu):
-        # tendon transmissions: length gear * ten_length, moment gear * ten_J
-        tmom = gear[ix(tu), None] * d.ten_J[:, ix(tid)]  # (B, ntu, nv)
+    if len(ru):
+        # every other transmission: its length and its moment row
+        rlen, rmom = _trn_rows(m, d)  # (B, R), (B, R, nv)
         length = d.qpos.new_zeros((d.qpos.shape[0], s.nu))
         velocity = torch.zeros_like(length)
         length[:, ix(ju)] = d.qpos[:, ix(qa)] * gear[ix(ju)]
         velocity[:, ix(ju)] = d.qvel[:, ix(dof)] * gear[ix(ju)]
-        length[:, ix(tu)] = d.ten_length[:, ix(tid)] * gear[ix(tu)]
-        velocity[:, ix(tu)] = (tmom * d.qvel[:, None, :]).sum(-1)
+        length[:, ix(ru)] = rlen
+        velocity[:, ix(ru)] = (rmom * d.qvel[:, None, :]).sum(-1)
     else:
         length = d.qpos[:, ix(qa)] * gear
         velocity = d.qvel[:, ix(dof)] * gear
@@ -523,9 +734,9 @@ def fwd_actuation(m: Model, d: Data) -> Data:
         group = np.asarray(s.actuator_group)
         disabled = ((m.opt.disableactuator >> np.clip(group, 0, 30)) & 1).astype(bool) & (group >= 0)
         force = torch.where(ix(disabled), 0.0, force)
-    if len(tu):
+    if len(ru):
         qfrc = torch.zeros_like(d.qvel).index_add_(1, ix(dof), gear[ix(ju)] * force[:, ix(ju)])
-        qfrc = qfrc + (tmom * force[:, ix(tu), None]).sum(1)
+        qfrc = qfrc + (rmom * force[:, ix(ru), None]).sum(1)
     else:
         qfrc = torch.zeros_like(d.qvel).index_add_(1, ix(dof), gear * force)
     if np.asarray(s.jnt_actfrclimited).any():
@@ -586,32 +797,18 @@ def energy_vel(m: Model, d: Data) -> torch.Tensor:
 
 
 def actuator_moment(m: Model, d: Data) -> torch.Tensor:
-    """(B, nu, nv) transmission moment matrix of joint and tendon
-    transmissions: the gear on a hinge/slide joint's dof (JOINT or
-    JOINTINPARENT), the gear vector on a free (6) or ball (3) joint's dofs
-    (JOINT), gear[0] * ten_J on a tendon. The JAX package's site,
-    slider-crank, body and ball/free JOINTINPARENT transmissions are refused
-    by name (ROADMAP, queue 1, item 5)."""
+    """(B, nu, nv) transmission moment matrix: the gear on a hinge/slide
+    joint's dof, every other transmission's row from `_trn_rows` (an
+    adhesion row reads d.contact)."""
     s = m.skel
+    dev = d.qpos.device
+    plan = trn_plan(s)
     moment = d.qpos.new_zeros((d.qpos.shape[0], s.nu, s.nv))
-    scalar = (int(TrnType.JOINT), int(TrnType.JOINTINPARENT))
-    for u in range(s.nu):
-        trn, j = int(s.actuator_trntype[u]), int(s.actuator_trnid[u])
-        if trn == int(TrnType.TENDON):
-            moment[:, u] = m.actuator_gear[u, 0] * d.ten_J[:, j]
-            continue
-        jtype = JointType(int(s.jnt_type[j])) if trn in scalar else None
-        da = int(s.jnt_dofadr[j]) if jtype is not None else 0
-        if jtype in (JointType.HINGE, JointType.SLIDE):
-            moment[:, u, da] = m.actuator_gear[u, 0]
-        elif trn == int(TrnType.JOINT):
-            width = jtype.dof_width if jtype == JointType.FREE else 3
-            moment[:, u, da : da + width] = m.actuator_gear[u, :width]
-        else:
-            what = TrnType(trn).name + (f" on {jtype.name.lower()} joints" if jtype is not None else "")
-            raise NotImplementedError(
-                f"actuator transmission {what} is not ported (ROADMAP, queue 1, item 5: engine breadth)"
-            )
+    if len(plan.joint):
+        moment[:, device_index(plan.joint, dev), device_index(plan.joint_dof, dev)] = (
+            m.actuator_gear[device_index(plan.joint, dev), 0])
+    if len(plan.rows):
+        moment[:, device_index(plan.rows, dev)] = _trn_rows(m, d)[1]
     return moment
 
 

@@ -37,15 +37,12 @@ from ambersim_tpu_torch.core.types import (
     Contact,
     Data,
     EnableBit,
-    EqType,
     GeomType,
     IntegratorType,
-    JointType,
     Model,
     Option,
     Skeleton,
     SolverType,
-    TrnType,
 )
 
 ASSETS = Path(__file__).resolve().parent.parent / "assets"
@@ -165,19 +162,10 @@ def check_slice(m: Model) -> None:
     ):
         if getattr(s, n):
             missing.append(feature)
-    for t in sorted(set(np.asarray(s.eq_type).tolist()) - {int(EqType.JOINT), int(EqType.TENDON)}):
-        missing.append(f"{EqType(t).name.lower()} equality constraints")
     if getattr(s, "has_fluid", False):
         missing.append("fluid forces")
     if getattr(s, "has_gravcomp", False):
         missing.append("gravity compensation")
-    for u in range(s.nu):
-        trn, j = int(s.actuator_trntype[u]), int(s.actuator_trnid[u])
-        scalar_joint = trn in (int(TrnType.JOINT), int(TrnType.JOINTINPARENT)) and int(
-            s.jnt_type[j]
-        ) in (int(JointType.HINGE), int(JointType.SLIDE))
-        if not (scalar_joint or trn == int(TrnType.TENDON)):
-            missing.append(f"actuator transmission {TrnType(trn).name} (only hinge/slide joints)")
     if s.nsensor:
         missing.extend(refused_sensors(s))
     con_dim = np.asarray(s.con_dim)
@@ -192,19 +180,14 @@ def check_slice(m: Model) -> None:
     for t1, t2 in set(zip(np.asarray(s.pair_ctype1).tolist(), np.asarray(s.pair_ctype2).tolist())):
         if (t1, t2) not in _NARROWPHASE:
             missing.append(f"{GeomType(t1).name.lower()}-{GeomType(t2).name.lower()} contact pairs")
-    if (np.asarray(s.pair_explicit) >= 0).any():
-        missing.append("explicit <pair> contact overrides")
-    if any(int(s.jnt_type[j]) == int(JointType.BALL) for j in s.limit_jntid):
-        missing.append("ball joint limits")
     if o.solver != int(SolverType.NEWTON):
         missing.append(f"the {SolverType(o.solver).name} solver")
     if o.integrator != int(IntegratorType.EULER):
         missing.append(f"the {IntegratorType(o.integrator).name} integrator")
     if o.noslip_iterations > 0:
         missing.append("noslip iterations")
-    for bit in (EnableBit.FWDINV, EnableBit.OVERRIDE):
-        if o.enableflags & bit:
-            missing.append(f"the {bit.name} flag")
+    if o.enableflags & EnableBit.FWDINV:
+        missing.append(f"the {EnableBit.FWDINV.name} flag")
     # the bf16 Hessian lives on the batched-arrays route only (nv past the
     # Newton kernels, pyramidal cones), where the JAX package applies it
     if o.hessian_bf16 and s.nv <= MAX_NV:

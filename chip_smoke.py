@@ -79,11 +79,24 @@ the card, and steps every ported path through the port's entry points:
     shoulder) at 4096 envs x 300 steps of the example's excitation
     through kernels 1, 2, 3 and 5, its tendon shortening under the
     excitation, and the example's predictive sampling (64 samples x 100
-    knots, 5 calls); tendon_rig, the JAX tests' TENDON_RIG (a tendon
+    knots, 3 calls); tendon_rig, the JAX tests' TENDON_RIG (a tendon
     equality, friction and limit row and a contact) at 4096 x 100
     through kernels 1-4; kernels 4 and 5 held on those paths' final
     operands; the JAX tests' spatial, pulley, limit-sensor, muscle and
-    tendon rigs card against CPU.
+    tendon rigs card against CPU;
+  * welds, transmissions and pairs: mocap_weld, tests/test_mocap.py's box
+    welded to a mocap target, at 4096 envs x 100 steps toward seeded
+    targets through kernels 1, 2 and 5 (six equality rows); mocap_drag,
+    the same box resting on a floor and dragged over it, through kernels
+    1, 2 and 4 (six equality rows and four contacts); refsite_arm,
+    tests/test_refsite.py's arm servoed by three refsite actuators, at
+    4096 x 300 through kernels 1-4; the boxes at their targets and the
+    arm's lengths shrunk; kernels 4 and 5 held on the weld paths' final
+    operands; iLQR on a ball joint (tests/trajopt/test_ilqr.py's manifold
+    case); the JAX tests' connect, weld, ball-limit, transmission (site,
+    slider-crank, adhesion, ball joint) and explicit-pair or OVERRIDE
+    fixtures card against CPU, with moments, lengths and efc rows from the
+    same Data.
 
 For each path it checks that every step went through the path's kernels
 and compares 8 envs of the rollout on the card with the same rollout on the
@@ -134,17 +147,22 @@ F32_OPS_PER_S = 67e12
 # cuda_ms's sleep before each timed run: ~2 ms at the H100's clocks, longer
 # than the host takes to enqueue ten calls of a kernel's wrapper
 SLEEP_CYCLES = 4_000_000
+# plain_ms's reps x calls: a plain version's time is its host's dispatch pace
+# (tens of ms a call), as steady over nine calls as over a hundred; cut from
+# cuda_ms's 10 x 10 to make room for the weld phases
+PLAIN_REPS, PLAIN_CALLS = 3, 3
 # The clutter scene at benchmarks/ladder.py's width (rungs 3b and 3c):
 # 256 envs, CLUTTER_SETTLE steps of settling, CLUTTER_STEPS timed steps.
 # Cut: both paths start from the committed settled state (CLUTTER_SETTLED,
 # where their Newton spread check and the gradient path start too) and
 # settle 20 steps there, instead of 400 from rest (the ladder's own settle).
-# The cap-48 path times CAP48_STEPS (100 until the tendon phases came):
-# nothing reads its final state but its stage split.
+# The cap-48 path times CAP48_STEPS (100 until the tendon phases came, 50
+# until the weld phases came): nothing reads its final state but its stage
+# split.
 CLUTTER_ENVS = 256
 CLUTTER_SETTLE = 20
 CLUTTER_STEPS = 100
-CAP48_STEPS = 50
+CAP48_STEPS = 25
 FLOOR_TOL = 0.005  # no geom below the floor by more than 5 mm after the settle
 CLUTTER_CARD_VS_CPU_STEPS = 5
 # the quadruped envs' (flat and terrain) card-vs-CPU control steps, 4
@@ -175,10 +193,10 @@ DROP_ENVS, DROP_SETTLE, DROP_STEPS = 2048, 300, 150
 EXACT_SETTLE, EXACT_STEPS, BF16_STEPS = 100, 20, 20
 # rung 5's humanoid predictive sampling (:160-184): 64 samples x 8 knots,
 # Q 0.1 I, Qf 10 I, R 1e-4 I, goal and start at (qpos0, 0), stdev 0.2.
-# Cut: 5 optimize calls (20 until the sensor phases came, 10 until the
-# tendon phases came)
+# Cut: 3 optimize calls (20 until the sensor phases came, 10 until the
+# tendon phases came, 5 until the weld phases came)
 HUMANOID_SAMPLES, HUMANOID_HORIZON, HUMANOID_STDEV = 64, 8, 0.2
-HUMANOID_OPTIMIZE_CALLS = 5
+HUMANOID_OPTIMIZE_CALLS = 3
 # rung 2 (:98-102): cartpole and arm3 at 1024 envs. Cut: 100 steps (200
 # until the tendon phases came; check_newton_dense rolls its own 100)
 LADDER_STEPS = 100
@@ -277,12 +295,13 @@ ELLIPTIC_F64_SLACK = 0.03
 ELLIPTIC_COST_ENVS = 4
 
 # PPO on the 4096-env quadruped (bench.py:142-177's settings): one training
-# step, 8 unrolls x 10 control steps x 4 physics steps = 320 physics steps.
+# step, 8 unrolls x 5 control steps x 4 physics steps = 160 physics steps.
 # Cut: episode_length 25 instead of 500 (100 until section 9 came), so that
-# the two evals stay short and the 80-step unroll crosses truncations, and
-# unroll_length 10 instead of 20 (until the sensor phases came).
+# the two evals stay short and the 40-step unroll crosses truncations, and
+# unroll_length 5 instead of 20 (20 until the sensor phases came, 10 until
+# the weld phases came; num_timesteps follows, one training step).
 PPO_QUADRUPED = dict(
-    num_timesteps=327_680, num_evals=2, episode_length=25, normalize_observations=True, unroll_length=10,
+    num_timesteps=163_840, num_evals=2, episode_length=25, normalize_observations=True, unroll_length=5,
     num_minibatches=32, num_updates_per_batch=4, discounting=0.97, learning_rate=3e-4, entropy_cost=1e-2,
     num_envs=4096, num_eval_envs=64, batch_size=1024, seed=0,
 )
@@ -372,7 +391,8 @@ RAY_TOL = 1e-4
 # tests/trajopt/test_predictive_sampler.py:36-41 and its stdev 0.3.
 HAND_SAMPLES, HAND_HORIZON, HAND_STDEV = 100, 10, 0.3
 HAND_TRAJOPT = dict(iterations=1, ls_iterations=4)
-HAND_OPTIMIZE_CALLS = 5  # cut: 20 until the sensor phases came, 10 until the tendon phases came
+# cut: 20 until the sensor phases came, 10 until the tendon phases came, 5 until the weld phases came
+HAND_OPTIMIZE_CALLS = 3
 # MPC on the same hand: 10 control steps of one problem, and of a batch of
 # 8 (a solve is then 800 envs); cut: 20 until the sensor phases came. Its cost weighs the goal's joint angles at
 # 10, as tests/trajopt/test_mpc.py weighs the pendulum's, and the joint
@@ -424,10 +444,11 @@ GRAD_ELLIPTIC_PATH_TOL = 1e-1
 # the trajectory-optimization workload's options (hand_model: Newton 1 x 4,
 # contacts off), where its gradient optimizers run (with contacts on an
 # env's gradient parted by 2.7e-2 of the largest |g| on an H100 80GB HBM3).
-# Cut: half the steps (20 / 10 until the sensor phases came).
+# Cut: half the steps (20 / 10 until the sensor phases came), the elliptic
+# quadruped's 3 (5 until the weld phases came).
 GRAD_PATHS = {
     "pendulum": ("pendulum", 16, 10, None), "arm3": ("arm3", 16, 10, None), "quadruped": ("quadruped", 64, 5, None),
-    "quadruped_elliptic": ("quadruped_elliptic", 8, 5, CONVERGED), "hand": ("hand", 16, 5, None),
+    "quadruped_elliptic": ("quadruped_elliptic", 8, 3, CONVERGED), "hand": ("hand", 16, 5, None),
     "clutter32_rowcap192": ("clutter32_rowcap192", 4, 2, None),
 }
 # APG on the pendulum swingup (examples/rl/pendulum/ex_agents.py:80-87 and
@@ -449,21 +470,24 @@ APG_QUADRUPED = dict(episode_length=5, num_envs=4096, num_eval_envs=64, policy_u
                      max_gradient_norm=1.0, num_evals=1, seed=0)
 # ES on the pendulum swingup (examples/rl/pendulum/ex_agents.py:60-67 and
 # its env, 2 physics steps per control step): population 256, std 0.08,
-# lr 0.02. Cut: 1 policy update and 2 evals instead of 120 and 5 (4
-# updates until the terrain phases came, 2 until the sensor phases came),
-# episodes of 100 control steps instead of 200 (until the sensor phases).
-ES_PENDULUM = dict(episode_length=100, population_size=256, perturbation_std=0.08, learning_rate=0.02,
-                   policy_updates=1, num_evals=2, seed=0)
+# lr 0.02. Cut: 1 policy update and 1 eval instead of 120 and 5 (4
+# updates until the terrain phases came, 2 until the sensor phases came; 2
+# evals until the weld phases came), episodes of 50 control steps instead
+# of 200 (200 until the sensor phases came, 100 until the weld phases came:
+# the first update's card-vs-CPU check reads POPULATION_FIRST_EPISODE, 50).
+ES_PENDULUM = dict(episode_length=50, population_size=256, perturbation_std=0.08, learning_rate=0.02,
+                   policy_updates=1, num_evals=1, seed=0)
 # ARS on the pendulum (ex_agents.py:69-78): 64 directions, top 16, step
 # 0.015, noise 0.04, normalized obs. Cut as ES_PENDULUM.
-ARS_PENDULUM = dict(episode_length=100, number_of_directions=64, top_directions=16, step_size=0.015,
-                    exploration_noise_std=0.04, normalize_observations=True, policy_updates=1, num_evals=2, seed=0)
+ARS_PENDULUM = dict(episode_length=50, number_of_directions=64, top_directions=16, step_size=0.015,
+                    exploration_noise_std=0.04, normalize_observations=True, policy_updates=1, num_evals=1, seed=0)
 # SAC on the pendulum (ex_agents.py:45-58): 64 envs, batch 256, replay
 # 2,048-262,144, 4 gradient updates a step, discount 0.97, lr 6e-4, reward
 # scaling 0.1, normalized obs. Cut: num_timesteps 4,096 instead of 120,000
 # (the 32-step prefill, then 32 training steps; 256 until the terrain
-# phases came, 128 until the sensor phases came) and 2 evals instead of 5.
-SAC_PENDULUM = dict(num_timesteps=4_096, num_evals=2, episode_length=200, normalize_observations=True, num_envs=64,
+# phases came, 128 until the sensor phases came) and 1 eval instead of 5 (2
+# until the weld phases came).
+SAC_PENDULUM = dict(num_timesteps=4_096, num_evals=1, episode_length=200, normalize_observations=True, num_envs=64,
                     batch_size=256, min_replay_size=2_048, max_replay_size=262_144, grad_updates_per_step=4,
                     discounting=0.97, learning_rate=6e-4, reward_scaling=0.1, seed=0)
 # ES on quadruped_locomotion (nv 18, obs 45, 12 actions, 4 physics steps a
@@ -639,6 +663,9 @@ FEET = ("FL", "FR", "RL", "RR")
 # position and velocity rows within SENSOR_TOL, acceleration and force rows
 # within SENSOR_FORCE_TOL (rtol, atol)
 SENSOR_TOL, SENSOR_FORCE_TOL = (1e-5, 1e-6), (1e-4, 1e-4)
+# efc_aref's bar from the same Data (tests/test_torch_constraint.py's: four
+# float32 ulps of a contact distance times k * imp)
+AREF_ATOL = 3e-4
 # a geom-distance normal's rounding: four float32 ulps of a world
 # coordinate near 1 m, over the distance dd between the points it joins
 # (normal_atol; tests/test_torch_sensor_contacts.py holds the port to the
@@ -658,8 +685,9 @@ SENSOR_RIG_STEPS = 10
 ARM_STEPS, ARM_EXCITE, ARM_BICEPS, ARM_SHOULDER = 300, (50, 200), (0.8, 0.05), 0.3
 # muscle_arm_sampling, the example's predictive sampling (:88-102): Q 0.1 I,
 # Qf 10 I, R 0.01 I, goal ARM_GOAL, 64 samples of stdev 0.3 around a
-# 100-knot guess of 0.3 from x0 = 0; ARM_OPTIMIZE_CALLS calls
-ARM_SAMPLES, ARM_KNOTS, ARM_STDEV, ARM_GUESS, ARM_OPTIMIZE_CALLS = 64, 100, 0.3, 0.3, 5
+# 100-knot guess of 0.3 from x0 = 0; ARM_OPTIMIZE_CALLS calls (cut: 5 until
+# the weld phases came)
+ARM_SAMPLES, ARM_KNOTS, ARM_STDEV, ARM_GUESS, ARM_OPTIMIZE_CALLS = 64, 100, 0.3, 0.3, 3
 ARM_GOAL = (0.0, -1.2, 0.0, 0.0)
 # tendon_rig: tests/test_tendon_parity.py's TENDON_RIG (:24-63: a tendon
 # equality, friction and limit row and a condim-3 contact, through kernel 4
@@ -679,6 +707,56 @@ TENDON_RIGS = {
         '<tendonvel name="tv" tendon="couple"/>',
         '<tendonvel name="tv" tendon="couple"/>\n    <tendonactuatorfrc name="taf" tendon="flex"/>'),
 }
+# Welds, transmissions and pairs. mocap_weld: tests/test_mocap.py's MOCAP_WELD
+# (:16-27, a free box welded to a mocap target: six equality rows, no
+# contacts, through kernel 5) at NUM_ENVS x WELD_STEPS from qpos0, each env's
+# target WELD_TARGET + WELD_SPREAD N(0, I) (seeded_noise 23); every box within
+# WELD_BAR of its target at the last step. mocap_drag: the same with a floor
+# plane at z = DRAG_FLOOR under the box, which starts resting on it (six
+# equality rows and four condim-3 contacts, through kernel 4 with nd_eq 6),
+# each env's target (WELD_TARGET[:2] + WELD_SPREAD N(0, I), DRAG_Z)
+# (seeded_noise 24); every box within DRAG_BAR of its target, no geom
+# DRAG_FLOOR_TOL under the floor and contact rows active on some envs at the
+# last step. The weld drags each box's leading edge into the soft contact:
+# the JAX package's own run of this start sinks a corner 9.55 mm on 4096
+# envs (8.00 mm on the first 256; tools/weld_reference.py) and the port's
+# 8.33 mm on the H100, so the drag's floor bar is 12 mm, 1.26 x the JAX
+# package's reading, not the settled scenes' FLOOR_TOL (5 mm).
+# refsite_arm: tests/test_refsite.py's ARM_XML (:23-46, three refsite
+# position servos toward a world site; damped joints, a contact row) at
+# NUM_ENVS x REFSITE_STEPS from qpos 0.1 N(0, 1) (seeded_noise 25), ctrl 0;
+# each actuator's largest |actuator_length| at the last step below
+# REFSITE_SHRINK of that at the start
+WELD_STEPS, REFSITE_STEPS = 100, 300
+WELD_TARGET, WELD_SPREAD, DRAG_FLOOR, DRAG_Z = (0.25, 0.1, 0.6), 0.05, 0.45, 0.5
+WELD_BAR, DRAG_BAR, DRAG_FLOOR_TOL, REFSITE_SHRINK = 0.01, 0.05, 0.012, 1.0 / 3.0
+# weld_rigs, card against CPU as the tendon rigs (SENSOR_RIG_STEPS steps at
+# CONVERGED options from rig_start, then one forward from the same Data:
+# actuator lengths, velocities and moments, efc rows): the JAX package's
+# weld, ball-limit, transmission and pair fixtures (tests/test_torch_weld.py,
+# test_torch_transmissions.py, test_torch_pairs.py hold them on the CPU)
+WELD_RIGS = {
+    "connect_swing": lambda: tests_xml("test_constraint_parity.py", "CONNECT_SWING"),
+    "weld_pair": lambda: tests_xml("test_constraint_parity.py", "WELD_PAIR"),
+    "ball_limited": lambda: tests_xml("test_constraint_parity.py", "BALL_LIMITED"),
+    "hand_weld": lambda: (REPO / "ambersim_tpu" / "models" / "hand" / "hand.xml").read_text().replace(
+        "</equality>", '<weld body1="f1_dist_link" body2="f2_dist_link"/></equality>'),
+    "trn_extra": lambda: tests_xml("test_trn_extra.py", "XML"),
+    "thruster_rig": lambda: tests_xml("test_muscle.py", "THRUSTER_RIG"),
+    "adhesion_box": lambda: tests_xml("test_adhesion.py", "BOX_XML"),
+    "adhesion_gap": lambda: tests_xml("test_adhesion.py", "GAP_XML"),
+    "ball_body": lambda: tests_xml("test_ilqr.py", "BALL_BODY", folder="tests/trajopt"),
+    "explicit_pair": lambda: tests_xml("test_torch_bridge.py", "EXPLICIT_PAIR_XML"),
+    "override_on": lambda: tests_xml("test_flags.py", "OVERRIDE_SCENE").format(flag='override="enable"'),
+    "override_off": lambda: tests_xml("test_flags.py", "OVERRIDE_SCENE").format(flag='energy="enable"'),
+}
+# ilqr_ball: tests/trajopt/test_ilqr.py:test_ilqr_ball_joint_manifold (the
+# box on a ball joint, three motors; 0.01 |u|^2 a knot, 200 |x_N - goal|^2 on
+# the tangent state, goal 0.8 rad about y) at its N = 40 knots x 10
+# iterations from rest; the final attitude error below ILQR_BALL_BAR, on the
+# card and with its tape shot on the CPU
+ILQR_BALL = dict(knots=40, iterations=10, angle=0.4)
+ILQR_BALL_BAR = 0.01
 # the actuator fixture: a position servo on a joint with an actuatorfrcrange
 # clamp, a velocity servo, an intvelocity (integrator dynamics, act-limited),
 # filter, filterexact (with an affine bias) and integrator actuators, and a
@@ -796,6 +874,11 @@ def cuda_ms(fn, reps: int = 10, calls: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return float(np.median(times))
+
+
+def plain_ms(fn) -> float:
+    """cuda_ms of a plain version at PLAIN_REPS x PLAIN_CALLS."""
+    return cuda_ms(fn, reps=PLAIN_REPS, calls=PLAIN_CALLS)
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -1275,9 +1358,9 @@ def check_linalg(device, results):
             torch.cuda.synchronize()
             errs[key] = max(errs[key], max_err(got, want, tol, tol, f"{key} B={B} n={n}"))
             if (B, n) in timed:
-                ms, plain_ms, library_ms = cuda_ms(kern), cuda_ms(ref), cuda_ms(lib)
-                results[key].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **linalg_bound(name, B, n))
-                print(f"kernel {key}: B={B} n={n} {ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
+                ms, plain_t, library_ms = cuda_ms(kern), plain_ms(ref), cuda_ms(lib)
+                results[key].update(ms=ms, plain_ms=plain_t, library_ms=library_ms, **linalg_bound(name, B, n))
+                print(f"kernel {key}: B={B} n={n} {ms:.4f} ms, plain {plain_t:.4f} ms, library {library_ms:.4f} ms, "
                       f"bound {results[key]['bound_ms']:.4f} ms ({results[key]['bound_by']})")
         # the kernels read only the lower triangle (the contract kernel 4 relies on)
         a_low = torch.tril(a) + torch.triu(torch.full_like(a, 1e6), diagonal=1)
@@ -1441,7 +1524,7 @@ def check_newton(device, results):
         newton_err(got, exact, f"newton_structured {name}, kernel vs plain float64")
         if name == "quadruped":
             operands = [d.efc_bJ, d.efc_dsc] + [pa[k] for k in ("qM", "aref", "D", "fl", "act", "a_s", "ws")]
-            timed = dict(ms=cuda_ms(lambda: kern(pa, d.efc_bJ, d.efc_dsc, st, **kw)), plain_ms=cuda_ms(ref),
+            timed = dict(ms=cuda_ms(lambda: kern(pa, d.efc_bJ, d.efc_dsc, st, **kw)), plain_ms=plain_ms(ref),
                          **newton_bound(operands, s.nefc, s.nv, pa["act"], kw["iterations"], kw["ls_iterations"]))
             SHAPE_TIMES[("newton_structured", "quadruped")] = (timed["ms"], timed["bound_ms"])
 
@@ -1651,7 +1734,7 @@ def check_newton_dense(device, results):
         exact = _newton_arrays(**as_dtype(pa, torch.float64), **kw)
         newton_err(_newton_arrays(**pa, **kw), exact, f"newton_dense {name}, plain float32 vs float64")
         newton_err(got, exact, f"newton_dense {name}, kernel vs plain float64")
-        timed[name] = dict(ms=cuda_ms(lambda: dense(pa, **kw)), plain_ms=cuda_ms(lambda: _newton_arrays(**pa, **kw)),
+        timed[name] = dict(ms=cuda_ms(lambda: dense(pa, **kw)), plain_ms=plain_ms(lambda: _newton_arrays(**pa, **kw)),
                            **newton_bound([pa[k] for k in ("J", "qM", "aref", "D", "fl", "act", "a_s", "ws")],
                                           s.nefc, s.nv, pa["act"], kw["iterations"], kw["ls_iterations"]))
         SHAPE_TIMES[("newton_dense", name)] = (timed[name]["ms"], timed[name]["bound_ms"])
@@ -1792,7 +1875,7 @@ def check_newton_elliptic(device, results):
     if abs(mean_excess) > ELLIPTIC_MEAN_COST_RTOL:
         fail(f"newton_elliptic quadruped: mean cost differs from the plain version's by {mean_excess:.3e}")
     kw = dict(iterations=it, ls_iterations=ls, use_ws=True)
-    ms, plain_ms = cuda_ms(lambda: kern(pa, **kw)), cuda_ms(lambda: _newton_arrays_elliptic(**pa, **kw))
+    ms, plain_t = cuda_ms(lambda: kern(pa, **kw)), plain_ms(lambda: _newton_arrays_elliptic(**pa, **kw))
 
     for nh, cd in ((0, 3), (9, 3), (0, 6), (9, 6)):
         sp = synthetic_elliptic_problem(257, nv=12, nh=nh, S=6, cdim=cd, seed=7 + nh + cd, device=device)
@@ -1840,9 +1923,9 @@ def check_newton_elliptic(device, results):
     if out != want:
         fail(f"newton_elliptic line-search step: got {out}, want {want}")
 
-    print(f"kernel newton_elliptic: B={NUM_ENVS} {ms:.4f} ms, plain {plain_ms:.4f} ms, max |err| {err:.2e}")
+    print(f"kernel newton_elliptic: B={NUM_ENVS} {ms:.4f} ms, plain {plain_t:.4f} ms, max |err| {err:.2e}")
     operands = [pa[k] for k in ("J", "qM", "aref", "D", "fl", "act", "a_s", "ws", "fr")]
-    results["newton_elliptic"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+    results["newton_elliptic"].update(max_abs_err=err, ms=ms, plain_ms=plain_t, library_ms=None,
                                       **newton_bound(operands, s.nefc, s.nv, pa["act"], it, ls))
     SHAPE_TIMES[("newton_elliptic", "elliptic quadruped")] = (ms, results["newton_elliptic"]["bound_ms"])
 
@@ -2046,9 +2129,53 @@ def tendon_rig_ctrl(d):
 
 
 def mocap_rig_xml() -> str:
-    """tests/test_mocap.py's target rig without its weld (weld equality rows
-    are not ported): a mocap sphere and a free box."""
-    return re.sub(r"<equality>.*?</equality>", "", tests_xml("test_mocap.py", "MOCAP_WELD"), flags=re.S)
+    """tests/test_mocap.py's MOCAP_WELD: a free box welded to a mocap sphere."""
+    return tests_xml("test_mocap.py", "MOCAP_WELD")
+
+
+def mocap_drag_xml() -> str:
+    """MOCAP_WELD with a floor plane at z = DRAG_FLOOR, the worldbody's first
+    child: the box starts resting on it."""
+    return mocap_rig_xml().replace(
+        "<worldbody>", f'<worldbody>\n  <geom name="floor" type="plane" size="0 0 1" pos="0 0 {DRAG_FLOOR:g}"/>', 1)
+
+
+def refsite_arm_xml() -> str:
+    """tests/test_refsite.py's ARM_XML."""
+    return tests_xml("test_refsite.py", "ARM_XML")
+
+
+def weld_start(m, batch: int, device):
+    """qpos0, each env's mocap target WELD_TARGET + WELD_SPREAD N(0, I)
+    (seeded_noise 23)."""
+    import torch
+
+    from ambersim_tpu_torch.engine import make_data
+
+    d = make_data(m, batch)
+    target = torch.tensor(WELD_TARGET, device=device) + WELD_SPREAD * seeded_noise(23, (3,), batch, device)
+    return d.replace(mocap_pos=target[:, None, :])
+
+
+def drag_start(m, batch: int, device):
+    """qpos0 (the box resting on the floor), each env's mocap target
+    (WELD_TARGET[:2] + WELD_SPREAD N(0, I), DRAG_Z) (seeded_noise 24)."""
+    import torch
+
+    from ambersim_tpu_torch.engine import make_data
+
+    d = make_data(m, batch)
+    xy = torch.tensor(WELD_TARGET[:2], device=device) + WELD_SPREAD * seeded_noise(24, (2,), batch, device)
+    target = torch.cat([xy, torch.full_like(xy[:, :1], DRAG_Z)], -1)
+    return d.replace(mocap_pos=target[:, None, :])
+
+
+def refsite_start(m, batch: int, device):
+    """qpos 0.1 N(0, 1) about qpos0 = 0 (seeded_noise 25), ctrl 0."""
+    from ambersim_tpu_torch.engine import make_data
+
+    d = make_data(m, batch)
+    return d.replace(qpos=d.qpos + 0.1 * seeded_noise(25, (m.nq,), batch, device))
 
 
 # the sensor rigs of the JAX package's tests and this script's actuator,
@@ -2109,6 +2236,9 @@ DROP_PER_STEP = {"cholesky": 1, "cho_solve": 1, "newton_structured": 1}
 TERRAIN_PER_STEP = {"cholesky": 1, "cho_solve": 1, "solve_pd": 1, "newton_structured": 1}
 # the muscle arm's: the dense Newton kernel in kernel 4's place
 ARM_PER_STEP = {"cholesky": 1, "cho_solve": 1, "solve_pd": 1, "newton_dense": 1}
+# the mocap weld's: qM's factor, qacc_smooth's solve and the dense Newton
+# kernel (six equality rows, no contacts; no joint damping)
+WELD_PER_STEP = {"cholesky": 1, "cho_solve": 1, "newton_dense": 1}
 # path -> its model (an asset, or `build`(device); and `opt` overrides),
 # batch, steps, start, controller and the kernels every step launches (at
 # least once each; exactly per_step where given). `floor` paths are held to
@@ -2164,6 +2294,15 @@ PATHS = {
     "tendon_rig": dict(build=lambda device: xml_model(tendon_rig_xml(), device), envs=NUM_ENVS,
                        steps=TENDON_RIG_STEPS, start=tendon_rig_start, ctrl=tendon_rig_ctrl,
                        kernels=tuple(TERRAIN_PER_STEP), per_step=TERRAIN_PER_STEP, keep=True, vs_cpu="converged"),
+    "mocap_weld": dict(build=lambda device: xml_model(mocap_rig_xml(), device), envs=NUM_ENVS, steps=WELD_STEPS,
+                       start=weld_start, ctrl=None, kernels=tuple(WELD_PER_STEP), per_step=WELD_PER_STEP,
+                       keep=True, vs_cpu="converged"),
+    "mocap_drag": dict(build=lambda device: xml_model(mocap_drag_xml(), device), envs=NUM_ENVS, steps=WELD_STEPS,
+                       start=drag_start, ctrl=None, kernels=tuple(DROP_PER_STEP), per_step=DROP_PER_STEP,
+                       keep=True, vs_cpu="converged"),
+    "refsite_arm": dict(build=lambda device: xml_model(refsite_arm_xml(), device), envs=NUM_ENVS,
+                        steps=REFSITE_STEPS, start=refsite_start, ctrl=None, kernels=tuple(TERRAIN_PER_STEP),
+                        per_step=TERRAIN_PER_STEP, keep=True, vs_cpu="converged"),
 }
 # the floor, terrain and `keep` paths' final states (the card-vs-CPU
 # checks, the starts of later paths, the sensor path's checks)
@@ -2203,6 +2342,9 @@ PHASE_SHAPES = {
     # the tendon and muscle paths (their Newton cases: check_newton_tendon)
     "muscle_arm": ((NUM_ENVS, 2), "muscle_arm"), "tendon_rig": ((NUM_ENVS, 3), "tendon_rig"),
     "muscle_arm_sampling": ((ARM_SAMPLES, 2), f"muscle_arm B={ARM_SAMPLES}"),
+    # the weld, drag and refsite paths (their Newton cases: check_newton_weld), and iLQR on the ball joint
+    "mocap_weld": ((NUM_ENVS, 6), "mocap_weld"), "mocap_drag": ((NUM_ENVS, 6), "mocap_drag"),
+    "refsite_arm": ((NUM_ENVS, 3), "refsite_arm"), "ilqr_ball": ((1, 3), None),
 }
 # Section 9's phases, timed in section 9 (time_linalg_shapes) so that
 # section 3 does the same work as before it; the evals' launches are
@@ -2800,26 +2942,38 @@ TENDON_FIELDS = ("ten_length", "ten_J", "ten_velocity", "actuator_length", "actu
 TENDON_FORCE_FIELDS = ("qfrc_passive", "actuator_force", "qfrc_actuator", "act_dot")
 
 
-def same_input_tendons(what: str, m_card, d_card, m_cpu) -> None:
+def same_input_fields(what: str, m_card, d_card, m_cpu, groups) -> None:
     """A forward on the card and on the CPU from one Data (the first 8 envs
-    of d_card): tendon lengths, Jacobians and velocities and actuator
-    lengths and velocities within SENSOR_TOL, passive and actuator forces
-    and act_dot within SENSOR_FORCE_TOL (rtol, atol), every env."""
+    of d_card): each group's Data fields (and "moment", the actuator moment
+    matrix) within its (rtol, atol), every env."""
     from ambersim_tpu_torch.engine import forward
+    from ambersim_tpu_torch.engine.smooth import actuator_moment
 
     got = forward(m_card, data_head(d_card, 8))
     want = forward(m_cpu, data_head(d_card, 8).to("cpu"))
     line = []
-    for fields, (rtol, atol) in ((TENDON_FIELDS, SENSOR_TOL), (TENDON_FORCE_FIELDS, SENSOR_FORCE_TOL)):
+    for fields, (rtol, atol) in groups:
         for f in fields:
-            g, w = getattr(got, f).cpu().double(), getattr(want, f).double()
+            if f == "moment":
+                g, w = actuator_moment(m_card, got).cpu().double(), actuator_moment(m_cpu, want).double()
+            else:
+                g, w = getattr(got, f).cpu().double(), getattr(want, f).double()
             err = (g - w).abs()
             line.append(f"{f} {err.max().item() if err.numel() else 0.0:.3e}")
             if not (finite(g) and bool((err <= atol + rtol * w.abs()).all())):
                 fail(f"{what}: {f} on the card and on the CPU from the same Data part: {line[-1]} "
                      f"(rtol/atol {rtol}/{atol})")
-    print(f"{what}: a forward card vs CPU on the same Data (8 envs), max |d|: {', '.join(line)} (rtol/atol "
-          f"{SENSOR_TOL} for lengths, Jacobians and velocities, {SENSOR_FORCE_TOL} for forces)", flush=True)
+    bars = "; ".join(f"{tol} for {', '.join(fields)}" for fields, tol in groups)
+    print(f"{what}: a forward card vs CPU on the same Data (8 envs), max |d|: {', '.join(line)} (rtol/atol {bars})",
+          flush=True)
+
+
+def same_input_tendons(what: str, m_card, d_card, m_cpu) -> None:
+    """Tendon lengths, Jacobians and velocities and actuator lengths and
+    velocities within SENSOR_TOL, passive and actuator forces and act_dot
+    within SENSOR_FORCE_TOL (same_input_fields)."""
+    same_input_fields(what, m_card, d_card, m_cpu, ((TENDON_FIELDS, SENSOR_TOL),
+                                                    (TENDON_FORCE_FIELDS, SENSOR_FORCE_TOL)))
 
 
 def finite(x) -> bool:
@@ -3003,6 +3157,202 @@ def check_newton_tendon(device, results) -> None:
             SHAPE_TIMES[(key, case)] = (cuda_ms(lambda b=b: kern(b)), bound["bound_ms"])
             print(f"kernel {key}: {name} B={b} {SHAPE_TIMES[(key, case)][0]:.4f} ms, bound {bound['bound_ms']:.4f} "
                   f"ms ({bound['bound_by']}); {envs} envs resident per SM", flush=True)
+
+
+def weld_paths_checks(device, card: str) -> None:
+    """The weld, drag and refsite paths' final states (SETTLED): every
+    mocap_weld box within WELD_BAR of its target; every mocap_drag box
+    within DRAG_BAR of its target, no geom DRAG_FLOOR_TOL under the floor, and
+    the contact rows active on some envs (the share printed); each
+    refsite_arm actuator's largest |actuator_length| below REFSITE_SHRINK
+    of that at the start (a forward of refsite_start)."""
+    import torch
+
+    from ambersim_tpu_torch.engine import forward
+
+    d = SETTLED["mocap_weld"]
+    err = (d.qpos[:, :3] - d.mocap_pos[:, 0]).norm(dim=-1)
+    if not (finite(err) and err.max().item() <= WELD_BAR):
+        fail(f"mocap_weld: a box {err.max().item():.5f} m from its target (bar {WELD_BAR})")
+    print(f"mocap_weld: box to target at step {WELD_STEPS}: max {err.max().item():.6f} m, mean "
+          f"{err.mean().item():.6f} m (<= {WELD_BAR}) [{card}]", flush=True)
+
+    m, d = path_model("mocap_drag", device), SETTLED["mocap_drag"]
+    err = (d.qpos[:, :3] - d.mocap_pos[:, 0]).norm(dim=-1)
+    low = lowest_geom_point(m, d) - DRAG_FLOOR
+    ne = m.skel.ne
+    touching = d.efc_active[:, ne:].any(1).float().mean().item()
+    if not (finite(err) and err.max().item() <= DRAG_BAR and bool((low >= -DRAG_FLOOR_TOL).all()) and touching > 0):
+        fail(f"mocap_drag: a box {err.max().item():.5f} m from its target (bar {DRAG_BAR}), a geom "
+             f"{-low.min().item():.5f} m under the floor or no contact rows active ({touching:.4f} of the envs)")
+    print(f"mocap_drag: box to target at step {WELD_STEPS}: max {err.max().item():.6f} m, mean "
+          f"{err.mean().item():.6f} m (<= {DRAG_BAR}); lowest geom point {low.min().item():.5f} m from the floor "
+          f"(>= -{DRAG_FLOOR_TOL}); contact rows active on {touching:.4f} of the envs [{card}]", flush=True)
+
+    m = path_model("refsite_arm", device)
+    with torch.no_grad():
+        first = forward(m, refsite_start(m, NUM_ENVS, device)).actuator_length.abs().amax(0)
+        last = forward(m, SETTLED["refsite_arm"]).actuator_length.abs().amax(0)
+    if not (finite(last) and bool((last < REFSITE_SHRINK * first).all())):
+        fail(f"refsite_arm: largest |actuator_length| {last.tolist()} at step {REFSITE_STEPS}, not below "
+             f"{REFSITE_SHRINK:.4f} of {first.tolist()} at the start")
+    print(f"refsite_arm: largest |actuator_length| per actuator {', '.join(f'{x:.4f}' for x in first.tolist())} at "
+          f"the start -> {', '.join(f'{x:.4f}' for x in last.tolist())} at step {REFSITE_STEPS} (each below "
+          f"{REFSITE_SHRINK:.4f} of its start) [{card}]", flush=True)
+
+
+WELD_FIELDS = ("actuator_length", "actuator_velocity")
+WELD_FORCE_FIELDS = ("actuator_force", "qfrc_actuator", "moment")
+WELD_EFC_FIELDS = ("efc_J", "efc_pos", "efc_margin", "efc_D", "efc_active")
+
+
+def same_input_rows(what: str, m_card, d_card, m_cpu) -> None:
+    """Actuator lengths and velocities and the efc rows (J, pos, margin, D,
+    active) within SENSOR_TOL, actuator forces, qfrc_actuator and the moment
+    matrix within SENSOR_FORCE_TOL, efc_aref within AREF_ATOL
+    (same_input_fields)."""
+    same_input_fields(what, m_card, d_card, m_cpu, (
+        (WELD_FIELDS + WELD_EFC_FIELDS, SENSOR_TOL), (WELD_FORCE_FIELDS, SENSOR_FORCE_TOL),
+        (("efc_aref",), (SENSOR_TOL[0], AREF_ATOL))))
+
+
+def weld_rigs(device) -> None:
+    """Every WELD_RIGS model, card against CPU at 8 envs from rig_start: a
+    rollout of SENSOR_RIG_STEPS steps at CONVERGED solver options
+    (sensor_rollout: qpos, qvel and act), then from the card's final Data a
+    forward on both (same_input_rows)."""
+    for name, xml in WELD_RIGS.items():
+        text = xml()
+        card = sensor_rollout(name, lambda dev: xml_model(text, dev, CONVERGED), rig_start, SENSOR_RIG_STEPS, device)
+        same_input_rows(name, xml_model(text, device, CONVERGED), card, xml_model(text, "cpu", CONVERGED))
+
+
+def _ball_ilqr(m, device):
+    """ILQR_BALL's problem on model `m`: (the optimizer, its params, the goal
+    state)."""
+    import numpy as np
+    import torch
+
+    from ambersim_tpu_torch.trajopt import ILQR, ILQRParams, state_diff
+
+    c = ILQR_BALL
+    goal = torch.tensor([np.cos(c["angle"]), 0.0, np.sin(c["angle"]), 0.0, 0.0, 0.0, 0.0], device=device)
+
+    def running(x, u):
+        return 0.01 * (u @ u)
+
+    def terminal(x):
+        z = state_diff(m, x[None], goal[None])[0]
+        return 200.0 * (z @ z)
+
+    x0 = torch.tensor([1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0], device=device)
+    params = ILQRParams(x0=x0, us_guess=torch.zeros(c["knots"], 3, device=device))
+    return ILQR(model=m, running_cost=running, terminal_cost=terminal, iterations=c["iterations"]), params, goal
+
+
+def ilqr_ball(device, card: str) -> dict:
+    """tests/trajopt/test_ilqr.py:test_ilqr_ball_joint_manifold on the card
+    (ILQR_BALL): exact launches (as ilqr_pendulum's), the cost at most the
+    guess's and the final attitude error below ILQR_BALL_BAR; then the
+    card's tape shot on the CPU: its states within QPOS_TOL / QVEL_TOL of
+    the card's and its attitude error below the bar too. Returns the
+    launches."""
+    import torch
+
+    from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from ambersim_tpu_torch.trajopt import shoot, state_diff
+
+    c = ILQR_BALL
+    xml = tests_xml("test_ilqr.py", "BALL_BODY", folder="tests/trajopt")
+    m = xml_model(xml, device)
+    opt, params, goal = _ball_ilqr(m, device)
+    per_forward, per_step = _per_call_launches(m, device)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    xs, us = opt.optimize(params)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    N, I = c["knots"], c["iterations"]
+    _check_launches("ilqr_ball", launches, ("cholesky", "cho_solve", "solve_pd"), 1,
+                    _expect(per_forward, per_step, 1, N + I * (1 + N)))
+    with torch.no_grad():
+        c_guess = opt._traj_cost(shoot(m, params.x0, params.us_guess), params.us_guess).item()
+        m_cpu = xml_model(xml, "cpu")
+        xs_cpu = shoot(m_cpu, params.x0.cpu(), us.cpu())
+    c_star = opt._traj_cost(xs, us).item()
+    err = state_diff(m, xs[-1:], goal[None])[0, :3].norm().item()
+    err_cpu = state_diff(m_cpu, xs_cpu[-1:], goal.cpu()[None])[0, :3].norm().item()
+    nq = m.skel.nq
+    dq = (xs[:, :nq].cpu() - xs_cpu[:, :nq]).abs().max().item()
+    dv = (xs[:, nq:].cpu() - xs_cpu[:, nq:]).abs().max().item()
+    print(f"ilqr_ball: {N} knots x {I} iterations in {seconds:.3f} s = {1e3 * seconds / I:.1f} ms per iteration "
+          f"[{card}]; cost {c_guess:.4f} -> {c_star:.6f}; attitude error {err:.3e} (bar {ILQR_BALL_BAR}); the tape "
+          f"shot on the CPU: attitude error {err_cpu:.3e}, max |dqpos| {dq:.3e} (<= {QPOS_TOL}), max |dqvel| "
+          f"{dv:.3e} (<= {QVEL_TOL}); launches {launches}", flush=True)
+    if not (finite(xs) and c_star <= c_guess and err < ILQR_BALL_BAR and err_cpu < ILQR_BALL_BAR
+            and dq <= QPOS_TOL and dv <= QVEL_TOL):
+        fail(f"ilqr_ball: cost {c_star} (guess {c_guess}), attitude error {err} (the tape on the CPU {err_cpu}) or "
+             f"the card's states {dq} / {dv} from the CPU's")
+    return launches
+
+
+def check_newton_weld(device, results) -> None:
+    """The Newton kernels on the weld paths' final states (SETTLED), with a
+    warmstart of qacc_smooth + 0.1 N(0, 1): kernel 5 on mocap_weld's six
+    equality rows, kernel 4 on mocap_drag's (nd_eq 6, four condim-3
+    contacts) and on refsite_arm's (nefc 4, nv 3: one condim-3 contact's
+    four pyramid rows), 4096 envs each, at CONVERGED iterations (the plain version
+    takes ~4 s a call at the paths' own 100 x 50, host dispatch of every
+    line-search step); against the plain version at the NEWTON_* bars where
+    plain float32 meets float64 on at least NEWTON_MIN_SHARE of the envs,
+    else against float64 (vs_float64; the share printed). Each kernel is
+    timed at its path's own iterations, beside its bound and its resident
+    envs per SM."""
+    import torch
+
+    from ambersim_tpu_torch.engine.constraint import _pyramid_structure
+    from ambersim_tpu_torch.engine.solver import _newton_arrays
+    from ambersim_tpu_torch.ops.newton import (dense_occupancy, newton_solve_dense, newton_solve_structured,
+                                               structured_occupancy)
+
+    for name in ("mocap_weld", "mocap_drag", "refsite_arm"):
+        m = path_model(name, device)
+        s = m.skel
+        st = _pyramid_structure(s)
+        d = pre_solve(m, SETTLED[name])
+        pa = solver_operands(m, d, seed=13)
+        own = dict(iterations=int(m.opt.iterations), ls_iterations=int(m.opt.ls_iterations))
+        key = "newton_dense" if st is None else "newton_structured"
+
+        def kern(its, pa=pa, d=d, st=st, s=s):
+            if st is None:
+                return newton_solve_dense(pa["J"], pa["qM"], pa["aref"], pa["D"], pa["fl"], pa["act"], pa["a_s"],
+                                          pa["ws"], pa["tol"], ne=int(s.ne), nf=int(s.nf), use_ws=True, **its)
+            return newton_solve_structured(pa["J"], d.efc_bJ, d.efc_dsc, pa["qM"], pa["aref"], pa["D"], pa["fl"],
+                                           pa["act"], pa["a_s"], pa["ws"], pa["tol"], st=st, use_ws=True, **its)
+
+        what = f"{key} {name} (nefc {s.nefc}, nv {s.nv}{f', nd_eq {st.nd_eq}, {st.ncon3} contacts' if st else ''})"
+        plain, exact = (_newton_arrays(**as_dtype(pa, dt), ne=int(s.ne), nf=int(s.nf), use_ws=True, **CONVERGED)
+                        for dt in (torch.float32, torch.float64))
+        got = kern(CONVERGED)
+        share = newton_within(plain, exact).double().mean().item()
+        print(f"{what} at {CONVERGED}: active rows per env {pa['act'].sum(1).mean().item():.3f} of {s.nefc}; plain "
+              f"float32 meets float64 on {share:.4f} of the envs")
+        if share >= NEWTON_MIN_SHARE:
+            err = newton_err(got, plain, what)
+            results[key]["max_abs_err"] = max(results[key]["max_abs_err"], err)
+            newton_err(plain, exact, f"{what}, plain float32 vs float64")
+        else:
+            vs_float64(got, plain, exact, what)
+        envs = dense_occupancy(s.nv, s.nefc) if st is None else structured_occupancy(s.nv, s.nefc, st)
+        operands = ([d.efc_bJ, d.efc_dsc] if st else [pa["J"]]) + [
+            pa[k] for k in ("qM", "aref", "D", "fl", "act", "a_s", "ws")]
+        bound = newton_bound(operands, s.nefc, s.nv, pa["act"], own["iterations"], own["ls_iterations"])
+        SHAPE_TIMES[(key, name)] = (cuda_ms(lambda: kern(own)), bound["bound_ms"])
+        print(f"kernel {key}: {name} B={NUM_ENVS} at {own} {SHAPE_TIMES[(key, name)][0]:.4f} ms, bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}); {envs} envs resident per SM", flush=True)
 
 
 def sensor_cols(m, stype) -> list:
@@ -3497,7 +3847,7 @@ def check_newton_ladder(device, results) -> None:
         SHAPE_TIMES[("newton_structured", case)] = (cuda_ms(kern), newton_bound(
             operands, s.nefc, s.nv, pa["act"], kw["iterations"], kw["ls_iterations"])["bound_ms"])
         ms, bound_ms = SHAPE_TIMES[("newton_structured", case)]
-        plain = f", plain {cuda_ms(ref):.4f} ms" if case == "quadruped_terrain" else ""
+        plain = f", plain {plain_ms(ref):.4f} ms" if case == "quadruped_terrain" else ""
         print(f"kernel newton_structured: {case} B={pa['J'].shape[0]} {ms:.4f} ms{plain}, bound {bound_ms:.4f} ms; "
               f"{structured_occupancy(s.nv, s.nefc, st)} envs resident per SM", flush=True)
     results["newton_structured"]["max_abs_err"] = err
@@ -5160,6 +5510,7 @@ def run_phases(device, card: str, results: dict) -> None:
         clutter_newton_spread(name, device)
     quadruped_sensors_checks(device, card)
     muscle_arm_checks(device, card)
+    weld_paths_checks(device, card)
     print(f"clutter32_rowcap192 solve stage, median ms: bfloat16 Hessian product "
           f"{splits['clutter32_rowcap192_bf16']['solve']:.3f}, float32 {splits['clutter32_rowcap192']['solve']:.3f} "
           f"[{card}]", flush=True)
@@ -5190,9 +5541,11 @@ def run_phases(device, card: str, results: dict) -> None:
     phase("muscle_arm_sampling")
     check_newton_ladder(device, results)
     check_newton_tendon(device, results)
-    phase("check_newton_ladder and check_newton_tendon")
+    check_newton_weld(device, results)
+    phase("check_newton_ladder, check_newton_tendon and check_newton_weld")
     mesh_mesh_memory(device)
-    section("5 (trajectory optimization, kernels 4 and 5 on the ladder's, model I/O's and the tendon paths' operands)")
+    section("5 (trajectory optimization, kernels 4 and 5 on the ladder's, model I/O's, the tendon and the weld paths' "
+            "operands)")
 
     # ---- 6. PPO training through the env layer, each with its own launch counts ----
     phase_launches["ppo_quadruped"] = ppo_training_step("ppo_quadruped", "quadruped_locomotion", PPO_QUADRUPED,
@@ -5219,6 +5572,8 @@ def run_phases(device, card: str, results: dict) -> None:
     phase("apg_quadruped")
     phase_launches["ilqr_pendulum"] = ilqr_pendulum(device, card)
     phase("ilqr_pendulum")
+    phase_launches["ilqr_ball"] = ilqr_ball(device, card)
+    phase("ilqr_ball")
     phase_launches["hand_gradient_trajopt"] = hand_gradient_trajopt(device, card)
     section("7 (gradients)")
 
@@ -5257,6 +5612,8 @@ def run_phases(device, card: str, results: dict) -> None:
     phase("sensor rigs card vs CPU")
     tendon_rigs(device)
     phase("tendon rigs card vs CPU")
+    weld_rigs(device)
+    phase("weld, transmission and pair rigs card vs CPU")
     section("8 (card against CPU)")
 
     # ---- 9. ES, ARS and SAC, each with its own launch counts ----

@@ -105,8 +105,8 @@ RK4_XML = """
 </worldbody></mujoco>
 """
 
-# the hand with a weld between two fingertips: an equality type the port
-# does not assemble
+# the hand with a weld between two fingertips (its four joint mimics, then
+# the weld's six rows)
 HAND_WELD_XML = (Path(__file__).resolve().parent.parent / "ambersim_tpu" / "models" / "hand" / "hand.xml").read_text(
 ).replace("</equality>", '<weld body1="f1_dist_link" body2="f2_dist_link"/></equality>')
 
@@ -349,38 +349,78 @@ def test_stacked_mlp_params_carry_across():
             np.testing.assert_array_equal(back["params"][name][kind], w, err_msg=f"{name} {kind}")
 
 
+# condim-4 contacts on the welded box of tests/test_mocap.py over a floor:
+# the weld is in the slice, the torsional friction is not
+WELDED_CONDIM4_XML = """
+<mujoco><option timestep="0.002"/><worldbody>
+  <geom type="plane" size="0 0 1" pos="0 0 0.45" condim="4"/>
+  <body name="target" mocap="true" pos="0.1 0 0.5"><geom type="sphere" size="0.02" contype="0" conaffinity="0"/></body>
+  <body name="box" pos="0.1 0 0.5"><freejoint/><geom type="box" size="0.05 0.05 0.05" mass="0.1" condim="4"/></body>
+</worldbody>
+<equality><weld body1="target" body2="box"/></equality>
+</mujoco>
+"""
+
+
 @pytest.mark.parametrize(
     "source, features",
     [
-        (HAND_WELD_XML, ["weld equality constraints"]),
         (CAMPROJECTION_XML, ["cameras (camlight)", "camera projection sensors (CAMPROJECTION)"]),
-        (BALL_MOTOR_XML, ["actuator transmission JOINT (only hinge/slide joints)"]),
         ("SLIDE_RIG", ["contact condim 4/6"]),
-        ("MOCAP_WELD", ["weld equality constraints"]),
         (CONDIM46_XML, ["contact condim 4/6"]),
         (ELLIPTIC_MIXED_XML, ["elliptic cones with mixed contact condims"]),
-        (EXPLICIT_PAIR_XML, ["explicit <pair> contact overrides"]),
         (RK4_XML, ["the RK4 integrator"]),
+        (WELDED_CONDIM4_XML, ["contact condim 4/6"]),
     ],
-    ids=["hand_weld", "camprojection", "ball_motor",
-         "contact_sensor_condim6", "mocap_weld", "condim46", "elliptic_mixed", "explicit_pair", "rk4"],
+    ids=["camprojection", "contact_sensor_condim6", "condim46", "elliptic_mixed", "rk4", "welded_condim4"],
 )
 def test_models_outside_the_slice_are_refused(source, features):
     """Each feature outside the slice is refused by name: CAMPROJECTION,
-    actuators on ball joints, condim 6
-    (tests/test_contact_sensor.py's first fixture), weld equality (the
-    mocap drag of tests/test_mocap.py), and the rest."""
+    condim 4 and 6 (tests/test_contact_sensor.py's first fixture, and on a
+    welded box, whose weld alone is in the slice), elliptic cones over mixed
+    condims and the RK4 integrator."""
     from ambersim_tpu_torch.io.bridge import model_from_numpy
     from test_contact_sensor import SLIDE_RIG
-    from test_mocap import MOCAP_WELD
 
-    source = {"SLIDE_RIG": SLIDE_RIG, "MOCAP_WELD": MOCAP_WELD}.get(source, source)
+    source = {"SLIDE_RIG": SLIDE_RIG}.get(source, source)
     jm = tp.jax_model(source) if source.endswith(".xml") else tp.jax_model_from_xml(source)
     with pytest.raises(NotImplementedError) as err:
         model_from_numpy(*model_arrays(jm), device="cpu")
     for feature in features:
         assert feature in str(err.value)
     assert "sensors" not in str(err.value).split(": ", 1)[1].split(", ")  # sensors as such are in the slice
+    assert "weld" not in str(err.value)
+
+
+@pytest.mark.parametrize("source", [HAND_WELD_XML, BALL_MOTOR_XML, "MOCAP_WELD", EXPLICIT_PAIR_XML],
+                         ids=["hand_weld", "ball_motor", "mocap_weld", "explicit_pair"])
+def test_models_the_slice_now_admits(source):
+    """The models that stood for weld equality, a motor on a ball joint, the
+    mocap weld drag and an explicit <pair> load through the bridge, and one
+    step of 2 seeded envs matches the JAX package's (qpos atol 1e-4, qvel
+    atol 1e-3, as the main path's rollout)."""
+    import jax
+
+    from ambersim_tpu.engine import step as jax_step
+    from ambersim_tpu_torch.core.types import JointType
+    from ambersim_tpu_torch.engine import step
+    from ambersim_tpu_torch.io.bridge import model_from_numpy
+    from test_mocap import MOCAP_WELD
+
+    source = {"MOCAP_WELD": MOCAP_WELD}.get(source, source)
+    jm = tp.jax_model_from_xml(source)
+    m = model_from_numpy(*model_arrays(jm), device="cpu")
+    qpos, qvel = tp.random_state(jm, 2, seed=5, qpos_scale=0.05, qvel_scale=0.3)
+    for j, jtype in enumerate(np.asarray(jm.skel.jnt_type)):  # free and ball quaternions back to unit length
+        if jtype in (JointType.FREE, JointType.BALL):
+            qa = int(jm.skel.jnt_qposadr[j]) + (3 if jtype == JointType.FREE else 0)
+            qpos[:, qa : qa + 4] /= np.linalg.norm(qpos[:, qa : qa + 4], axis=1, keepdims=True)
+    ctrl = np.random.default_rng(5).uniform(-1, 1, (2, jm.skel.nu)).astype(np.float32)
+    jd = tp.jax_batch(jm, qpos=qpos, qvel=qvel, ctrl=ctrl)
+    want = jax.jit(jax.vmap(lambda d: jax_step(jm, d)))(jd)
+    got = step(m, tp.torch_batch(m, jd))
+    tp.assert_close("qpos", got.qpos, want.qpos, 0.0, 1e-4)
+    tp.assert_close("qvel", got.qvel, want.qvel, 0.0, 1e-3)
 
 
 def _lifted(name):
@@ -423,7 +463,7 @@ def test_hfield_pairs_are_accepted(other):
     """A height field against a sphere, a capsule or a box is in the slice
     (engine/collision.py's height-field narrowphase): the bridge carries
     the field's size and grid and the Skeleton's hfield fields; an explicit
-    <pair> on such a model is still refused by name."""
+    <pair> on such a model sets its contacts' friction and margin."""
     from ambersim_tpu_torch.io.bridge import model_from_numpy
 
     size = {"sphere": "0.08", "capsule": "0.05 0.15", "box": "0.1 0.08 0.05"}[other]
@@ -438,9 +478,15 @@ def test_hfield_pairs_are_accepted(other):
     for k in ("geom_hfieldid", "hfield_nrow", "hfield_ncol", "pair_hfk"):
         np.testing.assert_array_equal(getattr(s, k), getattr(jm.skel, k), err_msg=k)
     assert s.pair_hfk.tolist() == [int(jm.skel.pair_hfk[0])] and s.pair_hfk[0] >= 2
-    explicit = xml.replace("</mujoco>", '<contact><pair geom1="hf" geom2="s"/></contact></mujoco>')
-    with pytest.raises(NotImplementedError, match="explicit <pair> contact overrides"):
-        model_from_numpy(*model_arrays(tp.jax_model_from_xml(explicit)), device="cpu")
+    explicit = xml.replace("</mujoco>", '<contact><pair geom1="hf" geom2="s" friction="0.4 0.4 0.01 0.001 0.001" '
+                                        'margin="0.01"/></contact></mujoco>')
+    from ambersim_tpu_torch.engine import make_data, smooth
+    from ambersim_tpu_torch.engine.collision import collision
+
+    m = model_from_numpy(*model_arrays(tp.jax_model_from_xml(explicit).replace(hfield_data=data)), device="cpu")
+    c = collision(m, smooth.fwd_position_smooth(m, make_data(m, 2))).contact
+    assert torch.equal(c.friction, torch.tensor([0.4, 0.4, 0.01, 0.001, 0.001]).expand_as(c.friction))
+    assert (c.includemargin == 0.01).all()
 
 
 def test_hessian_bf16_is_accepted_past_the_newton_kernels(tmp_path):

@@ -10,9 +10,9 @@ field at tests/test_torch_constraint.py's bars. Then 20 steps of the hand
 under a constant ctrl, at its own options and at the predictive-sampling
 workload's (BASELINE.md:13: Newton 1 x 4 iterations, contacts disabled),
 against the JAX package's rollout at the main path's rollout bars (qpos
-atol 1e-4, qvel atol 1e-3). `check_slice` still refuses the equality types
-the port does not assemble (connect, weld), by name; tendon equality rows
-are tests/test_torch_tendon.py's.
+atol 1e-4, qvel atol 1e-3). Connect and weld rows on a two-link chain
+(once refused by name) against the JAX package's; the rest of them are
+tests/test_torch_weld.py's, tendon equality rows tests/test_torch_tendon.py's.
 """
 
 import jax
@@ -141,13 +141,21 @@ UNPORTED_EQ = {
 
 @pytest.mark.parametrize("kind", list(UNPORTED_EQ))
 def test_unported_equality_types_are_refused(kind):
-    from tools.export_model_npz import model_arrays
-
-    from ambersim_tpu_torch.io.bridge import model_from_numpy
+    """Connect and weld rows, once refused by name, now load through the
+    bridge; their rows from the same Data match the JAX package's."""
+    from ambersim_tpu.engine.forward import fwd_position as jax_fwd_position
+    from ambersim_tpu_torch.engine.forward import fwd_position
 
     jm = tp.jax_model_from_xml(EQ_XML.format(extra=UNPORTED_EQ[kind]))
-    with pytest.raises(NotImplementedError, match=f"{kind} equality constraints"):
-        model_from_numpy(*model_arrays(jm), device="cpu")
+    tm = tp.torch_model(jm)
+    qpos, qvel = tp.random_state(jm, 4, seed=11, qpos_scale=0.3, qvel_scale=0.5)
+    jd = tp.jax_batch(jm, qpos=qpos, qvel=qvel)
+    ref = jax.jit(jax.vmap(lambda d: jax_fwd_position(jm, d)))(jd)
+    got = fwd_position(tm, tp.torch_batch(tm, jd))
+    assert tm.skel.nefc == {"connect": 3, "weld": 6}[kind]
+    for field in ("efc_J", "efc_pos", "efc_D", "efc_active"):
+        tp.assert_close(field, getattr(got, field), getattr(ref, field), RTOL, ATOL)
+    tp.assert_close("efc_aref", got.efc_aref, ref.efc_aref, RTOL, AREF_ATOL)
 
 
 # a one-joint row (obj2id < 0: pos = q - q0 - c0) and a two-joint row with

@@ -11,11 +11,14 @@
   * ILQR on tests/trajopt/test_ilqr.py's pendulum from a seeded random
     guess, 1 iteration: never worse than the guess, and the JAX package's
     tape; and examples/trajopt/ex_ilqr.py's task 1 (the pendulum asset, 50
-    knots, 12 iterations) reaching the JAX package's final angle.
-
-tests/trajopt/test_ilqr.py's ball-joint model is left out: its motors
-drive a ball joint (gear with three components), a transmission outside
-io.bridge.check_slice's hinge and slide joints (ROADMAP queue 1).
+    knots, 12 iterations) reaching the JAX package's final angle;
+  * ILQR on tests/trajopt/test_ilqr.py's BALL_BODY (three motors on a ball
+    joint, nq 4 != nv 3) with the pendulum case's costs on the tangent
+    state, from a seeded random guess, 1 iteration: never worse than the
+    guess, and the JAX package's tape. (With the manifold test's costs,
+    0.01 |u|^2 a knot and 200 |x_N - goal|^2, the Riccati sweep takes
+    Q_zz - Q_zu Q_uu^-1 Q_zu^T of nearly equal terms: the two packages'
+    linearizations, 1e-6 apart, give feedforward gains 3e-3 apart.)
 """
 
 import jax
@@ -24,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from tools import torch_parity as tp
 
 PENDULUM = """
@@ -38,6 +42,7 @@ PENDULUM = """
 </mujoco>
 """
 CONTACT = 1 << 4  # DisableBit.CONTACT
+BALL_BODY = chip_smoke.tests_xml("test_ilqr.py", "BALL_BODY", folder="tests/trajopt")
 
 
 def test_state_add_diff_match_jax_on_the_free_joint():
@@ -157,3 +162,39 @@ def test_ilqr_reach_task_matches_jax():
     assert torch.isfinite(xs).all() and float(us.abs().max()) <= 2.0 + 1e-6
     assert abs(float(xs[-1, 0]) - float(want_xs[-1, 0])) <= 1e-4
     assert abs(float(xs[-1, 0]) - 0.7) < 0.03
+
+
+def _ball_costs(diff, goal):
+    """The pendulum case's costs on BALL_BODY's tangent state: 0.5 |x - goal|^2
+    + 0.05 |u|^2 a knot, 50 |x_N - goal|^2 at the end, x - goal by
+    `diff` (state_diff), toward 0.8 rad about y."""
+    def running(x, u):
+        dx = diff(x, goal)
+        return 0.5 * (dx @ dx) + 0.05 * (u @ u)
+
+    def terminal(x):
+        dx = diff(x, goal)
+        return 50.0 * (dx @ dx)
+
+    return running, terminal
+
+
+def test_ilqr_ball_joint_never_worse_than_guess_and_matches_jax():
+    from ambersim_tpu.trajopt import ILQR as JaxILQR
+    from ambersim_tpu.trajopt import ILQRParams as JaxParams
+    from ambersim_tpu.trajopt import state_diff as jax_diff
+    from ambersim_tpu_torch.trajopt import ILQR, ILQRParams, shoot, state_diff
+
+    jm = tp.jax_model_from_xml(BALL_BODY)
+    m = tp.torch_model(jm)
+    assert (m.skel.nq, m.skel.nv) == (4, 3)
+    goal = np.array([np.cos(0.4), 0.0, np.sin(0.4), 0.0, 0.0, 0.0, 0.0], np.float32)
+    guess = 0.3 * np.random.default_rng(6).standard_normal((10, 3)).astype(np.float32)
+    x0 = np.array([1.0, 0.0, 0.0, 0.0, 0.1, -0.2, 0.05], np.float32)
+    jopt = JaxILQR(jm, *_ball_costs(lambda x, g: jax_diff(jm, x, g), jnp.asarray(goal)), iterations=1)
+    _, want_us = jax.jit(jopt.optimize)(JaxParams(x0=jnp.asarray(x0), us_guess=jnp.asarray(guess)))
+    opt = ILQR(m, *_ball_costs(lambda x, g: state_diff(m, x[None], g[None])[0], torch.tensor(goal)), iterations=1)
+    xs, us = opt.optimize(ILQRParams(x0=torch.tensor(x0), us_guess=torch.tensor(guess)))
+    xs_guess = shoot(m, torch.tensor(x0), torch.tensor(guess))
+    assert float(opt._traj_cost(xs, us)) <= float(opt._traj_cost(xs_guess, torch.tensor(guess))) + 1e-6
+    np.testing.assert_allclose(us.numpy(), np.asarray(want_us), rtol=1e-4, atol=1e-4)

@@ -165,18 +165,15 @@ FREE_BALL_MOTORS_XML = """
 
 
 def test_site_transmission_is_refused_by_name():
-    from ambersim_tpu_torch.engine.setconst import set_constants
-    from ambersim_tpu_torch.mjcf import compile_spec_arrays
-
-    skel, leaves = compile_spec_arrays(port_spec(SITE_TRANSMISSION_XML))
-    with pytest.raises(NotImplementedError, match=r"transmission SITE.*ROADMAP, queue 1, item 5"):
-        set_constants(skel, leaves)
+    """A site transmission, once refused by name, compiles, and
+    set_constants gives the JAX package's actuator_acc0 over its moment."""
+    check_against_jax(SITE_TRANSMISSION_XML)
 
 
 def test_free_and_ball_joint_transmissions_match_jax():
     """actuator_moment's free and ball JOINT transmissions (gear vectors on
     the joint's dofs) against the JAX package's at qpos0, and acc0 from
-    them; the model itself stays outside the engine's slice."""
+    them; the bridge admits the model."""
     import jax
 
     from ambersim_tpu.engine import make_data as jax_make_data
@@ -196,8 +193,7 @@ def test_free_and_ball_joint_transmissions_match_jax():
     assert got.shape == (2, 2, 9)
     np.testing.assert_array_equal(got[0].numpy(), want)
     np.testing.assert_array_equal(got[1].numpy(), want)
-    with pytest.raises(NotImplementedError, match="actuator transmission JOINT"):
-        model_from_numpy(skel, leaves, device="cpu")
+    assert model_from_numpy(skel, leaves, device="cpu").skel.nu == 2
 
 
 @pytest.mark.parametrize("name", list(ASSETS))
@@ -241,8 +237,7 @@ def test_compile_spec_and_load_model():
     assert full.dof_invweight0.all()
     asset = ambersim_tpu_torch.load_model("arm3", device="cpu")
     assert asset.skel == full.skel
-    with pytest.raises(NotImplementedError, match="actuator transmission SITE"):
-        mjcf.compile_spec(port_spec(SITE_TRANSMISSION_XML), device="cpu")
+    assert mjcf.compile_spec(port_spec(SITE_TRANSMISSION_XML), device="cpu").skel.nu == 1
 
 
 def test_chip_smoke_copies_match_their_sources():
