@@ -1,7 +1,7 @@
 """Constraint assembly for the ported slice: joint, tendon, connect and
 weld equality rows, dof and tendon friction, scalar and ball joint limits,
-tendon limits, frictionless condim-1 contacts and condim-3 contacts
-(pyramidal or elliptic cones) -> batch-first efc rows (J, D, aref, pos,
+tendon limits, frictionless condim-1 contacts and condim-3, 4 and 6
+contacts (pyramidal or elliptic cones) -> batch-first efc rows (J, D, aref, pos,
 active) plus the factored operands efc_bJ/efc_dsc of the structured Newton
 kernel. Port of ambersim_tpu/engine/constraint.py (`_impedance`, `_kbi`,
 `PyramidStructure`, and the matching branches of `make_constraint`);
@@ -13,9 +13,13 @@ Conventions (MuJoCo, parity-tested by the JAX package):
     for standard solref (tc, dr); direct for <= 0
   * D = imp / ((1-imp) * diagApprox)
   * condim-1 rows J = Jn, diagApprox = invweight
-  * pyramid rows J = Jn +- mu_i Jt_i, diagApprox = 2 mu0^2 (1+mu0^2) invweight / impratio
-  * elliptic rows J = [Jn, Jt1, Jt2], D_n on diagApprox = invweight,
+  * pyramid rows J = Jn +- mu_i Jt_i, 2 (cdim-1) a contact, diagApprox =
+    2 mu0^2 (1+mu0^2) invweight / impratio
+  * elliptic rows J = [Jn, Jt_1 .. Jt_(cdim-1)], D_n on diagApprox = invweight,
     D_f = D_n impratio (mu_f/mu0)^2, friction rows without a position term
+  * friction directions: the frame's two tangents, then (condim 4, 6) the
+    torsional row about the normal and the two rolling rows, each the
+    relative angular velocity's Jacobian in the contact frame
   * limits: one row per limited joint, J = +1 near the lower bound, -1 near
     the upper; a ball joint's row is on its total rotation angle, J = -axis
   * joint equality: pos = (q1 - q1_0) - poly(q2 - q2_0) with the polycoef
@@ -573,6 +577,10 @@ def make_constraint(m: Model, d: Data) -> Data:
         qv = d.qvel[:, None, :]
         con_dim = np.asarray(s.con_dim)
 
+        # torsional and rolling directions (condim 4 and 6): the angular part
+        # of cdof on the signed support, in the contact frame (JAX constraint.py:579)
+        jrot = _frame_rows(c.frame, _rot_jac_rows(d, signed_sup)) if (con_dim > 3).any() else None
+
         for cdim in sorted(set(con_dim.tolist())):
             slots = np.nonzero(con_dim == cdim)[0]
             sl = None if len(slots) == s.ncon else ix(slots)  # one condim: no gathers
@@ -584,23 +592,26 @@ def make_constraint(m: Model, d: Data) -> Data:
             jn, fr, k_g, b_g, imp_g, pos_g = g(jframe[0]), g(c.friction), g(k), g(b), g(imp), g(pos_c)
             dist_g, margin_g, act_g = g(c.dist), g(c.includemargin), g(active_c)
             jnq = (jn * qv).sum(-1)  # (B, S)
+            # friction direction f = 1 .. cdim-1: the two tangents, then the
+            # frame's torsional (f = 3) and rolling (f = 4, 5) rows
+            bases = [g(jframe[f]) if f < 3 else g(jrot[f - 3]) for f in range(1, cdim)]
             if elliptic and cdim > 1:
-                # elliptic rows [normal, t1, t2]: raw frame rows, aref_f without
-                # a position term, D_n on plain invweight and
+                # elliptic rows [normal, friction dims]: raw frame rows, aref_f
+                # without a position term, D_n on plain invweight and
                 # D_f = D_n * impratio * (mu_f / mu0)^2 (JAX constraint.py:588-625)
-                nrow = 3
-                row_Js = [jn, g(jframe[1]), g(jframe[2])]
+                nrow = cdim
+                row_Js = [jn] + bases
                 D_n = imp_g / torch.clamp((1 - imp_g) * iw, min=_MINVAL)
                 mu0 = torch.clamp(fr[..., 0], min=1e-12)
                 rows_aref = [-b_g * jnq - k_g * imp_g * pos_g]
                 rows_D = [D_n]
-                for f in (1, 2):
-                    rows_aref.append(-b_g * (row_Js[f] * qv).sum(-1))
+                for f, base in enumerate(bases, 1):
+                    rows_aref.append(-b_g * (base * qv).sum(-1))
                     rows_D.append(D_n * m.opt.impratio * (fr[..., f - 1] / mu0) ** 2)
                 zero = torch.zeros_like(dist_g)
-                rows_pos, rows_margin = [dist_g, zero, zero], [margin_g, zero, zero]
+                rows_pos, rows_margin = [dist_g] + [zero] * (cdim - 1), [margin_g] + [zero] * (cdim - 1)
             else:
-                nrow = 1 if cdim == 1 else 4
+                nrow = 1 if cdim == 1 else 2 * (cdim - 1)
                 if cdim == 1:
                     # frictionless: one normal row, diagApprox = plain invweight
                     diag = iw
@@ -610,15 +621,16 @@ def make_constraint(m: Model, d: Data) -> Data:
                     mu0 = fr[..., 0]
                     diag = 2.0 * mu0 * mu0 * (1.0 + mu0 * mu0) * iw / m.opt.impratio
                     row_Js, jq_rows, mbs = [], [], []
-                    for f in (1, 2):
-                        base, mu_f = g(jframe[f]), fr[..., f - 1]
+                    for f, base in enumerate(bases, 1):
+                        mu_f = fr[..., f - 1]
                         mb = mu_f[..., None] * base
                         mbs.append(mb)
                         bq = mu_f * (base * qv).sum(-1)
                         row_Js += [jn + mb, jn - mb]
                         jq_rows += [jnq + bq, jnq - bq]
-                    if efc_bJ.shape[1] == 3 * len(slots):
-                        # factored basis [N | mu1*T1 | mu2*T2] (PyramidStructure.adr3 order)
+                    if cdim == 3 and efc_bJ.shape[1] == 3 * len(slots):
+                        # factored basis [N | mu1*T1 | mu2*T2] (PyramidStructure.adr3
+                        # order); a condim-4/6 block never factors
                         efc_bJ = torch.cat([jn, mbs[0], mbs[1]], dim=1)
                 kip = k_g * imp_g * pos_g
                 rows_aref = [-b_g * jq - kip for jq in jq_rows]
@@ -643,3 +655,10 @@ def make_constraint(m: Model, d: Data) -> Data:
         efc_frictionloss=efc_fl,
         efc_active=efc_active,
     )
+
+
+def _rot_jac_rows(d: Data, signed_sup: torch.Tensor):
+    """Rotational jacobian of the relative angular velocity (the torsional
+    and rolling rows of condim 4 and 6) as three (B, ncon, nv) world-axis
+    rows: cdof's angular part on the signed support (JAX constraint.py:682-685)."""
+    return [d.cdof[:, None, :, i] * signed_sup for i in range(3)]

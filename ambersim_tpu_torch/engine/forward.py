@@ -7,7 +7,7 @@ import contextlib
 
 import torch
 
-from ambersim_tpu_torch.core.types import Data, DisableBit, EnableBit, Model
+from ambersim_tpu_torch.core.types import Data, DisableBit, EnableBit, IntegratorType, Model
 from ambersim_tpu_torch.engine import collision, constraint, integrate, sensor, smooth, solver
 from ambersim_tpu_torch.io.bridge import check_slice
 
@@ -59,5 +59,13 @@ def forward(m: Model, d: Data) -> Data:
 
 
 def step(m: Model, d: Data) -> Data:
-    """One physics step: forward dynamics + semi-implicit Euler."""
-    return integrate.euler(m, forward(m, d))
+    """One physics step: forward dynamics, then the model's integrator
+    (JAX forward.py:78-87)."""
+    d = forward(m, d)
+    if m.opt.integrator == int(IntegratorType.RK4):
+        return integrate.rk4(m, d, forward)
+    if m.opt.integrator == int(IntegratorType.IMPLICIT):
+        return integrate.implicit(m, d)
+    if m.opt.integrator == int(IntegratorType.IMPLICITFAST):
+        return integrate.implicitfast(m, d)
+    return integrate.euler(m, d)

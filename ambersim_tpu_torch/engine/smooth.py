@@ -648,6 +648,15 @@ def muscle_dynamics(m: Model, ctrl: torch.Tensor, act: torch.Tensor, u) -> torch
     return dctrl / torch.clamp(tau, min=_EPS_MUSCLE)
 
 
+def clamped_ctrl(m: Model, d: Data) -> torch.Tensor:
+    """(B, nu) ctrl clamped to ctrlrange where ctrllimited, unless
+    CLAMPCTRL is disabled (JAX smooth.clamped_ctrl)."""
+    if m.opt.disableflags & DisableBit.CLAMPCTRL:
+        return d.ctrl
+    lo, hi = m.actuator_ctrlrange[:, 0], m.actuator_ctrlrange[:, 1]
+    return torch.where(device_index(m.skel.actuator_ctrllimited, d.qpos.device), torch.clamp(d.ctrl, lo, hi), d.ctrl)
+
+
 def fwd_actuation(m: Model, d: Data) -> Data:
     """ctrl -> generalized actuator force, over every transmission
     (`trn_plan`, `_trn_rows`): gain (fixed, affine or muscle) times input
@@ -666,10 +675,7 @@ def fwd_actuation(m: Model, d: Data) -> Data:
     def ix(a):
         return device_index(a, dev)
 
-    ctrl = d.ctrl
-    if not (m.opt.disableflags & DisableBit.CLAMPCTRL):
-        lo, hi = m.actuator_ctrlrange[:, 0], m.actuator_ctrlrange[:, 1]
-        ctrl = torch.where(ix(s.actuator_ctrllimited), torch.clamp(ctrl, lo, hi), ctrl)
+    ctrl = clamped_ctrl(m, d)
     plan = trn_plan(s)
     ju, dof, qa, ru = plan.joint, plan.joint_dof, plan.joint_qa, plan.rows
     gear = m.actuator_gear[:, 0]

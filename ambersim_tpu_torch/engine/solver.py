@@ -5,8 +5,9 @@ Primal formulation (MuJoCo): minimize over qacc
     0.5*(a - a_smooth)^T M (a - a_smooth) + sum_i s_i(J_i a - aref_i)
 with s_i quadratic on equality rows, Huber on friction rows and one-sided
 quadratic on limit/contact rows; inactive rows contribute nothing. With
-elliptic cones each condim-3 contact's rows [N, T1, T2] cost the squared
-distance to the friction cone instead (bottom / middle / top zones).
+elliptic cones each contact's rows [N, T1, T2, ...] cost the squared
+distance to the friction cone instead (bottom / middle / top zones); a
+condim-4 or -6 contact adds its torsional and rolling rows to the cone.
 
 `solve` routes by row layout and by nv, decided from shapes before any
 launch. A CPU tensor takes the route's plain version; a CUDA tensor launches
@@ -14,8 +15,12 @@ the route's kernel (ops/newton.py) and never falls back to a plain version:
   * pyramidal rows that factor (PyramidStructure) -> kernel 4, plain
     `_newton_arrays` (batched _newton_arrays_jnp, solver.py:424);
   * other pyramidal rows -> kernel 5 on dense rows, the same plain version;
-  * elliptic cones with one contiguous condim tail -> kernel 6, plain
-    `_newton_arrays_elliptic` (batched _newton_arrays_elliptic_jnp, :624);
+  * elliptic cones with one contiguous condim tail (cdim 2-6) -> kernel 6,
+    plain `_newton_arrays_elliptic` (batched _newton_arrays_elliptic_jnp, :624);
+  * any other elliptic layout (condims mixed, condim-1 contacts among them)
+    -> `_newton_elliptic_general` on every device (batched
+    _solve_newton_elliptic, :949), for which the JAX package has no kernel
+    either; its Hessian solve is engine.linalg.solve_pd, kernel 3 on the card;
   * nv > ops.newton.MAX_NV (kernels 4-6 factor their Hessian with one warp)
     -> `_newton_arrays` / `_newton_arrays_elliptic` themselves on the card,
     their Hessian solve through engine.linalg.solve_pd, i.e. kernel 3, and
@@ -25,7 +30,6 @@ the route's kernel (ops/newton.py) and never falls back to a plain version:
     structured -> dense -> jnp when the Newton kernels do not fit VMEM, as
     at the 32-body clutter scene's nv = 192), whose jnp Newton calls
     linalg.solve_pd under the env vmap (:481).
-Any other elliptic layout raises NotImplementedError (io.bridge.check_slice).
 Reverse-mode gradients: each kernel route goes through
 linalg.differentiable_dispatch, whose backward pass runs autograd through
 the route's plain version (what the JAX package differentiates,
@@ -232,6 +236,38 @@ class _Cone:
         self.cfac = (mu * self.T - self.N) / one_mu2
 
 
+class _Ray:
+    """A cone block's terms of phi'(t) and phi''(t) along jar + t jp in
+    closed form, (B, S) planes (JAX solver.py:330-382): each block's N(t) =
+    N0 + t dN is linear and T(t)^2 = aq + 2 bq t + cq t^2 quadratic, so a
+    line-search step needs no (S, cdim) tensor rebuild."""
+
+    def __init__(self, z: _Cone, dxc, D_c, Dn, mu, scale, one_mu2, actN):
+        self.dN = dxc[..., 0]
+        dy = dxc[..., 1:] * scale
+        self.aq, self.bq, self.cq = z.T2, (z.y * dy).sum(-1), (dy * dy).sum(-1)
+        self.N0 = z.N
+        self.h_bot = (D_c * dxc * dxc).sum(-1)
+        self.Dn, self.mu, self.one_mu2, self.actN = Dn, mu, one_mu2, actN
+
+    def terms(self, t):
+        """The block's contributions to phi'(t) and phi''(t), each (B,)."""
+        aq, bq, cq, dN, Dn, mu, one_mu2 = self.aq, self.bq, self.cq, self.dN, self.Dn, self.mu, self.one_mu2
+        tc = t[:, None]
+        Tt = torch.sqrt(torch.clamp(aq + 2.0 * bq * tc + cq * tc * tc, min=1e-24))
+        Tp = (bq + cq * tc) / Tt
+        Nt = self.N0 + tc * dN
+        bot_t = mu * Nt <= -Tt
+        mid_t = ~(bot_t | (Nt >= mu * Tt))
+        cfac_t = (mu * Tt - Nt) / one_mu2
+        g_b = Dn * (Nt * dN + bq + cq * tc)
+        g_m = -Dn * cfac_t * (dN - mu * Tp)
+        h_m = Dn / one_mu2 * (mu * Tp - dN) ** 2 + Dn * mu * cfac_t / Tt * torch.clamp(cq - Tp * Tp, min=0.0)
+        gb = torch.where(bot_t, g_b, torch.where(mid_t, g_m, 0.0)) * self.actN
+        hb = torch.where(bot_t, self.h_bot, torch.where(mid_t, h_m, 0.0)) * self.actN
+        return gb.sum(-1), hb.sum(-1)
+
+
 def elliptic_total_cost(qacc, jar, qM, a_s, D, fl, act, mu, scale, *, ne, nf, nh, S, cdim):
     """Elliptic primal cost per env at (qacc, jar = J qacc - aref)."""
     B = jar.shape[0]
@@ -327,14 +363,8 @@ def _newton_arrays_elliptic(
         pmp = (p * _mv(qM, p)).sum(-1)
         pma = (p * Mdacc).sum(-1)
 
-        # closed-form scalar line search: along jar + t jp each block's N is
-        # linear and T^2 quadratic in t
-        dxc = jp[:, nh:].reshape(B, S, cdim)
-        dN = dxc[..., 0]
-        dy = dxc[..., 1:] * scale
-        aq, bq, cq = z.T2, (z.y * dy).sum(-1), (dy * dy).sum(-1)
-        N0 = z.N
-        h_bot = (D_c * dxc * dxc).sum(-1)
+        # closed-form scalar line search (_Ray)
+        ray = _Ray(z, jp[:, nh:].reshape(B, S, cdim), D_c, Dn, mu, scale, one_mu2, actN)
         jar_h, jp_h = jar[:, :nh], jp[:, :nh]
         t = torch.zeros_like(cost)
         lo = torch.zeros_like(cost)
@@ -343,19 +373,8 @@ def _newton_arrays_elliptic(
             _, force_t, quad_t = _row_costs_pure(jar_h + t[:, None] * jp_h, D_h, fl_h, act_h, ne, nf)
             g = pma + t * pmp - (force_t * jp_h).sum(-1)
             hh = pmp + torch.where(quad_t, D_h * jp_h * jp_h, 0.0).sum(-1)
-            tc = t[:, None]
-            Tt = torch.sqrt(torch.clamp(aq + 2.0 * bq * tc + cq * tc * tc, min=1e-24))
-            Tp = (bq + cq * tc) / Tt
-            Nt = N0 + tc * dN
-            bot_t = mu * Nt <= -Tt
-            mid_t = ~(bot_t | (Nt >= mu * Tt))
-            cfac_t = (mu * Tt - Nt) / one_mu2
-            g_b = Dn * (Nt * dN + bq + cq * tc)
-            g_m = -Dn * cfac_t * (dN - mu * Tp)
-            h_m = Dn / one_mu2 * (mu * Tp - dN) ** 2 + Dn * mu * cfac_t / Tt * torch.clamp(cq - Tp * Tp, min=0.0)
-            gb = torch.where(bot_t, g_b, torch.where(mid_t, g_m, 0.0)) * actN
-            hb = torch.where(bot_t, h_bot, torch.where(mid_t, h_m, 0.0)) * actN
-            t, lo, hi = ls_bracket_step(t, lo, hi, g + gb.sum(-1), hh + hb.sum(-1))
+            gb, hb = ray.terms(t)
+            t, lo, hi = ls_bracket_step(t, lo, hi, g + gb, hh + hb)
         t = torch.clamp(t, 0.0, 4.0)
 
         qacc_n = qacc + t[:, None] * p
@@ -374,14 +393,198 @@ def _newton_arrays_elliptic(
 
 def elliptic_tail(s):
     """(cdim, slots, base, full) of the single contiguous elliptic condim
-    tail; NotImplementedError for any other elliptic layout."""
+    tail (kernel 6's layout), or None for any other elliptic layout, which
+    takes `_newton_elliptic_general`."""
     meta = _elliptic_meta(s)
     if len(meta) != 1 or meta[0][3] is None:
-        raise NotImplementedError(
-            "elliptic cones with mixed contact condims (no single contiguous condim tail of the efc rows)"
-        )
+        return None
     cdim, slots, _, base, full = meta[0]
     return cdim, slots, base, full
+
+
+def _cone_operands(D, act, blocks, impratio) -> list:
+    """Per condim block of `blocks` (its rows (S, cdim) and friction): the
+    rows, their D (B, S, cdim), the normal rows' activity (B, S) and the
+    cone parameters mu (B, S) and scale (B, S, cdim-1)."""
+    out = []
+    for rows, fr in blocks:
+        mu, scale = cone_params(fr, impratio, rows.shape[1])
+        out.append(dict(rows=rows, D=D[:, rows], act=act[:, rows[:, 0]], mu=mu, scale=scale))
+    return out
+
+
+def _zone(x, c: dict) -> dict:
+    """Cone projection state of one condim block at its rows' jar x
+    (B, S, cdim) (JAX _elliptic_zone, solver.py:102-157): the block's cost
+    on its normal rows (B, S), its row forces (B, S, cdim) and what the
+    Hessian weights need."""
+    B, S, cdim = x.shape
+    mu, scale, Dn = c["mu"], c["scale"], c["D"][..., 0]
+    one = 1.0 + mu * mu
+    z = _Cone(x.reshape(B, -1), 0, S, cdim, mu, scale, one)
+    bottom, middle, cfac = z.bottom, z.middle, z.cfac
+    cost = torch.where(bottom, 0.5 * Dn * (z.N * z.N + z.T2), torch.where(middle, 0.5 * Dn * cfac * cfac * one, 0.0))
+    yhat = z.y / z.T[..., None]
+    fN = torch.where(bottom, -Dn * z.N, torch.where(middle, Dn * cfac, 0.0))
+    fY = torch.where(bottom[..., None], -Dn[..., None] * z.y,
+                     torch.where(middle[..., None], (-Dn * cfac * mu)[..., None] * yhat, 0.0))
+    f_rows = torch.cat([fN[..., None], fY * scale], -1) * c["act"][..., None]
+    return dict(cone=z, yhat=yhat, T=z.T, bottom=bottom, middle=middle, cfac=cfac, cost=cost * c["act"],
+                f_rows=f_rows)
+
+
+def _zone_W(z: dict, c: dict) -> torch.Tensor:
+    """(B, S, cdim, cdim) Hessian weights of a block's rows from its zone
+    state (JAX _elliptic_W, solver.py:160-197): middle zone Dn/(1+mu^2) v v^T
+    with v = (-1, mu yhat scale) plus the norm's curvature Dn mu cfac / T
+    (I - yhat yhat^T) on the friction dims (T >= 1e-12, so the JAX
+    package's clamp of it is the identity), bottom zone diag(D)."""
+    mu, scale, yhat, Dn = c["mu"], c["scale"], z["yhat"], c["D"][..., 0]
+    v = torch.cat([-torch.ones_like(mu)[..., None], mu[..., None] * yhat * scale], -1)
+    W_mid = (Dn / (1.0 + mu * mu))[..., None, None] * v[..., :, None] * v[..., None, :]
+    eye_f = torch.eye(scale.shape[-1], dtype=mu.dtype, device=mu.device)
+    curv = (Dn * mu * z["cfac"] / z["T"])[..., None, None] * (
+        eye_f - yhat[..., :, None] * yhat[..., None, :]) * (scale[..., :, None] * scale[..., None, :])
+    W_mid = W_mid + torch.nn.functional.pad(curv, (1, 0, 1, 0))
+    W_bot = torch.diag_embed(c["D"])
+    W = torch.where(z["middle"][..., None, None], W_mid, torch.where(z["bottom"][..., None, None], W_bot, 0.0))
+    return W * c["act"][..., None, None]
+
+
+def _head_cost(jar, D, fl, act, head, ne: int, nf: int):
+    """(cost, force, quad) of the pyramidal head rows `head` (every row
+    outside the cone blocks, in row order: equality and friction rows
+    first, so ne and nf hold for them)."""
+    return _row_costs_pure(jar[:, head], D[:, head], fl[:, head], act[:, head], ne, nf)
+
+
+def _total(qacc, jar, qM, a_s, D, fl, act, head, cones, ne: int, nf: int):
+    dacc = qacc - a_s
+    cone_cost = sum(_zone(jar[:, c["rows"]], c)["cost"].sum(-1) for c in cones)
+    return 0.5 * (dacc * _mv(qM, dacc)).sum(-1) + _head_cost(jar, D, fl, act, head, ne, nf)[0].sum(-1) + cone_cost
+
+
+def general_total_cost(qacc, jar, qM, a_s, D, fl, act, head, blocks, impratio, *, ne: int, nf: int):
+    """Elliptic primal cost per env at (qacc, jar = J qacc - aref) on any
+    elliptic layout (JAX _total_cost's general branch, solver.py:264-298):
+    the smooth cost, the head rows' and each cone block's."""
+    return _total(qacc, jar, qM, a_s, D, fl, act, head, _cone_operands(D, act, blocks, impratio), ne, nf)
+
+
+def _line_search(jar, jp, pma, pmp, D, fl, act, head, cones, ne: int, nf: int, ls_iterations: int, zones=None):
+    """The general _line_search's guarded bracketed scalar Newton on t, the
+    head rows' terms on their gathered rows, each cone block's in closed
+    form (_Ray; `zones` are the blocks' zone states at jar where known)."""
+    jar_h, jp_h, D_h, fl_h, act_h = jar[:, head], jp[:, head], D[:, head], fl[:, head], act[:, head]
+    if zones is None:
+        zones = [_zone(jar[:, c["rows"]], c) for c in cones]
+    rays = [_Ray(z["cone"], jp[:, c["rows"]], c["D"], c["D"][..., 0], c["mu"], c["scale"], 1.0 + c["mu"] * c["mu"],
+                 c["act"]) for c, z in zip(cones, zones)]
+    t = torch.zeros_like(pma)
+    lo = torch.zeros_like(pma)
+    hi = torch.full_like(pma, 4.0)
+    for _ in range(max(ls_iterations, 1)):
+        _, force, quad = _row_costs_pure(jar_h + t[:, None] * jp_h, D_h, fl_h, act_h, ne, nf)
+        g = pma + t * pmp - (force * jp_h).sum(-1)
+        h = pmp + torch.where(quad, D_h * jp_h * jp_h, 0.0).sum(-1)
+        for ray in rays:
+            gb, hb = ray.terms(t)
+            g, h = g + gb, h + hb
+        t, lo, hi = ls_bracket_step(t, lo, hi, g, h)
+    return torch.clamp(t, 0.0, 4.0)
+
+
+def general_line_search(jar, jp, pma, pmp, D, fl, act, head, blocks, impratio, *, ne: int, nf: int,
+                        ls_iterations: int):
+    """(B,) step t in [0, 4] along jar + t jp: the guarded bracketed scalar
+    Newton of the JAX package's general _line_search (solver.py:299-410).
+    phi'(t) = pma + t pmp - force(t) . jp and phi''(t) = pmp + the quadratic
+    head rows' D jp^2 + each block's jp_rows^T W(t) jp_rows, the last two
+    in the closed form of its scalar path (`_Ray`), the same function."""
+    return _line_search(jar, jp, pma, pmp, D, fl, act, head, _cone_operands(D, act, blocks, impratio), ne, nf,
+                        ls_iterations)
+
+
+def _newton_elliptic_general(J, qM, aref, D, fl, act, a_s, ws, tol, head, blocks, impratio,
+                             *, ne, nf, iterations, ls_iterations, use_ws, solve=solve_pd_unrolled):
+    """Batched elliptic Newton on any elliptic layout: condim blocks of
+    2-6 rows anywhere among the rows, condim-1 contacts among the
+    pyramidal head rows `head` (every other row, in order). `blocks` is
+    [(rows (S, cdim) row indices on J's device, friction (B, S, >=
+    cdim-1))] (elliptic_blocks). Returns (qacc, efc_force, J^T efc_force).
+    A batch-first port of _solve_newton_elliptic (JAX solver.py:949-1022)
+    with the general branch of its _line_search (general_line_search);
+    the head rows and each block are summed apart (J^T f, the Hessian, the
+    line search's phi' and phi''). No kernel of the JAX package takes this
+    layout; its Hessian solve is `solve` (engine.linalg.solve_pd, kernel 3
+    on the card) once an iteration."""
+    nv = J.shape[-1]
+    eye = torch.eye(nv, dtype=a_s.dtype, device=a_s.device)
+    cones = _cone_operands(D, act, blocks, impratio)
+    J_h, D_h = J[:, head], D[:, head]
+    J_b = [J[:, c["rows"]] for c in cones]  # (B, S, cdim, nv) each
+
+    def total_cost(qacc, jar):
+        return _total(qacc, jar, qM, a_s, D, fl, act, head, cones, ne, nf)
+
+    def forces(jar):
+        _, force, quad = _head_cost(jar, D, fl, act, head, ne, nf)
+        return force, quad, [_zone(jar[:, c["rows"]], c) for c in cones]
+
+    jar = _mv(J, a_s) - aref
+    cost = total_cost(a_s, jar)
+    qacc = a_s
+    if use_ws:
+        jar_w = _mv(J, ws) - aref
+        cost_w = total_cost(ws, jar_w)
+        better = cost_w < cost
+        qacc = torch.where(better[:, None], ws, a_s)
+        jar = torch.where(better[:, None], jar_w, jar)
+        cost = torch.where(better, cost_w, cost)
+    prev_cost = torch.full_like(cost, float("inf"))
+
+    for _ in range(iterations):
+        force, quad, zones = forces(jar)
+        Mdacc = _mv(qM, qacc - a_s)
+        grad = Mdacc - (J_h * force[..., None]).sum(-2)
+        H = qM + (J_h * torch.where(quad, D_h, 0.0)[..., None]).transpose(-1, -2) @ J_h
+        for c, Jb, z in zip(cones, J_b, zones):
+            grad = grad - (Jb * z["f_rows"][..., None]).sum((1, 2))
+            WJ = (_zone_W(z, c) @ Jb).flatten(1, 2)  # (B, S cdim, nv)
+            H = H + Jb.flatten(1, 2).transpose(-1, -2) @ WJ
+        p = -solve(H + 1e-8 * eye, grad)
+        jp = _mv(J, p)
+        t = _line_search(jar, jp, (p * Mdacc).sum(-1), (p * _mv(qM, p)).sum(-1), D, fl, act, head, cones, ne, nf,
+                         ls_iterations, zones)
+
+        qacc_n = qacc + t[:, None] * p
+        jar_n = jar + t[:, None] * jp
+        cost_n = total_cost(qacc_n, jar_n)
+        active_it = prev_cost - cost > tol
+        take = (cost_n < cost) & active_it
+        qacc = torch.where(take[:, None], qacc_n, qacc)
+        jar = torch.where(take[:, None], jar_n, jar)
+        prev_cost = torch.where(active_it, cost, prev_cost)
+        cost = torch.where(take, cost_n, cost)
+
+    force_h, _, zones = forces(jar)
+    force = torch.zeros_like(jar)
+    force[:, head] = force_h
+    for c, z in zip(cones, zones):
+        force[:, c["rows"]] = z["f_rows"]
+    return qacc, force, (J * force[..., None]).sum(-2)
+
+
+def elliptic_blocks(s, d: Data) -> tuple:
+    """(head, blocks) of an elliptic layout for `_newton_elliptic_general`
+    on d's device: the rows outside every cone block, in order, and each
+    condim block's rows (S, cdim) with its contacts' friction."""
+    dev = d.qpos.device
+    meta = _elliptic_meta(s)
+    cone_rows = np.concatenate([rows.reshape(-1) for _, _, rows, _, _ in meta])
+    head = device_index(np.setdiff1d(np.arange(int(s.nefc)), cone_rows), dev)
+    return head, [(device_index(rows, dev), d.contact.friction if full else
+                   d.contact.friction[:, device_index(slots, dev)]) for _, slots, rows, _, full in meta]
 
 
 def _structured_kernel(J, bJ, dsc, qM, aref, D, fl, act, a_s, ws, tol, *, st, ne, nf, **kw):
@@ -434,7 +637,13 @@ def solve(m: Model, d: Data) -> Data:
     rows = (d.efc_J, d.qM, d.efc_aref, d.efc_D, d.efc_frictionloss, act, d.qacc_smooth, d.qacc_warmstart)
     statics = dict(iterations=iterations, ls_iterations=ls_iterations, use_ws=use_ws)
     if _is_elliptic(m):
-        cdim, slots, base, full = elliptic_tail(s)
+        tail = elliptic_tail(s)
+        if tail is None:
+            # any other elliptic layout: the general path, Hessian solves through kernel 3
+            qacc, force, qfrc = _newton_elliptic_general(*rows, tol, *elliptic_blocks(s, d), m.opt.impratio, ne=int(s.ne),
+                                                         nf=int(s.nf), **statics, solve=linalg.solve_pd)
+            return d.replace(qacc=qacc, qfrc_constraint=qfrc, efc_force=force, qacc_warmstart=qacc)
+        cdim, slots, base, full = tail
         fr = d.contact.friction if full else d.contact.friction[:, device_index(slots, d.qpos.device)]
         cone = dict(ne=int(s.ne), nf=int(s.nf), base=base, ncon=len(slots), cdim=cdim, **statics)
         if arrays:

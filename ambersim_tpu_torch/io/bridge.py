@@ -38,7 +38,6 @@ from ambersim_tpu_torch.core.types import (
     Data,
     EnableBit,
     GeomType,
-    IntegratorType,
     Model,
     Option,
     Skeleton,
@@ -147,7 +146,7 @@ def check_slice(m: Model) -> None:
     does not implement. Nothing outside the slice is silently skipped."""
     from ambersim_tpu_torch.engine.collision import _NARROWPHASE
     from ambersim_tpu_torch.engine.sensor import refused_sensors
-    from ambersim_tpu_torch.engine.solver import _elliptic_meta, elliptic_tail
+    from ambersim_tpu_torch.engine.solver import _elliptic_meta
     from ambersim_tpu_torch.ops.newton import MAX_NV
 
     s, o = m.skel, m.opt
@@ -168,22 +167,14 @@ def check_slice(m: Model) -> None:
         missing.append("gravity compensation")
     if s.nsensor:
         missing.extend(refused_sensors(s))
-    con_dim = np.asarray(s.con_dim)
-    if np.isin(con_dim, (4, 6)).any():
-        missing.append("contact condim 4/6 (torsional and rolling friction)")
     # _elliptic_meta raises ValueError when the rows were compiled for pyramidal cones
-    if o.cone == int(ConeType.ELLIPTIC) and _elliptic_meta(s):
-        try:
-            elliptic_tail(s)
-        except NotImplementedError as err:
-            missing.append(str(err))
+    if o.cone == int(ConeType.ELLIPTIC):
+        _elliptic_meta(s)
     for t1, t2 in set(zip(np.asarray(s.pair_ctype1).tolist(), np.asarray(s.pair_ctype2).tolist())):
         if (t1, t2) not in _NARROWPHASE:
             missing.append(f"{GeomType(t1).name.lower()}-{GeomType(t2).name.lower()} contact pairs")
     if o.solver != int(SolverType.NEWTON):
         missing.append(f"the {SolverType(o.solver).name} solver")
-    if o.integrator != int(IntegratorType.EULER):
-        missing.append(f"the {IntegratorType(o.integrator).name} integrator")
     if o.noslip_iterations > 0:
         missing.append("noslip iterations")
     if o.enableflags & EnableBit.FWDINV:

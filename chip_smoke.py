@@ -96,7 +96,21 @@ the card, and steps every ported path through the port's entry points:
     case); the JAX tests' connect, weld, ball-limit, transmission (site,
     slider-crank, adhesion, ball joint) and explicit-pair or OVERRIDE
     fixtures card against CPU, with moments, lengths and efc rows from the
-    same Data.
+    same Data;
+  * contacts of condim 4 and 6 and the integrators, each at 4096 envs from
+    the main path's start under its PD controller: soft_feet, the quadruped
+    with condim-4 feet (torsional friction), 100 steps through kernels 1,
+    2, 3 and 5 (nefc 144); soft_feet_elliptic, the same compiled with
+    elliptic cones (condims 3 and 4 mixed), 50 steps through the general
+    elliptic solve, its Hessian solves through kernel 3 (no Newton kernel,
+    as in the JAX package); condim6_elliptic, every pair condim 6 with
+    elliptic cones, 100 steps through kernel 6 at cdim 6 (nefc 192);
+    quadruped_implicitfast (100 steps, kernel 3 its solve), quadruped_implicit
+    (50 steps, an LU) and quadruped_rk4 (25 steps, kernels 1, 2 and 4 four
+    times a step); kernel 5 held on soft_feet's final operands, kernel 6 on
+    condim6_elliptic's and on tests/test_elliptic.py's spin-down sphere
+    (cdim 4) at 4096 envs, kernel 3 on the general solve's last Hessian and
+    on implicitfast's system.
 
 For each path it checks that every step went through the path's kernels
 and compares 8 envs of the rollout on the card with the same rollout on the
@@ -445,10 +459,11 @@ GRAD_ELLIPTIC_PATH_TOL = 1e-1
 # contacts off), where its gradient optimizers run (with contacts on an
 # env's gradient parted by 2.7e-2 of the largest |g| on an H100 80GB HBM3).
 # Cut: half the steps (20 / 10 until the sensor phases came), the elliptic
-# quadruped's 3 (5 until the weld phases came).
+# quadruped's 2 (5 until the weld phases came, 3 until the condim and
+# integrator phases came), the pendulum's and arm3's 5 (10 until then).
 GRAD_PATHS = {
-    "pendulum": ("pendulum", 16, 10, None), "arm3": ("arm3", 16, 10, None), "quadruped": ("quadruped", 64, 5, None),
-    "quadruped_elliptic": ("quadruped_elliptic", 8, 3, CONVERGED), "hand": ("hand", 16, 5, None),
+    "pendulum": ("pendulum", 16, 5, None), "arm3": ("arm3", 16, 5, None), "quadruped": ("quadruped", 64, 5, None),
+    "quadruped_elliptic": ("quadruped_elliptic", 8, 2, CONVERGED), "hand": ("hand", 16, 5, None),
     "clutter32_rowcap192": ("clutter32_rowcap192", 4, 2, None),
 }
 # APG on the pendulum swingup (examples/rl/pendulum/ex_agents.py:80-87 and
@@ -686,8 +701,8 @@ ARM_STEPS, ARM_EXCITE, ARM_BICEPS, ARM_SHOULDER = 300, (50, 200), (0.8, 0.05), 0
 # muscle_arm_sampling, the example's predictive sampling (:88-102): Q 0.1 I,
 # Qf 10 I, R 0.01 I, goal ARM_GOAL, 64 samples of stdev 0.3 around a
 # 100-knot guess of 0.3 from x0 = 0; ARM_OPTIMIZE_CALLS calls (cut: 5 until
-# the weld phases came)
-ARM_SAMPLES, ARM_KNOTS, ARM_STDEV, ARM_GUESS, ARM_OPTIMIZE_CALLS = 64, 100, 0.3, 0.3, 3
+# the weld phases came, 3 until the condim and integrator phases came)
+ARM_SAMPLES, ARM_KNOTS, ARM_STDEV, ARM_GUESS, ARM_OPTIMIZE_CALLS = 64, 100, 0.3, 0.3, 2
 ARM_GOAL = (0.0, -1.2, 0.0, 0.0)
 # tendon_rig: tests/test_tendon_parity.py's TENDON_RIG (:24-63: a tendon
 # equality, friction and limit row and a condim-3 contact, through kernel 4
@@ -757,6 +772,23 @@ WELD_RIGS = {
 # card and with its tape shot on the CPU
 ILQR_BALL = dict(knots=40, iterations=10, angle=0.4)
 ILQR_BALL_BAR = 0.01
+# Contacts of condim 4 and 6, elliptic cones over mixed condims, the RK4,
+# implicit and implicitfast integrators. soft_feet: the main path's
+# quadruped with condim-4 feet (soft_feet_xml: nefc 144 pyramidal, kernel 5),
+# soft_feet_elliptic: the same compiled elliptic (condims 3 and 4, the
+# general elliptic solve, its Hessian solves through kernel 3),
+# condim6_elliptic: every pair condim 6, elliptic (condim6_xml: one
+# contiguous cdim-6 tail, nefc 192, kernel 6); each from initial_batch under
+# pd_ctrl. quadruped_implicitfast / _implicit / _rk4: the main path's model
+# with Option.integrator set. Envs x steps per path below.
+SOFT_FEET_STEPS, SOFT_ELLIPTIC_STEPS, CONDIM6_STEPS = 100, 50, 100
+RK4, IMPLICIT, IMPLICITFAST = 1, 2, 3  # Option.integrator (ambersim_tpu_torch.core.types.IntegratorType)
+IMPLICITFAST_STEPS, IMPLICIT_STEPS, RK4_STEPS = 100, 50, 25
+# kernel 6 on tests/test_elliptic.py's spin-down sphere (condim 4, elliptic,
+# friction 0.8 0.2 0.01, 30 x 30 iterations) at NUM_ENVS envs: spin
+# SPIN_QVEL about the normal plus 0.5 N(0, 1) on every velocity
+# (numpy.random.default_rng(19))
+SPIN_QVEL = 6.0
 # the actuator fixture: a position servo on a joint with an actuatorfrcrange
 # clamp, a velocity servo, an intvelocity (integrator dynamics, act-limited),
 # filter, filterexact (with an affine bias) and integrator actuators, and a
@@ -1785,6 +1817,96 @@ def check_newton_dense(device, results):
                                    **{k: timed["arm3"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
 
 
+def elliptic_kern(pa, **kw):
+    """Kernel 6 on the operands `pa` (solver_operands plus fr, impratio and
+    the layout's ne, nf, base, ncon, cdim)."""
+    from ambersim_tpu_torch.ops.newton import newton_solve_elliptic
+
+    pa = dict(pa)
+    return newton_solve_elliptic(
+        pa.pop("J"), pa.pop("qM"), pa.pop("aref"), pa.pop("D"), pa.pop("fl"), pa.pop("act"), pa.pop("a_s"),
+        pa.pop("ws"), pa.pop("tol"), pa.pop("fr"), pa.pop("impratio"), **pa, **kw,
+    )
+
+
+def elliptic_cost(pa, qacc):
+    """Total cost per env at qacc, in float64."""
+    import torch
+
+    from ambersim_tpu_torch.engine.solver import cone_params, elliptic_total_cost
+
+    p = as_dtype(pa, torch.float64)
+    q = qacc.double()
+    mu, scale = cone_params(p["fr"], p["impratio"], p["cdim"])
+    jar = (p["J"] * q[:, None, :]).sum(-1) - p["aref"]
+    return elliptic_total_cost(q, jar, p["qM"], p["a_s"], p["D"], p["fl"], p["act"], mu, scale, ne=p["ne"],
+                               nf=p["nf"], nh=p["base"], S=p["ncon"], cdim=p["cdim"])
+
+
+def elliptic_compare(pa, what, iterations, ls_iterations, use_ws=True, keep=False):
+    """Kernel 6 vs plain float32 (and plain float32 vs float64) at the given
+    iteration counts; returns (per-env relative error, max |err|, cost
+    excess of the kernel over the plain version per env, the batch's mean
+    cost excess); with `keep`, the outputs go to ELLIPTIC_RUNS."""
+    import torch
+
+    from ambersim_tpu_torch.engine.solver import _newton_arrays_elliptic
+
+    kw = dict(iterations=iterations, ls_iterations=ls_iterations, use_ws=use_ws)
+    got, want = elliptic_kern(pa, **kw), _newton_arrays_elliptic(**pa, **kw)
+    exact = _newton_arrays_elliptic(**as_dtype(pa, torch.float64), **kw)
+    rel, err = env_rel_err(got, want, what)
+    rel_pe, _ = env_rel_err(want, exact, what)
+    rel_ke, _ = env_rel_err(got, exact, what)
+    c_got, c_want = elliptic_cost(pa, got[0]), elliptic_cost(pa, want[0])
+    excess = (c_got - c_want) / c_want.abs().clamp(min=1.0)  # relative, absolute below a cost of 1
+    print(f"{what} ({iterations} x {ls_iterations}): env-relative |kernel - plain| max {rel.max().item():.3e}, "
+          f"share <= {ELLIPTIC_ENV_TOL}: kernel-plain {(rel <= ELLIPTIC_ENV_TOL).double().mean().item():.4f} "
+          f"plain-f64 {(rel_pe <= ELLIPTIC_ENV_TOL).double().mean().item():.4f} "
+          f"kernel-f64 {(rel_ke <= ELLIPTIC_ENV_TOL).double().mean().item():.4f}; "
+          f"cost excess max {excess.max().item():.3e} min {excess.min().item():.3e}, "
+          f"mean cost kernel/plain - 1 = {(c_got.mean() / c_want.mean() - 1).item():.3e}; max |err| {err:.3e}")
+    if keep:
+        ELLIPTIC_RUNS[what, iterations] = (got, want, exact, rel_pe)
+    return rel, err, excess, (c_got.mean() / c_want.mean() - 1).item()
+
+
+# the last elliptic_compare's (kernel, plain, float64 outputs, plain's
+# per-env error against float64) by (what, iterations)
+ELLIPTIC_RUNS: dict = {}
+
+
+def elliptic_held(pa, what, use_ws=True, f64=True) -> float:
+    """Kernel 6 at the ELLIPTIC_* bars: one line-search step elementwise,
+    converged (CONVERGED) elementwise and by cost. With `f64`, a comparison
+    where plain float32 misses its float64 run at that bar on more than
+    1 - NEWTON_MIN_SHARE of the envs (as on the synthetic sweep of
+    check_newton_elliptic) holds the kernel against float64 instead
+    (vs_float64 with ELLIPTIC_F64_SLACK, converged with the
+    ELLIPTIC_COST_ENVS count). Returns the max |err| where the bars are
+    elementwise against the plain version (0 if none is)."""
+    err = 0.0
+    for (iterations, ls_iterations), tol in (((3, 1), ELLIPTIC_ENV_TOL),
+                                              ((CONVERGED["iterations"], CONVERGED["ls_iterations"]),
+                                               ELLIPTIC_CONVERGED_TOL)):
+        rel, e, excess, _ = elliptic_compare(pa, what, iterations, ls_iterations, use_ws, keep=True)
+        got, want, exact, rel_pe = ELLIPTIC_RUNS.pop((what, iterations))
+        step = "one line-search step" if iterations == 3 else "converged"
+        if not f64 or (rel_pe <= tol).double().mean().item() >= NEWTON_MIN_SHARE:
+            share = (rel <= tol).double().mean().item()
+            if share < NEWTON_MIN_SHARE or rel.max().item() > NEWTON_ENV_RTOL:
+                fail(f"{what}, {step}: {share:.4f} of envs within {tol}, worst {rel.max().item():.3e}")
+            if iterations > 3 and excess.max().item() > ELLIPTIC_COST_RTOL:
+                fail(f"{what}, converged: the kernel's cost exceeds the plain version's by {excess.max().item():.3e}")
+            err = max(err, e)
+        else:
+            vs_float64(got, want, exact, f"{what} ({step})",
+                       within=lambda a, b: env_rel_err(a, b, what)[0] <= tol,
+                       costs=tuple(elliptic_cost(pa, x[0]) for x in (got, want, exact)) if iterations > 3 else None,
+                       slack=ELLIPTIC_F64_SLACK)
+    return err
+
+
 def check_newton_elliptic(device, results):
     """Kernel 6 against its plain version on the elliptic quadruped's
     operands at B=4096 and on synthetic problems at nv = 12 (nh = 0 and 9,
@@ -1801,60 +1923,10 @@ def check_newton_elliptic(device, results):
     import torch
 
     from ambersim_tpu_torch import load_model
-    from ambersim_tpu_torch.engine.solver import _newton_arrays_elliptic, cone_params, elliptic_tail
-    from ambersim_tpu_torch.engine.solver import elliptic_total_cost
-    from ambersim_tpu_torch.ops.newton import elliptic_ls_step, elliptic_occupancy, newton_solve_elliptic
+    from ambersim_tpu_torch.engine.solver import _newton_arrays_elliptic, elliptic_tail
+    from ambersim_tpu_torch.ops.newton import elliptic_ls_step, elliptic_occupancy
 
-    def kern(pa, **kw):
-        pa = dict(pa)
-        return newton_solve_elliptic(
-            pa.pop("J"), pa.pop("qM"), pa.pop("aref"), pa.pop("D"), pa.pop("fl"), pa.pop("act"), pa.pop("a_s"),
-            pa.pop("ws"), pa.pop("tol"), pa.pop("fr"), pa.pop("impratio"), **pa, **kw,
-        )
-
-    def cost(pa, qacc):
-        """Total cost per env at qacc, in float64."""
-        p = as_dtype(pa, torch.float64)
-        q = qacc.double()
-        mu, scale = cone_params(p["fr"], p["impratio"], p["cdim"])
-        jar = (p["J"] * q[:, None, :]).sum(-1) - p["aref"]
-        return elliptic_total_cost(q, jar, p["qM"], p["a_s"], p["D"], p["fl"], p["act"], mu, scale, ne=p["ne"],
-                                   nf=p["nf"], nh=p["base"], S=p["ncon"], cdim=p["cdim"])
-
-    def compare(pa, what, iterations, ls_iterations, use_ws=True):
-        """Kernel vs plain float32 (and plain float32 vs float64) at the given
-        iteration counts; returns (per-env relative error, max |err|, cost
-        excess of the kernel over the plain version per env)."""
-        kw = dict(iterations=iterations, ls_iterations=ls_iterations, use_ws=use_ws)
-        got, want = kern(pa, **kw), _newton_arrays_elliptic(**pa, **kw)
-        exact = _newton_arrays_elliptic(**as_dtype(pa, torch.float64), **kw)
-        rel, err = env_rel_err(got, want, what)
-        rel_pe, _ = env_rel_err(want, exact, what)
-        rel_ke, _ = env_rel_err(got, exact, what)
-        c_got, c_want = cost(pa, got[0]), cost(pa, want[0])
-        excess = (c_got - c_want) / c_want.abs().clamp(min=1.0)  # relative, absolute below a cost of 1
-        print(f"{what} ({iterations} x {ls_iterations}): env-relative |kernel - plain| max {rel.max().item():.3e}, "
-              f"share <= {ELLIPTIC_ENV_TOL}: kernel-plain {(rel <= ELLIPTIC_ENV_TOL).double().mean().item():.4f} "
-              f"plain-f64 {(rel_pe <= ELLIPTIC_ENV_TOL).double().mean().item():.4f} "
-              f"kernel-f64 {(rel_ke <= ELLIPTIC_ENV_TOL).double().mean().item():.4f}; "
-              f"cost excess max {excess.max().item():.3e} min {excess.min().item():.3e}, "
-              f"mean cost kernel/plain - 1 = {(c_got.mean() / c_want.mean() - 1).item():.3e}; max |err| {err:.3e}")
-        return rel, err, excess, (c_got.mean() / c_want.mean() - 1).item()
-
-    def strict(pa, what, use_ws=True):
-        rel1, err1, _, _ = compare(pa, what, 3, 1, use_ws)
-        share = (rel1 <= ELLIPTIC_ENV_TOL).double().mean().item()
-        if share < NEWTON_MIN_SHARE or rel1.max().item() > NEWTON_ENV_RTOL:
-            fail(f"{what}, one line-search step: {share:.4f} of envs within {ELLIPTIC_ENV_TOL}, "
-                 f"worst {rel1.max().item():.3e}")
-        relc, errc, excess, _ = compare(pa, what, CONVERGED["iterations"], CONVERGED["ls_iterations"], use_ws)
-        share = (relc <= ELLIPTIC_CONVERGED_TOL).double().mean().item()
-        if share < NEWTON_MIN_SHARE or relc.max().item() > NEWTON_ENV_RTOL:
-            fail(f"{what}, converged: {share:.4f} of envs within {ELLIPTIC_CONVERGED_TOL}, "
-                 f"worst {relc.max().item():.3e}")
-        if excess.max().item() > ELLIPTIC_COST_RTOL:
-            fail(f"{what}, converged: the kernel's cost exceeds the plain version's by {excess.max().item():.3e}")
-        return max(err1, errc)
+    kern, cost, compare = elliptic_kern, elliptic_cost, elliptic_compare
 
     m = load_model("quadruped_elliptic", device=device)
     s = m.skel
@@ -1870,7 +1942,7 @@ def check_newton_elliptic(device, results):
           f"newton_elliptic holds {envs} envs per SM ({sms} SMs)")
     if 2 * sms * envs < NUM_ENVS:
         fail(f"newton_elliptic: {envs} envs per SM take more than two waves for {NUM_ENVS} envs")
-    err = strict(pa, "newton_elliptic quadruped")  # max |err| where the bars are elementwise
+    err = elliptic_held(pa, "newton_elliptic quadruped", f64=False)  # max |err| where the bars are elementwise
     _, _, _, mean_excess = compare(pa, "newton_elliptic quadruped", it, ls)
     if abs(mean_excess) > ELLIPTIC_MEAN_COST_RTOL:
         fail(f"newton_elliptic quadruped: mean cost differs from the plain version's by {mean_excess:.3e}")
@@ -1879,7 +1951,7 @@ def check_newton_elliptic(device, results):
 
     for nh, cd in ((0, 3), (9, 3), (0, 6), (9, 6)):
         sp = synthetic_elliptic_problem(257, nv=12, nh=nh, S=6, cdim=cd, seed=7 + nh + cd, device=device)
-        err = max(err, strict(sp, f"newton_elliptic synthetic nh={nh} cdim={cd}"))
+        err = max(err, elliptic_held(sp, f"newton_elliptic synthetic nh={nh} cdim={cd}", f64=False))
     bad = 5  # an env of the first 37, so every slice below holds it
     for nv in NEWTON_NVS:
         for cd in range(2, 7):
@@ -2039,6 +2111,42 @@ def quadruped_sensors_xml() -> str:
     rows += [f'<contact geom1="{f}_foot" geom2="floor" data="found force" reduce="netforce"/>' for f in FEET]
     sensors = "  <sensor>\n" + "".join(f"    {r}\n" for r in rows) + "  </sensor>\n"
     return xml.replace("</mujoco>", sensors + "</mujoco>")
+
+
+def soft_feet_xml(cone: str | None = None) -> str:
+    """The main path's quadruped (read as text) with condim="4" on its four
+    foot geoms: each foot-floor pair takes condim 4, torsional friction
+    0.02 from the default friction, every other pair condim 3 (nefc 144
+    pyramidal: 24 head rows, 4 x 6 and 24 x 4 contact rows). `cone`
+    ("elliptic") compiles it with elliptic cones: condims 3 and 4 mixed,
+    no single contiguous condim tail."""
+    xml = (REPO / QUADRUPED_XML).read_text()
+    for f in FEET:
+        foot = f'<geom name="{f}_foot" type="sphere"'
+        if foot not in xml:
+            fail(f"soft_feet_xml: no {f}_foot geom in {QUADRUPED_XML}")
+        xml = xml.replace(foot, f'<geom name="{f}_foot" condim="4" type="sphere"')
+    if cone:
+        xml = _with_option(xml, f'cone="{cone}"')
+    return xml
+
+
+def condim6_xml() -> str:
+    """The main path's quadruped (read as text) with condim="6" on the floor
+    and elliptic cones: every pair takes condim 6 (torsional 0.02, rolling
+    0.01 from the default friction), one contiguous cdim-6 tail (nefc 192)."""
+    xml = (REPO / QUADRUPED_XML).read_text()
+    floor = '<geom name="floor" type="plane"'
+    if floor not in xml:
+        fail(f"condim6_xml: no floor geom in {QUADRUPED_XML}")
+    return _with_option(xml.replace(floor, '<geom name="floor" condim="6" type="plane"'), 'cone="elliptic"')
+
+
+def _with_option(xml: str, attr: str) -> str:
+    """`xml` with `attr` added to its <option> element."""
+    if "<option " not in xml:
+        fail(f"no <option> element to add {attr} to")
+    return xml.replace("<option ", f"<option {attr} ", 1)
 
 
 def tests_xml(file: str, name: str, folder: str = "tests") -> str:
@@ -2239,6 +2347,22 @@ ARM_PER_STEP = {"cholesky": 1, "cho_solve": 1, "solve_pd": 1, "newton_dense": 1}
 # the mocap weld's: qM's factor, qacc_smooth's solve and the dense Newton
 # kernel (six equality rows, no contacts; no joint damping)
 WELD_PER_STEP = {"cholesky": 1, "cho_solve": 1, "newton_dense": 1}
+# soft_feet's: the dense Newton kernel (condim-4 blocks do not factor) and the Euler solve
+SOFT_FEET_PER_STEP = {"cholesky": 1, "cho_solve": 1, "solve_pd": 1, "newton_dense": 1}
+# soft_feet_elliptic's: no Newton kernel (the JAX package has none for mixed
+# condims either); kernel 3 for each of the quadruped's 3 Newton iterations'
+# Hessian solves and once for the Euler solve
+SOFT_ELLIPTIC_PER_STEP = {"cholesky": 1, "cho_solve": 1, "solve_pd": 4}
+CONDIM6_PER_STEP = {"cholesky": 1, "cho_solve": 1, "solve_pd": 1, "newton_elliptic": 1}
+# implicitfast: kernel 3 is its (qM - h D) solve, in the Euler solve's place;
+# implicit: an LU (torch.linalg.solve) there; RK4: four forwards and no solve
+# (implicitfast at the quadruped's own 3 x 6 iterations is chaotic in the
+# solver's decisions: the CPU's own rollout moves 3.5e-2 in qvel after 20
+# steps under a 1e-6 nudge of its start, 1.9e-4 at CONVERGED; its card-vs-CPU
+# check runs at CONVERGED)
+IMPLICITFAST_PER_STEP = TERRAIN_PER_STEP
+IMPLICIT_PER_STEP = DROP_PER_STEP
+RK4_PER_STEP = {"cholesky": 4, "cho_solve": 4, "newton_structured": 4}
 # path -> its model (an asset, or `build`(device); and `opt` overrides),
 # batch, steps, start, controller and the kernels every step launches (at
 # least once each; exactly per_step where given). `floor` paths are held to
@@ -2303,6 +2427,25 @@ PATHS = {
     "refsite_arm": dict(build=lambda device: xml_model(refsite_arm_xml(), device), envs=NUM_ENVS,
                         steps=REFSITE_STEPS, start=refsite_start, ctrl=None, kernels=tuple(TERRAIN_PER_STEP),
                         per_step=TERRAIN_PER_STEP, keep=True, vs_cpu="converged"),
+    "soft_feet": dict(build=lambda device: xml_model(soft_feet_xml(), device), envs=NUM_ENVS, steps=SOFT_FEET_STEPS,
+                      start=initial_batch, ctrl=pd_ctrl, kernels=tuple(SOFT_FEET_PER_STEP),
+                      per_step=SOFT_FEET_PER_STEP, z=(0.20, 0.32), keep=True),
+    "soft_feet_elliptic": dict(build=lambda device: xml_model(soft_feet_xml("elliptic"), device), envs=NUM_ENVS,
+                               steps=SOFT_ELLIPTIC_STEPS, start=initial_batch, ctrl=pd_ctrl,
+                               kernels=tuple(SOFT_ELLIPTIC_PER_STEP), per_step=SOFT_ELLIPTIC_PER_STEP,
+                               z=(0.20, 0.32), keep=True, vs_cpu="converged"),
+    "condim6_elliptic": dict(build=lambda device: xml_model(condim6_xml(), device), envs=NUM_ENVS,
+                             steps=CONDIM6_STEPS, start=initial_batch, ctrl=pd_ctrl, kernels=tuple(CONDIM6_PER_STEP),
+                             per_step=CONDIM6_PER_STEP, z=(0.20, 0.32), keep=True, vs_cpu="converged"),
+    "quadruped_implicitfast": dict(model="quadruped", opt=dict(integrator=IMPLICITFAST), envs=NUM_ENVS, steps=IMPLICITFAST_STEPS,
+                                   start=initial_batch, ctrl=pd_ctrl, kernels=tuple(IMPLICITFAST_PER_STEP),
+                                   per_step=IMPLICITFAST_PER_STEP, z=(0.20, 0.32), keep=True, vs_cpu="converged"),
+    "quadruped_implicit": dict(model="quadruped", opt=dict(integrator=IMPLICIT), envs=NUM_ENVS, steps=IMPLICIT_STEPS,
+                               start=initial_batch, ctrl=pd_ctrl, kernels=tuple(IMPLICIT_PER_STEP),
+                               per_step=IMPLICIT_PER_STEP, z=(0.20, 0.32)),
+    "quadruped_rk4": dict(model="quadruped", opt=dict(integrator=RK4), envs=NUM_ENVS, steps=RK4_STEPS,
+                          start=initial_batch, ctrl=pd_ctrl, kernels=tuple(RK4_PER_STEP), per_step=RK4_PER_STEP,
+                          z=(0.20, 0.32)),
 }
 # the floor, terrain and `keep` paths' final states (the card-vs-CPU
 # checks, the starts of later paths, the sensor path's checks)
@@ -2345,6 +2488,11 @@ PHASE_SHAPES = {
     # the weld, drag and refsite paths (their Newton cases: check_newton_weld), and iLQR on the ball joint
     "mocap_weld": ((NUM_ENVS, 6), "mocap_weld"), "mocap_drag": ((NUM_ENVS, 6), "mocap_drag"),
     "refsite_arm": ((NUM_ENVS, 3), "refsite_arm"), "ilqr_ball": ((1, 3), None),
+    # the condim and integrator paths (their Newton cases: check_newton_condim)
+    "soft_feet": ((NUM_ENVS, 18), "soft_feet"), "soft_feet_elliptic": ((NUM_ENVS, 18), None),
+    "condim6_elliptic": ((NUM_ENVS, 18), "condim6_elliptic"),
+    "quadruped_implicitfast": ((NUM_ENVS, 18), "quadruped"), "quadruped_implicit": ((NUM_ENVS, 18), "quadruped"),
+    "quadruped_rk4": ((NUM_ENVS, 18), "quadruped"),
 }
 # Section 9's phases, timed in section 9 (time_linalg_shapes) so that
 # section 3 does the same work as before it; the evals' launches are
@@ -2605,13 +2753,17 @@ def stage_split(name: str, device, card: str, steps: int = 10) -> dict:
     import torch
 
     from ambersim_tpu_torch.engine import collision, constraint, integrate, sensor, smooth, solver
+    from ambersim_tpu_torch.engine.forward import forward
 
     m = path_model(name, device)
+    # the model's integrator (RK4's three more forwards inside its stage)
+    integrator = {RK4: ("rk4", lambda m, d: integrate.rk4(m, d, forward)), IMPLICIT: ("implicit", integrate.implicit),
+                  IMPLICITFAST: ("implicitfast", integrate.implicitfast)}.get(int(m.opt.integrator),
+                                                                              ("euler", integrate.euler))
     stages = (("fwd_position_smooth", smooth.fwd_position_smooth), ("collision", collision.collision),
               ("make_constraint", constraint.make_constraint), ("fwd_velocity", smooth.fwd_velocity),
               ("fwd_actuation", smooth.fwd_actuation), ("fwd_acceleration", smooth.fwd_acceleration),
-              ("solve", solver.solve)) + ((("sensors", sensor.sensors),) if m.skel.nsensor else ()) + (
-              ("euler", integrate.euler),)
+              ("solve", solver.solve)) + ((("sensors", sensor.sensors),) if m.skel.nsensor else ()) + (integrator,)
     times = {k: [] for k, _ in stages}
     d = SETTLED[name]
     for _ in range(steps):
@@ -3353,6 +3505,225 @@ def check_newton_weld(device, results) -> None:
         SHAPE_TIMES[(key, name)] = (cuda_ms(lambda: kern(own)), bound["bound_ms"])
         print(f"kernel {key}: {name} B={NUM_ENVS} at {own} {SHAPE_TIMES[(key, name)][0]:.4f} ms, bound "
               f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}); {envs} envs resident per SM", flush=True)
+
+
+def spin_pair_xml() -> str:
+    """tests/test_elliptic.py's spin-down sphere: condim 4, elliptic cones,
+    friction 0.8 0.2 0.01, 1 mm into the floor (its XML read as text)."""
+    return tests_xml("test_elliptic.py", "XML").format(fr="0.8 0.2 0.01", condim=4, imp=1.0, z=0.0495)
+
+
+def spin_start(m, batch: int, device):
+    """The sphere at rest in the floor spinning at SPIN_QVEL about the normal,
+    plus 0.5 N(0, 1) on every velocity (numpy.random.default_rng(19))."""
+    import numpy as np
+    import torch
+
+    from ambersim_tpu_torch.engine import make_data
+
+    qvel = 0.5 * np.random.default_rng(19).standard_normal((batch, m.skel.nv)).astype(np.float32)
+    qvel[:, 5] += SPIN_QVEL
+    return make_data(m, batch).replace(qvel=torch.as_tensor(qvel, device=device))
+
+
+def elliptic_operands(m, d, seed: int) -> dict:
+    """Kernel 6's operands on a pre-solve Data of a model with one
+    contiguous elliptic condim tail (solver_operands with its warmstart)."""
+    from ambersim_tpu_torch.engine.solver import elliptic_tail
+
+    s = m.skel
+    cdim, slots, base, full = elliptic_tail(s)
+    fr = d.contact.friction if full else d.contact.friction[:, slots]
+    return dict(solver_operands(m, d, seed), fr=fr, impratio=m.opt.impratio, ne=int(s.ne), nf=int(s.nf), base=base,
+                ncon=len(slots), cdim=cdim)
+
+
+def check_solve_pd_operands(A, b, what: str, results) -> None:
+    """Kernel 3 on a path's own systems A x = b (B, n, n), (B, n) against
+    its plain version. An env is within when its largest |difference| is at
+    most LINALG_TOL of its largest |component|: where plain float32 meets
+    its float64 run so on at least NEWTON_MIN_SHARE of the envs, the kernel
+    meets plain float32 so on as many, and no env by more than
+    NEWTON_ENV_RTOL; else the kernel is held against float64 (vs_float64).
+    Prints its time beside the plain version's and the bound."""
+    import torch
+
+    from ambersim_tpu_torch.engine import linalg as plain
+    from ambersim_tpu_torch.ops import linalg as kernels
+
+    def within(x, y):
+        return (x[0] - y[0]).abs().amax(1) <= LINALG_TOL * y[0].abs().amax(1)
+
+    A, b = A.contiguous(), b.contiguous()
+    got, want = (kernels.solve_pd_batched(A, b),), (plain.solve_pd_unrolled(A, b),)
+    exact = (plain.solve_pd_unrolled(A.double(), b.double()),)
+    if not torch.isfinite(got[0]).all():
+        fail(f"{what}: non-finite kernel output")
+    share = within(want, exact).double().mean().item()
+    rel = (got[0] - want[0]).abs().amax(1) / want[0].abs().amax(1).clamp(min=1e-30)
+    err = (got[0] - want[0]).abs().max().item()
+    print(f"{what}: plain float32 meets float64 on {share:.4f} of the envs; kernel-plain share "
+          f"{within(got, want).double().mean().item():.4f}, worst env {rel.max().item():.3e}, max |err| {err:.3e}")
+    if share >= NEWTON_MIN_SHARE:
+        if within(got, want).double().mean().item() < NEWTON_MIN_SHARE or rel.max().item() > NEWTON_ENV_RTOL:
+            fail(f"{what}: the kernel misses the plain version")
+        results["solve_pd"]["max_abs_err"] = max(results["solve_pd"]["max_abs_err"], err)
+    else:
+        vs_float64(got, want, exact, what, within=within, names=("x",))
+    B, n = b.shape
+    ms, plain_t = cuda_ms(lambda: kernels.solve_pd_batched(A, b)), plain_ms(lambda: plain.solve_pd_unrolled(A, b))
+    bnd = linalg_bound("solve_pd", B, n)
+    print(f"kernel solve_pd: {what} B={B} n={n} {ms:.4f} ms, plain {plain_t:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+          f"({bnd['bound_by']})", flush=True)
+
+
+def check_newton_condim(device, results) -> None:
+    """The kernels on the condim and integrator paths' final states
+    (SETTLED), with a warmstart of qacc_smooth + 0.1 N(0, 1) for the Newton
+    kernels: kernel 5 on soft_feet's rows (nefc 144: condim-4 and condim-3
+    pyramids) at the paths' own 3 x 6 iterations, against the plain version
+    at the NEWTON_* bars where plain float32 meets float64 on at least
+    NEWTON_MIN_SHARE of the envs, else against float64 (vs_float64); kernel
+    6 on condim6_elliptic's (cdim 6, nefc 192) and on the spin-down sphere's
+    (cdim 4, spin_start at NUM_ENVS envs) at the ELLIPTIC_* bars, or
+    against float64 where plain float32 misses it (elliptic_held: one
+    line-search step, converged and by cost; the quadruped's batch mean
+    cost at its own 3 x 6 within ELLIPTIC_MEAN_COST_RTOL), with its shared
+    memory a block and its resident envs per SM; kernel 3 on
+    soft_feet_elliptic's last Newton Hessian (the general elliptic solve's
+    third iteration) and on quadruped_implicitfast's (qM - h D) system
+    (check_solve_pd_operands). Each kernel timed at its case; the host
+    time of the general elliptic solve and of the implicit integrators'
+    velocity derivatives."""
+    import torch
+
+    from ambersim_tpu_torch.engine import integrate, linalg, solver
+    from ambersim_tpu_torch.engine.forward import forward
+    from ambersim_tpu_torch.engine.solver import _newton_arrays, _newton_arrays_elliptic, _newton_elliptic_general
+    from ambersim_tpu_torch.engine.solver import elliptic_blocks
+    from ambersim_tpu_torch.ops._build import library
+    from ambersim_tpu_torch.ops.newton import dense_occupancy, elliptic_occupancy, newton_solve_dense
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+
+    def settled(name):
+        m = path_model(name, device)
+        d = SETTLED[name]
+        return m, d.replace(ctrl=pd_ctrl(d))
+
+    # ---- kernel 5 on soft_feet ----
+    m, d = settled("soft_feet")
+    s = m.skel
+    d = pre_solve(m, d)
+    pa = solver_operands(m, d, seed=19)
+    kw = dict(iterations=int(m.opt.iterations), ls_iterations=int(m.opt.ls_iterations), use_ws=True)
+
+    def kern5():
+        return newton_solve_dense(pa["J"], pa["qM"], pa["aref"], pa["D"], pa["fl"], pa["act"], pa["a_s"], pa["ws"],
+                                  pa["tol"], ne=int(s.ne), nf=int(s.nf), **kw)
+
+    def ref5(dtype=torch.float32):
+        return _newton_arrays(**as_dtype(pa, dtype), ne=int(s.ne), nf=int(s.nf), **kw)
+
+    what = f"newton_dense soft_feet (nefc {s.nefc}, nv {s.nv}, condim 4 feet)"
+    got, plain, exact = kern5(), ref5(), ref5(torch.float64)
+    share = newton_within(plain, exact).double().mean().item()
+    print(f"{what}: active rows per env {pa['act'].sum(1).mean().item():.3f} of {s.nefc}; plain float32 meets "
+          f"float64 on {share:.4f} of the envs")
+    if share >= NEWTON_MIN_SHARE:
+        err = newton_err(got, plain, what)
+        results["newton_dense"]["max_abs_err"] = max(results["newton_dense"]["max_abs_err"], err)
+        newton_err(plain, exact, f"{what}, plain float32 vs float64")
+    else:
+        vs_float64(got, plain, exact, what)
+    envs = dense_occupancy(s.nv, s.nefc)
+    operands = [pa[k] for k in ("J", "qM", "aref", "D", "fl", "act", "a_s", "ws")]
+    bnd = newton_bound(operands, s.nefc, s.nv, pa["act"], kw["iterations"], kw["ls_iterations"])
+    SHAPE_TIMES[("newton_dense", "soft_feet")] = (cuda_ms(kern5), bnd["bound_ms"])
+    # the J rows it keeps in shared memory at nefc 144 leave 12 envs an SM:
+    # 2.59 waves of 4096 envs on 132 SMs, a finding for a redesign that
+    # streams J (ROADMAP queue 2), printed rather than held to the two waves
+    # the paths of earlier shapes are held to
+    print(f"kernel newton_dense: soft_feet B={NUM_ENVS} {SHAPE_TIMES[('newton_dense', 'soft_feet')][0]:.4f} ms, plain "
+          f"{plain_ms(ref5):.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); shared memory "
+          f"{library().amb_newton_dense_smem_bytes(s.nv, s.nefc)} B a block; {envs} envs resident per SM "
+          f"({sms} SMs): {NUM_ENVS / (sms * envs):.2f} waves", flush=True)
+
+    # ---- kernel 6 on condim6_elliptic (cdim 6) and the spin-down sphere (cdim 4) ----
+    m, d = settled("condim6_elliptic")
+    spin = xml_model(spin_pair_xml(), device)
+    for name, m, d in (("condim6_elliptic", m, pre_solve(m, d)),
+                       ("spin-down sphere", spin, pre_solve(spin, spin_start(spin, NUM_ENVS, device)))):
+        s = m.skel
+        pa = elliptic_operands(m, d, seed=20)
+        S, cdim = pa["ncon"], pa["cdim"]
+        what = f"newton_elliptic {name} (cdim {cdim}, nefc {s.nefc}, nv {s.nv}, {S} contacts)"
+        # at nefc 192 its rows in shared memory leave 8 envs an SM, 3.88
+        # waves of 4096 envs on 132 SMs: printed, as kernel 5's above
+        smem = library().amb_newton_elliptic_smem_bytes(s.nv, s.nefc, S, cdim)
+        envs = elliptic_occupancy(s.nv, s.nefc, S, cdim)
+        print(f"{what}: active efc rows per env {pa['act'].sum(1).mean().item():.1f}; shared memory {smem} B a "
+              f"block; {envs} envs resident per SM ({sms} SMs): {NUM_ENVS / (sms * envs):.2f} waves")
+        err = elliptic_held(pa, what)
+        results["newton_elliptic"]["max_abs_err"] = max(results["newton_elliptic"]["max_abs_err"], err)
+        it, ls = int(m.opt.iterations), int(m.opt.ls_iterations)
+        if name == "condim6_elliptic":
+            _, _, _, mean_excess = elliptic_compare(pa, what, it, ls)
+            if abs(mean_excess) > ELLIPTIC_MEAN_COST_RTOL:
+                fail(f"{what}: mean cost differs from the plain version's by {mean_excess:.3e}")
+        kw = dict(iterations=it, ls_iterations=ls, use_ws=True)
+        ms = cuda_ms(lambda: elliptic_kern(pa, **kw))
+        # the sphere's plain version at its 30 x 30 is ~1.3 s of host
+        # dispatch a call: one timed call after the warm one
+        plain_t = (plain_ms if name == "condim6_elliptic" else lambda fn: cuda_ms(fn, reps=1, calls=1))(
+            lambda: _newton_arrays_elliptic(**pa, **kw))
+        operands = [pa[k] for k in ("J", "qM", "aref", "D", "fl", "act", "a_s", "ws", "fr")]
+        bnd = newton_bound(operands, s.nefc, s.nv, pa["act"], it, ls)
+        if name == "condim6_elliptic":
+            SHAPE_TIMES[("newton_elliptic", name)] = (ms, bnd["bound_ms"])
+        print(f"kernel newton_elliptic: {name} B={NUM_ENVS} at {it} x {ls} {ms:.4f} ms, plain {plain_t:.4f} ms, bound "
+              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})", flush=True)
+
+    # ---- kernel 3 on the general elliptic solve's last Hessian and implicitfast's system ----
+    m, d = settled("soft_feet_elliptic")
+    s = m.skel
+    d = pre_solve(m, d)
+    systems = []
+
+    def capture(H, g):
+        systems.append((H, g))
+        return linalg.solve_pd(H, g)
+
+    tol = m.opt.tolerance * s.nv * torch.clamp(m.body_mass.sum(), min=1.0)
+    _newton_elliptic_general(d.efc_J, d.qM, d.efc_aref, d.efc_D, d.efc_frictionloss, d.efc_active.float(),
+                             d.qacc_smooth, d.qacc_warmstart, tol, *elliptic_blocks(s, d), m.opt.impratio,
+                             ne=int(s.ne), nf=int(s.nf), iterations=int(m.opt.iterations),
+                             ls_iterations=int(m.opt.ls_iterations), use_ws=True, solve=capture)
+    check_solve_pd_operands(*systems[-1], f"soft_feet_elliptic Newton Hessian (iteration {len(systems)})", results)
+    general = host_ms(lambda: solver.solve(m, d))
+    m, d = settled("quadruped_implicitfast")
+    d = forward(m, d)
+    check_solve_pd_operands(*integrate.implicit_system(m, d, full=False), "quadruped_implicitfast (qM - h D)",
+                            results)
+    print(f"host ms, median of 5 synced calls at {NUM_ENVS} envs: the general elliptic solve on soft_feet_elliptic "
+          f"{general:.3f}, the Coriolis derivative on the quadruped "
+          f"{host_ms(lambda: integrate._coriolis_deriv(m, d)):.3f}, implicitfast's D "
+          f"{host_ms(lambda: integrate._qderiv_vel(m, d)):.3f}", flush=True)
+
+
+def host_ms(fn, calls: int = 5) -> float:
+    """Median wall ms of `calls` calls of fn, each ended by a synchronize."""
+    import numpy as np
+    import torch
+
+    times = []
+    for _ in range(calls + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times[1:]))
 
 
 def sensor_cols(m, stype) -> list:
@@ -4122,8 +4493,10 @@ def grad_kernels(device, results) -> None:
         if unread and any(g is not None for g in torch.autograd.grad(loss, unread, retain_graph=True,
                                                                      allow_unused=True)):
             fail("grad_kernels newton_structured: efc_bJ or efc_dsc got a gradient (the plain version reads J)")
-        ms = cuda_ms(lambda: torch.autograd.grad(loss, [leaves[n] for n in names], retain_graph=True), reps=3,
-                     calls=2)
+        # 2 x 1 calls after the warm one (3 x 2 until the condim and
+        # integrator phases came): a backward here is 14-330 ms
+        ms = cuda_ms(lambda: torch.autograd.grad(loss, [leaves[n] for n in names], retain_graph=True), reps=2,
+                     calls=1)
         results[k]["backward_ms"] = ms
         del leaves, outs, loss
         # the comparison, at the compared statics, on the first envs on the CPU
@@ -5542,7 +5915,8 @@ def run_phases(device, card: str, results: dict) -> None:
     check_newton_ladder(device, results)
     check_newton_tendon(device, results)
     check_newton_weld(device, results)
-    phase("check_newton_ladder, check_newton_tendon and check_newton_weld")
+    check_newton_condim(device, results)
+    phase("check_newton_ladder, check_newton_tendon, check_newton_weld and check_newton_condim")
     mesh_mesh_memory(device)
     section("5 (trajectory optimization, kernels 4 and 5 on the ladder's, model I/O's, the tendon and the weld paths' "
             "operands)")

@@ -362,52 +362,55 @@ WELDED_CONDIM4_XML = """
 """
 
 
+# the RK4 ball on the floor solved by CG, and with noslip iterations
+CG_XML = RK4_XML.replace('integrator="RK4"', 'solver="CG"')
+NOSLIP_XML = RK4_XML.replace('integrator="RK4"', 'noslip_iterations="3"')
+
+
 @pytest.mark.parametrize(
     "source, features",
     [
         (CAMPROJECTION_XML, ["cameras (camlight)", "camera projection sensors (CAMPROJECTION)"]),
-        ("SLIDE_RIG", ["contact condim 4/6"]),
-        (CONDIM46_XML, ["contact condim 4/6"]),
-        (ELLIPTIC_MIXED_XML, ["elliptic cones with mixed contact condims"]),
-        (RK4_XML, ["the RK4 integrator"]),
-        (WELDED_CONDIM4_XML, ["contact condim 4/6"]),
+        (CG_XML, ["the CG solver"]),
+        (NOSLIP_XML, ["noslip iterations"]),
     ],
-    ids=["camprojection", "contact_sensor_condim6", "condim46", "elliptic_mixed", "rk4", "welded_condim4"],
+    ids=["camprojection", "cg_solver", "noslip"],
 )
 def test_models_outside_the_slice_are_refused(source, features):
-    """Each feature outside the slice is refused by name: CAMPROJECTION,
-    condim 4 and 6 (tests/test_contact_sensor.py's first fixture, and on a
-    welded box, whose weld alone is in the slice), elliptic cones over mixed
-    condims and the RK4 integrator."""
+    """Each feature outside the slice is refused by name: CAMPROJECTION, the
+    CG solver and noslip iterations."""
     from ambersim_tpu_torch.io.bridge import model_from_numpy
-    from test_contact_sensor import SLIDE_RIG
 
-    source = {"SLIDE_RIG": SLIDE_RIG}.get(source, source)
     jm = tp.jax_model(source) if source.endswith(".xml") else tp.jax_model_from_xml(source)
     with pytest.raises(NotImplementedError) as err:
         model_from_numpy(*model_arrays(jm), device="cpu")
     for feature in features:
         assert feature in str(err.value)
     assert "sensors" not in str(err.value).split(": ", 1)[1].split(", ")  # sensors as such are in the slice
-    assert "weld" not in str(err.value)
+    assert "integrator" not in str(err.value) and "condim" not in str(err.value)
 
 
-@pytest.mark.parametrize("source", [HAND_WELD_XML, BALL_MOTOR_XML, "MOCAP_WELD", EXPLICIT_PAIR_XML],
-                         ids=["hand_weld", "ball_motor", "mocap_weld", "explicit_pair"])
+@pytest.mark.parametrize("source", [HAND_WELD_XML, BALL_MOTOR_XML, "MOCAP_WELD", EXPLICIT_PAIR_XML, "SLIDE_RIG",
+                                    CONDIM46_XML, ELLIPTIC_MIXED_XML, RK4_XML, WELDED_CONDIM4_XML],
+                         ids=["hand_weld", "ball_motor", "mocap_weld", "explicit_pair", "contact_sensor_condim6",
+                              "condim46", "elliptic_mixed", "rk4", "welded_condim4"])
 def test_models_the_slice_now_admits(source):
     """The models that stood for weld equality, a motor on a ball joint, the
-    mocap weld drag and an explicit <pair> load through the bridge, and one
-    step of 2 seeded envs matches the JAX package's (qpos atol 1e-4, qvel
-    atol 1e-3, as the main path's rollout)."""
+    mocap weld drag, an explicit <pair>, contacts of condim 4 and 6 (alone,
+    on a welded box and under tests/test_contact_sensor.py's contact
+    sensors), elliptic cones over condims 1 and 3 and the RK4 integrator
+    load through the bridge, and one step of 2 seeded envs matches the JAX
+    package's (qpos atol 1e-4, qvel atol 1e-3, as the main path's rollout)."""
     import jax
 
     from ambersim_tpu.engine import step as jax_step
     from ambersim_tpu_torch.core.types import JointType
     from ambersim_tpu_torch.engine import step
     from ambersim_tpu_torch.io.bridge import model_from_numpy
+    from test_contact_sensor import SLIDE_RIG
     from test_mocap import MOCAP_WELD
 
-    source = {"MOCAP_WELD": MOCAP_WELD}.get(source, source)
+    source = {"MOCAP_WELD": MOCAP_WELD, "SLIDE_RIG": SLIDE_RIG}.get(source, source)
     jm = tp.jax_model_from_xml(source)
     m = model_from_numpy(*model_arrays(jm), device="cpu")
     qpos, qvel = tp.random_state(jm, 2, seed=5, qpos_scale=0.05, qvel_scale=0.3)

@@ -3,9 +3,9 @@ JAX package's (CPU): touch, force, torque, accelerometer and the joint-limit
 rows on tests/test_sensors.py's CONTACT_RIG (a brick resting on the floor,
 a pendulum on its limit); the <contact> sensor's reduce modes (none,
 mindist, maxforce, netforce), found counts, site filter, subtree and
-one-sided matching on tests/test_contact_sensor.py's fixtures 2 and 3
-(BOX_RIG, SUBTREE_RIG; its fixture 1 has condim 6, outside the slice), with
-pyramidal and elliptic cones; the shared intermediates (cacc, the contact
+one-sided matching on tests/test_contact_sensor.py's three fixtures
+(SLIDE_RIG, a sliding and spinning sphere with condim-6 friction, BOX_RIG,
+SUBTREE_RIG), with pyramidal and elliptic cones; the shared intermediates (cacc, the contact
 wrenches and world forces, cfrc_int); and <distance>, <normal>, <fromto> on
 tests/test_distance_sensors.py's pairs and cutoffs, with
 collision.geom_pair_distance itself.
@@ -28,7 +28,7 @@ import pytest
 import torch
 
 import chip_smoke
-from test_contact_sensor import BOX_RIG, SUBTREE_RIG
+from test_contact_sensor import BOX_RIG, SLIDE_RIG, SUBTREE_RIG
 from test_distance_sensors import BOX_B, CAP_A, CAP_B, SPHERE_A, SPHERE_B, _pair_xml
 from test_sensors import CONTACT_RIG
 from test_torch_sensors import TOL, assert_rows
@@ -114,7 +114,13 @@ def check_fixture(jm, tm, jd, after):
 # the box sliding at 0.8, 0.6, 0.4 and 0.2 m/s (tests/test_contact_sensor.py
 # slides it at 0.8)
 BOX_QVEL = [[v, 0, 0, 0, 0, 0] for v in (0.8, 0.6, 0.4, 0.2)]
+# the sphere sliding and spinning (tests/test_contact_sensor.py's
+# [1, 0.4, 0, 0, 0, 3], 4 steps) and three variations: its condim-6 contact's
+# torsional and rolling rows carry force
+SLIDE_QVEL = [[1.0, 0.4, 0, 0, 0, 3.0], [0.5, -0.2, 0, 1.0, 0, -2.0], [0.2, 0.6, 0, 0, 2.0, 1.0],
+              [0, 0, 0, 0, 0, 4.0]]
 FIXTURES = {
+    "slide_rig": lambda: stepped(SLIDE_RIG, 4, SLIDE_QVEL),
     "contact_rig": lambda: stepped(CONTACT_RIG, 60),
     "box_rig": lambda: stepped(BOX_RIG, 60, BOX_QVEL),
     "box_rig_elliptic": lambda: stepped(BOX_RIG.replace('<option timestep="0.002"/>',
