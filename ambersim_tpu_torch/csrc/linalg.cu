@@ -30,6 +30,10 @@
 // no step needs a predicate. At most 64 registers a thread, so 32 warps fit
 // on an SM and the main path's 4096 systems run in one wave.
 // Lanes n..31 idle: at n = 18 that is 44% of the lanes.
+// Kernel 2 also takes k right-hand sides per factor, (B, k, n): system
+// (e, j) is warp e k + j and reads factor e in place, so the factors are
+// not copied k times in device memory (the noslip pass solves every efc row
+// of J against one qM factor per env); with k = 1 it is the kernel above.
 //
 // The arithmetic is that of engine/linalg.py's plain versions up to FMA
 // contraction, summation order and, in kernel 2, reciprocals in place of
@@ -121,21 +125,23 @@ __device__ inline void warp_copy_window(float* dst, const float* src, int count)
 // NaNs. kWindow: the copy for systems that do not all start 16-byte
 // aligned (n odd); the aligned ones take warp_copy's 16-byte stores, in an
 // instantiation of their own so that neither carries the other's code.
+// The B systems are right-hand sides; system sys reads factor sys / k.
 template <bool kWindow>
 __global__ void __launch_bounds__(kWarps * 32, 8) cho_solve_kernel(const float* __restrict__ Lg,
                                                                    const float* __restrict__ b,
-                                                                   float* __restrict__ x, int B, int n) {
+                                                                   float* __restrict__ x, int B, int n, int k) {
   extern __shared__ float4 smem4[];
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int sys = blockIdx.x * kWarps + w;
   if (sys >= B) return;
   float* l = reinterpret_cast<float*>(smem4) + w * warp_floats(n);
   const int i = min(lane, n - 1);
+  const float* factor = Lg + (size_t)(sys / k) * n * n;
   float y = lane < n ? b[(size_t)sys * n + lane] : 0.f;
   if constexpr (kWindow) {
-    warp_copy_window(l, Lg + (size_t)sys * n * n, n * n);
+    warp_copy_window(l, factor, n * n);
   } else {
-    warp_copy(l, Lg + (size_t)sys * n * n, n * n);
+    warp_copy(l, factor, n * n);
   }
   for (int k = 0; k < i; ++k) l[k * n + i] = 0.f;
   __syncwarp();
@@ -192,7 +198,7 @@ inline size_t smem_for(int n) { return (size_t)kWarps * warp_floats(n) * sizeof(
 
 // C interface, bound with ctypes (ambersim_tpu_torch/ops/linalg.py). Each
 // returns cudaGetLastError() after its launch; the caller has checked
-// shapes (1 <= n <= 32, B >= 1), dtype, device and contiguity.
+// shapes (1 <= n <= 32, B >= 1, k >= 1), dtype, device and contiguity.
 extern "C" {
 
 int amb_cholesky(const float* A, float* L, int B, int n, void* stream) {
@@ -200,13 +206,21 @@ int amb_cholesky(const float* A, float* L, int B, int n, void* stream) {
   return (int)cudaGetLastError();
 }
 
-int amb_cho_solve(const float* L, const float* b, float* x, int B, int n, void* stream) {
+// k right-hand sides per factor: b and x are (B, k, n), L (B, n, n).
+int amb_cho_solve_rhs(const float* L, const float* b, float* x, int B, int k, int n, void* stream) {
+  const int systems = B * k;
   if (aligned_systems(L, n)) {
-    cho_solve_kernel<false><<<grid_for(B), kWarps * 32, smem_for(n), (cudaStream_t)stream>>>(L, b, x, B, n);
+    cho_solve_kernel<false><<<grid_for(systems), kWarps * 32, smem_for(n), (cudaStream_t)stream>>>(L, b, x, systems,
+                                                                                                    n, k);
   } else {
-    cho_solve_kernel<true><<<grid_for(B), kWarps * 32, smem_for(n), (cudaStream_t)stream>>>(L, b, x, B, n);
+    cho_solve_kernel<true><<<grid_for(systems), kWarps * 32, smem_for(n), (cudaStream_t)stream>>>(L, b, x, systems,
+                                                                                                   n, k);
   }
   return (int)cudaGetLastError();
+}
+
+int amb_cho_solve(const float* L, const float* b, float* x, int B, int n, void* stream) {
+  return amb_cho_solve_rhs(L, b, x, B, 1, n, stream);
 }
 
 int amb_solve_pd(const float* A, const float* b, float* x, int B, int n, void* stream) {

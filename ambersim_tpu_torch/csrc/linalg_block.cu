@@ -64,7 +64,8 @@
 // L_Kp y_p from the segments below, a thread a row, one barrier a tile; the
 // backward one is solve_pd_block's (tiled_back_solve). Zero entries of L are
 // not skipped: a zero pivot's 1/L_jj = inf meets them as 0 x inf, the plain
-// version's NaNs.
+// version's NaNs. With k right-hand sides per factor, (B, k, n), each is a
+// block of its own that reads its factor in place (block e k + j, factor e).
 //
 // The contracts of the warp-per-system kernels (linalg.cu) hold: only the
 // lower triangle enters the results (up to 3 entries above the diagonal are
@@ -514,15 +515,16 @@ __device__ void fwd_panel(const float* tiles, float* ldinv, float* y, int q) {
   if (lane == 0) store_row(yq, v);
 }
 
+// Block sys solves right-hand side sys of the B k, against factor sys / k.
 __global__ void __launch_bounds__(kThreads, 2) cho_solve_block_kernel(const float* __restrict__ Lg,
                                                                       const float* __restrict__ b,
-                                                                      float* __restrict__ x, int n) {
+                                                                      float* __restrict__ x, int n, int k) {
   extern __shared__ float smem[];
   const int nt = tiles_for(n), warp = threadIdx.x >> 5;
   float* tiles = smem;
   float* ldinv = tiles + nt * (nt + 1) / 2 * kTileFloats;
   float* y = ldinv + nt * kT;
-  const float* src = Lg + (size_t)blockIdx.x * n * n;
+  const float* src = Lg + (size_t)(blockIdx.x / k) * n * n;
   // b and tile columns 0, 1 and 2 by every thread, one group each (b with
   // column 0); then column p + 3 by warps 1-7 during panel p, one group a
   // panel on every thread (empty on warp 0 and past the last column), so
@@ -581,8 +583,8 @@ cudaError_t opt_in_pd() { return opt_in(solve_pd_block_kernel, tiled_smem_bytes(
 
 // C interface, bound with ctypes (ambersim_tpu_torch/ops/linalg.py). Each
 // returns cudaGetLastError() after its launch (or the opt-in's error); the
-// caller has checked shapes (32 < n <= 192, B >= 1), dtype, device and
-// contiguity.
+// caller has checked shapes (32 < n <= 192, B >= 1, k >= 1), dtype, device
+// and contiguity.
 extern "C" {
 
 int amb_cholesky_block(const float* A, float* L, int B, int n, void* stream) {
@@ -592,11 +594,16 @@ int amb_cholesky_block(const float* A, float* L, int B, int n, void* stream) {
   return (int)cudaGetLastError();
 }
 
-int amb_cho_solve_block(const float* L, const float* b, float* x, int B, int n, void* stream) {
+// k right-hand sides per factor: b and x are (B, k, n), L (B, n, n).
+int amb_cho_solve_block_rhs(const float* L, const float* b, float* x, int B, int k, int n, void* stream) {
   cudaError_t err = opt_in_solve();
   if (err != cudaSuccess) return (int)err;
-  cho_solve_block_kernel<<<B, kThreads, solve_smem_bytes(n), (cudaStream_t)stream>>>(L, b, x, n);
+  cho_solve_block_kernel<<<B * k, kThreads, solve_smem_bytes(n), (cudaStream_t)stream>>>(L, b, x, n, k);
   return (int)cudaGetLastError();
+}
+
+int amb_cho_solve_block(const float* L, const float* b, float* x, int B, int n, void* stream) {
+  return amb_cho_solve_block_rhs(L, b, x, B, 1, n, stream);
 }
 
 int amb_solve_pd_block(const float* A, const float* b, float* x, int B, int n, void* stream) {

@@ -1,5 +1,4 @@
-"""Forward dynamics and step (port of ambersim_tpu/engine/forward.py without
-the FWDINV and noslip branches, which `check_slice` refuses)."""
+"""Forward dynamics and step (port of ambersim_tpu/engine/forward.py)."""
 
 from __future__ import annotations
 
@@ -8,7 +7,7 @@ import contextlib
 import torch
 
 from ambersim_tpu_torch.core.types import Data, DisableBit, EnableBit, IntegratorType, Model
-from ambersim_tpu_torch.engine import collision, constraint, integrate, sensor, smooth, solver
+from ambersim_tpu_torch.engine import collision, constraint, integrate, noslip, sensor, smooth, solver
 from ambersim_tpu_torch.io.bridge import check_slice
 
 
@@ -53,6 +52,17 @@ def forward(m: Model, d: Data) -> Data:
         d = d.replace(qacc=d.qacc_smooth, qfrc_constraint=torch.zeros_like(d.qfrc_constraint))
     else:
         d = solver.solve(m, d)
+        if m.opt.noslip_iterations > 0:
+            d = noslip.noslip(m, d)
+    if m.opt.enableflags & EnableBit.FWDINV:
+        # mj_compareFwdInv: the constraint force recovered from the solved
+        # qacc by the inverse direction, and the discrepancy's norms
+        from ambersim_tpu_torch.engine.inverse import inv_constraint
+
+        di = inv_constraint(m, d)
+        d = d.replace(solver_fwdinv=torch.stack([
+            torch.linalg.vector_norm(d.qfrc_constraint - di.qfrc_constraint, dim=-1),
+            torch.linalg.vector_norm(d.efc_force - di.efc_force, dim=-1)], -1))
     if m.skel.nsensor and not (m.opt.disableflags & DisableBit.SENSOR):
         d = sensor.sensors(m, d)
     return d

@@ -56,7 +56,11 @@ def solve_upper_t(l: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def cho_solve_unrolled(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve A x = b given the lower Cholesky factor of A."""
+    """Solve A x = b given the lower Cholesky factor of A: l (B, n, n) and b
+    (B, n), or b (B, k, n), the k right-hand sides of env e against its
+    factor (broadcast, never copied)."""
+    if b.dim() == l.dim():
+        l = l.unsqueeze(-3)
     return solve_upper_t(l, solve_lower(l, b))
 
 
@@ -142,7 +146,8 @@ def cholesky(a: torch.Tensor) -> torch.Tensor:
 
 
 def cho_solve(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve A x = b from A's lower factor, (B, n, n) and (B, n) (kernel 2 on CUDA)."""
+    """Solve A x = b from A's lower factor, (B, n, n) and (B, n) or (B, k, n)
+    (kernel 2 on CUDA)."""
     return cho_solve_unrolled(l, b) if _plain(l) else cho_solve_kernel(l, b)
 
 

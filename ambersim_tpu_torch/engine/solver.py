@@ -1,5 +1,5 @@
-"""Newton constraint solver: pyramidal and elliptic cones (port of the Newton
-branches of ambersim_tpu/engine/solver.py).
+"""Constraint solvers: Newton and preconditioned nonlinear CG, pyramidal and
+elliptic cones (port of ambersim_tpu/engine/solver.py).
 
 Primal formulation (MuJoCo): minimize over qacc
     0.5*(a - a_smooth)^T M (a - a_smooth) + sum_i s_i(J_i a - aref_i)
@@ -30,6 +30,11 @@ the route's kernel (ops/newton.py) and never falls back to a plain version:
     structured -> dense -> jnp when the Newton kernels do not fit VMEM, as
     at the 32-body clutter scene's nv = 192), whose jnp Newton calls
     linalg.solve_pd under the env vmap (:481).
+With Option.solver CG, `solve` takes `_solve_cg` before any Newton route,
+on every device (the JAX package has no CG kernel either): Polak-Ribiere
+CG preconditioned with M^-1, whose applications are engine.linalg.cho_solve
+on qM's factor, kernel 2 on the card, once before the loop and once an
+iteration.
 Reverse-mode gradients: each kernel route goes through
 linalg.differentiable_dispatch, whose backward pass runs autograd through
 the route's plain version (what the JAX package differentiates,
@@ -47,7 +52,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ambersim_tpu_torch.core.types import ConeType, Data, DisableBit, Model
+from ambersim_tpu_torch.core.types import ConeType, Data, DisableBit, Model, SolverType
 from ambersim_tpu_torch.engine import linalg
 from ambersim_tpu_torch.engine.constraint import _pyramid_structure
 from ambersim_tpu_torch.engine.linalg import differentiable_dispatch, solve_pd_unrolled
@@ -575,6 +580,113 @@ def _newton_elliptic_general(J, qM, aref, D, fl, act, a_s, ws, tol, head, blocks
     return qacc, force, (J * force[..., None]).sum(-2)
 
 
+def _layout(m: Model, d: Data, D, act) -> tuple:
+    """(head, cones) of m's rows: every row pyramidal (slice(None), []), or
+    under elliptic cones the rows outside the cone blocks and each condim
+    block's operands (_cone_operands)."""
+    if not _is_elliptic(m):
+        return slice(None), []
+    head, blocks = elliptic_blocks(m.skel, d)
+    return head, _cone_operands(D, act, blocks, m.opt.impratio)
+
+
+def _layout_costs(jar, D, fl, act, head, cones, ne: int, nf: int):
+    """Per-row (cost, force, quad) of every row, (B, nefc) each: the head
+    rows' pyramidal terms, each cone block's cost on its normal row and its
+    forces on its rows, with no quadratic rows (their Hessian is _zone_W's)."""
+    if not cones:
+        return _head_cost(jar, D, fl, act, head, ne, nf)
+    cost, force = torch.zeros_like(jar), torch.zeros_like(jar)
+    quad = torch.zeros(jar.shape, dtype=torch.bool, device=jar.device)
+    cost[:, head], force[:, head], quad[:, head] = _head_cost(jar, D, fl, act, head, ne, nf)
+    for c in cones:
+        z = _zone(jar[:, c["rows"]], c)
+        cost[:, c["rows"][:, 0]] = z["cost"]
+        force[:, c["rows"]] = z["f_rows"]
+    return cost, force, quad
+
+
+def _row_costs(m: Model, d: Data, jar):
+    """Per-row cost, force (-dcost/djar) and quadratic mask of m's rows at
+    jar, (B, nefc) each (JAX solver.py:233-261): pyramidal rows, and under
+    elliptic cones each block's cone terms on its rows, contiguous tail or
+    any other layout."""
+    s = m.skel
+    act = d.efc_active.to(jar.dtype)
+    head, cones = _layout(m, d, d.efc_D, act)
+    return _layout_costs(jar, d.efc_D, d.efc_frictionloss, act, head, cones, int(s.ne), int(s.nf))
+
+
+def _solve_cg(m: Model, d: Data, tol, *, iterations: int, ls_iterations: int, use_ws: bool):
+    """Polak-Ribiere nonlinear CG on the primal cost, preconditioned with
+    M^-1, an exact line search an iteration (JAX _solve_cg, solver.py:
+    1024-1086, batch-first). Returns (qacc, efc_force, J^T efc_force).
+
+    The cost is the JAX package's `_total_cost` (solver.py:264-296; `_total`
+    here, the single tail's closed form being _zone's cost) and the line
+    search its `_line_search` (solver.py:299-408): the generic path's
+    guarded bracketed Newton on t for pyramidal rows (not the Newton
+    arrays' unguarded steps), each cone block in the closed form of its
+    scalar path (`_line_search` here). M^-1 g is
+    linalg.cho_solve on d.qLD: before the loop and once an iteration. As
+    in the JAX package, an iteration's step is kept only where it lowers
+    the cost and the cost before it fell by more than tol from the one
+    before that (prev_cost, carried unmasked); the gradient is taken again
+    at the kept point either way, beta = max(0, g_n (Mg_n - Mg) / max(g Mg,
+    1e-12)), and the result is the warmstart of the next step."""
+    s = m.skel
+    ne, nf = int(s.ne), int(s.nf)
+    J, aref, qM, a_s = d.efc_J, d.efc_aref, d.qM, d.qacc_smooth
+    D, fl = d.efc_D, d.efc_frictionloss
+    act = d.efc_active.to(a_s.dtype)
+    head, cones = _layout(m, d, D, act)
+
+    def total_cost(qacc, jar):
+        return _total(qacc, jar, qM, a_s, D, fl, act, head, cones, ne, nf)
+
+    def force_at(jar):
+        return _layout_costs(jar, D, fl, act, head, cones, ne, nf)[1]
+
+    def grad(qacc, jar):
+        return _mv(qM, qacc - a_s) - (J * force_at(jar)[..., None]).sum(-2)
+
+    jar = _mv(J, a_s) - aref
+    cost = total_cost(a_s, jar)
+    qacc = a_s
+    if use_ws:
+        jar_w = _mv(J, d.qacc_warmstart) - aref
+        cost_w = total_cost(d.qacc_warmstart, jar_w)
+        better = cost_w < cost
+        qacc = torch.where(better[:, None], d.qacc_warmstart, a_s)
+        jar = torch.where(better[:, None], jar_w, jar)
+        cost = torch.where(better, cost_w, cost)
+    g = grad(qacc, jar)
+    mg = linalg.cho_solve(d.qLD, g)
+    p = -mg
+    prev_cost = torch.full_like(cost, float("inf"))
+
+    for _ in range(iterations):
+        jp = _mv(J, p)
+        t = _line_search(jar, jp, (p * _mv(qM, qacc - a_s)).sum(-1), (p * _mv(qM, p)).sum(-1), D, fl, act, head,
+                         cones, ne, nf, ls_iterations)
+        qacc_n = qacc + t[:, None] * p
+        jar_n = jar + t[:, None] * jp
+        cost_n = total_cost(qacc_n, jar_n)
+        improved = (cost_n < cost) & (prev_cost - cost > tol)
+        qacc_n = torch.where(improved[:, None], qacc_n, qacc)
+        jar_n = torch.where(improved[:, None], jar_n, jar)
+        g_n = grad(qacc_n, jar_n)
+        mg_n = linalg.cho_solve(d.qLD, g_n)
+        beta = torch.clamp((g_n * (mg_n - mg)).sum(-1) / torch.clamp((g * mg).sum(-1), min=1e-12), min=0.0)
+        p = -mg_n + beta[:, None] * p
+        prev_cost = cost
+        cost = torch.where(improved, cost_n, cost)
+        qacc, jar, g, mg = qacc_n, jar_n, g_n, mg_n
+
+    force = force_at(jar)
+    return qacc, force, (J * force[..., None]).sum(-2)
+
+
 def elliptic_blocks(s, d: Data) -> tuple:
     """(head, blocks) of an elliptic layout for `_newton_elliptic_general`
     on d's device: the rows outside every cone block, in order, and each
@@ -621,7 +733,10 @@ newton_elliptic = differentiable_dispatch(_elliptic_kernel, _elliptic_plain)
 
 
 def solve(m: Model, d: Data) -> Data:
-    """Newton solve for qacc, efc_force and qfrc_constraint."""
+    """Constraint solve for qacc, efc_force and qfrc_constraint: CG when the
+    model asks for it (JAX solver.py:411-421), else Newton by the routes
+    above. check_slice refuses the PGS solver, which the JAX package runs
+    as Newton without a word."""
     s = m.skel
     if s.nefc == 0 or s.nv == 0:
         return d.replace(qacc=d.qacc_smooth)
@@ -629,6 +744,9 @@ def solve(m: Model, d: Data) -> Data:
     ls_iterations = int(max(m.opt.ls_iterations, 1))
     use_ws = not (m.opt.disableflags & DisableBit.WARMSTART)
     tol = m.opt.tolerance * s.nv * torch.clamp(m.body_mass.sum(), min=1.0)
+    if m.opt.solver == int(SolverType.CG):
+        qacc, force, qfrc = _solve_cg(m, d, tol, iterations=iterations, ls_iterations=ls_iterations, use_ws=use_ws)
+        return d.replace(qacc=qacc, qfrc_constraint=qfrc, efc_force=force, qacc_warmstart=qacc)
     act = d.efc_active.to(d.qpos.dtype)
     # the plain versions on a CPU tensor; on the card the batched arrays
     # themselves when nv is past the Newton kernels (their Hessian solve is

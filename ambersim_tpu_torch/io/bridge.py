@@ -36,7 +36,6 @@ from ambersim_tpu_torch.core.types import (
     ConeType,
     Contact,
     Data,
-    EnableBit,
     GeomType,
     Model,
     Option,
@@ -173,12 +172,10 @@ def check_slice(m: Model) -> None:
     for t1, t2 in set(zip(np.asarray(s.pair_ctype1).tolist(), np.asarray(s.pair_ctype2).tolist())):
         if (t1, t2) not in _NARROWPHASE:
             missing.append(f"{GeomType(t1).name.lower()}-{GeomType(t2).name.lower()} contact pairs")
-    if o.solver != int(SolverType.NEWTON):
+    # Newton and CG are ported; the JAX package runs a PGS model as Newton
+    # without a word (solver.py:419-421), which the port does not copy
+    if o.solver not in (int(SolverType.NEWTON), int(SolverType.CG)):
         missing.append(f"the {SolverType(o.solver).name} solver")
-    if o.noslip_iterations > 0:
-        missing.append("noslip iterations")
-    if o.enableflags & EnableBit.FWDINV:
-        missing.append(f"the {EnableBit.FWDINV.name} flag")
     # the bf16 Hessian lives on the batched-arrays route only (nv past the
     # Newton kernels, pyramidal cones), where the JAX package applies it
     if o.hessian_bf16 and s.nv <= MAX_NV:

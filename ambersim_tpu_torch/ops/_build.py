@@ -103,6 +103,8 @@ def library() -> ctypes.CDLL:
         lib.amb_solve_pd.argtypes = [P, P, P, I, I, P]
         lib.amb_cholesky_block.argtypes = [P, P, I, I, P]
         lib.amb_cho_solve_block.argtypes = [P, P, P, I, I, P]
+        lib.amb_cho_solve_rhs.argtypes = [P, P, P, I, I, I, P]
+        lib.amb_cho_solve_block_rhs.argtypes = [P, P, P, I, I, I, P]
         lib.amb_solve_pd_block.argtypes = [P, P, P, I, I, P]
         lib.amb_newton_structured.argtypes = [P] * 16 + [I] * 12 + [P]
         lib.amb_newton_dense.argtypes = [P] * 12 + [I] * 8 + [P]
@@ -113,7 +115,8 @@ def library() -> ctypes.CDLL:
         lib.amb_newton_dense_occupancy.argtypes = [I] * 2 + [P]
         lib.amb_newton_elliptic_occupancy.argtypes = [I] * 4 + [P]
         for fn in (lib.amb_cholesky, lib.amb_cho_solve, lib.amb_solve_pd, lib.amb_cholesky_block,
-                   lib.amb_cho_solve_block, lib.amb_solve_pd_block, lib.amb_newton_structured,
+                   lib.amb_cho_solve_block, lib.amb_solve_pd_block, lib.amb_cho_solve_rhs,
+                   lib.amb_cho_solve_block_rhs, lib.amb_newton_structured,
                    lib.amb_newton_dense, lib.amb_newton_elliptic, lib.amb_elliptic_ls_step,
                    lib.amb_linalg_block_occupancy, lib.amb_newton_occupancy, lib.amb_newton_dense_occupancy,
                    lib.amb_newton_elliptic_occupancy):

@@ -20,6 +20,9 @@ engine/linalg.py; `engine.linalg.cholesky` etc. choose by device.
 Each launcher takes only what its kernels take and raises on anything else
 (no fallback): float32, contiguous, on a CUDA device, (B, n, n) with
 1 <= n <= 192 and (B, n) right-hand sides, no tensor that requires grad.
+Kernel 2 also takes (B, k, n) right-hand sides, k >= 1, each solved against
+its env's factor read in place (system (e, j) reads factor e); it counts
+one launch whatever k.
 The kernels have no backward: engine.linalg's Functions
 (`differentiable_dispatch`) carry the gradient, handing the launchers
 detached tensors and running autograd through the plain versions.
@@ -38,7 +41,19 @@ MAX_N = 192  # one block per system: the lower triangle's 78 tiles of 16 x 16 in
 _TILED_KERNELS = ("cholesky_block", "cho_solve_block", "solve_pd_block")
 
 
-def _check(name: str, mats: torch.Tensor, vecs: torch.Tensor | None = None) -> tuple[int, int]:
+def _check(name: str, mats: torch.Tensor, vecs: torch.Tensor | None = None, rhs: bool = False) -> tuple[int, int]:
+    """(B, n) of a launch's operands; raises on any shape, device, dtype or
+    layout the kernels do not take (shapes first). `rhs`: the kernel also
+    takes (B, k, n) right-hand sides, k >= 1."""
+    if mats.dim() != 3 or mats.shape[1] != mats.shape[2]:
+        raise ValueError(f"{name}: matrices must be (B, n, n), got {tuple(mats.shape)}")
+    B, n = mats.shape[0], mats.shape[1]
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"{name}: the kernels take 1 <= n <= {MAX_N}, got n={n}")
+    if vecs is not None and not (tuple(vecs.shape) == (B, n) or rhs and vecs.dim() == 3 and vecs.shape[1] >= 1
+                                 and tuple(vecs.shape) == (B, vecs.shape[1], n)):
+        want = f"({B}, {n}) or ({B}, k >= 1, {n})" if rhs else str((B, n))
+        raise ValueError(f"{name}: right-hand side must be {want}, got {tuple(vecs.shape)}")
     for x in (mats,) if vecs is None else (mats, vecs):
         if x.device.type != "cuda":
             raise ValueError(f"{name}: the CUDA kernel needs CUDA tensors, got {x.device}")
@@ -48,23 +63,16 @@ def _check(name: str, mats: torch.Tensor, vecs: torch.Tensor | None = None) -> t
             raise ValueError(f"{name}: inputs must be contiguous")
         if x.requires_grad:
             raise ValueError(f"{name}: the kernel has no backward; pass tensors without requires_grad")
-    if mats.dim() != 3 or mats.shape[1] != mats.shape[2]:
-        raise ValueError(f"{name}: matrices must be (B, n, n), got {tuple(mats.shape)}")
-    B, n = mats.shape[0], mats.shape[1]
-    if not 1 <= n <= MAX_N:
-        raise ValueError(f"{name}: the kernels take 1 <= n <= {MAX_N}, got n={n}")
-    if vecs is not None:
-        if tuple(vecs.shape) != (B, n):
-            raise ValueError(f"{name}: right-hand side must be {(B, n)}, got {tuple(vecs.shape)}")
-        if vecs.device != mats.device:
-            raise ValueError(f"{name}: inputs on different devices")
+    if vecs is not None and vecs.device != mats.device:
+        raise ValueError(f"{name}: inputs on different devices")
     return B, n
 
 
-def _launch(kernel: str, n: int, *args) -> None:
-    """Launch `kernel` (warp design) or `kernel`_block (block design) by n."""
+def _launch(kernel: str, n: int, *args, entry: str = "") -> None:
+    """Launch `kernel` (warp design) or `kernel`_block (block design) by n,
+    through the C entry amb_<name><entry>; counted under its name."""
     name = kernel if n <= MAX_N_WARP else f"{kernel}_block"
-    check_launch(getattr(library(), f"amb_{name}")(*args), name)
+    check_launch(getattr(library(), f"amb_{name}{entry}")(*args), name)
     LAUNCHES[name] += 1
 
 
@@ -79,11 +87,14 @@ def cholesky_batched(a: torch.Tensor) -> torch.Tensor:
 
 
 def cho_solve_batched(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve A x = b from lower factors L (B, n, n), b (B, n) (kernel 2)."""
-    B, n = _check("cho_solve_batched", l, b)
+    """Solve A x = b from lower factors L (B, n, n), b (B, n) or (B, k, n):
+    the k right-hand sides of env e against its factor (kernel 2)."""
+    B, n = _check("cho_solve_batched", l, b, rhs=True)
     out = torch.empty_like(b)
-    if B:
-        _launch("cho_solve", n, l.data_ptr(), b.data_ptr(), out.data_ptr(), B, n, stream_handle(l.device))
+    if b.numel():
+        k = b.shape[1] if b.dim() == 3 else 1
+        _launch("cho_solve", n, l.data_ptr(), b.data_ptr(), out.data_ptr(), B, k, n, stream_handle(l.device),
+                entry="_rhs")
     return out
 
 

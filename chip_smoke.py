@@ -110,7 +110,17 @@ the card, and steps every ported path through the port's entry points:
     times a step); kernel 5 held on soft_feet's final operands, kernel 6 on
     condim6_elliptic's and on tests/test_elliptic.py's spin-down sphere
     (cdim 4) at 4096 envs, kernel 3 on the general solve's last Hessian and
-    on implicitfast's system.
+    on implicitfast's system;
+  * the CG solver and the noslip pass, each at 4096 envs x 50 steps from
+    the main path's start under its PD controller: quadruped_cg (the
+    quadruped loaded with solver="CG", kernel 2 five times a step: M^-1
+    once before the CG loop and once in each of its 3 iterations) and
+    quadruped_noslip (noslip_iterations 3 after the Newton solve, kernel 2
+    once more a step over the 136 efc rows of J, k = 136 right-hand sides
+    per env); kernel 2 with k right-hand sides against its plain version
+    (warp and block designs), on CG's M^-1 g and noslip's M^-1 J^T; the
+    JAX tests' noslip scene, BALL_PLANE under CG, FWDINV, inverse dynamics
+    and the support functions card against CPU.
 
 For each path it checks that every step went through the path's kernels
 and compares 8 envs of the rollout on the card with the same rollout on the
@@ -782,6 +792,23 @@ ILQR_BALL_BAR = 0.01
 # pd_ctrl. quadruped_implicitfast / _implicit / _rk4: the main path's model
 # with Option.integrator set. Envs x steps per path below.
 SOFT_FEET_STEPS, SOFT_ELLIPTIC_STEPS, CONDIM6_STEPS = 100, 50, 100
+# quadruped_cg: the main path's quadruped loaded with solver="CG" through
+# the port's utils/io_utils override, at its own 3 x 6 iterations;
+# quadruped_noslip: the same model under Newton with noslip_iterations="3"
+# (tests/test_torch_bridge.py's NOSLIP_XML), its default noslip_tolerance.
+# Both from initial_batch under pd_ctrl; card vs CPU at CONVERGED: at the
+# own 3 x 6 the CPU's own 8-env rollout moves, after 20 steps under a 1e-6
+# nudge of its start, 7.6e-2 in qpos and 0.71 in qvel (CG) and 1.9e-2 and
+# 0.40 (noslip), at CONVERGED 2.1e-5 / 1.0e-3 and 3.4e-6 / 6.4e-4.
+CG_STEPS = NOSLIP_STEPS = 50
+NOSLIP_RHS = 136  # the quadruped's nefc: M^-1 J^T's right-hand sides per env
+# kernel 2 with k right-hand sides per factor: (B, n, k) cases beside the
+# noslip shape, the warp design's edges and the block design at small B
+RHS_CASES = ((257, 1, 5), (257, 31, 3), (8, 33, 4), (8, 192, 3))
+# the JAX tests' fixtures of this slice, card against CPU (solver_fixtures)
+NOSLIP_SCENE = lambda: tests_xml("test_noslip.py", "XML")  # noqa: E731
+BALL_PLANE = lambda: tests_xml("test_constraint_parity.py", "BALL_PLANE")  # noqa: E731
+NOSLIP_SCENE_OPT = dict(iterations=30, ls_iterations=30)
 RK4, IMPLICIT, IMPLICITFAST = 1, 2, 3  # Option.integrator (ambersim_tpu_torch.core.types.IntegratorType)
 IMPLICITFAST_STEPS, IMPLICIT_STEPS, RK4_STEPS = 100, 50, 25
 # kernel 6 on tests/test_elliptic.py's spin-down sphere (condim 4, elliptic,
@@ -920,16 +947,17 @@ def bound(nbytes: float, ops: float) -> dict:
     return dict(bound_ms=1e3 * max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def linalg_bound(name: str, B: int, n: int) -> dict:
+def linalg_bound(name: str, B: int, n: int, k: int = 1) -> dict:
     """Kernels 1-3 on B systems of size n, float32: each reads only the lower
     triangle of its (B, n, n) input, n(n+1)/2 floats a system; a factor
-    writes the whole L, a solve reads and writes one (B, n) vector. n^3/3
-    operations for a factor and 2 n^2 for the two sweeps."""
+    writes the whole L, a solve reads and writes one (B, n) vector (kernel
+    2: k of them against each factor, read once). n^3/3 operations for a
+    factor and 2 n^2 for the two sweeps of each right-hand side."""
     tri, mat, vec = 4.0 * B * n * (n + 1) / 2, 4.0 * B * n * n, 4.0 * B * n
     if name == "cholesky":
         return bound(tri + mat, B * n**3 / 3)
     if name == "cho_solve":
-        return bound(tri + 2 * vec, B * 2.0 * n * n)
+        return bound(tri + 2 * vec * k, B * k * 2.0 * n * n)
     return bound(tri + 2 * vec, B * (n**3 / 3 + 2.0 * n * n))
 
 
@@ -1371,7 +1399,7 @@ def check_linalg(device, results):
     sizes += tuple((CLUTTER_ENVS, n) for n in LARGE_NS)
     sizes += ((LARGE_BATCH, kernels.MAX_N),)
     # and at every (batch, n) a phase launches them at
-    sizes += tuple(sorted({shape for shape, _ in PHASE_SHAPES.values()} - set(sizes)))
+    sizes += tuple(sorted({shape for shape, _ in PHASE_SHAPES.values() if len(shape) == 2} - set(sizes)))
     for B, n in sizes:
         tol = LINALG_TOL if n <= kernels.MAX_N_WARP else LARGE_LINALG_TOL
         a, b = random_spd(rng, B, n, device)
@@ -1456,11 +1484,25 @@ def check_linalg(device, results):
 
 def time_linalg_shapes(rng, shapes, device) -> None:
     """Kernels 1-3's times and bounds at each (B, n) of `shapes` into
-    SHAPE_TIMES (for weighted_launch_time)."""
+    SHAPE_TIMES (for weighted_launch_time); a (B, n, k) shape times kernel 2
+    alone, with k right-hand sides per factor."""
+    import torch
+
     from ambersim_tpu_torch.engine import linalg as plain
     from ambersim_tpu_torch.ops import linalg as kernels
 
-    for B, n in sorted(shapes):
+    for shape in sorted(shapes):
+        if len(shape) == 3:
+            B, n, k = shape
+            l_ref = plain.cholesky_unrolled(random_spd(rng, B, n, device)[0])
+            rhs = torch.as_tensor(rng.standard_normal((B, k, n)).astype("float32"), device=device)
+            key = "cho_solve" if n <= kernels.MAX_N_WARP else "cho_solve_block"
+            SHAPE_TIMES[(key, shape)] = (cuda_ms(lambda: kernels.cho_solve_batched(l_ref, rhs)),
+                                         linalg_bound("cho_solve", B, n, k)["bound_ms"])
+            print(f"kernel {key} at B={B} n={n} k={k}: {SHAPE_TIMES[(key, shape)][0]:.4f} ms "
+                  f"(bound {SHAPE_TIMES[(key, shape)][1]:.4f})")
+            continue
+        B, n = shape
         a, b = random_spd(rng, B, n, device)
         l_ref = plain.cholesky_unrolled(a)
         for name, kern in (("cholesky", lambda: kernels.cholesky_batched(a)),
@@ -2363,6 +2405,12 @@ CONDIM6_PER_STEP = {"cholesky": 1, "cho_solve": 1, "solve_pd": 1, "newton_ellipt
 IMPLICITFAST_PER_STEP = TERRAIN_PER_STEP
 IMPLICIT_PER_STEP = DROP_PER_STEP
 RK4_PER_STEP = {"cholesky": 4, "cho_solve": 4, "newton_structured": 4}
+# quadruped_cg: qacc_smooth's solve, M^-1 g before the CG loop and once in
+# each of its 3 iterations (kernel 2, five times), no Newton kernel;
+# quadruped_noslip: the main path's launches and one more kernel 2 over the
+# NOSLIP_RHS rows of J (M^-1 J^T, k = nefc right-hand sides per env)
+CG_PER_STEP = {"cholesky": 1, "cho_solve": 5, "solve_pd": 1}
+NOSLIP_PER_STEP = {"cholesky": 1, "cho_solve": 2, "solve_pd": 1, "newton_structured": 1}
 # path -> its model (an asset, or `build`(device); and `opt` overrides),
 # batch, steps, start, controller and the kernels every step launches (at
 # least once each; exactly per_step where given). `floor` paths are held to
@@ -2446,6 +2494,12 @@ PATHS = {
     "quadruped_rk4": dict(model="quadruped", opt=dict(integrator=RK4), envs=NUM_ENVS, steps=RK4_STEPS,
                           start=initial_batch, ctrl=pd_ctrl, kernels=tuple(RK4_PER_STEP), per_step=RK4_PER_STEP,
                           z=(0.20, 0.32)),
+    "quadruped_cg": dict(build=lambda device: cg_quadruped(device), envs=NUM_ENVS, steps=CG_STEPS, start=initial_batch,
+                         ctrl=pd_ctrl, kernels=tuple(CG_PER_STEP), per_step=CG_PER_STEP, z=(0.20, 0.32), keep=True,
+                         vs_cpu="converged"),
+    "quadruped_noslip": dict(build=lambda device: xml_model(noslip_quadruped_xml(), device), envs=NUM_ENVS,
+                             steps=NOSLIP_STEPS, start=initial_batch, ctrl=pd_ctrl, kernels=tuple(NOSLIP_PER_STEP),
+                             per_step=NOSLIP_PER_STEP, z=(0.20, 0.32), keep=True, vs_cpu="converged"),
 }
 # the floor, terrain and `keep` paths' final states (the card-vs-CPU
 # checks, the starts of later paths, the sensor path's checks)
@@ -2493,6 +2547,9 @@ PHASE_SHAPES = {
     "condim6_elliptic": ((NUM_ENVS, 18), "condim6_elliptic"),
     "quadruped_implicitfast": ((NUM_ENVS, 18), "quadruped"), "quadruped_implicit": ((NUM_ENVS, 18), "quadruped"),
     "quadruped_rk4": ((NUM_ENVS, 18), "quadruped"),
+    # CG and noslip; noslip's M^-1 J^T is kernel 2 at (batch, n, k right-hand sides), split off its phase
+    "quadruped_cg": ((NUM_ENVS, 18), None), "quadruped_noslip": ((NUM_ENVS, 18), "quadruped"),
+    "quadruped_noslip_rhs": ((NUM_ENVS, 18, NOSLIP_RHS), None),
 }
 # Section 9's phases, timed in section 9 (time_linalg_shapes) so that
 # section 3 does the same work as before it; the evals' launches are
@@ -2752,7 +2809,7 @@ def stage_split(name: str, device, card: str, steps: int = 10) -> dict:
     import numpy as np
     import torch
 
-    from ambersim_tpu_torch.engine import collision, constraint, integrate, sensor, smooth, solver
+    from ambersim_tpu_torch.engine import collision, constraint, integrate, noslip, sensor, smooth, solver
     from ambersim_tpu_torch.engine.forward import forward
 
     m = path_model(name, device)
@@ -2763,7 +2820,8 @@ def stage_split(name: str, device, card: str, steps: int = 10) -> dict:
     stages = (("fwd_position_smooth", smooth.fwd_position_smooth), ("collision", collision.collision),
               ("make_constraint", constraint.make_constraint), ("fwd_velocity", smooth.fwd_velocity),
               ("fwd_actuation", smooth.fwd_actuation), ("fwd_acceleration", smooth.fwd_acceleration),
-              ("solve", solver.solve)) + ((("sensors", sensor.sensors),) if m.skel.nsensor else ()) + (integrator,)
+              ("solve", solver.solve)) + ((("noslip", noslip.noslip),) if m.opt.noslip_iterations else ()) + (
+                  (("sensors", sensor.sensors),) if m.skel.nsensor else ()) + (integrator,)
     times = {k: [] for k, _ in stages}
     d = SETTLED[name]
     for _ in range(steps):
@@ -3709,6 +3767,221 @@ def check_newton_condim(device, results) -> None:
           f"{general:.3f}, the Coriolis derivative on the quadruped "
           f"{host_ms(lambda: integrate._coriolis_deriv(m, d)):.3f}, implicitfast's D "
           f"{host_ms(lambda: integrate._qderiv_vel(m, d)):.3f}", flush=True)
+
+
+def cg_quadruped(device):
+    """The main path's quadruped.xml loaded with solver="CG" through the
+    port's own loader override (utils/io_utils.load_model_from_file)."""
+    from ambersim_tpu_torch.utils.io_utils import load_model_from_file
+
+    return load_model_from_file(str(REPO / QUADRUPED_XML), solver="CG", device=device)
+
+
+def noslip_quadruped_xml() -> str:
+    """quadruped.xml with noslip_iterations="3" on its <option>."""
+    return _with_option((REPO / QUADRUPED_XML).read_text(), 'noslip_iterations="3"')
+
+
+def conditioned_solve_err(got, want, qM, what: str) -> float:
+    """Kernel 2 against its plain version on a path's factor: per system,
+    |got - want| <= LINALG_TOL (1 + |want|) + CONDITIONED_QACC cond(qM) u
+    max |want| (the first-order rounding of the two sweeps on qM's factor,
+    as conditioned_within widens qacc's bar). Returns max |got - want|."""
+    import torch
+
+    g, w = got.double(), want.double()
+    if not torch.isfinite(g).all():
+        fail(f"{what}: non-finite kernel output")
+    cond = torch.linalg.cond(qM.double())
+    rows = (slice(None),) + (None,) * (w.dim() - 1)
+    scale = w.abs().flatten(1).amax(1)[rows]
+    bar = LINALG_TOL * (1.0 + w.abs()) + CONDITIONED_QACC * UNIT_ROUNDOFF_F32 * cond[rows] * scale
+    err = (g - w).abs()
+    if not bool((err <= bar).all()):
+        fail(f"{what}: max |kernel - plain| {err.max().item():.3e} over the conditioned bar")
+    print(f"{what}: max |kernel - plain| {err.max().item():.3e}, max cond(qM) {cond.max().item():.3e}", flush=True)
+    return float(err.max().item())
+
+
+def check_cho_solve_rhs(device, results) -> dict:
+    """Kernel 2 with k right-hand sides per factor, (B, k, n), against its
+    plain version at the noslip path's (NUM_ENVS, NOSLIP_RHS, 18) and at
+    RHS_CASES (the warp design at n = 1 and 31, the block design at n = 33
+    and 192 on 8 factors), each with the bits of k separate launches; the
+    launcher refuses k = 0. Times at the noslip shape: the kernel, its
+    plain version, torch.cholesky_solve on the same operands (one call, the
+    k right-hand sides as columns) and the bound. Returns them."""
+    import numpy as np
+    import torch
+
+    from ambersim_tpu_torch.engine import linalg as plain
+    from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from ambersim_tpu_torch.ops import linalg as kernels
+
+    rng = np.random.default_rng(20)
+    out = {}
+    for B, n, k in ((NUM_ENVS, 18, NOSLIP_RHS),) + RHS_CASES:
+        a, _ = random_spd(rng, B, n, device)
+        l_ref = plain.cholesky_unrolled(a)
+        rhs = torch.as_tensor(rng.standard_normal((B, k, n)).astype(np.float32), device=device)
+        key, tol = ("cho_solve", LINALG_TOL) if n <= kernels.MAX_N_WARP else ("cho_solve_block", LARGE_LINALG_TOL)
+        reset_launch_counts()
+        got = kernels.cho_solve_batched(l_ref, rhs)
+        if LAUNCHES[key] != 1:
+            fail(f"{key} with k={k}: {LAUNCHES[key]} launches counted, want 1")
+        err = max_err(got, plain.cho_solve_unrolled(l_ref, rhs), tol, tol, f"{key} B={B} n={n} k={k}")
+        results[key]["max_abs_err"] = max(results[key]["max_abs_err"], err)
+        sep = torch.stack([kernels.cho_solve_batched(l_ref, rhs[:, j].contiguous()) for j in range(min(k, 8))], 1)
+        max_err(got[:, :sep.shape[1]], sep, 0.0, 0.0, f"{key} B={B} n={n} k={k} vs separate launches")
+        if (B, n, k) == (NUM_ENVS, 18, NOSLIP_RHS):
+            out = dict(B=B, n=n, k=k, ms=cuda_ms(lambda: kernels.cho_solve_batched(l_ref, rhs)),
+                       plain_ms=plain_ms(lambda: plain.cho_solve_unrolled(l_ref, rhs)),
+                       library_ms=cuda_ms(lambda: torch.cholesky_solve(rhs.transpose(1, 2), l_ref)),
+                       max_abs_err=err, **linalg_bound("cho_solve", B, n, k))
+        print(f"{key} B={B} n={n} k={k}: within {err:.2e} of plain, the bits of separate launches", flush=True)
+    try:
+        kernels.cho_solve_batched(l_ref, torch.zeros(8, 0, 192, device=device))
+    except ValueError:
+        pass
+    else:
+        fail("cho_solve_batched took k = 0 right-hand sides")
+    print(f"kernel cho_solve at the noslip shape B={out['B']} n={out['n']} k={out['k']}: {out['ms']:.4f} ms, plain "
+          f"{out['plain_ms']:.4f} ms, library (torch.cholesky_solve) {out['library_ms']:.4f} ms, bound "
+          f"{out['bound_ms']:.4f} ms ({out['bound_by']})", flush=True)
+    print(json.dumps({"cho_solve_rhs": out}))
+    return out
+
+
+def check_cg_noslip(device, card: str) -> None:
+    """Kernel 2 on the CG and noslip paths' final states against its plain
+    version (conditioned_solve_err): CG's M^-1 g at qacc_smooth, noslip's
+    M^-1 J^T over every efc row (k = NOSLIP_RHS); the noslip sweep's updates
+    and host ms (median of 5 synced calls of engine.noslip.noslip at
+    NUM_ENVS envs, after the Newton solve), and CG's solve beside the
+    Newton solve on the same state."""
+    from ambersim_tpu_torch.engine import linalg as plain
+    from ambersim_tpu_torch.engine import noslip, solver
+    from ambersim_tpu_torch.ops import linalg as kernels
+
+    m = path_model("quadruped_cg", device)
+    d = pre_solve(m, SETTLED["quadruped_cg"])
+    jar = (d.efc_J * d.qacc_smooth[:, None, :]).sum(-1) - d.efc_aref
+    g = -(d.efc_J * solver._row_costs(m, d, jar)[1][..., None]).sum(1)
+    conditioned_solve_err(kernels.cho_solve_batched(d.qLD, g), plain.cho_solve_unrolled(d.qLD, g), d.qM,
+                          "cho_solve on quadruped_cg's M^-1 g")
+    cg_ms = host_ms(lambda: solver.solve(m, d))
+    newton_ms = host_ms(lambda: solver.solve(m.replace(opt=m.opt.replace(solver=2)), d))
+    m = path_model("quadruped_noslip", device)
+    if m.skel.nefc != NOSLIP_RHS:
+        fail(f"quadruped_noslip: nefc {m.skel.nefc}, NOSLIP_RHS {NOSLIP_RHS}")
+    d = solver.solve(m, pre_solve(m, SETTLED["quadruped_noslip"]))
+    J = d.efc_J.contiguous()
+    conditioned_solve_err(kernels.cho_solve_batched(d.qLD, J), plain.cho_solve_unrolled(d.qLD, J), d.qM,
+                          f"cho_solve on quadruped_noslip's M^-1 J^T (k = {NOSLIP_RHS})")
+    plan = noslip.noslip_plan(m.skel, False)
+    sweep_ms = host_ms(lambda: noslip.noslip(m, d))
+    updates = plan.updates * int(m.opt.noslip_iterations)
+    print(f"noslip on quadruped_noslip [{card}]: {plan.updates} updates a sweep ({len(plan.fl_rows)} frictionloss rows, "
+          f"{len(plan.pairs)} pyramid axis pairs) x {int(m.opt.noslip_iterations)} sweeps = {updates} a step, host "
+          f"{sweep_ms:.3f} ms a call ({sweep_ms / updates:.4f} ms an update); the CG solve {cg_ms:.3f} ms against "
+          f"Newton's {newton_ms:.3f} ms on quadruped_cg's state, at {NUM_ENVS} envs", flush=True)
+
+
+def solver_fixtures(device) -> None:
+    """The slice's JAX-test fixtures, card against CPU at 8 envs:
+    tests/test_noslip.py's scene at both cones and 1 and 3 noslip
+    iterations (a forward from its test's start, the box pushed by 8 N and
+    the hinge's motor at 0.5 + 0.1 N(0, 1), below its frictionloss; qacc
+    and efc_force at QPOS_TOL, the hinge held: |qacc_hinge| < 1e-5 on the
+    card);
+    BALL_PLANE under CG at 20 x 20 iterations (20 steps at QPOS_TOL /
+    QVEL_TOL);
+    FWDINV on tests/test_flags.py's OVERRIDE_SCENE (solver_fwdinv within
+    1e-4 + 1e-2 relative); inverse on tests/test_inverse.py's pendulum and
+    ball under both cones and support on tests/test_support.py's rig
+    (every function, every body, at 1e-5 + 1e-5 relative). The noslip
+    scene at NOSLIP_SCENE_OPT and its test's 8 N push: at pushes of
+    8 + 0.5 N(0, 1) N some envs' noslip results move by up to 0.14 in qacc
+    under a 1e-6 nudge of qpos on the CPU alone (card vs CPU 1.1e-1 on
+    one); at 8 N by < 3e-5 under a 1e-6 N change of the push, at 30 x 30
+    as at the scene's own 100 x 50 (at 15 x 15 the elliptic scene's by
+    3.1e-3)."""
+    import numpy as np
+    import torch
+
+    from ambersim_tpu_torch.engine import forward, inverse, make_data, rollout, support
+
+    rng = np.random.default_rng(21)
+
+    def both(xml, opt=None):
+        return xml_model(xml, device, opt), xml_model(xml, "cpu", opt)
+
+    def close(what, got, want, rtol, atol):
+        err = (got.cpu() - want).abs()
+        if not bool((err <= atol + rtol * want.abs()).all()):
+            fail(f"{what}: card vs CPU {err.max().item():.3e}")
+        return err.max().item()
+
+    worst = {}
+    for ni in (1, 3):
+        for cone in ("pyramidal", "elliptic"):
+            mc, mp = both(NOSLIP_SCENE().replace("{NI}", str(ni)).replace("{CONE}", cone), NOSLIP_SCENE_OPT)
+            d = make_data(mp, 8)
+            xfrc = d.xfrc_applied.clone()
+            xfrc[:, 1, 0] = 8.0
+            d = d.replace(xfrc_applied=xfrc, ctrl=torch.as_tensor(0.5 + 0.1 * rng.standard_normal((8, 1)),
+                                                                  dtype=torch.float32))
+            got, want = forward(mc, d.to(device)), forward(mp, d)
+            what = f"noslip scene NI {ni} {cone}"
+            worst[what] = max(close(f"{what} qacc", got.qacc, want.qacc, QPOS_TOL, QPOS_TOL),
+                              close(f"{what} efc_force", got.efc_force, want.efc_force, QPOS_TOL, QPOS_TOL))
+            if not float(got.qacc[:, 6].abs().max()) < 1e-5:
+                fail(f"{what}: the hinge moves on the card, |qacc| {got.qacc[:, 6].abs().max().item():.3e}")
+    mc, mp = both(BALL_PLANE(), dict(solver=1, iterations=20, ls_iterations=20))
+    d = make_data(mp, 8)
+    qpos = d.qpos.clone()
+    qpos[:, 2] = 0.099
+    d = d.replace(qpos=qpos, qvel=torch.as_tensor(0.5 * rng.standard_normal((8, 6)), dtype=torch.float32))
+    got, want = rollout(mc, d.to(device), 20), rollout(mp, d, 20)
+    worst["ball_plane CG qpos"] = close("ball_plane CG qpos", got.qpos, want.qpos, 0.0, QPOS_TOL)
+    worst["ball_plane CG qvel"] = close("ball_plane CG qvel", got.qvel, want.qvel, 0.0, QVEL_TOL)
+    mc, mp = both(tests_xml("test_flags.py", "OVERRIDE_SCENE").format(flag='fwdinv="enable"'))
+    d = make_data(mp, 8)
+    d = d.replace(qvel=torch.as_tensor(0.2 * rng.standard_normal((8, 6)), dtype=torch.float32))
+    got, want = forward(mc, d.to(device)), forward(mp, d)
+    worst["fwdinv"] = close("override scene solver_fwdinv", got.solver_fwdinv, want.solver_fwdinv, 1e-2, 1e-4)
+    inv_xml = tests_xml("test_inverse.py", "BALL_ON_PLANE")
+    for name, xml in (("pendulum", tests_xml("test_inverse.py", "PENDULUM")),
+                      ("ball_pyramidal", inv_xml.replace("{cone}", "pyramidal")),
+                      ("ball_elliptic", inv_xml.replace("{cone}", "elliptic"))):
+        mc, mp = both(xml)
+        d = make_data(mp, 8)
+        d = d.replace(qvel=torch.as_tensor(0.3 * rng.standard_normal(d.qvel.shape), dtype=torch.float32),
+                      qacc=torch.as_tensor(rng.standard_normal(d.qacc.shape), dtype=torch.float32))
+        got, want = inverse(mc, d.to(device)), inverse(mp, d)
+        worst[f"inverse {name}"] = max(close(f"inverse {name} {f}", getattr(got, f), getattr(want, f), 1e-4, 1e-4)
+                                       for f in ("qfrc_inverse", "qfrc_constraint", "efc_force"))
+    mc, mp = both(tests_xml("test_support.py", "RIG"))
+    d = make_data(mp, 8)
+    d = forward(mp, d.replace(qvel=torch.as_tensor(0.3 * rng.standard_normal(d.qvel.shape), dtype=torch.float32)))
+    dc = d.to(device)
+    point = torch.as_tensor(rng.standard_normal((8, 3)), dtype=torch.float32)
+    err = 0.0
+    for b in range(1, mp.skel.nbody):
+        for fn, args in ((support.jac, (point, b)), (support.jac_body, (b,)), (support.jac_body_com, (b,)),
+                         (support.apply_ft, (point, point, point, b))):
+            g, w = fn(mc, dc, *[a.to(device) if isinstance(a, torch.Tensor) else a for a in args]), fn(mp, d, *args)
+            for gi, wi in zip(g if isinstance(g, tuple) else (g,), w if isinstance(w, tuple) else (w,)):
+                err = max(err, close(f"support {fn.__name__} body {b}", gi, wi, 1e-5, 1e-5))
+    for i in range(mp.skel.nsite):
+        for gi, wi in zip(support.jac_site(mc, dc, i), support.jac_site(mp, d, i)):
+            err = max(err, close(f"support jac_site {i}", gi, wi, 1e-5, 1e-5))
+    vec = torch.as_tensor(rng.standard_normal((8, mp.skel.nv)), dtype=torch.float32)
+    err = max(err, close("support mul_m", support.mul_m(mc, dc, vec.to(device)), support.mul_m(mp, d, vec), 1e-5,
+                         1e-5))
+    worst["support"] = err
+    print("slice fixtures card vs CPU, max |card - cpu|: " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()),
+          flush=True)
 
 
 def host_ms(fn, calls: int = 5) -> float:
@@ -5860,6 +6133,7 @@ def run_phases(device, card: str, results: dict) -> None:
     check_newton_hand(device, results)
     check_newton_dense(device, results)
     check_newton_elliptic(device, results)
+    check_cho_solve_rhs(device, results)
     torch.cuda.synchronize()
     for row_cap in (False, True):
         try:
@@ -5875,6 +6149,11 @@ def run_phases(device, card: str, results: dict) -> None:
     for name in PATHS:
         phase_launches[name] = drive_path(name, device, card)
         phase(name)
+    # noslip's M^-1 J^T launch of each step, weighed at its own shape
+    phase_launches["quadruped_noslip"]["cho_solve"] -= NOSLIP_STEPS
+    phase_launches["quadruped_noslip_rhs"] = {"cho_solve": NOSLIP_STEPS}
+    check_cg_noslip(device, card)
+    phase("check_cg_noslip")
 
     splits = {}
     for name in ("clutter32_rowcap192", "clutter32_cap48", "clutter32", "clutter32_rowcap192_bf16"):
@@ -5988,6 +6267,8 @@ def run_phases(device, card: str, results: dict) -> None:
     phase("tendon rigs card vs CPU")
     weld_rigs(device)
     phase("weld, transmission and pair rigs card vs CPU")
+    solver_fixtures(device)
+    phase("CG, noslip, FWDINV, inverse and support fixtures card vs CPU")
     section("8 (card against CPU)")
 
     # ---- 9. ES, ARS and SAC, each with its own launch counts ----

@@ -362,23 +362,25 @@ WELDED_CONDIM4_XML = """
 """
 
 
-# the RK4 ball on the floor solved by CG, and with noslip iterations
+# the RK4 ball on the floor solved by CG, with noslip iterations and solved
+# by PGS; the ball under Euler with the FWDINV flag
 CG_XML = RK4_XML.replace('integrator="RK4"', 'solver="CG"')
 NOSLIP_XML = RK4_XML.replace('integrator="RK4"', 'noslip_iterations="3"')
+FWDINV_XML = RK4_XML.replace('<option integrator="RK4"/>', '<option><flag fwdinv="enable"/></option>')
+PGS_XML = RK4_XML.replace('integrator="RK4"', 'solver="PGS"')
 
 
 @pytest.mark.parametrize(
     "source, features",
     [
         (CAMPROJECTION_XML, ["cameras (camlight)", "camera projection sensors (CAMPROJECTION)"]),
-        (CG_XML, ["the CG solver"]),
-        (NOSLIP_XML, ["noslip iterations"]),
+        (PGS_XML, ["the PGS solver"]),
     ],
-    ids=["camprojection", "cg_solver", "noslip"],
+    ids=["camprojection", "pgs_solver"],
 )
 def test_models_outside_the_slice_are_refused(source, features):
-    """Each feature outside the slice is refused by name: CAMPROJECTION, the
-    CG solver and noslip iterations."""
+    """Each feature outside the slice is refused by name: CAMPROJECTION and
+    the PGS solver (which the JAX package runs as Newton without a word)."""
     from ambersim_tpu_torch.io.bridge import model_from_numpy
 
     jm = tp.jax_model(source) if source.endswith(".xml") else tp.jax_model_from_xml(source)
@@ -391,16 +393,19 @@ def test_models_outside_the_slice_are_refused(source, features):
 
 
 @pytest.mark.parametrize("source", [HAND_WELD_XML, BALL_MOTOR_XML, "MOCAP_WELD", EXPLICIT_PAIR_XML, "SLIDE_RIG",
-                                    CONDIM46_XML, ELLIPTIC_MIXED_XML, RK4_XML, WELDED_CONDIM4_XML],
+                                    CONDIM46_XML, ELLIPTIC_MIXED_XML, RK4_XML, WELDED_CONDIM4_XML, CG_XML,
+                                    NOSLIP_XML, FWDINV_XML],
                          ids=["hand_weld", "ball_motor", "mocap_weld", "explicit_pair", "contact_sensor_condim6",
-                              "condim46", "elliptic_mixed", "rk4", "welded_condim4"])
+                              "condim46", "elliptic_mixed", "rk4", "welded_condim4", "cg_solver", "noslip",
+                              "fwdinv"])
 def test_models_the_slice_now_admits(source):
     """The models that stood for weld equality, a motor on a ball joint, the
     mocap weld drag, an explicit <pair>, contacts of condim 4 and 6 (alone,
     on a welded box and under tests/test_contact_sensor.py's contact
-    sensors), elliptic cones over condims 1 and 3 and the RK4 integrator
-    load through the bridge, and one step of 2 seeded envs matches the JAX
-    package's (qpos atol 1e-4, qvel atol 1e-3, as the main path's rollout)."""
+    sensors), elliptic cones over condims 1 and 3, the RK4 integrator, the
+    CG solver, noslip iterations and the FWDINV flag load through the
+    bridge, and one step of 2 seeded envs matches the JAX package's (qpos
+    atol 1e-4, qvel atol 1e-3, as the main path's rollout)."""
     import jax
 
     from ambersim_tpu.engine import step as jax_step

@@ -52,6 +52,28 @@ def test_linalg_kernels_match_plain(cuda, n):
     assert torch.all(torch.triu(got, diagonal=1) == 0)
 
 
+@pytest.mark.parametrize("n, k", [(1, 5), (18, 136), (31, 3), (33, 4), (192, 3)])
+def test_cho_solve_kernel_k_right_hand_sides(cuda, n, k):
+    """Kernel 2 with (B, k, n) right-hand sides (warp design n <= 32, block
+    design past it) against the plain version, with the bits of k separate
+    (B, n) launches on the same factors, and one launch counted."""
+    from ambersim_tpu_torch.engine import linalg
+    from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from ambersim_tpu_torch.ops import linalg as kernels
+
+    rng = np.random.default_rng(80 + n)
+    g = rng.standard_normal((33, n, n)).astype(np.float32)
+    a = torch.as_tensor(g @ np.swapaxes(g, -1, -2) + n * np.eye(n, dtype=np.float32), device=cuda)
+    b = torch.as_tensor(rng.standard_normal((33, k, n)).astype(np.float32), device=cuda)
+    l = linalg.cholesky_unrolled(a)
+    reset_launch_counts()
+    got = kernels.cho_solve_batched(l, b)
+    assert LAUNCHES["cho_solve" if n <= kernels.MAX_N_WARP else "cho_solve_block"] == 1
+    tol = LINALG_TOL if n <= kernels.MAX_N_WARP else LARGE_LINALG_TOL
+    torch.testing.assert_close(got, linalg.cho_solve_unrolled(l, b), rtol=tol, atol=tol)
+    assert torch.equal(got, torch.stack([kernels.cho_solve_batched(l, b[:, j].contiguous()) for j in range(k)], 1))
+
+
 @pytest.mark.parametrize("n", (3, 18, 25))
 def test_solve_pd_kernel_at_storage_offset_one(cuda, n):
     """Kernel 3 on systems that do not start 16-byte aligned (a contiguous

@@ -102,7 +102,7 @@ def test_loader_options_match_jax(case):
 
 
 @pytest.mark.parametrize("opt, refused", [
-    (dict(solver="cg"), "the CG solver"),
+    (dict(solver="pgs"), "the PGS solver"),
     (dict(hessian_bf16=True), "Option.hessian_bf16"),
 ])
 def test_loader_options_outside_the_slice_are_refused(opt, refused):

@@ -19,6 +19,7 @@ same. The kernels themselves are held against these plain versions on the
 card (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -121,6 +122,41 @@ def test_cpu_tensors_take_the_plain_path():
     torch.testing.assert_close(linalg.solve_pd(a, b), linalg.solve_pd_unrolled(a, b), rtol=0, atol=0)
     torch.testing.assert_close(linalg.cho_solve(a, b), linalg.cho_solve_unrolled(a, b), rtol=0, atol=0)
     assert all(v == 0 for v in LAUNCHES.values())
+
+
+@pytest.mark.parametrize("n, k", [(1, 3), (18, 136), (33, 4), (192, 2)])
+def test_cho_solve_k_right_hand_sides(n, k):
+    """cho_solve with (B, k, n) right-hand sides (the noslip pass's M^-1 J^T)
+    gives the bits of k separate (B, n) solves against the same factors,
+    and agrees with the JAX package's vmap over the rows (noslip.py:69)
+    within 1e-5 (2e-4 past n = 32, as the kernels' bars)."""
+    a, _ = _spd(n, seed=70 + n, batch=3)
+    rhs = np.random.default_rng(71 + n).standard_normal((3, k, n)).astype(np.float32)
+    l = linalg.cholesky(torch.as_tensor(a))
+    got = linalg.cho_solve(l, torch.as_tensor(rhs))
+    assert got.shape == (3, k, n)
+    sep = torch.stack([linalg.cho_solve(l, torch.as_tensor(rhs[:, j])) for j in range(k)], 1)
+    assert torch.equal(got, sep)
+    want = jax.vmap(lambda lj, bj: jax.vmap(lambda r: jax_linalg.cho_solve_unrolled(lj, r))(bj))(
+        jnp.asarray(l.numpy()), jnp.asarray(rhs))
+    tol = 1e-5 if n <= kernels.MAX_N_WARP else LARGE_TOL
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol, atol=tol)
+
+
+def test_cho_solve_launcher_checks_k_right_hand_sides():
+    """Kernel 2's launcher takes (B, n) or (B, k >= 1, n) right-hand sides
+    and refuses any other shape before it looks at the device; kernel 3's
+    takes (B, n) only. Well-shaped CPU tensors are refused for the device."""
+    a, _ = _spd(5, seed=72)
+    a = torch.as_tensor(a)
+    for bad in ((B, 0, 5), (B + 1, 2, 5), (B, 2, 4), (B, 2, 2, 5), (B, 4)):
+        with pytest.raises(ValueError, match="right-hand side"):
+            kernels.cho_solve_batched(a, torch.zeros(bad))
+    with pytest.raises(ValueError, match="right-hand side"):
+        kernels.solve_pd_batched(a, torch.zeros(B, 2, 5))
+    for good in ((B, 5), (B, 1, 5), (B, 7, 5)):
+        with pytest.raises(ValueError, match="CUDA"):
+            kernels.cho_solve_batched(a, torch.zeros(good))
 
 
 @pytest.mark.parametrize("launcher", ["cholesky_batched", "cho_solve_batched", "solve_pd_batched"])
