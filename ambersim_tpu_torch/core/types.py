@@ -3,7 +3,9 @@
 The split mirrors the JAX package (ambersim_tpu/core/types.py): ``Model`` is
 the static scene, ``Data`` the per-env state. Unlike the JAX pytrees, every
 ``Data`` tensor carries a leading env axis ``B`` (vmap becomes an explicit
-batch axis); ``Model`` tensors are unbatched and broadcast against it.
+batch axis); ``Model`` tensors are unbatched and broadcast against it, but
+for the leaves of ``ENV_LEAVES``, which may carry a leading env axis of
+``B`` (domain randomization: each env its own value; `check_env_leaves`).
 
 The IntEnums and :class:`Skeleton` are numpy/pure-Python copies of the JAX
 package's (same values, same content hash), so a skeleton exported from the
@@ -506,6 +508,67 @@ class Model(_Tensors):
     @property
     def nq(self) -> int:
         return self.skel.nq
+
+
+def _ranked(names: str, rank: int) -> dict:
+    return dict.fromkeys(names.split(), rank)
+
+
+# every Model tensor leaf's rank without an env axis
+LEAF_RANK = {
+    **_ranked("""qpos0 qpos_spring body_mass body_gravcomp dof_armature dof_damping dof_frictionloss dof_invweight0
+                 jnt_stiffness jnt_margin cam_fovy sensor_cutoff tendon_stiffness tendon_damping tendon_frictionloss
+                 tendon_margin tendon_length0 tendon_invweight0 geom_solmix geom_priority geom_margin geom_gap
+                 geom_rbound actuator_cranklength actuator_acc0 key_time pair_margin pair_gap""", 1),
+    **_ranked("""body_pos body_quat body_ipos body_iquat body_inertia body_invweight0 jnt_pos jnt_axis jnt_range
+                 jnt_actfrcrange jnt_solref jnt_solimp dof_solref dof_solimp site_pos site_quat site_size cam_pos
+                 cam_quat cam_resolution cam_intrinsic cam_sensorsize cam_pos0 cam_poscom0 light_pos light_dir
+                 light_pos0 light_poscom0 light_dir0 tendon_J tendon_Jq tendon_range tendon_lengthspring
+                 tendon_solref_lim tendon_solimp_lim tendon_solref_fri tendon_solimp_fri geom_pos geom_quat geom_size
+                 geom_friction geom_solref geom_solimp actuator_gear actuator_ctrlrange actuator_forcerange
+                 actuator_gainprm actuator_biasprm actuator_dynprm actuator_actrange actuator_lengthrange eq_data
+                 eq_solref eq_solimp key_qpos key_qvel key_act key_ctrl pair_friction pair_solref pair_solimp
+                 mesh_face_dist hfield_size""", 2),
+    **_ranked("cam_mat0 key_mpos key_mquat mesh_vert mesh_face_normal hfield_data", 3),
+    **_ranked("mesh_face_vert mesh_edge", 4),
+}
+# the leaves that may carry a leading env axis (domain randomization), the
+# JAX package's randomized leaves and the usual sim-to-real ones; the
+# engine reads each on its trailing axes. Nothing is recomputed from them:
+# dof_invweight0, actuator_acc0 and the like keep their compiled values.
+ENV_LEAVES = ("body_mass", "dof_damping", "geom_friction", "actuator_gainprm", "actuator_biasprm")
+
+
+def env_leaf_names(m: "Model") -> tuple:
+    """The leaves of `m` that carry an env axis (a rank above LEAF_RANK's)."""
+    return tuple(k for k in ENV_LEAVES if getattr(m, k).dim() > LEAF_RANK[k])
+
+
+def check_env_leaves(m: "Model", batch: int) -> None:
+    """Raise unless every leaf of `m` has its rank, or is one of
+    ENV_LEAVES with a leading env axis of `batch` ahead of it: a leaf of
+    another name with an extra axis raises NotImplementedError, a per-env
+    leaf of the wrong size ValueError, each naming the leaf. Cached on the
+    Model (a `replace` makes a new one)."""
+    if m.__dict__.get("_env_checked") == batch:
+        return
+    for k, rank in LEAF_RANK.items():
+        t = getattr(m, k)
+        if t.dim() == rank:
+            continue
+        if k not in ENV_LEAVES:
+            raise NotImplementedError(f"Model leaf {k} has an env axis ({tuple(t.shape)}); only {', '.join(ENV_LEAVES)} "
+                                      "may be per env (domain randomization)")
+        if t.dim() != rank + 1 or t.shape[0] != batch:
+            raise ValueError(f"per-env Model leaf {k} has shape {tuple(t.shape)}: want ({batch}, ...) ahead of its "
+                             f"rank-{rank} shape for {batch} envs")
+    m.__dict__["_env_checked"] = batch
+
+
+def env_slice(m: "Model", envs) -> "Model":
+    """`m` with its per-env leaves cut to envs `envs` (an index, a slice or
+    an index tensor): an env's own model when `envs` is an int."""
+    return m.replace(**{k: getattr(m, k)[envs] for k in env_leaf_names(m)})
 
 
 @dataclasses.dataclass

@@ -542,6 +542,17 @@ def _mesh_tuple(m: Model, g: torch.Tensor):
             m.mesh_face_vert[meshid], m.mesh_edge[meshid])
 
 
+def _per_env_rows(leaf: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Rows `g` ((P,) or (B, k) geom ids) of a (ngeom, w) leaf, or of a
+    (B, ngeom, w) one that carries an env axis (domain randomization), each
+    env's from its own rows."""
+    if leaf.dim() == 2:
+        return leaf[g]
+    if g.dim() == 1:
+        return leaf[:, g]
+    return torch.take_along_dim(leaf, g[..., None], dim=1)
+
+
 def _mix_params(m: Model, g1: torch.Tensor, g2: torch.Tensor):
     """Contact parameter mixing (mj_contactParam): priority wins, otherwise
     solmix-weighted solref/solimp and max friction; margins add; gap is the
@@ -560,7 +571,7 @@ def _mix_params(m: Model, g1: torch.Tensor, g2: torch.Tensor):
     solref = torch.where(standard[..., None], w1 * sr1 + (1 - w1) * sr2, torch.minimum(sr1, sr2))
     solimp = w1 * m.geom_solimp[g1] + (1 - w1) * m.geom_solimp[g2]
 
-    f1, f2 = m.geom_friction[g1], m.geom_friction[g2]
+    f1, f2 = _per_env_rows(m.geom_friction, g1), _per_env_rows(m.geom_friction, g2)
     fr = torch.where(eq[..., None], torch.maximum(f1, f2), torch.where((p1 > p2)[..., None], f1, f2))
     friction = torch.stack([fr[..., 0], fr[..., 0], fr[..., 1], fr[..., 2], fr[..., 2]], dim=-1)
     margin = m.geom_margin[g1] + m.geom_margin[g2]
@@ -643,9 +654,11 @@ def collision(m: Model, d: Data) -> Data:
             args = [poses[0], poses[1], m.geom_size[g1], poses[2], poses[3], m.geom_size[g2]]
             args += [_mesh_tuple(m, g) for t, g in zip(tkey, (g1, g2)) if t == int(GeomType.MESH)]
             dist, pos, frame = fn(*args)
-        pair_dim = g1.dim() - 1  # the pairs' dim of _mix_params: (P, ...) static, (B, k, ...) capped
+        # each parameter's pairs' dim: (P, ...) static, (B, k, ...) capped or
+        # per-env (a randomized geom_friction), ahead of its own width
         friction, solref, solimp, margin, gap = (
-            x.repeat_interleave(ncon_per, dim=pair_dim) for x in _contact_params(m, g1, g2, exp, exp_t)
+            x.repeat_interleave(ncon_per, dim=x.dim() - 1 - w)
+            for x, w in zip(_contact_params(m, g1, g2, exp, exp_t), (1, 1, 1, 0, 0))
         )
         dist_all[:, slots] = dist.reshape(B, -1)
         pos_all[:, slots] = pos.reshape(B, -1, 3)

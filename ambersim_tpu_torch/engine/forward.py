@@ -6,7 +6,7 @@ import contextlib
 
 import torch
 
-from ambersim_tpu_torch.core.types import Data, DisableBit, EnableBit, IntegratorType, Model
+from ambersim_tpu_torch.core.types import Data, DisableBit, EnableBit, IntegratorType, Model, check_env_leaves
 from ambersim_tpu_torch.engine import collision, constraint, integrate, noslip, sensor, smooth, solver
 from ambersim_tpu_torch.io.bridge import check_slice
 
@@ -38,6 +38,7 @@ def fwd_position(m: Model, d: Data) -> Data:
 def forward(m: Model, d: Data) -> Data:
     """Full forward dynamics: populate qacc without integrating."""
     check_slice(m)
+    check_env_leaves(m, d.qpos.shape[0])
     energy = m.opt.enableflags & EnableBit.ENERGY
     d = fwd_position(m, d)
     if energy:  # mj_energyPos at the end of the position stage

@@ -8,10 +8,11 @@ ambersim_tpu/engine/integrate.py).
   * implicitfast (mjINT_IMPLICITFAST): (M - h D) dv = h (qfrc_smooth +
     qfrc_constraint) with D the velocity derivative of the passive and
     actuator forces (`_qderiv_vel`: dof and tendon dampers, affine gain and
-    bias terms through the transmission moments), symmetric, so the solve
-    is kernel 3 on CUDA tensors.
-  * implicit (mjINT_IMPLICIT): D adds the Coriolis and centrifugal
-    derivative d(-qfrc_bias)/dqvel (`_coriolis_deriv`, exact central
+    bias terms through the transmission moments; the symmetric part of the
+    fluid drag's, `smooth.fluid_deriv`), symmetric, so the solve is kernel
+    3 on CUDA tensors.
+  * implicit (mjINT_IMPLICIT): D adds the fluid drag's derivative and the
+    Coriolis and centrifugal derivative d(-qfrc_bias)/dqvel (`_coriolis_deriv`, exact central
     differences of the bias's quadratic form through com_vel and rne);
     M - h D is not symmetric and is solved by LU,
     torch.linalg.solve, as the JAX package solves it with jnp.linalg.solve
@@ -89,7 +90,7 @@ def euler(m: Model, d: Data) -> Data:
         and not (m.opt.disableflags & DisableBit.DAMPER)
     )
     if use_implicit:
-        mh = d.qM + h * torch.diag(m.dof_damping)
+        mh = d.qM + h * torch.diag_embed(m.dof_damping)  # dof_damping may carry an env axis
         # RHS h * qM @ qacc, as the JAX package computes it (equal to MuJoCo's
         # h * (qfrc_smooth + qfrc_constraint) up to the solver's residual)
         rhs = h * (d.qM * d.qacc[:, None, :]).sum(-1)
@@ -124,7 +125,7 @@ def _qderiv_vel(m: Model, d: Data) -> torch.Tensor:
     if m.opt.disableflags & DisableBit.DAMPER:
         D = d.qvel.new_zeros((B, nv, nv))
     else:
-        D = -torch.diag(m.dof_damping).expand(B, nv, nv)
+        D = -torch.diag_embed(m.dof_damping).expand(B, nv, nv)
         if s.ntendon:
             tj = d.ten_J
             D = D - tj.transpose(-1, -2) @ (m.tendon_damping[:, None] * tj)
@@ -133,8 +134,8 @@ def _qderiv_vel(m: Model, d: Data) -> torch.Tensor:
         moment = smooth.actuator_moment(m, d)  # (B, nu, nv)
         affine_g = device_index(np.asarray(s.actuator_gaintype) == int(GainType.AFFINE), dev)
         affine_b = device_index(np.asarray(s.actuator_biastype) == int(BiasType.AFFINE), dev)
-        dgain = torch.where(affine_g, m.actuator_gainprm[:, 2], 0.0) * _act_input(m, d)
-        dbias = torch.where(affine_b, m.actuator_biasprm[:, 2], 0.0)
+        dgain = torch.where(affine_g, m.actuator_gainprm[..., 2], 0.0) * _act_input(m, d)
+        dbias = torch.where(affine_b, m.actuator_biasprm[..., 2], 0.0)
         D = D + moment.transpose(-1, -2) @ ((dgain + dbias)[..., None] * moment)
     return D
 
@@ -165,13 +166,19 @@ def _coriolis_deriv(m: Model, d: Data) -> torch.Tensor:
 
 def implicit_system(m: Model, d: Data, full: bool):
     """(A, rhs) of the implicit-in-velocity solve A dv = rhs at d (the
-    activations already advanced): A = qM - h D with D `_qderiv_vel`, plus
-    the Coriolis derivative when `full` (implicit), else plus the JAX
+    activations already advanced): A = qM - h D with D `_qderiv_vel` plus
+    the fluid-drag derivative where `passive` adds fluid forces
+    (`smooth.fluid_deriv`; implicitfast takes its symmetric part 0.5 (Df +
+    Df^T) as the JAX package does, implicit takes it as it is), plus the
+    Coriolis derivative when `full` (implicit), else plus the JAX
     package's 1e-10 ridge (implicitfast: symmetric positive definite for
     physical damping and velocity gains); rhs = h (qfrc_smooth +
     qfrc_constraint)."""
     h = m.opt.timestep
     D = _qderiv_vel(m, d)
+    if getattr(m.skel, "has_fluid", False) and smooth.passive_extras_on(m):
+        Df = smooth.fluid_deriv(m, d)
+        D = D + (Df if full else 0.5 * (Df + Df.transpose(-1, -2)))
     rhs = h * (d.qfrc_smooth + d.qfrc_constraint)
     if full:
         return d.qM - h * (D + _coriolis_deriv(m, d)), rhs

@@ -143,7 +143,7 @@ def noslip(m: Model, d: Data) -> Data:
     cols["block_A"] = [A[:, adr + 1:adr + cdim, adr + 1:adr + cdim]
                        + _EPS * torch.eye(cdim - 1, dtype=J.dtype, device=dev) for adr, cdim, _ in plan.blocks]
 
-    scale = m.opt.noslip_tolerance * s.nv * torch.clamp(m.body_mass.sum(), min=1.0)
+    scale = m.opt.noslip_tolerance * s.nv * torch.clamp(m.body_mass.sum(-1), min=1.0)  # per env with per-env masses
     f, res = f0, matvec(f0) - b
     c_prev = cost(f0)
     active = torch.ones_like(c_prev, dtype=torch.bool)

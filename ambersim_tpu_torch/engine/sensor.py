@@ -14,8 +14,8 @@ the number of sensors. The shared intermediates (cacc, the contact forces
 and wrenches, cfrc_int, subtree momentum) are computed once a call and
 only when a present type needs them.
 
-Every function takes a Model and a batch-first Data. CAMPROJECTION raises
-by name (`io.bridge.check_slice` refuses it); the rangefinder casts one
+Every function takes a Model and a batch-first Data. CAMPROJECTION reads
+the camera frames of `smooth.camlight`; the rangefinder casts one
 `engine.ray.ray` a sensor; the tendon limit sensors read the tendon's
 limit row, as the joint limit sensors read the joint's.
 """
@@ -66,15 +66,6 @@ _CONTACT_FIELDS = (("found", 1, 1), ("force", 2, 3), ("torque", 4, 3), ("dist", 
                    ("normal", 32, 3), ("tangent", 64, 3))
 
 
-def refused_sensors(s) -> list[str]:
-    """The features of skeleton `s`'s sensors the port does not evaluate."""
-    types = {int(t) for t in np.asarray(s.sensor_type)}
-    out = []
-    if int(SensorType.CAMPROJECTION) in types:
-        out.append("camera projection sensors (CAMPROJECTION)")
-    return out
-
-
 # ---------------------------------------------------------------------------
 # the plan
 
@@ -112,9 +103,6 @@ def sensor_plan(s) -> SensorPlan:
     plan = _PLANS.get(s)
     if plan is not None:
         return plan
-    refused = refused_sensors(s)
-    if refused:
-        raise NotImplementedError(", ".join(refused) + " are not ported")
     types = np.asarray(s.sensor_type)
     objtype, objid = np.asarray(s.sensor_objtype), np.asarray(s.sensor_objid)
     reftype, refid = np.asarray(s.sensor_reftype), np.asarray(s.sensor_refid)
@@ -360,14 +348,14 @@ def _subtree_momentum(m: Model, d: Data, angmom: bool):
     origin = d.subtree_com[:, _ix(s.body_rootid, dev)]
     ang = d.cvel[..., :3]
     lin = d.cvel[..., 3:] + am.cross(ang, d.xipos - origin)  # body com velocity
-    mom = m.body_mass[:, None] * lin
+    mom = m.body_mass[..., None] * lin  # body_mass may carry an env axis
     mass_acc = m.body_mass.clone()
     mom_acc = mom.clone()
     for child_ids, parent_ids in sched.reverse_levels:
         ct, pt = _ix(child_ids, dev), _ix(parent_ids, dev)
-        mass_acc.index_add_(0, pt, mass_acc[ct])
+        mass_acc.index_add_(-1, pt, mass_acc[..., ct])
         mom_acc.index_add_(1, pt, mom_acc[:, ct])
-    linvel = mom_acc / torch.clamp(mass_acc, min=1e-12)[:, None]
+    linvel = mom_acc / torch.clamp(mass_acc, min=1e-12)[..., None]
     if not angmom:
         return linvel, None
     # world rotational inertia of each body, then the parallel-axis shifts
@@ -605,6 +593,20 @@ def _eval_group(m: Model, d: Data, g: _Group, lazy: dict) -> torch.Tensor:
         return d.actuator_velocity[:, ix(objid)][..., None]
     if st == SensorType.ACTUATORFRC:
         return d.actuator_force[:, ix(objid)][..., None]
+    if st == SensorType.CAMPROJECTION:
+        # site objid in camera refid's pixel coordinates (JAX sensor.py:642-
+        # 660): the focal length from cam_intrinsic / cam_sensorsize where the
+        # sensor size is set, else from fovy; the principal point unused
+        cam = ix(refid)
+        p = _tmul(d.cam_xmat[:, cam], d.site_xpos[:, ix(objid)] - d.cam_xpos[:, cam])
+        res, ss, intr = m.cam_resolution[cam], m.cam_sensorsize[cam], m.cam_intrinsic[cam]
+        use_intrinsic = (ss[:, 0] > 0) & (ss[:, 1] > 0)
+        f_fovy = 0.5 / torch.tan(m.cam_fovy[cam] * np.pi / 360.0) * res[:, 1]
+        fx = torch.where(use_intrinsic, intr[:, 0] / torch.where(ss[:, 0] > 0, ss[:, 0], 1.0) * res[:, 0], f_fovy)
+        fy = torch.where(use_intrinsic, intr[:, 1] / torch.where(ss[:, 1] > 0, ss[:, 1], 1.0) * res[:, 1], f_fovy)
+        den = p[..., 2]
+        den = torch.where(den.abs() < 1e-12, torch.where(den < 0, -1e-12, 1e-12), den)
+        return torch.stack([-fx * p[..., 0] / den + res[:, 0] / 2.0, fy * p[..., 1] / den + res[:, 1] / 2.0], -1)
     if st == SensorType.SUBTREECOM:
         return d.subtree_com[:, ix(objid)]
     if st == SensorType.SUBTREELINVEL:

@@ -1,7 +1,8 @@
 """Smooth (unconstrained) dynamics: FK (mocap bodies included), COM
-quantities, tendon lengths and Jacobians (fixed and spatial, with sphere and
-cylinder wraps and pulleys), CRBA, RNE, passive forces (joint and tendon
-springs and dampers), energy and actuation (joint and tendon transmissions;
+quantities, camera and light frames, tendon lengths and Jacobians (fixed and
+spatial, with sphere and cylinder wraps and pulleys), CRBA, RNE, passive
+forces (joint and tendon springs and dampers, inertia-box fluid drag,
+gravity compensation), energy and actuation (joint and tendon transmissions;
 motors, affine servos, FLV muscles; filter/filterexact/integrator/muscle
 activations). Port of the main-path subset of
 ambersim_tpu/engine/smooth.py.
@@ -142,21 +143,21 @@ def com_pos(m: Model, d: Data) -> Data:
         return device_index(a, dev)
 
     # subtree com: bottom-up level accumulation (index_add_ sums siblings
-    # that share a parent)
+    # that share a parent); body_mass may carry an env axis
     mass_acc = m.body_mass.clone()
-    mpos_acc = m.body_mass[:, None] * d.xipos
+    mpos_acc = m.body_mass[..., None] * d.xipos
     for child_ids, parent_ids in sched.reverse_levels:
         ct, pt = ix(child_ids), ix(parent_ids)
-        mass_acc.index_add_(0, pt, mass_acc[ct])
+        mass_acc.index_add_(-1, pt, mass_acc[..., ct])
         mpos_acc.index_add_(1, pt, mpos_acc[:, ct])
-    subtree_com = mpos_acc / torch.clamp(mass_acc, min=1e-12)[:, None]
+    subtree_com = mpos_acc / torch.clamp(mass_acc, min=1e-12)[..., None]
     origin = subtree_com[:, ix(s.body_rootid)]
 
     # cinert = spatial inertia about the subtree-com origin:
     # [[W + m((c.c)E - c c^T), m S(c)], [-m S(c), m E]], W = R diag(I) R^T
     R = am.quat_to_mat(am.mul_quat(d.xquat, m.body_iquat))  # (B, nbody, 3, 3)
     W = (R * m.body_inertia[:, None, :]) @ R.transpose(-1, -2)
-    mass = m.body_mass[:, None, None]
+    mass = m.body_mass[..., None, None]
     c = d.xipos - origin
     c2 = (c * c).sum(-1)[..., None, None]
     eye = torch.eye(3, dtype=c.dtype, device=dev)
@@ -191,6 +192,74 @@ def com_pos(m: Model, d: Data) -> Data:
             cdof[:, ix(_span(da, 3))] = torch.cat([axes, lin], -1)
 
     return d.replace(subtree_com=subtree_com, cinert=cinert, cdof=cdof)
+
+
+def _camlight_frames(m: Model, d: Data, bodyid, mode, target, pos, pos0, poscom0):
+    """Positions (B, G, 3) of G cameras or lights and, per object, which
+    frame it takes: FIXED and TARGETBODY(COM) ride the body frame (the
+    local offset `pos`), TRACK keeps its world offset `pos0` from the body,
+    TRACKCOM `poscom0` from the body's subtree com. Returns (pos, the body
+    rotation (B, G, 3, 3), the target point (B, G, 3) or None, the masks
+    of the tracking and the targeting objects)."""
+    from ambersim_tpu_torch.core.types import CamLightMode as CM
+
+    dev = d.qpos.device
+    b = device_index(bodyid, dev)
+    R = am.quat_to_mat(d.xquat[:, b])
+    track, tcom = mode == int(CM.TRACK), mode == int(CM.TRACKCOM)
+    out = d.xpos[:, b] + (R * pos[:, None, :]).sum(-1)
+    if track.any():
+        out = torch.where(device_index(track, dev)[:, None], d.xpos[:, b] + pos0, out)
+    if tcom.any():
+        out = torch.where(device_index(tcom, dev)[:, None], d.subtree_com[:, b] + poscom0, out)
+    aim = (mode == int(CM.TARGETBODY)) | (mode == int(CM.TARGETBODYCOM))
+    tgt = None
+    if aim.any():
+        t = device_index(np.where(aim, target, 0), dev)
+        tgt = torch.where(device_index(mode == int(CM.TARGETBODYCOM), dev)[:, None], d.subtree_com[:, t], d.xpos[:, t])
+    return out, R, tgt, track | tcom, aim
+
+
+def _unit(v: torch.Tensor) -> torch.Tensor:
+    return v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True), min=1e-15)
+
+
+def camlight(m: Model, d: Data) -> Data:
+    """Camera and light frames (mj_camlight; JAX smooth.py:213-267), all
+    cameras in one batch and all lights in another, each mode a masked
+    select: FIXED rides the body frame; TRACK keeps a constant world offset
+    from the body, its orientation frozen at qpos0; TRACKCOM the same from
+    the body's subtree com; TARGETBODY(COM) rides the body and aims the
+    camera's -z at the target body (or its subtree com): z = unit(pos -
+    target), x = unit(z_world x z), y = z x x, and a light's direction at
+    it. A FIXED or targeting light's direction is normalized."""
+    s = m.skel
+    dev = d.qpos.device
+    out = {}
+    if s.ncam:
+        mode = np.asarray(s.cam_mode)
+        pos, R, tgt, frozen, aim = _camlight_frames(m, d, s.cam_bodyid, mode, s.cam_targetbodyid, m.cam_pos,
+                                                    m.cam_pos0, m.cam_poscom0)
+        mat = R @ am.quat_to_mat(m.cam_quat)
+        if frozen.any():
+            mat = torch.where(device_index(frozen, dev)[:, None, None], m.cam_mat0, mat)
+        if tgt is not None:
+            z = _unit(pos - tgt)
+            x = _unit(am.cross(torch.tensor([0.0, 0.0, 1.0], dtype=z.dtype, device=dev).expand_as(z), z))
+            mat = torch.where(device_index(aim, dev)[:, None, None], torch.stack([x, am.cross(z, x), z], -1), mat)
+        out.update(cam_xpos=pos, cam_xmat=mat)
+    if s.nlight:
+        mode = np.asarray(s.light_mode)
+        pos, R, tgt, frozen, aim = _camlight_frames(m, d, s.light_bodyid, mode, s.light_targetbodyid, m.light_pos,
+                                                    m.light_pos0, m.light_poscom0)
+        xdir = (R * m.light_dir[:, None, :]).sum(-1)
+        if tgt is not None:
+            xdir = torch.where(device_index(aim, dev)[:, None], tgt - pos, xdir)
+        xdir = _unit(xdir)
+        if frozen.any():
+            xdir = torch.where(device_index(frozen, dev)[:, None], m.light_dir0, xdir)
+        out.update(light_xpos=pos, light_xdir=xdir)
+    return d.replace(**out)
 
 
 def _skew(v: torch.Tensor) -> torch.Tensor:
@@ -304,7 +373,9 @@ def rne(m: Model, d: Data) -> Data:
 
 
 def passive(m: Model, d: Data) -> Data:
-    """Joint spring/damper passive forces (mirrors mj_passive)."""
+    """Passive forces (mirrors mj_passive): joint and tendon springs and
+    dampers, each zeroed by its own disable flag, then fluid drag and
+    gravity compensation unless SPRING and DAMPER are both disabled."""
     s = m.skel
     sched = tree_schedule(s)
     dev = d.qpos.device
@@ -342,7 +413,107 @@ def passive(m: Model, d: Data) -> Data:
         spring = torch.zeros_like(spring)
     if df & DisableBit.DAMPER:
         damper = torch.zeros_like(damper)
-    return d.replace(qfrc_spring=spring, qfrc_damper=damper, qfrc_passive=spring + damper)
+    qfrc_passive = spring + damper
+    if passive_extras_on(m):
+        # fluid drag and gravity compensation: one wrench at each body's com
+        force = torque = None
+        if getattr(s, "has_fluid", False):
+            force, torque = _fluid_wrench(m, d)
+        if getattr(s, "has_gravcomp", False) and not (df & DisableBit.GRAVITY):
+            # the antigravity force gravcomp * mass * (-g) (none without gravity)
+            fg = -(m.body_gravcomp * m.body_mass)[..., None] * m.opt.gravity
+            force = fg if force is None else force + fg
+        if force is not None:
+            qfrc_passive = qfrc_passive + _com_wrench_to_qfrc(m, d, force, torque)
+    return d.replace(qfrc_spring=spring, qfrc_damper=damper, qfrc_passive=qfrc_passive)
+
+
+def passive_extras_on(m: Model) -> bool:
+    """Whether `passive` adds fluid drag or gravity compensation: the model
+    has either, and SPRING and DAMPER are not both disabled (mj_passive
+    returns early then; JAX smooth.py:428-436)."""
+    s = m.skel
+    both_off = (m.opt.disableflags & int(DisableBit.PASSIVE)) == int(DisableBit.PASSIVE)
+    return bool(getattr(s, "has_fluid", False) or getattr(s, "has_gravcomp", False)) and not both_off
+
+
+def _com_wrench_to_qfrc(m: Model, d: Data, force: torch.Tensor, torque) -> torch.Tensor:
+    """(B, nv) generalized force of world wrenches on each body at its com
+    (force (B or none, nbody, 3), torque (B, nbody, 3) or None): the
+    spatial force about the root's subtree com, carried to the dofs that
+    support each body (`_body_dof_support`)."""
+    s = m.skel
+    dev = d.qpos.device
+    r = d.xipos - d.subtree_com[:, device_index(s.body_rootid, dev)]
+    ang = am.cross(r, force.expand_as(r))
+    if torque is not None:
+        ang = ang + torque
+    f = torch.cat([ang, force.expand_as(r)], -1)  # (B, nbody, 6)
+    sup = device_index(_body_dof_support(s).T.astype(np.float32), dev, dtype=f.dtype)  # (nv, nbody)
+    return (d.cdof * (sup @ f)).sum(-1)
+
+
+def _fluid_box(m: Model):
+    """(box sides (.., nbody, 3), equivalent sphere diameters (.., nbody),
+    live mask): each body's inertia box, half-sizes sqrt((I_j + I_k - I_i)
+    3 / 2m), for bodies of mass above 1e-9."""
+    mass = m.body_mass
+    I = m.body_inertia
+    Ij, Ik = torch.roll(I, -1, -1), torch.roll(I, -2, -1)
+    half = torch.sqrt(torch.clamp((Ij + Ik - I) * 3.0 / (2.0 * torch.clamp(mass, min=1e-12)[..., None]), min=1e-12))
+    return 2.0 * half, 2.0 * half.mean(-1), mass > 1e-9
+
+
+def _fluid_local_vel(m: Model, d: Data):
+    """Each body's (angular, linear) velocity at its com in its inertial
+    frame (B, nbody, 3), the linear one relative to opt.wind."""
+    s = m.skel
+    r = d.xipos - d.subtree_com[:, device_index(s.body_rootid, d.qpos.device)]
+    ang = d.cvel[..., :3]
+    lin = d.cvel[..., 3:] + am.cross(ang, r)
+    return am.mat_t_vec(d.ximat, ang), am.mat_t_vec(d.ximat, lin - m.opt.wind)
+
+
+def _fluid_wrench(m: Model, d: Data):
+    """World (force, torque) (B, nbody, 3) of the inertia-box fluid model
+    at each body's com (mj_passive; JAX smooth.py:495-541): viscous sphere
+    drag and quadratic density drag on the body's local velocity, zero on
+    bodies of mass <= 1e-9."""
+    side, diam, live = _fluid_box(m)
+    lang, llin = _fluid_local_vel(m, d)
+    rho, beta = m.opt.density, m.opt.viscosity
+    sj, sk = torch.roll(side, -1, -1), torch.roll(side, -2, -1)
+    force = -3.0 * np.pi * diam[..., None] * beta * llin - 0.5 * rho * sj * sk * llin.abs() * llin
+    torque = (-np.pi * diam[..., None] ** 3 * beta * lang
+              - rho * side * (sj**4 + sk**4) * lang.abs() * lang / 64.0)
+    force = torch.where(live[..., None], force, 0.0)
+    torque = torch.where(live[..., None], torque, 0.0)
+    return (d.ximat * force[..., None, :]).sum(-1), (d.ximat * torque[..., None, :]).sum(-1)
+
+
+def fluid_deriv(m: Model, d: Data) -> torch.Tensor:
+    """(B, nv, nv) d(fluid force)/dqvel in closed form, the fluid part of
+    the JAX package's forward-mode _qderiv_vel_ad (integrate.py:117-147).
+    Each body's drag is diagonal in its inertial frame in the local
+    velocity: d force_i/d llin_i = -3 pi diam beta - rho s_j s_k |llin_i|
+    (|v| v has derivative 2 |v|, also 0 at 0 as forward-mode AD takes it),
+    d torque_i/d lang_i = -pi diam^3 beta - rho s_i (s_j^4 + s_k^4)
+    |lang_i| / 32; with A = J R the com's Jacobian in that frame, D =
+    sum over bodies of A diag(k) A^T, symmetric. J are the com's rotational
+    and point Jacobians; the wind only shifts llin."""
+    s = m.skel
+    side, diam, live = _fluid_box(m)
+    lang, llin = _fluid_local_vel(m, d)
+    rho, beta = m.opt.density, m.opt.viscosity
+    sj, sk = torch.roll(side, -1, -1), torch.roll(side, -2, -1)
+    kf = -3.0 * np.pi * diam[..., None] * beta - rho * sj * sk * llin.abs()
+    kt = -np.pi * diam[..., None] ** 3 * beta - rho * side * (sj**4 + sk**4) * lang.abs() / 32.0
+    kf = torch.where(live[..., None], kf, 0.0)
+    kt = torch.where(live[..., None], kt, 0.0)
+    bodies = np.arange(s.nbody)
+    a_lin = _point_jac(m, d, d.xipos, bodies) @ d.ximat  # (B, nbody, nv, 3)
+    a_ang = _rot_jac(m, d, bodies) @ d.ximat
+    return ((a_lin * kf[:, :, None]) @ a_lin.transpose(-1, -2) + (a_ang * kt[:, :, None]) @ a_ang.transpose(-1, -2)).sum(1)
 
 
 def _ten_deadband(m: Model, d: Data) -> torch.Tensor:
@@ -602,8 +773,8 @@ def muscle_gain_bias(m: Model, length: torch.Tensor, velocity: torch.Tensor, u=N
     returns (gain, bias). biasprm == gainprm for muscles."""
     u = np.arange(m.skel.nu) if u is None else np.asarray(u)
     ux = device_index(u, length.device)
-    prm, LR, acc0 = m.actuator_gainprm[ux], m.actuator_lengthrange[ux], m.actuator_acc0[ux]
-    r0, r1, force, scale, lmin, lmax, vmax, fpmax, fvmax = prm[:, :9].unbind(-1)
+    prm, LR, acc0 = m.actuator_gainprm[..., ux, :], m.actuator_lengthrange[ux], m.actuator_acc0[ux]
+    r0, r1, force, scale, lmin, lmax, vmax, fpmax, fvmax = prm[..., :9].unbind(-1)
     force = torch.where(force < 0, scale / torch.clamp(acc0, min=_EPS_MUSCLE), force)
     L0 = (LR[:, 1] - LR[:, 0]) / torch.clamp(r1 - r0, min=_EPS_MUSCLE)
     L = r0 + (length - LR[:, 0]) / torch.clamp(L0, min=_EPS_MUSCLE)
@@ -693,16 +864,16 @@ def fwd_actuation(m: Model, d: Data) -> Data:
         velocity = d.qvel[:, ix(dof)] * gear
     act_dot = d.act_dot
     if _all_motors(s):
-        force = m.actuator_gainprm[:, 0] * ctrl
+        force = m.actuator_gainprm[..., 0] * ctrl
     else:
         gp, bp = m.actuator_gainprm, m.actuator_biasprm
         gaintype, biastype = np.asarray(s.actuator_gaintype), np.asarray(s.actuator_biastype)
         gain = torch.where(
-            ix(gaintype == int(GainType.FIXED)), gp[:, 0],
-            gp[:, 0] + gp[:, 1] * length + gp[:, 2] * velocity)
+            ix(gaintype == int(GainType.FIXED)), gp[..., 0],
+            gp[..., 0] + gp[..., 1] * length + gp[..., 2] * velocity)
         bias = torch.where(
             ix(biastype == int(BiasType.AFFINE)),
-            bp[:, 0] + bp[:, 1] * length + bp[:, 2] * velocity, 0.0)
+            bp[..., 0] + bp[..., 1] * length + bp[..., 2] * velocity, 0.0)
         if (gaintype == int(GainType.MUSCLE)).any():
             # the FLV curves, evaluated on the muscles' columns only (the
             # JAX package evaluates them on every column and selects)
@@ -773,7 +944,7 @@ def energy_pos(m: Model, d: Data) -> torch.Tensor:
 
     e = d.qpos.new_zeros(d.qpos.shape[0])
     if not (m.opt.disableflags & DisableBit.GRAVITY):
-        e = e - (m.body_mass[:, None] * d.xipos * m.opt.gravity).sum((-2, -1))
+        e = e - (m.body_mass[..., None] * d.xipos * m.opt.gravity).sum((-2, -1))
     if m.opt.disableflags & DisableBit.SPRING:
         return e
     for jtype_int, jids in sched.jnt_by_type.items():
@@ -838,13 +1009,7 @@ def xfrc_accumulate(m: Model, d: Data) -> torch.Tensor:
     s = m.skel
     if s.nv == 0 or s.nbody <= 1:
         return torch.zeros_like(d.qvel)
-    origin = d.subtree_com[:, device_index(s.body_rootid, d.qpos.device)]
-    force = d.xfrc_applied[..., :3]
-    torque = d.xfrc_applied[..., 3:]
-    fspatial = torch.cat([torque + am.cross(d.xipos - origin, force), force], -1)  # (B, nbody, 6)
-    per_body = (fspatial[:, :, None, :] * d.cdof[:, None, :, :]).sum(-1)  # (B, nbody, nv)
-    sup = device_index(_body_dof_support(s).astype(np.float32), d.qpos.device)
-    return (per_body * sup).sum(1)
+    return _com_wrench_to_qfrc(m, d, d.xfrc_applied[..., :3], d.xfrc_applied[..., 3:])
 
 
 # ---------------------------------------------------------------------------
@@ -1145,6 +1310,8 @@ def tendon(m: Model, d: Data) -> Data:
 def fwd_position_smooth(m: Model, d: Data) -> Data:
     d = kinematics(m, d)
     d = com_pos(m, d)
+    if m.skel.ncam or m.skel.nlight:
+        d = camlight(m, d)
     d = tendon(m, d)
     d = crb(m, d)
     return factor_m(m, d)

@@ -743,7 +743,13 @@ def solve(m: Model, d: Data) -> Data:
     iterations = int(max(m.opt.iterations, 1))
     ls_iterations = int(max(m.opt.ls_iterations, 1))
     use_ws = not (m.opt.disableflags & DisableBit.WARMSTART)
-    tol = m.opt.tolerance * s.nv * torch.clamp(m.body_mass.sum(), min=1.0)
+    # tolerance nv max(total mass, 1), per env with a per-env body_mass:
+    # CG and the general elliptic solve keep each env's (the JAX package
+    # runs them under vmap); the Newton kernels and their plain versions
+    # take its minimum over envs, the JAX package's vmap rule for its
+    # kernels (solver.py:572-575, 846-851), so no env stops early on
+    # another's tolerance
+    tol = m.opt.tolerance * s.nv * torch.clamp(m.body_mass.sum(-1), min=1.0)
     if m.opt.solver == int(SolverType.CG):
         qacc, force, qfrc = _solve_cg(m, d, tol, iterations=iterations, ls_iterations=ls_iterations, use_ws=use_ws)
         return d.replace(qacc=qacc, qfrc_constraint=qfrc, efc_force=force, qacc_warmstart=qacc)
@@ -761,6 +767,7 @@ def solve(m: Model, d: Data) -> Data:
             qacc, force, qfrc = _newton_elliptic_general(*rows, tol, *elliptic_blocks(s, d), m.opt.impratio, ne=int(s.ne),
                                                          nf=int(s.nf), **statics, solve=linalg.solve_pd)
             return d.replace(qacc=qacc, qfrc_constraint=qfrc, efc_force=force, qacc_warmstart=qacc)
+        tol = tol.min()
         cdim, slots, base, full = tail
         fr = d.contact.friction if full else d.contact.friction[:, device_index(slots, d.qpos.device)]
         cone = dict(ne=int(s.ne), nf=int(s.nf), base=base, ncon=len(slots), cdim=cdim, **statics)
@@ -771,6 +778,7 @@ def solve(m: Model, d: Data) -> Data:
         return d.replace(qacc=qacc, qfrc_constraint=qfrc, efc_force=force, qacc_warmstart=qacc)
 
     st = _pyramid_structure(s)
+    tol = tol.min()
     if arrays:
         qacc, force, qfrc = _newton_arrays(*rows, tol, ne=int(s.ne), nf=int(s.nf), **statics, solve=linalg.solve_pd,
                                            hess_bf16=bool(m.opt.hessian_bf16))

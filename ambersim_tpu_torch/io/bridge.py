@@ -144,7 +144,6 @@ def check_slice(m: Model) -> None:
     """Raise NotImplementedError naming every feature of `m` that the port
     does not implement. Nothing outside the slice is silently skipped."""
     from ambersim_tpu_torch.engine.collision import _NARROWPHASE
-    from ambersim_tpu_torch.engine.sensor import refused_sensors
     from ambersim_tpu_torch.engine.solver import _elliptic_meta
     from ambersim_tpu_torch.ops.newton import MAX_NV
 
@@ -154,18 +153,6 @@ def check_slice(m: Model) -> None:
     if key in _CHECKED:
         return
     missing = []
-    for n, feature in (
-        ("ncam", "cameras (camlight)"),
-        ("nlight", "lights (camlight)"),
-    ):
-        if getattr(s, n):
-            missing.append(feature)
-    if getattr(s, "has_fluid", False):
-        missing.append("fluid forces")
-    if getattr(s, "has_gravcomp", False):
-        missing.append("gravity compensation")
-    if s.nsensor:
-        missing.extend(refused_sensors(s))
     # _elliptic_meta raises ValueError when the rows were compiled for pyramidal cones
     if o.cone == int(ConeType.ELLIPTIC):
         _elliptic_meta(s)

@@ -69,8 +69,12 @@ class MjxEnv(abc.ABC):
 
     def to(self, device) -> "MjxEnv":
         """A copy of the env with its model on `device`."""
+        return self.with_model(self.model.to(torch.device(device)))
+
+    def with_model(self, model: Model) -> "MjxEnv":
+        """A copy of the env stepping `model` (e.g. one with per-env leaves)."""
         env = copy.copy(self)
-        env.model = self.model.to(torch.device(device))
+        env.model = model
         return env
 
     def pipeline_init(self, qpos: torch.Tensor, qvel: torch.Tensor, ctrl: Optional[torch.Tensor] = None) -> Data:

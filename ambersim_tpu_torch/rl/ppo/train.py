@@ -22,6 +22,7 @@ trainer raises rather than step on the CPU.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -178,19 +179,27 @@ def train(
     device="cuda",
 ) -> Tuple[Callable, Tuple[Any, Any], Dict[str, Any]]:
     """Train a PPO agent on `device` (the card unless "cpu" is asked for); returns (make_policy, (normalizer_params,
-    policy_params), metrics). Besides the JAX package's keys, metrics carry
+    policy_params), metrics). `randomization_fn(model, generator, num_envs) -> (model_v, names)` gives every
+    env its own randomized Model (rl.wrappers.DomainRandomizationVmapWrapper); the eval envs draw their own
+    batch. Besides the JAX package's keys, metrics carry
     `timing/rollout_s`, `timing/sgd_s` and `timing/eval_s`: host seconds of
     the epoch's phases, each ended by a device synchronize."""
     refuse_mesh(mesh)
-    if randomization_fn is not None:
-        raise NotImplementedError("randomization_fn: domain randomization needs per-env Model leaves, not ported")
     device = check_device(device)
     if (batch_size * num_minibatches) % num_envs != 0:
         raise ValueError("batch_size * num_minibatches must be divisible by num_envs")
 
     environment = environment.to(device)
-    env = wrappers.wrap_for_training(environment, episode_length, action_repeat)
-    eval_env = wrappers.wrap_for_training(environment, episode_length, action_repeat)
+    train_rand_fn = eval_rand_fn = None
+    if randomization_fn is not None:
+        # `randomization_fn(model, generator, num_envs) -> (model_v, names)`:
+        # the training envs' batch, then the eval envs' own, both drawn from a
+        # host generator seeded seed ^ 0x5EED (JAX train.py:85-90)
+        rand_gen = torch.Generator().manual_seed(seed ^ 0x5EED)
+        train_rand_fn = functools.partial(randomization_fn, generator=rand_gen, num_envs=num_envs)
+        eval_rand_fn = functools.partial(randomization_fn, generator=rand_gen, num_envs=num_eval_envs)
+    env = wrappers.wrap_for_training(environment, episode_length, action_repeat, randomization_fn=train_rand_fn)
+    eval_env = wrappers.wrap_for_training(environment, episode_length, action_repeat, randomization_fn=eval_rand_fn)
     obs_size = environment.observation_size
     action_size = environment.action_size
 

@@ -13,7 +13,7 @@ import torch
 
 from ambersim_tpu_torch.core import math as am
 from ambersim_tpu_torch.io.bridge import load_model
-from ambersim_tpu_torch.rl.base import MjxEnv, State, draw_normal
+from ambersim_tpu_torch.rl.base import MjxEnv, State, draw_normal, draw_uniform
 
 # PD mapping of the action (an offset from the standing pose) to motor torques
 KP, KD = 24.0, 0.8
@@ -120,3 +120,30 @@ class QuadrupedLocomotionEnv(MjxEnv):
             pipeline_state=data, obs=obs, reward=reward, done=self._done(data),
             metrics={**state.metrics, "reward": reward}, info=info,
         )
+
+
+FEET = ("FL_foot", "FR_foot", "RL_foot", "RR_foot")
+
+
+def randomize_quadruped(model, generator: torch.Generator, num_envs: int):
+    """A `randomization_fn` for the quadruped (rl.wrappers.
+    DomainRandomizationVmapWrapper, ppo.train): per env, the trunk's mass
+    times U[0.8, 1.2], the 12 leg joints' damping U[0.5, 1.1], the feet's
+    sliding friction U[0.5, 1.25] (the contact takes the larger of the
+    foot's and the floor's 0.8) and each motor's gain times U[0.9, 1.1],
+    drawn with `generator` on its own device (so a CPU generator gives the
+    card and the CPU the same leaves). Returns (model, the four names)."""
+    s, dev = model.skel, model.device
+    trunk = s.body_names.index("trunk")
+    feet = [s.geom_names.index(f) for f in FEET]
+    legs = [int(s.jnt_dofadr[j]) for j in range(s.njnt) if int(s.jnt_type[j]) != 0]  # every joint but the free one
+    mass = model.body_mass.expand(num_envs, -1).clone()
+    mass[:, trunk] *= draw_uniform(generator, (num_envs,), 0.8, 1.2, dev)
+    damping = model.dof_damping.expand(num_envs, -1).clone()
+    damping[:, legs] = draw_uniform(generator, (num_envs, len(legs)), 0.5, 1.1, dev)
+    friction = model.geom_friction.expand(num_envs, -1, -1).clone()
+    friction[:, feet, 0] = draw_uniform(generator, (num_envs, len(feet)), 0.5, 1.25, dev)
+    gain = model.actuator_gainprm.expand(num_envs, -1, -1).clone()
+    gain[..., 0] *= draw_uniform(generator, (num_envs, s.nu), 0.9, 1.1, dev)
+    names = ("body_mass", "dof_damping", "geom_friction", "actuator_gainprm")
+    return model.replace(body_mass=mass, dof_damping=damping, geom_friction=friction, actuator_gainprm=gain), names

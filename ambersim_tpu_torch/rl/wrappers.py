@@ -19,7 +19,7 @@ from typing import Optional
 
 import torch
 
-from ambersim_tpu_torch.core.types import _Tensors
+from ambersim_tpu_torch.core.types import ENV_LEAVES, Model, _Tensors, check_env_leaves
 from ambersim_tpu_torch.rl.base import MjxEnv, State
 
 
@@ -46,6 +46,11 @@ class Wrapper(MjxEnv):
     def to(self, device) -> "Wrapper":
         wrapper = copy.copy(self)
         wrapper.env = self.env.to(device)
+        return wrapper
+
+    def with_model(self, model: Model) -> "Wrapper":
+        wrapper = copy.copy(self)
+        wrapper.env = self.env.with_model(model)
         return wrapper
 
     @property
@@ -138,14 +143,56 @@ class VmapWrapper(Wrapper):
         return self.env.reset(generator, batch_size)
 
 
+def check_randomized(base: Model, model: Model, names) -> int:
+    """The env count of `model`, `base` with the leaves `names` given a
+    leading env axis. Raises NotImplementedError for a name outside
+    core.types.ENV_LEAVES or another leaf given an env axis, ValueError for
+    a per-env leaf of the wrong shape or one `names` leaves out, each
+    naming the leaf."""
+    names = tuple(names)
+    if not names:
+        raise ValueError("randomization_fn named no randomized leaf")
+    for k in names:
+        if k not in ENV_LEAVES:
+            raise NotImplementedError(f"Model leaf {k} cannot be per env; the per-env leaves are {', '.join(ENV_LEAVES)}")
+    n = getattr(model, names[0]).shape[0] if getattr(model, names[0]).dim() else 0
+    check_env_leaves(model, n)
+    for k in ENV_LEAVES:
+        want, got = tuple(getattr(base, k).shape), tuple(getattr(model, k).shape)
+        if got != ((n,) + want if k in names else want):
+            raise ValueError(f"leaf {k} has shape {got}: want {(n,) + want if k in names else want} "
+                             f"({'named' if k in names else 'not named'} by randomization_fn, {n} envs)")
+    return n
+
+
 class DomainRandomizationVmapWrapper(Wrapper):
-    """Per-env randomized models: not ported."""
+    """Every env its own randomized Model (brax's DomainRandomizationVmapWrapper;
+    JAX rl/wrappers.py:122-153). `randomization_fn(model) -> (model_v,
+    names)`: `model_v` is the env's Model with the leaves `names` (of
+    core.types.ENV_LEAVES) given a leading env axis, every other leaf as it
+    was; `names` plays the role of JAX's `in_axes`. The axis's length is
+    the number of envs: reset and step run the whole batch against
+    `model_v`, each env reading its own values."""
 
     def __init__(self, env: MjxEnv, randomization_fn):
-        raise NotImplementedError(
-            "domain randomization needs per-env Model leaves (a batch axis on Model tensors), "
-            "which the port's engine does not take yet"
-        )
+        model_v, names = randomization_fn(env.model)
+        self.num_envs = check_randomized(env.model, model_v, names)
+        self._base = env
+        super().__init__(env.with_model(model_v))
+
+    def reset(self, generator: torch.Generator, batch_size: int | None = None) -> State:
+        if batch_size not in (None, self.num_envs):
+            raise ValueError(f"the randomized models hold {self.num_envs} envs, not {batch_size}")
+        return self.env.reset(generator, self.num_envs)
+
+    def to(self, device) -> "Wrapper":
+        wrapper = super().to(device)
+        wrapper._base = self._base.to(device)
+        return wrapper
+
+    @property
+    def observation_size(self) -> int:
+        return self._base.observation_size
 
 
 def wrap_for_training(

@@ -9,9 +9,9 @@ ambersim_tpu_torch/csrc/, holds each against its plain PyTorch version on
 the card, and steps every ported path through the port's entry points:
 
   * the main path, the 4096-env quadruped PD rollout (bench.py:62-127);
-  * cartpole and arm3 at 1024 envs x 100 steps (benchmarks/ladder.py:98-102,
+  * cartpole and arm3 at 1024 envs x 50 steps (benchmarks/ladder.py:98-102,
     cut in depth), whose rows go to the dense Newton kernel;
-  * the quadruped compiled with elliptic cones at 4096 envs x 100 steps
+  * the quadruped compiled with elliptic cones at 4096 envs x 50 steps
     (benchmarks/elliptic_gap.py:30-35), through the elliptic Newton kernel;
   * the humanoid at 1024 envs x 20 steps, through the structured kernel at
     nv = 25;
@@ -105,8 +105,8 @@ the card, and steps every ported path through the port's entry points:
     elliptic solve, its Hessian solves through kernel 3 (no Newton kernel,
     as in the JAX package); condim6_elliptic, every pair condim 6 with
     elliptic cones, 100 steps through kernel 6 at cdim 6 (nefc 192);
-    quadruped_implicitfast (100 steps, kernel 3 its solve), quadruped_implicit
-    (50 steps, an LU) and quadruped_rk4 (25 steps, kernels 1, 2 and 4 four
+    quadruped_implicitfast (50 steps, kernel 3 its solve), quadruped_implicit
+    (25 steps, an LU) and quadruped_rk4 (12 steps, kernels 1, 2 and 4 four
     times a step); kernel 5 held on soft_feet's final operands, kernel 6 on
     condim6_elliptic's and on tests/test_elliptic.py's spin-down sphere
     (cdim 4) at 4096 envs, kernel 3 on the general solve's last Hessian and
@@ -120,7 +120,20 @@ the card, and steps every ported path through the port's entry points:
     per env); kernel 2 with k right-hand sides against its plain version
     (warp and block designs), on CG's M^-1 g and noslip's M^-1 J^T; the
     JAX tests' noslip scene, BALL_PLANE under CG, FWDINV, inverse dynamics
-    and the support functions card against CPU.
+    and the support functions card against CPU;
+  * fluid forces, gravity compensation, cameras and lights, and per-env
+    Model leaves, each at 4096 envs x 50 steps from the main path's start
+    under its PD controller through kernels 1-4: quadruped_fluid, the
+    quadruped in tests/test_fluid.py's medium under implicitfast (kernel 3
+    on qM - h D with the fluid drag's derivative) with gravcomp on its
+    legs, a trackcom camera, a targetbody light and four CAMPROJECTION
+    sensors of its feet, its frames, pixels and passive force card against
+    CPU on the same Data; quadruped_dr, the quadruped with per-env trunk
+    mass, leg damping, foot friction and motor gains (rl.quadruped.
+    randomize_quadruped), 8 of its envs each against its own unbatched
+    model on the card; and ppo_quadruped_dr, one PPO training step of the
+    locomotion task with that randomization_fn, the eval envs drawing
+    their own leaves.
 
 For each path it checks that every step went through the path's kernels
 and compares 8 envs of the rollout on the card with the same rollout on the
@@ -221,9 +234,13 @@ EXACT_SETTLE, EXACT_STEPS, BF16_STEPS = 100, 20, 20
 # tendon phases came, 5 until the weld phases came)
 HUMANOID_SAMPLES, HUMANOID_HORIZON, HUMANOID_STDEV = 64, 8, 0.2
 HUMANOID_OPTIMIZE_CALLS = 3
-# rung 2 (:98-102): cartpole and arm3 at 1024 envs. Cut: 100 steps (200
-# until the tendon phases came; check_newton_dense rolls its own 100)
-LADDER_STEPS = 100
+# rung 2 (:98-102): cartpole and arm3 at 1024 envs. Cut: 50 steps (200
+# until the tendon phases came, 100 until the fluid and per-env-leaf
+# phases came; check_newton_dense rolls its own 100)
+LADDER_STEPS = 50
+# the elliptic quadruped's path: 50 steps (NUM_STEPS until the fluid and
+# per-env-leaf phases came; nothing reads its final state)
+ELLIPTIC_STEPS = 50
 # rung 1 (:94-96): the pendulum, a batch of one, 1000 steps. Cut: 125
 # steps (1000 until section 9 came, 500 until the sensor phases came)
 PENDULUM_STEPS = 125
@@ -523,9 +540,10 @@ ES_QUADRUPED = dict(episode_length=25, population_size=512, policy_updates=1, nu
 # SAC on quadruped_locomotion at the trainer's defaults (128 envs, batch
 # 256, (256, 256) critics and policy, a replay of 1,000,000 transitions on
 # the card). Cut: min replay 1,024 (8 prefill actor steps), episode_length
-# 50, 25 training steps (100 and 50 until the sensor phases came) and one
-# eval of 64 envs.
-SAC_QUADRUPED = dict(num_timesteps=1_024 + 25 * 128, num_evals=1, episode_length=50, min_replay_size=1_024,
+# 25 (ES_QUADRUPED's; 50 until the fluid and per-env-leaf phases came), 25
+# training steps (100 and 50 until the sensor phases came) and one eval of
+# 64 envs.
+SAC_QUADRUPED = dict(num_timesteps=1_024 + 25 * 128, num_evals=1, episode_length=25, min_replay_size=1_024,
                      num_eval_envs=64, seed=0)
 # Card against CPU. ES and ARS: the first update's population returns
 # over POPULATION_FIRST_EPISODE control steps from the same params, starts
@@ -801,6 +819,24 @@ SOFT_FEET_STEPS, SOFT_ELLIPTIC_STEPS, CONDIM6_STEPS = 100, 50, 100
 # nudge of its start, 7.6e-2 in qpos and 0.71 in qvel (CG) and 1.9e-2 and
 # 0.40 (noslip), at CONVERGED 2.1e-5 / 1.0e-3 and 3.4e-6 / 6.4e-4.
 CG_STEPS = NOSLIP_STEPS = 50
+# quadruped_fluid: the main path's quadruped in tests/test_fluid.py:21's
+# medium (FLUID_MEDIUM) under implicitfast, gravcomp 1 on its eight thigh
+# and calf bodies, a trackcom camera and a targetbody light on the trunk,
+# a site at each foot and four CAMPROJECTION sensors of them in the camera
+# (quadruped_fluid_xml); quadruped_dr: the main path's quadruped with
+# per-env leaves (rl.quadruped.randomize_quadruped drawn from a CPU
+# generator seeded DR_SEED: trunk mass, leg damping, foot friction, motor
+# gains). Both 4096 envs x 50 steps from initial_batch under pd_ctrl; card
+# vs CPU 8 x 20 at QPOS_TOL / QVEL_TOL, quadruped_dr from its start, the
+# fluid path from its settled final state at its own 3 x 6 ("settled"):
+# from the start its feet land, and the CPU's own rollout moves 2.1e-2 in
+# qvel under a 1e-6 nudge at 15 x 15 (6.3e-2 at 30 x 30), from the settled
+# state 3.3e-4 at 3 x 6; and for quadruped_dr 8 envs of the batched-leaf
+# rollout on the card against each env's own unbatched model over
+# DR_CHECK_STEPS steps at tolerance 0.
+FLUID_MEDIUM = 'density="1.2" viscosity="0.3" wind="0.5 -0.2 0.1"'
+FLUID_STEPS = DR_STEPS = 50
+DR_SEED, DR_CHECK_STEPS = 21, 10
 NOSLIP_RHS = 136  # the quadruped's nefc: M^-1 J^T's right-hand sides per env
 # kernel 2 with k right-hand sides per factor: (B, n, k) cases beside the
 # noslip shape, the warp design's edges and the block design at small B
@@ -810,7 +846,10 @@ NOSLIP_SCENE = lambda: tests_xml("test_noslip.py", "XML")  # noqa: E731
 BALL_PLANE = lambda: tests_xml("test_constraint_parity.py", "BALL_PLANE")  # noqa: E731
 NOSLIP_SCENE_OPT = dict(iterations=30, ls_iterations=30)
 RK4, IMPLICIT, IMPLICITFAST = 1, 2, 3  # Option.integrator (ambersim_tpu_torch.core.types.IntegratorType)
-IMPLICITFAST_STEPS, IMPLICIT_STEPS, RK4_STEPS = 100, 50, 25
+# Cut for the fluid and per-env-leaf phases: implicitfast 100 -> 50 steps
+# (kernel 3's check on its qM - h D reads any settled state), implicit
+# 50 -> 25, RK4 25 -> 12 (nothing reads their final states)
+IMPLICITFAST_STEPS, IMPLICIT_STEPS, RK4_STEPS = 50, 25, 12
 # kernel 6 on tests/test_elliptic.py's spin-down sphere (condim 4, elliptic,
 # friction 0.8 0.2 0.01, 30 x 30 iterations) at NUM_ENVS envs: spin
 # SPIN_QVEL about the normal plus 0.5 N(0, 1) on every velocity
@@ -2184,6 +2223,32 @@ def condim6_xml() -> str:
     return _with_option(xml.replace(floor, '<geom name="floor" condim="6" type="plane"'), 'cone="elliptic"')
 
 
+def quadruped_fluid_xml() -> str:
+    """The main path's quadruped (read as text) in FLUID_MEDIUM under
+    implicitfast, gravcomp="1" on the eight thigh and calf bodies, a
+    trackcom camera (`follow`, 1.2 m behind the trunk's com looking
+    forward and down, 640 x 480) and a targetbody light (`spot`, aimed at
+    FL_calf) on the trunk, a site at each foot's centre and four
+    CAMPROJECTION sensors of those sites in `follow`."""
+    xml = _with_option((REPO / QUADRUPED_XML).read_text(), f'{FLUID_MEDIUM} integrator="implicitfast"')
+    for f in FEET:
+        for part in ("thigh", "calf"):
+            tag = f'<body name="{f}_{part}" '
+            if tag not in xml:
+                fail(f"quadruped_fluid_xml: no {f}_{part} body in {QUADRUPED_XML}")
+            xml = xml.replace(tag, tag + 'gravcomp="1" ')
+        foot = f'<geom name="{f}_foot" type="sphere" pos="0 0 -0.2" size="0.022" density="1100"/>'
+        if foot not in xml:
+            fail(f"quadruped_fluid_xml: no {f}_foot geom in {QUADRUPED_XML}")
+        xml = xml.replace(foot, foot + f'\n            <site name="{f}_foot" pos="0 0 -0.2"/>')
+    xml = xml.replace('<freejoint name="root"/>', '<freejoint name="root"/>\n'
+                      '      <camera name="follow" mode="trackcom" pos="0 -1.2 0.4" xyaxes="1 0 0 0 0.3 1" '
+                      'resolution="640 480"/>\n'
+                      '      <light name="spot" mode="targetbody" target="FL_calf" pos="0 0 1.5"/>')
+    rows = "".join(f'    <camprojection site="{f}_foot" camera="follow"/>\n' for f in FEET)
+    return xml.replace("</mujoco>", f"  <sensor>\n{rows}  </sensor>\n</mujoco>")
+
+
 def _with_option(xml: str, attr: str) -> str:
     """`xml` with `attr` added to its <option> element."""
     if "<option " not in xml:
@@ -2432,7 +2497,7 @@ PATHS = {
                      kernels=_LINALG + ("newton_dense",)),
     "arm3": dict(model="arm3", envs=1024, steps=LADDER_STEPS, start=arm3_start, ctrl=None,
                  kernels=_LINALG + ("newton_dense",)),
-    "quadruped_elliptic": dict(model="quadruped_elliptic", envs=NUM_ENVS, steps=NUM_STEPS, start=initial_batch,
+    "quadruped_elliptic": dict(model="quadruped_elliptic", envs=NUM_ENVS, steps=ELLIPTIC_STEPS, start=initial_batch,
                                ctrl=pd_ctrl, kernels=_LINALG + ("newton_elliptic",), z=(0.20, 0.32)),
     "humanoid": dict(model="humanoid", envs=1024, steps=20, start=rest_start, ctrl=None,
                      kernels=_LINALG + ("newton_structured",)),
@@ -2500,6 +2565,12 @@ PATHS = {
     "quadruped_noslip": dict(build=lambda device: xml_model(noslip_quadruped_xml(), device), envs=NUM_ENVS,
                              steps=NOSLIP_STEPS, start=initial_batch, ctrl=pd_ctrl, kernels=tuple(NOSLIP_PER_STEP),
                              per_step=NOSLIP_PER_STEP, z=(0.20, 0.32), keep=True, vs_cpu="converged"),
+    "quadruped_fluid": dict(build=lambda device: xml_model(quadruped_fluid_xml(), device), envs=NUM_ENVS,
+                            steps=FLUID_STEPS, start=initial_batch, ctrl=pd_ctrl, kernels=tuple(IMPLICITFAST_PER_STEP),
+                            per_step=IMPLICITFAST_PER_STEP, z=(0.20, 0.32), keep=True, vs_cpu="settled"),
+    "quadruped_dr": dict(model="quadruped", randomize=True, envs=NUM_ENVS, steps=DR_STEPS, start=initial_batch,
+                         ctrl=pd_ctrl, kernels=tuple(TERRAIN_PER_STEP), per_step=TERRAIN_PER_STEP, z=(0.20, 0.32),
+                         keep=True),
 }
 # the floor, terrain and `keep` paths' final states (the card-vs-CPU
 # checks, the starts of later paths, the sensor path's checks)
@@ -2550,6 +2621,9 @@ PHASE_SHAPES = {
     # CG and noslip; noslip's M^-1 J^T is kernel 2 at (batch, n, k right-hand sides), split off its phase
     "quadruped_cg": ((NUM_ENVS, 18), None), "quadruped_noslip": ((NUM_ENVS, 18), "quadruped"),
     "quadruped_noslip_rhs": ((NUM_ENVS, 18, NOSLIP_RHS), None),
+    # fluid, gravcomp and cameras under implicitfast; per-env leaves, and PPO over them
+    "quadruped_fluid": ((NUM_ENVS, 18), "quadruped"), "quadruped_dr": ((NUM_ENVS, 18), "quadruped"),
+    "ppo_quadruped_dr": ((NUM_ENVS, 18), "quadruped"),
 }
 # Section 9's phases, timed in section 9 (time_linalg_shapes) so that
 # section 3 does the same work as before it; the evals' launches are
@@ -2684,13 +2758,27 @@ def onto_terrain(m, qpos):
     return moved
 
 
-def path_model(name: str, device):
-    """The model of path `name` on `device`, with the path's option overrides."""
+def path_model(name: str, device, envs: int | None = None):
+    """The model of path `name` on `device`, with the path's option
+    overrides; a `randomize` path's per-env leaves drawn for its batch
+    (randomize_quadruped from a CPU generator seeded DR_SEED, so both
+    devices get the same leaves), cut to the first `envs` when given."""
     from ambersim_tpu_torch import load_model
 
     p = PATHS[name]
     m = p["build"](device) if "build" in p else load_model(p["model"], device=device)
-    return m.replace(opt=m.opt.replace(**p["opt"])) if p.get("opt") else m
+    if p.get("opt"):
+        m = m.replace(opt=m.opt.replace(**p["opt"]))
+    if p.get("randomize"):
+        import torch
+
+        from ambersim_tpu_torch.core.types import env_slice
+        from ambersim_tpu_torch.rl.quadruped import randomize_quadruped
+
+        m = randomize_quadruped(m, torch.Generator().manual_seed(DR_SEED), p["envs"])[0]
+        if envs is not None:
+            m = env_slice(m, slice(0, envs))
+    return m
 
 
 def drive_path(name: str, device, card: str) -> dict:
@@ -2789,7 +2877,7 @@ def card_vs_cpu(name: str, device, qpos_tol: float, qvel_tol: float, opt=None) -
     p = PATHS[name]
     runs = []
     for dev in (device, "cpu"):
-        m = path_model(name, dev)
+        m = path_model(name, dev, envs=8)
         if opt:
             m = m.replace(opt=m.opt.replace(**opt))
         runs.append(rollout(m, p["start"](m, 8, dev), 20, ctrl_fn=p["ctrl"]))
@@ -2876,8 +2964,9 @@ def clutter_newton_spread(name: str, device) -> dict:
 
 
 def settled_card_vs_cpu(device, name: str) -> None:
-    """8 envs of a floor path from its final state on the card, stepped on
-    the card (kernels) and on the CPU (plain versions), with the path's
+    """8 envs of a path from its final state on the card, stepped on the
+    card (kernels) and on the CPU (plain versions) under the path's
+    controller, with the path's
     vs_cpu method: "settled", 20 steps at QPOS_TOL / QVEL_TOL; "spread",
     CLUTTER_CARD_VS_CPU_STEPS steps at bars from the card's own spread (the
     same steps from a start moved by 1e-6 in qpos: stacked contact-rich
@@ -2896,7 +2985,7 @@ def settled_card_vs_cpu(device, name: str) -> None:
         m = path_model(name, dev)
         fields = {f: v.to(dev) for f, v in start.items()}
         fields["qpos"] = fields["qpos"] + nudge
-        return rollout(m, make_data(m, 8).replace(**fields), k)
+        return rollout(m, make_data(m, 8).replace(**fields), k, ctrl_fn=PATHS[name]["ctrl"])
 
     card, nudged, cpu = run(device), run(device, 1e-6), run("cpu")
     spread_q = (card.qpos - nudged.qpos).abs().max().item()
@@ -6097,6 +6186,107 @@ def weighted_launch_time(phase_launches: dict) -> None:
     print(json.dumps({"weighted": weighted}))
 
 
+CAMLIGHT_FIELDS = ("cam_xpos", "cam_xmat", "light_xpos", "light_xdir", "sensordata")
+
+
+def data_env(d, e: int):
+    """Env e of a batch-first Data (its contact set too), as a batch of one."""
+    import dataclasses
+
+    import torch
+
+    kw = {}
+    for f in dataclasses.fields(d):
+        v = getattr(d, f.name)
+        if isinstance(v, torch.Tensor):
+            kw[f.name] = v[e:e + 1]
+        elif dataclasses.is_dataclass(v):
+            kw[f.name] = data_env(v, e)
+    return dataclasses.replace(d, **kw)
+
+
+def quadruped_fluid_checks(device, card: str) -> None:
+    """quadruped_fluid's final state: the camera and light frames and the
+    four CAMPROJECTION sensors (pixels) within SENSOR_TOL and qfrc_passive
+    (springs, dampers, fluid drag, gravity compensation) within
+    SENSOR_FORCE_TOL, a forward on the card and on the CPU from the same
+    Data (same_input_fields); the feet's pixels finite."""
+    m_card, m_cpu = path_model("quadruped_fluid", device), path_model("quadruped_fluid", "cpu")
+    s = m_card.skel
+    if not (s.has_fluid and s.has_gravcomp and s.ncam == 1 and s.nlight == 1 and s.nsensordata == 8):
+        fail("quadruped_fluid: the model lacks its fluid, gravcomp, camera, light or CAMPROJECTION sensors")
+    d = SETTLED["quadruped_fluid"]
+    if not finite(d.sensordata):
+        fail("quadruped_fluid: non-finite CAMPROJECTION pixels")
+    same_input_fields("quadruped_fluid", m_card, d, m_cpu, ((CAMLIGHT_FIELDS, SENSOR_TOL),
+                                                           (("qfrc_passive",), SENSOR_FORCE_TOL)))
+    px = d.sensordata.reshape(-1, 4, 2)
+    print(f"quadruped_fluid: feet in the camera at u in [{px[..., 0].min().item():.1f}, {px[..., 0].max().item():.1f}], "
+          f"v in [{px[..., 1].min().item():.1f}, {px[..., 1].max().item():.1f}] px (640 x 480) [{card}]", flush=True)
+
+
+def quadruped_dr_checks(device, card: str) -> None:
+    """8 envs of quadruped_dr on the card at opt.tolerance 0 (so the
+    Newton tolerance's minimum over envs does not enter), DR_CHECK_STEPS
+    steps with per-env leaves, each env against a rollout of the unbatched
+    model that carries that env's values (core.types.env_slice), within
+    QPOS_TOL / QVEL_TOL; and the leaves are per env: the envs part."""
+    import torch
+
+    from ambersim_tpu_torch.core.types import env_leaf_names, env_slice
+    from ambersim_tpu_torch.engine import rollout
+
+    m = path_model("quadruped_dr", device, envs=8)
+    m = m.replace(opt=m.opt.replace(tolerance=torch.zeros_like(m.opt.tolerance)))
+    if env_leaf_names(m) != ("body_mass", "dof_damping", "geom_friction", "actuator_gainprm"):
+        fail(f"quadruped_dr: per-env leaves {env_leaf_names(m)}")
+    d0 = initial_batch(m, 8, device)
+    batched = rollout(m, d0, DR_CHECK_STEPS, ctrl_fn=pd_ctrl)
+    dq = dv = 0.0
+    for e in range(8):
+        one = rollout(env_slice(m, [e]), data_env(d0, e), DR_CHECK_STEPS, ctrl_fn=pd_ctrl)
+        dq = max(dq, (one.qpos - batched.qpos[e:e + 1]).abs().max().item())
+        dv = max(dv, (one.qvel - batched.qvel[e:e + 1]).abs().max().item())
+    spread = (batched.qpos[:, 2] - batched.qpos[0, 2]).abs().max().item()
+    print(f"quadruped_dr: 8 envs x {DR_CHECK_STEPS} steps at tolerance 0, each against its own model: max |dqpos| "
+          f"{dq:.3e} (<= {QPOS_TOL}), max |dqvel| {dv:.3e} (<= {QVEL_TOL}); trunk heights part by up to {spread:.3e} m "
+          f"[{card}]", flush=True)
+    if not (dq <= QPOS_TOL and dv <= QVEL_TOL):
+        fail("quadruped_dr: an env of the batched-leaf rollout parts from its own model's rollout")
+    if not spread > 0:
+        fail("quadruped_dr: every env took the same trajectory under per-env leaves")
+
+
+def ppo_quadruped_dr(device, card: str) -> dict:
+    """One PPO training step of the 4096-env locomotion task (ppo_training_step
+    at PPO_QUADRUPED) with randomize_quadruped as its randomization_fn: its
+    checks, and the eval envs' leaves (64) drawn apart from the training
+    envs' (4096). Returns the launch counts."""
+    import torch
+
+    from ambersim_tpu_torch.rl.quadruped import randomize_quadruped
+
+    drawn = []
+
+    def randomization_fn(model, generator, num_envs):
+        m, names = randomize_quadruped(model, generator, num_envs)
+        drawn.append((m, names))
+        return m, names
+
+    launches = ppo_training_step("ppo_quadruped_dr", "quadruped_locomotion",
+                                 dict(PPO_QUADRUPED, randomization_fn=randomization_fn), device, card)
+    c = PPO_QUADRUPED
+    if [getattr(m, n[0]).shape[0] for m, n in drawn] != [c["num_envs"], c["num_eval_envs"]]:
+        fail(f"ppo_quadruped_dr: randomized batches {[getattr(m, n[0]).shape for m, n in drawn]}")
+    (train_m, names), (eval_m, _) = drawn
+    same = [k for k in names if torch.equal(getattr(train_m, k)[:c["num_eval_envs"]], getattr(eval_m, k))]
+    if same:
+        fail(f"ppo_quadruped_dr: the eval envs' {', '.join(same)} repeat the training envs'")
+    print(f"ppo_quadruped_dr: per-env {', '.join(names)}; the eval batch's leaves drawn apart from the training "
+          f"batch's", flush=True)
+    return launches
+
+
 def run_phases(device, card: str, results: dict) -> None:
     """Phases 3-9: every kernel against its plain version, every path (the
     terrain's among them), model I/O (the port's compiler, a URDF, the mesh
@@ -6163,6 +6353,9 @@ def run_phases(device, card: str, results: dict) -> None:
     quadruped_sensors_checks(device, card)
     muscle_arm_checks(device, card)
     weld_paths_checks(device, card)
+    quadruped_fluid_checks(device, card)
+    quadruped_dr_checks(device, card)
+    phase("quadruped_fluid and quadruped_dr checks")
     print(f"clutter32_rowcap192 solve stage, median ms: bfloat16 Hessian product "
           f"{splits['clutter32_rowcap192_bf16']['solve']:.3f}, float32 {splits['clutter32_rowcap192']['solve']:.3f} "
           f"[{card}]", flush=True)
@@ -6212,6 +6405,9 @@ def run_phases(device, card: str, results: dict) -> None:
 
     phase_launches["ppo_terrain"] = ppo_training_step("ppo_terrain", "quadruped_terrain", PPO_TERRAIN, device, card,
                                                       dict(config=QuadrupedTerrainConfig(**TERRAIN_CONFIG)))
+    phase("ppo_terrain")
+    phase_launches["ppo_quadruped_dr"] = ppo_quadruped_dr(device, card)
+    phase("ppo_quadruped_dr")
     section("6 (PPO)")
 
     # ---- 7. gradients through the kernels' Functions, and their users ----

@@ -37,7 +37,7 @@ TENDON_SENSOR_XML = """
 # a tendon's length sensor
 TENDON_POS_SENSOR_XML = TENDON_SENSOR_XML.replace('<jointpos joint="a"/>', '<tendonpos tendon="t"/>')
 
-# a camera projecting a site (CAMPROJECTION waits with the cameras)
+# a camera projecting a site (CAMPROJECTION, read from the camera's frame)
 CAMPROJECTION_XML = """
 <mujoco><worldbody>
   <body pos="0 0 1"><joint axis="0 0 1"/><geom type="sphere" size="0.05"/>
@@ -373,14 +373,13 @@ PGS_XML = RK4_XML.replace('integrator="RK4"', 'solver="PGS"')
 @pytest.mark.parametrize(
     "source, features",
     [
-        (CAMPROJECTION_XML, ["cameras (camlight)", "camera projection sensors (CAMPROJECTION)"]),
         (PGS_XML, ["the PGS solver"]),
     ],
-    ids=["camprojection", "pgs_solver"],
+    ids=["pgs_solver"],
 )
 def test_models_outside_the_slice_are_refused(source, features):
-    """Each feature outside the slice is refused by name: CAMPROJECTION and
-    the PGS solver (which the JAX package runs as Newton without a word)."""
+    """Each feature outside the slice is refused by name: the PGS solver
+    (which the JAX package runs as Newton without a word)."""
     from ambersim_tpu_torch.io.bridge import model_from_numpy
 
     jm = tp.jax_model(source) if source.endswith(".xml") else tp.jax_model_from_xml(source)
@@ -394,18 +393,19 @@ def test_models_outside_the_slice_are_refused(source, features):
 
 @pytest.mark.parametrize("source", [HAND_WELD_XML, BALL_MOTOR_XML, "MOCAP_WELD", EXPLICIT_PAIR_XML, "SLIDE_RIG",
                                     CONDIM46_XML, ELLIPTIC_MIXED_XML, RK4_XML, WELDED_CONDIM4_XML, CG_XML,
-                                    NOSLIP_XML, FWDINV_XML],
+                                    NOSLIP_XML, FWDINV_XML, CAMPROJECTION_XML],
                          ids=["hand_weld", "ball_motor", "mocap_weld", "explicit_pair", "contact_sensor_condim6",
                               "condim46", "elliptic_mixed", "rk4", "welded_condim4", "cg_solver", "noslip",
-                              "fwdinv"])
+                              "fwdinv", "camprojection"])
 def test_models_the_slice_now_admits(source):
     """The models that stood for weld equality, a motor on a ball joint, the
     mocap weld drag, an explicit <pair>, contacts of condim 4 and 6 (alone,
     on a welded box and under tests/test_contact_sensor.py's contact
     sensors), elliptic cones over condims 1 and 3, the RK4 integrator, the
-    CG solver, noslip iterations and the FWDINV flag load through the
-    bridge, and one step of 2 seeded envs matches the JAX package's (qpos
-    atol 1e-4, qvel atol 1e-3, as the main path's rollout)."""
+    CG solver, noslip iterations, the FWDINV flag and a camera with a
+    CAMPROJECTION sensor load through the bridge, and one step of 2 seeded
+    envs matches the JAX package's (qpos atol 1e-4, qvel atol 1e-3, as the
+    main path's rollout)."""
     import jax
 
     from ambersim_tpu.engine import step as jax_step
@@ -452,7 +452,7 @@ def _lifted(name):
                                   "actuator_group_disabling", "actuatorfrcrange", "energy", "tendon_sensor",
                                   "tendon_pos_sensor", "muscle"])
 def test_lifted_features_are_accepted(name):
-    """Sensors (but CAMPROJECTION), tendons and their sensors, muscles,
+    """Sensors, tendons and their sensors, muscles,
     mocap bodies, filter / filterexact / integrator activations, affine
     servos, a joint's actuatorfrcrange, actuator group disabling and the
     ENERGY flag load through the bridge; two CPU steps stay finite."""

@@ -1,7 +1,7 @@
 """The PyTorch port's env layer against the JAX package's (CPU): the pendulum
 task from the JAX env's own reset state, the training wrappers, the
 registry (quadruped_terrain built on the CPU), and the refusals of what is
-not ported. The quadruped task is in test_torch_env_quadruped.py, its
+not ported or not admitted (a per-env leaf outside core.types.ENV_LEAVES). The quadruped task is in test_torch_env_quadruped.py, its
 terrain variant in test_torch_terrain.py.
 """
 
@@ -151,13 +151,22 @@ def test_registry():
         get_environment("nope")
 
 
-@pytest.mark.parametrize("what, match", [("randomization_fn", "domain randomization"), ("mesh", "multi-GPU")])
+def _stiff_pendulum(model, generator, num_envs):
+    """A randomization_fn giving jnt_stiffness, outside ENV_LEAVES, an env axis."""
+    return model.replace(jnt_stiffness=model.jnt_stiffness.expand(num_envs, -1).clone()), ("jnt_stiffness",)
+
+
+@pytest.mark.parametrize("what, match", [("randomization_fn", "jnt_stiffness"), ("mesh", "multi-GPU")])
 def test_unported_parts_are_refused(what, match):
+    """PPO refuses a mesh, and a randomization_fn that makes a leaf outside
+    core.types.ENV_LEAVES per env, by name."""
     from ambersim_tpu_torch.rl import get_environment
     from ambersim_tpu_torch.rl.ppo import train
 
+    value = _stiff_pendulum if what == "randomization_fn" else object()
     with pytest.raises(NotImplementedError, match=match):
-        train(get_environment("pendulum_swingup", device="cpu"), num_timesteps=1, device="cpu", **{what: object()})
+        train(get_environment("pendulum_swingup", device="cpu"), num_timesteps=1, num_envs=4, num_eval_envs=4,
+              batch_size=4, num_minibatches=1, device="cpu", **{what: value})
 
 
 def test_quadruped_terrain_builds_on_the_cpu():

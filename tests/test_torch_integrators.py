@@ -7,15 +7,15 @@ its stiff velocity servo; tests/test_implicit.py's GYRO_XML (a tumbling free
 box) under implicit and implicitfast, and CHAIN_XML (a damped triple
 pendulum with a velocity servo, implicit); tests/test_flags.py's
 PASSIVE_RICH (a fixed tendon's damper among the dampers) under implicitfast
-and implicit, without its fluid and gravity compensation (outside the
-slice); and the main path's quadruped under each integrator.
+and implicit, without its fluid and gravity compensation (tests/
+test_torch_fluid.py holds those and the fluid part of the derivatives);
+and the main path's quadruped under each integrator.
 
 Bars: 4 envs x 20 steps from numpy-seeded states at qpos atol 1e-4 and qvel
 atol 1e-3 (the quadruped 4 x 10 at its own 3 x 6 Newton iterations, with
 the main path's PD controller); `_qderiv_vel` and the Coriolis derivative
 on the JAX package's post-forward Data within DERIV_RTOL 1e-4 of each env's
-largest |entry|. The fluid-drag part of the JAX package's _qderiv_vel_ad
-waits with fluid forces.
+largest |entry|.
 """
 
 import jax

@@ -9,9 +9,10 @@ with range, stiffness, damping and frictionloss, one with a springlength
 range; a motor on a tendon; a tendon equality; tendonpos and tendonvel
 sensors), with a tendonactuatorfrc sensor added, its TENDON_LIMIT_SENSOR_RIG
 (the three tendon limit sensors) and tests/test_flags.py's PASSIVE_RICH (a
-tendon spring over a springlength range; its fluid and gravity
-compensation are outside the port's slice, so only its potential energy is
-compared, through the stages that compute it).
+tendon spring over a springlength range, with fluid drag and gravity
+compensation: its potential energy and its passive force are compared,
+through the stages that compute them; tests/test_torch_fluid.py holds its
+fluid and gravity compensation under each disable flag).
 
 Numpy-seeded states go through both packages. One forward from identical
 Data: lengths, Jacobians, velocities and the position and velocity sensor
@@ -202,27 +203,31 @@ def test_tendon_limit_rollout(limit_rig):
 def test_tendon_spring_energy(flags):
     """PASSIVE_RICH's tendon spring over its springlength range [0.1, 0.2]
     (the hinge below, inside and past it): potential energy and the
-    tendon's length, after the position stages."""
+    tendon's length, after the position stages, and the passive force
+    (springs, dampers, fluid drag in its wind, gravity compensation) after
+    the velocity stage, at seeded velocities."""
     from ambersim_tpu.engine import smooth as jsmooth
     from ambersim_tpu_torch.engine import smooth
-    from ambersim_tpu_torch.io.bridge import build_model
+    from ambersim_tpu_torch.io.bridge import model_from_numpy
     from tools.export_model_npz import model_arrays
 
     jm = tp.jax_model_from_xml(PASSIVE_RICH.format(integrator="Euler", flags=flags))
-    tm = build_model(*model_arrays(jm), device="cpu")  # fluid and gravcomp: outside check_slice
+    tm = model_from_numpy(*model_arrays(jm), device="cpu")
     qpos = np.tile(np.asarray(jm.qpos0, np.float32), (B, 1))
     qpos[:, 0] = (-0.3, 0.15, 0.25, 0.9)
-    jd = tp.jax_batch(jm, qpos=qpos)
+    qvel = 0.5 * np.random.default_rng(2).standard_normal((B, jm.skel.nv)).astype(np.float32)
+    jd = tp.jax_batch(jm, qpos=qpos, qvel=qvel)
 
     def jax_energy(d):
         d = jsmooth.tendon(jm, jsmooth.com_pos(jm, jsmooth.kinematics(jm, d)))
-        return jsmooth.energy_pos(jm, d), d.ten_length
+        return jsmooth.energy_pos(jm, d), d.ten_length, jsmooth.fwd_velocity(jm, d).qfrc_passive
 
-    want_e, want_l = jax.jit(jax.vmap(jax_energy))(jd)
+    want_e, want_l, want_p = jax.jit(jax.vmap(jax_energy))(jd)
     d = tp.torch_batch(tm, jd)
     d = smooth.tendon(tm, smooth.com_pos(tm, smooth.kinematics(tm, d)))
     tp.assert_close("ten_length", d.ten_length, want_l, *TOL)
     tp.assert_close("energy_pos", smooth.energy_pos(tm, d), want_e, *FORCE_TOL)
+    tp.assert_close("qfrc_passive", smooth.fwd_velocity(tm, d).qfrc_passive, want_p, *FORCE_TOL)
 
 
 def test_set_constants_tendon_fields():

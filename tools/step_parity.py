@@ -64,8 +64,8 @@ _PASSIVE_RICH = chip_smoke.tests_xml("test_flags.py", "PASSIVE_RICH")
 def passive_rich(integrator: str) -> str:
     """tests/test_flags.py's PASSIVE_RICH (a hinge and a ball joint with
     stiffness and damping, a fixed tendon with a spring and a damper) under
-    `integrator`, its fluid and gravity compensation taken out (outside the
-    port's slice)."""
+    `integrator`, its fluid and gravity compensation taken out (tests/
+    test_torch_fluid.py holds them)."""
     return _PASSIVE_RICH.format(integrator=integrator, flags='energy="enable"').replace(
         ' density="1.2" viscosity="0.1" wind="1 0 0"', "").replace(' gravcomp="0.5"', "")
 
