@@ -532,11 +532,22 @@ LEAF_RANK = {
     **_ranked("cam_mat0 key_mpos key_mquat mesh_vert mesh_face_normal hfield_data", 3),
     **_ranked("mesh_face_vert mesh_edge", 4),
 }
-# the leaves that may carry a leading env axis (domain randomization), the
-# JAX package's randomized leaves and the usual sim-to-real ones; the
-# engine reads each on its trailing axes. Nothing is recomputed from them:
-# dof_invweight0, actuator_acc0 and the like keep their compiled values.
-ENV_LEAVES = ("body_mass", "dof_damping", "geom_friction", "actuator_gainprm", "actuator_biasprm")
+# every Option float's rank; none may carry an env axis
+OPTION_RANK = {**_ranked("timestep density viscosity impratio tolerance noslip_tolerance o_margin", 0),
+               **_ranked("gravity wind magnetic o_solref o_solimp o_friction", 1)}
+# The leaves that may carry a leading env axis (domain randomization): the
+# JAX package's randomized leaves and the usual sim-to-real ones. The
+# engine reads each on its trailing axes, as the JAX package's vmap with
+# in_axes 0 on the leaf computes: each env with its own value. Nothing is
+# recomputed from them: dof_invweight0, body_invweight0, actuator_acc0,
+# tendon_length0 and the efc row set keep their compiled values. The row
+# set comes from the static skeleton, so a per-env dof_frictionloss scales
+# the friction rows the compile made (a dof with none there gets none) and
+# a per-env actuator_forcerange clamps only actuators compiled
+# forcelimited, in both packages.
+ENV_LEAVES = ("body_mass", "dof_damping", "geom_friction", "actuator_gainprm", "actuator_biasprm",
+              "dof_frictionloss", "dof_armature", "jnt_stiffness", "qpos0", "body_ipos", "body_inertia",
+              "geom_solref", "geom_solimp", "actuator_gear", "actuator_ctrlrange", "actuator_forcerange")
 
 
 def env_leaf_names(m: "Model") -> tuple:
@@ -547,11 +558,16 @@ def env_leaf_names(m: "Model") -> tuple:
 def check_env_leaves(m: "Model", batch: int) -> None:
     """Raise unless every leaf of `m` has its rank, or is one of
     ENV_LEAVES with a leading env axis of `batch` ahead of it: a leaf of
-    another name with an extra axis raises NotImplementedError, a per-env
-    leaf of the wrong size ValueError, each naming the leaf. Cached on the
-    Model (a `replace` makes a new one)."""
+    another name (an Option float too) with an extra axis raises
+    NotImplementedError, a per-env leaf of the wrong size ValueError, each
+    naming the leaf. Cached on the Model (a `replace` makes a new one)."""
     if m.__dict__.get("_env_checked") == batch:
         return
+    for k, rank in OPTION_RANK.items():
+        t = getattr(m.opt, k)
+        if t is not None and t.dim() != rank:
+            raise NotImplementedError(f"Option field {k} has shape {tuple(t.shape)}, not rank {rank}: no Option "
+                                      "field may be per env (ROADMAP item 5o)")
     for k, rank in LEAF_RANK.items():
         t = getattr(m, k)
         if t.dim() == rank:

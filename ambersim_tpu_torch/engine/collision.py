@@ -566,10 +566,10 @@ def _mix_params(m: Model, g1: torch.Tensor, g2: torch.Tensor):
     w1 = torch.where((sm1 < 1e-12) & (sm2 < 1e-12), 0.5, w1)
     w1 = torch.where(eq, w1, torch.where(p1 > p2, 1.0, 0.0))[..., None]
 
-    sr1, sr2 = m.geom_solref[g1], m.geom_solref[g2]
+    sr1, sr2 = _per_env_rows(m.geom_solref, g1), _per_env_rows(m.geom_solref, g2)
     standard = (sr1[..., 0] > 0) & (sr2[..., 0] > 0)
     solref = torch.where(standard[..., None], w1 * sr1 + (1 - w1) * sr2, torch.minimum(sr1, sr2))
-    solimp = w1 * m.geom_solimp[g1] + (1 - w1) * m.geom_solimp[g2]
+    solimp = w1 * _per_env_rows(m.geom_solimp, g1) + (1 - w1) * _per_env_rows(m.geom_solimp, g2)
 
     f1, f2 = _per_env_rows(m.geom_friction, g1), _per_env_rows(m.geom_friction, g2)
     fr = torch.where(eq[..., None], torch.maximum(f1, f2), torch.where((p1 > p2)[..., None], f1, f2))
@@ -655,7 +655,7 @@ def collision(m: Model, d: Data) -> Data:
             args += [_mesh_tuple(m, g) for t, g in zip(tkey, (g1, g2)) if t == int(GeomType.MESH)]
             dist, pos, frame = fn(*args)
         # each parameter's pairs' dim: (P, ...) static, (B, k, ...) capped or
-        # per-env (a randomized geom_friction), ahead of its own width
+        # per-env (a randomized geom_friction, solref or solimp), ahead of its own width
         friction, solref, solimp, margin, gap = (
             x.repeat_interleave(ncon_per, dim=x.dim() - 1 - w)
             for x, w in zip(_contact_params(m, g1, g2, exp, exp_t), (1, 1, 1, 0, 0))

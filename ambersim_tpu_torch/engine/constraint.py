@@ -310,8 +310,8 @@ def _joint_eq(m: Model, d: Data, eqs: np.ndarray):
     qa2, da2 = ix(s.jnt_qposadr[j2]), ix(s.jnt_dofadr[j2])
     two_t = ix(two)
     c = m.eq_data[ix(eqs), :5]
-    poly, dpoly = _poly(c, d.qpos[:, qa2] - m.qpos0[qa2])
-    pos = (d.qpos[:, qa1] - m.qpos0[qa1]) - torch.where(two_t, poly, c[:, 0])
+    poly, dpoly = _poly(c, d.qpos[:, qa2] - m.qpos0[..., qa2])
+    pos = (d.qpos[:, qa1] - m.qpos0[..., qa1]) - torch.where(two_t, poly, c[:, 0])
     J_eq = d.qpos.new_zeros((d.qpos.shape[0], len(eqs), s.nv))
     J_eq[:, ix(np.arange(len(eqs))), da1] = 1.0
     J_eq[:, ix(e2), ix(s.jnt_dofadr[j2[e2]])] = -dpoly[:, ix(e2)]
@@ -467,7 +467,7 @@ def make_constraint(m: Model, d: Data) -> Data:
             efc_dsc[:, :nfd] = 1.0
         efc_aref[:, rows] = -b * d.qvel[:, dofs]
         efc_D[:, rows] = imp / torch.clamp((1 - imp) * m.dof_invweight0[dofs], min=_MINVAL)
-        efc_fl[:, rows] = m.dof_frictionloss[dofs]
+        efc_fl[:, rows] = m.dof_frictionloss[..., dofs]
         efc_active[:, rows] = not (m.opt.disableflags & DisableBit.FRICTIONLOSS)
         row += nfd
     # -------- friction loss: tendon rows (dense) --------

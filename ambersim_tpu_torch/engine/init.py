@@ -18,10 +18,10 @@ def _pyr_sizes(s) -> tuple[int, int]:
 
 
 def make_data(m: Model, batch_size: int, keyframe: int | None = None) -> Data:
-    """Allocate `batch_size` fresh envs on the model's device: at qpos0 with
-    zero velocity, activations and ctrl and the mocap bodies at their
-    body_pos / body_quat, or at keyframe `keyframe` (its time, qpos, qvel,
-    act, ctrl and mocap poses)."""
+    """Allocate `batch_size` fresh envs on the model's device: at qpos0 (each
+    env at its own where qpos0 is per env) with zero velocity, activations
+    and ctrl and the mocap bodies at their body_pos / body_quat, or at
+    keyframe `keyframe` (its time, qpos, qvel, act, ctrl and mocap poses)."""
     s = m.skel
     dev = m.device
     B = batch_size

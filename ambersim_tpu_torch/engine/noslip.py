@@ -77,22 +77,24 @@ def noslip_plan(s, elliptic: bool) -> NoslipPlan:
 
 
 def _sweep(plan: NoslipPlan, f, res, cols: dict) -> tuple:
-    """One Gauss-Seidel sweep over the plan's updates; f and res are
-    updated in place (the caller passes copies)."""
+    """One Gauss-Seidel sweep over the plan's updates; returns the new f and
+    res. Each update makes new tensors (select_scatter / slice_scatter and
+    res + v) and writes none it was given, so autograd can record the
+    sweep."""
     for kind, u in plan.walk:
         if kind == "fl":
             i = plan.fl_rows[u]
             x = torch.clamp(f[:, i] - res[:, i] / cols["fl_diag"][:, u], -cols["floss"][:, u], cols["floss"][:, u])
-            res.add_(cols["fl_col"][:, :, u] * (x - f[:, i])[:, None])
-            f[:, i] = x
+            res = res + cols["fl_col"][:, :, u] * (x - f[:, i])[:, None]
+            f = f.select_scatter(x, 1, i)
         elif kind == "pair":
             i = plan.pairs[u]
             fp, rp = f[:, i:i + 2], res[:, i:i + 2]
             s, x = fp[:, 0] + fp[:, 1], fp[:, 0] - fp[:, 1]
             x_new = torch.clamp(x - 0.5 * (rp[:, 0] - rp[:, 1]) / cols["pair_h"][:, u], -s, s)
             df = 0.5 * (x_new - x)
-            res.add_(cols["pair_col"][:, :, u] * df[:, None])
-            fp.add_(df[:, None] * cols["pm"])
+            res = res + cols["pair_col"][:, :, u] * df[:, None]
+            f = f.slice_scatter(fp + df[:, None] * cols["pm"], 1, i, i + 2)
         else:
             adr, cdim, slot = plan.blocks[u]
             rows = slice(adr + 1, adr + cdim)
@@ -101,8 +103,8 @@ def _sweep(plan: NoslipPlan, f, res, cols: dict) -> tuple:
             fN = f[:, adr]
             nrm = torch.linalg.vector_norm(ft / mu, dim=-1)
             ft = ft * torch.where(nrm > fN, fN / torch.clamp(nrm, min=_EPS), 1.0)[:, None]
-            res.add_((cols["A"][:, :, rows] * (ft - f[:, rows])[:, None, :]).sum(-1))
-            f[:, rows] = ft
+            res = res + (cols["A"][:, :, rows] * (ft - f[:, rows])[:, None, :]).sum(-1)
+            f = f.slice_scatter(ft, 1, adr + 1, adr + cdim)
     return f, res
 
 
@@ -148,7 +150,7 @@ def noslip(m: Model, d: Data) -> Data:
     c_prev = cost(f0)
     active = torch.ones_like(c_prev, dtype=torch.bool)
     for _ in range(iters):
-        f_n, res_n = _sweep(plan, f.clone(), res.clone(), cols)
+        f_n, res_n = _sweep(plan, f, res, cols)
         c_n = cost(f_n)
         take = active
         f = torch.where(take[:, None], f_n, f)

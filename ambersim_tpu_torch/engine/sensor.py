@@ -361,7 +361,7 @@ def _subtree_momentum(m: Model, d: Data, angmom: bool):
     # world rotational inertia of each body, then the parallel-axis shifts
     # level by level
     R = d.ximat
-    inertia = ((R * m.body_inertia[:, None, :])[..., :, None, :] * R[..., None, :, :]).sum(-1)  # R diag(I) R^T
+    inertia = ((R * m.body_inertia[..., None, :])[..., :, None, :] * R[..., None, :, :]).sum(-1)  # R diag(I) R^T
     am_acc = (inertia * ang[..., None, :]).sum(-1) + am.cross(d.xipos - d.subtree_com, mom)
     body_mom = mom.clone()
     for child_ids, parent_ids in sched.reverse_levels:

@@ -95,7 +95,7 @@ def kinematics(m: Model, d: Data) -> Data:
                     xanchor[:, jt] = anchor
                     xaxis[:, jt] = am.rotate(m.jnt_axis[jt], quat)
                 elif jtype == JointType.HINGE:
-                    angle = d.qpos[:, ix(qa)] - m.qpos0[ix(qa)]
+                    angle = d.qpos[:, ix(qa)] - m.qpos0[..., ix(qa)]
                     anchor = pos + am.rotate(m.jnt_pos[jt], quat)
                     qloc = am.axis_angle_to_quat(m.jnt_axis[jt], angle)
                     quat = am.mul_quat(quat, qloc)
@@ -104,7 +104,7 @@ def kinematics(m: Model, d: Data) -> Data:
                     xaxis[:, jt] = am.rotate(m.jnt_axis[jt], quat)
                 else:  # SLIDE
                     ax = am.rotate(m.jnt_axis[jt], quat)
-                    pos = pos + ax * (d.qpos[:, ix(qa)] - m.qpos0[ix(qa)])[..., None]
+                    pos = pos + ax * (d.qpos[:, ix(qa)] - m.qpos0[..., ix(qa)])[..., None]
                     xanchor[:, jt] = pos + am.rotate(m.jnt_pos[jt], quat)
                     xaxis[:, jt] = ax
             xpos[:, ix(ids)] = pos
@@ -156,7 +156,7 @@ def com_pos(m: Model, d: Data) -> Data:
     # cinert = spatial inertia about the subtree-com origin:
     # [[W + m((c.c)E - c c^T), m S(c)], [-m S(c), m E]], W = R diag(I) R^T
     R = am.quat_to_mat(am.mul_quat(d.xquat, m.body_iquat))  # (B, nbody, 3, 3)
-    W = (R * m.body_inertia[:, None, :]) @ R.transpose(-1, -2)
+    W = (R * m.body_inertia[..., None, :]) @ R.transpose(-1, -2)
     mass = m.body_mass[..., None, None]
     c = d.xipos - origin
     c2 = (c * c).sum(-1)[..., None, None]
@@ -325,7 +325,7 @@ def crb(m: Model, d: Data) -> Data:
     m_full = (f[:, :, None, :] * d.cdof[:, None, :, :]).sum(-1)  # (B, nv, nv)
     half = torch.where(ix(s.ancestor_mask), m_full, 0.0)
     qM = half + half.transpose(-1, -2) - torch.diag_embed(torch.diagonal(half, dim1=-2, dim2=-1))
-    qM = qM + torch.diag(m.dof_armature)
+    qM = qM + torch.diag_embed(m.dof_armature)
     return d.replace(qM=qM)
 
 
@@ -390,19 +390,19 @@ def passive(m: Model, d: Data) -> Data:
         jtype = JointType(jtype_int)
         qa = s.jnt_qposadr[jids]
         da = s.jnt_dofadr[jids]
-        k = m.jnt_stiffness[ix(jids)]
+        k = m.jnt_stiffness[..., ix(jids)]
         if jtype in (JointType.HINGE, JointType.SLIDE):
             spring.index_add_(1, ix(da), -k * (d.qpos[:, ix(qa)] - m.qpos_spring[ix(qa)]))
         elif jtype == JointType.BALL:
             q4 = ix(_span(qa, 4))
             dif = am.quat_sub(d.qpos[:, q4], m.qpos_spring[q4])
-            spring[:, ix(_span(da, 3))] += -k[:, None] * dif
+            spring[:, ix(_span(da, 3))] += -k[..., None] * dif
         else:  # FREE
             q3 = ix(_span(qa, 3))
-            spring[:, ix(_span(da, 3))] += -k[:, None] * (d.qpos[:, q3] - m.qpos_spring[q3])
+            spring[:, ix(_span(da, 3))] += -k[..., None] * (d.qpos[:, q3] - m.qpos_spring[q3])
             q4 = ix(_span(qa + 3, 4))
             dif = am.quat_sub(d.qpos[:, q4], m.qpos_spring[q4])
-            spring[:, ix(_span(da + 3, 3))] += -k[:, None] * dif
+            spring[:, ix(_span(da + 3, 3))] += -k[..., None] * dif
     damper = -m.dof_damping * d.qvel
     if s.ntendon:
         # the tendons' deadband springs (springlength's [lo, hi] range) and dampers
@@ -684,27 +684,27 @@ def _trn_rows(m: Model, d: Data):
     gear = m.actuator_gear
     lengths, moments = [], []
     if len(plan.tendon):
-        g0 = gear[ix(plan.tendon), 0]
+        g0 = gear[..., ix(plan.tendon), 0]
         lengths.append(d.ten_length[:, ix(plan.tendon_id)] * g0)
-        moments.append(g0[:, None] * d.ten_J[:, ix(plan.tendon_id)])
+        moments.append(g0[..., None] * d.ten_J[:, ix(plan.tendon_id)])
     nball = len(plan.ball) + len(plan.ball_inparent)
     if nball:
         bu = np.concatenate([plan.ball, plan.ball_inparent])
         q = am.normalize_quat(d.qpos[:, ix(np.asarray(s.jnt_qposadr)[plan.ball_jnt][:, None] + np.arange(4))])
-        g = gear[ix(bu), :3]
+        g = gear[..., ix(bu), :3]
         lengths.append((g * _quat2vel(q)).sum(-1))
         mom3 = g.expand(B, -1, -1)
         if len(plan.ball_inparent):
             inp = ix(np.arange(len(plan.ball), nball))
             mom3 = mom3.clone()
-            mom3[:, inp] = am.mat_t_vec(am.quat_to_mat(q[:, inp]), g[inp])
+            mom3[:, inp] = am.mat_t_vec(am.quat_to_mat(q[:, inp]), mom3[:, inp])
         row = d.qpos.new_zeros((B, nball, s.nv))
         row[:, ix(np.arange(nball)[:, None]), ix(np.asarray(s.jnt_dofadr)[plan.ball_jnt][:, None] + np.arange(3))] = mom3
         moments.append(row)
     nfree = len(plan.free) + len(plan.free_inparent)
     if nfree:
         fu = np.concatenate([plan.free, plan.free_inparent])
-        g = gear[ix(fu)].expand(B, -1, -1)
+        g = gear[..., ix(fu), :].expand(B, -1, -1)
         if len(plan.free_inparent):
             inp = ix(np.arange(len(plan.free), nfree))
             qa = np.asarray(s.jnt_qposadr)[plan.free_jnt[len(plan.free):]]
@@ -721,25 +721,25 @@ def _trn_rows(m: Model, d: Data):
         rid = np.where(has_ref, ref, sid)  # a site without a refsite takes its own frame
         bs, br = np.asarray(s.site_bodyid)[sid], np.asarray(s.site_bodyid)[rid]
         R = d.site_xmat[:, ix(rid)]  # (B, G, 3, 3) world <- the frame the gear is in
-        g = gear[ix(plan.site)]
+        g = gear[..., ix(plan.site), :]
         rf = ix(has_ref)[:, None, None]
         jacp = _point_jac(m, d, d.site_xpos[:, ix(sid)], bs)
         jacr = _rot_jac(m, d, bs)
         jacp = jacp - torch.where(rf, _point_jac(m, d, d.site_xpos[:, ix(rid)], br), 0.0)
         jacr = jacr - torch.where(rf, _rot_jac(m, d, br), 0.0)
-        fdir = (R * g[:, None, :3]).sum(-1)  # R @ gear[:3]
-        tdir = (R * g[:, None, 3:]).sum(-1)
+        fdir = (R * g[..., None, :3]).sum(-1)  # R @ gear[:3]
+        tdir = (R * g[..., None, 3:]).sum(-1)
         moments.append(_dot(jacp, fdir[:, :, None, :]) + _dot(jacr, tdir[:, :, None, :]))
         # the refsite's length (0 without one)
         vec = am.mat_t_vec(R, d.site_xpos[:, ix(sid)] - d.site_xpos[:, ix(rid)])
         rot = am.quat_sub(am.mul_quat(m.site_quat[ix(sid)], d.xquat[:, ix(bs)]),
                           am.mul_quat(m.site_quat[ix(rid)], d.xquat[:, ix(br)]))
-        lengths.append(torch.where(ix(has_ref), _dot(g[:, :3], vec) + _dot(g[:, 3:], rot), 0.0))
+        lengths.append(torch.where(ix(has_ref), _dot(g[..., :3], vec) + _dot(g[..., 3:], rot), 0.0))
     if len(plan.crank):
         length, dlen = _slidercrank(m, d, plan.crank, plan.crank_slider, plan.crank_site)
-        g0 = gear[ix(plan.crank), 0]
+        g0 = gear[..., ix(plan.crank), 0]
         lengths.append(g0 * length)
-        moments.append(g0[:, None] * dlen)
+        moments.append(g0[..., None] * dlen)
     if len(plan.body):
         lengths.append(d.qpos.new_zeros((B, len(plan.body))))
         moments.append(_adhesion(m, d, plan.body))
@@ -824,7 +824,7 @@ def clamped_ctrl(m: Model, d: Data) -> torch.Tensor:
     CLAMPCTRL is disabled (JAX smooth.clamped_ctrl)."""
     if m.opt.disableflags & DisableBit.CLAMPCTRL:
         return d.ctrl
-    lo, hi = m.actuator_ctrlrange[:, 0], m.actuator_ctrlrange[:, 1]
+    lo, hi = m.actuator_ctrlrange[..., 0], m.actuator_ctrlrange[..., 1]
     return torch.where(device_index(m.skel.actuator_ctrllimited, d.qpos.device), torch.clamp(d.ctrl, lo, hi), d.ctrl)
 
 
@@ -849,14 +849,14 @@ def fwd_actuation(m: Model, d: Data) -> Data:
     ctrl = clamped_ctrl(m, d)
     plan = trn_plan(s)
     ju, dof, qa, ru = plan.joint, plan.joint_dof, plan.joint_qa, plan.rows
-    gear = m.actuator_gear[:, 0]
+    gear = m.actuator_gear[..., 0]
     if len(ru):
         # every other transmission: its length and its moment row
         rlen, rmom = _trn_rows(m, d)  # (B, R), (B, R, nv)
         length = d.qpos.new_zeros((d.qpos.shape[0], s.nu))
         velocity = torch.zeros_like(length)
-        length[:, ix(ju)] = d.qpos[:, ix(qa)] * gear[ix(ju)]
-        velocity[:, ix(ju)] = d.qvel[:, ix(dof)] * gear[ix(ju)]
+        length[:, ix(ju)] = d.qpos[:, ix(qa)] * gear[..., ix(ju)]
+        velocity[:, ix(ju)] = d.qvel[:, ix(dof)] * gear[..., ix(ju)]
         length[:, ix(ru)] = rlen
         velocity[:, ix(ru)] = (rmom * d.qvel[:, None, :]).sum(-1)
     else:
@@ -902,7 +902,7 @@ def fwd_actuation(m: Model, d: Data) -> Data:
         force = gain * inp + bias
     force = torch.where(
         ix(s.actuator_forcelimited),
-        torch.clamp(force, m.actuator_forcerange[:, 0], m.actuator_forcerange[:, 1]),
+        torch.clamp(force, m.actuator_forcerange[..., 0], m.actuator_forcerange[..., 1]),
         force,
     )
     if m.opt.disableactuator:
@@ -912,7 +912,7 @@ def fwd_actuation(m: Model, d: Data) -> Data:
         disabled = ((m.opt.disableactuator >> np.clip(group, 0, 30)) & 1).astype(bool) & (group >= 0)
         force = torch.where(ix(disabled), 0.0, force)
     if len(ru):
-        qfrc = torch.zeros_like(d.qvel).index_add_(1, ix(dof), gear[ix(ju)] * force[:, ix(ju)])
+        qfrc = torch.zeros_like(d.qvel).index_add_(1, ix(dof), gear[..., ix(ju)] * force[:, ix(ju)])
         qfrc = qfrc + (rmom * force[:, ix(ru), None]).sum(1)
     else:
         qfrc = torch.zeros_like(d.qvel).index_add_(1, ix(dof), gear * force)
@@ -950,7 +950,7 @@ def energy_pos(m: Model, d: Data) -> torch.Tensor:
     for jtype_int, jids in sched.jnt_by_type.items():
         jtype = JointType(jtype_int)
         qa = s.jnt_qposadr[jids]
-        k = m.jnt_stiffness[ix(jids)]
+        k = m.jnt_stiffness[..., ix(jids)]
         if jtype in (JointType.HINGE, JointType.SLIDE):
             e = e + (0.5 * k * (d.qpos[:, ix(qa)] - m.qpos_spring[ix(qa)]) ** 2).sum(-1)
         elif jtype == JointType.BALL:
@@ -983,7 +983,7 @@ def actuator_moment(m: Model, d: Data) -> torch.Tensor:
     moment = d.qpos.new_zeros((d.qpos.shape[0], s.nu, s.nv))
     if len(plan.joint):
         moment[:, device_index(plan.joint, dev), device_index(plan.joint_dof, dev)] = (
-            m.actuator_gear[device_index(plan.joint, dev), 0])
+            m.actuator_gear[..., device_index(plan.joint, dev), 0])
     if len(plan.rows):
         moment[:, device_index(plan.rows, dev)] = _trn_rows(m, d)[1]
     return moment

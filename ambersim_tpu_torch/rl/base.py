@@ -58,6 +58,10 @@ class MjxEnv(abc.ABC):
     def __init__(self, model: Model, physics_steps_per_control_step: int = 1):
         self.model = model
         self._physics_steps_per_control_step = physics_steps_per_control_step
+        # the constructed model's qpos0: the JAX envs take their default pose
+        # from it at construction, so a per-env qpos0 (with_model) moves each
+        # env's start and joint zero but not the pose its actions offset
+        self._qpos0 = model.qpos0
 
     @property
     def sys(self) -> Model:

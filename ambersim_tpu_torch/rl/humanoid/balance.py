@@ -65,7 +65,7 @@ class HumanoidBalanceEnv(MjxEnv):
     @property
     def default_pose(self) -> torch.Tensor:
         """The standing pose of the actuated joints, in actuator order."""
-        return self.model.qpos0[device_index(self._act_qadr, self.device)]
+        return self._qpos0.to(self.device)[device_index(self._act_qadr, self.device)]
 
     def _up(self, qpos: torch.Tensor) -> torch.Tensor:
         """The torso's z axis in the world frame, (B, 3)."""
@@ -82,7 +82,7 @@ class HumanoidBalanceEnv(MjxEnv):
                 lin_vel,
                 ang_vel,
                 data.qpos[:, 2:3] - self.config.stand_height,
-                data.qpos[:, 7:] - self.model.qpos0[7:],
+                data.qpos[:, 7:] - self.model.qpos0[..., 7:],
                 data.qvel[:, 6:] * 0.1,
                 info["last_action"],
             ],
@@ -94,7 +94,7 @@ class HumanoidBalanceEnv(MjxEnv):
         upright_r = c.upright_weight * self._up(data.qpos)[:, 2]
         height_r = -c.height_weight * (data.qpos[:, 2] - c.stand_height) ** 2
         still_r = -c.still_weight * ((data.qvel[:, :3] ** 2).sum(-1) + 0.3 * (data.qvel[:, 3:6] ** 2).sum(-1))
-        pose_r = -c.pose_weight * ((data.qpos[:, 7:] - self.model.qpos0[7:]) ** 2).mean(-1)
+        pose_r = -c.pose_weight * ((data.qpos[:, 7:] - self.model.qpos0[..., 7:]) ** 2).mean(-1)
         energy_r = -c.energy_weight * (data.actuator_force**2).sum(-1)
         rate_r = -c.action_rate_weight * ((info["last_action"] - info["prev_action"]) ** 2).mean(-1)
         return c.alive_bonus + upright_r + height_r + still_r + pose_r + energy_r + rate_r

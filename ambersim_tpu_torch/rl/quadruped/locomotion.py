@@ -51,7 +51,7 @@ class QuadrupedLocomotionEnv(MjxEnv):
 
     @property
     def default_pose(self) -> torch.Tensor:
-        return self.model.qpos0[7:]
+        return self._qpos0.to(self.device)[7:]
 
     def _up(self, qpos: torch.Tensor) -> torch.Tensor:
         """The trunk's z axis in the world frame, (B, 3)."""
@@ -147,3 +147,45 @@ def randomize_quadruped(model, generator: torch.Generator, num_envs: int):
     gain[..., 0] *= draw_uniform(generator, (num_envs, s.nu), 0.9, 1.1, dev)
     names = ("body_mass", "dof_damping", "geom_friction", "actuator_gainprm")
     return model.replace(body_mass=mass, dof_damping=damping, geom_friction=friction, actuator_gainprm=gain), names
+
+
+def randomize_quadruped_full(model, generator: torch.Generator, num_envs: int):
+    """A `randomization_fn` for the quadruped with the usual sim-to-real
+    draws (MuJoCo Playground's Go1 randomize.py): randomize_quadruped's four,
+    then per env and in this order the 12 leg joints' friction loss times
+    U[0.9, 1.1] and armature times U[1.0, 1.05], the trunk's com offset
+    body_ipos + U[-0.05, 0.05] m per axis (its body_inertia scaled by the
+    factor its mass took), the legs' joint zero offsets qpos0 + U[-0.05,
+    0.05] rad, the feet's contact time constant geom_solref[0] times U[0.8,
+    1.2], each motor's gear times U[0.95, 1.05] and its forcerange +-28
+    times U[0.9, 1.0]. The quadruped's motors are not forcelimited, so the
+    forcerange is carried and clamps nothing, in both packages. Draws are
+    made with `generator` on its own device. Returns (model, the twelve
+    names)."""
+    s, dev, base = model.skel, model.device, model
+    model, names = randomize_quadruped(model, generator, num_envs)
+    trunk = s.body_names.index("trunk")
+    feet = [s.geom_names.index(f) for f in FEET]
+    legs = [int(s.jnt_dofadr[j]) for j in range(s.njnt) if int(s.jnt_type[j]) != 0]
+    leg_q = [int(s.jnt_qposadr[j]) for j in range(s.njnt) if int(s.jnt_type[j]) != 0]
+
+    def per_env(leaf):
+        return leaf.expand(num_envs, *leaf.shape).clone()
+
+    frictionloss, armature = per_env(model.dof_frictionloss), per_env(model.dof_armature)
+    frictionloss[:, legs] *= draw_uniform(generator, (num_envs, len(legs)), 0.9, 1.1, dev)
+    armature[:, legs] *= draw_uniform(generator, (num_envs, len(legs)), 1.0, 1.05, dev)
+    ipos, inertia = per_env(model.body_ipos), per_env(model.body_inertia)
+    ipos[:, trunk] += draw_uniform(generator, (num_envs, 3), -0.05, 0.05, dev)
+    inertia[:, trunk] *= (model.body_mass[:, trunk] / base.body_mass[trunk])[:, None]
+    qpos0 = per_env(model.qpos0)
+    qpos0[:, leg_q] += draw_uniform(generator, (num_envs, len(leg_q)), -0.05, 0.05, dev)
+    solref = per_env(model.geom_solref)
+    solref[:, feet, 0] *= draw_uniform(generator, (num_envs, len(feet)), 0.8, 1.2, dev)
+    gear = per_env(model.actuator_gear)
+    gear[..., 0] *= draw_uniform(generator, (num_envs, s.nu), 0.95, 1.05, dev)
+    limit = 28.0 * draw_uniform(generator, (num_envs, s.nu), 0.9, 1.0, dev)
+    forcerange = torch.stack([-limit, limit], -1)
+    leaves = dict(dof_frictionloss=frictionloss, dof_armature=armature, body_ipos=ipos, body_inertia=inertia,
+                  qpos0=qpos0, geom_solref=solref, actuator_gear=gear, actuator_forcerange=forcerange)
+    return model.replace(**leaves), names + tuple(leaves)

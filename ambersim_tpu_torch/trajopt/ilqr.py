@@ -7,20 +7,23 @@ ambersim_tpu/trajopt/ilqr.py).
     A_k and B_k out of copy r of knot k (the JAX package's jacrev pulling
     2 nv cotangent rows through one batched step). On the card the step's
     kernels run forward, their Functions' plain versions backward.
-  * The cost expansion runs on the user's plain costs (torch.func.grad and
-    hessian, vmapped over knots); the Riccati recursion is a reverse Python
-    loop with torch.linalg.solve on (nu, nu), as the JAX package uses
+  * The cost expansion runs on the user's plain costs (torch.func.jacfwd of
+    torch.func.grad, vmapped over knots); the Riccati recursion is a reverse Python
+    loop with torch.linalg.solve on (..., nu, nu), as the JAX package uses
     jnp.linalg.solve there.
   * The forward line search evaluates every step size as one batch of envs
     (alpha = 0, the nominal, always among them), so the accepted cost never
-    increases.
+    increases; each problem takes its own argmin.
   * States live on the joint manifolds: the local state z in R^{2 nv} is a
     tangent increment applied by `state_add` (engine.integrate.integrate_pos)
     and measured by `state_diff` (the mju_differentiatePos analog), so ball
     and free joints linearize correctly (nq != nv).
 
-`optimize` takes one problem (x0 (nq+nv,), us_guess (N, nu)); the JAX
-package's vmap(optimize) over a batch of problems is not ported.
+`optimize` takes one problem (x0 (nq+nv,), us_guess (N, nu)) or a batch of
+P problems (x0 (P, nq+nv), us_guess (P, N, nu)), the JAX package's
+vmap(optimize): every stage runs the batch at once, the linearization as one
+step of P x N x 2 nv envs and the line search as one rollout of P x
+len(alphas) envs.
 """
 
 from __future__ import annotations
@@ -82,7 +85,8 @@ def state_diff(m: Model, x2: torch.Tensor, x1: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass
 class ILQRParams(ShootingParams):
-    """x0 (nq+nv,) and the control tape guess us_guess (N, nu)."""
+    """x0 (nq+nv,) and the control tape guess us_guess (N, nu), or a batch
+    of problems, x0 (P, nq+nv) and us_guess (P, N, nu)."""
 
 
 @dataclasses.dataclass
@@ -131,96 +135,123 @@ class ILQR(ShootingAlgorithm):
         return run.reshape(*batch, N).sum(-1) + term.reshape(batch)
 
     def _linearize(self, xs: torch.Tensor, us: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """A_k (N, 2nv, 2nv) and B_k (N, 2nv, nu): the Jacobians of
-        f(z, du) = diff(step(x_k (+) z, u_k + du), x_{k+1}) at (0, 0), from one
-        step of the N knots repeated 2 nv times and one backward pass with
-        one-hot cotangents (row r of knot k from copy r)."""
+        """A_k (..., N, 2nv, 2nv) and B_k (..., N, 2nv, nu) of trajectories xs
+        (..., N+1, nx), us (..., N, nu): the Jacobians of f(z, du) =
+        diff(step(x_k (+) z, u_k + du), x_{k+1}) at (0, 0), from one step of
+        every problem's N knots repeated 2 nv times and one backward pass
+        with one-hot cotangents (row r of knot k from copy r)."""
         m = self.model
-        R, (N, nu) = 2 * m.skel.nv, us.shape
-        xk, uk, xk1 = (t.repeat_interleave(R, dim=0) for t in (xs[:-1], us, xs[1:]))
+        *batch, N, nu = us.shape
+        R, nx = 2 * m.skel.nv, xs.shape[-1]
+        knots = (xs[..., :-1, :].reshape(-1, nx), us.reshape(-1, nu), xs[..., 1:, :].reshape(-1, nx))
+        xk, uk, xk1 = (t.repeat_interleave(R, dim=0) for t in knots)
+        K = knots[0].shape[0]
         with torch.enable_grad():
-            z = xs.new_zeros((N * R, R), requires_grad=True)
-            du = xs.new_zeros((N * R, nu), requires_grad=True)
+            z = xs.new_zeros((K * R, R), requires_grad=True)
+            du = xs.new_zeros((K * R, nu), requires_grad=True)
             f = state_diff(m, self._step_x(state_add(m, xk, z), uk + du), xk1)
-            onehot = torch.eye(R, dtype=xs.dtype, device=xs.device).repeat(N, 1)
+            onehot = torch.eye(R, dtype=xs.dtype, device=xs.device).repeat(K, 1)
             gz, gu = torch.autograd.grad(f, (z, du), onehot)
-        return gz.reshape(N, R, R), gu.reshape(N, R, nu)
+        return gz.reshape(*batch, N, R, R), gu.reshape(*batch, N, R, nu)
 
     def _expand_cost(self, xs: torch.Tensor, us: torch.Tensor):
-        """Per-knot tangent-space cost expansion: gradients and Hessians of
-        running_cost(x_k (+) z, u_k + du) at (0, 0), plus the terminal pair."""
+        """Per-knot tangent-space cost expansion of trajectories xs (..., N+1,
+        nx), us (..., N, nu): gradients and Hessians of running_cost(x_k (+)
+        z, u_k + du) at (0, 0), vmapped over every problem's knots, plus the
+        terminal pair of each problem, each from one forward-over-reverse
+        transform in w = (z, du) whose Hessian holds the zz, uu and zu
+        blocks."""
         m = self.model
-        R = 2 * m.skel.nv
-
-        def cz(xk, uk, z, du):
-            return self.running_cost(state_add(m, xk[None], z[None])[0], uk + du)
-
-        z0 = xs.new_zeros((us.shape[0], R))
-        du0 = torch.zeros_like(us)
-        args = (xs[:-1], us, z0, du0)
+        *batch, N, nu = us.shape
+        R, nx = 2 * m.skel.nv, xs.shape[-1]
         fn = torch.func
-        lz = fn.vmap(fn.grad(cz, argnums=2))(*args)
-        lu = fn.vmap(fn.grad(cz, argnums=3))(*args)
-        lzz = fn.vmap(fn.hessian(cz, argnums=2))(*args)
-        luu = fn.vmap(fn.hessian(cz, argnums=3))(*args)
-        lzu = fn.vmap(fn.jacfwd(fn.grad(cz, argnums=2), argnums=3))(*args)
 
-        def ct(z):
-            return self.terminal_cost(state_add(m, xs[-1:], z[None])[0])
+        def expand(cost):
+            def grad_aux(x, u, w):
+                g = fn.grad(cost, argnums=2)(x, u, w)
+                return g, g
 
-        zt = xs.new_zeros(R)
-        return (lz, lu, lzz, luu, lzu), (fn.grad(ct)(zt), fn.hessian(ct)(zt))
+            return fn.vmap(fn.jacfwd(grad_aux, argnums=2, has_aux=True))
+
+        def cw(xk, uk, w):
+            return self.running_cost(state_add(m, xk[None], w[None, :R])[0], uk + w[R:])
+
+        def ct(xt, _, z):  # expand's (x, u, w) signature; the terminal cost reads no u
+            return self.terminal_cost(state_add(m, xt[None], z[None])[0])
+
+        xk, uk = xs[..., :-1, :].reshape(-1, nx), us.reshape(-1, nu)
+        h, g = expand(cw)(xk, uk, xk.new_zeros((xk.shape[0], R + nu)))
+        running = (g[:, :R], g[:, R:], h[:, :R, :R], h[:, R:, R:], h[:, :R, R:])
+        xt = xs[..., -1, :].reshape(-1, nx)
+        ht, gt = expand(ct)(xt, xt, xt.new_zeros((xt.shape[0], R)))
+        return (tuple(e.reshape(*batch, N, *e.shape[1:]) for e in running),
+                gt.reshape(*batch, R), ht.reshape(*batch, R, R))
 
     def _backward(self, A, B, expansions, terminal):
-        """Riccati recursion, last knot first: feedforward k and feedback K
-        per knot, with Levenberg regularization on Q_uu."""
+        """Riccati recursion, last knot first, over a leading batch of
+        problems: feedforward k (..., N, nu) and feedback K (..., N, nu,
+        2nv) per knot, with Levenberg regularization on Q_uu."""
         lz, lu, lzz, luu, lzu = expansions
         Vz, Vzz = terminal
         eye_u = torch.eye(B.shape[-1], dtype=B.dtype, device=B.device)
-        ks, Ks = [None] * len(A), [None] * len(A)
-        for k in range(len(A) - 1, -1, -1):
-            Ak, Bk = A[k], B[k]
-            Qz = lz[k] + Ak.T @ Vz
-            Qu = lu[k] + Bk.T @ Vz
-            Qzz = lzz[k] + Ak.T @ Vzz @ Ak
-            Quu = luu[k] + Bk.T @ Vzz @ Bk + self.reg * eye_u
-            Qzu = lzu[k] + Ak.T @ Vzz @ Bk
-            kk = -torch.linalg.solve(Quu, Qu)
-            Kk = -torch.linalg.solve(Quu, Qzu.T)
-            Vz = Qz + Kk.T @ Quu @ kk + Kk.T @ Qu + Qzu @ kk
-            Vzz = Qzz + Kk.T @ Quu @ Kk + Kk.T @ Qzu.T + Qzu @ Kk
-            Vzz = 0.5 * (Vzz + Vzz.T)
+        N = A.shape[-3]
+        ks, Ks = [None] * N, [None] * N
+
+        def mv(a, v):
+            return (a @ v[..., None])[..., 0]
+
+        for k in range(N - 1, -1, -1):
+            Ak, Bk = A[..., k, :, :], B[..., k, :, :]
+            Qz = lz[..., k, :] + mv(Ak.mT, Vz)
+            Qu = lu[..., k, :] + mv(Bk.mT, Vz)
+            Qzz = lzz[..., k, :, :] + Ak.mT @ Vzz @ Ak
+            Quu = luu[..., k, :, :] + Bk.mT @ Vzz @ Bk + self.reg * eye_u
+            Qzu = lzu[..., k, :, :] + Ak.mT @ Vzz @ Bk
+            kk = -torch.linalg.solve(Quu, Qu[..., None])[..., 0]
+            Kk = -torch.linalg.solve(Quu, Qzu.mT)
+            Vz = Qz + mv(Kk.mT @ Quu, kk) + mv(Kk.mT, Qu) + mv(Qzu, kk)
+            Vzz = Qzz + Kk.mT @ Quu @ Kk + Kk.mT @ Qzu.mT + Qzu @ Kk
+            Vzz = 0.5 * (Vzz + Vzz.mT)
             ks[k], Ks[k] = kk, Kk
-        return torch.stack(ks), torch.stack(Ks)
+        return torch.stack(ks, -2), torch.stack(Ks, -3)
 
     def _forward(self, xs, us, ks, Ks, alphas: torch.Tensor):
-        """Closed-loop rollouts, one env per step size in `alphas` (A,);
-        feedback acts on the tangent deviation from the nominal trajectory.
-        Returns xs (A, N+1, nx) and us (A, N, nu)."""
+        """Closed-loop rollouts of problems xs (P, N+1, nx), us (P, N, nu), one
+        env per problem and step size in `alphas` (L,), P x L envs in one
+        batch; feedback acts on the tangent deviation from each problem's
+        nominal trajectory. Returns xs (P, L, N+1, nx) and us (P, L, N, nu)."""
         m = self.model
-        x = xs[0].expand(len(alphas), -1)
+        P, L, nx = xs.shape[0], len(alphas), xs.shape[-1]
+        x = xs[:, None, 0].expand(P, L, nx).reshape(P * L, nx)
         xs_new, us_new = [x], []
-        for k in range(us.shape[0]):
-            z = state_diff(m, x, xs[k].expand_as(x))
-            u = self._clip(us[k] + alphas[:, None] * ks[k] + z @ Ks[k].T)
+        for k in range(us.shape[1]):
+            z = state_diff(m, x, xs[:, None, k].expand(P, L, nx).reshape(P * L, nx)).reshape(P, L, -1)
+            u = self._clip(us[:, None, k] + alphas[:, None] * ks[:, None, k] + z @ Ks[:, k].mT).reshape(P * L, -1)
             x = self._step_x(x, u)
             xs_new.append(x)
             us_new.append(u)
-        return torch.stack(xs_new, dim=1), torch.stack(us_new, dim=1)
+        return (torch.stack(xs_new, dim=1).reshape(P, L, -1, nx),
+                torch.stack(us_new, dim=1).reshape(P, L, -1, us.shape[-1]))
 
     @torch.no_grad()
     def optimize(self, params: ILQRParams) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Returns (xs_star, us_star); their cost is at most that of the
-        rolled-out guess (alpha = 0 keeps the nominal every iteration)."""
-        if params.us_guess.dim() != 2:
-            raise NotImplementedError("ILQR.optimize takes one problem: x0 (nq+nv,), us_guess (N, nu)")
+        """Returns (xs_star, us_star) of one problem, x0 (nx,) and us_guess
+        (N, nu), or of a batch of problems, x0 (P, nx) and us_guess (P, N,
+        nu), solved as one batch all the way down: each problem's cost is at
+        most that of its rolled-out guess (alpha = 0 keeps its nominal every
+        iteration), and each takes its own step size."""
+        if params.us_guess.dim() == 2:
+            xs, us = self.optimize(params.replace(x0=params.x0[None], us_guess=params.us_guess[None]))
+            return xs[0], us[0]
         us = self._clip(params.us_guess)
         xs = shoot(self.model, params.x0, us)
         alphas = torch.tensor(tuple(self.alphas) + (0.0,), dtype=xs.dtype, device=xs.device)
         for _ in range(self.iterations):
             A, B = self._linearize(xs, us)
-            ks, Ks = self._backward(A, B, *self._expand_cost(xs, us))
+            running, *terminal = self._expand_cost(xs, us)
+            ks, Ks = self._backward(A, B, running, terminal)
             xs_c, us_c = self._forward(xs, us, ks, Ks, alphas)
-            best = int(torch.argmin(self._traj_cost(xs_c, us_c)))
-            xs, us = xs_c[best], us_c[best]
+            best = torch.argmin(self._traj_cost(xs_c, us_c), dim=-1)[:, None, None, None]
+            xs = torch.take_along_dim(xs_c, best, dim=1)[:, 0]
+            us = torch.take_along_dim(us_c, best, dim=1)[:, 0]
         return xs, us

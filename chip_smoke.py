@@ -195,10 +195,13 @@ PLAIN_REPS, PLAIN_CALLS = 3, 3
 # settle 20 steps there, instead of 400 from rest (the ladder's own settle).
 # The cap-48 path times CAP48_STEPS (100 until the tendon phases came, 50
 # until the weld phases came): nothing reads its final state but its stage
-# split.
+# split. The rowcap192 path times CLUTTER_STEPS (100 until the fully
+# randomized quadruped's phases came): its final state starts the exact and bf16
+# paths and its own spread check, all from a state the CPU settled 600
+# steps.
 CLUTTER_ENVS = 256
 CLUTTER_SETTLE = 20
-CLUTTER_STEPS = 100
+CLUTTER_STEPS = 50
 CAP48_STEPS = 25
 FLOOR_TOL = 0.005  # no geom below the floor by more than 5 mm after the settle
 CLUTTER_CARD_VS_CPU_STEPS = 5
@@ -225,9 +228,10 @@ DROP_ENVS, DROP_SETTLE, DROP_STEPS = 2048, 300, 150
 # Rungs 3b exact (clutter32 with no cap, :123-125) and 3d (rowcap192 with
 # Option.hessian_bf16, :145-148) at the ladder's 256 envs. Cut: both start
 # from the rowcap192 path's settled state; exact clutter settles
-# EXACT_SETTLE more steps at its own rows, then EXACT_STEPS timed steps;
-# bf16 runs BF16_STEPS timed steps (the ladder: 400 settle + 100 timed)
-EXACT_SETTLE, EXACT_STEPS, BF16_STEPS = 100, 20, 20
+# EXACT_SETTLE more steps at its own rows (100 until the fully randomized
+# quadruped's phases came), then EXACT_STEPS timed steps; bf16 runs
+# BF16_STEPS timed steps (the ladder: 400 settle + 100 timed)
+EXACT_SETTLE, EXACT_STEPS, BF16_STEPS = 50, 20, 20
 # rung 5's humanoid predictive sampling (:160-184): 64 samples x 8 knots,
 # Q 0.1 I, Qf 10 I, R 1e-4 I, goal and start at (qpos0, 0), stdev 0.2.
 # Cut: 3 optimize calls (20 until the sensor phases came, 10 until the
@@ -431,6 +435,17 @@ RAY_TOL = 1e-4
 # disabled; the cost of the JAX package's
 # tests/trajopt/test_predictive_sampler.py:36-41 and its stdev 0.3.
 HAND_SAMPLES, HAND_HORIZON, HAND_STDEV = 100, 10, 0.3
+# The mesh hand (models/hand/hand_mesh.xml, compiled on the card by the
+# port) at BASELINE.md:13's width, HAND_SAMPLES samples x HAND_HORIZON
+# knots, Newton 1 x 4 with contacts enabled, as
+# tests/test_models_parity.py:199-221 runs it (its cost: goal f1_prox 1
+# rad, stdev 0.2, from rest and the zero guess). Its meshes collide only
+# with objects and the file holds none, so it has no contact pair: the
+# phase runs the mesh compile and the mimic rows. Without contact slots its
+# rows have no pyramid structure, so its Newton solve is kernel 5
+# (newton_dense), not the hand's kernel 4.
+MESH_HAND_XML = "models/hand/hand_mesh.xml"
+MESH_HAND_STDEV = 0.2
 HAND_TRAJOPT = dict(iterations=1, ls_iterations=4)
 # cut: 20 until the sensor phases came, 10 until the tendon phases came, 5 until the weld phases came
 HAND_OPTIMIZE_CALLS = 3
@@ -488,10 +503,27 @@ GRAD_ELLIPTIC_PATH_TOL = 1e-1
 # Cut: half the steps (20 / 10 until the sensor phases came), the elliptic
 # quadruped's 2 (5 until the weld phases came, 3 until the condim and
 # integrator phases came), the pendulum's and arm3's 5 (10 until then).
+# The quadruped with noslip (its path's model, a build function of the
+# device) runs converged, as its path is held card vs CPU, 16 envs x 3
+# steps: noslip's M^-1 J^T is kernel 2's Function at k = 136 forward, its
+# plain version backward (tests/test_torch_noslip.py holds the pass's
+# reverse mode against its forward mode). The quadruped under CG runs its own 3
+# iterations with 2 line-search steps, not 15 x 15: there the converged
+# solve's unrolled gradient is not defined by its inputs in either package,
+# even in float64 (tools/grad_spread.py, the same model, start and tape in
+# both: a 1e-9 nudge of qvel0 moves the JAX package's float64 gradient by
+# 0.17 of the largest |g| over one step of 4 envs and 0.78 over these 16 x
+# 3, the port's by 0.12 and 0.75). At 3 x 2 the port's float64 gradient
+# moves by 2.1e-7 under that nudge and its float32 one is 1.6e-4 from it and
+# 3.7e-4 from the JAX package's float32 over 16 x 3; over one step of 4
+# envs the two packages' float64 gradients meet within 1.6e-15 at 3 x 2 and
+# 1 x 4 (tests/test_torch_cg.py holds the float32 ones within 1e-4 there).
 GRAD_PATHS = {
     "pendulum": ("pendulum", 16, 5, None), "arm3": ("arm3", 16, 5, None), "quadruped": ("quadruped", 64, 5, None),
     "quadruped_elliptic": ("quadruped_elliptic", 8, 2, CONVERGED), "hand": ("hand", 16, 5, None),
     "clutter32_rowcap192": ("clutter32_rowcap192", 4, 2, None),
+    "quadruped_cg": (lambda device: cg_quadruped(device), 16, 3, dict(iterations=3, ls_iterations=2)),
+    "quadruped_noslip": (lambda device: xml_model(noslip_quadruped_xml(), device), 16, 3, CONVERGED),
 }
 # APG on the pendulum swingup (examples/rl/pendulum/ex_agents.py:80-87 and
 # its env, 2 physics steps per control step). Cut: 1 policy update and 2
@@ -568,6 +600,13 @@ SAC_LOSS_RTOL = 1e-3
 ILQR_PENDULUM = dict(knots=50, iterations=12, goal=0.7)
 JAX_ILQR_PENDULUM_ANGLE = 0.6759496
 ILQR_ANGLE_SLACK = 1e-3
+# ILQR_PENDULUM over tests/trajopt/test_ilqr.py:130-150's four initial
+# angles, spread over [-1, 1] rad at rest, as one batch of problems; each
+# problem held against the card's own single-problem solve from the same
+# start within ILQR_BATCH_TOLS (xs, us): the same arithmetic on another
+# batch shape (the CPU gives the bits)
+ILQR_BATCH_STARTS = (-1.0, -1.0 / 3.0, 1.0 / 3.0, 1.0)
+ILQR_BATCH_TOLS = (1e-4, 1e-3)
 # The hand at BASELINE.md:13's 10 knots (hand_sampling's cost, start and
 # guess): Adam through the step, and iLQR. Cut: 8 Adam iterations (30
 # until section 9 came, 15 until the sensor phases came).
@@ -837,6 +876,14 @@ CG_STEPS = NOSLIP_STEPS = 50
 FLUID_MEDIUM = 'density="1.2" viscosity="0.3" wind="0.5 -0.2 0.1"'
 FLUID_STEPS = DR_STEPS = 50
 DR_SEED, DR_CHECK_STEPS = 21, 10
+# quadruped_dr_full: the same path with rl.quadruped.randomize_quadruped_full
+# (randomize_quadruped's four leaves and eight more: leg friction loss and
+# armature, the trunk's com offset and inertia, leg joint zero offsets
+# (qpos0), the feet's solref, motor gear and forcerange); card vs CPU 8 x 20
+# from its settled final state, and 8 envs against their own models at
+# tolerance 0 within SAME_QPOS / SAME_QVEL (quadruped_dr's four leaves meet
+# them bit for bit)
+SAME_QPOS, SAME_QVEL = 1e-6, 1e-5
 NOSLIP_RHS = 136  # the quadruped's nefc: M^-1 J^T's right-hand sides per env
 # kernel 2 with k right-hand sides per factor: (B, n, k) cases beside the
 # noslip shape, the warp design's edges and the block design at small B
@@ -2568,9 +2615,12 @@ PATHS = {
     "quadruped_fluid": dict(build=lambda device: xml_model(quadruped_fluid_xml(), device), envs=NUM_ENVS,
                             steps=FLUID_STEPS, start=initial_batch, ctrl=pd_ctrl, kernels=tuple(IMPLICITFAST_PER_STEP),
                             per_step=IMPLICITFAST_PER_STEP, z=(0.20, 0.32), keep=True, vs_cpu="settled"),
-    "quadruped_dr": dict(model="quadruped", randomize=True, envs=NUM_ENVS, steps=DR_STEPS, start=initial_batch,
+    "quadruped_dr": dict(model="quadruped", randomize="four", envs=NUM_ENVS, steps=DR_STEPS, start=initial_batch,
                          ctrl=pd_ctrl, kernels=tuple(TERRAIN_PER_STEP), per_step=TERRAIN_PER_STEP, z=(0.20, 0.32),
                          keep=True),
+    "quadruped_dr_full": dict(model="quadruped", randomize="full", envs=NUM_ENVS, steps=DR_STEPS,
+                              start=initial_batch, ctrl=pd_ctrl, kernels=tuple(TERRAIN_PER_STEP),
+                              per_step=TERRAIN_PER_STEP, z=(0.20, 0.32), keep=True, vs_cpu="settled"),
 }
 # the floor, terrain and `keep` paths' final states (the card-vs-CPU
 # checks, the starts of later paths, the sensor path's checks)
@@ -2624,6 +2674,15 @@ PHASE_SHAPES = {
     # fluid, gravcomp and cameras under implicitfast; per-env leaves, and PPO over them
     "quadruped_fluid": ((NUM_ENVS, 18), "quadruped"), "quadruped_dr": ((NUM_ENVS, 18), "quadruped"),
     "ppo_quadruped_dr": ((NUM_ENVS, 18), "quadruped"),
+    # every per-env leaf; the batched iLQR (most launches in its line search's
+    # 4 problems x 6 step sizes); the CG and noslip gradients (noslip's k =
+    # 136 launch split off as for the path); the mesh hand's sampling (kernel
+    # 5 timed on its own operands in hand_mesh_sampling)
+    "quadruped_dr_full": ((NUM_ENVS, 18), "quadruped"),
+    "ilqr_pendulum_batch": ((4 * 6, 1), None),
+    "grad_quadruped_cg": ((16, 18), None), "grad_quadruped_noslip": ((16, 18), "quadruped"),
+    "grad_quadruped_noslip_rhs": ((16, 18, NOSLIP_RHS), None),
+    "hand_mesh_sampling": ((HAND_SAMPLES, 8), f"mesh hand B={HAND_SAMPLES}"),
 }
 # Section 9's phases, timed in section 9 (time_linalg_shapes) so that
 # section 3 does the same work as before it; the evals' launches are
@@ -2761,8 +2820,15 @@ def onto_terrain(m, qpos):
 def path_model(name: str, device, envs: int | None = None):
     """The model of path `name` on `device`, with the path's option
     overrides; a `randomize` path's per-env leaves drawn for its batch
-    (randomize_quadruped from a CPU generator seeded DR_SEED, so both
-    devices get the same leaves), cut to the first `envs` when given."""
+    (randomize_quadruped, or randomize_quadruped_full for "full", from a CPU
+    generator seeded DR_SEED, so both devices get the same leaves), cut to
+    the first `envs` when given."""
+    return path_model_leaves(name, device, envs)[0]
+
+
+def path_model_leaves(name: str, device, envs: int | None = None):
+    """(path_model, the names of the leaves its randomization function drew
+    per env; () for a path without one)."""
     from ambersim_tpu_torch import load_model
 
     p = PATHS[name]
@@ -2773,12 +2839,14 @@ def path_model(name: str, device, envs: int | None = None):
         import torch
 
         from ambersim_tpu_torch.core.types import env_slice
-        from ambersim_tpu_torch.rl.quadruped import randomize_quadruped
+        from ambersim_tpu_torch.rl.quadruped import randomize_quadruped, randomize_quadruped_full
 
-        m = randomize_quadruped(m, torch.Generator().manual_seed(DR_SEED), p["envs"])[0]
+        fn = randomize_quadruped_full if p["randomize"] == "full" else randomize_quadruped
+        m, names = fn(m, torch.Generator().manual_seed(DR_SEED), p["envs"])
         if envs is not None:
             m = env_slice(m, slice(0, envs))
-    return m
+        return m, tuple(names)
+    return m, ()
 
 
 def drive_path(name: str, device, card: str) -> dict:
@@ -2982,7 +3050,7 @@ def settled_card_vs_cpu(device, name: str) -> None:
     k = CLUTTER_CARD_VS_CPU_STEPS if spread else 20
 
     def run(dev, nudge=0.0):
-        m = path_model(name, dev)
+        m = path_model(name, dev, envs=8)
         fields = {f: v.to(dev) for f, v in start.items()}
         fields["qpos"] = fields["qpos"] + nudge
         return rollout(m, make_data(m, 8).replace(**fields), k, ctrl_fn=PATHS[name]["ctrl"])
@@ -3926,7 +3994,8 @@ def check_cho_solve_rhs(device, results) -> dict:
             out = dict(B=B, n=n, k=k, ms=cuda_ms(lambda: kernels.cho_solve_batched(l_ref, rhs)),
                        plain_ms=plain_ms(lambda: plain.cho_solve_unrolled(l_ref, rhs)),
                        library_ms=cuda_ms(lambda: torch.cholesky_solve(rhs.transpose(1, 2), l_ref)),
-                       max_abs_err=err, **linalg_bound("cho_solve", B, n, k))
+                       backward_ms=rhs_backward_ms(l_ref, rhs), max_abs_err=err,
+                       **linalg_bound("cho_solve", B, n, k))
         print(f"{key} B={B} n={n} k={k}: within {err:.2e} of plain, the bits of separate launches", flush=True)
     try:
         kernels.cho_solve_batched(l_ref, torch.zeros(8, 0, 192, device=device))
@@ -3936,9 +4005,35 @@ def check_cho_solve_rhs(device, results) -> dict:
         fail("cho_solve_batched took k = 0 right-hand sides")
     print(f"kernel cho_solve at the noslip shape B={out['B']} n={out['n']} k={out['k']}: {out['ms']:.4f} ms, plain "
           f"{out['plain_ms']:.4f} ms, library (torch.cholesky_solve) {out['library_ms']:.4f} ms, bound "
-          f"{out['bound_ms']:.4f} ms ({out['bound_by']})", flush=True)
+          f"{out['bound_ms']:.4f} ms ({out['bound_by']}); its Function's backward {out['backward_ms']:.4f} ms",
+          flush=True)
     print(json.dumps({"cho_solve_rhs": out}))
     return out
+
+
+def rhs_backward_ms(l, rhs) -> float:
+    """CUDA-event ms of kernel 2's Function's backward (autograd through the
+    plain version on the card) at (B, k, n) right-hand sides, the noslip
+    pass's M^-1 J^T under grad: a seeded linear functional's gradient with
+    respect to the factor and the right-hand sides, the graph kept, as
+    grad_kernels times the k = 1 rows. Fails unless the Function launched
+    the kernel once and both gradients are finite."""
+    import numpy as np
+    import torch
+
+    from ambersim_tpu_torch.engine import linalg
+    from ambersim_tpu_torch.ops import LAUNCHES
+
+    leaves = [x.detach().clone().requires_grad_(True) for x in (l, rhs)]
+    launched = LAUNCHES["cho_solve"]
+    out = linalg.cho_solve_kernel(*leaves)
+    if LAUNCHES["cho_solve"] != launched + 1:
+        fail(f"cho_solve's Function at k={rhs.shape[1]} launched the kernel {LAUNCHES['cho_solve'] - launched} times")
+    w = torch.as_tensor(np.random.default_rng(43).standard_normal(tuple(out.shape)).astype(np.float32), device=l.device)
+    loss = (w * out).sum()
+    if not all(torch.isfinite(g).all() for g in torch.autograd.grad(loss, leaves, retain_graph=True)):
+        fail(f"cho_solve's Function at k={rhs.shape[1]}: a non-finite gradient")
+    return cuda_ms(lambda: torch.autograd.grad(loss, leaves, retain_graph=True), reps=2, calls=1)
 
 
 def check_cg_noslip(device, card: str) -> None:
@@ -4217,6 +4312,110 @@ def hand_sampling(device, card: str) -> dict:
           f"hand_sampling: 8 samples card vs cpu over {HAND_HORIZON} steps: max |dqpos| {dq:.3e} (<= {QPOS_TOL}), "
           f"max |dqvel| {dv:.3e} (<= {QVEL_TOL}); cost of the chosen tape {c_star:.6f} <= the guess's {c_guess:.6f}",
           flush=True)
+    return launches
+
+
+_MESH_HAND_KERNELS = _LINALG + ("newton_dense",)
+
+
+def hand_mesh_sampling(device, card: str, results) -> dict:
+    """One optimize call of the mesh hand's sampler (MESH_HAND_XML, a model
+    compiled by the port on `device`), the launch counts set to 0 just
+    before and read just after: exact launches (a forward and HAND_HORIZON
+    steps at HAND_SAMPLES envs: kernels 1, 2 and 5 each a forward and a
+    step, kernel 3 each step), the timed call's xs_star against the CPU's
+    rollout of the chosen sample and every sample's rollout on the card
+    against the CPU's, within QPOS_TOL / QVEL_TOL, the CPU's chosen index
+    (or, where its two cheapest samples tie within 1e-6 of the cost, one of
+    them) and the chosen tape's cost at most the guess's. Then kernel 5 on the pre-solve operands of the
+    samples' final states (the mimic rows active) against its plain version
+    at the NEWTON_* bars, and its time there (SHAPE_TIMES). Returns the
+    launch counts."""
+    import numpy as np
+    import torch
+
+    from ambersim_tpu_torch.engine import make_data
+    from ambersim_tpu_torch.engine.solver import _newton_arrays
+    from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from ambersim_tpu_torch.ops.newton import newton_solve_dense
+    from ambersim_tpu_torch.trajopt import (StaticGoalQuadraticCost, VanillaPredictiveSampler,
+                                            VanillaPredictiveSamplerParams, shoot)
+    from ambersim_tpu_torch.utils.io_utils import load_model_from_file
+
+    runs = {}
+    for dev in (device, "cpu"):
+        m = load_model_from_file(MESH_HAND_XML, solver="newton", iterations=1, ls_iterations=4, device=dev)
+        nx, nu = m.skel.nq + m.skel.nv, m.skel.nu
+        xg = torch.zeros(nx, device=dev)
+        xg[1] = 1.0
+        cost = StaticGoalQuadraticCost(Q=0.1 * torch.eye(nx, device=dev), Qf=10.0 * torch.eye(nx, device=dev),
+                                       R=1e-3 * torch.eye(nu, device=dev), xg=xg)
+        runs[dev] = (m, VanillaPredictiveSampler(model=m, cost_function=cost, nsamples=HAND_SAMPLES,
+                                                 stdev=MESH_HAND_STDEV))
+    m, sampler = runs[device]
+    s = m.skel
+    if not (s.ncon == 0 and s.neq == 4 and (np.asarray(s.geom_type) == 7).sum() > 0):
+        fail(f"hand_mesh_sampling: want mesh geoms, 4 mimic rows and no contact pair (ncon {s.ncon}, neq {s.neq})")
+    params = VanillaPredictiveSamplerParams(x0=torch.zeros(s.nq + s.nv, device=device),
+                                            us_guess=torch.zeros(HAND_HORIZON, s.nu, device=device),
+                                            generator=torch.Generator().manual_seed(0))
+    us = sampler.draw_samples(params)
+    sampler.select(params.x0, us)  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    xs_star, us_star, best = sampler.select(params.x0, us)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    _check_launches("hand_mesh_sampling", launches, _MESH_HAND_KERNELS, 1,
+                    {k: HAND_HORIZON + (0 if k == "solve_pd" else 1) for k in _MESH_HAND_KERNELS})
+    m_cpu, sampler_cpu = runs["cpu"]
+    xs = shoot(m, params.x0, us)
+    xs_cpu = shoot(m_cpu, params.x0.cpu(), us.cpu())
+    nq = s.nq
+    dq = (xs[..., :nq].cpu() - xs_cpu[..., :nq]).abs().max().item()
+    dv = (xs[..., nq:].cpu() - xs_cpu[..., nq:]).abs().max().item()
+    star = xs_star.cpu() - xs_cpu[int(best)]
+    dq_star, dv_star = star[..., :nq].abs().max().item(), star[..., nq:].abs().max().item()
+    costs = sampler_cpu.cost_function.cost(xs_cpu, us.cpu())
+    order = costs.argsort()
+    tied = [int(order[0])] + ([int(order[1])] if costs[order[1]] - costs[order[0]] <= 1e-6 * abs(costs[order[0]])
+                              else [])
+    c_star = costs[int(best)].item()
+    print(f"hand_mesh_sampling: one optimize call of {HAND_SAMPLES} samples x {HAND_HORIZON} knots in "
+          f"{1e3 * seconds:.3f} ms [{card}]; launches {launches}; {HAND_SAMPLES} samples card vs cpu: max |dqpos| "
+          f"{dq:.3e} (<= {QPOS_TOL}), max |dqvel| {dv:.3e} (<= {QVEL_TOL}); the timed call's xs_star against the CPU's "
+          f"rollout of its sample: {dq_star:.3e}, {dv_star:.3e}; chosen sample {int(best)} (the CPU's "
+          f"{tied}), cost {c_star:.6f}, the guess's {costs[0].item():.6f}", flush=True)
+    if not (torch.isfinite(xs_star).all() and dq <= QPOS_TOL and dv <= QVEL_TOL and dq_star <= QPOS_TOL
+            and dv_star <= QVEL_TOL):
+        fail(f"hand_mesh_sampling: the card's rollouts differ from the CPU's by {dq:.3e} / {dv:.3e}, xs_star by "
+             f"{dq_star:.3e} / {dv_star:.3e}")
+    if int(best) not in tied or not c_star <= costs[0].item():
+        fail(f"hand_mesh_sampling: the card chose sample {int(best)}, the CPU {tied}")
+    if not torch.equal(us_star.cpu(), us[int(best)].cpu()):
+        fail("hand_mesh_sampling: us_star is not the chosen sample")
+    # kernel 5 on the mesh hand's rows: the samples' final states
+    d = pre_solve(m, make_data(m, HAND_SAMPLES).replace(qpos=xs[:, -1, :nq].contiguous(),
+                                                        qvel=xs[:, -1, nq:].contiguous()))
+    pa = dict(solver_operands(m, d, seed=7), ne=int(s.ne), nf=int(s.nf))
+    kw = dict(iterations=int(m.opt.iterations), ls_iterations=int(m.opt.ls_iterations), use_ws=True)
+
+    def dense(pa=pa, kw=kw):
+        q = dict(pa)
+        return newton_solve_dense(q.pop("J"), q.pop("qM"), q.pop("aref"), q.pop("D"), q.pop("fl"), q.pop("act"),
+                                  q.pop("a_s"), q.pop("ws"), q.pop("tol"), **q, **kw)
+
+    what = f"newton_dense mesh hand B={HAND_SAMPLES}"
+    err = newton_err(dense(), _newton_arrays(**pa, **kw), what)
+    results["newton_dense"]["max_abs_err"] = max(results["newton_dense"]["max_abs_err"], err)
+    SHAPE_TIMES[("newton_dense", f"mesh hand B={HAND_SAMPLES}")] = (cuda_ms(dense), newton_bound(
+        [pa[k] for k in ("J", "qM", "aref", "D", "fl", "act", "a_s", "ws")], s.nefc, s.nv, pa["act"],
+        kw["iterations"], kw["ls_iterations"])["bound_ms"])
+    print(f"{what}: active rows per env {pa['act'].sum(1).mean().item():.2f} of {s.nefc}, within {err:.2e} of plain; "
+          f"{SHAPE_TIMES[('newton_dense', f'mesh hand B={HAND_SAMPLES}')][0]:.4f} ms, bound "
+          f"{SHAPE_TIMES[('newton_dense', f'mesh hand B={HAND_SAMPLES}')][1]:.4f} ms", flush=True)
     return launches
 
 
@@ -4938,6 +5137,15 @@ def grad_path_start(name: str, m, B: int, device):
     return PATHS[name]["start"](m, B, device)
 
 
+def grad_path_model(name: str, device):
+    """GRAD_PATHS path `name`'s model on `device`, with its solver options."""
+    from ambersim_tpu_torch import load_model
+
+    model, _, _, opt = GRAD_PATHS[name]
+    m = hand_model(device) if name == "hand" else model(device) if callable(model) else load_model(model, device=device)
+    return m.replace(opt=m.opt.replace(**opt)) if opt else m
+
+
 def grad_path(name: str, device) -> tuple[dict, dict, float]:
     """d(sum qpos + sum qvel after T steps)/d(ctrl tape, initial qvel) of
     one GRAD_PATHS path on `device` (grad mode through the engine's
@@ -4946,13 +5154,11 @@ def grad_path(name: str, device) -> tuple[dict, dict, float]:
     import numpy as np
     import torch
 
-    from ambersim_tpu_torch import load_model
     from ambersim_tpu_torch.engine import step
     from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
 
-    model, B, T, opt = GRAD_PATHS[name]
-    m = hand_model(device) if name == "hand" else load_model(model, device=device)
-    m = m.replace(opt=m.opt.replace(**opt)) if opt else m
+    _, B, T, _ = GRAD_PATHS[name]
+    m = grad_path_model(name, device)
     d = grad_path_start(name, m, B, device)
     nu = m.skel.nu
     u = torch.as_tensor(0.3 * np.random.default_rng(42).standard_normal((T, B, nu)).astype(np.float32),
@@ -4979,12 +5185,9 @@ def grad_paths(device, card: str) -> dict:
     Returns the launch counts by phase (grad_<path>)."""
     import torch
 
-    from ambersim_tpu_torch import load_model
-
     phases = {}
-    for name, (model, B, T, _) in GRAD_PATHS.items():
-        m = hand_model(device) if name == "hand" else load_model(model, device=device)
-        per_forward, per_step = _per_call_launches(m, device)
+    for name, (_, B, T, _) in GRAD_PATHS.items():
+        per_forward, per_step = _per_call_launches(grad_path_model(name, device), device)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated() / 2**30
@@ -5003,6 +5206,9 @@ def grad_paths(device, card: str) -> dict:
         expected = _expect(per_forward, per_step, 0, T)
         _check_launches(f"grad_paths {name}", launches, tuple(k for k, n in expected.items() if n), 1, expected)
         phases[f"grad_{name}"] = launches
+        if name == "quadruped_noslip":  # its M^-1 J^T launch of each step, weighed at its own shape
+            phases[f"grad_{name}"] = dict(launches, cho_solve=launches["cho_solve"] - T)
+            phases[f"grad_{name}_rhs"] = {"cho_solve": T}
         print(f"grad_paths {name}: {B} envs x {T} steps, d(sum qpos + sum qvel)/d(ctrl, qvel0) card vs CPU: largest "
               f"difference {rel:.3e} of the largest |g| (bar {tol}); forward + backward "
               f"{seconds:.3f} s (backward {backward_s:.3f} s); peak device memory {peak:.3f} GiB ({peak - held:.3f} "
@@ -5168,13 +5374,13 @@ def _pendulum_ilqr(m, device):
     return ILQR(model=m, running_cost=running, terminal_cost=terminal, iterations=c["iterations"])
 
 
-def ilqr_pendulum(device, card: str) -> dict:
+def ilqr_pendulum(device, card: str) -> tuple:
     """examples/trajopt/ex_ilqr.py task 1 on the card (ILQR_PENDULUM): the
     cost at most the guess's, the final angle within the JAX package's
     distance to the goal plus ILQR_ANGLE_SLACK, exact launches (the guess's
     rollout, then per iteration the linearization's one step of N x 2 nv
     envs and the line search's N steps of all step sizes), ms per
-    iteration. Returns the launches."""
+    iteration. Returns the launches and the ms per iteration."""
     import torch
 
     from ambersim_tpu_torch import load_model
@@ -5206,6 +5412,83 @@ def ilqr_pendulum(device, card: str) -> dict:
           f"{JAX_ILQR_PENDULUM_ANGLE}; |error| bar {bar:.4f}); launches {launches}", flush=True)
     if not (torch.isfinite(xs).all() and c_star <= c_guess and abs(angle - c["goal"]) <= bar):
         fail(f"ilqr_pendulum: cost {c_star} (guess {c_guess}) or final angle {angle} off")
+    return launches, 1e3 * seconds / I
+
+
+def _ilqr_single(angle: float):
+    """ILQR_PENDULUM's single-problem solve on the card from `angle` at
+    rest, in a process of its own (ilqr_pendulum_batch's pool): (xs, us) on
+    the CPU."""
+    import torch
+
+    from ambersim_tpu_torch import load_model
+    from ambersim_tpu_torch.engine.forward import full_f32_matmul
+    from ambersim_tpu_torch.ops import _build
+    from ambersim_tpu_torch.trajopt import ILQRParams
+
+    _build.library()
+    device = torch.device("cuda", 0)
+    with full_f32_matmul():
+        m = load_model("pendulum", device=device)
+        guess = torch.zeros(ILQR_PENDULUM["knots"], 1, device=device)
+        xs, us = _pendulum_ilqr(m, device).optimize(ILQRParams(x0=torch.tensor([angle, 0.0], device=device),
+                                                               us_guess=guess))
+    return xs.cpu(), us.cpu()
+
+
+def ilqr_pendulum_batch(device, card: str, single_ms: float) -> dict:
+    """ILQR_PENDULUM over ILQR_BATCH_STARTS as one batch of problems
+    (ILQR.optimize with x0 (4, 2)): every problem no worse than its guess,
+    each within ILQR_BATCH_TOLS of the card's single-problem solve from its
+    start, exact launches (the guesses' rollout, then per iteration one step
+    of 4 x N x 2 nv envs and N steps of 4 x 6 envs), ms per iteration. The
+    four single solves run at once, one spawned process each (each step is
+    host-bound: one process would take four times as long); `single_ms`,
+    ilqr_pendulum's ms per iteration (the same options, in this process),
+    is printed beside the batch's. Returns the batch's launches."""
+    import torch
+
+    from ambersim_tpu_torch import load_model
+    from ambersim_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from ambersim_tpu_torch.trajopt import ILQRParams, shoot
+
+    c = ILQR_PENDULUM
+    N, I, P = c["knots"], c["iterations"], len(ILQR_BATCH_STARTS)
+    m = load_model("pendulum", device=device)
+    per_forward, per_step = _per_call_launches(m, device)
+    opt = _pendulum_ilqr(m, device)
+    x0 = torch.tensor([[a, 0.0] for a in ILQR_BATCH_STARTS], device=device)
+    guess = torch.zeros(P, N, 1, device=device)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    xs, us = opt.optimize(ILQRParams(x0=x0, us_guess=guess))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    _check_launches("ilqr_pendulum_batch", launches, ("cholesky", "cho_solve"), 1,
+                    _expect(per_forward, per_step, 1, N + I * (1 + N)))
+    import multiprocessing
+
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(P) as pool:
+        single = pool.map(_ilqr_single, ILQR_BATCH_STARTS)
+    single_s = time.perf_counter() - t0
+    with torch.no_grad():
+        c_guess = opt._traj_cost(shoot(m, x0, guess), guess)
+    c_star = opt._traj_cost(xs, us)
+    dx = max((xs[i].cpu() - single[i][0]).abs().max().item() for i in range(P))
+    du = max((us[i].cpu() - single[i][1]).abs().max().item() for i in range(P))
+    print(f"ilqr_pendulum_batch: {P} problems x {N} knots x {I} iterations in {seconds:.3f} s = "
+          f"{1e3 * seconds / I:.1f} ms per iteration, a single problem {single_ms:.1f} ms per iteration "
+          f"(ilqr_pendulum) [{card}]; the {P} single solves in {P} processes {single_s:.1f} s; costs "
+          f"{[round(v, 4) for v in c_guess.tolist()]} -> {[round(v, 4) for v in c_star.tolist()]}; "
+          f"against the single solves max |dxs| {dx:.3e} (<= {ILQR_BATCH_TOLS[0]}), max |dus| {du:.3e} "
+          f"(<= {ILQR_BATCH_TOLS[1]}); launches {launches}", flush=True)
+    if not (torch.isfinite(xs).all() and bool((c_star <= c_guess).all())):
+        fail(f"ilqr_pendulum_batch: a problem's cost {c_star.tolist()} over its guess's {c_guess.tolist()}")
+    if not (dx <= ILQR_BATCH_TOLS[0] and du <= ILQR_BATCH_TOLS[1]):
+        fail("ilqr_pendulum_batch: a problem parts from its single-problem solve")
     return launches
 
 
@@ -6225,21 +6508,28 @@ def quadruped_fluid_checks(device, card: str) -> None:
           f"v in [{px[..., 1].min().item():.1f}, {px[..., 1].max().item():.1f}] px (640 x 480) [{card}]", flush=True)
 
 
-def quadruped_dr_checks(device, card: str) -> None:
-    """8 envs of quadruped_dr on the card at opt.tolerance 0 (so the
+# randomized path -> the bars of an env against its own model
+# (quadruped_dr_checks)
+DR_CHECKS = {"quadruped_dr": (QPOS_TOL, QVEL_TOL), "quadruped_dr_full": (SAME_QPOS, SAME_QVEL)}
+
+
+def quadruped_dr_checks(device, card: str, name: str = "quadruped_dr") -> None:
+    """8 envs of a randomized path on the card at opt.tolerance 0 (so the
     Newton tolerance's minimum over envs does not enter), DR_CHECK_STEPS
     steps with per-env leaves, each env against a rollout of the unbatched
-    model that carries that env's values (core.types.env_slice), within
-    QPOS_TOL / QVEL_TOL; and the leaves are per env: the envs part."""
+    model that carries that env's values (core.types.env_slice), within the
+    path's DR_CHECKS bars; and the leaves are per env: the model's per-env
+    leaves are those its randomization function names, and the envs part."""
     import torch
 
-    from ambersim_tpu_torch.core.types import env_leaf_names, env_slice
+    from ambersim_tpu_torch.core.types import ENV_LEAVES, env_leaf_names, env_slice
     from ambersim_tpu_torch.engine import rollout
 
-    m = path_model("quadruped_dr", device, envs=8)
+    qpos_tol, qvel_tol = DR_CHECKS[name]
+    m, leaves = path_model_leaves(name, device, envs=8)
     m = m.replace(opt=m.opt.replace(tolerance=torch.zeros_like(m.opt.tolerance)))
-    if env_leaf_names(m) != ("body_mass", "dof_damping", "geom_friction", "actuator_gainprm"):
-        fail(f"quadruped_dr: per-env leaves {env_leaf_names(m)}")
+    if env_leaf_names(m) != tuple(k for k in ENV_LEAVES if k in leaves):
+        fail(f"{name}: per-env leaves {env_leaf_names(m)}")
     d0 = initial_batch(m, 8, device)
     batched = rollout(m, d0, DR_CHECK_STEPS, ctrl_fn=pd_ctrl)
     dq = dv = 0.0
@@ -6248,13 +6538,13 @@ def quadruped_dr_checks(device, card: str) -> None:
         dq = max(dq, (one.qpos - batched.qpos[e:e + 1]).abs().max().item())
         dv = max(dv, (one.qvel - batched.qvel[e:e + 1]).abs().max().item())
     spread = (batched.qpos[:, 2] - batched.qpos[0, 2]).abs().max().item()
-    print(f"quadruped_dr: 8 envs x {DR_CHECK_STEPS} steps at tolerance 0, each against its own model: max |dqpos| "
-          f"{dq:.3e} (<= {QPOS_TOL}), max |dqvel| {dv:.3e} (<= {QVEL_TOL}); trunk heights part by up to {spread:.3e} m "
+    print(f"{name}: 8 envs x {DR_CHECK_STEPS} steps at tolerance 0, each against its own model: max |dqpos| "
+          f"{dq:.3e} (<= {qpos_tol}), max |dqvel| {dv:.3e} (<= {qvel_tol}); trunk heights part by up to {spread:.3e} m "
           f"[{card}]", flush=True)
-    if not (dq <= QPOS_TOL and dv <= QVEL_TOL):
-        fail("quadruped_dr: an env of the batched-leaf rollout parts from its own model's rollout")
+    if not (dq <= qpos_tol and dv <= qvel_tol):
+        fail(f"{name}: an env of the batched-leaf rollout parts from its own model's rollout")
     if not spread > 0:
-        fail("quadruped_dr: every env took the same trajectory under per-env leaves")
+        fail(f"{name}: every env took the same trajectory under per-env leaves")
 
 
 def ppo_quadruped_dr(device, card: str) -> dict:
@@ -6355,7 +6645,8 @@ def run_phases(device, card: str, results: dict) -> None:
     weld_paths_checks(device, card)
     quadruped_fluid_checks(device, card)
     quadruped_dr_checks(device, card)
-    phase("quadruped_fluid and quadruped_dr checks")
+    quadruped_dr_checks(device, card, "quadruped_dr_full")
+    phase("quadruped_fluid, quadruped_dr and quadruped_dr_full checks")
     print(f"clutter32_rowcap192 solve stage, median ms: bfloat16 Hessian product "
           f"{splits['clutter32_rowcap192_bf16']['solve']:.3f}, float32 {splits['clutter32_rowcap192']['solve']:.3f} "
           f"[{card}]", flush=True)
@@ -6374,6 +6665,8 @@ def run_phases(device, card: str, results: dict) -> None:
     # in contact, and the pendulum at a batch of one ----
     phase_launches["hand_sampling"] = hand_sampling(device, card)
     phase("hand_sampling")
+    phase_launches["hand_mesh_sampling"] = hand_mesh_sampling(device, card, results)
+    phase("hand_mesh_sampling")
     phase_launches.update(hand_mpc(device, card))
     phase("hand_mpc")
     phase_launches["hand_contacts"] = hand_contacts(device, card)
@@ -6419,8 +6712,10 @@ def run_phases(device, card: str, results: dict) -> None:
     phase("apg_pendulum")
     phase_launches["apg_quadruped"] = apg_quadruped(device, card)
     phase("apg_quadruped")
-    phase_launches["ilqr_pendulum"] = ilqr_pendulum(device, card)
+    phase_launches["ilqr_pendulum"], single_ms = ilqr_pendulum(device, card)
     phase("ilqr_pendulum")
+    phase_launches["ilqr_pendulum_batch"] = ilqr_pendulum_batch(device, card, single_ms)
+    phase("ilqr_pendulum_batch")
     phase_launches["ilqr_ball"] = ilqr_ball(device, card)
     phase("ilqr_ball")
     phase_launches["hand_gradient_trajopt"] = hand_gradient_trajopt(device, card)

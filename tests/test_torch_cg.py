@@ -1,7 +1,8 @@
 """The port's CG solver (engine/solver._solve_cg) against the JAX package's
 (ambersim_tpu/engine/solver.py:1024-1086) on the CPU: the quadruped, tests/
 test_constraint_parity.py's BALL_PLANE at 20 iterations, and one gradient
-through three CG steps against jax.grad. The elliptic cases are in
+through three CG steps against jax.grad, and the quadruped's gradient
+through its contact rows against jax.grad. The elliptic cases are in
 test_torch_cg_elliptic.py.
 
 The quadruped runs at CONVERGED_CG (15 x 15). At the model's own 3 x 6 the
@@ -17,9 +18,11 @@ and 2e-4 in qvel after 5 steps on the quadruped.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import chip_smoke
+from tools import grad_spread
 from tools import solver_parity as sp
 from tools import torch_parity as tp
 from tools.weld_parity import np_batch
@@ -82,3 +85,26 @@ def test_cg_gradient_matches_jax():
     scale = np.abs(want).max()
     assert scale > 0 and np.isfinite(got).all()
     assert np.abs(got - want).max() <= GRAD_TOL * scale, np.abs(got - want).max() / scale
+
+
+@pytest.mark.parametrize("iterations,ls_iterations", [(1, 4), (3, 2)])
+def test_quadruped_cg_gradient_matches_jax(iterations, ls_iterations):
+    """d(sum qpos + sum qvel after one step)/d(ctrl, qvel0) of the quadruped
+    under CG from the main path's start, its feet's contact rows active,
+    against jax.grad of the JAX package's step (tools/grad_spread.py's
+    setup and helpers, 4 envs), within GRAD_TOL of each input's largest
+    |g|: at chip_smoke.GRAD_PATHS' quadruped_cg options (3 x 2) and at 1 x
+    4. No bar holds at 15 x 15: there the converged solve's unrolled
+    gradient moves by 0.17 of the largest |g| in the JAX package's own
+    float64 under a 1e-9 nudge of qvel0 (tools/grad_spread.py)."""
+    from ambersim_tpu_torch.engine import make_data, step
+
+    jm, qpos, u = grad_spread._setup(iterations, ls_iterations, B, 1)
+    tm = tp.torch_model(jm)
+    d = step(tm, make_data(tm, B).replace(qpos=torch.tensor(qpos), ctrl=torch.tensor(u[0])))
+    assert bool(d.efc_active[:, int(tm.skel.ne + tm.skel.nf):].any(1).all())
+    want = grad_spread.jax_grads(jm, qpos, u, jnp.float32)
+    got = grad_spread.port_grads(jm, qpos, u, torch.float32)
+    for g, w in zip(got, want):
+        assert np.isfinite(g).all() and np.abs(w).max() > 0
+        assert np.abs(g - w).max() <= GRAD_TOL * np.abs(w).max(), np.abs(g - w).max() / np.abs(w).max()

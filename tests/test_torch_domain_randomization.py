@@ -7,7 +7,8 @@ those leaves, and to the port's as a leading env axis. Cases: the
 pendulum under each package's DomainRandomizationVmapWrapper with
 tests/test_ppo_train.py:90-115's masses (x [1, 1.8)), 4 envs x 5 control
 steps from the JAX wrapper's own reset; the quadruped locomotion env with
-all five per-env leaves (core.types.ENV_LEAVES), 4 envs x 3 control
+the first five per-env leaves (core.types.ENV_LEAVES; the other eleven are
+held in tests/test_torch_env_leaves.py), 4 envs x 3 control
 steps; the solver tolerance tolerance nv max(sum of masses, 1), which the
 JAX package's Newton kernels take as its minimum over envs and its CG
 keeps per env; each env of a batched-leaf rollout against the unbatched
@@ -240,32 +241,37 @@ def test_env_matches_its_own_model():
 
 
 @pytest.mark.parametrize("case, error, leaf", [
-    ("unlisted", NotImplementedError, "jnt_stiffness"),
-    ("unnamed", NotImplementedError, "jnt_stiffness"),
+    ("unlisted", NotImplementedError, "geom_size"),
+    ("unnamed", NotImplementedError, "geom_size"),
     ("wrong_width", ValueError, "body_mass"),
-    ("engine_unlisted", NotImplementedError, "jnt_stiffness"),
+    ("engine_unlisted", NotImplementedError, "geom_size"),
     ("engine_batch", ValueError, "dof_damping"),
+    ("engine_option", NotImplementedError, "gravity"),
+    ("engine_pair", NotImplementedError, "pair_friction"),
 ])
 def test_refusals_name_the_leaf(case, error, leaf):
     """A per-env leaf outside ENV_LEAVES, named or not, a named leaf of the
     wrong shape, and in the engine itself a batched leaf outside
-    ENV_LEAVES or an env axis of another size than the Data's batch: each
-    raises and names the leaf."""
+    ENV_LEAVES (geom_size, a pair_* leaf, an Option float; ROADMAP item 5o)
+    or an env axis of another size than the Data's batch: each raises and
+    names the leaf."""
     from ambersim_tpu_torch import load_model
     from ambersim_tpu_torch.engine import make_data, step
     from ambersim_tpu_torch.rl.pendulum import PendulumSwingupEnv
     from ambersim_tpu_torch.rl.wrappers import DomainRandomizationVmapWrapper
 
     m = load_model("quadruped", device="cpu")
-    stiff = m.jnt_stiffness.expand(B, -1).clone()
+    size = m.geom_size.expand(B, -1, -1).clone()
     if case.startswith("engine"):
-        bad = (m.replace(jnt_stiffness=stiff) if case == "engine_unlisted"
-               else m.replace(dof_damping=m.dof_damping.expand(B + 1, -1).clone()))
+        bad = {"engine_unlisted": lambda: m.replace(geom_size=size),
+               "engine_batch": lambda: m.replace(dof_damping=m.dof_damping.expand(B + 1, -1).clone()),
+               "engine_option": lambda: m.replace(opt=m.opt.replace(gravity=m.opt.gravity.expand(B, -1).clone())),
+               "engine_pair": lambda: m.replace(pair_friction=m.pair_friction.expand(B, -1, -1).clone())}[case]()
         with pytest.raises(error, match=leaf):
             step(bad, make_data(m, B))
         return
-    fn = {"unlisted": lambda model: (model.replace(jnt_stiffness=stiff), ("jnt_stiffness",)),
-          "unnamed": lambda model: (model.replace(jnt_stiffness=stiff, body_mass=model.body_mass.expand(B, -1)),
+    fn = {"unlisted": lambda model: (model.replace(geom_size=size), ("geom_size",)),
+          "unnamed": lambda model: (model.replace(geom_size=size, body_mass=model.body_mass.expand(B, -1)),
                                     ("body_mass",)),
           "wrong_width": lambda model: (model.replace(body_mass=torch.ones(B, model.skel.nbody + 1)), ("body_mass",))}
     env = PendulumSwingupEnv(device="cpu")

@@ -151,19 +151,19 @@ def test_registry():
         get_environment("nope")
 
 
-def _stiff_pendulum(model, generator, num_envs):
-    """A randomization_fn giving jnt_stiffness, outside ENV_LEAVES, an env axis."""
-    return model.replace(jnt_stiffness=model.jnt_stiffness.expand(num_envs, -1).clone()), ("jnt_stiffness",)
+def _sized_pendulum(model, generator, num_envs):
+    """A randomization_fn giving geom_size, outside ENV_LEAVES, an env axis."""
+    return model.replace(geom_size=model.geom_size.expand(num_envs, -1, -1).clone()), ("geom_size",)
 
 
-@pytest.mark.parametrize("what, match", [("randomization_fn", "jnt_stiffness"), ("mesh", "multi-GPU")])
+@pytest.mark.parametrize("what, match", [("randomization_fn", "geom_size"), ("mesh", "multi-GPU")])
 def test_unported_parts_are_refused(what, match):
     """PPO refuses a mesh, and a randomization_fn that makes a leaf outside
     core.types.ENV_LEAVES per env, by name."""
     from ambersim_tpu_torch.rl import get_environment
     from ambersim_tpu_torch.rl.ppo import train
 
-    value = _stiff_pendulum if what == "randomization_fn" else object()
+    value = _sized_pendulum if what == "randomization_fn" else object()
     with pytest.raises(NotImplementedError, match=match):
         train(get_environment("pendulum_swingup", device="cpu"), num_timesteps=1, num_envs=4, num_eval_envs=4,
               batch_size=4, num_minibatches=1, device="cpu", **{what: value})

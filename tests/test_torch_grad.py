@@ -11,7 +11,8 @@ package's, on the CPU.
     within GRAD_TOL of the largest |g|;
   * `differentiable_dispatch` on the CPU with a plain stand-in for the
     kernel gives the gradients of autograd straight through the plain
-    version, for kernels 1-3 and for the three Newton routes on a step's
+    version, for kernels 1-3 (kernel 2 also at (B, k, n)) and for the
+    three Newton routes on a step's
     operands (kernel 4's efc_bJ and efc_dsc get None, the gradient reaches
     efc_J), takes no Function without grad, and nests inside
     torch.utils.checkpoint (the stand-in then runs twice: forward and the
@@ -129,14 +130,17 @@ def _counting(fn, calls: list):
     return kernel
 
 
-@pytest.mark.parametrize("name", ("cholesky", "cho_solve", "solve_pd"))
+@pytest.mark.parametrize("name", ("cholesky", "cho_solve", "solve_pd", "cho_solve_rhs"))
 def test_dispatch_gives_the_plain_gradient(name):
+    """Kernels 1-3's Functions, kernel 2 also with k = 5 right-hand sides
+    per factor ((B, k, n), the noslip pass's M^-1 J^T operand)."""
     from ambersim_tpu_torch.engine import linalg
 
     a, b = _spd(np.random.default_rng(5), 6, 11)
-    inputs = dict(a=a) if name == "cholesky" else dict(l=linalg.cholesky_unrolled(a), b=b) if name == "cho_solve" \
-        else dict(a=a, b=b)
-    plain = getattr(linalg, f"{name}_unrolled")
+    rhs = torch.as_tensor(np.random.default_rng(6).standard_normal((6, 5, 11)).astype(np.float32))
+    inputs = {"cholesky": dict(a=a), "cho_solve": dict(l=linalg.cholesky_unrolled(a), b=b),
+              "cho_solve_rhs": dict(l=linalg.cholesky_unrolled(a), b=rhs), "solve_pd": dict(a=a, b=b)}[name]
+    plain = getattr(linalg, f"{name.removesuffix('_rhs')}_unrolled")
     calls = []
     call = linalg.differentiable_dispatch(_counting(plain, calls), plain)
     got = _grads(call, inputs, tuple(inputs), seed=1)
